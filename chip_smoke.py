@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA card:
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure, so the script exits non-zero):
+
+  1. device   — require CUDA; print the card, its count and its power limit
+  2. build    — compile every CUDA source (one nvcc each, all at once) and
+                print the -Xptxas -v register / shared-memory / spill lines
+  3. kernels  — each kernel against its plain PyTorch version on the card at
+                the main path's shapes: max error vs the stated tolerance,
+                and device times (CUDA graphs of many launches, timed with
+                CUDA events): kernel, plain version, bound, and one PyTorch
+                library call as a yardstick
+  4. serve    — Yi-9B at full width (random weights from a seeded
+                torch.Generator) serves 8 requests x 16 tokens through the
+                continuous-batching engine; the launch counts, reset just
+                before the run, must show every step went through both
+                kernels
+  5. in-model — two decode steps with the kernels and with mode="ref" on
+                the same weights, tokens and a cache filled in every decode
+                segment; logits must agree within 2x a one-ulp rounding
+                control, a lost segment must fall outside it, and argmax
+                must agree wherever rounding cannot close the top-2 margin
+  6. profile  — where a full-width decode step's time goes (host wall
+                time, device busy share, top kernels by device time)
+  7. report   — a JSON line of kernels, the card's name and power limit, and
+                as the last line {"ok": true, "device": {...}}
+
+Nothing here imports JAX or the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
+F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW, SERVE_REQUESTS = 4, 4096, 16, 8
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def device_ms(fn, arg_sets, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn(*args)`` call: ``reps`` calls (cycling over
+    ``arg_sets``, so inputs larger than L2 in total arrive cold) captured
+    in one CUDA graph, replayed ``replays`` times between CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for a in arg_sets:
+            fn(*a)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    t1.synchronize()
+    ms = t0.elapsed_time(t1) / (replays * reps)
+    del graph
+    return ms
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def _copies(make, each_bytes: int) -> list:
+    """Enough input copies (at most 8) that one cycle through them exceeds
+    3x the 50 MB L2, so each call finds its inputs cold, as a decode
+    layer finds its cache."""
+    n = max(1, min(8, -(-3 * 50 * 2 ** 20 // max(each_bytes, 1))))
+    return [make() for _ in range(n)]
+
+
+def phase_build(card: str) -> float:
+    from repro_torch.kernels import cuda
+    t0 = time.perf_counter()
+    reports = cuda.build()
+    secs = time.perf_counter() - t0
+    for stem, text in sorted(reports.items()):
+        for line in text.splitlines():
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "Compiling entry")):
+                print(f"  [{stem}] {line.strip()}")
+    print(f"build: {len(reports)} libraries in {secs:.1f} s "
+          f"(nvcc, sm_90a) [{card}]")
+    return secs
+
+
+def check_rmsnorm(card: str, results: dict) -> None:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import ops as rops
+    dm, eps = 4096, 1e-5
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rtol_o, rtol_r = 2.0 ** -7, 1e-5
+    print(f"rmsnorm: tolerance o: |d| <= {rtol_o:g}*|ref| + 1e-6 (one bf16 "
+          f"ulp: the kernel's f32 row sum is reassociated, which can flip "
+          f"one rounding); r: |d| <= {rtol_r:g}*|ref| (f32 reassociation "
+          "over 4096 squares)")
+    for t in (4, 8192):
+        def make():
+            x = torch.randn(t, dm, generator=gen, device="cuda")
+            w = 1 + 0.1 * torch.randn(dm, generator=gen, device="cuda")
+            return x.bfloat16(), w.bfloat16()
+        x, w = make()
+        o, r = rops.rmsnorm(x, w, eps, with_inv_rms=True)
+        o_ref, r_ref = rops.rmsnorm(x, w, eps, mode="ref", with_inv_rms=True)
+        torch.cuda.synchronize()
+        do = (o.float() - o_ref.float()).abs()
+        dr = (r - r_ref).abs()
+        if not (bool((do <= rtol_o * o_ref.float().abs() + 1e-6).all())
+                and bool((dr <= rtol_r * r_ref.abs()).all())):
+            raise AssertionError(f"rmsnorm t={t}: kernel disagrees with the "
+                                 f"plain version (max |do|={do.max():g}, "
+                                 f"max |dr|={dr.max():g})")
+        err_t = max(float(do.max()), float(dr.max()))
+        sets = _copies(make, t * dm * 2)
+        ms = device_ms(lambda a, b: rops.rmsnorm(a, b, eps), sets)
+        plain = device_ms(lambda a, b: rops.rmsnorm(a, b, eps, mode="ref"),
+                          sets)
+        lib = device_ms(lambda a, b: F.rms_norm(a, (dm,), b, eps), sets)
+        bms, by = bound_ms(2 * t * dm * 2 + dm * 2 + 4 * t, 4.0 * t * dm)
+        print(f"rmsnorm t={t} dm={dm} bf16: max_abs_err={err_t:g} "
+              f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} "
+              f"({by}) library_ms={lib:.5f} (F.rms_norm) [{card}]")
+        if t == SERVE_SLOTS:      # the serve path's shape
+            results["rmsnorm"] = dict(
+                name="rmsnorm", route="cuda",
+                source="src/repro_torch/csrc/rmsnorm.cu",
+                replaces="src/repro/codegen/emit.py:410",
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib, max_abs_err=err_t,
+                shape=f"x [{t}, {dm}] bf16")
+
+
+def check_decode(card: str, results: dict) -> None:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.codegen import run_spec
+    from repro_torch.core import StridingConfig
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attn import kernel as dk, ops as dops
+    from repro_torch.kernels.decode_attn import specs as dspecs
+    from repro_torch.codegen.transforms import plan_blocks
+    hkv, dh, hq = 4, 128, 32
+    atol = 1e-4
+    print(f"decode_attn: tolerance out, lse: |d| <= {atol:g} + {atol:g}*|ref| "
+          "(f32 reassociation: the kernel folds each segment tile by tile "
+          "and merges D segment states; the plain version sums whole rows)")
+    rng = np.random.default_rng(2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for b, s in ((8, 32768), (SERVE_SLOTS, SERVE_MAX_LEN)):
+        kv_len = torch.as_tensor(rng.integers(1, s + 1, b), device="cuda")
+        cfg = common.resolve_config("decode_attn", None, s,
+                                    StridingConfig(4, 1))
+        build = dspecs.decode_spec(hkv, dh, masked=True)
+
+        def make():
+            k = torch.randn(b, s, hkv, dh, generator=gen, device="cuda")
+            v = torch.randn(b, s, hkv, dh, generator=gen, device="cuda")
+            q = torch.randn(b, hq, dh, generator=gen, device="cuda")
+            return (*dops._flatten(q.bfloat16(), k.bfloat16(), v.bfloat16()),
+                    dops.validity_mask(kv_len, b, s, "cuda"))
+        inputs = make()
+        o, lse = run_spec(build, inputs, cfg)
+        o_ref, lse_ref = run_spec(build, inputs, cfg, mode="ref")
+        torch.cuda.synchronize()
+        for got, ref, what in ((o, o_ref, "out"), (lse, lse_ref, "lse")):
+            d = (got - ref).abs()
+            if not bool((d <= atol + atol * ref.abs()).all()):
+                raise AssertionError(f"decode_attn B={b} S={s}: {what} "
+                                     f"disagrees (max |d|={d.max():g})")
+        err_t = max(float((o - o_ref).abs().max()),
+                    float((lse - lse_ref).abs().max()))
+        # the merge kernel alone, on the split kernel's states
+        spec = build(*inputs)
+        bp = plan_blocks(spec, cfg)
+        states = dk.split(spec, bp, inputs)
+        m_out, m_lse = dk.merge(spec.combine, *states)
+        p_out, p_lse = dk.merge_plain(spec.combine, *states)
+        torch.cuda.synchronize()
+        em = max(float((m_out - p_out).abs().max()),
+                 float((m_lse - p_lse).abs().max()))
+        if em > 1e-5:
+            raise AssertionError(f"decode_attn_merge B={b} S={s}: max "
+                                 f"|d|={em:g} > 1e-5")
+
+        sets = _copies(make, 2 * b * s * hkv * dh * 2)
+        ms = device_ms(lambda *a: run_spec(build, a, cfg), sets)
+        plain = device_ms(lambda *a: run_spec(build, a, cfg, mode="ref"),
+                          sets)
+        state_sets = [dk.split(spec, bp, a) for a in sets]
+        ms_m = device_ms(lambda *st: dk.merge(spec.combine, *st),
+                         state_sets)
+        plain_m = device_ms(lambda *st: dk.merge_plain(spec.combine, *st),
+                            state_sets)
+
+        def sdpa_inputs(a):
+            kf, vf, qf, mask = a
+            k4 = kf.reshape(b, s, hkv, dh).transpose(1, 2).contiguous()
+            v4 = vf.reshape(b, s, hkv, dh).transpose(1, 2).contiguous()
+            return (qf.reshape(b, hq, 1, dh), k4, v4,
+                    (mask > 0.5)[:, None, None, :].contiguous())
+        lib_sets = [sdpa_inputs(a) for a in sets]
+        lib = device_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=m_, enable_gqa=True), lib_sets)
+        del lib_sets
+        rows = int(kv_len.sum())
+        nbytes = (2 * rows * hkv * dh * 2 + b * hq * dh * 2 + b * s * 4
+                  + b * hq * dh * 4 + b * hq * 4)
+        bms, by = bound_ms(nbytes, 4.0 * rows * hq * dh)
+        d = bp.d
+        nb_m = b * d * (2 * hq + hq * dh) * 4 + b * hq * dh * 4 + b * hq * 4
+        bms_m, by_m = bound_ms(nb_m, 6.0 * b * d * hq * dh)
+        print(f"decode_attn B={b} S={s} Hkv={hkv} dh={dh} Hq={hq} bf16 "
+              f"D={d} bm={bp.bm} sum(kv_len)={rows}: max_abs_err={err_t:g} "
+              f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} ({by}) "
+              f"library_ms={lib:.5f} (SDPA, enable_gqa) [{card}]")
+        print(f"decode_attn_merge B={b} D={d} Hq={hq} dh={dh}: "
+              f"max_abs_err={em:g} ms={ms_m:.5f} plain_ms={plain_m:.5f} "
+              f"bound_ms={bms_m:.6f} ({by_m}) [{card}]")
+        if (b, s) == (SERVE_SLOTS, SERVE_MAX_LEN):
+            results["decode_attn"] = dict(
+                name="decode_attn", route="cuda",
+                source="src/repro_torch/csrc/decode_attn.cu",
+                replaces="src/repro/codegen/emit.py:564",
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=lib, max_abs_err=err_t,
+                shape=f"K,V [{b}, {s}, {hkv * dh}] bf16, Hq={hq}, both passes")
+            results["decode_attn_merge"] = dict(
+                name="decode_attn_merge", route="cuda",
+                source="src/repro_torch/csrc/decode_attn.cu",
+                replaces="src/repro/codegen/emit.py:564",
+                ms=ms_m, plain_ms=plain_m, bound_ms=bms_m, bound_by=by_m,
+                library_ms=None, max_abs_err=em,
+                shape=f"states [{b}, {d}, {hq}x{dh}] f32")
+        del sets, state_sets, inputs, states
+        torch.cuda.empty_cache()
+
+
+def phase_serve(card: str):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = get_config("yi-9b")          # full width and depth
+    print(f"serve: {cfg.name} n_layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads}x{cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"n_params={cfg.n_params() / 1e9:.2f}B {cfg.compute_dtype}")
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"serve: weights drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    engine = ServingEngine(model, params, ServeConfig(
+        slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+        max_new_tokens=SERVE_NEW))
+    rng = np.random.default_rng(0)
+    prompts = {uid: rng.integers(0, cfg.vocab_size, int(rng.integers(8, 65)))
+               for uid in range(SERVE_REQUESTS)}
+    for uid, toks in prompts.items():
+        engine.submit(uid, toks)
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in cuda.KERNELS.items()}
+    st = engine.stats()
+    steps = st["decode_steps"] + st["prefill_steps"]
+    for uid in prompts:
+        out = results.get(uid, [])
+        if len(out) != SERVE_NEW or not all(0 <= t < cfg.vocab_size
+                                            for t in out):
+            raise AssertionError(f"serve: request {uid} returned {out}")
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * steps,
+            "decode_attn": cfg.n_layers * steps,
+            "decode_attn_merge": cfg.n_layers * steps}
+    for name, n in want.items():
+        if counts.get(name) != n:
+            raise AssertionError(f"serve: {name} launched {counts.get(name)} "
+                                 f"times, expected {n} over {steps} steps")
+    print(f"serve: {len(results)} requests x {SERVE_NEW} tokens, "
+          f"{st['decode_steps']} decode + {st['prefill_steps']} prefill steps "
+          f"in {wall:.2f} s; mean_decode_step_s={st['mean_decode_step_s']:.6f} "
+          f"mean_prefill_step_s={st['mean_prefill_step_s']:.6f} "
+          f"tokens_generated={st['tokens_generated']} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB [{card}]")
+    per_step = {k: v / steps for k, v in counts.items()}
+    print(f"serve: kernel launches {json.dumps(counts)}, per step "
+          f"{json.dumps(per_step)} [{card}]")
+    return model, params, engine, counts
+
+
+def phase_in_model(card: str, model, params, engine) -> None:
+    """Two decode steps with the kernels and with ``mode="ref"`` on the
+    same weights, tokens and a KV cache filled in every decode segment;
+    row k's position lies in segment k, so segments 1-3 and the merge of
+    non-empty segments run inside the model.
+
+    The limit comes from a control: the plain path with every attention
+    output moved one bf16 ulp (random sign) in every layer, which is
+    more rounding than the kernels add.  Two faults of the kind a decode
+    kernel can have are read too: segment 1's rows lost before the merge
+    (must land above the limit, or the check is blind) and ``kv_len``
+    one short (read, not required)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import common
+    from repro_torch.kernels.decode_attn import ops as dops
+    cfg = model.cfg
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s = SERVE_SLOTS, SERVE_MAX_LEN
+    d = common.resolve_config("decode_attn", None, s, dops._DEFAULT).stride_unroll
+    seg = s // d
+    pos = torch.as_tensor([int(rng.integers((k % d) * seg + 16,
+                                            (k % d + 1) * seg - 2))
+                           for k in range(b)], device="cuda")
+    toks = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, 1)),
+                            device="cuda") for _ in range(2)]
+    cache0 = []
+    for layer in engine.cache:        # the served rows' scale, every row
+        cache0.append({n: (torch.randn(t.shape, generator=gen, device="cuda")
+                           * float(t[:, :8].float().std())).to(t.dtype)
+                       for n, t in layer.items()})
+    plain = dops.decode_attn
+
+    def lost_segment(q, kc, vc, kv_len=None, **kw):
+        def cut(c):
+            return torch.cat([c[:, :seg], c[:, 2 * seg:]], 1)
+        return plain(q, cut(kc), cut(vc),
+                     kv_len - (kv_len - seg).clamp(0, seg), **kw)
+
+    def short_kv_len(q, kc, vc, kv_len=None, **kw):
+        return plain(q, kc, vc, kv_len - 1, **kw)
+
+    def one_ulp(q, kc, vc, kv_len=None, **kw):
+        out = plain(q, kc, vc, kv_len, **kw).float()
+        ulp = torch.ldexp(torch.ones_like(out), torch.frexp(out).exponent - 8)
+        sign = torch.randint(0, 2, out.shape, generator=gen,
+                             device="cuda") * 2 - 1
+        return (out + sign * torch.where(out == 0, 0, ulp)).to(q.dtype)
+
+    def run(mode=None, fault=None):
+        cache = [{n: t.clone() for n, t in c.items()} for c in cache0]
+        dops.decode_attn = fault or plain
+        try:
+            with torch.inference_mode():
+                return [model.decode_step(params, toks[i], cache, pos + i,
+                                          mode=mode)[0].float()
+                        for i in range(2)]
+        finally:
+            dops.decode_attn = plain
+
+    ref = run("ref")
+    reads = {"kernels": run(),
+             "control: one ulp": run("ref", one_ulp),
+             "fault: segment 1 lost": run("ref", lost_segment),
+             "fault: kv_len - 1": run("ref", short_kv_len)}
+    rel = {name: max(float((lg - lr).norm() / lr.norm())
+                     for lg, lr in zip(logits, ref))
+           for name, logits in reads.items()}
+    agree = {name: sum(int((lg.argmax(-1) == lr.argmax(-1)).sum())
+                       for lg, lr in zip(logits, ref))
+             for name, logits in reads.items()}
+    tol = 2 * rel["control: one ulp"]
+    print(f"in-model: {cfg.n_layers} layers, B={b}, positions "
+          f"{pos.tolist()} and +1 (segments of {seg} rows, D={d}); "
+          f"max over 2 steps of ||logits - logits_ref|| / ||logits_ref||: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f"; limit {tol:.3e} (2x the one-ulp control); argmax agrees "
+          "with ref on " + ", ".join(f"{k} {v}/{2 * b}"
+                                      for k, v in agree.items())
+          + f" rows [{card}]")
+    for step, (lk, lr) in enumerate(zip(reads["kernels"], ref)):
+        if not bool(torch.isfinite(lk).all()):
+            raise AssertionError(f"in-model step {step}: non-finite logits")
+        top2 = lr.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        dmax = (lk - lr).abs().amax(-1)
+        same = lk.argmax(-1) == lr.argmax(-1)
+        clear = margin > 2 * dmax
+        print(f"in-model step {step}: argmax agrees on {int(same.sum())}/{b}"
+              f" rows; {int(clear.sum())} rows have a ref top-2 margin above"
+              f" 2 max|d| and must agree [{card}]")
+        if not bool(same[clear].all()):
+            raise AssertionError(f"in-model step {step}: argmax differs on a "
+                                 "row whose margin rounding cannot close")
+    if rel["kernels"] > tol:
+        raise AssertionError(f"in-model: kernel logits disagree with ref "
+                             f"(rel {rel['kernels']:.3e} > {tol:.3e})")
+    if rel["fault: segment 1 lost"] <= tol:
+        raise AssertionError("in-model: a lost decode segment stays inside "
+                             "the limit, so the check cannot see it")
+
+
+def phase_profile(card: str, model, params, engine, steps: int = 3) -> None:
+    """Where a full-width decode step's time goes: wall time per step
+    (host clock, synchronized, unprofiled), device time per step and the
+    kernels that take it (torch.profiler), and the device's busy share."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    rng = np.random.default_rng(4)
+    b = SERVE_SLOTS
+    pos = torch.as_tensor(rng.integers(16, 64, b), device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, 1)),
+                           device="cuda")
+
+    def run(n):
+        for _ in range(n):
+            model.decode_step(params, toks, engine.cache, pos)
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        run(2)
+        t0 = time.perf_counter()
+        run(steps)
+        wall = (time.perf_counter() - t0) / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(steps)
+    events = prof.key_averages()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # device-side kernel events only: the CPU ops that launched them
+    # (aten::mm, ...) report the same time again
+    kernels = [e for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev(e) > 0]
+    total_us = sum(dev(e) for e in kernels) / steps
+    if total_us <= 0:
+        print(f"profile: decode step wall {wall * 1e3:.3f} ms; the profiler "
+              f"recorded no device kernels [{card}]")
+        return
+    busy = total_us / 1e3 / (wall * 1e3)
+    print(f"profile: decode step wall {wall * 1e3:.3f} ms, device kernels "
+          f"{total_us / 1e3:.3f} ms ({100 * busy:.1f}% busy, "
+          f"{100 - 100 * busy:.1f}% idle) over {steps} steps [{card}]")
+    for e in sorted(kernels, key=dev, reverse=True)[:12]:
+        print(f"  {dev(e) / steps / 1e3:9.4f} ms/step "
+              f"{100 * dev(e) / steps / total_us:5.1f}% "
+              f"{e.count // steps:5d} calls/step  {e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    try:
+        import repro_torch  # noqa: F401
+    except ImportError as exc:
+        print(f"chip_smoke: cannot import repro_torch ({exc}); run from the "
+              "repository root", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    card = _card_line()
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    print(f"device: {kind} x{count}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}; nvidia-smi name, power.limit: {card}")
+
+    phase_build(card)
+    results: dict = {}
+    check_rmsnorm(card, results)
+    check_decode(card, results)
+    print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
+
+    model, params, engine, counts = phase_serve(card)
+    phase_in_model(card, model, params, engine)
+    phase_profile(card, model, params, engine)
+
+    for name, entry in results.items():
+        entry["launches"] = counts[name]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys}
+                                  for e in results.values()]}))
+    print(f"total {time.perf_counter() - t_start:.1f} s [{card}]")
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,10 @@
+"""qwen3-moe-30b-a3b [moe] — 128 experts top-8, fine-grained d_ff=768.
+[hf:Qwen/Qwen3-30B-A3B; hf]"""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-moe-30b-a3b", family="moe",
+    n_layers=48, d_model=2048, n_heads=32, n_kv_heads=4, d_ff=768,
+    d_head=128, vocab_size=151936, rope_theta=1e6, act="swiglu",
+    moe=MoEConfig(n_experts=128, top_k=8, d_ff_expert=768),
+)

@@ -1,0 +1,149 @@
+"""Build and bind the hand-written CUDA kernels in ``csrc/``.
+
+Every source has a plain C interface.  At first use it is compiled by
+``nvcc`` for ``sm_90a`` into one shared library per source under
+``build/repro_torch/`` at the repository root (the name carries a hash
+of the source, so an edited source rebuilds), and loaded with
+``ctypes``.  :func:`build` compiles several sources at once, one
+``nvcc`` process each, all started together.  Nothing is built when a
+module is imported.
+
+A :class:`CudaKernel` is one ``extern "C"`` launcher: it launches on
+PyTorch's current stream, raises if the launcher returns a non-zero
+``cudaGetLastError()``, and counts its launches in ``launches`` — a
+plain integer a caller may reset to 0 before a run it wants to audit.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Iterable, Optional, Sequence
+
+import torch
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "CudaKernel",
+           "build", "library", "dtype_code"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# every CudaKernel by name (the launch counts a run can audit)
+KERNELS: dict[str, "CudaKernel"] = {}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The element-type code the C launchers switch on."""
+    return _DTYPE_CODES[dtype]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
+    if not Path(path).exists():
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
+                           "PATH); the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(source: Path) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for part in (source, *sorted(CSRC.glob("*.cuh"))):   # shared headers
+        h.update(part.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
+
+
+def build(stems: Optional[Iterable[str]] = None) -> dict[str, str]:
+    """Compile ``csrc/<stem>.cu`` for every stem (default: all sources)
+    whose library is missing, one ``nvcc`` per source, all at once.
+
+    Returns ``{stem: compiler report}`` (``-Xptxas -v`` register,
+    shared-memory and spill lines) for the sources built now; raises
+    ``RuntimeError`` with the compiler's output if any build fails."""
+    sources = ([CSRC / f"{s}.cu" for s in stems] if stems is not None
+               else sorted(CSRC.glob("*.cu")))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sources:
+        lib = _lib_path(src)
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        procs.append((src, lib, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    reports, failures = {}, []
+    for src, lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {src.name} "
+                            f"(exit {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, lib)
+        reports[src.stem] = out
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return reports
+
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded shared library of ``csrc/<stem>.cu`` (built if
+    missing)."""
+    lib = _LIBS.get(stem)
+    if lib is None:
+        path = _lib_path(CSRC / f"{stem}.cu")
+        if not path.exists():
+            build([stem])
+        lib = ctypes.CDLL(str(path))
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIBS[stem] = lib
+    return lib
+
+
+class CudaKernel:
+    """One ``extern "C"`` launcher of a CUDA source, with a launch count.
+
+    ``argtypes`` lists the launcher's arguments before the trailing
+    stream pointer; the launcher returns ``cudaGetLastError()``."""
+
+    def __init__(self, name: str, source: str, symbol: str,
+                 argtypes: Sequence):
+        if name in KERNELS:
+            raise ValueError(f"duplicate CUDA kernel name {name!r}")
+        self.name, self.source, self.symbol = name, source, symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+        KERNELS[name] = self
+
+    def _launcher(self):
+        if self._fn is None:
+            fn = getattr(library(self.source), self.symbol)
+            fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, device: torch.device, *args) -> None:
+        fn = self._launcher()
+        if device.index is not None and device.index != torch.cuda.current_device():
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        else:
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err:
+            msg = library(self.source).repro_cuda_error_string(err).decode()
+            raise RuntimeError(f"{self.name}: launch failed with CUDA "
+                               f"error {err} ({msg})")
+        self.launches += 1
