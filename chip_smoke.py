@@ -57,10 +57,12 @@ def _card_line() -> str:
 
 
 def device_ms(fn, arg_sets, reps: int = 20, replays: int = 5) -> float:
-    """Device time of one ``fn(*args)`` call: ``reps`` calls (cycling over
-    ``arg_sets``, so inputs larger than L2 in total arrive cold) captured
-    in one CUDA graph, replayed ``replays`` times between CUDA events."""
+    """Device time of one ``fn(*args)`` call: ``reps`` calls, at least one
+    per argument set (cycling over ``arg_sets``, so inputs larger than L2
+    in total arrive cold), captured in one CUDA graph, replayed
+    ``replays`` times between CUDA events."""
     import torch
+    reps = max(reps, len(arg_sets))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -90,11 +92,11 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def _copies(make, each_bytes: int) -> list:
-    """Enough input copies (at most 8) that one cycle through them exceeds
-    3x the 50 MB L2, so each call finds its inputs cold, as a decode
-    layer finds its cache."""
-    n = max(1, min(8, -(-3 * 50 * 2 ** 20 // max(each_bytes, 1))))
+def _copies(make, each_bytes: int, cap: int = 8) -> list:
+    """Enough input copies (at most ``cap``) that one cycle through them
+    exceeds 3x the 50 MB L2, so each call finds its inputs cold, as a
+    decode layer finds its cache."""
+    n = max(1, min(cap, -(-3 * 50 * 2 ** 20 // max(each_bytes, 1))))
     return [make() for _ in range(n)]
 
 
@@ -264,6 +266,306 @@ def check_decode(card: str, results: dict) -> None:
                 shape=f"states [{b}, {d}, {hq}x{dh}] f32")
         del sets, state_sets, inputs, states
         torch.cuda.empty_cache()
+
+    # chatglm3-6b's group (g = Hq / Hkv = 16, dh = 128) at the serve shape:
+    # two blocks of 8 heads per KV head
+    b, s, hkv, hq = SERVE_SLOTS, SERVE_MAX_LEN, 2, 32
+    kv_len = torch.as_tensor(rng.integers(1, s + 1, b), device="cuda")
+    cfg = common.resolve_config("decode_attn", None, s, StridingConfig(4, 1))
+    build = dspecs.decode_spec(hkv, dh, masked=True)
+
+    def make_g16():
+        k = torch.randn(b, s, hkv, dh, generator=gen, device="cuda")
+        v = torch.randn(b, s, hkv, dh, generator=gen, device="cuda")
+        q = torch.randn(b, hq, dh, generator=gen, device="cuda")
+        return (*dops._flatten(q.bfloat16(), k.bfloat16(), v.bfloat16()),
+                dops.validity_mask(kv_len, b, s, "cuda"))
+    inputs = make_g16()
+    n0 = dk.SPLIT.launches
+    o, lse = run_spec(build, inputs, cfg)
+    o_ref, lse_ref = run_spec(build, inputs, cfg, mode="ref")
+    torch.cuda.synchronize()
+    if dk.SPLIT.launches != n0 + 1:
+        raise AssertionError("decode_attn g=16: the split kernel did not run")
+    for got, ref, what in ((o, o_ref, "out"), (lse, lse_ref, "lse")):
+        d = (got - ref).abs()
+        if not bool((d <= atol + atol * ref.abs()).all()):
+            raise AssertionError(f"decode_attn g=16: {what} disagrees "
+                                 f"(max |d|={d.max():g})")
+    err_t = max(float((o - o_ref).abs().max()),
+                float((lse - lse_ref).abs().max()))
+    sets = _copies(make_g16, 2 * b * s * hkv * dh * 2)
+    ms = device_ms(lambda *a: run_spec(build, a, cfg), sets)
+    print(f"decode_attn g=16 (chatglm3-6b's group) B={b} S={s} Hkv={hkv} "
+          f"dh={dh} Hq={hq} bf16 D={cfg.stride_unroll}: "
+          f"max_abs_err={err_t:g} "
+          f"(tolerance as above) ms={ms:.5f} [{card}]")
+    del sets, inputs
+    torch.cuda.empty_cache()
+
+
+GAMMA = 2.0 ** -24              # f32 unit roundoff
+LAMBDA = 8.0                    # confidence of the probabilistic dot limit
+LINALG_SIZES = (16384, 4096)    # square f32 matrices: 1 GiB, 64 MiB
+GEMVER_SUM_N = 4 * 2 ** 20      # the registry's bench size of gemver_sum
+ALPHA, BETA = 1.5, 1.2
+
+
+def _dot_factor(n: int) -> float:
+    """c in the limit c 2^-24 sum|a x| on how far a computed f32 dot of
+    length n lies from the exact one.  Worst case c = n.  With rounding
+    errors independent and of mean zero (Higham and Mary, SIAM J. Sci.
+    Comput. 41 (2019), Thm 3.1), c = LAMBDA sqrt(n) holds except with
+    probability at most 2 n exp(-LAMBDA^2 / 2), 4e-10 per dot at
+    n = 16384; the smaller of the two is used."""
+    return min(float(n), LAMBDA * n ** 0.5)
+
+
+def _dot_limit(terms, ref, n: int):
+    """Limit on |kernel - plain| of an f32 dot of length n: each sum lies
+    within _dot_factor(n) 2^-24 sum|a x| of the exact one, and each is
+    rounded once more into the output (f32 here)."""
+    return 2 * _dot_factor(n) * GAMMA * terms + 2 * GAMMA * ref.abs()
+
+
+def _excess(got, ref, limit) -> float:
+    """max (|got - ref| - limit): <= 0 inside the limit."""
+    return float(((got.float() - ref.float()).abs() - limit).max())
+
+
+def phase_linalg(card: str, results: dict) -> None:
+    """The paper's own kernels (mxv, mxv_t, bicg, gemver) through their
+    public functions at full size, then each kernel against its plain
+    version with a lost-stream control, and timed.
+
+    Every count is set to 0 just before the op calls of a size and read
+    just after; the JSON line's launches are their sum over both sizes."""
+    import torch
+    from repro_torch.codegen import plan_blocks
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.bicg import bicg
+    from repro_torch.kernels.gemver import gemver, gemver_outer, gemver_sum
+    from repro_torch.kernels.gemver import kernel as gk  # noqa: F401 (counts)
+    from repro_torch.kernels.mxv import kernel as mk
+    from repro_torch.kernels.mxv import mxv, mxv_t
+    from repro_torch.kernels.mxv import specs as mspecs
+    from repro_torch.kernels.mxv.ops import _DEFAULT as MXV_DEFAULT
+    t_phase = time.perf_counter()
+    names = ("mxv", "mxv_t", "mxv_t_merge", "gemver_outer", "gemver_sum")
+    launches = dict.fromkeys(names, 0)
+    print(f"linalg: tolerances: dot products (mxv, mxv_t, bicg, gemver's "
+          f"x and w) |d| <= 2 c 2^-24 sum|a x| + 2^-23 |ref| with c = "
+          f"min(n, {LAMBDA:g} sqrt n) (each f32 sum lies within c 2^-24 "
+          f"sum|a x| of the exact one: worst case c = n, and c = "
+          f"{LAMBDA:g} sqrt n but with probability 2 n exp(-{LAMBDA:g}^2/2) "
+          f"for independent mean-zero roundings, Higham and Mary 2019; plus "
+          f"one output rounding each); merge |d| <= P 2^-24 sum|partials| "
+          f"over its P partial rows; gemver_outer, gemver_sum |d| <= 2^-24 "
+          f"|ref| (the kernels round each operation as the body does). "
+          f"Controls, the plain version with stream k=1's segment dropped "
+          f"and (dot products) with one bm-row tile of it dropped, must land "
+          f"above each limit [{card}]")
+    for n in LINALG_SIZES:
+        gen = torch.Generator(device="cuda").manual_seed(12 + n)
+
+        def vec(length=n):
+            return torch.randn(length, generator=gen, device="cuda")
+        a = torch.randn(n, n, generator=gen, device="cuda")
+        x, y, r, p, u1, v1, u2, v2, z = (vec() for _ in range(9))
+        for k in cuda.KERNELS.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        out = {"mxv": mxv(a, x), "mxv_t": mxv_t(a, y), "bicg": bicg(a, r, p),
+               "gemver": gemver(a, u1, v1, u2, v2, y, z, ALPHA, BETA)}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: cuda.KERNELS[name].launches for name in names}
+        want = {"mxv": 3, "mxv_t": 3, "mxv_t_merge": 3, "gemver_outer": 1,
+                "gemver_sum": 1}
+        if counts != want:
+            raise AssertionError(f"linalg n={n}: launches {counts}, "
+                                 f"expected {want}")
+        for name in names:
+            launches[name] += counts[name]
+        ref = {"mxv": mxv(a, x, mode="ref"), "mxv_t": mxv_t(a, y, mode="ref"),
+               "bicg": bicg(a, r, p, mode="ref"),
+               "gemver": gemver(a, u1, v1, u2, v2, y, z, ALPHA, BETA,
+                                mode="ref")}
+        aa = a.abs()
+        checks = [("mxv", out["mxv"], ref["mxv"],
+                   _dot_limit(aa @ x.abs(), ref["mxv"], n)),
+                  ("mxv_t", out["mxv_t"], ref["mxv_t"],
+                   _dot_limit(y.abs() @ aa, ref["mxv_t"], n)),
+                  ("bicg q", out["bicg"][0], ref["bicg"][0],
+                   _dot_limit(aa @ p.abs(), ref["bicg"][0], n)),
+                  ("bicg s", out["bicg"][1], ref["bicg"][1],
+                   _dot_limit(r.abs() @ aa, ref["bicg"][1], n))]
+        a_hat, gx, gw = out["gemver"]
+        ra, rx, rw = ref["gemver"]
+        checks.append(("gemver A_hat", a_hat, ra, GAMMA * ra.abs()))
+        # x = 0 + beta A_hat^T y + z: the sum's limit, then the scaling
+        # and the add each round once more on each side
+        checks.append(("gemver x", gx, rx,
+                       BETA * _dot_limit(y.abs() @ ra.abs(), rx, n)
+                       + 4 * GAMMA * (rx.abs() + z.abs())))
+        # w = alpha A_hat x, held against the plain step on the kernels' x
+        rw_x = ALPHA * mspecs.row_dot(ra, gx)
+        checks.append(("gemver w", gw, rw_x,
+                       ALPHA * _dot_limit(ra.abs() @ gx.abs(), rw_x, n)))
+        for what, got, want_t, limit in checks:
+            if not bool(torch.isfinite(got).all()) or got.shape != want_t.shape:
+                raise AssertionError(f"linalg n={n}: {what} is not finite or "
+                                     f"has shape {tuple(got.shape)}")
+            if _excess(got, want_t, limit) > 0:
+                raise AssertionError(f"linalg n={n}: {what} disagrees with "
+                                     "the plain version")
+        print(f"linalg n={n} f32: mxv, mxv_t, bicg, gemver agree with their "
+              f"plain versions within the limits; op calls {wall:.3f} s "
+              f"host wall, launches {json.dumps(counts)} [{card}]")
+        del out, ref, checks, a_hat, gx, gw, ra, rx, rw, rw_x
+        torch.cuda.empty_cache()
+
+        # each kernel: error vs limit, lost-stream control, times
+        spec_t = mspecs.mxv_t_spec(a, y)
+        bp = plan_blocks(spec_t, MXV_DEFAULT)
+        seg = n // bp.d
+
+        def drop_rows(t, start, count, width=1):
+            """t with rows start ... start+count-1 (of width elements)
+            zeroed."""
+            t = t.clone().reshape(-1)
+            t[start * width:(start + count) * width] = 0
+            return t
+
+        def ratio(got, want_t, limit):
+            return float(((got.float() - want_t.float()).abs()
+                          / limit.clamp_min(1e-30)).max())
+
+        def measure(name, fn, plain, library, make, nbytes, flops,
+                    got, want_t, limit, controls, shape, cap=8):
+            err = float((got.float() - want_t.float()).abs().max())
+            if _excess(got, want_t, limit) > 0:
+                raise AssertionError(f"{name} n={n}: max |d|={err:g} over "
+                                     "its limit")
+            for what, control in controls.items():
+                if _excess(control, want_t, limit) <= 0:
+                    raise AssertionError(f"{name} n={n}: the {what} control "
+                                         "stays inside the limit")
+            ctl = " ".join(f"{what}={ratio(c, want_t, limit):.4g}"
+                           for what, c in controls.items())
+            sets = _copies(make, nbytes, cap)
+            ms = device_ms(fn, sets)
+            plain_ms = device_ms(plain, sets)
+            lib_ms = device_ms(library, sets) if library else None
+            bms, by = bound_ms(nbytes, flops)
+            print(f"{name} {shape}: max_abs_err={err:g} "
+                  f"max|d|/limit={ratio(got, want_t, limit):.4g} "
+                  f"max(limit)={float(limit.max()):.4g}; controls "
+                  f"max|d|/limit: {ctl}; ms={ms:.5f} plain_ms={plain_ms:.5f}"
+                  f" bound_ms={bms:.6f} ({by}) library_ms="
+                  + ("none" if lib_ms is None else f"{lib_ms:.5f}")
+                  + f" ({len(sets)} input sets) [{card}]")
+            if n == LINALG_SIZES[0]:
+                results[name] = dict(
+                    name=name, route="cuda", source=SOURCES[name][0],
+                    replaces=SOURCES[name][1], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                    max_abs_err=err, shape=shape)
+            del sets
+
+        f32 = f"[{n}, {n}] f32"
+        bm_row = plan_blocks(mspecs.mxv_spec(a, x), MXV_DEFAULT).bm
+        y_k, y_p = mxv(a, x), mxv(a, x, mode="ref")
+        measure("mxv", lambda a_, x_: mxv(a_, x_),
+                lambda a_, x_: mxv(a_, x_, mode="ref"),
+                lambda a_, x_: torch.mv(a_, x_),
+                lambda: (torch.randn(n, n, generator=gen, device="cuda"),
+                         vec()) if n < 8192 else (a, x),
+                n * n * 4 + 2 * n * 4, 2.0 * n * n, y_k, y_p,
+                _dot_limit(aa @ x.abs(), y_p, n),
+                {"lost segment": drop_rows(y_p, seg, seg),
+                 "lost tile": drop_rows(y_p, seg, bm_row)},
+                f"A {f32}, D={bp.d}, P={MXV_DEFAULT.portion_unroll}")
+        yt_k, yt_p = mxv_t(a, y), mxv_t(a, y, mode="ref")
+        measure("mxv_t", lambda a_, y_: mxv_t(a_, y_),
+                lambda a_, y_: mxv_t(a_, y_, mode="ref"),
+                lambda a_, y_: torch.mv(a_.t(), y_),
+                lambda: (torch.randn(n, n, generator=gen, device="cuda"),
+                         vec()) if n < 8192 else (a, y),
+                n * n * 4 + 2 * n * 4, 2.0 * n * n, yt_k, yt_p,
+                _dot_limit(y.abs() @ aa, yt_p, n),
+                {"lost segment": mxv_t(a, drop_rows(y, seg, seg), mode="ref"),
+                 "lost tile": mxv_t(a, drop_rows(y, seg, bp.bm), mode="ref")},
+                f"A {f32}, D={bp.d}, both passes")
+        part = mk.split(spec_t, bp, [a, y])
+        chunks = part.shape[0] // bp.d
+        m_k, m_p = mk.merge(part, torch.float32), mk.merge_plain(
+            part, torch.float32)
+        lost = part.clone().reshape(bp.d, chunks, n)
+        lost[1] = 0
+        measure("mxv_t_merge", lambda pt: mk.merge(pt, torch.float32),
+                lambda pt: mk.merge_plain(pt, torch.float32),
+                lambda pt: pt.sum(0),
+                lambda: (part.clone(),), part.numel() * 4 + n * 4,
+                float(part.numel()), m_k, m_p,
+                part.shape[0] * GAMMA * part.abs().sum(0),
+                {"lost segment": mk.merge_plain(lost.reshape(part.shape),
+                                                torch.float32)},
+                f"partials [{part.shape[0]}, {n}] f32 (D={bp.d} x "
+                f"{chunks} row chunks)", cap=1024)
+        del part, lost, y_k, y_p, yt_k, yt_p, m_k, m_p
+        o_k = gemver_outer(a, u1, v1, u2, v2)
+        o_p = gemver_outer(a, u1, v1, u2, v2, mode="ref")
+        measure("gemver_outer",
+                lambda *t: gemver_outer(*t),
+                lambda *t: gemver_outer(*t, mode="ref"),
+                lambda a_, u1_, v1_, u2_, v2_: torch.addr(
+                    torch.addr(a_, u1_, v1_), u2_, v2_),
+                lambda: ((torch.randn(n, n, generator=gen, device="cuda"),
+                          vec(), vec(), vec(), vec()) if n < 8192
+                         else (a, u1, v1, u2, v2)),
+                2 * n * n * 4 + 4 * n * 4, 4.0 * n * n, o_k, o_p,
+                GAMMA * o_p.abs(),
+                {"lost segment": drop_rows(o_p, seg, seg, n).reshape(n, n)},
+                f"A {f32}, D={bp.d}, P={MXV_DEFAULT.portion_unroll}")
+        del o_k, o_p, a, aa
+        torch.cuda.empty_cache()
+        if n == LINALG_SIZES[0]:
+            vn = GEMVER_SUM_N
+            xs, zs = vec(vn), vec(vn)
+            cols = 128 * MXV_DEFAULT.portion_unroll
+            tile_rows = -(-vn // cols) // MXV_DEFAULT.stride_unroll
+            s_k, s_p = gemver_sum(xs, zs), gemver_sum(xs, zs, mode="ref")
+            measure("gemver_sum", lambda *t: gemver_sum(*t),
+                    lambda *t: gemver_sum(*t, mode="ref"),
+                    lambda x_, z_: x_ + z_,
+                    lambda: (vec(vn), vec(vn)), 3 * vn * 4, float(vn),
+                    s_k, s_p, GAMMA * s_p.abs(),
+                    {"lost segment": drop_rows(s_p, tile_rows, tile_rows,
+                                               cols)},
+                    f"x, z [{vn}] f32 ({-(-vn // cols)} x {cols} tiles, "
+                    f"D={MXV_DEFAULT.stride_unroll})")
+            del xs, zs, s_k, s_p
+        del x, y, r, p, u1, v1, u2, v2, z
+        torch.cuda.empty_cache()
+    for name in names:
+        results[name]["launches"] = launches[name]
+    print(f"linalg: phase took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+
+
+SOURCES = {
+    "mxv": ("src/repro_torch/csrc/reduction.cu",
+            "src/repro/codegen/emit.py:491"),
+    "mxv_t": ("src/repro_torch/csrc/stream_reduction.cu",
+              "src/repro/codegen/emit.py:564"),
+    "mxv_t_merge": ("src/repro_torch/csrc/stream_reduction.cu",
+                    "src/repro/codegen/emit.py:564"),
+    "gemver_outer": ("src/repro_torch/csrc/gemver.cu",
+                     "src/repro/codegen/emit.py:410"),
+    "gemver_sum": ("src/repro_torch/csrc/gemver.cu",
+                   "src/repro/codegen/emit.py:410"),
+}
 
 
 def phase_serve(card: str):
@@ -508,6 +810,7 @@ def main() -> int:
     results: dict = {}
     check_rmsnorm(card, results)
     check_decode(card, results)
+    phase_linalg(card, results)
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 
@@ -516,7 +819,7 @@ def main() -> int:
     phase_profile(card, model, params, engine)
 
     for name, entry in results.items():
-        entry["launches"] = counts[name]
+        entry.setdefault("launches", counts[name])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: e[k] for k in keys}

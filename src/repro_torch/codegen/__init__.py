@@ -10,8 +10,8 @@ pipeline, with hand-written CUDA kernels in place of Pallas lowerings.
 from repro_torch.codegen.combine import (MAX, NEG_INF, SUM, Combine,
                                          MaxCombine, OnlineSoftmax,
                                          SumCombine, resolve_combine)
-from repro_torch.codegen.emit import (HAND_KERNELS, emit_spec, run_spec,
-                                      template_of)
+from repro_torch.codegen.emit import (HAND_KERNELS, block_1d, emit_spec,
+                                      run_spec, template_of)
 from repro_torch.codegen.loopir import (Access, Axis, NestInfo,
                                         TraversalSpec, classify, evaluate,
                                         traffic_of)
@@ -31,5 +31,5 @@ __all__ = [
     "unroll", "stride_split", "vector_block", "multi_stride",
     "plan_blocks", "default_schedule", "iteration_domain",
     "preserves_domain",
-    "HAND_KERNELS", "template_of", "emit_spec", "run_spec",
+    "HAND_KERNELS", "template_of", "block_1d", "emit_spec", "run_spec",
 ]

@@ -12,7 +12,8 @@ On Hopper each *instance* of a template (a template plus one family's
 spec body) is a CUDA kernel written by hand (``csrc/``).  This front end
 keeps everything around the template that is not the kernel: the block
 plan (D streams, bm rows, bn lanes), the §5.1.2 pad-and-crop of the
-operands, and the template's refusals.  It then hands the padded
+operands, the §5.1.1 loop blocking of 1-D nests into a 2-D tile grid
+(:func:`block_1d`), and the template's refusals.  It then hands the padded
 operands and the :class:`~repro_torch.codegen.transforms.BlockPlan` to
 the kernel registered for the spec's name in :data:`HAND_KERNELS`.  A
 spec with no ported kernel raises ``NotImplementedError`` naming the
@@ -33,16 +34,23 @@ import torch.nn.functional as F
 
 from repro_torch.codegen import loopir, transforms
 from repro_torch.core.striding import StridingConfig
-from repro_torch.kernels import common
 
-__all__ = ["HAND_KERNELS", "template_of", "emit_spec", "run_spec"]
+__all__ = ["HAND_KERNELS", "template_of", "block_1d", "emit_spec",
+           "run_spec"]
 
-# spec name → module whose ``emit(spec, bp, arrays, scalars)`` launches
-# the hand-written kernel for that instance (imported at first use)
+# spec name → module whose ``emit(spec, bp, arrays, scalars, config)``
+# launches the hand-written kernel for that instance (imported at first
+# use)
 HAND_KERNELS = {
     "rmsnorm": "repro_torch.kernels.rmsnorm.kernel",
     "decode_attn_spec": "repro_torch.kernels.decode_attn.kernel",
     "decode_attn_masked": "repro_torch.kernels.decode_attn.kernel",
+    "mxv": "repro_torch.kernels.mxv.kernel",
+    "bicg_q": "repro_torch.kernels.mxv.kernel",
+    "mxv_t": "repro_torch.kernels.mxv.kernel",
+    "bicg_s": "repro_torch.kernels.mxv.kernel",
+    "gemver_outer": "repro_torch.kernels.gemver.kernel",
+    "gemver_sum": "repro_torch.kernels.gemver.kernel",
 }
 
 _TEMPLATES = {
@@ -72,12 +80,14 @@ def _manual_eligible(spec: loopir.TraversalSpec,
     return all(w.index in (sv, (info.stride_axis,)) for w in spec.writes)
 
 
-def template_of(spec: loopir.TraversalSpec,
-                config: StridingConfig) -> str:
+def template_of(spec: loopir.TraversalSpec, config: StridingConfig,
+                info: Optional[loopir.NestInfo] = None) -> str:
     """Which of the JAX package's four Pallas templates lowers ``spec``
     under ``config`` (the selection rule of its ``emit_scheduled``; 1-D
-    nests are loop-blocked into 2-D first, §5.1.1)."""
-    info = loopir.classify(spec)
+    nests are loop-blocked into 2-D first, §5.1.1).  ``info`` is
+    ``loopir.classify(spec)`` where the caller has it already."""
+    if info is None:
+        info = loopir.classify(spec)
     if info.blocked:
         return "K4" if config.lookahead != 2 else "K1"
     if info.stride_reduction:
@@ -90,11 +100,13 @@ def template_of(spec: loopir.TraversalSpec,
     return "K1"
 
 
-def _hand_kernel(spec: loopir.TraversalSpec,
-                 config: StridingConfig) -> Callable:
+def _hand_kernel(spec: loopir.TraversalSpec, config: StridingConfig,
+                 info: loopir.NestInfo) -> Callable:
     path = HAND_KERNELS.get(spec.name)
-    if path is None:
-        t = template_of(spec, config)
+    t = template_of(spec, config, info)
+    if path is None or t == "K4":
+        # the hand kernels are instances of K1-K3; a spec the JAX package
+        # lowers through K4 (lookahead != 2) waits for that template
         raise NotImplementedError(
             f"{spec.name}: no hand-written Hopper kernel yet — its TPU "
             f"kernel is template {t} {_TEMPLATES[t]} with the "
@@ -129,18 +141,66 @@ def _pad_arrays(spec: loopir.TraversalSpec, bp: transforms.BlockPlan,
     return padded
 
 
+def block_1d(spec: loopir.TraversalSpec, config: StridingConfig,
+             info: Optional[loopir.NestInfo] = None,
+             ) -> tuple[loopir.TraversalSpec, int]:
+    """§5.1.1 loop blocking of a 1-D nest, as the JAX package's
+    ``_emit_blocked``: the single axis of extent n is tiled into a
+    ``[ceil(n / 128·P), 128·P]`` grid.  Returns the 2-D spec (its
+    accesses remapped to ``(<axis>__blk, <axis>__lane)``) and n."""
+    info = loopir.classify(spec)
+    ax = spec.axis(info.stride_axis)
+    n = ax.extent
+    cols = transforms.LANE * config.portion_unroll
+    rows = max(-(-n // cols), 1)
+    row_ax, lane_ax = ax.name + "__blk", ax.name + "__lane"
+
+    def remap(acc):
+        return dataclasses.replace(acc, index=(row_ax, lane_ax), halo=None)
+
+    spec2 = dataclasses.replace(
+        spec,
+        axes=(loopir.Axis(row_ax, rows), loopir.Axis(lane_ax, cols)),
+        reads=tuple(remap(a) for a in spec.reads),
+        writes=tuple(remap(a) for a in spec.writes),
+    )
+    return spec2, n
+
+
+def _emit_blocked(spec: loopir.TraversalSpec, info: loopir.NestInfo,
+                  arrays: Sequence, scalars: Sequence,
+                  config: StridingConfig):
+    """Run a 1-D nest on its :func:`block_1d` tiling: pad each operand
+    to whole tiles, run the 2-D spec's pipeline, crop back to n."""
+    spec2, n = block_1d(spec, config, info)
+    rows, cols = (ax.extent for ax in spec2.axes)
+
+    def to2d(x):
+        return _pad_dim(x, 0, rows * cols).reshape(rows, cols)
+
+    out = emit_spec(spec2, [to2d(x) for x in arrays] + list(scalars),
+                    config)
+    outs = out if isinstance(out, tuple) else (out,)
+    res = tuple(o.reshape(-1)[:n] for o in outs)
+    return res[0] if len(res) == 1 else res
+
+
 def emit_spec(spec: loopir.TraversalSpec, inputs: Sequence,
               config: StridingConfig):
     """The whole pipeline for one call on the card: plan blocks → refuse
     what the template refuses → pad operands → hand kernel → crop to
-    the original domain."""
+    the original domain.  1-D nests are loop-blocked into a 2-D tile
+    grid first (§5.1.1)."""
     n = len(spec.reads)
     if len(inputs) != n + len(spec.scalars):
         raise ValueError(f"{spec.name}: expected {n} arrays + "
                          f"{len(spec.scalars)} scalars")
     arrays, scalars = list(inputs[:n]), list(inputs[n:])
-    kernel = _hand_kernel(spec, config)
-    bp = transforms.plan_blocks(spec, config)
+    info = loopir.classify(spec)        # once, shared by the steps below
+    if info.blocked:
+        return _emit_blocked(spec, info, arrays, scalars, config)
+    kernel = _hand_kernel(spec, config, info)
+    bp = transforms.plan_blocks(spec, config, info=info)
     rows = spec.axis(bp.info.stride_axis).extent
     if bp.info.stride_reduction and bp.rows != rows:
         # zero-padded rows would have to contribute the combine identity
@@ -155,7 +215,7 @@ def emit_spec(spec: loopir.TraversalSpec, inputs: Sequence,
     spec_p = dataclasses.replace(spec, axes=tuple(
         dataclasses.replace(ax, extent=targets.get(ax.name, ax.extent))
         for ax in spec.axes))
-    out = kernel(spec_p, bp, arrays, scalars)
+    out = kernel(spec_p, bp, arrays, scalars, config)
     outs = out if isinstance(out, tuple) else (out,)
     res = tuple(o[tuple(slice(0, s) for s in shape)]
                 for o, shape in zip(outs, spec.out_shapes()))
@@ -168,6 +228,8 @@ def run_spec(build_spec: Callable[..., loopir.TraversalSpec],
     """Device-dispatched spec execution: ``mode="ref"`` (or CPU inputs)
     runs the plain PyTorch version; CUDA inputs run the hand kernel or
     raise."""
+    # imported here: the kernels package imports the codegen at its top
+    from repro_torch.kernels import common
     spec = build_spec(*inputs)
     if common.kernel_mode(inputs[0], mode) == "ref":
         return loopir.evaluate(spec, inputs)

@@ -195,7 +195,8 @@ class BlockPlan:
 
 def plan_blocks(spec: loopir.TraversalSpec,
                 config: StridingConfig,
-                prefer_bm: int = 8) -> BlockPlan:
+                prefer_bm: int = 8,
+                info: Optional[loopir.NestInfo] = None) -> BlockPlan:
     """Pick (bm, bn) and padded extents for a spec + config.
 
     Row-haloed (stencil) nests use single-row blocks so each stencil tap
@@ -204,9 +205,11 @@ def plan_blocks(spec: loopir.TraversalSpec,
     row reductions see the whole row).  Everything else follows the
     hand-written kernels' conventions: bn = 128·P lanes, and the §5.1.1
     cache-block row count is ``config.block_rows`` when set (the planner/
-    autotuner sweep dimension), else ≤ ``prefer_bm`` rows.
+    autotuner sweep dimension), else ≤ ``prefer_bm`` rows.  ``info`` is
+    ``loopir.classify(spec)`` where the caller has it already.
     """
-    info = loopir.classify(spec)
+    if info is None:
+        info = loopir.classify(spec)
     if info.blocked:
         raise ValueError(
             f"{spec.name}: 1-D nest — loop-block it into a 2-D tile grid "

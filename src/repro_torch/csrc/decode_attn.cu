@@ -17,14 +17,20 @@
 // D independent blocks, a split-KV flash-decode in two passes:
 //   pass 1 (decode_split), grid (B, Hkv, D): block (b, h, k) walks
 //     segment k (rows k*seg ... (k+1)*seg - 1) in bm-row tiles, skipping
-//     nothing, and keeps for its g query heads the f32 state
-//     (m[g], num[g][dh], den[g]); each tile's partial state — its max,
+//     nothing, and keeps for its G query heads of group h the f32 state
+//     (m[G], num[G][dh], den[G]); each tile's partial state — its max,
 //     sum of exp(s - max) * V and sum of exp(s - max), exactly the spec
 //     body — is folded in with the OnlineSoftmax merge.  The block's
 //     state goes to a [B, D, ...] scratch.
 //   pass 2 (decode_merge), grid (B, Hq): merges the D states in order
 //     k = 0 ... D-1 from the identity (NEG_INF, 0, 0), then finalizes
 //     out = num / max(den, eps) and lse = m + log(max(den, eps)).
+// A group of g query heads that exceeds what one block keeps in
+// registers is split into g / GC chunks of GC heads (GC the largest of
+// 8, 4, 3, 2, 1 dividing g): the grid becomes (B, Hkv * g / GC, D), and
+// the chunks of one KV head read the same K/V rows, which the blocks of
+// neighbouring blockIdx.y run together and so mostly find in L2.
+// g in {1, 2, 4, 8} runs as one chunk: one block per KV head.
 // Inside a block each of the NW warps takes every NW-th tile (tiles
 // longer than TILE rows fold as consecutive TILE-row sub-tiles), and a
 // lane owns VPL = dh / 32 consecutive dims of the head (one dim on the
@@ -50,21 +56,24 @@ __global__ void __launch_bounds__(NW * 32)
 decode_split(const T* __restrict__ K, const T* __restrict__ V,
              const T* __restrict__ q, const float* __restrict__ M,
              float* __restrict__ pm, float* __restrict__ pnum,
-             float* __restrict__ pden, int S, int hkv, int d, int seg,
-             int bm, float scale) {
+             float* __restrict__ pden, int S, int hkv, int g, int d,
+             int seg, int bm, float scale) {
   constexpr int VPL = DH >= 32 ? DH / 32 : 1;   // dims per lane
   constexpr int LANES = DH / VPL;                // lanes that own dims
   static_assert(LANES * VPL == DH && LANES <= 32, "dh in {16, 32, 64, 128}");
-  const int b = blockIdx.x, h = blockIdx.y, k = blockIdx.z;
+  // G heads of chunk c of KV head h: query heads h*g + c*G ... + G-1
+  const int nchunk = g / G;
+  const int b = blockIdx.x, h = blockIdx.y / nchunk, k = blockIdx.z;
+  const int head0 = h * g + (blockIdx.y % nchunk) * G;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool owner = lane < LANES;
-  const int E = hkv * DH, hq = hkv * G;
+  const int E = hkv * DH, hq = hkv * g;
 
   float qr[G][VPL];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     if (owner) {
-      load_f32<T, VPL>(q + (static_cast<size_t>(b) * hq + h * G + j) * DH + lane * VPL, qr[j]);
+      load_f32<T, VPL>(q + (static_cast<size_t>(b) * hq + head0 + j) * DH + lane * VPL, qr[j]);
     } else {
 #pragma unroll
       for (int i = 0; i < VPL; ++i) qr[j][i] = 0.f;
@@ -170,7 +179,7 @@ decode_split(const T* __restrict__ K, const T* __restrict__ V,
       dd = dd * a1 + sden[w][j] * a2;
       mm = mn;
     }
-    const size_t st = (static_cast<size_t>(b) * d + k) * hq + h * G + j;
+    const size_t st = (static_cast<size_t>(b) * d + k) * hq + head0 + j;
     pnum[st * DH + c] = nn;
     if (c == 0) {
       pm[st] = mm;
@@ -203,39 +212,49 @@ __global__ void decode_merge(const float* __restrict__ pm,
 }
 
 template <typename T, int G, int DH>
-int split_t(const void* K, const void* V, const void* q, const void* M,
-            void* pm, void* pnum, void* pden, int B, int S, int hkv, int d,
-            int bm, float scale, cudaStream_t stream) {
-  const dim3 grid(B, hkv, d);
+int split_t(int g, const void* K, const void* V, const void* q,
+            const void* M, void* pm, void* pnum, void* pden, int B, int S,
+            int hkv, int d, int bm, float scale, cudaStream_t stream) {
+  const dim3 grid(B, hkv * (g / G), d);
   decode_split<T, G, DH><<<grid, NW * 32, 0, stream>>>(
       static_cast<const T*>(K), static_cast<const T*>(V),
       static_cast<const T*>(q), static_cast<const float*>(M),
       static_cast<float*>(pm), static_cast<float*>(pnum),
-      static_cast<float*>(pden), S, hkv, d, S / d, bm, scale);
+      static_cast<float*>(pden), S, hkv, g, d, S / d, bm, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define REPRO_SPLIT_CASE(G_, DH_)                                         \
   case G_ * 1024 + DH_:                                                   \
-    return split_t<T, G_, DH_>(K, V, q, M, pm, pnum, pden, B, S, hkv, d,  \
-                               bm, scale, stream);
+    return split_t<T, G_, DH_>(g, K, V, q, M, pm, pnum, pden, B, S, hkv,  \
+                               d, bm, scale, stream);
 #define REPRO_SPLIT_DHS(G_)                                               \
   REPRO_SPLIT_CASE(G_, 16) REPRO_SPLIT_CASE(G_, 32)                       \
   REPRO_SPLIT_CASE(G_, 64) REPRO_SPLIT_CASE(G_, 128)
+
+// The heads per block: the largest of 8, 4, 3, 2, 1 that divides g.
+int group_chunk(int g) {
+  const int chunks[] = {8, 4, 3, 2};
+  for (const int c : chunks)
+    if (g % c == 0) return c;
+  return 1;
+}
 
 template <typename T>
 int split_dt(int g, int dh, const void* K, const void* V, const void* q,
              const void* M, void* pm, void* pnum, void* pden, int B, int S,
              int hkv, int d, int bm, float scale, cudaStream_t stream) {
-  switch (g * 1024 + dh) {
-    REPRO_SPLIT_DHS(1) REPRO_SPLIT_DHS(2) REPRO_SPLIT_DHS(4) REPRO_SPLIT_DHS(8)
+  switch (group_chunk(g) * 1024 + dh) {
+    REPRO_SPLIT_DHS(1) REPRO_SPLIT_DHS(2) REPRO_SPLIT_DHS(3)
+    REPRO_SPLIT_DHS(4) REPRO_SPLIT_DHS(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// Pass 1.  K, V: [B, S, hkv * dh] of `dtype`; q: [B, hkv * g * dh];
+// Pass 1.  K, V: [B, S, hkv * dh] of `dtype`; q: [B, hkv * g * dh], any
+// g >= 1 (in chunks of group_chunk(g) heads per block);
 // M: [B, S] f32 validity (NULL = unmasked); pm, pden: [B, d, hkv * g] f32;
 // pnum: [B, d, hkv * g * dh] f32.  d streams of S / d rows, bm-row tiles.
 extern "C" int decode_split_launch(int dtype, int g, int dh, const void* K,
@@ -243,8 +262,8 @@ extern "C" int decode_split_launch(int dtype, int g, int dh, const void* K,
                                    const void* M, void* pm, void* pnum,
                                    void* pden, int B, int S, int hkv, int d,
                                    int bm, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || hkv <= 0 || d <= 0 || bm <= 0 || S % d != 0 ||
-      (S / d) % bm != 0)
+  if (B <= 0 || S <= 0 || hkv <= 0 || g <= 0 || d <= 0 || bm <= 0 ||
+      S % d != 0 || (S / d) % bm != 0 || hkv * (g / group_chunk(g)) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {

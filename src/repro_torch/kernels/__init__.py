@@ -7,6 +7,21 @@ resolution and device dispatch), ``ref.py`` (a plain PyTorch oracle) and
 ``csrc/``, with a launch count).  ``cuda.py`` builds and loads the CUDA
 sources; ``common.py`` holds the dispatch and config rules.
 
-Ported so far: ``rmsnorm`` (K1 instance) and ``decode_attn`` (K3
-instance).
+Ported so far: ``rmsnorm`` (K1 instance), ``decode_attn`` (K3
+instance), ``mxv`` (``mxv``: K2, ``mxv_t``: K3), ``bicg`` (its sweeps run
+the mxv kernels) and ``gemver`` (``gemver_outer``, ``gemver_sum``: K1; its
+mxv steps run the mxv kernels).  As in the JAX package, every public op
+is exported here under its own name, which for ``rmsnorm``,
+``decode_attn``, ``mxv``, ``bicg`` and ``gemver`` is also the name of
+its family's package: ``from repro_torch.kernels.mxv import ops`` still
+reaches the package.
 """
+from repro_torch.kernels.bicg import bicg
+from repro_torch.kernels.decode_attn import decode_attn
+from repro_torch.kernels.gemver import (gemver, gemver_mxv1, gemver_mxv2,
+                                        gemver_outer, gemver_sum)
+from repro_torch.kernels.mxv import mxv, mxv_t
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+__all__ = ["rmsnorm", "decode_attn", "mxv", "mxv_t", "bicg", "gemver",
+           "gemver_outer", "gemver_sum", "gemver_mxv1", "gemver_mxv2"]

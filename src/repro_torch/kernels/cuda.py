@@ -26,7 +26,8 @@ from typing import Iterable, Optional, Sequence
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "CudaKernel",
-           "build", "library", "dtype_code"]
+           "build", "library", "DTYPES", "dtype_code", "check_operands",
+           "sweep_geometry"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -37,11 +38,50 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS: dict[str, "CudaKernel"] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the element types every launcher is compiled for
+DTYPES = tuple(_DTYPE_CODES)
+# elements of a sub-portion, a warp's row unit (csrc/common.cuh SUB)
+_SUB = 128
 
 
 def dtype_code(dtype: torch.dtype) -> int:
     """The element-type code the C launchers switch on."""
     return _DTYPE_CODES[dtype]
+
+
+def check_operands(name: str, arrays: Sequence[torch.Tensor],
+                   shapes: Sequence[tuple]) -> None:
+    """Refuse what the row-sweep kernels (K1, K2, K3 over ``[rows, cols]``
+    operands) do not take: a dtype with no compiled instance, mixed
+    dtypes (``TypeError``); an operand of another shape than ``shapes``
+    gives, a row of other than whole 128-element sub-portions, or an
+    operand that is not contiguous, 16-byte aligned and on the first
+    operand's device (``ValueError``)."""
+    a = arrays[0]
+    if a.dtype not in DTYPES:
+        raise TypeError(f"{name} kernel: unsupported dtype {a.dtype}")
+    if a.shape[-1] % _SUB:
+        raise ValueError(f"{name} kernel: {a.shape[-1]} columns are not "
+                         f"whole {_SUB}-element sub-portions")
+    for t, shape in zip(arrays, shapes):
+        if t.dtype != a.dtype:
+            raise TypeError(f"{name} kernel: operands must all be "
+                            f"{a.dtype}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} kernel: operand must be {tuple(shape)},"
+                             f" got {tuple(t.shape)}")
+        if t.device != a.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel: operands must be contiguous, "
+                             "16-byte aligned and on one device")
+
+
+def sweep_geometry(bp, config) -> tuple[int, int, int, int, int, int]:
+    """The launch geometry of a D-stream row sweep (``csrc/common.cuh``
+    ``row_sweep``) from a BlockPlan and its config: ``(rows, cols, d, bm,
+    sub-portions per column step, interleaved)``."""
+    interleaved = config is not None and config.arrangement == "interleaved"
+    return (bp.rows, bp.cols, bp.d, bp.bm, max(1, bp.bn // _SUB),
+            int(interleaved))
 
 
 def _nvcc() -> str:

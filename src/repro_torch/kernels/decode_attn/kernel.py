@@ -6,9 +6,10 @@ The TPU kernel folds the D streams' partial states into one accumulator
 across a row grid that runs in order; Hopper blocks run in no order, so
 the D streams become independent blocks:
 
-  * :func:`split` — pass 1, grid (B, Hkv, D): each block reduces its
-    segment to an online-softmax state ``(m, num, den)`` in a
-    ``[B, D, ...]`` f32 scratch;
+  * :func:`split` — pass 1, grid (B, Hkv · g / GC, D): each block reduces
+    its segment to an online-softmax state ``(m, num, den)`` for GC query
+    heads of one KV head (GC the largest of 8, 4, 3, 2, 1 dividing g), in
+    a ``[B, D, ...]`` f32 scratch;
   * :func:`merge` — pass 2, grid (B, Hq): folds the D states in order
     k = 0 … D-1 with ``OnlineSoftmax.merge`` and finalizes
     ``(out, lse)``.
@@ -28,7 +29,7 @@ from repro_torch.codegen.transforms import BlockPlan
 from repro_torch.kernels import cuda
 
 __all__ = ["SPLIT", "MERGE", "emit", "split", "merge", "split_plain",
-           "merge_plain"]
+           "merge_plain", "admits"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -42,8 +43,15 @@ MERGE = cuda.CudaKernel(
     "decode_attn_merge", "decode_attn", "decode_merge_launch",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F])
 
-_GROUPS = (1, 2, 4, 8)           # query heads per KV head the kernel takes
 _HEAD_DIMS = (16, 32, 64, 128)   # dh = 16 lanes * 1 dim, 32 lanes * (1, 2, 4)
+
+
+def admits(g: int, dh: int) -> bool:
+    """Whether the split kernel takes ``g`` query heads per KV head at
+    head dim ``dh``: any ``g >= 1`` (a block keeps 8, 4, 3, 2 or 1 of
+    them, ``decode_attn.cu`` ``group_chunk``), and ``dh`` in
+    ``_HEAD_DIMS``."""
+    return g >= 1 and dh in _HEAD_DIMS
 
 
 def _check_split(spec, bp, arrays):
@@ -60,10 +68,10 @@ def _check_split(spec, bp, arrays):
         raise ValueError(f"decode_attn kernel: q {tuple(q.shape)} does "
                          f"not fit K {tuple(K.shape)} with dh={dh}")
     hkv = e // dh
-    if hq // hkv not in _GROUPS or dh not in _HEAD_DIMS:
+    if not admits(hq // hkv, dh):
         raise NotImplementedError(
             f"decode_attn kernel: g={hq // hkv}, dh={dh} not compiled "
-            f"(g in {_GROUPS}, dh in {_HEAD_DIMS})")
+            f"(any g >= 1, dh in {_HEAD_DIMS})")
     if len(arrays) > 3:
         M = arrays[3]
         if M.shape != (b, s) or M.dtype != torch.float32:
@@ -146,7 +154,8 @@ def merge(comb: OnlineSoftmax, pm: torch.Tensor, pnum: torch.Tensor,
     return out, lse
 
 
-def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars):
+def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
+         config=None):
     """Run the decode spec: ``(out [B, Hq·dh], lse [B, Hq])`` in f32."""
     del scalars
     comb = spec.combine

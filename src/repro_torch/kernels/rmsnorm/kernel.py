@@ -27,7 +27,8 @@ _KMAX = 8                        # streams in registers per pass (rmsnorm.cu)
 _SMEM_LIMIT = 227 * 1024         # dynamic shared memory a block may use
 
 
-def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars):
+def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
+         config=None):
     """Run the (padded) rmsnorm spec: ``(o [rows, dm], r [rows] f32)``."""
     x, w = arrays
     (eps,) = scalars

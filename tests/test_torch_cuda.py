@@ -10,10 +10,17 @@ imports no JAX, so it also runs on a card host without JAX:
 import pytest
 import torch
 
-from repro_torch.codegen import OnlineSoftmax
+from repro_torch.codegen import OnlineSoftmax, run_spec
+from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.core.striding import StridingConfig as TConfig
+from repro_torch.kernels.bicg import ops as tbops
 from repro_torch.kernels.decode_attn import kernel as dkernel
 from repro_torch.kernels.decode_attn import ops as tdops
+from repro_torch.kernels.gemver import kernel as gkernel
+from repro_torch.kernels.gemver import ops as tgops
+from repro_torch.kernels.gemver import specs as tgspecs
+from repro_torch.kernels.mxv import kernel as mkernel
+from repro_torch.kernels.mxv import ops as tmops
 from repro_torch.kernels.rmsnorm import kernel as rkernel
 from repro_torch.kernels.rmsnorm import ops as trops
 
@@ -116,3 +123,191 @@ def test_launcher_serves_on_the_card(cuda_device, capsys):
     assert all(len(toks) == 16 for toks in results.values())
     assert rkernel.RMSNORM.launches > n[0] and dkernel.SPLIT.launches > n[1]
     assert "req 2: 16 tokens" in capsys.readouterr().out
+
+
+# ------------------------------------------- decode: every dense group
+
+def test_decode_kernel_admits_every_dense_config():
+    """The repaired fault, checked where there is no card: the split
+    kernel's admission rule takes the query-head group and head dim of
+    every dense config, at full width and reduced."""
+    dense = [get_config(a) for a in ARCHS if get_config(a).family == "dense"]
+    assert {c.n_heads // c.n_kv_heads for c in dense} >= {8, 9, 12, 16}
+    for cfg in dense + [reduced(c) for c in dense]:
+        g = cfg.n_heads // cfg.n_kv_heads
+        assert dkernel.admits(g, cfg.head_dim), cfg.name
+    assert not dkernel.admits(8, 48) and not dkernel.admits(0, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [9, 12, 16])
+@pytest.mark.parametrize("dh", [128, 64])
+def test_decode_kernel_matches_plain_at_every_dense_group(cuda_device,
+                                                         dtype, g, dh):
+    b, s, hkv = 2, 2048, 2
+    gen = torch.Generator(device=cuda_device).manual_seed(g * dh)
+    q = torch.randn(b, hkv * g, dh, generator=gen, device=cuda_device)
+    k = torch.randn(b, s, hkv, dh, generator=gen, device=cuda_device)
+    v = torch.randn(b, s, hkv, dh, generator=gen, device=cuda_device)
+    q, k, v = (a.to(dtype) for a in (q, k, v))
+    kv_len = torch.tensor([700, 2048], device=cuda_device)
+    n = dkernel.SPLIT.launches
+    out, lse = tdops.decode_attn(q, k, v, kv_len=kv_len,
+                                 config=TConfig(4, 1), with_lse=True)
+    assert dkernel.SPLIT.launches == n + 1
+    ro, rl = tdops.decode_attn(q, k, v, kv_len=kv_len, config=TConfig(4, 1),
+                               mode="ref", with_lse=True)
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ro.float(), rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
+
+
+# ----------------------------------------------- mxv / bicg / gemver
+
+GAMMA = 2.0 ** -24
+
+
+def _dot_factor(n):
+    """c in |computed - exact| <= c 2^-24 Σ|a x| for an f32 dot of
+    length n: worst case n; 8 sqrt(n) for independent mean-zero
+    roundings (Higham and Mary 2019, Thm 3.1; fails with probability at
+    most 2 n exp(-32) per dot).  The smaller of the two."""
+    return min(float(n), 8.0 * n ** 0.5)
+
+
+def _assert_dot(got, ref, bound_terms, n):
+    """|got - ref| <= 2 c 2^-24 Σ|a x| per element, c = _dot_factor(n)
+    (each of the two f32 sums lies within c 2^-24 Σ|a x| of the exact
+    one), plus the last rounding into the output's dtype on each side
+    (unit roundoff u: 2^-8 in bf16, 2^-24 in f32)."""
+    u = 2.0 ** -8 if got.dtype == torch.bfloat16 else GAMMA
+    limit = 2 * _dot_factor(n) * GAMMA * bound_terms + 2 * u * ref.float().abs()
+    d = (got.float() - ref.float()).abs()
+    assert bool((d <= limit).all()), float((d - limit).max())
+
+
+def _rand(gen, shape, dev, dtype):
+    return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+
+DPS = [(d, p) for d in (1, 2, 4, 8) for p in (1, 2)]
+LINALG_SHAPES = [(512, 1024), (200, 1000)]     # the second is ragged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", DPS)
+@pytest.mark.parametrize("m,n", LINALG_SHAPES)
+def test_mxv_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p)
+    a = _rand(gen, (m, n), cuda_device, dtype)
+    x, xt = (_rand(gen, (n,), cuda_device, dtype),
+             _rand(gen, (m,), cuda_device, dtype))
+    cfg = TConfig(d, p, arrangement=arr)
+    counts = (mkernel.ROWDOT.launches, mkernel.SPLIT.launches,
+              mkernel.MERGE.launches)
+    y, yt = tmops.mxv(a, x, config=cfg), tmops.mxv_t(a, xt, config=cfg)
+    assert (mkernel.ROWDOT.launches, mkernel.SPLIT.launches,
+            mkernel.MERGE.launches) == tuple(c + 1 for c in counts)
+    ry = tmops.mxv(a, x, config=cfg, mode="ref")
+    ryt = tmops.mxv_t(a, xt, config=cfg, mode="ref")
+    assert y.dtype == yt.dtype == dtype
+    _assert_dot(y, ry, (a.float().abs() * x.float().abs()).sum(-1), n)
+    _assert_dot(yt, ryt, (xt.float().abs()[:, None]
+                          * a.float().abs()).sum(0), m)
+    q, s = tbops.bicg(a, xt, x, config=cfg)
+    torch.testing.assert_close(q, y, rtol=0, atol=0)
+    torch.testing.assert_close(s, yt, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,p", [(4, 2), (8, 1)])
+def test_arrangements_give_the_same_bits(cuda_device, d, p):
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    a = _rand(gen, (1024, 2048), cuda_device, torch.float32)
+    x = _rand(gen, (2048,), cuda_device, torch.float32)
+    u1, u2 = (_rand(gen, (1024,), cuda_device, torch.float32)
+              for _ in range(2))
+    v1, v2 = (_rand(gen, (2048,), cuda_device, torch.float32)
+              for _ in range(2))
+    out = {}
+    for arr in ("grouped", "interleaved"):
+        cfg = TConfig(d, p, arrangement=arr)
+        out[arr] = (tmops.mxv(a, x, config=cfg),
+                    tgops.gemver_outer(a, u1, v1, u2, v2, config=cfg))
+    for g, i in zip(out["grouped"], out["interleaved"]):
+        assert torch.equal(g, i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", DPS)
+@pytest.mark.parametrize("m,n", LINALG_SHAPES)
+def test_gemver_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
+    """The elementwise steps round each operation as the body does, so
+    kernel and plain version agree bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p + 1)
+    a = _rand(gen, (m, n), cuda_device, dtype)
+    u1, u2 = (_rand(gen, (m,), cuda_device, dtype) for _ in range(2))
+    v1, v2 = (_rand(gen, (n,), cuda_device, dtype) for _ in range(2))
+    x, z = (_rand(gen, (m * n + 77,), cuda_device, dtype) for _ in range(2))
+    cfg = TConfig(d, p, arrangement=arr)
+    counts = (gkernel.OUTER.launches, gkernel.SUM.launches)
+    o = tgops.gemver_outer(a, u1, v1, u2, v2, config=cfg)
+    s = tgops.gemver_sum(x, z, config=cfg)
+    assert (gkernel.OUTER.launches, gkernel.SUM.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert torch.equal(o, tgops.gemver_outer(a, u1, v1, u2, v2, config=cfg,
+                                             mode="ref"))
+    assert torch.equal(s, tgops.gemver_sum(x, z, config=cfg, mode="ref"))
+
+
+@pytest.mark.gpu
+def test_one_gemver_call_launches_each_kernel_once(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    m, n = 1024, 2048
+    a = _rand(gen, (m, n), cuda_device, torch.float32)
+    u1, u2, y = (_rand(gen, (m,), cuda_device, torch.float32)
+                 for _ in range(3))
+    v1, v2, z = (_rand(gen, (n,), cuda_device, torch.float32)
+                 for _ in range(3))
+    kernels = (gkernel.OUTER, mkernel.SPLIT, mkernel.MERGE, gkernel.SUM,
+               mkernel.ROWDOT)
+    before = [k.launches for k in kernels]
+    a_hat, x, w = tgops.gemver(a, u1, v1, u2, v2, y, z, 1.5, 1.2)
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    ra, rx, rw = tgops.gemver(a, u1, v1, u2, v2, y, z, 1.5, 1.2, mode="ref")
+    assert torch.equal(a_hat, ra)
+    # x = 0 + 1.2 Aᵀy + z: the sum's bound plus the roundings of the
+    # scaling and the add
+    limit = (2 * _dot_factor(m) * GAMMA * 1.2
+             * (y.abs()[:, None] * ra.abs()).sum(0)
+             + 4 * GAMMA * (rx.abs() + z.abs()))
+    assert bool(((x - rx).abs() <= limit).all())
+    # w = 1.5 A x, held against the plain step on the kernels' own x
+    rw_x = tgops.gemver_mxv2(ra, x, 1.5, mode="ref")
+    _assert_dot(w, rw_x, 1.5 * (ra.abs() * x.abs()).sum(-1), n)
+
+
+@pytest.mark.gpu
+def test_linalg_wrappers_raise_on_what_they_do_not_take(cuda_device):
+    a = torch.randn(64, 256, device=cuda_device)
+    x = torch.randn(256, device=cuda_device)
+    with pytest.raises(TypeError):                    # f64 not compiled
+        tmops.mxv(a.double(), x.double())
+    with pytest.raises(TypeError):                    # mixed dtypes
+        tmops.mxv(a, x.bfloat16())
+    with pytest.raises(TypeError):
+        tmops.mxv_t(a, torch.randn(64, device=cuda_device).bfloat16())
+    with pytest.raises(ValueError):                   # not contiguous
+        tmops.mxv_t(torch.randn(256, 512, device=cuda_device)[:, ::2],
+                    torch.randn(256, device=cuda_device))
+    with pytest.raises(NotImplementedError):          # K4: lookahead != 2
+        tgops.gemver_sum(x, x, config=TConfig(4, 1, lookahead=3))
+    with pytest.raises(NotImplementedError):          # instance to port
+        run_spec(tgspecs.gemver_mxv2_spec, (a, x, 1.5), TConfig(4, 2))
+    with pytest.raises(ValueError):                   # stride axis unpadded
+        run_spec(tmops.specs.mxv_t_spec, (a[:63], x[:63]), TConfig(4, 2))

@@ -187,6 +187,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
+        "for fam in ('mxv', 'bicg', 'gemver'):\n"
+        "    for mod in ('specs', 'ref', 'ops'):\n"
+        "        assert f'repro_torch.kernels.{fam}.{mod}' in sys.modules\n"
+        "assert 'repro_torch.kernels.mxv.kernel' in sys.modules\n"
+        "assert 'repro_torch.kernels.gemver.kernel' in sys.modules\n"
         "print(len([k for k in sys.modules if k.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)]))
