@@ -15,6 +15,15 @@ Phases (each raises on failure, so the script exits non-zero):
                 and device times (CUDA graphs of many launches, timed with
                 CUDA events): kernel, plain version, bound, and one PyTorch
                 library call as a yardstick
+  3b. linalg — mxv, mxv_t, bicg, gemver at 16384^2 and 4096^2 f32 through
+                their public functions, each kernel against its plain
+                version with lost-stream controls, and timed
+  3c. stream  — read, copy, init, triad at 8192 x 4096 in f32 and bf16
+                (K1, K2), the K4 ring at lookahead 1, 3, 4 (copy, triad,
+                fill) and gemver_sum's ring at lookahead 1, 3; each kernel
+                against its plain version (equality, or the f32 sum limit
+                for the read) with lost-stream and lost-step controls,
+                timed, and the D and lookahead sweeps of the paper's Fig. 2
   4. serve    — Yi-9B at full width (random weights from a seeded
                 torch.Generator) serves 8 requests x 16 tokens through the
                 continuous-batching engine; the launch counts, reset just
@@ -568,6 +577,415 @@ SOURCES = {
 }
 
 
+STREAM_SHAPE = (8192, 4096)        # the registry's bench size (_BENCH)
+STREAM_ALPHA, STREAM_FILL = 1.5, 3.5
+STREAM_LOOKAHEADS = (1, 3, 4)       # the K4 ring (2 is the K1 kernels)
+GEMVER_SUM_LOOKAHEADS = (1, 3)
+STREAM_DTYPES = ("float32", "bfloat16")
+
+
+def phase_stream(card: str, results: dict) -> None:
+    """The paper's stream micro-kernels (read, copy, init, triad) at the
+    registry's bench size, in f32 and bf16, through their public
+    functions: the K1 and K2 kernels at the default config and the K4
+    ring at lookahead 1, 3 and 4 (copy, triad, fill), with gemver_sum's
+    ring at lookahead 1 and 3.  Then each kernel against its plain
+    version with lost-stream controls, timed, and the D and lookahead
+    sweeps (lines only).
+
+    Every count is set to 0 just before the op calls and read just
+    after; the JSON line's launches are those counts."""
+    import torch
+    from repro_torch.codegen import plan_blocks, run_spec
+    from repro_torch.kernels import cuda, manual
+    from repro_torch.kernels.gemver import gemver_sum
+    from repro_torch.kernels.stream import (stream_copy, stream_copy_manual,
+                                            stream_init, stream_read)
+    from repro_torch.kernels.stream import kernel as sk
+    from repro_torch.kernels.stream import specs as ss
+    from repro_torch.kernels.stream.ops import _DEFAULT
+    t_phase = time.perf_counter()
+    rows, cols = STREAM_SHAPE
+    d = _DEFAULT.stride_unroll
+    seg = rows // d
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    smem_limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cfgs = {la: _DEFAULT.replace(lookahead=la) for la in STREAM_LOOKAHEADS}
+    vn = GEMVER_SUM_N
+    print(f"stream: tolerances: copy, init, triad and every K4 body |d| = 0 "
+          f"(each operation rounded as the body rounds it); stream_read "
+          f"|d| <= 2 c 2^-24 sum|x| + 2^-23 |ref| over each stream's n = "
+          f"seg*cols = {seg * cols} terms, c = min(n, {LAMBDA:g} sqrt n) "
+          f"(as the dot products above), on x = 1 + N(0, 1) so that a lost "
+          f"stream or chunk moves a sum by more than the limit; its pass 1 "
+          f"alone, chunk by chunk, under the same limit with n = the "
+          f"chunk's spc*128 terms. Controls, the plain version with stream "
+          f"k=1 dropped and with one step of it dropped (a K4 tile, or a "
+          f"chunk of the read's pass 1: the first, and in pass 1 the "
+          f"ragged last), must land above each limit [{card}]")
+
+    def rand(shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    names = ["stream_read", "stream_read_merge", "stream_copy", "stream_init",
+             "stream_triad", "manual_ring_copy", "manual_ring_triad",
+             "manual_ring_fill", "manual_ring_gemver_sum"]
+    want = {"stream_read": 1, "stream_read_merge": 1, "stream_copy": 1,
+            "stream_init": 1, "stream_triad": 1,
+            "manual_ring_copy": len(STREAM_LOOKAHEADS),
+            "manual_ring_triad": len(STREAM_LOOKAHEADS),
+            "manual_ring_fill": len(STREAM_LOOKAHEADS),
+            "manual_ring_gemver_sum": len(GEMVER_SUM_LOOKAHEADS)}
+    want = {n: len(STREAM_DTYPES) * c for n, c in want.items()}
+    inputs, outs = {}, {}
+    for dt_name in STREAM_DTYPES:
+        dt = getattr(torch, dt_name)
+        # the read's input has mean 1: the sum of a stream of mean-zero
+        # values (about sqrt n) lies below the f32 rounding limit (about
+        # 2^-24 n^1.5), so a lost stream or chunk could not be seen
+        inputs[dt_name] = dict(x=rand(STREAM_SHAPE, dt), b=rand(STREAM_SHAPE, dt),
+                               c=rand(STREAM_SHAPE, dt), v=rand((vn,), dt),
+                               z=rand((vn,), dt),
+                               r=(1 + rand(STREAM_SHAPE, torch.float32)).to(dt))
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for dt_name in STREAM_DTYPES:               # the slice's main path
+        dt = getattr(torch, dt_name)
+        i = inputs[dt_name]
+        o = {"read": stream_read(i["r"]), "copy": stream_copy(i["x"]),
+             "init": stream_init(STREAM_SHAPE, STREAM_FILL, dt),
+             "triad": run_spec(ss.triad_spec, (i["b"], i["c"], STREAM_ALPHA),
+                               _DEFAULT)}
+        for la, cfg in cfgs.items():
+            o[f"copy_la{la}"] = stream_copy_manual(i["x"], config=cfg)
+            o[f"triad_la{la}"] = run_spec(
+                ss.triad_spec, (i["b"], i["c"], STREAM_ALPHA), cfg)
+            o[f"init_la{la}"] = stream_init(STREAM_SHAPE, STREAM_FILL, dt,
+                                            config=cfg)
+        for la in GEMVER_SUM_LOOKAHEADS:
+            o[f"gemver_sum_la{la}"] = gemver_sum(
+                i["v"], i["z"], config=_DEFAULT.replace(lookahead=la))
+        outs[dt_name] = o
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: cuda.KERNELS[n].launches for n in names}
+    if counts != want:
+        raise AssertionError(f"stream: launches {counts}, expected {want}")
+    others = {n: k.launches for n, k in cuda.KERNELS.items()
+              if n not in names and k.launches}
+    if others:
+        raise AssertionError(f"stream: other kernels launched: {others}")
+    print(f"stream: main path ({', '.join(STREAM_DTYPES)}: read, copy, init, "
+          f"triad at D={d}, P={_DEFAULT.portion_unroll}; the K4 ring at "
+          f"lookahead {list(STREAM_LOOKAHEADS)}; gemver_sum at lookahead "
+          f"{list(GEMVER_SUM_LOOKAHEADS)}, vn={vn}) {wall:.3f} s host wall, "
+          f"launches {json.dumps(counts)} [{card}]")
+
+    def lost(t, first_row, n_rows, col0=0, ncols=None):
+        """The plain output with rows first_row ... first_row+n_rows-1 (of
+        columns col0 ... col0+ncols-1) zeroed, or set to -1 where they
+        are 0 already (a fill)."""
+        t = t.clone()
+        view = t.view(-1, t.shape[-1]) if t.ndim > 1 else t.view(1, -1)
+        cut = view[first_row:first_row + n_rows,
+                   col0:col0 + (ncols or view.shape[1])]
+        cut.copy_(torch.where(cut == 0, -1.0, 0.0).to(t.dtype))
+        return t
+
+    def hold(what, got, ref, limit, controls) -> tuple[float, str]:
+        if got.shape != ref.shape or got.dtype != ref.dtype:
+            raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype}, "
+                                 f"expected {tuple(ref.shape)} {ref.dtype}")
+        if not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"{what}: non-finite values")
+        if _excess(got, ref, limit) > 0:
+            raise AssertionError(f"{what}: disagrees with its plain version "
+                                 "beyond the limit")
+        seen = []
+        for name, control in controls.items():
+            if _excess(control, ref, limit) <= 0:
+                raise AssertionError(f"{what}: the {name} control stays "
+                                     "inside the limit")
+            seen.append(f"{name} max|d|="
+                        f"{float((control.float() - ref.float()).abs().max()):.4g}")
+        err = float((got.float() - ref.float()).abs().max())
+        return err, ", ".join(seen)
+
+    def report(name, shape, err, ctl, ms, plain_ms, nbytes, flops, lib_ms,
+               lib_name, entry: bool):
+        bms, by = bound_ms(nbytes, flops)
+        print(f"{name} {shape}: max_abs_err={err:g}; controls {ctl}; "
+              f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bms:.6f} "
+              f"({by}) library_ms="
+              + ("none" if lib_ms is None else f"{lib_ms:.5f} ({lib_name})")
+              + f" [{card}]")
+        if entry:
+            results[name] = dict(
+                name=name, route="cuda", source=STREAM_SOURCES[name][0],
+                replaces=STREAM_SOURCES[name][1], launches=counts[name],
+                ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                library_ms=lib_ms, max_abs_err=err, shape=shape)
+
+    n = rows * cols
+    for dt_name in STREAM_DTYPES:
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        i, o = inputs[dt_name], outs[dt_name]
+        entry = dt_name == "float32"
+        tag = f"[{rows}, {cols}] {dt_name}"
+        x, b, c = i["x"], i["b"], i["c"]
+
+        def sets(k):
+            return _copies(lambda: tuple(rand(STREAM_SHAPE, dt)
+                                         for _ in range(k)), k * n * isz)
+
+        # K2: the read, both passes, then the merge alone
+        r = i["r"]
+        ref = stream_read(r, mode="ref")
+        x2 = r.reshape(d, -1)
+        bp = plan_blocks(ss.read_spec(x2), _DEFAULT)
+        spc, chunks = sk.read_chunks(bp, sms)
+        drop = x2.clone()
+        drop[1] = 0
+        drop_chunk = x2.clone()
+        drop_chunk[1, :spc * 128] = 0
+        terms = r.float().abs().reshape(d, -1).sum(1)
+        limit = _dot_limit(terms, ref, seg * cols)
+        err, ctl = hold(f"stream_read {dt_name}", o["read"], ref, limit,
+                        {"lost stream": stream_read(drop.reshape(r.shape),
+                                                    mode="ref"),
+                         "lost chunk": stream_read(drop_chunk.reshape(r.shape),
+                                                   mode="ref")})
+        ctl += (f"; limit {float(limit.min()):.4g}-{float(limit.max()):.4g} "
+                f"(x = 1 + N(0, 1))")
+        # pass 1 alone against its plain version at the same chunking: a
+        # chunk sums at most spc*128 terms of a stream, so its limit is
+        # tight enough to see one chunk lost, the ragged last one included
+        spec_r = ss.read_spec(x2)
+        part = sk.read_split(spec_r, bp, x2, _DEFAULT)
+        part_ref = sk.read_split_plain(spec_r, bp, x2, spc, chunks)
+        w = spc * 128
+        ax = x2.float().abs()
+        pterms = torch.stack([ax[:, q * w:(q + 1) * w].sum(1)
+                              for q in range(chunks)])
+        del ax
+        plimit = _dot_limit(pterms, part_ref, w)
+        last = x2.shape[1] // 128 - (chunks - 1) * spc
+        lost_s, lost_last = part_ref.clone(), part_ref.clone()
+        lost_s[:, 1] = 0
+        lost_last[-1, 1] = 0
+        err_p, ctl_p = hold(
+            f"stream_read pass 1 {dt_name}", part, part_ref, plimit,
+            {"lost stream": lost_s,
+             f"lost last chunk ({last} of {spc} sub-portions)": lost_last})
+        ctl += (f"; pass 1 vs its plain version at {chunks} chunks of "
+                f"{spc} sub-portions: max|d|={err_p:.4g}, limit "
+                f"{float(plimit.min()):.4g}-{float(plimit.max()):.4g}, "
+                f"controls {ctl_p}")
+        del lost_s, lost_last, part_ref
+        s1 = sets(1)
+        report("stream_read", f"x {tag}, D={d}, {chunks} chunks, both passes",
+               err, ctl, device_ms(lambda a: stream_read(a), s1),
+               device_ms(lambda a: stream_read(a, mode="ref"), s1),
+               n * isz + d * 4, float(n), device_ms(
+                   lambda a: a.view(d, -1).sum(1, dtype=torch.float32), s1),
+               "x.view(D, -1).sum(1, dtype=float32)", entry)
+        m_k, m_p = sk.read_merge(part), sk.read_merge_plain(part)
+        lost_part = part.clone()
+        lost_part[:, 1] = 0
+        err_m, ctl_m = hold(f"stream_read_merge {dt_name}", m_k, m_p,
+                            chunks * GAMMA * part.abs().sum(0),
+                            {"lost stream": sk.read_merge_plain(lost_part)})
+        psets = [(part.clone(),) for _ in range(64)]
+        report("stream_read_merge", f"partials [{chunks}, {d}] f32",
+               err_m, ctl_m, device_ms(lambda p: sk.read_merge(p), psets),
+               device_ms(lambda p: sk.read_merge_plain(p), psets),
+               part.numel() * 4 + d * 4, float(part.numel()),
+               device_ms(lambda p: p.sum(0), psets), "part.sum(0)", entry)
+        del drop, drop_chunk, part, psets
+
+        # K1: copy, init, triad
+        ref = stream_copy(x, mode="ref")
+        err, ctl = hold(f"stream_copy {dt_name}", o["copy"], ref, 0.0,
+                        {"lost stream": lost(ref, seg, seg)})
+        report("stream_copy", f"x {tag}, D={d}, P={_DEFAULT.portion_unroll}",
+               err, ctl, device_ms(lambda a: stream_copy(a), s1),
+               device_ms(lambda a: stream_copy(a, mode="ref"), s1),
+               2 * n * isz, 0.0, device_ms(lambda a: a.clone(), s1),
+               "x.clone()", entry)
+        ref = stream_init(STREAM_SHAPE, STREAM_FILL, dt, mode="ref")
+        err, ctl = hold(f"stream_init {dt_name}", o["init"], ref, 0.0,
+                        {"lost stream": lost(ref, seg, seg)})
+        report("stream_init", f"y {tag}, D={d}, P={_DEFAULT.portion_unroll}",
+               err, ctl,
+               device_ms(lambda: stream_init(STREAM_SHAPE, STREAM_FILL, dt),
+                         [()]),
+               device_ms(lambda: stream_init(STREAM_SHAPE, STREAM_FILL, dt,
+                                             mode="ref"), [()]),
+               n * isz, 0.0,
+               device_ms(lambda: torch.full(STREAM_SHAPE, STREAM_FILL,
+                                            dtype=dt, device="cuda"), [()]),
+               "torch.full", entry)
+        ref = run_spec(ss.triad_spec, (b, c, STREAM_ALPHA), _DEFAULT,
+                       mode="ref")
+        err, ctl = hold(f"stream_triad {dt_name}", o["triad"], ref, 0.0,
+                        {"lost stream": lost(ref, seg, seg)})
+        s2 = sets(2)
+        report("stream_triad", f"b, c {tag}, D={d}, "
+               f"P={_DEFAULT.portion_unroll}, alpha={STREAM_ALPHA}", err, ctl,
+               device_ms(lambda b_, c_: run_spec(
+                   ss.triad_spec, (b_, c_, STREAM_ALPHA), _DEFAULT), s2),
+               device_ms(lambda b_, c_: run_spec(
+                   ss.triad_spec, (b_, c_, STREAM_ALPHA), _DEFAULT,
+                   mode="ref"), s2),
+               3 * n * isz, 2.0 * n,
+               device_ms(lambda b_, c_: torch.add(b_, c_, alpha=STREAM_ALPHA),
+                         s2), "torch.add(b, c, alpha)", entry)
+
+        # K4: the ring's bodies at each lookahead
+        bp = plan_blocks(ss.copy_spec(x), _DEFAULT)
+        for la, cfg in cfgs.items():
+            rings = {}
+            for body, n_in in (("copy", 1), ("triad", 2), ("fill", 0)):
+                tw = manual.ring_tile(bp, cfg, dt, smem_limit, n_in)
+                rings[body] = (tw, manual.ring_smem(n_in, 1, d, bp.bm, tw,
+                                                    la, isz))
+            geo = ", ".join(f"{k} {tw} columns / {sm} B" for k, (tw, sm)
+                            in rings.items())
+            la_entry = entry and la == 3
+            shape = (f"{tag}, D={d}, bm={bp.bm}, lookahead {la}; step tile "
+                     f"{geo}")
+
+            def controls(ref, tw):
+                return {"lost stream": lost(ref, seg, seg),
+                        "lost tile": lost(ref, seg, bp.bm, 0, tw)}
+            ref = stream_copy(x, mode="ref")
+            err, ctl = hold(f"manual_ring_copy {dt_name} la={la}",
+                            o[f"copy_la{la}"], ref, 0.0,
+                            controls(ref, rings["copy"][0]))
+            report("manual_ring_copy", f"x {shape}", err, ctl,
+                   device_ms(lambda a: stream_copy_manual(a, config=cfg), s1),
+                   device_ms(lambda a: stream_copy_manual(a, config=cfg,
+                                                          mode="ref"), s1),
+                   2 * n * isz, 0.0, device_ms(lambda a: a.clone(), s1),
+                   "x.clone()", la_entry)
+            ref = run_spec(ss.triad_spec, (b, c, STREAM_ALPHA), cfg,
+                           mode="ref")
+            err, ctl = hold(f"manual_ring_triad {dt_name} la={la}",
+                            o[f"triad_la{la}"], ref, 0.0,
+                            controls(ref, rings["triad"][0]))
+            report("manual_ring_triad", f"b, c {shape}", err, ctl,
+                   device_ms(lambda b_, c_: run_spec(
+                       ss.triad_spec, (b_, c_, STREAM_ALPHA), cfg), s2),
+                   device_ms(lambda b_, c_: run_spec(
+                       ss.triad_spec, (b_, c_, STREAM_ALPHA), cfg,
+                       mode="ref"), s2),
+                   3 * n * isz, 2.0 * n,
+                   device_ms(lambda b_, c_: torch.add(
+                       b_, c_, alpha=STREAM_ALPHA), s2),
+                   "torch.add(b, c, alpha)", la_entry)
+            ref = stream_init(STREAM_SHAPE, STREAM_FILL, dt, mode="ref")
+            err, ctl = hold(f"manual_ring_fill {dt_name} la={la}",
+                            o[f"init_la{la}"], ref, 0.0,
+                            controls(ref, rings["fill"][0]))
+            report("manual_ring_fill", f"y {shape}", err, ctl,
+                   device_ms(lambda: stream_init(STREAM_SHAPE, STREAM_FILL,
+                                                 dt, config=cfg), [()]),
+                   device_ms(lambda: stream_init(STREAM_SHAPE, STREAM_FILL,
+                                                 dt, config=cfg, mode="ref"),
+                             [()]),
+                   n * isz, 0.0,
+                   device_ms(lambda: torch.full(STREAM_SHAPE, STREAM_FILL,
+                                                dtype=dt, device="cuda"),
+                             [()]), "torch.full", la_entry)
+        cols_v = 128 * _DEFAULT.portion_unroll
+        vrows = -(-vn // cols_v)
+        for la in GEMVER_SUM_LOOKAHEADS:
+            cfg = _DEFAULT.replace(lookahead=la)
+            ref = gemver_sum(i["v"], i["z"], config=cfg, mode="ref")
+            tile_rows = vrows // d
+            err, ctl = hold(f"manual_ring_gemver_sum {dt_name} la={la}",
+                            o[f"gemver_sum_la{la}"], ref, 0.0,
+                            {"lost stream": lost(ref.view(vrows, cols_v),
+                                                 tile_rows,
+                                                 tile_rows).view(-1)})
+            vsets = _copies(lambda: (rand((vn,), dt), rand((vn,), dt)),
+                            2 * vn * isz)
+            report("manual_ring_gemver_sum",
+                   f"x, z [{vn}] {dt_name} ({vrows} x {cols_v} tiles, D={d}, "
+                   f"lookahead {la})", err, ctl,
+                   device_ms(lambda a, z_: gemver_sum(a, z_, config=cfg),
+                             vsets),
+                   device_ms(lambda a, z_: gemver_sum(a, z_, config=cfg,
+                                                      mode="ref"), vsets),
+                   3 * vn * isz, float(vn),
+                   device_ms(lambda a, z_: a + z_, vsets), "x + z",
+                   entry and la == 3)
+            del vsets
+        del s1, s2, ref
+        outs[dt_name] = None
+        torch.cuda.empty_cache()
+
+    # Fig. 2 on the card: copy, read and init against D (lines only), and
+    # copy against lookahead at D = 4
+    x = inputs["float32"]["x"]
+    s1 = _copies(lambda: (rand(STREAM_SHAPE, torch.float32),), n * 4)
+    for dd in (1, 2, 4, 8, 16):
+        cfg = _DEFAULT.replace(stride_unroll=dd)
+        t_copy = device_ms(lambda a: stream_copy(a, config=cfg), s1)
+        t_read = device_ms(lambda a: stream_read(a, config=cfg), s1)
+        t_init = device_ms(lambda: stream_init(STREAM_SHAPE, STREAM_FILL,
+                                               config=cfg), [()])
+        print(f"stream sweep D={dd} P={cfg.portion_unroll} [{rows}, {cols}] "
+              f"f32: copy ms={t_copy:.5f} read ms={t_read:.5f} init "
+              f"ms={t_init:.5f} (bounds 0.080, 0.040, 0.040) [{card}]")
+    for la in (1, 2, 3, 4):
+        cfg = _DEFAULT.replace(lookahead=la)
+        t = device_ms(lambda a: stream_copy_manual(a, config=cfg), s1)
+        print(f"stream sweep lookahead={la} D={cfg.stride_unroll} "
+              f"P={cfg.portion_unroll} [{rows}, {cols}] f32: "
+              f"stream_copy_manual ms={t:.5f} "
+              f"({'K1' if la == 2 else 'K4'}) [{card}]")
+    # the ring at one lookahead against the rows of a step (block_rows):
+    # the same stage bytes in fewer, longer row pieces
+    for bm in (8, 4, 2, 1):
+        cfg = _DEFAULT.replace(lookahead=3, block_rows=bm)
+        bp = plan_blocks(ss.copy_spec(x), cfg)
+        tw = manual.ring_tile(bp, cfg, torch.float32, smem_limit)
+        t = device_ms(lambda a: stream_copy_manual(a, config=cfg), s1)
+        print(f"stream sweep K4 copy lookahead=3 D={d} bm={bp.bm} "
+              f"[{rows}, {cols}] f32: step tile {tw} columns, {d * bp.bm} "
+              f"row pieces of {tw * 4} B a step: ms={t:.5f} [{card}]")
+    del s1, inputs, outs
+    torch.cuda.empty_cache()
+    print(f"stream: phase took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+
+
+STREAM_SOURCES = {
+    "stream_read": ("src/repro_torch/csrc/stream.cu",
+                    "src/repro/codegen/emit.py:491"),
+    "stream_read_merge": ("src/repro_torch/csrc/stream.cu",
+                          "src/repro/codegen/emit.py:491"),
+    "stream_copy": ("src/repro_torch/csrc/stream.cu",
+                    "src/repro/codegen/emit.py:410"),
+    "stream_init": ("src/repro_torch/csrc/stream.cu",
+                    "src/repro/codegen/emit.py:410"),
+    "stream_triad": ("src/repro_torch/csrc/stream.cu",
+                     "src/repro/codegen/emit.py:410"),
+    "manual_ring_copy": ("src/repro_torch/csrc/manual_ring.cu",
+                         "src/repro/codegen/emit.py:708"),
+    "manual_ring_triad": ("src/repro_torch/csrc/manual_ring.cu",
+                          "src/repro/codegen/emit.py:708"),
+    "manual_ring_fill": ("src/repro_torch/csrc/manual_ring.cu",
+                         "src/repro/codegen/emit.py:708"),
+    "manual_ring_gemver_sum": ("src/repro_torch/csrc/manual_ring.cu",
+                               "src/repro/codegen/emit.py:708"),
+}
+
+
 def phase_serve(card: str):
     import numpy as np
     import torch
@@ -811,6 +1229,7 @@ def main() -> int:
     check_rmsnorm(card, results)
     check_decode(card, results)
     phase_linalg(card, results)
+    phase_stream(card, results)
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 

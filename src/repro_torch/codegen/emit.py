@@ -15,7 +15,9 @@ plan (D streams, bm rows, bn lanes), the §5.1.2 pad-and-crop of the
 operands, the §5.1.1 loop blocking of 1-D nests into a 2-D tile grid
 (:func:`block_1d`), and the template's refusals.  It then hands the padded
 operands and the :class:`~repro_torch.codegen.transforms.BlockPlan` to
-the kernel registered for the spec's name in :data:`HAND_KERNELS`.  A
+the kernel registered for the spec's name in :data:`HAND_KERNELS`, or,
+for a spec the JAX package lowers through K4, to the K4 ring
+(``kernels/manual.py``), which takes the bodies in its ``BODIES``.  A
 spec with no ported kernel raises ``NotImplementedError`` naming the
 template and the instance still to port — there is no silent fallback
 to the plain version.
@@ -39,8 +41,8 @@ __all__ = ["HAND_KERNELS", "template_of", "block_1d", "emit_spec",
            "run_spec"]
 
 # spec name → module whose ``emit(spec, bp, arrays, scalars, config)``
-# launches the hand-written kernel for that instance (imported at first
-# use)
+# launches the hand-written K1-K3 kernel for that instance (imported at
+# first use); K4 specs go to _MANUAL whatever their name
 HAND_KERNELS = {
     "rmsnorm": "repro_torch.kernels.rmsnorm.kernel",
     "decode_attn_spec": "repro_torch.kernels.decode_attn.kernel",
@@ -51,7 +53,12 @@ HAND_KERNELS = {
     "bicg_s": "repro_torch.kernels.mxv.kernel",
     "gemver_outer": "repro_torch.kernels.gemver.kernel",
     "gemver_sum": "repro_torch.kernels.gemver.kernel",
+    "stream_copy": "repro_torch.kernels.stream.kernel",
+    "stream_triad": "repro_torch.kernels.stream.kernel",
+    "stream_init": "repro_torch.kernels.stream.kernel",
+    "stream_read": "repro_torch.kernels.stream.kernel",
 }
+_MANUAL = "repro_torch.kernels.manual"
 
 _TEMPLATES = {
     "K1": "_emit_streaming (src/repro/codegen/emit.py:410)",
@@ -102,11 +109,13 @@ def template_of(spec: loopir.TraversalSpec, config: StridingConfig,
 
 def _hand_kernel(spec: loopir.TraversalSpec, config: StridingConfig,
                  info: loopir.NestInfo) -> Callable:
-    path = HAND_KERNELS.get(spec.name)
     t = template_of(spec, config, info)
-    if path is None or t == "K4":
-        # the hand kernels are instances of K1-K3; a spec the JAX package
-        # lowers through K4 (lookahead != 2) waits for that template
+    if t == "K4":
+        manual = importlib.import_module(_MANUAL)
+        path = _MANUAL if spec.name in manual.BODIES else None
+    else:
+        path = HAND_KERNELS.get(spec.name)
+    if path is None:
         raise NotImplementedError(
             f"{spec.name}: no hand-written Hopper kernel yet — its TPU "
             f"kernel is template {t} {_TEMPLATES[t]} with the "
@@ -147,8 +156,11 @@ def block_1d(spec: loopir.TraversalSpec, config: StridingConfig,
     """§5.1.1 loop blocking of a 1-D nest, as the JAX package's
     ``_emit_blocked``: the single axis of extent n is tiled into a
     ``[ceil(n / 128·P), 128·P]`` grid.  Returns the 2-D spec (its
-    accesses remapped to ``(<axis>__blk, <axis>__lane)``) and n."""
-    info = loopir.classify(spec)
+    accesses remapped to ``(<axis>__blk, <axis>__lane)``) and n.
+    ``info`` is ``loopir.classify(spec)`` where the caller has it
+    already."""
+    if info is None:
+        info = loopir.classify(spec)
     ax = spec.axis(info.stride_axis)
     n = ax.extent
     cols = transforms.LANE * config.portion_unroll
@@ -186,11 +198,12 @@ def _emit_blocked(spec: loopir.TraversalSpec, info: loopir.NestInfo,
 
 
 def emit_spec(spec: loopir.TraversalSpec, inputs: Sequence,
-              config: StridingConfig):
+              config: StridingConfig, device=None):
     """The whole pipeline for one call on the card: plan blocks → refuse
     what the template refuses → pad operands → hand kernel → crop to
     the original domain.  1-D nests are loop-blocked into a 2-D tile
-    grid first (§5.1.1)."""
+    grid first (§5.1.1).  A writes-only spec has no operand to take a
+    device from: its kernel makes its output on ``device``."""
     n = len(spec.reads)
     if len(inputs) != n + len(spec.scalars):
         raise ValueError(f"{spec.name}: expected {n} arrays + "
@@ -215,7 +228,14 @@ def emit_spec(spec: loopir.TraversalSpec, inputs: Sequence,
     spec_p = dataclasses.replace(spec, axes=tuple(
         dataclasses.replace(ax, extent=targets.get(ax.name, ax.extent))
         for ax in spec.axes))
-    out = kernel(spec_p, bp, arrays, scalars, config)
+    if spec.reads:
+        out = kernel(spec_p, bp, arrays, scalars, config)
+    else:
+        if device is None:
+            raise ValueError(f"{spec.name}: a writes-only spec needs the "
+                             "device to make its output on")
+        out = kernel(spec_p, bp, arrays, scalars, config,
+                     device=torch.device(device))
     outs = out if isinstance(out, tuple) else (out,)
     res = tuple(o[tuple(slice(0, s) for s in shape)]
                 for o, shape in zip(outs, spec.out_shapes()))
@@ -224,13 +244,21 @@ def emit_spec(spec: loopir.TraversalSpec, inputs: Sequence,
 
 def run_spec(build_spec: Callable[..., loopir.TraversalSpec],
              inputs: Sequence, config: StridingConfig,
-             mode: Optional[str] = None):
+             mode: Optional[str] = None, device=None):
     """Device-dispatched spec execution: ``mode="ref"`` (or CPU inputs)
     runs the plain PyTorch version; CUDA inputs run the hand kernel or
-    raise."""
+    raise.  The route follows the first input's device, or ``device``
+    where it is given; a writes-only spec (whose inputs are scalars
+    only) must give it."""
     # imported here: the kernels package imports the codegen at its top
     from repro_torch.kernels import common
     spec = build_spec(*inputs)
-    if common.kernel_mode(inputs[0], mode) == "ref":
-        return loopir.evaluate(spec, inputs)
-    return emit_spec(spec, inputs, config)
+    if device is None:
+        if not spec.reads:
+            raise ValueError(f"{spec.name}: a writes-only spec needs an "
+                             "explicit device")
+        device = inputs[0].device
+    device = torch.device(device)
+    if common.kernel_mode(device, mode) == "ref":
+        return loopir.evaluate(spec, inputs, device=device)
+    return emit_spec(spec, inputs, config, device=device)

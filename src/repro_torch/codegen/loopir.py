@@ -419,7 +419,7 @@ def traffic_of(spec: TraversalSpec, dtype=torch.float32,
 
 # ----------------------------------------------------- ref interpreter
 
-def evaluate(spec: TraversalSpec, inputs: Sequence[Any]):
+def evaluate(spec: TraversalSpec, inputs: Sequence[Any], device=None):
     """The plain PyTorch version of a spec (``mode="ref"``).
 
     The body is applied once over the full iteration domain — haloed
@@ -427,7 +427,8 @@ def evaluate(spec: TraversalSpec, inputs: Sequence[Any]):
     reduce over the full vector extent.  A paired-state combinator's
     partial state (one block covering the whole domain) is finalized
     here; multi-write bodies return one block per write.  It runs on
-    whatever device the inputs lie on.
+    whatever device the inputs lie on; a writes-only spec, whose inputs
+    are scalars, makes its output on ``device`` (default: the CPU).
     """
     if len(inputs) != len(spec.reads) + len(spec.scalars):
         raise ValueError(
@@ -459,6 +460,12 @@ def evaluate(spec: TraversalSpec, inputs: Sequence[Any]):
     res = []
     for o, shape, dt in zip(outs, spec.out_shapes(),
                             spec.out_dtypes(arrays)):
+        if not spec.reads and not isinstance(o, torch.Tensor):
+            # a writes-only body's scalar, made on the device without a
+            # host copy (so it can be captured in a CUDA graph), in the
+            # type torch.as_tensor gives it
+            o = torch.full(shape, o, dtype=torch.as_tensor(o).dtype,
+                           device=device)
         o = torch.as_tensor(o)
         if tuple(o.shape) != shape and not spec.reads:
             o = o.broadcast_to(shape)   # writes-only / fill bodies

@@ -1,8 +1,8 @@
 // Shared helpers of the hand-written Hopper kernels: element-type
 // conversion (of one value, and of packed 16-bit / 32-bit words) to f32
 // and back, vector loads and stores, the D-stream row sweep of the row
-// templates and its column step, and the error-string export every
-// library carries.
+// templates, its column step and its elementwise body, and the
+// error-string export every library carries.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -155,7 +155,7 @@ __device__ __forceinline__ void load_stream_step(
 }
 
 // The D-stream row sweep of the row templates (K2 reduction.cu, K1
-// gemver.cu).  The rows of a row-major [rows, cols] array are split into
+// gemver.cu and stream.cu).  The rows of a row-major [rows, cols] array are split into
 // d segments of seg = rows / d; block j owns the row slots j*bm ...
 // j*bm + bm - 1 of every segment, one warp per slot (a block has
 // sweep_warps(bm) warps; a warp takes every nwarps-th slot).  For each
@@ -206,3 +206,37 @@ inline bool bad_sweep_geometry(int rows, int cols, int d, int bm, int ns) {
 inline int sweep_warps(int bm) {
   return bm < SWEEP_MAX_WARPS ? bm : SWEEP_MAX_WARPS;
 }
+
+// The elementwise body of row_sweep (the K1 instances of gemver.cu and
+// stream.cu): Op loads a column step of its operands (the first into v;
+// a writes-only Op loads nothing) and gives the output of stream k,
+// sub-portion p, element e, which is stored to o, 16 bytes a lane in
+// f32.
+template <typename T, typename Op>
+struct Elementwise {
+  Op op;
+  T* o;
+  int cols;
+
+  __device__ __forceinline__ void begin(int) {}
+  __device__ __forceinline__ void end(int, int, int, int) {}
+
+  __device__ __forceinline__ void step(int rk, int seg, int nk, int c0,
+                                       int np, bool interleaved, int lane) {
+    float v[SWEEP_KMAX][SWEEP_PMAX][4];
+    op.load(rk, seg, nk, c0, np, interleaved, lane, v);
+#pragma unroll
+    for (int k = 0; k < SWEEP_KMAX; ++k) {
+#pragma unroll
+      for (int p = 0; p < SWEEP_PMAX; ++p) {
+        if (k < nk && p < np) {
+          float out[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) out[e] = op(k, p, e, v[k][p][e]);
+          store_f32<T, 4>(o + static_cast<size_t>(rk + k * seg) * cols +
+                              c0 + p * SUB + lane * 4, out);
+        }
+      }
+    }
+  }
+};

@@ -34,38 +34,6 @@ namespace {
 
 constexpr int KMAX = SWEEP_KMAX, PMAX = SWEEP_PMAX;
 
-// The elementwise body of row_sweep: Op loads a column step of its
-// operands (the first into v) and gives the output of stream k,
-// sub-portion p, element e, which is stored to o.
-template <typename T, typename Op>
-struct Elementwise {
-  Op op;
-  T* o;
-  int cols;
-
-  __device__ __forceinline__ void begin(int) {}
-  __device__ __forceinline__ void end(int, int, int, int) {}
-
-  __device__ __forceinline__ void step(int rk, int seg, int nk, int c0,
-                                       int np, bool interleaved, int lane) {
-    float v[KMAX][PMAX][4];
-    op.load(rk, seg, nk, c0, np, interleaved, lane, v);
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-#pragma unroll
-      for (int p = 0; p < PMAX; ++p) {
-        if (k < nk && p < np) {
-          float out[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) out[e] = op(k, p, e, v[k][p][e]);
-          store_f32<T, 4>(o + static_cast<size_t>(rk + k * seg) * cols +
-                              c0 + p * SUB + lane * 4, out);
-        }
-      }
-    }
-  }
-};
-
 template <typename T>
 struct OuterBody {
   const T* A;

@@ -20,19 +20,20 @@ __all__ = ["kernel_mode", "resolve_device", "effective_config",
            "resolve_config"]
 
 
-def kernel_mode(x: torch.Tensor, mode: Optional[str] = None) -> str:
-    """``"cuda"`` (hand kernel) for a CUDA tensor, ``"ref"`` (plain
-    version) for a CPU tensor or an explicit ``mode="ref"``."""
+def kernel_mode(x, mode: Optional[str] = None) -> str:
+    """``"cuda"`` (hand kernel) for a CUDA tensor or device, ``"ref"``
+    (plain version) for a CPU one or an explicit ``mode="ref"``."""
     if mode == "ref":
         return "ref"
     if mode is not None:
         raise ValueError(f"unknown kernel mode {mode!r}: pass None "
                          "(dispatch by device) or 'ref'")
-    if x.device.type == "cuda":
+    dev = x if isinstance(x, torch.device) else x.device
+    if dev.type == "cuda":
         return "cuda"
-    if x.device.type == "cpu":
+    if dev.type == "cpu":
         return "ref"
-    raise ValueError(f"no kernels for device {x.device}")
+    raise ValueError(f"no kernels for device {dev}")
 
 
 def resolve_device(device=None) -> torch.device:

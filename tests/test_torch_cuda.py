@@ -19,10 +19,14 @@ from repro_torch.kernels.decode_attn import ops as tdops
 from repro_torch.kernels.gemver import kernel as gkernel
 from repro_torch.kernels.gemver import ops as tgops
 from repro_torch.kernels.gemver import specs as tgspecs
+from repro_torch.kernels import manual as tmanual
 from repro_torch.kernels.mxv import kernel as mkernel
 from repro_torch.kernels.mxv import ops as tmops
 from repro_torch.kernels.rmsnorm import kernel as rkernel
 from repro_torch.kernels.rmsnorm import ops as trops
+from repro_torch.kernels.stream import kernel as skernel
+from repro_torch.kernels.stream import ops as tsops
+from repro_torch.kernels.stream import specs as tsspecs
 
 RMS_TOL = 1e-5
 # bf16 outputs: a reassociated f32 row sum can flip one bf16 rounding —
@@ -305,9 +309,172 @@ def test_linalg_wrappers_raise_on_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):                   # not contiguous
         tmops.mxv_t(torch.randn(256, 512, device=cuda_device)[:, ::2],
                     torch.randn(256, device=cuda_device))
-    with pytest.raises(NotImplementedError):          # K4: lookahead != 2
-        tgops.gemver_sum(x, x, config=TConfig(4, 1, lookahead=3))
+    with pytest.raises(ValueError):                   # K4 ring too large
+        tgops.gemver_sum(x, x, config=TConfig(16, 1, lookahead=64))
     with pytest.raises(NotImplementedError):          # instance to port
         run_spec(tgspecs.gemver_mxv2_spec, (a, x, 1.5), TConfig(4, 2))
     with pytest.raises(ValueError):                   # stride axis unpadded
         run_spec(tmops.specs.mxv_t_spec, (a[:63], x[:63]), TConfig(4, 2))
+
+
+# ------------------------------------------- stream family and the K4 ring
+
+STREAM_SHAPES = [(512, 1024), (200, 1000)]     # the second is ragged
+ALPHA = 1.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", DPS)
+@pytest.mark.parametrize("m,n", STREAM_SHAPES)
+def test_stream_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
+    """K1 copy, triad and init equal their plain versions bit for bit;
+    the K2 read's two passes agree within the f32 sum limit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p + 2)
+    x, c = (_rand(gen, (m, n), cuda_device, dtype) for _ in range(2))
+    cfg = TConfig(d, p, arrangement=arr)
+    kernels = (skernel.COPY, skernel.TRIAD, skernel.INIT, skernel.READ,
+               skernel.READ_MERGE)
+    before = [k.launches for k in kernels]
+    y = tsops.stream_copy(x, config=cfg)
+    a = run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg)
+    f = tsops.stream_init((m, n), 3.7, dtype, config=cfg, device=cuda_device)
+    r = tsops.stream_read(x, config=cfg)
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    assert torch.equal(y, x)
+    assert torch.equal(a, run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg,
+                                   mode="ref"))
+    assert torch.equal(f, tsops.stream_init((m, n), 3.7, dtype, config=cfg,
+                                            mode="ref", device=cuda_device))
+    rr = tsops.stream_read(x, config=cfg, mode="ref")
+    assert r.shape == rr.shape == (cfg.stride_unroll,)
+    seg = m // cfg.stride_unroll
+    terms = x.float().abs().reshape(cfg.stride_unroll, -1).sum(1)
+    limit = 2 * _dot_factor(seg * n) * GAMMA * terms + 2 * GAMMA * rr.abs()
+    assert bool(((r - rr).abs() <= limit).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", DPS)
+def test_stream_read_pass1_matches_plain_chunk_by_chunk(cuda_device, dtype,
+                                                        arr, d, p):
+    """Pass 1 of the read against its plain version at the card's own
+    chunking, each chunk under the f32 sum limit of its own length, on
+    a stream row whose last chunk is ragged; losing that chunk would
+    land outside the limit."""
+    from repro_torch.codegen import plan_blocks
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    nsub = 2 * sms * 7 + 3               # sub-portions of a stream row: odd
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p + 4)
+    x2 = (1 + _rand(gen, (d, nsub * 128), cuda_device,
+                    torch.float32)).to(dtype)
+    cfg = TConfig(d, p, arrangement=arr)
+    spec = tsspecs.read_spec(x2)
+    bp = plan_blocks(spec, cfg)
+    spc, chunks = skernel.read_chunks(bp, sms)
+    assert nsub % spc != 0               # 8 sub-portions a chunk, 3 in the last
+    part = skernel.read_split(spec, bp, x2, cfg)
+    ref = skernel.read_split_plain(spec, bp, x2, spc, chunks)
+    assert part.shape == ref.shape == (chunks, d)
+    w = spc * 128
+    ax = x2.float().abs()
+    terms = torch.stack([ax[:, q * w:(q + 1) * w].sum(1)
+                         for q in range(chunks)])
+    limit = 2 * _dot_factor(w) * GAMMA * terms + 2 * GAMMA * ref.abs()
+    assert bool(((part - ref).abs() <= limit).all())
+    assert float(ref[-1].abs().min()) > float(limit[-1].max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 4, 8])
+def test_stream_read_arrangements_give_the_same_bits(cuda_device, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = _rand(gen, (1024, 2048), cuda_device, torch.float32)
+    g, i = (tsops.stream_read(x, config=TConfig(d, 2, arrangement=arr))
+            for arr in ("grouped", "interleaved"))
+    assert torch.equal(g, i)
+
+
+def _ring_fits(spec, cfg, dtype, limit) -> bool:
+    """Whether the K4 ring of ``spec`` fits ``limit`` bytes at its
+    narrowest step (128 columns), on the blocked tiling of a 1-D nest."""
+    from repro_torch.codegen import block_1d, classify, plan_blocks
+    if classify(spec).blocked:
+        spec, _ = block_1d(spec, cfg)
+    bp = plan_blocks(spec, cfg)
+    return tmanual.ring_smem(len(spec.reads), 1, bp.d, bp.bm, 128,
+                             cfg.lookahead, dtype.itemsize) <= limit
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lookahead", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", DPS)
+@pytest.mark.parametrize("m,n", STREAM_SHAPES)
+def test_manual_ring_matches_plain(cuda_device, lookahead, dtype, arr, d, p,
+                                   m, n):
+    """Every K4 body (copy, triad, fill, gemver_sum) equals its plain
+    version bit for bit, and each call launches its ring once; a ring
+    that does not fit the card's shared memory even at 128 columns
+    (D=8 with two inputs at lookahead 3 or 4) raises ValueError and
+    launches nothing."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p + 3)
+    x, c = (_rand(gen, (m, n), cuda_device, dtype) for _ in range(2))
+    v, z = (_rand(gen, (m * n + 77,), cuda_device, dtype) for _ in range(2))
+    cfg = TConfig(d, p, lookahead=lookahead, arrangement=arr)
+    limit = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    cases = {
+        "stream_copy": (tsspecs.copy_spec, (x,),
+                        lambda: tsops.stream_copy_manual(x, config=cfg),
+                        lambda: tsops.stream_copy_manual(x, config=cfg,
+                                                         mode="ref")),
+        "stream_triad": (tsspecs.triad_spec, (x, c, ALPHA),
+                         lambda: run_spec(tsspecs.triad_spec, (x, c, ALPHA),
+                                          cfg),
+                         lambda: run_spec(tsspecs.triad_spec, (x, c, ALPHA),
+                                          cfg, mode="ref")),
+        "stream_init": (lambda value: tsspecs.init_spec((m, n), dtype, value),
+                        (-2.3,),
+                        lambda: tsops.stream_init((m, n), -2.3, dtype,
+                                                  config=cfg,
+                                                  device=cuda_device),
+                        lambda: tsops.stream_init((m, n), -2.3, dtype,
+                                                  config=cfg, mode="ref",
+                                                  device=cuda_device)),
+        "gemver_sum": (tgspecs.gemver_sum_spec, (v, z),
+                       lambda: tgops.gemver_sum(v, z, config=cfg),
+                       lambda: tgops.gemver_sum(v, z, config=cfg,
+                                                mode="ref")),
+    }
+    for name, (build, args, run, plain) in cases.items():
+        kernel = tmanual.BODIES[name]
+        before = kernel.launches
+        if _ring_fits(build(*args), cfg, dtype, limit):
+            out = run()
+            assert kernel.launches == before + 1, name
+            assert torch.equal(out, plain()), name
+        else:
+            with pytest.raises(ValueError, match="does not fit"):
+                run()
+            assert kernel.launches == before, name
+
+
+@pytest.mark.gpu
+def test_manual_ring_uses_the_opt_in_shared_memory(cuda_device):
+    """The widest tile of the bench copy at lookahead 4 needs more than
+    the 48 KB a launch gets without opting in, and still runs."""
+    x = torch.randn(8192, 4096, device=cuda_device)
+    cfg = TConfig(4, 2, lookahead=4)
+    limit = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    spec = tsspecs.copy_spec(x)
+    from repro_torch.codegen import plan_blocks
+    bp = plan_blocks(spec, cfg)
+    tw = tmanual.ring_tile(bp, cfg, torch.float32, limit)
+    assert tmanual.ring_smem(1, 1, bp.d, bp.bm, tw, 4, 4) > 48 * 1024
+    assert torch.equal(tsops.stream_copy_manual(x, config=cfg), x)

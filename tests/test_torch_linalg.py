@@ -279,17 +279,31 @@ def test_specs_off_the_path_have_plain_versions(name, which):
 
 
 @pytest.mark.parametrize("lookahead", [1, 3])
-def test_k4_specs_refuse_until_that_template_lands(lookahead):
-    """At lookahead != 2 the JAX package runs gemver_sum's blocked tiling
-    through K4 (``_emit_manual``), which the port has no kernel for yet:
-    the emitter raises naming it, on CPU tensors too."""
-    x = torch.zeros(1000)
-    spec = tgspecs.gemver_sum_spec(x, x)
-    cfg = TConfig(4, 2, lookahead=lookahead)
-    with pytest.raises(NotImplementedError, match="_emit_manual"):
-        tcg.emit_spec(spec, [x, x], cfg)
-    assert tcg.template_of(spec, cfg) == "K4"
-    torch.testing.assert_close(tgops.gemver_sum(x, x, config=cfg), x)
+def test_k4_specs_refuse_until_that_template_lands(monkeypatch, lookahead):
+    """Named for what it checked until the K4 template landed: at
+    lookahead != 2 the JAX package runs gemver_sum's blocked tiling
+    through K4 (``_emit_manual``).  The port's emitter now routes it to
+    its ring (``kernels/manual.py``), whose plain version on CPU tensors
+    equals the JAX kernel in interpret mode, with equal block plans."""
+    from repro.codegen import emit as jemit
+    from repro_torch.kernels import manual as tmanual
+    jb, tb, args, row = _spec_case("gemver_sum", "default", seed=5)
+    cfg = JConfig(4, 2, lookahead=lookahead)
+    seen = _plans(monkeypatch)
+    ran = []
+    for mod, key in ((jemit, "_emit_manual"), (tmanual, "emit")):
+        real = getattr(mod, key)
+
+        def spy(*a, _real=real, _key=key, **kw):
+            ran.append(_key)
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, key, spy)
+    want = jcg.emit_spec(jb(*_j(args)), _j(args), cfg, interpret=True)
+    got = _port_emit(tb(*_t(args)), _t(args), _tcfg(cfg))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert ran == ["_emit_manual", "emit"]
+    assert seen["port"] == seen["jax"] and len(seen["port"]) == 1
+    assert tcg.template_of(tb(*_t(args)), _tcfg(cfg)) == "K4"
 
 
 # ---------------------------------------------- two passes and oracles
