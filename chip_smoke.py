@@ -24,6 +24,14 @@ Phases (each raises on failure, so the script exits non-zero):
                 against its plain version (equality, or the f32 sum limit
                 for the read) with lost-stream and lost-step controls,
                 timed, and the D and lookahead sweeps of the paper's Fig. 2
+  3d. stencil — jacobi2d and conv3x3 at 2050 x 2048 and 16386 x 16384,
+                doitgen at (16, 256, 256) and (256, 256, 256) x (256, 256),
+                in f32 and at the smaller size in bf16, through their public
+                functions; each kernel against its plain version (equality
+                for the stencils, the f32 dot limit for doitgen) with
+                lost-stream, lost-tap and lost-tile controls, timed, and the
+                D sweep at the larger sizes, and the stencils' again at a
+                row pitch of 16386 elements
   4. serve    — Yi-9B at full width (random weights from a seeded
                 torch.Generator) serves 8 requests x 16 tokens through the
                 continuous-batching engine; the launch counts, reset just
@@ -52,7 +60,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-F32_FLOPS = 67e12               # H100 SXM f32 outside the tensor cores
+# H100 SXM dense peaks by operand type: f32 outside the tensor cores;
+# bf16 and f16 on the tensor cores (products exact in their f32 sums)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW, SERVE_REQUESTS = 4, 4096, 16, 8
 
@@ -96,8 +106,11 @@ def device_ms(fn, arg_sets, reps: int = 20, replays: int = 5) -> float:
     return ms
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float,
+             dtype: str = "float32") -> tuple[float, str]:
+    """The least time for the work: its bytes at the memory rate, or its
+    operations at the card's peak for the operands' ``dtype``."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -157,7 +170,8 @@ def check_rmsnorm(card: str, results: dict) -> None:
         plain = device_ms(lambda a, b: rops.rmsnorm(a, b, eps, mode="ref"),
                           sets)
         lib = device_ms(lambda a, b: F.rms_norm(a, (dm,), b, eps), sets)
-        bms, by = bound_ms(2 * t * dm * 2 + dm * 2 + 4 * t, 4.0 * t * dm)
+        bms, by = bound_ms(2 * t * dm * 2 + dm * 2 + 4 * t, 4.0 * t * dm,
+                           "bfloat16")
         print(f"rmsnorm t={t} dm={dm} bf16: max_abs_err={err_t:g} "
               f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} "
               f"({by}) library_ms={lib:.5f} (F.rms_norm) [{card}]")
@@ -247,7 +261,7 @@ def check_decode(card: str, results: dict) -> None:
         rows = int(kv_len.sum())
         nbytes = (2 * rows * hkv * dh * 2 + b * hq * dh * 2 + b * s * 4
                   + b * hq * dh * 4 + b * hq * 4)
-        bms, by = bound_ms(nbytes, 4.0 * rows * hq * dh)
+        bms, by = bound_ms(nbytes, 4.0 * rows * hq * dh, "bfloat16")
         d = bp.d
         nb_m = b * d * (2 * hq + hq * dh) * 4 + b * hq * dh * 4 + b * hq * 4
         bms_m, by_m = bound_ms(nb_m, 6.0 * b * d * hq * dh)
@@ -340,6 +354,31 @@ def _dot_limit(terms, ref, n: int):
 def _excess(got, ref, limit) -> float:
     """max (|got - ref| - limit): <= 0 inside the limit."""
     return float(((got.float() - ref.float()).abs() - limit).max())
+
+
+def _hold(what, got, ref, limit, controls) -> tuple[float, str]:
+    """Hold a kernel's output against its plain version: same shape and
+    dtype, finite, |got - ref| within ``limit``, and every control (a
+    plain output with a fault put in) above it.  Returns the max error
+    and a line of the controls' distances."""
+    import torch
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype}, "
+                             f"expected {tuple(ref.shape)} {ref.dtype}")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"{what}: non-finite values")
+    if _excess(got, ref, limit) > 0:
+        raise AssertionError(f"{what}: disagrees with its plain version "
+                             "beyond the limit")
+    seen = []
+    for name, control in controls.items():
+        if _excess(control, ref, limit) <= 0:
+            raise AssertionError(f"{what}: the {name} control stays "
+                                 "inside the limit")
+        seen.append(f"{name} max|d|="
+                    f"{float((control.float() - ref.float()).abs().max()):.4g}")
+    err = float((got.float() - ref.float()).abs().max())
+    return err, ", ".join(seen)
 
 
 def phase_linalg(card: str, results: dict) -> None:
@@ -694,28 +733,9 @@ def phase_stream(card: str, results: dict) -> None:
         cut.copy_(torch.where(cut == 0, -1.0, 0.0).to(t.dtype))
         return t
 
-    def hold(what, got, ref, limit, controls) -> tuple[float, str]:
-        if got.shape != ref.shape or got.dtype != ref.dtype:
-            raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype}, "
-                                 f"expected {tuple(ref.shape)} {ref.dtype}")
-        if not bool(torch.isfinite(got.float()).all()):
-            raise AssertionError(f"{what}: non-finite values")
-        if _excess(got, ref, limit) > 0:
-            raise AssertionError(f"{what}: disagrees with its plain version "
-                                 "beyond the limit")
-        seen = []
-        for name, control in controls.items():
-            if _excess(control, ref, limit) <= 0:
-                raise AssertionError(f"{what}: the {name} control stays "
-                                     "inside the limit")
-            seen.append(f"{name} max|d|="
-                        f"{float((control.float() - ref.float()).abs().max()):.4g}")
-        err = float((got.float() - ref.float()).abs().max())
-        return err, ", ".join(seen)
-
     def report(name, shape, err, ctl, ms, plain_ms, nbytes, flops, lib_ms,
                lib_name, entry: bool):
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(nbytes, flops, dt_name)   # the loop's dtype
         print(f"{name} {shape}: max_abs_err={err:g}; controls {ctl}; "
               f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bms:.6f} "
               f"({by}) library_ms="
@@ -753,7 +773,7 @@ def phase_stream(card: str, results: dict) -> None:
         drop_chunk[1, :spc * 128] = 0
         terms = r.float().abs().reshape(d, -1).sum(1)
         limit = _dot_limit(terms, ref, seg * cols)
-        err, ctl = hold(f"stream_read {dt_name}", o["read"], ref, limit,
+        err, ctl = _hold(f"stream_read {dt_name}", o["read"], ref, limit,
                         {"lost stream": stream_read(drop.reshape(r.shape),
                                                     mode="ref"),
                          "lost chunk": stream_read(drop_chunk.reshape(r.shape),
@@ -776,7 +796,7 @@ def phase_stream(card: str, results: dict) -> None:
         lost_s, lost_last = part_ref.clone(), part_ref.clone()
         lost_s[:, 1] = 0
         lost_last[-1, 1] = 0
-        err_p, ctl_p = hold(
+        err_p, ctl_p = _hold(
             f"stream_read pass 1 {dt_name}", part, part_ref, plimit,
             {"lost stream": lost_s,
              f"lost last chunk ({last} of {spc} sub-portions)": lost_last})
@@ -795,7 +815,7 @@ def phase_stream(card: str, results: dict) -> None:
         m_k, m_p = sk.read_merge(part), sk.read_merge_plain(part)
         lost_part = part.clone()
         lost_part[:, 1] = 0
-        err_m, ctl_m = hold(f"stream_read_merge {dt_name}", m_k, m_p,
+        err_m, ctl_m = _hold(f"stream_read_merge {dt_name}", m_k, m_p,
                             chunks * GAMMA * part.abs().sum(0),
                             {"lost stream": sk.read_merge_plain(lost_part)})
         psets = [(part.clone(),) for _ in range(64)]
@@ -808,7 +828,7 @@ def phase_stream(card: str, results: dict) -> None:
 
         # K1: copy, init, triad
         ref = stream_copy(x, mode="ref")
-        err, ctl = hold(f"stream_copy {dt_name}", o["copy"], ref, 0.0,
+        err, ctl = _hold(f"stream_copy {dt_name}", o["copy"], ref, 0.0,
                         {"lost stream": lost(ref, seg, seg)})
         report("stream_copy", f"x {tag}, D={d}, P={_DEFAULT.portion_unroll}",
                err, ctl, device_ms(lambda a: stream_copy(a), s1),
@@ -816,7 +836,7 @@ def phase_stream(card: str, results: dict) -> None:
                2 * n * isz, 0.0, device_ms(lambda a: a.clone(), s1),
                "x.clone()", entry)
         ref = stream_init(STREAM_SHAPE, STREAM_FILL, dt, mode="ref")
-        err, ctl = hold(f"stream_init {dt_name}", o["init"], ref, 0.0,
+        err, ctl = _hold(f"stream_init {dt_name}", o["init"], ref, 0.0,
                         {"lost stream": lost(ref, seg, seg)})
         report("stream_init", f"y {tag}, D={d}, P={_DEFAULT.portion_unroll}",
                err, ctl,
@@ -830,7 +850,7 @@ def phase_stream(card: str, results: dict) -> None:
                "torch.full", entry)
         ref = run_spec(ss.triad_spec, (b, c, STREAM_ALPHA), _DEFAULT,
                        mode="ref")
-        err, ctl = hold(f"stream_triad {dt_name}", o["triad"], ref, 0.0,
+        err, ctl = _hold(f"stream_triad {dt_name}", o["triad"], ref, 0.0,
                         {"lost stream": lost(ref, seg, seg)})
         s2 = sets(2)
         report("stream_triad", f"b, c {tag}, D={d}, "
@@ -862,7 +882,7 @@ def phase_stream(card: str, results: dict) -> None:
                 return {"lost stream": lost(ref, seg, seg),
                         "lost tile": lost(ref, seg, bp.bm, 0, tw)}
             ref = stream_copy(x, mode="ref")
-            err, ctl = hold(f"manual_ring_copy {dt_name} la={la}",
+            err, ctl = _hold(f"manual_ring_copy {dt_name} la={la}",
                             o[f"copy_la{la}"], ref, 0.0,
                             controls(ref, rings["copy"][0]))
             report("manual_ring_copy", f"x {shape}", err, ctl,
@@ -873,7 +893,7 @@ def phase_stream(card: str, results: dict) -> None:
                    "x.clone()", la_entry)
             ref = run_spec(ss.triad_spec, (b, c, STREAM_ALPHA), cfg,
                            mode="ref")
-            err, ctl = hold(f"manual_ring_triad {dt_name} la={la}",
+            err, ctl = _hold(f"manual_ring_triad {dt_name} la={la}",
                             o[f"triad_la{la}"], ref, 0.0,
                             controls(ref, rings["triad"][0]))
             report("manual_ring_triad", f"b, c {shape}", err, ctl,
@@ -887,7 +907,7 @@ def phase_stream(card: str, results: dict) -> None:
                        b_, c_, alpha=STREAM_ALPHA), s2),
                    "torch.add(b, c, alpha)", la_entry)
             ref = stream_init(STREAM_SHAPE, STREAM_FILL, dt, mode="ref")
-            err, ctl = hold(f"manual_ring_fill {dt_name} la={la}",
+            err, ctl = _hold(f"manual_ring_fill {dt_name} la={la}",
                             o[f"init_la{la}"], ref, 0.0,
                             controls(ref, rings["fill"][0]))
             report("manual_ring_fill", f"y {shape}", err, ctl,
@@ -906,7 +926,7 @@ def phase_stream(card: str, results: dict) -> None:
             cfg = _DEFAULT.replace(lookahead=la)
             ref = gemver_sum(i["v"], i["z"], config=cfg, mode="ref")
             tile_rows = vrows // d
-            err, ctl = hold(f"manual_ring_gemver_sum {dt_name} la={la}",
+            err, ctl = _hold(f"manual_ring_gemver_sum {dt_name} la={la}",
                             o[f"gemver_sum_la{la}"], ref, 0.0,
                             {"lost stream": lost(ref.view(vrows, cols_v),
                                                  tile_rows,
@@ -984,6 +1004,280 @@ STREAM_SOURCES = {
     "manual_ring_gemver_sum": ("src/repro_torch/csrc/manual_ring.cu",
                                "src/repro/codegen/emit.py:708"),
 }
+
+
+STENCIL_SIZES = (2050, 16386)      # the registry's bench rows, and 1 GiB
+DOITGEN_SIZES = ((16, 256, 256), (256, 256, 256))   # bench (r, q, s); p = s
+STENCIL_D_SWEEP = (1, 2, 4, 8)
+
+
+def phase_stencil(card: str, results: dict) -> None:
+    """The paper's stencil and tensor kernels (jacobi2d, conv3x3, doitgen)
+    through their public functions: the stencils at the registry's bench
+    size 2050 x 2048 and at 16386 x 16384, doitgen at its bench size
+    (16, 256, 256) x (256, 256) and at (256, 256, 256) x (256, 256), in
+    f32, and each at the smaller size in bf16.  Then each kernel against
+    its plain version with lost-stream and lost-tap (stencils) or
+    lost-tile and lost-batch (doitgen) controls, timed beside its bound
+    and one PyTorch call, and the D sweep at the larger sizes; the
+    stencils' sweep again at 16386 x 16386, whose row pitch is not the
+    64 KiB of 16386 x 16384.
+
+    Every count is set to 0 just before the op calls and read just
+    after; the JSON line's launches are those counts."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.codegen import plan_blocks, tap
+    from repro_torch.core.striding import StridingConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import stencil as st
+    from repro_torch.kernels.conv3x3 import conv3x3
+    from repro_torch.kernels.doitgen import doitgen
+    from repro_torch.kernels.doitgen import kernel as dk
+    from repro_torch.kernels.doitgen import specs as dspecs
+    from repro_torch.kernels.doitgen.ops import _DEFAULT as D_DEFAULT
+    from repro_torch.kernels.jacobi2d import jacobi2d
+    from repro_torch.kernels.jacobi2d import specs as jspecs
+    from repro_torch.kernels.jacobi2d.ops import _DEFAULT as J_DEFAULT
+    t_phase = time.perf_counter()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    halo = ((1, 1), (1, 1))
+    print(f"stencil: tolerances: jacobi2d and conv3x3 |d| = 0 (the kernels "
+          f"round each product and sum in f32 in the body's order, no fused "
+          f"multiply-add, then once into the dtype); doitgen |d| <= 2 c "
+          f"2^-24 sum_s |A C4| + 2u |ref| over its s terms, c = min(s, "
+          f"{LAMBDA:g} sqrt s) (as the dot products above), u = 2^-24 in "
+          f"f32, 2^-8 in bf16, against a plain f32 product with TF32 off. "
+          f"Controls, the plain version with stream k=1's rows lost, one tap "
+          f"row of stream 1 read one row too low (stencils), one p tile of "
+          f"one block lost or one batch element lost (doitgen), must land "
+          f"above each limit [{card}]")
+
+    def rand(shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    def stencil_plain(x, w=None, top=-1):
+        """The stencil body with its top tap row read at row offset
+        ``top`` (-1 is the body's own; 0 is the lost-tap fault)."""
+        xf = x.float()
+        if w is None:
+            s_ = (((tap(xf, halo, 0, 0) + tap(xf, halo, 0, -1))
+                   + tap(xf, halo, 0, 1)) + tap(xf, halo, top, 0)
+                  + tap(xf, halo, 1, 0))
+            return (0.2 * s_).to(x.dtype)
+        acc = None
+        for q in range(9):
+            r, c = divmod(q, 3)
+            term = w[r, c] * tap(xf, halo, top if r == 0 else r - 1, c - 1)
+            acc = term if acc is None else acc + term
+        return acc.to(x.dtype)
+
+    def stream_fault(ref, seg, rows_of):
+        """ref with stream 1's output rows (seg ... 2 seg - 1 of the row
+        axis) replaced by ``rows_of``'s."""
+        t = ref.clone()
+        t[seg:2 * seg] = rows_of[seg:2 * seg]
+        return t
+
+    def lost_rows(ref, seg, dim=0):
+        t = ref.clone()
+        idx = [slice(None)] * t.ndim
+        idx[dim] = slice(seg, 2 * seg)
+        cut = t[tuple(idx)]
+        cut.copy_(torch.where(cut == 0, -1.0, 0.0).to(t.dtype))
+        return t
+
+    inputs = {}
+    for n in STENCIL_SIZES:
+        inputs[("stencil", n, "float32")] = (rand((n, n - 2)), rand((3, 3)))
+    for shape in DOITGEN_SIZES:
+        inputs[("doitgen", shape, "float32")] = (rand(shape),
+                                                 rand((shape[2], shape[2])))
+    n0, sh0 = STENCIL_SIZES[0], DOITGEN_SIZES[0]
+    inputs[("stencil", n0, "bfloat16")] = tuple(
+        t.bfloat16() for t in inputs[("stencil", n0, "float32")])
+    inputs[("doitgen", sh0, "bfloat16")] = tuple(
+        t.bfloat16() for t in inputs[("doitgen", sh0, "float32")])
+
+    names = ["jacobi2d", "conv3x3", "doitgen"]
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    outs = {}
+    for key, args in inputs.items():            # the slice's main path
+        if key[0] == "stencil":
+            x, w = args
+            outs[("jacobi2d",) + key[1:]] = jacobi2d(x)
+            outs[("conv3x3",) + key[1:]] = conv3x3(x, w)
+        else:
+            outs[key] = doitgen(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {n: cuda.KERNELS[n].launches for n in names}
+    want = {"jacobi2d": 3, "conv3x3": 3, "doitgen": 3}
+    if counts != want:
+        raise AssertionError(f"stencil: launches {counts}, expected {want}")
+    others = {n: k.launches for n, k in cuda.KERNELS.items()
+              if n not in names and k.launches}
+    if others:
+        raise AssertionError(f"stencil: other kernels launched: {others}")
+    print(f"stencil: main path (jacobi2d, conv3x3 at {list(STENCIL_SIZES)} "
+          f"rows f32 and {n0} bf16, D={J_DEFAULT.stride_unroll}; doitgen at "
+          f"{[list(s) for s in DOITGEN_SIZES]} f32 and {list(sh0)} bf16, "
+          f"D={D_DEFAULT.stride_unroll}) {wall:.3f} s host wall, launches "
+          f"{json.dumps(counts)} [{card}]")
+
+    def report(name, shape, dt_name, err, ctl, ms, plain_ms, nbytes, flops,
+               lib_ms, lib_name, entry: bool):
+        bms, by = bound_ms(nbytes, flops, dt_name)
+        print(f"{name} {shape}: max_abs_err={err:g}; controls {ctl}; "
+              f"ms={ms:.5f} plain_ms={plain_ms:.5f} bound_ms={bms:.6f} "
+              f"({by}) library_ms={lib_ms:.5f} ({lib_name}) [{card}]")
+        if entry:
+            results[name] = dict(
+                name=name, route="cuda",
+                source=("src/repro_torch/csrc/doitgen.cu" if name == "doitgen"
+                        else "src/repro_torch/csrc/stencil.cu"),
+                replaces="src/repro/codegen/emit.py:410",
+                launches=counts[name], ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                max_abs_err=err, shape=shape)
+
+    cross = torch.tensor([[0.0, 0.2, 0.0], [0.2, 0.2, 0.2], [0.0, 0.2, 0.0]],
+                         device="cuda")
+    for key, args in inputs.items():
+        if key[0] != "stencil":
+            continue
+        _, n, dt_name = key
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        x, w = args
+        rows, cols = n - 2, n - 4
+        seg = rows // J_DEFAULT.stride_unroll
+        entry = n == STENCIL_SIZES[-1] and dt_name == "float32"
+        reps = 8 if n == STENCIL_SIZES[-1] else 20
+        nbytes = (n * (n - 2) + rows * cols) * isz
+        bp = plan_blocks(jspecs.jacobi_spec(x), J_DEFAULT)
+        run, runs = st.stencil_runs(bp, sms)
+        geo = (f"D={bp.d}, {-(-bp.cols // st.TILE)} column tiles x {runs} "
+               f"runs of {run} rows")
+        cross_dt = cross.to(dt)
+        sets = _copies(lambda: (rand((n, n - 2), dt), w), n * (n - 2) * isz)
+        for name, op, ww, flops in (("jacobi2d", jacobi2d, None, 5.0),
+                                    ("conv3x3", conv3x3, w, 17.0)):
+            ref = stencil_plain(x, ww)
+            got = outs[(name, n, dt_name)]
+            if not torch.equal(ref, op(x, ww, mode="ref") if ww is not None
+                               else op(x, mode="ref")):
+                raise AssertionError(f"{name}: the script's plain body "
+                                     "differs from the op's")
+            err, ctl = _hold(
+                f"{name} {n} {dt_name}", got, ref, 0.0,
+                {"lost stream": lost_rows(ref, seg),
+                 "lost tap": stream_fault(ref, seg,
+                                          stencil_plain(x, ww, top=0))})
+            if ww is None:
+                fn, plain = (lambda a, _w: jacobi2d(a),
+                             lambda a, _w: jacobi2d(a, mode="ref"))
+                lib = device_ms(lambda a, _w: F.conv2d(
+                    a[None, None], cross_dt[None, None]), sets, reps=reps)
+                lib_name = "F.conv2d with the 5-point cross of 0.2"
+            else:
+                fn, plain = (lambda a, w_: conv3x3(a, w_),
+                             lambda a, w_: conv3x3(a, w_, mode="ref"))
+                lib = device_ms(lambda a, w_: F.conv2d(
+                    a[None, None], w_[None, None]), sets, reps=reps)
+                lib_name = "F.conv2d"
+            ms = device_ms(fn, sets, reps=reps)
+            report(name, f"x [{n}, {n - 2}] {dt_name}, {geo}", dt_name,
+                   err, ctl, ms, device_ms(plain, sets, reps=reps), nbytes,
+                   flops * rows * cols, lib, lib_name, entry)
+            if ww is not None:      # the op's weight packing, timed alone
+                w9 = [ww[r_, c_] for r_ in range(3) for c_ in range(3)]
+                w_ms = device_ms(lambda: st.conv_weights(w9, x.device), [()],
+                                 reps=reps)
+                print(f"conv3x3 [{n}, {n - 2}] {dt_name}: the nine weights "
+                      f"packed alone ms={w_ms:.5f}, the op less them "
+                      f"{ms - w_ms:.5f} [{card}]")
+            del ref, got
+        del sets
+        torch.cuda.empty_cache()
+
+    for key, args in inputs.items():
+        if key[0] != "doitgen":
+            continue
+        _, shape, dt_name = key
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        a, c4 = args
+        r, q, s = shape
+        p = c4.shape[1]
+        bp = plan_blocks(dspecs.doitgen_spec(a, c4), D_DEFAULT)
+        seg, rb = q // bp.d, dk.block_rows(bp, r, p, sms)
+        u = GAMMA if dt == torch.float32 else 2.0 ** -8
+        ref = doitgen(a, c4, mode="ref")
+        terms = torch.einsum("rqs,sp->rqp", a.float().abs(), c4.float().abs())
+        limit = 2 * _dot_factor(s) * GAMMA * terms + 2 * u * ref.float().abs()
+        del terms
+        lost_tile = ref.clone()
+        lost_tile[0, seg:seg + rb, :dk.PT] = 0
+        lost_batch = ref.clone()
+        lost_batch[r - 1] = 0
+        err, ctl = _hold(f"doitgen {shape} {dt_name}", outs[key], ref, limit,
+                         {"lost stream": lost_rows(ref, seg, dim=1),
+                          f"lost tile ({rb} rows x {dk.PT} columns)":
+                              lost_tile,
+                          "lost batch element": lost_batch})
+        ctl += f"; max(limit)={float(limit.max()):.4g}"
+        del lost_tile, lost_batch, limit, ref
+        sets = _copies(lambda: (rand(shape, dt), c4), r * q * s * isz)
+        reps = 8 if shape == DOITGEN_SIZES[-1] else 20
+        report("doitgen", f"A {list(shape)} x C4 [{s}, {p}] {dt_name}, "
+               f"D={bp.d}, bm={bp.bm}, blocks of {bp.d} x {rb} rows x "
+               f"{dk.PT} columns", dt_name, err, ctl,
+               device_ms(lambda a_, c_: doitgen(a_, c_), sets, reps=reps),
+               device_ms(lambda a_, c_: doitgen(a_, c_, mode="ref"), sets,
+                         reps=reps),
+               (r * q * s + s * p + r * q * p) * isz, 2.0 * r * q * s * p,
+               device_ms(lambda a_, c_: torch.matmul(a_.view(-1, s), c_),
+                         sets, reps=reps),
+               "torch.matmul(A.view(-1, s), C4)",
+               shape == DOITGEN_SIZES[-1] and dt_name == "float32")
+        del sets
+        torch.cuda.empty_cache()
+
+    # D at the larger sizes (lines only): the paper's claim for stencils
+    n = STENCIL_SIZES[-1]
+    x, w = inputs[("stencil", n, "float32")]
+    a, c4 = inputs[("doitgen", DOITGEN_SIZES[-1], "float32")]
+    b_st = bound_ms((n * (n - 2) + (n - 2) * (n - 4)) * 4, 0.0)[0]
+    r, q, s = DOITGEN_SIZES[-1]
+    b_dg = bound_ms((2 * r * q * s + s * s) * 4, 2.0 * r * q * s * s)[0]
+    for dd in STENCIL_D_SWEEP:
+        cfg = StridingConfig(dd, 1)
+        tj = device_ms(lambda x_: jacobi2d(x_, config=cfg), [(x,)], reps=8)
+        tc = device_ms(lambda x_: conv3x3(x_, w, config=cfg), [(x,)], reps=8)
+        td = device_ms(lambda a_: doitgen(a_, c4, config=cfg), [(a,)], reps=8)
+        print(f"stencil sweep D={dd}: jacobi2d, conv3x3 [{n}, {n - 2}] f32 "
+              f"ms={tj:.5f}, {tc:.5f} (bound {b_st:.4f}); doitgen "
+              f"{list(DOITGEN_SIZES[-1])} f32 ms={td:.5f} (bound "
+              f"{b_dg:.4f}) [{card}]")
+    # the same stencils at a row pitch of n elements, not a power of two
+    del inputs, outs, x, a
+    torch.cuda.empty_cache()
+    x = rand((n, n))
+    b_px = bound_ms((n * n + (n - 2) * (n - 2)) * 4, 0.0)[0]
+    for dd in STENCIL_D_SWEEP:
+        cfg = StridingConfig(dd, 1)
+        tj = device_ms(lambda x_: jacobi2d(x_, config=cfg), [(x,)], reps=8)
+        tc = device_ms(lambda x_: conv3x3(x_, w, config=cfg), [(x,)], reps=8)
+        print(f"stencil sweep pitch D={dd}: jacobi2d, conv3x3 [{n}, {n}] "
+              f"f32 ms={tj:.5f}, {tc:.5f} (bound {b_px:.4f}) [{card}]")
+    del x
+    torch.cuda.empty_cache()
+    print(f"stencil: phase took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
 
 
 def phase_serve(card: str):
@@ -1230,6 +1524,7 @@ def main() -> int:
     check_decode(card, results)
     phase_linalg(card, results)
     phase_stream(card, results)
+    phase_stencil(card, results)
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 

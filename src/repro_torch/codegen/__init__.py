@@ -14,7 +14,7 @@ from repro_torch.codegen.emit import (HAND_KERNELS, block_1d, emit_spec,
                                       run_spec, template_of)
 from repro_torch.codegen.loopir import (Access, Axis, NestInfo,
                                         TraversalSpec, classify, evaluate,
-                                        traffic_of)
+                                        tap, traffic_of)
 from repro_torch.codegen.transforms import (BlockPlan, LoopAxis, Schedule,
                                             default_schedule, interchange,
                                             iteration_domain, multi_stride,
@@ -23,7 +23,7 @@ from repro_torch.codegen.transforms import (BlockPlan, LoopAxis, Schedule,
                                             vector_block)
 
 __all__ = [
-    "Axis", "Access", "TraversalSpec", "NestInfo",
+    "Axis", "Access", "TraversalSpec", "NestInfo", "tap",
     "classify", "traffic_of", "evaluate",
     "Combine", "SumCombine", "MaxCombine", "OnlineSoftmax", "SUM", "MAX",
     "NEG_INF", "resolve_combine",

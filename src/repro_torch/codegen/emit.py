@@ -57,6 +57,9 @@ HAND_KERNELS = {
     "stream_triad": "repro_torch.kernels.stream.kernel",
     "stream_init": "repro_torch.kernels.stream.kernel",
     "stream_read": "repro_torch.kernels.stream.kernel",
+    "jacobi2d": "repro_torch.kernels.stencil",
+    "conv3x3": "repro_torch.kernels.stencil",
+    "doitgen": "repro_torch.kernels.doitgen.kernel",
 }
 _MANUAL = "repro_torch.kernels.manual"
 

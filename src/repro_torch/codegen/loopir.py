@@ -40,7 +40,8 @@ from repro_torch.core.planner import Traffic
 from repro_torch.core.transform import ArrayAccess, LoopNest, plan_transform
 
 __all__ = [
-    "Axis", "Access", "TraversalSpec", "classify", "traffic_of", "evaluate",
+    "Axis", "Access", "TraversalSpec", "tap", "classify", "traffic_of",
+    "evaluate",
 ]
 
 PARALLEL = "parallel"
@@ -272,6 +273,23 @@ class TraversalSpec:
         if dt is None:
             dt = arrays[0].dtype
         return (dt,) * len(self.writes)
+
+
+def tap(block: torch.Tensor, halo: Sequence[tuple[int, int]],
+        *offsets: int) -> torch.Tensor:
+    """Static stencil tap: the interior of a halo-widened block, shifted
+    by ``offsets`` (one per dim, each within [-lo, +hi]).  A plain slice
+    (a view), so a body built on it evaluates on the whole haloed array
+    in :func:`evaluate`."""
+    if len(offsets) != len(halo):
+        raise ValueError("one offset per dim required")
+    index = []
+    for dim, ((lo, hi), off) in enumerate(zip(halo, offsets)):
+        if not (-lo <= off <= hi):
+            raise ValueError(f"tap offset {off} outside halo ({lo},{hi})")
+        size = block.shape[dim] - lo - hi
+        index.append(slice(lo + off, lo + off + size))
+    return block[tuple(index)]
 
 
 # ------------------------------------------------------- classification

@@ -26,8 +26,8 @@ from typing import Iterable, Optional, Sequence
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "CudaKernel",
-           "build", "library", "DTYPES", "dtype_code", "check_operands",
-           "sweep_geometry"]
+           "build", "library", "DTYPES", "dtype_code", "check_arrays",
+           "check_operands", "sweep_geometry"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -49,20 +49,17 @@ def dtype_code(dtype: torch.dtype) -> int:
     return _DTYPE_CODES[dtype]
 
 
-def check_operands(name: str, arrays: Sequence[torch.Tensor],
-                   shapes: Sequence[tuple]) -> None:
-    """Refuse what the row-sweep kernels (K1, K2, K3 over ``[rows, cols]``
-    operands) do not take: a dtype with no compiled instance, mixed
-    dtypes (``TypeError``); an operand of another shape than ``shapes``
-    gives, a row of other than whole 128-element sub-portions, or an
-    operand that is not contiguous, 16-byte aligned and on the first
-    operand's device (``ValueError``)."""
+def check_arrays(name: str, arrays: Sequence[torch.Tensor],
+                 shapes: Sequence[tuple]) -> None:
+    """Refuse what no launcher takes: a dtype with no compiled instance
+    or mixed dtypes (``TypeError``); an operand of another shape than
+    ``shapes`` gives, or one that is not contiguous and on the first
+    operand's device (``ValueError``).  Any row width and any element
+    alignment pass: the launchers that call only this (the stencils,
+    doitgen) load element by element."""
     a = arrays[0]
     if a.dtype not in DTYPES:
         raise TypeError(f"{name} kernel: unsupported dtype {a.dtype}")
-    if a.shape[-1] % _SUB:
-        raise ValueError(f"{name} kernel: {a.shape[-1]} columns are not "
-                         f"whole {_SUB}-element sub-portions")
     for t, shape in zip(arrays, shapes):
         if t.dtype != a.dtype:
             raise TypeError(f"{name} kernel: operands must all be "
@@ -70,9 +67,24 @@ def check_operands(name: str, arrays: Sequence[torch.Tensor],
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name} kernel: operand must be {tuple(shape)},"
                              f" got {tuple(t.shape)}")
-        if t.device != a.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} kernel: operands must be contiguous, "
-                             "16-byte aligned and on one device")
+        if t.device != a.device or not t.is_contiguous():
+            raise ValueError(f"{name} kernel: operands must be contiguous "
+                             "and on one device")
+
+
+def check_operands(name: str, arrays: Sequence[torch.Tensor],
+                   shapes: Sequence[tuple]) -> None:
+    """:func:`check_arrays`, and what the row-sweep kernels (K1, K2, K3
+    over ``[rows, cols]`` operands, 16-byte vector loads) refuse besides:
+    a row of other than whole 128-element sub-portions, or an operand
+    that is not 16-byte aligned (``ValueError``)."""
+    check_arrays(name, arrays, shapes)
+    if arrays[0].shape[-1] % _SUB:
+        raise ValueError(f"{name} kernel: {arrays[0].shape[-1]} columns are "
+                         f"not whole {_SUB}-element sub-portions")
+    if any(t.data_ptr() % 16 for t in arrays):
+        raise ValueError(f"{name} kernel: operands must be contiguous, "
+                         "16-byte aligned and on one device")
 
 
 def sweep_geometry(bp, config) -> tuple[int, int, int, int, int, int]:

@@ -13,12 +13,20 @@ import torch
 from repro_torch.codegen import OnlineSoftmax, run_spec
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.core.striding import StridingConfig as TConfig
+from repro_torch.kernels import stencil as tstencil
 from repro_torch.kernels.bicg import ops as tbops
+from repro_torch.kernels.conv3x3 import ops as tcops
+from repro_torch.kernels.conv3x3 import specs as tcspecs
 from repro_torch.kernels.decode_attn import kernel as dkernel
 from repro_torch.kernels.decode_attn import ops as tdops
+from repro_torch.kernels.doitgen import kernel as dgkernel
+from repro_torch.kernels.doitgen import ops as tdgops
+from repro_torch.kernels.doitgen import specs as tdgspecs
 from repro_torch.kernels.gemver import kernel as gkernel
 from repro_torch.kernels.gemver import ops as tgops
 from repro_torch.kernels.gemver import specs as tgspecs
+from repro_torch.kernels.jacobi2d import ops as tjops
+from repro_torch.kernels.jacobi2d import specs as tjspecs
 from repro_torch.kernels import manual as tmanual
 from repro_torch.kernels.mxv import kernel as mkernel
 from repro_torch.kernels.mxv import ops as tmops
@@ -184,8 +192,9 @@ def _assert_dot(got, ref, bound_terms, n):
     """|got - ref| <= 2 c 2^-24 Σ|a x| per element, c = _dot_factor(n)
     (each of the two f32 sums lies within c 2^-24 Σ|a x| of the exact
     one), plus the last rounding into the output's dtype on each side
-    (unit roundoff u: 2^-8 in bf16, 2^-24 in f32)."""
-    u = 2.0 ** -8 if got.dtype == torch.bfloat16 else GAMMA
+    (unit roundoff u: 2^-8 in bf16, 2^-11 in f16, 2^-24 in f32)."""
+    u = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}.get(
+        got.dtype, GAMMA)
     limit = 2 * _dot_factor(n) * GAMMA * bound_terms + 2 * u * ref.float().abs()
     d = (got.float() - ref.float()).abs()
     assert bool((d <= limit).all()), float((d - limit).max())
@@ -478,3 +487,109 @@ def test_manual_ring_uses_the_opt_in_shared_memory(cuda_device):
     tw = tmanual.ring_tile(bp, cfg, torch.float32, limit)
     assert tmanual.ring_smem(1, 1, bp.d, bp.bm, tw, 4, 4) > 48 * 1024
     assert torch.equal(tsops.stream_copy_manual(x, config=cfg), x)
+
+
+# ------------------------------------------- stencils and doitgen
+
+ALL_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+# output columns: the aliased and conformance widths, the bench width
+STENCIL_COLS = [126, 128, 130, 2046]
+
+
+@pytest.fixture
+def no_tf32():
+    """The plain doitgen is a cuBLAS f32 product: keep TF32 off for it."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("cols", STENCIL_COLS)
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", [37, 64])
+def test_stencil_kernels_match_plain(cuda_device, dtype, cols, d, rows):
+    """Both stencils round as their bodies do, so kernel and plain version
+    agree bit for bit.  37 rows do not divide D > 1: the emitter pads the
+    rows (the op would clamp D), so the spec is run as the op runs it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(cols * d + rows)
+    x = _rand(gen, (rows + 2, cols + 2), cuda_device, dtype)
+    w = _rand(gen, (3, 3), cuda_device, dtype)
+    w9 = [w[r, c] for r in range(3) for c in range(3)]
+    cfg = TConfig(d, 1)
+    for kernel, build, args in ((tstencil.JACOBI, tjspecs.jacobi_spec, (x,)),
+                                (tstencil.CONV, tcspecs.conv3x3_spec,
+                                 (x, *w9))):
+        before = kernel.launches
+        out = run_spec(build, args, cfg)
+        assert kernel.launches == before + 1
+        plain = run_spec(build, args, cfg, mode="ref")
+        assert out.dtype == dtype and out.shape == (rows, cols)
+        assert torch.equal(out, plain), kernel.name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+def test_stencil_ops_launch_their_kernel_once(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = _rand(gen, (34, 130), cuda_device, dtype)
+    w = _rand(gen, (3, 3), cuda_device, dtype)
+    counts = (tstencil.JACOBI.launches, tstencil.CONV.launches)
+    j, c = tjops.jacobi2d(x), tcops.conv3x3(x, w)
+    assert (tstencil.JACOBI.launches, tstencil.CONV.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert torch.equal(j, tjops.jacobi2d(x, mode="ref"))
+    assert torch.equal(c, tcops.conv3x3(x, w, mode="ref"))
+    assert (tstencil.JACOBI.launches, tstencil.CONV.launches) == (
+        counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("r,q,s,p", [(3, 10, 32, 24), (2, 64, 256, 200),
+                                     (4, 8, 32, 32), (1, 37, 40, 100)])
+def test_doitgen_kernel_matches_plain(cuda_device, no_tf32, dtype, d, r, q,
+                                      s, p):
+    """Each output is an f32 dot of s terms, summed in another order than
+    the plain cuBLAS product: held to the dot limit, plus the rounding
+    into the dtype.  q not divisible by D pads the rows (the op clamps D
+    on r·q), p not a multiple of the kernel's 128-column tile
+    (dgkernel.PT) masks it."""
+    gen = torch.Generator(device=cuda_device).manual_seed(r * q + s + p + d)
+    a = _rand(gen, (r, q, s), cuda_device, dtype)
+    c4 = _rand(gen, (s, p), cuda_device, dtype)
+    cfg = TConfig(d, 1)
+    before = dgkernel.DOITGEN.launches
+    out = run_spec(tdgspecs.doitgen_spec, (a, c4), cfg)
+    assert dgkernel.DOITGEN.launches == before + 1
+    plain = run_spec(tdgspecs.doitgen_spec, (a, c4), cfg, mode="ref")
+    assert out.dtype == dtype and out.shape == (r, q, p)
+    terms = torch.einsum("rqs,sp->rqp", a.float().abs(), c4.float().abs())
+    _assert_dot(out, plain, terms, s)
+    before = dgkernel.DOITGEN.launches
+    assert tdgops.doitgen(a, c4).shape == (r, q, p)
+    assert dgkernel.DOITGEN.launches == before + 1
+
+
+@pytest.mark.gpu
+def test_stencil_and_doitgen_wrappers_raise_on_what_they_do_not_take(
+        cuda_device):
+    x = torch.randn(34, 130, device=cuda_device)
+    w = torch.randn(3, 3, device=cuda_device)
+    a = torch.randn(2, 8, 32, device=cuda_device)
+    c4 = torch.randn(32, 16, device=cuda_device)
+    counts = {k.name: k.launches for k in (tstencil.JACOBI, tstencil.CONV,
+                                            dgkernel.DOITGEN)}
+    with pytest.raises(TypeError):                    # f64 not compiled
+        tjops.jacobi2d(x.double())
+    with pytest.raises(TypeError):
+        tcops.conv3x3(x.double(), w.double())
+    with pytest.raises(TypeError):
+        tdgops.doitgen(a.double(), c4.double())
+    with pytest.raises(TypeError):                    # mixed dtypes
+        tdgops.doitgen(a, c4.bfloat16())
+    assert counts == {k.name: k.launches for k in (
+        tstencil.JACOBI, tstencil.CONV, dgkernel.DOITGEN)}

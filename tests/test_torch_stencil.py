@@ -1,0 +1,408 @@
+"""The port's jacobi2d, conv3x3 and doitgen families against the JAX
+package.
+
+Inputs are drawn once with numpy from a seed and the same arrays go to
+both packages.  The ops are held against the JAX ops in ``mode="ref"``
+at every conformance point (the five ``CONFORMANCE_CONFIGS`` at the
+registry's ``default_sizes``, D=4 at its ``aliased_sizes``) and at a
+ragged shape under each config: the stencils at 37 × 133 (131 output
+columns, and rows that clamp D), doitgen at (3, 10, 40) × (40, 24) (m =
+30 clamps D=4 to 3, and q = 10 then pads to 12).  Explicit configs go to
+both sides.  The kernel structure is held against the JAX emitter in
+interpret mode at the same points, the config passed straight to both
+emitters (so 35 stencil rows pad to whole streams): the port's emitter
+front end on CPU tensors plans, pads and crops around each kernel
+wrapper's plain version, and must agree with the Pallas kernel, plan
+the same blocks and name template K1.  Tolerances are the registry rows'
+``rtol``/``atol``: 1e-5 for jacobi2d, 1e-4 for conv3x3 and doitgen.  The
+CUDA kernels themselves are tested on the card in
+``test_torch_cuda.py``.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import codegen as jcg
+from repro.codegen import transforms as jtransforms
+from repro.core.striding import StridingConfig as JConfig
+from repro.kernels.conv3x3 import ops as jcops
+from repro.kernels.conv3x3 import ref as jcref
+from repro.kernels.conv3x3 import specs as jcspecs
+from repro.kernels.doitgen import ops as jdops
+from repro.kernels.doitgen import ref as jdref
+from repro.kernels.doitgen import specs as jdspecs
+from repro.kernels.jacobi2d import ops as jjops
+from repro.kernels.jacobi2d import ref as jjref
+from repro.kernels.jacobi2d import specs as jjspecs
+from repro.registry import base as jreg
+from repro_torch import codegen as tcg
+from repro_torch.codegen import transforms as ttransforms
+from repro_torch.core.striding import StridingConfig as TConfig
+from repro_torch.kernels import cuda, stencil
+from repro_torch.kernels.conv3x3 import ops as tcops
+from repro_torch.kernels.conv3x3 import ref as tcref
+from repro_torch.kernels.conv3x3 import specs as tcspecs
+from repro_torch.kernels.doitgen import kernel as tdkernel
+from repro_torch.kernels.doitgen import ops as tdops
+from repro_torch.kernels.doitgen import ref as tdref
+from repro_torch.kernels.doitgen import specs as tdspecs
+from repro_torch.kernels.jacobi2d import ops as tjops
+from repro_torch.kernels.jacobi2d import ref as tjref
+from repro_torch.kernels.jacobi2d import specs as tjspecs
+
+CONFIGS = list(jreg.CONFORMANCE_CONFIGS)
+KERNELS = ("jacobi2d", "conv3x3", "doitgen")
+RAGGED = {"jacobi2d": {"h": 37, "w": 133}, "conv3x3": {"h": 37, "w": 133},
+          "doitgen": {"r": 3, "q": 10, "s": 40, "p": 24}}
+# (label, config, which sizes): every conformance point, then the ragged
+# shape under every conformance config
+POINTS = ([(label, cfg, "default") for label, cfg in CONFIGS]
+          + [("aliased", JConfig(4, 1), "aliased")]
+          + [(f"ragged-{label}", cfg, "ragged") for label, cfg in CONFIGS])
+IDS = [p[0] for p in POINTS]
+
+
+def _tcfg(c: JConfig) -> TConfig:
+    return TConfig(c.stride_unroll, c.portion_unroll, c.lookahead,
+                   c.arrangement, c.block_rows)
+
+
+def _sizes(kernel: str, which: str) -> dict:
+    if which == "ragged":
+        return dict(RAGGED[kernel])
+    row = jreg.get(kernel)
+    return dict(row.default_sizes if which == "default"
+                else row.aliased_sizes)
+
+
+def _inputs(kernel: str, s: dict, seed: int) -> list:
+    """numpy inputs of the registry row's op, in its argument order (the
+    registry's doitgen draws a square C4; the ragged point a [s, p] one)."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+    if kernel == "doitgen":
+        return [r(s["r"], s["q"], s["s"]), r(s["s"], s.get("p", s["s"]))]
+    x = r(s["h"], s["w"])
+    return [x] if kernel == "jacobi2d" else [x, r(3, 3)]
+
+
+def _j(args):
+    return [jnp.asarray(a) if isinstance(a, np.ndarray) else a
+            for a in args]
+
+
+def _t(args):
+    return [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+            for a in args]
+
+
+OPS = {
+    "jacobi2d": (jjops.jacobi2d, tjops.jacobi2d),
+    "conv3x3": (jcops.conv3x3, tcops.conv3x3),
+    "doitgen": (jdops.doitgen, tdops.doitgen),
+}
+
+
+def _close(got, want, row):
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=row.rtol,
+                               atol=row.atol)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("label,cfg,which", POINTS, ids=IDS)
+def test_op_matches_jax_ref(kernel, label, cfg, which):
+    """The port's op on CPU tensors against the JAX op in ref mode, with
+    the same explicit config on both sides."""
+    args = _inputs(kernel, _sizes(kernel, which), seed=1)
+    jop, top = OPS[kernel]
+    want = jop(*_j(args), config=cfg, mode="ref")
+    got = top(*_t(args), config=_tcfg(cfg))
+    assert got.dtype == torch.float32
+    _close(got, want, jreg.get(kernel))
+
+
+# ------------------------------------------------- kernel structure
+
+SPECS = {
+    "jacobi2d": (jjspecs.jacobi_spec, tjspecs.jacobi_spec),
+    "conv3x3": (jcspecs.conv3x3_spec, tcspecs.conv3x3_spec),
+    "doitgen": (jdspecs.doitgen_spec, tdspecs.doitgen_spec),
+}
+
+
+def _spec_args(kernel: str, args: list, to) -> list:
+    """The spec's inputs: conv3x3's weight matrix as nine scalars, as
+    both packages' ops unpack it."""
+    if kernel != "conv3x3":
+        return to(args)
+    x, w = to(args)
+    return [x] + [w[r, c] for r in range(3) for c in range(3)]
+
+
+def _plans(monkeypatch):
+    """Record every BlockPlan either package's emitter plans."""
+    seen = {"jax": [], "port": []}
+
+    def spy(mod, key):
+        real = mod.plan_blocks
+
+        def plan(spec, config, *a, **kw):
+            bp = real(spec, config, *a, **kw)
+            seen[key].append((spec.name, bp.d, bp.bm, bp.bn, bp.rows,
+                              bp.cols, dataclasses.asdict(bp.info)))
+            return bp
+        monkeypatch.setattr(mod, "plan_blocks", plan)
+    spy(jtransforms, "jax")
+    spy(ttransforms, "port")
+    return seen
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("label,cfg,which", POINTS, ids=IDS)
+def test_kernel_structure_matches_jax_interpret(monkeypatch, kernel, label,
+                                                cfg, which):
+    """Each spec through both emitters: the JAX Pallas kernel in interpret
+    mode against the port's front end and kernel wrapper (its plain
+    version on CPU), with equal block plans and template K1.  The port
+    launches nothing on CPU tensors."""
+    args = _inputs(kernel, _sizes(kernel, which), seed=7)
+    jb, tb = SPECS[kernel]
+    jargs, targs = _spec_args(kernel, args, _j), _spec_args(kernel, args, _t)
+    seen = _plans(monkeypatch)
+    want = jcg.emit_spec(jb(*jargs), jargs, cfg, interpret=True)
+    before = {n: k.launches for n, k in cuda.KERNELS.items()}
+    tspec = tb(*targs)
+    got = tcg.emit_spec(tspec, targs, _tcfg(cfg))
+    assert {n: k.launches for n, k in cuda.KERNELS.items()} == before
+    _close(got, want, jreg.get(kernel))
+    assert seen["port"] == seen["jax"] and len(seen["port"]) == 1
+    assert tcg.template_of(tspec, _tcfg(cfg)) == "K1"
+    assert tcg.HAND_KERNELS[tspec.name] == (
+        "repro_torch.kernels.doitgen.kernel" if kernel == "doitgen"
+        else "repro_torch.kernels.stencil")
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("which", ["default", "aliased", "ragged"])
+@pytest.mark.parametrize("lookahead", [1, 2, 3, 4])
+def test_block_plans_and_template_match_jax(kernel, which, lookahead):
+    """The port classifies and plans each spec as the JAX package does
+    (row-haloed stencils: one-row blocks at full, unpadded width; doitgen:
+    a batch axis, a free axis and full-width p) and names K1 at every
+    lookahead: halos and batch / free axes keep each spec off K4."""
+    args = _inputs(kernel, _sizes(kernel, which), seed=0)
+    jb, tb = SPECS[kernel]
+    jspec = jb(*_spec_args(kernel, args, _j))
+    tspec = tb(*_spec_args(kernel, args, _t))
+    assert dataclasses.asdict(tcg.classify(tspec)) == dataclasses.asdict(
+        jcg.classify(jspec))
+    for d in (1, 2, 3, 4, 8):
+        jcfg = JConfig(d, 1, lookahead=lookahead)
+        jbp = jcg.plan_blocks(jspec, jcfg)
+        tbp = tcg.plan_blocks(tspec, _tcfg(jcfg))
+        assert (tbp.d, tbp.bm, tbp.bn, tbp.rows, tbp.cols) == (
+            jbp.d, jbp.bm, jbp.bn, jbp.rows, jbp.cols)
+        assert tcg.template_of(tspec, _tcfg(jcfg)) == "K1"
+    if kernel != "doitgen":
+        h, w = args[0].shape
+        assert (tbp.bm, tbp.cols) == (1, w - 2)
+
+
+# --------------------------------------------------------------- tap
+
+@pytest.mark.parametrize("dr", [-1, 0, 1])
+@pytest.mark.parametrize("dc", [-1, 0, 1])
+def test_tap_matches_jax_tap(dr, dc):
+    from repro.codegen import tap as jtap
+    x = np.random.default_rng(dr * 3 + dc + 4).standard_normal(
+        (7, 11)).astype(np.float32)
+    halo = ((1, 1), (1, 1))
+    got = tcg.tap(torch.from_numpy(x), halo, dr, dc)
+    want = jtap(jnp.asarray(x), halo, dr, dc)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tuple(got.shape) == (5, 9)
+
+
+@pytest.mark.parametrize("offsets", [(2, 0), (0, -2), (-2, 1)])
+def test_tap_refuses_an_offset_outside_the_halo(offsets):
+    from repro.codegen import tap as jtap
+    halo = ((1, 1), (1, 1))
+    msg = "outside halo"
+    with pytest.raises(ValueError, match=msg):
+        jtap(jnp.zeros((5, 5)), halo, *offsets)
+    with pytest.raises(ValueError, match=msg):
+        tcg.tap(torch.zeros(5, 5), halo, *offsets)
+    with pytest.raises(ValueError, match="one offset per dim"):
+        tcg.tap(torch.zeros(5, 5), halo, 0)
+
+
+# ----------------------------------------- oracles, sizes, the wrappers
+
+def test_oracles_match_jax_oracles():
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((19, 45)).astype(np.float32)
+    w = rng.standard_normal((3, 3)).astype(np.float32)
+    a = rng.standard_normal((3, 7, 40)).astype(np.float32)
+    c4 = rng.standard_normal((40, 24)).astype(np.float32)
+    pairs = [(tjref.jacobi2d_ref, jjref.jacobi2d_ref, [x]),
+             (tcref.conv3x3_ref, jcref.conv3x3_ref, [x, w]),
+             (tdref.doitgen_ref, jdref.doitgen_ref, [a, c4])]
+    for tfn, jfn, args in pairs:
+        np.testing.assert_allclose(tfn(*_t(args)).numpy(),
+                                   np.asarray(jfn(*_j(args))),
+                                   rtol=1e-4, atol=1e-4)
+
+
+def test_registry_sizes_are_the_jax_rows():
+    import importlib
+    for name in KERNELS:
+        # the package, not the op it exports under the same name
+        pkg = importlib.import_module(f"repro_torch.kernels.{name}")
+        row = jreg.get(name)
+        assert pkg._SIZES == dict(row.default_sizes)
+        assert pkg._ALIASED == dict(row.aliased_sizes)
+        assert pkg.bench_sizes == dict(row.bench_sizes)
+
+
+def test_ops_clamp_d_as_the_jax_ops_do(monkeypatch):
+    """Default D=4 clamped to divide h - 2 (stencils) or r·q (doitgen),
+    as the JAX ops pass their rows to ``resolve_config``."""
+    seen = []
+
+    def run_spec(build, inputs, cfg, mode=None):
+        seen.append(cfg.stride_unroll)
+        return tcg.evaluate(build(*inputs), inputs)
+    for mod in (tjops, tcops, tdops):
+        monkeypatch.setattr(mod, "run_spec", run_spec)
+    tjops.jacobi2d(torch.zeros(37, 20))                        # 35 rows
+    tjops.jacobi2d(torch.zeros(38, 20))                        # 36 rows
+    tcops.conv3x3(torch.zeros(32, 20), torch.ones(3, 3))       # 30 rows
+    tdops.doitgen(torch.zeros(3, 10, 8), torch.zeros(8, 4))    # m = 30
+    tdops.doitgen(torch.zeros(2, 6, 8), torch.zeros(8, 4))     # m = 12
+    assert seen == [1, 4, 3, 3, 4]
+
+
+def test_cpu_ops_launch_nothing_and_keep_their_dtype():
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((34, 130)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 3)).astype(np.float32))
+    a = torch.from_numpy(rng.standard_normal((2, 8, 32)).astype(np.float32))
+    c4 = torch.from_numpy(rng.standard_normal((32, 16)).astype(np.float32))
+    before = {n: k.launches for n, k in cuda.KERNELS.items()}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        assert tjops.jacobi2d(x.to(dt)).dtype == dt
+        assert tcops.conv3x3(x.to(dt), w.to(dt)).dtype == dt
+        assert tdops.doitgen(a.to(dt), c4.to(dt)).dtype == dt
+    assert {n: k.launches for n, k in cuda.KERNELS.items()} == before
+    assert set(cuda.KERNELS) >= {"jacobi2d", "conv3x3", "doitgen"}
+    # bf16 rounds the f32 body once, as the JAX package's bf16 ref does
+    want = jjops.jacobi2d(jnp.asarray(x.numpy(), jnp.bfloat16), mode="ref",
+                          config=JConfig(4, 1))
+    np.testing.assert_array_equal(
+        tjops.jacobi2d(x.bfloat16()).float().numpy(),
+        np.asarray(want.astype(jnp.float32)))
+
+
+def test_stencil_bodies_round_as_their_kernels():
+    """The plain versions compute what ``csrc/stencil.cu`` computes: the
+    body's f32 operations in its order, one rounding at the end."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((12, 40)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 3)).astype(np.float32))
+    got = tjops.jacobi2d(x)
+    c, l, r = x[1:-1, 1:-1], x[1:-1, :-2], x[1:-1, 2:]
+    u, b = x[:-2, 1:-1], x[2:, 1:-1]
+    assert torch.equal(got, torch.tensor(0.2, dtype=torch.float32)
+                       * ((((c + l) + r) + u) + b))
+    acc = None
+    for q in range(9):
+        rr, cc = divmod(q, 3)
+        term = w[rr, cc] * x[rr:rr + 10, cc:cc + 38]
+        acc = term if acc is None else acc + term
+    assert torch.equal(tcops.conv3x3(x, w), acc)
+
+
+@pytest.mark.parametrize("rows,cols,d", [(2048, 2046, 4), (16384, 16384, 4),
+                                         (32, 128, 1), (36, 131, 4),
+                                         (32, 126, 8), (7, 9, 1)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_stencil_runs_cover_each_segment_once(rows, cols, d, sms):
+    """Every stream's segment is cut into runs that cover it exactly once
+    (the last may be short, none is empty), no run shorter than the
+    minimum unless the segment is, and about the aimed blocks per SM."""
+    from repro_torch.codegen.transforms import BlockPlan
+    bp = BlockPlan(info=None, d=d, bm=1, bn=cols, rows=rows, cols=cols)
+    run, runs = stencil.stencil_runs(bp, sms)
+    seg = rows // d
+    assert 1 <= run <= seg and (runs - 1) * run < seg <= runs * run
+    assert run >= min(seg, stencil._MIN_RUN)
+    tiles = -(-cols // stencil.TILE)
+    if run > stencil._MIN_RUN and run < seg:
+        assert tiles * runs >= stencil._BLOCKS_PER_SM * sms // 2
+
+
+def test_conv_weights_widen_in_order():
+    w = torch.arange(9, dtype=torch.float32).reshape(3, 3) / 7
+    w9 = [w.bfloat16()[r, c] for r in range(3) for c in range(3)]
+    got = stencil.conv_weights(w9, torch.device("cpu"))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (9,)
+    assert torch.equal(got, w.bfloat16().float().reshape(9))
+    assert torch.equal(stencil.conv_weights([0.5] * 9, "cpu"),
+                       torch.full((9,), 0.5))
+
+
+def test_check_arrays_takes_any_width_and_refuses_the_rest():
+    """The stencil and doitgen launchers' check takes rows of any width
+    and alignment (130 f32: 520 bytes) that the row-sweep check refuses,
+    and still refuses dtypes, shapes and layouts."""
+    x = torch.zeros(34 * 130 + 1)[1:].reshape(34, 130)   # 4-byte aligned
+    cuda.check_arrays("jacobi2d", [x], [(34, 130)])
+    with pytest.raises(ValueError):
+        cuda.check_operands("jacobi2d", [x], [(34, 130)])
+    with pytest.raises(TypeError):
+        cuda.check_arrays("jacobi2d", [x.double()], [(34, 130)])
+    a, c4 = torch.zeros(2, 8, 40), torch.zeros(40, 24)
+    cuda.check_arrays("doitgen", [a, c4], [(2, 8, 40), (40, 24)])
+    with pytest.raises(TypeError):
+        cuda.check_arrays("doitgen", [a, c4.bfloat16()],
+                          [(2, 8, 40), (40, 24)])
+    with pytest.raises(ValueError):
+        cuda.check_arrays("doitgen", [a, c4], [(2, 8, 40), (40, 32)])
+    with pytest.raises(ValueError):
+        cuda.check_arrays("doitgen", [a, c4.t().contiguous().t()],
+                          [(2, 8, 40), (40, 24)])
+
+
+def test_doitgen_plain_version_contracts_every_batch_element():
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.standard_normal((3, 10, 40)).astype(np.float32))
+    c4 = torch.from_numpy(rng.standard_normal((40, 24)).astype(np.float32))
+    got = tcg.emit_spec(tdspecs.doitgen_spec(a, c4), [a, c4], TConfig(4, 1))
+    assert tuple(got.shape) == (3, 10, 24)
+    for b in range(3):
+        torch.testing.assert_close(got[b], a[b] @ c4, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("r,q,d", [(256, 256, 4), (16, 256, 4), (256, 256, 1),
+                                   (256, 256, 8), (4, 8, 4), (3, 12, 3),
+                                   (1, 40, 8)])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_doitgen_block_rows_divide_the_segment_and_fill_the_card(r, q, d,
+                                                                 sms):
+    """A block's run of rows per stream is a multiple of the plan's bm
+    that divides the segment; it grows past bm only while the block
+    stays within 128 rows and the grid keeps two blocks per SM."""
+    a, c4 = torch.zeros(r, q, 16), torch.zeros(16, 256)
+    bp = tcg.plan_blocks(tdspecs.doitgen_spec(a, c4), TConfig(d, 1))
+    rb = tdkernel.block_rows(bp, r, 256, sms)
+    seg = bp.rows // bp.d
+    assert rb % bp.bm == 0 and seg % rb == 0
+    tiles = -(-256 // tdkernel.PT)
+    assert rb == bp.bm or (bp.d * rb <= 128
+                           and r * (seg // rb) * tiles >= 2 * sms)
