@@ -32,6 +32,12 @@ Phases (each raises on failure, so the script exits non-zero):
                 lost-stream, lost-tap and lost-tile controls, timed, and the
                 D sweep at the larger sizes, and the stencils' again at a
                 row pitch of 16386 elements
+  3e. adamw  — the fused AdamW update at the registry's bench size
+                (4096 x 1024 f32) and at Yi-9B's embedding (64000 x 4096
+                f32) through its public op: the K1 kernel and the K4
+                ring's adamw body at lookahead 1, 3, 4; equality with the
+                plain version, a lost-stream control, times against the
+                bound and torch._fused_adamw_
   4. serve    — Yi-9B at full width (random weights from a seeded
                 torch.Generator) serves 8 requests x 16 tokens through the
                 continuous-batching engine; the launch counts, reset just
@@ -44,7 +50,16 @@ Phases (each raises on failure, so the script exits non-zero):
                 must agree wherever rounding cannot close the top-2 margin
   6. profile  — where a full-width decode step's time goes (host wall
                 time, device busy share, top kernels by device time)
-  7. report   — a JSON line of kernels, the card's name and power limit, and
+  7. train    — with the serve model freed: Yi-9B at full width, 8 of 48
+                layers, f32 params and bf16 compute, trains 6 steps of
+                seq 4096 x batch 2 through the launcher's path; every
+                step must launch rmsnorm 33 times and adamw_update 75
+                times, step 0's loss lie in [11, 12]; then a bit-equal
+                checkpoint round trip of the state, one step with the
+                kernels against one with mode="ref" from the same state
+                (with a lost-stream control), and where a step's time
+                goes (torch.profiler)
+  8. report   — a JSON line of kernels, the card's name and power limit, and
                 as the last line {"ok": true, "device": {...}}
 
 Nothing here imports JAX or the JAX package.
@@ -52,9 +67,12 @@ Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1280,6 +1298,393 @@ def phase_stencil(card: str, results: dict) -> None:
           f"[{card}]")
 
 
+ADAMW_SHAPES = {"bench": (4096, 1024), "embed": (64000, 4096)}  # f32
+ADAMW_LOOKAHEADS = (1, 3, 4)        # the K4 ring (2 is the K1 kernel)
+ADAMW_FLOPS = 15                    # per element: 13 arithmetic, sqrt, div
+TRAIN_ARGS = ["--arch", "yi-9b", "--no-reduced", "--layers", "8",
+              "--seq", "4096", "--batch", "2", "--steps", "50",
+              "--device", "cuda"]
+TRAIN_STEPS = 6
+
+
+def eager_ms(fn, args, reps: int = 3) -> float:
+    """Device time of one ``fn(*args)`` call for a call long enough that
+    launch overhead is noise (tens of ms): one warm call, then ``reps``
+    between CUDA events, without a graph (a graph would hold every
+    call's gigabyte outputs at once)."""
+    import torch
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn(*args)
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def check_adamw(card: str, results: dict) -> None:
+    """Both adamw kernels through the public op ``adamw_update`` at the
+    registry's bench size (4096 x 1024 f32, re-blocked [8192, 512],
+    117 MB of operands, past L2) and at Yi-9B's embedding [64000, 4096]
+    f32 ([512000, 512]): the K1 kernel at the default config (D=2, P=2)
+    and the K4 ring's adamw body at lookahead 1, 3, 4 (D=2).  The counts
+    are set to 0 just before these calls and read just after.  Each
+    output is held against the plain version (the body at the native
+    shape) for equality: the kernels round every operation as the body
+    does.  Control: the plain outputs with stream 1's rows of the
+    blocking left at their inputs (a lost stream) must differ.  Then
+    times: kernel, plain, torch._fused_adamw_ (the library yardstick,
+    timed only) and the bound, 28 bytes an element at the memory rate."""
+    import torch
+    from repro_torch.kernels import cuda, manual
+    from repro_torch.kernels.adamw import _HYPER
+    from repro_torch.kernels.adamw import kernel as akernel
+    from repro_torch.kernels.adamw import ops as aops
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    cfgs = {"k1": aops._DEFAULT}
+    cfgs.update({f"ring_la{la}": aops._DEFAULT.replace(lookahead=la)
+                 for la in ADAMW_LOOKAHEADS})
+    print(f"adamw: tolerance |d| = 0 for p', m', v' (each operation rounded "
+          f"as the body rounds it); control: stream 1's rows of the "
+          f"[rows, 512] blocking left at their inputs must differ; configs "
+          f"{ {k: (c.stride_unroll, c.portion_unroll, c.lookahead) for k, c in cfgs.items()} } "
+          f"(D, P, lookahead) [{card}]")
+
+    def make(shape):
+        p, g, m = (torch.randn(*shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        v = torch.rand(*shape, generator=gen, device="cuda")
+        return p, g, m, v
+
+    names = ("adamw_update", "manual_ring_adamw")
+    inputs = {k: make(s) for k, s in ADAMW_SHAPES.items()}
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    outs = {(size, c): aops.adamw_update(*inputs[size], config=cfg, **_HYPER)
+            for size in ADAMW_SHAPES for c, cfg in cfgs.items()}
+    torch.cuda.synchronize()
+    counts = {n: cuda.KERNELS[n].launches for n in names}
+    want = {"adamw_update": len(ADAMW_SHAPES),
+            "manual_ring_adamw": len(ADAMW_SHAPES) * len(ADAMW_LOOKAHEADS)}
+    others = {n: k.launches for n, k in cuda.KERNELS.items()
+              if n not in names and k.launches}
+    if counts != want or others:
+        raise AssertionError(f"adamw: launches {counts} (others {others}),"
+                             f" expected {want}")
+    print(f"adamw: main path launches {json.dumps(counts)} [{card}]")
+    for size, shape in ADAMW_SHAPES.items():
+        p, g, m, v = inputs[size]
+        n = p.numel()
+        ref = aops.adamw_update(p, g, m, v, mode="ref", **_HYPER)
+        rows, cols = aops._blocking(n)
+        seg = rows // 2
+
+        def lost(out, inp):
+            t = out.clone().view(rows, cols)
+            t[seg:2 * seg] = inp.view(rows, cols)[seg:2 * seg]
+            return t.view(shape)
+        errs = {}
+        for c in cfgs:
+            err, ctl = 0.0, []
+            for name, got, want_, inp in zip(("p'", "m'", "v'"),
+                                             outs[(size, c)], ref, (p, m, v)):
+                e, line = _hold(f"adamw {c} {size} {name}", got, want_, 0.0,
+                                {"lost stream": lost(want_, inp)})
+                err = max(err, e)
+                ctl.append(f"{name} {line}")
+            errs[c] = err
+            print(f"adamw {c} {list(shape)} f32: max_abs_err={err:g}; "
+                  f"controls {'; '.join(ctl)} [{card}]")
+        nbytes, flops = 28 * n, ADAMW_FLOPS * n
+        bms, by = bound_ms(nbytes, flops, "float32")
+        step = torch.ones((), device="cuda")
+        # the scalars as adamw_step passes them: 0-d views of one f32 [7]
+        # on the card, which the wrapper packs with one stack
+        s7 = torch.stack(aops.scalars(torch.device("cuda"),
+                                      *_HYPER.values())).unbind()
+
+        def library(p, g, m, v):
+            torch._fused_adamw_([p], [g], [m], [v], [], [step],
+                                lr=_HYPER["lr"], beta1=0.9, beta2=0.999,
+                                weight_decay=_HYPER["wd"], eps=_HYPER["eps"],
+                                amsgrad=False, maximize=False)
+        if size == "bench":
+            sets = _copies(lambda: make(shape), 16 * n)
+            time_of = lambda fn: device_ms(fn, sets)          # noqa: E731
+            lib_sets = [tuple(t.clone() for t in s) for s in sets]
+            lib = device_ms(library, lib_sets)
+        else:
+            time_of = lambda fn: eager_ms(fn, inputs[size])   # noqa: E731
+            lib = eager_ms(library, tuple(t.clone() for t in inputs[size]))
+        plain = time_of(lambda *a: aops.adamw_update(*a, *s7, mode="ref"))
+        if size == "bench":
+            pack = device_ms(lambda: cuda.f32_scalars(s7, p.device), [()])
+            print(f"adamw scalars packed alone (one stack of seven 0-d "
+                  f"tensors): {pack:.5f} ms [{card}]")
+        for c, cfg in cfgs.items():
+            ms = time_of(lambda *a, _cfg=cfg: aops.adamw_update(
+                *a, *s7, config=_cfg))
+            print(f"adamw {c} {list(shape)} f32: ms={ms:.5f} "
+                  f"plain_ms={plain:.5f} bound_ms={bms:.6f} ({by}) "
+                  f"library_ms={lib:.5f} (torch._fused_adamw_) "
+                  f"achieved {nbytes / ms / 1e6:.0f} GB/s [{card}]")
+            key = {"k1": "adamw_update",
+                   "ring_la3": "manual_ring_adamw"}.get(c)
+            if key and size == "embed":
+                results[key] = dict(
+                    name=key, route="cuda",
+                    source=("src/repro_torch/csrc/adamw.cu" if c == "k1"
+                            else "src/repro_torch/csrc/manual_ring.cu"),
+                    replaces=("src/repro/codegen/emit.py:410" if c == "k1"
+                              else "src/repro/codegen/emit.py:708"),
+                    launches=counts[key], ms=ms, plain_ms=plain,
+                    bound_ms=bms, bound_by=by, library_ms=lib,
+                    max_abs_err=errs[c],
+                    shape=f"p, g, m, v [{shape[0]}, {shape[1]}] f32 "
+                          f"(D=2, P=2, lookahead {cfg.lookahead})")
+    del inputs, outs
+    torch.cuda.empty_cache()
+
+
+def phase_train(card: str) -> dict:
+    """Yi-9B at full width, depth cut to 8 layers, trains through the
+    launcher's path (``repro_torch.launch.train.setup``): f32 params,
+    bf16 compute, seq 4096, batch 2, remat, AdamW(lr 3e-3, warmup 10,
+    50 total steps), SyntheticTokens(seed 0).  Six steps, each with the
+    counts set to 0 just before and read just after (33 rmsnorm, 75
+    adamw_update every step); then a checkpoint round trip of the state,
+    the in-model check of the kernels against mode="ref", and where a
+    step's time goes.  Returns the launches over the six steps."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.launch import train as launch
+    from repro_torch.train import trainstep
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    try:
+        t_setup = time.perf_counter()
+        run = launch.setup(TRAIN_ARGS + ["--ckpt-dir", ckpt])
+        torch.cuda.synchronize()
+        cfg, state = run.cfg, run.state
+        named = dict(state["params"].named_parameters())
+        n_params = sum(p.numel() for p in named.values())
+        b, s = run.args.batch, run.args.seq
+        print(f"train: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}"
+              f"/{cfg.n_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab="
+              f"{cfg.vocab_size}, n_layers={cfg.n_layers} of 48 (cut: params,"
+              f" grads, m, v of 48 layers are 141 GB), {n_params / 1e9:.3f}B "
+              f"params in {len(named)} tensors, param {cfg.param_dtype} "
+              f"compute {cfg.compute_dtype}, seq {s} batch {b}, state drawn "
+              f"in {time.perf_counter() - t_setup:.1f} s [{card}]")
+        want = {"rmsnorm": 4 * cfg.n_layers + 1, "adamw_update": len(named)}
+        losses, total = [], {n: 0 for n in want}
+        torch.cuda.reset_peak_memory_stats()
+        for step in range(TRAIN_STEPS):
+            batch = {"tokens": torch.from_numpy(run.data.batch(step)).cuda()}
+            for k in cuda.KERNELS.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            state, metrics = run.step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = {n: k.launches for n, k in cuda.KERNELS.items()
+                      if k.launches}
+            if counts != want:
+                raise AssertionError(f"train step {step}: launches {counts},"
+                                     f" expected {want}")
+            for n in want:
+                total[n] += counts[n]
+            m = {k: float(v) for k, v in metrics.items()}
+            if not all(math.isfinite(x) for x in m.values()):
+                raise AssertionError(f"train step {step}: non-finite {m}")
+            losses.append(m["loss"])
+            run.monitor.record(launch.HOST, wall)
+            print(f"train step {step}: loss {m['loss']:.4f} nll "
+                  f"{m['nll']:.4f} lr {m['lr']:.3e} grad_norm "
+                  f"{m['grad_norm']:.4f} wall {wall * 1e3:.1f} ms "
+                  f"({b * s / wall:.0f} tokens/s) launches "
+                  f"{json.dumps(counts)} [{card}]")
+        if not 11.0 <= losses[0] <= 12.0:
+            raise AssertionError(f"train: step 0 loss {losses[0]} outside "
+                                 "[11, 12] (expected about 11.47)")
+        med = run.monitor.medians()[launch.HOST]
+        print(f"train: {TRAIN_STEPS} steps, median step {med * 1e3:.1f} ms, "
+              f"{b * s / med:.0f} tokens/s; launches over the run "
+              f"{json.dumps(total)}; max_memory_allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+
+        # checkpoint round trip of the trained state, bit-equal; the
+        # restored host copy is the snapshot both in-model steps start from
+        t0 = time.perf_counter()
+        run.mgr.save(TRAIN_STEPS, trainstep.state_tree(state))
+        run.mgr.wait()
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step_no, snap = run.mgr.restore()
+        t_restore = time.perf_counter() - t0
+        tree = trainstep.state_tree(state)
+        flat = [(k, t, snap["params"][k])
+                for k, t in tree["params"].items()]
+        flat += [(f"{w}/{k}", t, snap["opt_state"][w][k]) for w in ("m", "v")
+                 for k, t in tree["opt_state"][w].items()]
+        flat.append(("step", tree["opt_state"]["step"],
+                     snap["opt_state"]["step"]))
+        for key, t, a in flat:
+            if not torch.equal(torch.from_numpy(np.asarray(a)).cuda(), t):
+                raise AssertionError(f"checkpoint: {key} differs after "
+                                     "restore")
+        nbytes = sum(np.asarray(a).nbytes for _, _, a in flat)
+        print(f"checkpoint: step {step_no}, {len(flat)} leaves, "
+              f"{nbytes / 1e9:.2f} GB, save {t_save:.1f} s, restore "
+              f"{t_restore:.1f} s, bit-equal [{card}]")
+        del flat, tree
+        shutil.rmtree(os.path.join(run.mgr.dir, f"step_{TRAIN_STEPS:09d}"))
+        _in_model_train(card, run, state, snap)
+        del snap
+        _profile_train(card, run, state)
+        return total
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _in_model_train(card, run, state, snap) -> None:
+    """One step with the kernels and one with mode="ref" (plain rmsnorm
+    and AdamW on the card) from the same state and batch.  Limits: the
+    loss within 1e-3 and the grad norm within 1e-2 of the plain path's,
+    relative (the kernels' one difference in the forward is rmsnorm's
+    f32 row sum taken in another order, which can move a bf16 output one
+    ulp); each parameter's update within 1e-2 of the plain update's
+    norm, ||p_k - p_r|| <= 1e-2 ||p_r - p_0|| (an update is about lr per
+    entry, so this scales with lr).  Control: the embedding's update with
+    stream 1 of its AdamW blocking lost (rows left at p_0) must land
+    above that limit."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.train import trainstep
+    ref_step = trainstep.make_train_step(run.model, run.ocfg, mode="ref")
+    batch = {"tokens": torch.from_numpy(
+        run.data.batch(TRAIN_STEPS)).cuda()}
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    state, mk = run.step_fn(state, batch)
+    counts = {n: k.launches for n, k in cuda.KERNELS.items() if k.launches}
+    pk = {k: p.detach().clone()
+          for k, p in state["params"].named_parameters()}
+    trainstep.load_state_tree(state, snap)
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    state, mr = ref_step(state, batch)
+    torch.cuda.synchronize()
+    ref_counts = {n: k.launches for n, k in cuda.KERNELS.items()
+                  if k.launches}
+    if ref_counts:
+        raise AssertionError(f"in-model train: the ref step launched "
+                             f"{ref_counts}")
+    lr = float(mr["lr"])
+    dl = abs(float(mk["loss"]) - float(mr["loss"])) / abs(float(mr["loss"]))
+    dg = abs(float(mk["grad_norm"]) - float(mr["grad_norm"])) / float(
+        mr["grad_norm"])
+    worst, worst_name, max_abs = 0.0, "", 0.0
+    for k, p in state["params"].named_parameters():
+        p0 = torch.from_numpy(np.asarray(snap["params"][k])).cuda()
+        upd = float((p.detach() - p0).norm())
+        ratio = float((pk[k] - p.detach()).norm()) / max(upd, 1e-30)
+        max_abs = max(max_abs, float((pk[k] - p.detach()).abs().max()))
+        if ratio > worst:
+            worst, worst_name = ratio, k
+        if k == "embed":
+            rows, cols = aops._blocking(p.numel())
+            seg = rows // 2
+            ctl = pk[k].clone().view(rows, cols)
+            ctl[seg:2 * seg] = p0.view(rows, cols)[seg:2 * seg]
+            ctl_ratio = float((ctl.view(p.shape) - p.detach()).norm()) / upd
+            del ctl
+        del p0
+    print(f"in-model train: kernels vs mode=\"ref\" from the same state "
+          f"(step {TRAIN_STEPS}, lr {lr:.3e}): loss {float(mk['loss']):.6f} "
+          f"vs {float(mr['loss']):.6f} (rel {dl:.2e}, limit 1e-3), grad_norm "
+          f"{float(mk['grad_norm']):.6f} vs {float(mr['grad_norm']):.6f} "
+          f"(rel {dg:.2e}, limit 1e-2); worst update ratio "
+          f"||p_k - p_r|| / ||p_r - p_0|| {worst:.2e} ({worst_name}, limit "
+          f"1e-2), max|p_k - p_r| {max_abs:.3e} = {max_abs / lr:.3f} lr; "
+          f"control, embed with stream 1 lost: {ctl_ratio:.3f}; kernel step "
+          f"launches {json.dumps(counts)} [{card}]")
+    if dl > 1e-3 or dg > 1e-2 or worst > 1e-2:
+        raise AssertionError("in-model train: kernels disagree with the "
+                             "plain path beyond the limits")
+    if ctl_ratio <= 1e-2:
+        raise AssertionError("in-model train: a lost AdamW stream stays "
+                             "inside the limit, so the check cannot see it")
+    del pk
+
+
+def _profile_train(card, run, state) -> None:
+    """Where a training step's time goes: wall time (host clock,
+    synchronized, unprofiled, from the six steps), device time by kernel
+    and the busy share (torch.profiler over one step), AdamW's share
+    against its bound, and the model FLOPs against the bf16 peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cfg = run.cfg
+    b, s = run.args.batch, run.args.seq
+    batch = {"tokens": torch.from_numpy(
+        run.data.batch(TRAIN_STEPS + 1)).cuda()}
+    t0 = time.perf_counter()
+    run.step_fn(state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run.step_fn(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev(e) > 0]
+    total_ms = sum(dev(e) for e in kernels) / 1e3
+    named = dict(state["params"].named_parameters())
+    n_state = sum(p.numel() for p in named.values())
+    adamw_bytes = 28 * n_state
+    adamw_bound = adamw_bytes / HBM_BYTES_PER_S * 1e3
+    # model FLOPs, no recompute counted: 6 N T for the matmul weights
+    # (layers and head; the embedding is a gather) and 3x the causal
+    # attention's two forward products, computed in full (12 L B S^2 Hq dh)
+    n_mm = sum(p.numel() for k, p in named.items()
+               if p.ndim == 2 and k != "embed")
+    flops = (6 * n_mm * b * s
+             + 12 * cfg.n_layers * b * s * s * cfg.n_heads * cfg.head_dim)
+    peak_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    print(f"profile train: step wall {wall * 1e3:.1f} ms ({b * s / wall:.0f}"
+          f" tokens/s); model FLOPs {flops / 1e12:.1f} T (6 N T, N = "
+          f"{n_mm / 1e9:.3f}B matmul params, T = {b * s}, + attention), "
+          f"{peak_ms:.1f} ms at the bf16 dense peak: {100 * peak_ms / (wall * 1e3):.1f}% "
+          f"of peak; AdamW moves {adamw_bytes / 1e9:.1f} GB, bound "
+          f"{adamw_bound:.1f} ms [{card}]")
+    if total_ms <= 0:
+        print(f"profile train: the profiler recorded no device kernels "
+              f"[{card}]")
+        return
+    busy = total_ms / (wall * 1e3)
+    adamw_ms = sum(dev(e) for e in kernels if "adamw" in e.key) / 1e3
+    print(f"profile train: device kernels {total_ms:.1f} ms ({100 * busy:.1f}%"
+          f" busy, {100 - 100 * busy:.1f}% idle against the unprofiled "
+          f"wall); adamw_update kernel {adamw_ms:.2f} ms "
+          f"({100 * adamw_ms / total_ms:.1f}% of device time, "
+          f"{adamw_ms / adamw_bound:.2f}x its bound) [{card}]")
+    for e in sorted(kernels, key=dev, reverse=True)[:15]:
+        print(f"  {dev(e) / 1e3:9.3f} ms {100 * dev(e) / 1e3 / total_ms:5.1f}% "
+              f"{e.count:6d} calls  {e.key[:90]}")
+
+
 def phase_serve(card: str):
     import numpy as np
     import torch
@@ -1525,12 +1930,19 @@ def main() -> int:
     phase_linalg(card, results)
     phase_stream(card, results)
     phase_stencil(card, results)
+    check_adamw(card, results)
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 
     model, params, engine, counts = phase_serve(card)
     phase_in_model(card, model, params, engine)
     phase_profile(card, model, params, engine)
+    del model, params, engine          # free the serve weights and cache
+    torch.cuda.empty_cache()
+    train_counts = phase_train(card)
+    # the K1 adamw kernel's launches are those of the training run; the
+    # ring's, those of check_adamw's main path (training runs K1)
+    results["adamw_update"]["launches"] = train_counts["adamw_update"]
 
     for name, entry in results.items():
         entry.setdefault("launches", counts[name])

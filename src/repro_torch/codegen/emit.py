@@ -60,6 +60,7 @@ HAND_KERNELS = {
     "jacobi2d": "repro_torch.kernels.stencil",
     "conv3x3": "repro_torch.kernels.stencil",
     "doitgen": "repro_torch.kernels.doitgen.kernel",
+    "adamw_update": "repro_torch.kernels.adamw.kernel",
 }
 _MANUAL = "repro_torch.kernels.manual"
 

@@ -81,6 +81,9 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    def pdtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype)
+
     def cdtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
 

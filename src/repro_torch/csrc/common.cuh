@@ -159,7 +159,7 @@ __device__ __forceinline__ void load_stream_step(
 // d segments of seg = rows / d; block j owns the row slots j*bm ...
 // j*bm + bm - 1 of every segment, one warp per slot (a block has
 // sweep_warps(bm) warps; a warp takes every nwarps-th slot).  For each
-// slot the warp walks the d streams in groups of at most SWEEP_KMAX rows
+// slot the warp walks the d streams in groups of at most KMAX rows
 // rk + k*seg, and each group over the columns, one column step of ns
 // 128-element sub-portions after another, at most SWEEP_PMAX of them in
 // registers at a time.  Body is what a kernel does there:
@@ -168,11 +168,13 @@ __device__ __forceinline__ void load_stream_step(
 //                            np sub-portions from column c0 of the
 //                            group's rows (loaded with load_stream_step)
 //   body.end(rk, seg, nk, lane)   the group's rows are done
+// KMAX, the most streams of a group, defaults to SWEEP_KMAX; a body
+// with more operands in registers (adamw.cu's four) takes fewer.
 constexpr int SWEEP_KMAX = 8;       // streams in registers per pass
 constexpr int SWEEP_PMAX = 2;       // sub-portions in registers per pass
 constexpr int SWEEP_MAX_WARPS = 8;
 
-template <typename Body>
+template <typename Body, int KMAX = SWEEP_KMAX>
 __device__ __forceinline__ void row_sweep(int cols, int d, int seg, int bm,
                                           int ns, bool interleaved,
                                           Body& body) {
@@ -181,8 +183,8 @@ __device__ __forceinline__ void row_sweep(int cols, int d, int seg, int bm,
   const int nsub = cols / SUB;
   for (int slot = warp; slot < bm; slot += nwarps) {
     const int r0 = blockIdx.x * bm + slot;
-    for (int k0 = 0; k0 < d; k0 += SWEEP_KMAX) {
-      const int nk = min(SWEEP_KMAX, d - k0);
+    for (int k0 = 0; k0 < d; k0 += KMAX) {
+      const int nk = min(KMAX, d - k0);
       const int rk = r0 + k0 * seg;
       body.begin(nk);
       for (int q0 = 0; q0 < nsub; q0 += ns)            // one column step

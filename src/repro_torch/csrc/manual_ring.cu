@@ -10,6 +10,8 @@
 //   triad:       a = b + alpha * c (stream_triad)
 //   fill:        y = value         (stream_init: no loads)
 //   gemver_sum:  o = x + z         (gemver_sum on its 1-D blocking)
+//   adamw:       (p', m', v') from (p, g, m, v) and seven scalars
+//                (adamw_update; adamw.cuh's AdamWBody; f32 only)
 // each operation rounded to the arrays' dtype as the body rounds it, so
 // every body equals its plain version bit for bit.
 //
@@ -23,18 +25,21 @@
 // after the body of step t.
 //
 // What bounds it: bytes, as the stream kernels (at most two flops per
-// element moved).
+// element moved; adamw's body, about ten flops for 28 bytes, too).
 //
 // On Hopper:
 //   * Dynamic shared memory holds lookahead x D stages per input and
-//     2 x D staging stages for the output, with one mbarrier per
-//     (input, slot), armed with expect_tx for the D copies' bytes.
+//     2 x D staging stages per output (one output for copy, triad, fill
+//     and gemver_sum, three for adamw), with one mbarrier per (input,
+//     slot), armed with expect_tx for the D copies' bytes.  Every operand
+//     has one element type: adamw's m and v are f32, so its ring takes
+//     f32 parameters only.
 //   * Thread 0 issues the copies: cp.async.bulk global -> shared, one
 //     per row piece of a stage, in the config's arrangement (grouped:
 //     a stream's rows back to back; interleaved: the streams round-robin
-//     row by row), and the stores: cp.async.bulk shared -> global in one
-//     bulk group per step, with wait_group.read 1 before a staging slot
-//     is written again.
+//     row by row), and the stores: cp.async.bulk shared -> global, every
+//     output's in one bulk group per step, with wait_group.read 1 before
+//     a staging slot is written again.
 //   * A step is a (row block, column tile): the TPU ring streamed whole
 //     rows, which at 4096 f32 columns and bm = 8 would be 128 KiB a
 //     stream stage, beyond the 227 KB a block may use.  The tile is the
@@ -50,7 +55,7 @@
 //     cp.async.bulk needs 16-byte aligned addresses and sizes: rows of
 //     whole sub-portions and 16-byte aligned operands (the wrapper
 //     checks) give that.
-#include "common.cuh"
+#include "adamw.cuh"
 
 namespace {
 
@@ -133,34 +138,59 @@ struct Ring {
   bool interleaved;
 };
 
+// A body: prepare() once a block, before the ring starts; then
+// operator()(a, o) maps one element of each input (widened to f32) to
+// one element of each output.
 template <typename T>
 struct CopyOp {
-  __device__ __forceinline__ float operator()(const float* a) const {
-    return a[0];
+  __device__ __forceinline__ void prepare() {}
+  __device__ __forceinline__ void operator()(const float* a, float* o) const {
+    o[0] = a[0];
   }
 };
 
 template <typename T>
 struct TriadOp {
   float alpha;
-  __device__ __forceinline__ float operator()(const float* a) const {
-    return round_to<T>(__fadd_rn(a[0], round_to<T>(__fmul_rn(alpha, a[1]))));
+  __device__ __forceinline__ void prepare() {}
+  __device__ __forceinline__ void operator()(const float* a, float* o) const {
+    o[0] = round_to<T>(__fadd_rn(a[0], round_to<T>(__fmul_rn(alpha, a[1]))));
   }
 };
 
 template <typename T>
 struct FillOp {
   float value;
-  __device__ __forceinline__ float operator()(const float*) const {
-    return value;
+  __device__ __forceinline__ void prepare() {}
+  __device__ __forceinline__ void operator()(const float*, float* o) const {
+    o[0] = value;
   }
 };
 
 template <typename T>
 struct SumOp {
-  __device__ __forceinline__ float operator()(const float* a) const {
-    return round_to<T>(__fadd_rn(a[0], a[1]));
+  __device__ __forceinline__ void prepare() {}
+  __device__ __forceinline__ void operator()(const float* a, float* o) const {
+    o[0] = round_to<T>(__fadd_rn(a[0], a[1]));
   }
+};
+
+// inputs (p, g, m, v), outputs (p', m', v'), all f32; the seven scalars
+// (f32 [7] on the card) are read when the block starts
+struct AdamWOp {
+  const float* s;
+  AdamWBody b;
+  __device__ __forceinline__ void prepare() { b.load(s); }
+  __device__ __forceinline__ void operator()(const float* a, float* o) const {
+    b.apply(a[0], a[1], a[2], a[3], o[0], o[1], o[2]);
+  }
+};
+
+// The operands of a ring: NIN inputs and NOUT outputs of one type.
+template <typename T, int NIN, int NOUT>
+struct Operands {
+  const T* in[NIN > 0 ? NIN : 1];
+  T* out[NOUT];
 };
 
 // Issue the bulk copies between the D streams' [bm, tw] tiles of step s
@@ -188,20 +218,18 @@ __device__ __forceinline__ void step_copies(T* slot, T* gbase, int s,
   }
 }
 
-template <typename T, int NIN, typename Op>
+template <typename T, int NIN, int NOUT, typename Op>
 __global__ void __launch_bounds__(RING_THREADS)
-manual_ring(const T* __restrict__ in0, const T* __restrict__ in1,
-            T* __restrict__ out, Op op, Ring g) {
+manual_ring(Operands<T, NIN, NOUT> ops, Op op, Ring g) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int NI = NIN > 0 ? NIN : 1;
   constexpr int EPV = 16 / static_cast<int>(sizeof(T));   // elements a vector
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);      // [NIN][la]
   const int step_elems = g.d * g.bm * g.tw;                // a slot: D stages
   T* ibuf = reinterpret_cast<T*>(smem + ring_header(NIN, g.la));  // [NIN][la][slot]
-  T* obuf = ibuf + static_cast<size_t>(NIN) * g.la * step_elems;  // [2][slot]
-  const T* src[NI] = {in0};
-  if constexpr (NIN > 1) src[1] = in1;
+  T* obuf = ibuf + static_cast<size_t>(NIN) * g.la * step_elems;  // [NOUT][2][slot]
   const int tid = threadIdx.x;
+  op.prepare();
   const int s0 = blockIdx.x * g.per;
   const int n = min(g.per, g.steps - s0);
 
@@ -213,7 +241,7 @@ manual_ring(const T* __restrict__ in0, const T* __restrict__ in1,
     for (int r = 0; r < NIN; ++r) {
       uint64_t* bar = full + r * g.la + slot;
       mbar_expect_tx(bar, static_cast<uint32_t>(step_elems * sizeof(T)));
-      step_copies<true>(islot(r, slot), const_cast<T*>(src[r]), s0 + i, g,
+      step_copies<true>(islot(r, slot), const_cast<T*>(ops.in[r]), s0 + i, g,
                         bar);
     }
   };
@@ -228,7 +256,11 @@ manual_ring(const T* __restrict__ in0, const T* __restrict__ in1,
 
   for (int i = 0; i < n; ++i) {
     const int slot = i % g.la;
-    T* ob = obuf + static_cast<size_t>(i % OUT_STAGES) * step_elems;
+    T* ob[NOUT];                       // each output's staging slot of step i
+#pragma unroll
+    for (int q = 0; q < NOUT; ++q)
+      ob[q] = obuf + (static_cast<size_t>(q) * OUT_STAGES + i % OUT_STAGES) *
+                         step_elems;
     // the store of step i - 2 must have read this staging slot
     if (tid == 0 && i >= OUT_STAGES) bulk_wait_read<OUT_STAGES - 1>();
     __syncthreads();
@@ -241,20 +273,27 @@ manual_ring(const T* __restrict__ in0, const T* __restrict__ in1,
         const uint4 u = *reinterpret_cast<const uint4*>(islot(r, slot) + v);
         w[r][0] = u.x; w[r][1] = u.y; w[r][2] = u.z; w[r][3] = u.w;
       }
-      uint32_t o[4] = {0u, 0u, 0u, 0u};
+      uint32_t o[NOUT][4] = {};
 #pragma unroll
       for (int e = 0; e < EPV; ++e) {
         float a[NI] = {0.f};
+        float y[NOUT];
 #pragma unroll
         for (int r = 0; r < NIN; ++r) a[r] = Cvt<T>::get(w[r], e);
-        Cvt<T>::put(o, e, op(a));
+        op(a, y);
+#pragma unroll
+        for (int q = 0; q < NOUT; ++q) Cvt<T>::put(o[q], e, y[q]);
       }
-      *reinterpret_cast<uint4*>(ob + v) = make_uint4(o[0], o[1], o[2], o[3]);
+#pragma unroll
+      for (int q = 0; q < NOUT; ++q)
+        *reinterpret_cast<uint4*>(ob[q] + v) =
+            make_uint4(o[q][0], o[q][1], o[q][2], o[q][3]);
     }
     fence_proxy_async();               // staging writes -> the bulk store
     __syncthreads();                   // staging written, input slot read
     if (tid == 0) {
-      step_copies<false>(ob, out, s0 + i, g, nullptr);
+      for (int q = 0; q < NOUT; ++q)
+        step_copies<false>(ob[q], ops.out[q], s0 + i, g, nullptr);
       bulk_commit();
       if (i + g.la < n) load(i + g.la);   // refill the slot just read
     }
@@ -262,9 +301,9 @@ manual_ring(const T* __restrict__ in0, const T* __restrict__ in1,
   if (tid == 0) bulk_wait_all();       // epilogue: drain the stores
 }
 
-template <typename T, int NIN, typename Op>
-int ring_t(const void* in0, const void* in1, void* out, Op op, int rows,
-           int cols, int d, int bm, int tw, int la, int per, int interleaved,
+template <typename T, int NIN, int NOUT, typename Op>
+int ring_t(Operands<T, NIN, NOUT> ops, Op op, int rows, int cols, int d,
+           int bm, int tw, int la, int per, int interleaved,
            cudaStream_t stream) {
   if (rows <= 0 || cols <= 0 || d <= 0 || bm <= 0 || tw <= 0 || la <= 0 ||
       per <= 0 || rows % d != 0 || (rows / d) % bm != 0 || cols % tw != 0 ||
@@ -286,9 +325,11 @@ int ring_t(const void* in0, const void* in1, void* out, Op op, int rows,
     return static_cast<int>(cudaErrorInvalidValue);
   g.steps = static_cast<int>(steps);
   g.per = per;
-  const size_t smem = ring_header(NIN, la) +
-                      (static_cast<size_t>(NIN) * la + OUT_STAGES) * slot_bytes;
-  auto kernel = manual_ring<T, NIN, Op>;
+  const size_t smem =
+      ring_header(NIN, la) +
+      (static_cast<size_t>(NIN) * la + static_cast<size_t>(OUT_STAGES) * NOUT) *
+          slot_bytes;
+  auto kernel = manual_ring<T, NIN, NOUT, Op>;
   static size_t opted_in = 0;          // raised once per instance, not per launch
   if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -297,40 +338,58 @@ int ring_t(const void* in0, const void* in1, void* out, Op op, int rows,
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = smem;
   }
-  kernel<<<static_cast<int>(blocks), RING_THREADS, smem, stream>>>(
-      static_cast<const T*>(in0), static_cast<const T*>(in1),
-      static_cast<T*>(out), op, g);
+  kernel<<<static_cast<int>(blocks), RING_THREADS, smem, stream>>>(ops, op,
+                                                                   g);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int copy_t(const void* x, void* o, int rows, int cols, int d, int bm, int tw,
            int la, int per, int interleaved, cudaStream_t stream) {
-  return ring_t<T, 1>(x, nullptr, o, CopyOp<T>{}, rows, cols, d, bm, tw, la,
-                      per, interleaved, stream);
+  return ring_t<T, 1, 1>({{static_cast<const T*>(x)}, {static_cast<T*>(o)}},
+                         CopyOp<T>{}, rows, cols, d, bm, tw, la, per,
+                         interleaved, stream);
 }
 
 template <typename T>
 int triad_t(const void* b, const void* c, void* o, float alpha, int rows,
             int cols, int d, int bm, int tw, int la, int per, int interleaved,
             cudaStream_t stream) {
-  return ring_t<T, 2>(b, c, o, TriadOp<T>{alpha}, rows, cols, d, bm, tw, la,
-                      per, interleaved, stream);
+  return ring_t<T, 2, 1>(
+      {{static_cast<const T*>(b), static_cast<const T*>(c)},
+       {static_cast<T*>(o)}},
+      TriadOp<T>{alpha}, rows, cols, d, bm, tw, la, per, interleaved, stream);
 }
 
 template <typename T>
 int fill_t(void* o, float value, int rows, int cols, int d, int bm, int tw,
            int la, int per, int interleaved, cudaStream_t stream) {
-  return ring_t<T, 0>(nullptr, nullptr, o, FillOp<T>{value}, rows, cols, d,
-                      bm, tw, la, per, interleaved, stream);
+  return ring_t<T, 0, 1>({{nullptr}, {static_cast<T*>(o)}}, FillOp<T>{value},
+                         rows, cols, d, bm, tw, la, per, interleaved, stream);
 }
 
 template <typename T>
 int sum_t(const void* x, const void* z, void* o, int rows, int cols, int d,
           int bm, int tw, int la, int per, int interleaved,
           cudaStream_t stream) {
-  return ring_t<T, 2>(x, z, o, SumOp<T>{}, rows, cols, d, bm, tw, la, per,
-                      interleaved, stream);
+  return ring_t<T, 2, 1>(
+      {{static_cast<const T*>(x), static_cast<const T*>(z)},
+       {static_cast<T*>(o)}},
+      SumOp<T>{}, rows, cols, d, bm, tw, la, per, interleaved, stream);
+}
+
+int adamw_f32(const void* p, const void* g, const void* m, const void* v,
+              const void* s, void* po, void* mo, void* vo, int rows, int cols,
+              int d, int bm, int tw, int la, int per, int interleaved,
+              cudaStream_t stream) {
+  using F = const float*;
+  return ring_t<float, 4, 3>(
+      {{static_cast<F>(p), static_cast<F>(g), static_cast<F>(m),
+        static_cast<F>(v)},
+       {static_cast<float*>(po), static_cast<float*>(mo),
+        static_cast<float*>(vo)}},
+      AdamWOp{static_cast<F>(s), {}}, rows, cols, d, bm, tw, la, per,
+      interleaved, stream);
 }
 
 }  // namespace
@@ -390,4 +449,18 @@ extern "C" int manual_sum_launch(int dtype, const void* x, const void* z,
     case kF16: return sum_t<__half>(x, z, o, rows, cols, d, bm, tw, la, per, interleaved, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// p, g, m, v (inputs) and po, mo, vo (outputs): f32 only (the ring takes
+// one element type, and m and v are f32); s: f32 [7] = (lr, b1, b2, eps,
+// wd, bc1, bc2) on the card.
+extern "C" int manual_adamw_launch(int dtype, const void* p, const void* g,
+                                   const void* m, const void* v,
+                                   const void* s, void* po, void* mo,
+                                   void* vo, int rows, int cols, int d,
+                                   int bm, int tw, int la, int per,
+                                   int interleaved, void* stream) {
+  if (dtype != kF32) return static_cast<int>(cudaErrorInvalidValue);
+  return adamw_f32(p, g, m, v, s, po, mo, vo, rows, cols, d, bm, tw, la, per,
+                   interleaved, static_cast<cudaStream_t>(stream));
 }

@@ -13,7 +13,8 @@ the mxv kernels), ``gemver`` (``gemver_outer``, ``gemver_sum``: K1; its
 mxv steps run the mxv kernels), ``stream`` (copy, triad, init: K1;
 read: K2), and the paper's stencil and tensor kernels ``jacobi2d`` and
 ``conv3x3`` (K1 with row-halo taps, one kernel in ``stencil.py``) and
-``doitgen`` (K1 with a batch axis and a free axis).  ``manual.py`` is
+``doitgen`` (K1 with a batch axis and a free axis), and the fused
+optimizer update ``adamw`` (``adamw_update``: K1).  ``manual.py`` is
 the K4 template, the explicit lookahead ring, which every family's
 K4-eligible spec reaches at a ``lookahead`` other than 2.  As in the JAX package, every public op is exported here
 under its own name, which for ``rmsnorm``, ``decode_attn``, ``mxv``,
@@ -21,6 +22,7 @@ under its own name, which for ``rmsnorm``, ``decode_attn``, ``mxv``,
 the name of its family's package:
 ``from repro_torch.kernels.mxv import ops`` still reaches the package.
 """
+from repro_torch.kernels.adamw import adamw_update
 from repro_torch.kernels.bicg import bicg
 from repro_torch.kernels.conv3x3 import conv3x3
 from repro_torch.kernels.decode_attn import decode_attn
@@ -36,4 +38,5 @@ from repro_torch.kernels.stream import (stream_copy, stream_copy_manual,
 __all__ = ["rmsnorm", "decode_attn", "mxv", "mxv_t", "bicg", "gemver",
            "gemver_outer", "gemver_sum", "gemver_mxv1", "gemver_mxv2",
            "stream_read", "stream_copy", "stream_init",
-           "stream_copy_manual", "jacobi2d", "conv3x3", "doitgen"]
+           "stream_copy_manual", "jacobi2d", "conv3x3", "doitgen",
+           "adamw_update"]

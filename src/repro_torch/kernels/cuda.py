@@ -27,7 +27,7 @@ import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "CudaKernel",
            "build", "library", "DTYPES", "dtype_code", "check_arrays",
-           "check_operands", "sweep_geometry"]
+           "check_operands", "sweep_geometry", "f32_scalars"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -85,6 +85,19 @@ def check_operands(name: str, arrays: Sequence[torch.Tensor],
     if any(t.data_ptr() % 16 for t in arrays):
         raise ValueError(f"{name} kernel: operands must be contiguous, "
                          "16-byte aligned and on one device")
+
+
+def f32_scalars(scalars, device) -> torch.Tensor:
+    """A spec's scalars as one f32 vector on ``device``, in order: a
+    scalar widens to f32 as the spec bodies widen it.  0-d tensors (what
+    the ops pass) take one stack on their device and, unless already
+    f32, one cast: no host copy, so a call can be captured in a CUDA
+    graph.  Python numbers are copied from the host."""
+    if all(isinstance(w, torch.Tensor) for w in scalars):
+        return torch.stack(list(scalars)).to(device=device,
+                                             dtype=torch.float32)
+    return torch.tensor([float(w) for w in scalars], dtype=torch.float32,
+                        device=device)
 
 
 def sweep_geometry(bp, config) -> tuple[int, int, int, int, int, int]:

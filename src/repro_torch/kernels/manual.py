@@ -6,9 +6,13 @@ between load and store, and bulk stores out of a 2-deep staging ring.
 The JAX package selects K4 at a ``lookahead`` other than 2 for specs
 with plain ``(stride, vector)`` reads and ``(stride, vector)`` or
 ``(stride,)`` writes (``codegen.emit.template_of``).  The port's ring
-has the bodies in :data:`BODIES`; it raises ``NotImplementedError``
-naming ``_emit_manual`` for a rank-1 ``(stride,)`` side write and for an
-eligible spec whose body is not ported yet (``adamw_update``).
+has the bodies in :data:`BODIES`, each with one or more ``(stride,
+vector)`` writes (adamw's three: p', m', v'); it raises
+``NotImplementedError`` naming ``_emit_manual`` for a rank-1
+``(stride,)`` side write and for an eligible spec whose body is not
+ported yet.  Every operand of a ring has one dtype (``csrc/
+manual_ring.cu``): adamw's ring takes f32 parameters, and a bf16 one
+raises ``TypeError`` in ``cuda.check_operands``.
 
 A step of the ring is a (row block, column tile) of every stream: the
 TPU ring streamed whole rows, which do not fit a block's shared memory
@@ -56,6 +60,11 @@ BODIES = {
     "gemver_sum": cuda.CudaKernel("manual_ring_gemver_sum", "manual_ring",
                                   "manual_sum_launch",
                                   [_I, _P, _P, _P, *_GEOM]),
+    # manual_adamw_launch(dtype, p, g, m, v, s, po, mo, vo, <geometry>,
+    #                     stream); s the f32 [7] scalars on the card
+    "adamw_update": cuda.CudaKernel("manual_ring_adamw", "manual_ring",
+                                    "manual_adamw_launch",
+                                    [_I, *[_P] * 8, *_GEOM]),
 }
 
 OUT_STAGES = 2            # the staging ring's depth, as the TPU kernel's
@@ -103,7 +112,7 @@ def ring_runs(steps: int, sms: int) -> tuple[int, int]:
 
 
 def _refuse(spec: loopir.TraversalSpec) -> Optional[str]:
-    if len(spec.writes) != 1 or len(spec.writes[0].index) != 2:
+    if any(len(w.index) != 2 for w in spec.writes):
         return "rank-1 (stride,) side writes are not ported"
     if spec.name not in BODIES:
         return (f"no body for {spec.name!r} in the ring yet (ported: "
@@ -112,8 +121,9 @@ def _refuse(spec: loopir.TraversalSpec) -> Optional[str]:
 
 
 def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
-         config: StridingConfig, device=None) -> torch.Tensor:
-    """Run a (padded) K4 spec: the one output, ``[rows, cols]``."""
+         config: StridingConfig, device=None):
+    """Run a (padded) K4 spec: its output, ``[rows, cols]``, or a tuple
+    of them for a spec with several writes."""
     why = _refuse(spec)
     if why is not None:
         raise NotImplementedError(
@@ -123,26 +133,31 @@ def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
     dev = arrays[0].device if arrays else torch.device(device)
     if dev.type != "cuda":
         return loopir.evaluate(spec, [*arrays, *scalars], device=dev)
-    dtype = spec.out_dtypes(arrays)[0]
-    n_in = len(spec.reads)
-    o = torch.empty(bp.rows, bp.cols, dtype=dtype, device=dev)
-    cuda.check_operands(spec.name, [*arrays, o],
-                        [(bp.rows, bp.cols)] * (n_in + 1))
+    out_dtypes = spec.out_dtypes(arrays)
+    dtype = out_dtypes[0]
+    n_in, n_out = len(spec.reads), len(spec.writes)
+    outs = [torch.empty(bp.rows, bp.cols, dtype=dt, device=dev)
+            for dt in out_dtypes]
+    cuda.check_operands(spec.name, [*arrays, *outs],
+                        [(bp.rows, bp.cols)] * (n_in + n_out))
     props = torch.cuda.get_device_properties(dev)
     tw = ring_tile(bp, config, dtype, props.shared_memory_per_block_optin,
-                   n_in)
+                   n_in, n_out)
     steps = bp.rows // bp.d // bp.bm * (bp.cols // tw)
     per, _ = ring_runs(steps, props.multi_processor_count)
     geometry = (bp.rows, bp.cols, bp.d, bp.bm, tw, config.lookahead, per,
                 int(config.arrangement == "interleaved"))
     ptrs = [t.data_ptr() for t in arrays]
+    optrs = [o.data_ptr() for o in outs]
     kernel = BODIES[spec.name]
+    code = cuda.dtype_code(dtype)
     if spec.name == "stream_triad":
-        kernel(dev, cuda.dtype_code(dtype), *ptrs, o.data_ptr(),
-               float(scalars[0]), *geometry)
+        kernel(dev, code, *ptrs, *optrs, float(scalars[0]), *geometry)
     elif spec.name == "stream_init":
-        kernel(dev, cuda.dtype_code(dtype), o.data_ptr(), float(scalars[0]),
-               *geometry)
+        kernel(dev, code, *optrs, float(scalars[0]), *geometry)
+    elif spec.name == "adamw_update":
+        s = cuda.f32_scalars(scalars, dev)        # [7] on the card
+        kernel(dev, code, *ptrs, s.data_ptr(), *optrs, *geometry)
     else:
-        kernel(dev, cuda.dtype_code(dtype), *ptrs, o.data_ptr(), *geometry)
-    return o
+        kernel(dev, code, *ptrs, *optrs, *geometry)
+    return outs[0] if n_out == 1 else tuple(outs)

@@ -56,18 +56,8 @@ def stencil_runs(bp: BlockPlan, sms: int) -> tuple[int, int]:
     return run, -(-seg // run)
 
 
-def conv_weights(scalars, device) -> torch.Tensor:
-    """The nine weights as one f32 ``[9]`` tensor on ``device``, in
-    ``C3_NAMES`` order: a weight widens to f32 as the body's
-    ``w * tap(x)`` widens it.  0-d tensor weights (what the op passes)
-    take one stack on their device and, unless already f32, one cast:
-    no host copy, so a call can be captured in a CUDA graph.  Python
-    numbers are copied from the host."""
-    if all(isinstance(w, torch.Tensor) for w in scalars):
-        return torch.stack(list(scalars)).to(device=device,
-                                             dtype=torch.float32)
-    return torch.tensor([float(w) for w in scalars], dtype=torch.float32,
-                        device=device)
+# the nine weights as one f32 [9] tensor on the card, in C3_NAMES order
+conv_weights = cuda.f32_scalars
 
 
 def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,

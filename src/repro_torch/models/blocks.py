@@ -1,14 +1,19 @@
 """Layer composition for the dense decoder: pre-norm attention + FFN
-layers, one module per layer, and the decode path over the stack.
+layers, one module per layer, and the train and decode paths over the
+stack.
 
 The JAX package scans stacked per-period params; here the stack is an
-``nn.ModuleList`` walked by a Python loop (PyTorch runs eagerly)."""
+``nn.ModuleList`` walked by a Python loop (PyTorch runs eagerly).  A
+dense period is one layer, so the JAX package's ``nothing_saveable``
+checkpoint of each period is one ``torch.utils.checkpoint`` per layer
+here."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, ffn
@@ -45,6 +50,34 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device) -> list[dict[str, torch.Tensor]]:
     return [attention.init_cache(cfg, batch, max_len, dtype, device)
             for _ in range(cfg.n_layers)]
+
+
+def _layer_forward(p: Layer, x, cfg: ModelConfig, rope, causal: bool = True,
+                   mode: Optional[str] = None):
+    """One dense layer over the whole sequence: (x', aux), aux = 0 (no
+    MoE router in a dense layer)."""
+    h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
+    a, _ = attention.attn_forward(p.attn, h, cfg, rope, causal)
+    x = x + a
+    h = common.rms_norm(x, p.norm2, cfg.norm_eps, mode)
+    x = x + ffn.ffn_forward(p.ffn, h, cfg.act)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def stack_forward(stack: nn.ModuleList, x, cfg: ModelConfig, rope,
+                  causal: bool = True, remat: bool = True,
+                  mode: Optional[str] = None):
+    """Every layer in turn: (x, summed aux).  ``remat`` saves only each
+    layer's input and recomputes the layer in the backward pass."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in stack:
+        if remat:
+            x, a = checkpoint(_layer_forward, layer, x, cfg, rope, causal,
+                              mode, use_reentrant=False)
+        else:
+            x, a = _layer_forward(layer, x, cfg, rope, causal, mode)
+        aux = aux + a
+    return x, aux
 
 
 def _layer_decode(p: Layer, c, x, cfg: ModelConfig, rope, pos,

@@ -1,4 +1,5 @@
-"""Shared model components: initializers, the norm, RoPE."""
+"""Shared model components: initializers, the norm (with its gradient),
+RoPE, the loss."""
 from __future__ import annotations
 
 import math
@@ -33,11 +34,38 @@ def embed_init(generator: torch.Generator, vocab: int, d: int,
     return (x * (1.0 / math.sqrt(d))).to(dtype)
 
 
+class _RMSNorm(torch.autograd.Function):
+    """rmsnorm with a gradient.  Forward is the K1 kernel (its plain
+    version on the CPU or with ``mode="ref"``), which also returns the f32
+    inverse rms of each row; backward is the closed form in f32 from the
+    saved x, w and inverse rms, cast back to their dtypes.  The JAX
+    package has no backward kernel (XLA differentiates its reference),
+    so this one is plain PyTorch too."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, mode):
+        out, inv = rmsnorm_ops.rmsnorm(x, w, eps=eps, mode=mode,
+                                       with_inv_rms=True)
+        ctx.save_for_backward(x, w, inv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, inv = ctx.saved_tensors
+        inv = inv.unsqueeze(-1)
+        xhat = x.float() * inv
+        g = dy.float() * w.float()
+        # d/dx of x * inv(x) * w, inv = (mean(x^2) + eps)^-1/2
+        dx = inv * (g - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+        dw = (dy.float() * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
              mode: Optional[str] = None) -> torch.Tensor:
     """The multi-strided rmsnorm kernel on the card; its plain version on
-    the CPU or with ``mode="ref"``."""
-    return rmsnorm_ops.rmsnorm(x, scale.to(x.dtype), eps=eps, mode=mode)
+    the CPU or with ``mode="ref"``.  Differentiable in x and scale."""
+    return _RMSNorm.apply(x, scale.to(x.dtype), eps, mode)
 
 
 def make_rope(positions: torch.Tensor, head_dim: int, theta: float,
@@ -77,3 +105,18 @@ def apply_rope(x: torch.Tensor, rope, style: str) -> torch.Tensor:
     y2 = x2 * cos + x1 * sin
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr, xp.to(yr.dtype)], dim=-1) if rot != dh else yr
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token NLL with optional z-loss, f32 stable."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return nll.mean()

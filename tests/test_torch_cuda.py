@@ -14,6 +14,10 @@ from repro_torch.codegen import OnlineSoftmax, run_spec
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.core.striding import StridingConfig as TConfig
 from repro_torch.kernels import stencil as tstencil
+from repro_torch.kernels.adamw import _HYPER
+from repro_torch.kernels.adamw import kernel as akernel
+from repro_torch.kernels.adamw import ops as taops
+from repro_torch.kernels.adamw import specs as taspecs
 from repro_torch.kernels.bicg import ops as tbops
 from repro_torch.kernels.conv3x3 import ops as tcops
 from repro_torch.kernels.conv3x3 import specs as tcspecs
@@ -135,6 +139,24 @@ def test_launcher_serves_on_the_card(cuda_device, capsys):
     assert all(len(toks) == 16 for toks in results.values())
     assert rkernel.RMSNORM.launches > n[0] and dkernel.SPLIT.launches > n[1]
     assert "req 2: 16 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
+def test_launcher_trains_on_the_card(cuda_device, tmp_path, capsys):
+    """The train launcher on the card (reduced yi-9b): each step runs
+    rmsnorm 4L + 1 times (remat recomputes the layers' norms) and the K1
+    adamw kernel once per parameter tensor."""
+    from repro_torch.launch import train
+    before = (rkernel.RMSNORM.launches, akernel.ADAMW.launches)
+    state = train.main(["--device", str(cuda_device), "--steps", "2",
+                        "--batch", "2", "--seq", "16", "--log-every", "1",
+                        "--ckpt-dir", str(tmp_path)])
+    n_layers, n_tensors = 2, len(list(state["params"].parameters()))
+    assert rkernel.RMSNORM.launches - before[0] == 2 * (4 * n_layers + 1)
+    assert akernel.ADAMW.launches - before[1] == 2 * n_tensors
+    assert all(p.is_cuda and torch.isfinite(p).all()
+               for p in state["params"].parameters())
+    assert "done; checkpoints: [2]" in capsys.readouterr().out
 
 
 # ------------------------------------------- decode: every dense group
@@ -593,3 +615,118 @@ def test_stencil_and_doitgen_wrappers_raise_on_what_they_do_not_take(
         tdgops.doitgen(a, c4.bfloat16())
     assert counts == {k.name: k.launches for k in (
         tstencil.JACOBI, tstencil.CONV, dgkernel.DOITGEN)}
+
+
+# ------------------------------------------------------------- adamw
+
+# (60, 100) pads to a [12, 512] blocking, (128, 128) is [32, 512], the
+# bench size (4096, 1024) is [8192, 512]; (3, 64) is one 192-column row
+ADAMW_SHAPES = [(60, 100), (128, 128), (4096, 1024), (3, 64)]
+
+
+def _adamw_inputs(gen, shape, dev, dtype):
+    p, g, m = (_rand(gen, shape, dev, t)
+               for t in (dtype, dtype, torch.float32))
+    v = torch.rand(*shape, generator=gen, device=dev)
+    return p, g, m, v
+
+
+def _adamw_equal(got, want, dtype):
+    """p' in p's dtype, m' and v' f32, each equal to the plain version's
+    bit for bit."""
+    for o, w, dt in zip(got, want, (dtype, torch.float32, torch.float32)):
+        assert o.dtype == dt and o.shape == w.shape
+        assert torch.equal(o, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", DPS)
+@pytest.mark.parametrize("shape", ADAMW_SHAPES)
+def test_adamw_kernel_matches_plain(cuda_device, dtype, arr, d, p, shape):
+    """The K1 adamw kernel equals its plain version bit for bit (p' one
+    rounding from f32), one launch a call, with 0-d scalar tensors on the
+    card as the optimizer passes them and with Python numbers."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p)
+    args = _adamw_inputs(gen, shape, cuda_device, dtype)
+    cfg = TConfig(d, p, arrangement=arr)
+    hyper = dict(_HYPER)
+    on_card = dict(zip(hyper, taops.scalars(cuda_device, *hyper.values())))
+    for kw in (hyper, on_card):
+        before = akernel.ADAMW.launches
+        got = taops.adamw_update(*args, config=cfg, **kw)
+        assert akernel.ADAMW.launches == before + 1
+        _adamw_equal(got, taops.adamw_update(*args, config=cfg, mode="ref",
+                                             **kw), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lookahead", [1, 3, 4])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", DPS)
+@pytest.mark.parametrize("shape", ADAMW_SHAPES)
+def test_adamw_ring_matches_plain(cuda_device, lookahead, arr, d, p, shape):
+    """The K4 ring's adamw body (four inputs, three outputs) equals the
+    plain version bit for bit and launches once; where even a
+    128-column step does not fit shared memory it raises ValueError
+    naming the bytes and launches nothing."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p + 1)
+    args = _adamw_inputs(gen, shape, cuda_device, torch.float32)
+    cfg = TConfig(d, p, lookahead=lookahead, arrangement=arr)
+    limit = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    kernel = tmanual.BODIES["adamw_update"]
+    before = kernel.launches
+    from repro_torch.codegen import plan_blocks
+    from repro_torch.kernels.common import effective_config
+    rows, cols = taops._blocking(shape[0] * shape[1])
+    bp = plan_blocks(taspecs.adamw_spec(torch.empty(rows, cols), None, None,
+                                        None), effective_config(cfg, rows,
+                                                                cfg))
+    need = tmanual.ring_smem(4, 3, bp.d, bp.bm, 128, lookahead, 4)
+    if need <= limit:
+        got = taops.adamw_update(*args, config=cfg, **_HYPER)
+        assert kernel.launches == before + 1
+        _adamw_equal(got, taops.adamw_update(*args, config=cfg, mode="ref",
+                                             **_HYPER), torch.float32)
+    else:
+        with pytest.raises(ValueError, match=f"{need} bytes"):
+            taops.adamw_update(*args, config=cfg, **_HYPER)
+        assert kernel.launches == before
+
+
+@pytest.mark.gpu
+def test_adamw_ring_fits_at_d2_and_refuses_d4(cuda_device):
+    """At the bench blocking [8192, 512], D=2 bm=8: the ring of four
+    inputs and three outputs fits at lookahead 3 (144 KiB) and 4
+    (176 KiB); at D=4 and lookahead 3 it does not, and the ValueError
+    says so without changing D or the lookahead.  A bf16 parameter is
+    refused by the ring (one dtype for every operand) with TypeError."""
+    limit = torch.cuda.get_device_properties(
+        cuda_device).shared_memory_per_block_optin
+    x = torch.zeros(8192, 512, device=cuda_device)
+    for la, kib in ((3, 144), (4, 176)):
+        assert tmanual.ring_smem(4, 3, 2, 8, 128, la, 4) // 1024 == kib
+        out = taops.adamw_update(x, x, x, x + 1, config=TConfig(
+            2, 2, lookahead=la), **_HYPER)
+        assert all(torch.isfinite(o).all() for o in out)
+    cfg = TConfig(4, 2, lookahead=3)
+    with pytest.raises(ValueError, match="does not fit shared memory"):
+        taops.adamw_update(x, x, x, x + 1, config=cfg, **_HYPER)
+    assert cfg.stride_unroll == 4 and cfg.lookahead == 3
+    assert tmanual.ring_smem(4, 3, 4, 8, 128, 3, 4) > limit
+    with pytest.raises(TypeError):
+        taops.adamw_update(x.bfloat16(), x.bfloat16(), x, x + 1,
+                           config=TConfig(2, 2, lookahead=3), **_HYPER)
+
+
+@pytest.mark.gpu
+def test_adamw_wrappers_raise_on_what_they_do_not_take(cuda_device):
+    x = torch.randn(64, 128, device=cuda_device)
+    before = akernel.ADAMW.launches
+    with pytest.raises(TypeError):                    # f64 not compiled
+        taops.adamw_update(x.double(), x.double(), x, x, **_HYPER)
+    with pytest.raises(TypeError):                    # p and g differ
+        taops.adamw_update(x, x.bfloat16(), x, x, **_HYPER)
+    assert akernel.ADAMW.launches == before

@@ -378,16 +378,16 @@ def test_ring_that_cannot_fit_raises_naming_the_bytes(d, la, dtype):
 
 
 def test_k4_refuses_what_it_does_not_take():
-    """A K4-eligible spec with no ring body yet (``adamw_update``) and a
+    """A K4-eligible spec with no ring body yet (``transpose_gen``) and a
     rank-1 ``(stride,)`` side write raise naming ``_emit_manual``."""
     x = torch.zeros(16, 256)
     cfg = TConfig(4, 2, lookahead=3)
-    other = dataclasses.replace(tsspecs.copy_spec(x), name="adamw_update")
+    other = dataclasses.replace(tsspecs.copy_spec(x), name="transpose_gen")
     assert tcg.template_of(other, cfg) == "K4"
     with pytest.raises(NotImplementedError, match="_emit_manual"):
         tcg.emit_spec(other, [x], cfg)
     side = dataclasses.replace(          # a side write wins over the name
-        tsspecs.copy_spec(x), name="adamw_update",
+        tsspecs.copy_spec(x), name="transpose_gen",
         writes=(tcg.Access("y", ("i", "j")), tcg.Access("s", ("i",))),
         body=lambda env: (env["x"], env["x"].sum(-1)))
     assert tcg.template_of(side, cfg) == "K4"
