@@ -38,6 +38,15 @@ Phases (each raises on failure, so the script exits non-zero):
                 ring's adamw body at lookahead 1, 3, 4; equality with the
                 plain version, a lost-stream control, times against the
                 bound and torch._fused_adamw_
+  3f. registry — every one of the 35 registry rows at its six conformance
+                points and its bench size, kernels against plain versions
+                at the row's rtol / atol (a line per family with the worst
+                excess); then the five instances the *_gen rows brought
+                (transpose, rowstat, gemver_mxv2, gemver_mxv1,
+                gemver_mxv1_sum) at 16384^2 and 4096^2 f32 (transpose and
+                rowstat also bf16 at 4096^2) through their public ops:
+                equality or the f32 dot limit, lost-stream controls, and
+                times against the bound and one PyTorch call
   4. serve    — Yi-9B at full width (random weights from a seeded
                 torch.Generator) serves 8 requests x 16 tokens through the
                 continuous-batching engine; the launch counts, reset just
@@ -367,6 +376,24 @@ def _dot_limit(terms, ref, n: int):
     within _dot_factor(n) 2^-24 sum|a x| of the exact one, and each is
     rounded once more into the output (f32 here)."""
     return 2 * _dot_factor(n) * GAMMA * terms + 2 * GAMMA * ref.abs()
+
+
+def _total_limit(col_terms, rounds_per_col: int, row_abs_sum,
+                 n: int, total):
+    """Limit on |kernel - plain| of a total of n f32 row entries, each
+    entry itself an f32 sum: every rounding error of both computations
+    lies within 2^-24 times the largest partial sum it rounds (for an
+    entry's rounds_per_col roundings on both sides, col_terms[j] =
+    sum|terms| of entry j; for the 2 n roundings of the two totals,
+    row_abs_sum = sum_j |entry_j|).  With the errors independent and of
+    mean zero (as _dot_factor assumes), Hoeffding's inequality puts
+    their sum within LAMBDA 2^-24 sqrt(sum of squared bounds) except with
+    probability 2 exp(-LAMBDA^2 / 2); plus the output rounding."""
+    import torch
+    sq = rounds_per_col * (col_terms.double() ** 2).sum() + (
+        2 * n * row_abs_sum.double() ** 2)
+    return (LAMBDA * GAMMA * torch.sqrt(sq)
+            + 2 * GAMMA * total.abs().double()).float()
 
 
 def _excess(got, ref, limit) -> float:
@@ -1449,6 +1476,336 @@ def check_adamw(card: str, results: dict) -> None:
     torch.cuda.empty_cache()
 
 
+REGISTRY_FULL = (16384, 4096)        # square f32 matrices: 1 GiB, 64 MiB
+REGISTRY_SOURCES = {
+    "transpose": ("src/repro_torch/csrc/transpose.cu",
+                  "src/repro/codegen/emit.py:410"),
+    "rowstat": ("src/repro_torch/csrc/reduction.cu",
+                "src/repro/codegen/emit.py:491"),
+    "gemver_mxv2": ("src/repro_torch/csrc/reduction.cu",
+                    "src/repro/codegen/emit.py:491"),
+    "gemver_mxv1": ("src/repro_torch/csrc/stream_reduction.cu",
+                    "src/repro/codegen/emit.py:564"),
+    "gemver_mxv1_merge": ("src/repro_torch/csrc/stream_reduction.cu",
+                          "src/repro/codegen/emit.py:564"),
+    "gemver_mxv1_sum": ("src/repro_torch/csrc/stream_reduction.cu",
+                        "src/repro/codegen/emit.py:564"),
+    "gemver_mxv1_sum_merge": ("src/repro_torch/csrc/stream_reduction.cu",
+                              "src/repro/codegen/emit.py:564"),
+}
+
+
+def _leaves(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [leaf for o in out for leaf in _leaves(o)]
+    return [out]
+
+
+def phase_registry(card: str, results: dict) -> None:
+    """(a) Every registry row at each of its six conformance points and
+    once at its bench size: ``run(inputs, config, None)`` (the kernels)
+    against ``run(..., "ref")`` (the plain versions) on the card, at the
+    row's rtol / atol; the counts are set to 0 just before and read just
+    after, and every kernel of the five new instances must have run.
+    (b) The five new instances through their public ``*_gen`` ops at
+    16384^2 and 4096^2 f32 (transpose and rowstat also in bf16 at 4096^2):
+    each against its plain version (equality for transpose and the row
+    max, the f32 dot limit otherwise) with a lost-stream control that must
+    land outside the limit, and timed: kernel, plain version, bound and
+    one library call."""
+    import torch
+    from repro_torch import registry
+    from repro_torch.core.striding import StridingConfig
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.gen import kernel as genk  # noqa: F401 (counts)
+    from repro_torch.kernels.mxv import kernel as mk  # noqa: F401 (counts)
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # (a) the whole registry
+    worst: dict = {}                    # (family, row, bench?) → excess
+    failures = []
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    n_runs = 0
+    for row in registry.all_specs():
+        points = [(label, cfg, row.default_sizes)
+                  for label, cfg in registry.CONFORMANCE_CONFIGS]
+        points += [("aliased", StridingConfig(4, 1), row.aliased_sizes),
+                   ("bench", None, row.bench_problem)]
+        for label, cfg, sizes in points:
+            inputs = row.make_inputs(dict(sizes), torch.float32, dev)
+            got = _leaves(row.run(inputs, cfg, None))
+            want = _leaves(row.run(inputs, cfg, "ref"))
+            n_runs += 1
+            if len(got) != len(want):
+                raise AssertionError(f"registry {row.name} {label}: "
+                                     f"{len(got)} outputs, {len(want)} plain")
+            for g, w in zip(got, want):
+                if g.shape != w.shape or g.device.type != "cuda":
+                    raise AssertionError(f"registry {row.name} {label}: "
+                                         f"{tuple(g.shape)} on {g.device}")
+                excess = float(((g.float() - w.float()).abs()
+                                - (row.atol + row.rtol * w.float().abs()))
+                               .max())
+                if not excess <= 0:
+                    failures.append(
+                        f"{row.name} {label} {dict(sizes)}: kernel vs plain "
+                        f"over rtol={row.rtol} atol={row.atol} by "
+                        f"{excess:g}")
+                key = (row.family, row.name, label == "bench")
+                worst[key] = max(worst.get(key, -math.inf), excess)
+            del inputs, got, want
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in cuda.KERNELS.items() if k.launches}
+    new = tuple(REGISTRY_SOURCES)
+    missing = [n for n in new if not cuda.KERNELS[n].launches]
+    if missing:
+        failures.append(f"kernels never launched: {missing}")
+    for name in new:
+        results[name] = dict(name=name, route="cuda",
+                             source=REGISTRY_SOURCES[name][0],
+                             replaces=REGISTRY_SOURCES[name][1],
+                             launches=counts.get(name, 0))
+    for fam in sorted({f for f, _, _ in worst}):
+        line = []
+        for bench in (False, True):
+            rows = {n: e for (f, n, b), e in worst.items()
+                    if f == fam and b == bench}
+            name, e = max(rows.items(), key=lambda kv: kv[1])
+            line.append(f"{e:.3g} ({name})")
+        print(f"registry {fam}: {len(rows)} rows, worst excess of |kernel - "
+              f"plain| over atol + rtol |plain| at the six points "
+              f"{line[0]}, at the bench size {line[1]} (<= 0 passes) "
+              f"[{card}]")
+    print(f"registry: {n_runs} runs in {time.perf_counter() - t_phase:.1f}"
+          f" s, main path launches {json.dumps(counts)} [{card}]")
+    if failures:
+        raise AssertionError("registry: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+
+    # (b) the five new instances at full size
+    cfg = StridingConfig(4, 2)          # the *_gen ops' default
+    print(f"registry instances: tolerances: transpose and rowstat's max "
+          f"|d| = 0; rowstat's sum |d| <= 2 c 2^-24 sum|x| + 2^-23 |ref|; "
+          f"the matrix-vector steps the dot limit of linalg, scaled by "
+          f"alpha (beta), plus the roundings of the adds; the total of "
+          f"gemver_mxv1_sum {LAMBDA:g} 2^-24 sqrt(4 m sum_j t_j^2 + 2 n "
+          f"(sum_j |s_j|)^2) + 2^-23 |total|, t_j = beta (|y|^T |A|)_j "
+          f"(Hoeffding over independent mean-zero roundings, each within "
+          f"2^-24 of the partial sum it rounds). "
+          f"Controls: the plain output with stream k=1's segment lost "
+          f"[{card}]")
+    for n in REGISTRY_FULL:
+        for dtype in (("float32", "bfloat16") if n < 8192 else ("float32",)):
+            _registry_instances(card, results, n, getattr(torch, dtype), cfg)
+            torch.cuda.empty_cache()
+    print(f"registry: phase took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
+
+
+def _registry_instances(card, results, n, dtype, cfg):
+    """The five instances at [n, n] in ``dtype`` (see phase_registry)."""
+    import torch
+    from repro_torch.codegen import plan_blocks
+    from repro_torch.kernels.gemver import specs as gspecs
+    from repro_torch.kernels.gen import (gemver_mxv1_gen, gemver_mxv1_sum_gen,
+                                         gemver_mxv2_gen, rowstat_gen,
+                                         transpose_gen)
+    from repro_torch.kernels.mxv import kernel as mk
+    gen = torch.Generator(device="cuda").manual_seed(16 + n)
+    f32 = dtype == torch.float32
+    tname = "f32" if f32 else "bf16"
+    size = dtype.itemsize
+    seg = n // cfg.stride_unroll
+
+    def mat():
+        return torch.randn(n, n, generator=gen, device="cuda").to(dtype)
+
+    def vec():
+        return torch.randn(n, generator=gen, device="cuda")
+
+    def drop(t, start, count, dim=0):
+        t = t.clone()
+        t.narrow(dim, start, count).zero_()
+        return t
+
+    def timed(name, fn, plain, library, make, nbytes, flops, err, line,
+              shape):
+        sets = _copies(make, nbytes)
+        ms = device_ms(fn, sets)
+        plain_ms = device_ms(plain, sets)
+        lib_ms = device_ms(library, sets)
+        bms, by = bound_ms(nbytes, flops, "float32" if f32 else "bfloat16")
+        print(f"{name} {shape}: max_abs_err={err:g}; {line}; ms={ms:.5f} "
+              f"plain_ms={plain_ms:.5f} bound_ms={bms:.6f} ({by}) "
+              f"library_ms={lib_ms:.5f} ({len(sets)} input sets) [{card}]")
+        if n == REGISTRY_FULL[0] and f32:
+            results[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=by, library_ms=lib_ms,
+                                 max_abs_err=err, shape=shape)
+        del sets
+
+    a = mat()
+    shape = f"[{n}, {n}] {tname}"
+    # transpose: equality, lost stream = stream 1's output columns zeroed
+    y_k = transpose_gen(a, config=cfg)
+    y_p = transpose_gen(a, config=cfg, mode="ref")
+    err, line = _hold(f"transpose n={n}", y_k, y_p.contiguous(), 0.0,
+                      {"lost stream": drop(y_p, seg, seg, dim=1)})
+    timed("transpose", lambda x: transpose_gen(x, config=cfg),
+          lambda x: transpose_gen(x, config=cfg, mode="ref"),
+          lambda x: x.t().contiguous(), lambda: (mat(),) if n < 8192 else (a,),
+          2 * n * n * size, 0.0, err, line,
+          f"x {shape}, D={cfg.stride_unroll} (plain: a transposed view)")
+    del y_k, y_p
+    # rowstat: the max bit for bit, the sum within the sum limit
+    mx_k, sm_k = rowstat_gen(a, config=cfg)
+    mx_p, sm_p = rowstat_gen(a, config=cfg, mode="ref")
+    err_m, line_m = _hold(f"rowstat max n={n}", mx_k, mx_p, 0.0,
+                          {"lost stream": drop(mx_p, seg, seg)})
+    err_s, line_s = _hold(f"rowstat sum n={n}", sm_k, sm_p,
+                          _dot_limit(a.float().abs().sum(1), sm_p, n),
+                          {"lost stream": drop(sm_p, seg, seg)})
+    timed("rowstat", lambda x: rowstat_gen(x, config=cfg),
+          lambda x: rowstat_gen(x, config=cfg, mode="ref"),
+          lambda x: (x.amax(1), x.sum(1)),
+          lambda: (mat(),) if n < 8192 else (a,),
+          n * n * size + 2 * n * 4, 2.0 * n * n, max(err_m, err_s),
+          f"max {line_m}; sum {line_s}",
+          f"x {shape}, D={cfg.stride_unroll}, P={cfg.portion_unroll}")
+    del mx_k, sm_k, mx_p, sm_p
+    if not f32:
+        del a
+        return
+    x, y, z = vec(), vec(), vec()
+    aa = a.abs()
+    col = BETA * (y.abs() @ aa)
+    # gemver_mxv2: w = alpha A x
+    w_k = gemver_mxv2_gen(a, x, ALPHA, config=cfg)
+    w_p = gemver_mxv2_gen(a, x, ALPHA, config=cfg, mode="ref")
+    err, line = _hold(f"gemver_mxv2 n={n}", w_k, w_p,
+                      ALPHA * _dot_limit(aa @ x.abs(), w_p, n),
+                      {"lost stream": drop(w_p, seg, seg)})
+    timed("gemver_mxv2", lambda a_, x_: gemver_mxv2_gen(a_, x_, ALPHA,
+                                                        config=cfg),
+          lambda a_, x_: gemver_mxv2_gen(a_, x_, ALPHA, config=cfg,
+                                         mode="ref"),
+          lambda a_, x_: ALPHA * torch.mv(a_, x_),
+          lambda: (mat(), vec()) if n < 8192 else (a, x),
+          n * n * 4 + 2 * n * 4, 2.0 * n * n, err, line,
+          f"A {shape}, D={cfg.stride_unroll}, P={cfg.portion_unroll}")
+    del w_k, w_p
+    # gemver_mxv1: x + beta A^T y, both passes
+    lost_y = drop(y, seg, seg)
+    lim1 = _dot_limit(col, col, n) + 4 * GAMMA * (x.abs() + col)
+    x1_k = gemver_mxv1_gen(a, y, x, BETA, config=cfg)
+    x1_p = gemver_mxv1_gen(a, y, x, BETA, config=cfg, mode="ref")
+    err, line = _hold(f"gemver_mxv1 n={n}", x1_k, x1_p, lim1,
+                      {"lost stream": gemver_mxv1_gen(a, lost_y, x, BETA,
+                                                      config=cfg,
+                                                      mode="ref")})
+    timed("gemver_mxv1", lambda a_, y_, x_: gemver_mxv1_gen(a_, y_, x_, BETA,
+                                                            config=cfg),
+          lambda a_, y_, x_: gemver_mxv1_gen(a_, y_, x_, BETA, config=cfg,
+                                             mode="ref"),
+          lambda a_, y_, x_: x_ + BETA * torch.mv(a_.t(), y_),
+          lambda: (mat(), vec(), vec()) if n < 8192 else (a, y, x),
+          n * n * 4 + 4 * n * 4, 2.0 * n * n, err, line,
+          f"A {shape}, D={cfg.stride_unroll}, both passes")
+    # its merge alone, on its partial rows
+    spec = gspecs.gemver_mxv1_spec(a, y, BETA)
+    bp = plan_blocks(spec, cfg)
+    part = mk.split(spec, bp, [a, y], [BETA])
+    m_k = mk.merge(part, torch.float32, "gemver_mxv1")
+    m_p = mk.merge_plain(part, torch.float32)
+    chunks = part.shape[0] // bp.d
+    lost = part.clone().reshape(bp.d, chunks, n)
+    lost[1] = 0
+    err, line = _hold(f"gemver_mxv1_merge n={n}", m_k, m_p,
+                      part.shape[0] * GAMMA * part.abs().sum(0),
+                      {"lost stream": mk.merge_plain(
+                          lost.reshape(part.shape), torch.float32)})
+    timed("gemver_mxv1_merge",
+          lambda pt: mk.merge(pt, torch.float32, "gemver_mxv1"),
+          lambda pt: mk.merge_plain(pt, torch.float32),
+          lambda pt: pt.sum(0), lambda: (part.clone(),),
+          part.numel() * 4 + n * 4, float(part.numel()), err, line,
+          f"partials [{part.shape[0]}, {n}] f32 (D={bp.d} x {chunks} row "
+          f"chunks)")
+    del x1_k, x1_p, part, lost, m_k, m_p
+    # gemver_mxv1_sum: (x + s + z, total), full width, on A and y of
+    # 1 + N(0, 1) entries (PolyBench fills gemver with positive values):
+    # with zero-mean entries the total cancels to a random size, and a
+    # lost stream can move it by less than its limit
+    a.add_(1.0)
+    y = y + 1.0
+    lost_y = drop(y, seg, seg)
+    col = BETA * (y.abs() @ a.abs())
+    lim2 = _dot_limit(col, col, n) + 4 * GAMMA * (x.abs() + col + z.abs())
+    (o_k, t_k) = gemver_mxv1_sum_gen(a, y, x, z, BETA, config=cfg)
+    (o_p, t_p) = gemver_mxv1_sum_gen(a, y, x, z, BETA, config=cfg,
+                                     mode="ref")
+    lo_p, lt_p = gemver_mxv1_sum_gen(a, lost_y, x, z, BETA, config=cfg,
+                                     mode="ref")
+    err_o, line_o = _hold(f"gemver_mxv1_sum n={n}", o_k, o_p, lim2,
+                          {"lost stream": lo_p})
+    # per entry: the kernel's n fma and partial sums, the plain version's
+    # n products and n adds, the scalings: at most 4 n roundings
+    s_p = BETA * (y @ a)
+    t_lim = _total_limit(col, 4 * n, s_p.abs().sum(), n, t_p).reshape(())
+    err_t, line_t = _hold(f"gemver_mxv1_sum total n={n}", t_k, t_p, t_lim,
+                          {"lost stream": lt_p})
+    again = gemver_mxv1_sum_gen(a, y, x, z, BETA, config=cfg)[1]
+    if not torch.equal(again, t_k):
+        raise AssertionError("gemver_mxv1_sum: the total's bits changed "
+                             "from one run to the next")
+
+    def mxv1_sum_lib(a_, y_, x_, z_):
+        s = BETA * torch.mv(a_.t(), y_)
+        return x_ + s + z_, s.sum()
+    timed("gemver_mxv1_sum",
+          lambda a_, y_, x_, z_: gemver_mxv1_sum_gen(a_, y_, x_, z_, BETA,
+                                                     config=cfg),
+          lambda a_, y_, x_, z_: gemver_mxv1_sum_gen(a_, y_, x_, z_, BETA,
+                                                     config=cfg, mode="ref"),
+          mxv1_sum_lib,
+          lambda: ((mat(), vec(), vec(), vec()) if n < 8192
+                   else (a, y, x, z)),
+          n * n * 4 + 4 * n * 4 + 4, 2.0 * n * n, max(err_o, err_t),
+          f"x' {line_o}; total {line_t} (bits repeat)",
+          f"A {shape}, D={cfg.stride_unroll}, full width, both passes; "
+          f"checked on A, y of 1 + N(0, 1)")
+    spec = gspecs.gemver_mxv1_sum_spec(a, y, BETA)
+    bp = plan_blocks(spec, cfg)
+    part = mk.split(spec, bp, [a, y], [BETA])
+    r_k, s_k = mk.merge_total(part)
+    r_p = mk.merge_plain(part, torch.float32)
+    s_p = r_p.sum().reshape(1)
+    chunks = part.shape[0] // bp.d
+    lost = part.clone().reshape(bp.d, chunks, n)
+    lost[1] = 0
+    lost_row = mk.merge_plain(lost.reshape(part.shape), torch.float32)
+    m_lim = part.shape[0] * GAMMA * part.abs().sum(0)
+    err_r, line_r = _hold(f"gemver_mxv1_sum_merge n={n}", r_k, r_p, m_lim,
+                          {"lost stream": lost_row})
+    err_s, line_s = _hold(f"gemver_mxv1_sum_merge total n={n}", s_k, s_p,
+                          _total_limit(part.abs().sum(0), 2 * part.shape[0],
+                                       r_p.abs().sum(), n,
+                                       s_p).reshape(1),
+                          {"lost stream": lost_row.sum().reshape(1)})
+    timed("gemver_mxv1_sum_merge", lambda pt: mk.merge_total(pt),
+          lambda pt: (lambda r: (r, r.sum().reshape(1)))(
+              mk.merge_plain(pt, torch.float32)),
+          lambda pt: (lambda r: (r, r.sum()))(pt.sum(0)),
+          lambda: (part.clone(),), part.numel() * 4 + n * 4 + 4,
+          float(part.numel() + n), max(err_r, err_s),
+          f"row {line_r}; total {line_s}",
+          f"partials [{part.shape[0]}, {n}] f32 (D={bp.d} x {chunks} row "
+          f"chunks), row and total")
+    del a, aa, x, y, z, col, o_k, o_p, t_k, t_p, lo_p, lt_p, part, lost
+
+
 def phase_train(card: str) -> dict:
     """Yi-9B at full width, depth cut to 8 layers, trains through the
     launcher's path (``repro_torch.launch.train.setup``): f32 params,
@@ -1931,6 +2288,7 @@ def main() -> int:
     phase_stream(card, results)
     phase_stencil(card, results)
     check_adamw(card, results)
+    phase_registry(card, results)
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 

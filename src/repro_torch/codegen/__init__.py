@@ -11,7 +11,7 @@ from repro_torch.codegen.combine import (MAX, NEG_INF, SUM, Combine,
                                          MaxCombine, OnlineSoftmax,
                                          SumCombine, resolve_combine)
 from repro_torch.codegen.emit import (HAND_KERNELS, block_1d, emit_spec,
-                                      run_spec, template_of)
+                                      make_kernel_op, run_spec, template_of)
 from repro_torch.codegen.loopir import (Access, Axis, NestInfo,
                                         TraversalSpec, classify, evaluate,
                                         tap, traffic_of)
@@ -32,4 +32,5 @@ __all__ = [
     "plan_blocks", "default_schedule", "iteration_domain",
     "preserves_domain",
     "HAND_KERNELS", "template_of", "block_1d", "emit_spec", "run_spec",
+    "make_kernel_op",
 ]

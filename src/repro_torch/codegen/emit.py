@@ -38,7 +38,7 @@ from repro_torch.codegen import loopir, transforms
 from repro_torch.core.striding import StridingConfig
 
 __all__ = ["HAND_KERNELS", "template_of", "block_1d", "emit_spec",
-           "run_spec"]
+           "run_spec", "make_kernel_op"]
 
 # spec name → module whose ``emit(spec, bp, arrays, scalars, config)``
 # launches the hand-written K1-K3 kernel for that instance (imported at
@@ -61,6 +61,11 @@ HAND_KERNELS = {
     "conv3x3": "repro_torch.kernels.stencil",
     "doitgen": "repro_torch.kernels.doitgen.kernel",
     "adamw_update": "repro_torch.kernels.adamw.kernel",
+    "gemver_mxv2": "repro_torch.kernels.mxv.kernel",
+    "gemver_mxv1": "repro_torch.kernels.mxv.kernel",
+    "gemver_mxv1_sum": "repro_torch.kernels.mxv.kernel",
+    "rowstat": "repro_torch.kernels.gen.kernel",
+    "transpose": "repro_torch.kernels.gen.kernel",
 }
 _MANUAL = "repro_torch.kernels.manual"
 
@@ -111,9 +116,62 @@ def template_of(spec: loopir.TraversalSpec, config: StridingConfig,
     return "K1"
 
 
-def _hand_kernel(spec: loopir.TraversalSpec, config: StridingConfig,
-                 info: loopir.NestInfo) -> Callable:
-    t = template_of(spec, config, info)
+def _refuse(spec: loopir.TraversalSpec, bp: transforms.BlockPlan,
+            template: str) -> None:
+    """What the JAX package's ``emit_spec`` and its templates refuse, with
+    the same exception types on the same conditions
+    (``src/repro/codegen/emit.py``: ``emit_spec`` :939-955, K3 :576-600,
+    ``emit_scheduled`` :845-854)."""
+    info = bp.info
+    rows = spec.axis(info.stride_axis).extent
+    if info.stride_reduction and bp.rows != rows:
+        # zero-padded rows would have to contribute the combine identity
+        # through the body, which no generic body guarantees (and max /
+        # online_softmax structurally cannot) — refuse rather than
+        # silently corrupt, for EVERY combinator
+        raise ValueError(
+            f"{spec.name}: a stride-axis reduction cannot pad the stride "
+            f"axis ({rows} rows, D={bp.d}); pick a D dividing the extent")
+    cols = spec.axis(info.vector_axis).extent
+    if (info.reduction and bp.cols != cols
+            and any(c.name != "sum" for c in spec.combines())):
+        # zero-padded vector lanes feed the body's reduction: harmless
+        # for sums, but they poison any non-'sum' combinator (a padded
+        # zero beats every negative row max)
+        raise ValueError(
+            f"{spec.name}: padding the reduced vector axis ({cols} -> "
+            f"{bp.cols}) feeds zeros into a non-'sum' per-write "
+            "combinator; use a lane-multiple extent or full_width=True")
+    if template == "K3":
+        if isinstance(spec.reduce, tuple):
+            raise NotImplementedError(
+                f"{spec.name}: per-write combinators on a stride-axis "
+                "reduction (all D streams merge ONE shared state); use a "
+                "scalar or finalizing combinator")
+        comb = spec.combine
+        if len(spec.writes) > 1 and not (comb.n_state > 1
+                                         or comb.finalizing):
+            raise NotImplementedError(
+                f"{spec.name}: a multi-output stride reduction needs a "
+                f"finalizing combinator producing one block per write; "
+                f"{comb.name!r} finalizes the accumulated state "
+                "identically")
+    elif template != "K2":
+        if isinstance(spec.reduce, tuple):
+            raise NotImplementedError(
+                f"{spec.name}: per-write combinators only apply to vector-"
+                "axis reductions whose writes are all per-row (stride,) "
+                "outputs — this nest lowers to the streaming/manual path, "
+                "where no cross-block merge happens")
+        if info.reduction and bp.bn != bp.cols:
+            raise NotImplementedError(
+                f"{spec.name}: a body-contracted reduction axis needs "
+                "full_width=True")
+
+
+def _hand_kernel(spec: loopir.TraversalSpec, t: str) -> Callable:
+    """The ``emit`` of the kernel that runs ``spec`` under template
+    ``t``."""
     if t == "K4":
         manual = importlib.import_module(_MANUAL)
         path = _MANUAL if spec.name in manual.BODIES else None
@@ -124,7 +182,7 @@ def _hand_kernel(spec: loopir.TraversalSpec, config: StridingConfig,
             f"{spec.name}: no hand-written Hopper kernel yet — its TPU "
             f"kernel is template {t} {_TEMPLATES[t]} with the "
             f"{spec.name!r} body; that instance is still to port "
-            "(ROADMAP Queue 1). Use mode='ref' for the plain version.")
+            "(ROADMAP Queue 2). Use mode='ref' for the plain version.")
     return importlib.import_module(path).emit
 
 
@@ -216,17 +274,10 @@ def emit_spec(spec: loopir.TraversalSpec, inputs: Sequence,
     info = loopir.classify(spec)        # once, shared by the steps below
     if info.blocked:
         return _emit_blocked(spec, info, arrays, scalars, config)
-    kernel = _hand_kernel(spec, config, info)
     bp = transforms.plan_blocks(spec, config, info=info)
-    rows = spec.axis(bp.info.stride_axis).extent
-    if bp.info.stride_reduction and bp.rows != rows:
-        # zero-padded rows would have to contribute the combine identity
-        # through the body, which no generic body guarantees (and max /
-        # online_softmax structurally cannot) — refuse rather than
-        # silently corrupt, for EVERY combinator
-        raise ValueError(
-            f"{spec.name}: a stride-axis reduction cannot pad the stride "
-            f"axis ({rows} rows, D={bp.d}); pick a D dividing the extent")
+    template = template_of(spec, config, info)
+    _refuse(spec, bp, template)
+    kernel = _hand_kernel(spec, template)
     arrays = _pad_arrays(spec, bp, arrays)
     targets = {bp.info.stride_axis: bp.rows, bp.info.vector_axis: bp.cols}
     spec_p = dataclasses.replace(spec, axes=tuple(
@@ -246,17 +297,10 @@ def emit_spec(spec: loopir.TraversalSpec, inputs: Sequence,
     return res[0] if len(res) == 1 else res
 
 
-def run_spec(build_spec: Callable[..., loopir.TraversalSpec],
-             inputs: Sequence, config: StridingConfig,
-             mode: Optional[str] = None, device=None):
-    """Device-dispatched spec execution: ``mode="ref"`` (or CPU inputs)
-    runs the plain PyTorch version; CUDA inputs run the hand kernel or
-    raise.  The route follows the first input's device, or ``device``
-    where it is given; a writes-only spec (whose inputs are scalars
-    only) must give it."""
+def _dispatch(spec: loopir.TraversalSpec, inputs: Sequence,
+              config: StridingConfig, mode: Optional[str], device):
     # imported here: the kernels package imports the codegen at its top
     from repro_torch.kernels import common
-    spec = build_spec(*inputs)
     if device is None:
         if not spec.reads:
             raise ValueError(f"{spec.name}: a writes-only spec needs an "
@@ -266,3 +310,65 @@ def run_spec(build_spec: Callable[..., loopir.TraversalSpec],
     if common.kernel_mode(device, mode) == "ref":
         return loopir.evaluate(spec, inputs, device=device)
     return emit_spec(spec, inputs, config, device=device)
+
+
+def run_spec(build_spec: Callable[..., loopir.TraversalSpec],
+             inputs: Sequence, config: StridingConfig,
+             mode: Optional[str] = None, device=None):
+    """Device-dispatched spec execution: ``mode="ref"`` (or CPU inputs)
+    runs the plain PyTorch version; CUDA inputs run the hand kernel or
+    raise.  The route follows the first input's device, or ``device``
+    where it is given; a writes-only spec (whose inputs are scalars
+    only) must give it."""
+    return _dispatch(build_spec(*inputs), inputs, config, mode, device)
+
+
+def _shape_key(inputs: Sequence) -> tuple:
+    return tuple((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
+                 else None for x in inputs)
+
+
+def make_kernel_op(name: str,
+                   build_spec: Callable[..., loopir.TraversalSpec],
+                   default: StridingConfig = StridingConfig(4, 1),
+                   ) -> Callable:
+    """Wrap a spec builder as a public kernel op, as the JAX package's
+    ``make_kernel_op`` (``src/repro/codegen/emit.py:990``):
+    ``op(*arrays, *scalars, config=None, mode=None)``, config resolution
+    (explicit > static default, clamped so D divides the stride extent)
+    and device dispatch (:func:`run_spec`: the hand kernel on the card,
+    the plain version on the CPU or with ``mode="ref"``).
+
+    The spec, the stride extent the clamp uses and the Traffic signature
+    are pure in the input shapes and dtypes, and memoized per shape key.
+    There is no guarded fallback: a kernel that fails raises."""
+    # imported here: the kernels package imports the codegen at its top
+    from repro_torch import obs
+    from repro_torch.kernels import common
+
+    facts: dict[tuple, tuple] = {}     # shape key → (rows, traffic, spec)
+
+    def op(*inputs, config: Optional[StridingConfig] = None,
+           mode: Optional[str] = None):
+        key = _shape_key(inputs)
+        if key not in facts:
+            obs.counter("codegen.spec_memo.miss", kernel=name)
+            spec = build_spec(*inputs)
+            info = loopir.classify(spec)
+            # blocked 1-D nests derive their tile grid from the config —
+            # pad+crop makes any D valid, so no divisibility clamp
+            rows = (None if info.blocked
+                    else spec.axis(info.stride_axis).extent)
+            facts[key] = (rows, loopir.traffic_of(spec, inputs[0].dtype,
+                                                  info=info), spec)
+        else:
+            obs.counter("codegen.spec_memo.hit", kernel=name)
+        rows, _traffic, spec = facts[key]
+        cfg = common.resolve_config(name, config, rows, default)
+        return _dispatch(spec, inputs, cfg, mode, None)
+
+    op.__name__ = name
+    op.__qualname__ = name
+    op.__doc__ = (f"Generated multi-strided kernel {name!r} (repro_torch."
+                  "codegen: spec → block plan → hand kernel).")
+    return op

@@ -1,11 +1,17 @@
 // Multi-strided column-dot (transposed matrix-vector product) for Hopper
 // (sm_90a), in two passes.
 //
-// Replaces the mxv_t and bicg_s instances of the JAX package's K3
-// template, _emit_stream_reduction (src/repro/codegen/emit.py:564), with
-// the "sum" combinator; their bodies are mxv_t_spec and bicg_s_spec
-// (src/repro/kernels/{mxv,bicg}/specs.py):
-//   y[j] = sum_i f32(x[i]) * f32(A[i, j]),  stored in A's dtype.
+// Replaces these instances of the JAX package's K3 template,
+// _emit_stream_reduction (src/repro/codegen/emit.py:564):
+//   * mxv_t and bicg_s (src/repro/kernels/{mxv,bicg}/specs.py) and
+//     gemver_mxv1 (src/repro/kernels/gemver/specs.py:61), with the "sum"
+//     combinator:
+//       y[j] = s * sum_i f32(x[i]) * f32(A[i, j]),  stored in A's dtype,
+//     with s = 1 for mxv_t and bicg_s and s = beta for gemver_mxv1 (an f32
+//     argument, or read from a 0-d f32 on the card: no host sync);
+//   * gemver_mxv1_sum (specs.py:91), whose SumWithTotal combinator (:76)
+//     finalizes the same f32 row y AND its total sum_j y[j] from one
+//     state: two f32 outputs, [cols] and [1].
 // The reduction runs over the stride axis itself: the D streams (row
 // segments) are what is summed.
 //
@@ -25,13 +31,18 @@
 //     and, with R row groups a block, every R-th tile of the chunk; it
 //     loads the bm rows of a tile back to back before any multiply-add,
 //     bm loads in flight per thread.  The row groups' partials are summed
-//     in group order through shared memory and the block writes its f32
-//     partial row to part[k * chunks + c].  Row chunks only raise the
-//     number of blocks (to about two per SM); their count depends on the
-//     shape and the card, not on the data.
+//     in group order through shared memory, scaled by s (the body's
+//     scalar applies to each partial, as the TPU kernel applied it to
+//     each block), and the block writes its f32 partial row to
+//     part[k * chunks + c].  Row chunks only raise the number of blocks
+//     (to about two per SM); their count depends on the shape and the
+//     card, not on the data.
 //   pass 2 (colsum_merge): y[j] = sum over the D * chunks partial rows,
 //     in order k = 0 ... D-1 and, within k, chunk 0 ... chunks-1, then
-//     cast to A's dtype.
+//     cast to A's dtype.  For gemver_mxv1_sum (colsum_merge_total) y
+//     stays f32 and a one-block tail sums it in a fixed order (a strided
+//     pass per thread, then a tree over the block): no atomics, so the
+//     total's bits repeat from run to run.
 // The order of the sum thus differs from the TPU's and the plain
 // version's; the result agrees within f32 reassociation error,
 // n * 2^-24 * sum_i |x[i] * A[i, j]| per element.
@@ -46,8 +57,9 @@ constexpr int MAX_SUB = THREADS / 32;
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 colsum_split(const T* __restrict__ A, const T* __restrict__ x,
-             float* __restrict__ part, int cols, int seg, int bm, int ns,
-             int tpc, int chunks) {
+             float* __restrict__ part, const float* __restrict__ scale_ptr,
+             float scale, int cols, int seg, int bm, int ns, int tpc,
+             int chunks) {
   extern __shared__ float red[];                 // [R][ns * 32][4]
   const int nct = ns * 32;                       // column threads
   const int R = blockDim.x / nct;                // row groups
@@ -92,8 +104,10 @@ colsum_split(const T* __restrict__ A, const T* __restrict__ x,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[e] += o[e];
     }
+    const float sc = scale_ptr ? *scale_ptr : scale;
     float* dst = part + (static_cast<size_t>(k) * chunks + chunk) * cols + c;
-    *reinterpret_cast<float4*>(dst) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(sc * acc[0], sc * acc[1], sc * acc[2], sc * acc[3]);
   }
 }
 
@@ -107,9 +121,29 @@ __global__ void colsum_merge(const float* __restrict__ part, T* __restrict__ y,
   y[j] = Cvt<T>::from(s);
 }
 
+// The total of an f32 row in one block of TOTAL_THREADS threads, in a
+// fixed order: thread t sums y[t], y[t + TOTAL_THREADS], ... in order,
+// then a tree over the block's partials, pairs at a halving distance.
+constexpr int TOTAL_THREADS = 1024;
+
+__global__ void __launch_bounds__(TOTAL_THREADS)
+row_total(const float* __restrict__ y, float* __restrict__ total, int cols) {
+  __shared__ float red[TOTAL_THREADS];
+  float s = 0.f;
+  for (int j = threadIdx.x; j < cols; j += TOTAL_THREADS) s += y[j];
+  red[threadIdx.x] = s;
+  __syncthreads();
+  for (int half = TOTAL_THREADS / 2; half > 0; half >>= 1) {
+    if (threadIdx.x < half) red[threadIdx.x] += red[threadIdx.x + half];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *total = red[0];
+}
+
 template <typename T>
-int split_t(const void* A, const void* x, void* part, int rows, int cols,
-            int d, int bm, int ns, int tpc, int chunks, cudaStream_t stream) {
+int split_t(const void* A, const void* x, void* part, const void* scale_ptr,
+            float scale, int rows, int cols, int d, int bm, int ns, int tpc,
+            int chunks, cudaStream_t stream) {
   if (rows <= 0 || cols <= 0 || d <= 0 || bm <= 0 || ns <= 0 || tpc <= 0 ||
       chunks <= 0 || rows % d != 0 || (rows / d) % bm != 0 ||
       cols % SUB != 0 || ns > MAX_SUB || chunks > 65535 ||
@@ -123,7 +157,8 @@ int split_t(const void* A, const void* x, void* part, int rows, int cols,
   const int ncb = (cols / SUB + ns - 1) / ns;
   colsum_split<T><<<dim3(ncb, d, chunks), threads, smem, stream>>>(
       static_cast<const T*>(A), static_cast<const T*>(x),
-      static_cast<float*>(part), cols, rows / d, bm, ns, tpc, chunks);
+      static_cast<float*>(part), static_cast<const float*>(scale_ptr), scale,
+      cols, rows / d, bm, ns, tpc, chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -139,19 +174,21 @@ int merge_t(const void* part, void* y, int cols, int nparts,
 }  // namespace
 
 // Pass 1.  A: [rows, cols] of `dtype`, row-major; x: [rows]; part:
-// [d * chunks, cols] f32.  d streams of seg = rows / d rows in bm-row
-// tiles, chunk c taking tiles c*tpc ... min((c+1)*tpc, seg/bm) - 1 (none
-// empty); column blocks of ns * 128 columns, ns <= 8.  cols a multiple
-// of 128.
+// [d * chunks, cols] f32, each partial row scaled by *scale_ptr (an f32
+// on the card) where scale_ptr is not null, else by scale.  d streams of
+// seg = rows / d rows in bm-row tiles, chunk c taking tiles c*tpc ...
+// min((c+1)*tpc, seg/bm) - 1 (none empty); column blocks of ns * 128
+// columns, ns <= 8.  cols a multiple of 128.
 extern "C" int colsum_split_launch(int dtype, const void* A, const void* x,
-                                   void* part, int rows, int cols, int d,
+                                   void* part, const void* scale_ptr,
+                                   float scale, int rows, int cols, int d,
                                    int bm, int ns, int tpc, int chunks,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return split_t<float>(A, x, part, rows, cols, d, bm, ns, tpc, chunks, st);
-    case kBF16: return split_t<__nv_bfloat16>(A, x, part, rows, cols, d, bm, ns, tpc, chunks, st);
-    case kF16: return split_t<__half>(A, x, part, rows, cols, d, bm, ns, tpc, chunks, st);
+    case kF32: return split_t<float>(A, x, part, scale_ptr, scale, rows, cols, d, bm, ns, tpc, chunks, st);
+    case kBF16: return split_t<__nv_bfloat16>(A, x, part, scale_ptr, scale, rows, cols, d, bm, ns, tpc, chunks, st);
+    case kF16: return split_t<__half>(A, x, part, scale_ptr, scale, rows, cols, d, bm, ns, tpc, chunks, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -166,4 +203,17 @@ extern "C" int colsum_merge_launch(int dtype, const void* part, void* y,
     case kF16: return merge_t<__half>(part, y, cols, nparts, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Pass 2 of gemver_mxv1_sum.  part: [nparts, cols] f32; y: [cols] f32;
+// total: [1] f32, the sum of y, from y as stored.
+extern "C" int colsum_merge_total_launch(const void* part, void* y,
+                                         void* total, int cols, int nparts,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int err = merge_t<float>(part, y, cols, nparts, st);
+  if (err) return err;
+  row_total<<<1, TOTAL_THREADS, 0, st>>>(static_cast<const float*>(y),
+                                         static_cast<float*>(total), cols);
+  return static_cast<int>(cudaGetLastError());
 }

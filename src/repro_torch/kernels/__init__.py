@@ -13,30 +13,30 @@ the mxv kernels), ``gemver`` (``gemver_outer``, ``gemver_sum``: K1; its
 mxv steps run the mxv kernels), ``stream`` (copy, triad, init: K1;
 read: K2), and the paper's stencil and tensor kernels ``jacobi2d`` and
 ``conv3x3`` (K1 with row-halo taps, one kernel in ``stencil.py``) and
-``doitgen`` (K1 with a batch axis and a free axis), and the fused
-optimizer update ``adamw`` (``adamw_update``: K1).  ``manual.py`` is
+``doitgen`` (K1 with a batch axis and a free axis), the fused
+optimizer update ``adamw`` (``adamw_update``: K1), and ``gen``, the
+``*_gen`` ops that lower the families' specs through
+``codegen.make_kernel_op`` (with the ``rowstat`` K2 and ``transpose`` K1
+instances of its own).  ``manual.py`` is
 the K4 template, the explicit lookahead ring, which every family's
-K4-eligible spec reaches at a ``lookahead`` other than 2.  As in the JAX package, every public op is exported here
-under its own name, which for ``rmsnorm``, ``decode_attn``, ``mxv``,
-``bicg``, ``gemver``, ``jacobi2d``, ``conv3x3`` and ``doitgen`` is also
-the name of its family's package:
-``from repro_torch.kernels.mxv import ops`` still reaches the package.
-"""
-from repro_torch.kernels.adamw import adamw_update
-from repro_torch.kernels.bicg import bicg
-from repro_torch.kernels.conv3x3 import conv3x3
-from repro_torch.kernels.decode_attn import decode_attn
-from repro_torch.kernels.doitgen import doitgen
-from repro_torch.kernels.gemver import (gemver, gemver_mxv1, gemver_mxv2,
-                                        gemver_outer, gemver_sum)
-from repro_torch.kernels.jacobi2d import jacobi2d
-from repro_torch.kernels.mxv import mxv, mxv_t
-from repro_torch.kernels.rmsnorm import rmsnorm
-from repro_torch.kernels.stream import (stream_copy, stream_copy_manual,
-                                        stream_init, stream_read)
+K4-eligible spec reaches at a ``lookahead`` other than 2.
 
-__all__ = ["rmsnorm", "decode_attn", "mxv", "mxv_t", "bicg", "gemver",
-           "gemver_outer", "gemver_sum", "gemver_mxv1", "gemver_mxv2",
-           "stream_read", "stream_copy", "stream_init",
-           "stream_copy_manual", "jacobi2d", "conv3x3", "doitgen",
-           "adamw_update"]
+Every family registers its ops with ``repro_torch.registry`` when it is
+imported, and the export table below is derived from the registry, as
+in the JAX package: every registered op is a module attribute under its
+own name, which for ``rmsnorm``, ``decode_attn``, ``mxv``, ``bicg``,
+``gemver``, ``jacobi2d``, ``conv3x3`` and ``doitgen`` is also the name
+of its family's package (``from repro_torch.kernels.mxv import ops``
+still reaches the package).
+"""
+from repro_torch.kernels import (adamw, bicg, conv3x3,  # noqa: F401
+                                 decode_attn, doitgen, gemver, jacobi2d, mxv,
+                                 rmsnorm, stream)
+# last: the *_gen rows reuse the families' specs and oracles
+from repro_torch.kernels import gen  # noqa: F401
+from repro_torch.registry.base import registered_ops as _registered_ops
+
+_OPS = _registered_ops()
+globals().update(_OPS)
+__all__ = sorted(_OPS)
+del _OPS

@@ -11,13 +11,31 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.core.striding import StridingConfig
 
 __all__ = ["kernel_mode", "resolve_device", "effective_config",
-           "resolve_config"]
+           "resolve_config", "example_input", "placeholder"]
+
+
+def example_input(shape, key: int = 0, dtype=torch.float32,
+                  device="cpu") -> torch.Tensor:
+    """Deterministic example operand of the registry rows: standard
+    normal f32 values drawn with ``numpy.random.default_rng(key)``, cast
+    to ``dtype`` on ``device``.  (Not the JAX package's ``jax.random``
+    draw: the port is held against that package on shared inputs, never
+    against its recorded outputs.)"""
+    x = np.random.default_rng(key).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
+
+
+def placeholder(shape, dtype=torch.float32) -> torch.Tensor:
+    """An operand with a shape and a dtype and no data (``device="meta"``),
+    for building a spec without inputs (a registry row's ``traversal``)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
 
 
 def kernel_mode(x, mode: Optional[str] = None) -> str:

@@ -14,9 +14,12 @@
     accumulated state).
   * ``gemver_mxv2_spec``     — w = α·(Ax): vector-axis reduction.
 
-The last three have plain versions only: ``gemver_mxv1`` and
-``gemver_mxv2`` run through the mxv family's kernels (``ops.py``), and
-their own instances of K2 and K3 are still to port (ROADMAP Queue 1).
+The last three are instances of K3, K3 and K2 whose CUDA kernels are
+``csrc/stream_reduction.cu`` and ``csrc/reduction.cu``
+(``kernels/mxv/kernel.py``), reached through the ``*_gen`` ops
+(``kernels/gen/polybench.py``); the hand-named ``gemver_mxv1`` and
+``gemver_mxv2`` (``ops.py``) run the mxv family's kernels, as in the
+JAX package.
 """
 from __future__ import annotations
 

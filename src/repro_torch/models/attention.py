@@ -51,27 +51,66 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope):
     return q, k, v
 
 
+class _ScoresF32(torch.autograd.Function):
+    """q kᵀ in f32 from bf16 or f16 operands ``[N, S, dh]`` on the card:
+    ``torch.bmm(..., out_dtype=torch.float32)`` (the products summed in
+    f32 and never rounded to the operands' dtype), which has no gradient
+    in torch.  The backward is JAX's transpose of its
+    ``preferred_element_type=float32`` einsum: the f32 cotangent times
+    the other operand in f32, narrowed to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return torch.bmm(q, k.transpose(1, 2), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        dq = dk = None
+        if ctx.needs_input_grad[0]:
+            dq = torch.bmm(g, k.float()).to(q.dtype)
+        if ctx.needs_input_grad[1]:
+            dk = torch.bmm(g.transpose(1, 2), q.float()).to(k.dtype)
+        return dq, dk
+
+
+def _scores_f32(qh: torch.Tensor, kh: torch.Tensor) -> torch.Tensor:
+    """q kᵀ in f32 for q ``[..., Sq, dh]`` and k ``[..., Sk, dh]``, with
+    the leading dims flattened: ``[N, Sq, Sk]``, a tensor of its own (no
+    view), so the caller can scale and mask it in place without autograd
+    copying it in the backward.  As the JAX package's einsum with
+    ``preferred_element_type=float32``: products of the compute-dtype
+    operands summed in f32, never rounded to the compute dtype.  On the
+    card a bf16 or f16 pair goes through :class:`_ScoresF32`; elsewhere
+    the operands are widened first (a bf16 or f16 value is exact in f32,
+    so each product is exact and only the f32 sum rounds)."""
+    sq, sk, dh = qh.shape[-2], kh.shape[-2], qh.shape[-1]
+    q3, k3 = qh.reshape(-1, sq, dh), kh.reshape(-1, sk, dh)
+    if q3.dtype != torch.float32 and q3.is_cuda:
+        return _ScoresF32.apply(q3, k3)
+    return torch.bmm(q3.float(), k3.float().transpose(1, 2))
+
+
 def _sdpa_block(q, k, v, causal: bool, q_offset: int):
     """q: [B,Sq,Hq,dh]; k/v already expanded to [B,Sk,Hq,dh].
 
-    The JAX package takes the scores of its bf16 einsum in f32
-    (``preferred_element_type``); a bf16 ``torch.matmul`` rounds them to
-    bf16 once before they widen to f32 here.  In f32 the two are the
-    same.  The second product sums in f32 and rounds once to the compute
-    dtype in both."""
-    dh = q.shape[-1]
-    sq, sk = q.shape[1], k.shape[1]
+    The scores are f32 whatever the compute dtype (:func:`_scores_f32`).
+    The second product sums in f32 and rounds once to the compute dtype,
+    as in the JAX package."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))     # [B,H,S,dh]
     # scale and mask in place: neither saves its input for the backward,
     # and out of place each would be one more [B, H, Sq, Sk] f32 pass
-    scores = torch.matmul(qh, kh.transpose(-1, -2)).float()
+    scores = _scores_f32(qh, kh)                             # [B·H,Sq,Sk]
     scores.div_(math.sqrt(dh))
     if causal:
         qpos = torch.arange(sq, device=q.device) + q_offset
         kpos = torch.arange(sk, device=q.device)
         mask = kpos[None, :] <= qpos[:, None]
         scores.masked_fill_(~mask, _NEG)
-    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    p = torch.softmax(scores, dim=-1).to(q.dtype).view(b, h, sq, sk)
     return torch.matmul(p, vh).transpose(1, 2)               # [B,Sq,H,dh]
 
 

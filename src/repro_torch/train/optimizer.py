@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels.adamw import ops as adamw_ops
 
 __all__ = ["AdamWConfig", "cosine_lr", "adamw_init", "global_norm",
-           "adamw_step"]
+           "decays", "adamw_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +69,15 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
         for g in tree.values()]))
 
 
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Whether weight decay applies to the parameter ``name``, by the JAX
+    package's rule on its trees: it decays leaves of ndim >= 2, and its
+    per-layer leaves are stacked ``[n_layers, ...]``, so every per-layer
+    tensor (``blocks.*``, the layer norms' gains included) decays whatever
+    its own ndim; ``final_norm`` ``[d]`` does not."""
+    return name.startswith("blocks.") or p.ndim >= 2
+
+
 def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                grads: Mapping[str, torch.Tensor], opt_state: dict,
                mode: Optional[str] = None):
@@ -93,7 +102,7 @@ def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
         for wd in (cfg.weight_decay, 0.0)}
     for name, p in params.items():
         g = grads[name].float() * scale
-        wd = cfg.weight_decay if p.ndim >= 2 else 0.0
+        wd = cfg.weight_decay if decays(name, p) else 0.0
         p2, m2, v2 = adamw_ops.adamw_update(
             p.detach(), g, opt_state["m"][name], opt_state["v"][name],
             *packed[wd], mode=mode)

@@ -7,10 +7,13 @@ imports no JAX, so it also runs on a card host without JAX:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import dataclasses
+
 import pytest
 import torch
 
 from repro_torch.codegen import OnlineSoftmax, run_spec
+from repro_torch import registry as tregistry
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.core.striding import StridingConfig as TConfig
 from repro_torch.kernels import stencil as tstencil
@@ -26,6 +29,8 @@ from repro_torch.kernels.decode_attn import ops as tdops
 from repro_torch.kernels.doitgen import kernel as dgkernel
 from repro_torch.kernels.doitgen import ops as tdgops
 from repro_torch.kernels.doitgen import specs as tdgspecs
+from repro_torch.kernels import gen as tgen
+from repro_torch.kernels.gen import kernel as genkernel
 from repro_torch.kernels.gemver import kernel as gkernel
 from repro_torch.kernels.gemver import ops as tgops
 from repro_torch.kernels.gemver import specs as tgspecs
@@ -342,8 +347,10 @@ def test_linalg_wrappers_raise_on_what_they_do_not_take(cuda_device):
                     torch.randn(256, device=cuda_device))
     with pytest.raises(ValueError):                   # K4 ring too large
         tgops.gemver_sum(x, x, config=TConfig(16, 1, lookahead=64))
-    with pytest.raises(NotImplementedError):          # instance to port
-        run_spec(tgspecs.gemver_mxv2_spec, (a, x, 1.5), TConfig(4, 2))
+    with pytest.raises(NotImplementedError):          # no kernel by that name
+        run_spec(lambda *t: dataclasses.replace(
+            tgspecs.gemver_mxv2_spec(*t), name="unported"), (a, x, 1.5),
+            TConfig(4, 2))
     with pytest.raises(ValueError):                   # stride axis unpadded
         run_spec(tmops.specs.mxv_t_spec, (a[:63], x[:63]), TConfig(4, 2))
 
@@ -730,3 +737,159 @@ def test_adamw_wrappers_raise_on_what_they_do_not_take(cuda_device):
     with pytest.raises(TypeError):                    # p and g differ
         taops.adamw_update(x, x.bfloat16(), x, x, **_HYPER)
     assert akernel.ADAMW.launches == before
+
+
+# -------------------------------- the registry and the *_gen instances
+
+def _leaves(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [leaf for o in out for leaf in _leaves(o)]
+    return [out]
+
+
+REGISTRY_POINTS = tregistry.conformance_points()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("point,kernel,sizes,config", REGISTRY_POINTS,
+                         ids=[p[0] for p in REGISTRY_POINTS])
+def test_registry_rows_match_plain(cuda_device, point, kernel, sizes,
+                                   config):
+    """Every registry row at every conformance point: its kernels on the
+    card against its plain version on the card, at the row's
+    tolerances."""
+    row = tregistry.get(kernel)
+    inputs = row.make_inputs(sizes, torch.float32, cuda_device)
+    got = _leaves(row.run(inputs, config, None))
+    want = _leaves(row.run(inputs, config, "ref"))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.shape == w.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=row.rtol,
+                                   atol=row.atol)
+
+
+GEN_DS = [1, 2, 4, 8]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", GEN_DS)
+@pytest.mark.parametrize("m,n", [(512, 1024), (200, 1000), (37, 33)])
+def test_transpose_kernel_equals_plain(cuda_device, dtype, d, m, n):
+    """A transpose moves bits: equal to the plain version, ragged shapes
+    and every D included, one launch a call."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + d)
+    x = _rand(gen, (m, n), cuda_device, dtype)
+    before = genkernel.TRANSPOSE.launches
+    y = tgen.transpose_gen(x, config=TConfig(d, 1))
+    assert genkernel.TRANSPOSE.launches == before + 1
+    assert y.shape == (n, m) and y.dtype == dtype
+    assert torch.equal(y, x.t())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", DPS)
+@pytest.mark.parametrize("m,n", [(512, 1024), (96, 384)])
+def test_rowstat_kernel_matches_plain(cuda_device, dtype, arr, d, p, m, n):
+    """The row max equals the plain version's; the row sum lies within
+    the f32 sum limit over |x|.  Both f32 whatever x is."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p)
+    x = _rand(gen, (m, n), cuda_device, dtype) - 3.0
+    cfg = TConfig(d, p, arrangement=arr)
+    before = genkernel.ROWSTAT.launches
+    mx, sm = tgen.rowstat_gen(x, config=cfg)
+    assert genkernel.ROWSTAT.launches == before + 1
+    rmx, rsm = tgen.rowstat_gen(x, config=cfg, mode="ref")
+    assert mx.dtype == sm.dtype == torch.float32
+    assert torch.equal(mx, rmx)
+    _assert_dot(sm, rsm, x.float().abs().sum(-1), n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 4])
+def test_rowstat_arrangements_give_the_same_bits(cuda_device, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    x = _rand(gen, (256, 2048), cuda_device, torch.float32)
+    got = [tgen.rowstat_gen(x, config=TConfig(d, 2, arrangement=arr))
+           for arr in ("grouped", "interleaved")]
+    assert all(torch.equal(g, i) for g, i in zip(*got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scalar", ["float", "tensor"])
+@pytest.mark.parametrize("d,p", DPS)
+@pytest.mark.parametrize("m,n", LINALG_SHAPES)
+def test_gemver_mxv_kernels_match_plain(cuda_device, dtype, scalar, d, p, m,
+                                        n):
+    """gemver_mxv2 (K2, α A x), gemver_mxv1 (K3, x + β Aᵀ y) and
+    gemver_mxv1_sum (K3, + z and the total) through their ``*_gen`` ops,
+    with α and β as Python floats or 0-d tensors on the card, against
+    their plain versions within the f32 dot limits (the kernels apply β
+    to each partial, the plain versions once)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p + 7)
+    a = _rand(gen, (m, n), cuda_device, dtype)
+    xn, zn = (_rand(gen, (n,), cuda_device, dtype) for _ in range(2))
+    ym = _rand(gen, (m,), cuda_device, dtype)
+    alpha, beta = 1.5, 1.2
+    if scalar == "tensor":
+        alpha = torch.tensor(alpha, device=cuda_device)
+        beta = torch.tensor(beta, device=cuda_device)
+    cfg = TConfig(d, p)
+    kernels = (mkernel.MXV2, mkernel.MXV1, mkernel.MXV1_MERGE,
+               mkernel.MXV1_SUM, mkernel.MXV1_SUM_MERGE)
+    before = [k.launches for k in kernels]
+    w = tgen.gemver_mxv2_gen(a, xn, alpha, config=cfg)
+    x1 = tgen.gemver_mxv1_gen(a, ym, xn, beta, config=cfg)
+    x2, total = tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, beta, config=cfg)
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    rw = tgen.gemver_mxv2_gen(a, xn, alpha, config=cfg, mode="ref")
+    rx1 = tgen.gemver_mxv1_gen(a, ym, xn, beta, config=cfg, mode="ref")
+    rx2, rtotal = tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, beta, config=cfg,
+                                           mode="ref")
+    aa = a.float().abs()
+    _assert_dot(w, rw, 1.5 * (aa * xn.float().abs()).sum(-1), n)
+    col = 1.2 * (ym.float().abs()[:, None] * aa).sum(0)     # >= |s|
+    # x + s (+ z): the sum's limit, then the roundings of s and of the
+    # adds into x's dtype (unit roundoff u) on each side
+    u = 2.0 ** -8 if dtype == torch.bfloat16 else GAMMA
+    for got, want, z_abs in ((x1, rx1, 0.0), (x2, rx2, zn.float().abs())):
+        limit = 2 * _dot_factor(m) * GAMMA * col + 4 * u * (
+            xn.float().abs() + col + z_abs)
+        assert bool(((got.float() - want.float()).abs() <= limit).all())
+    assert total.shape == () and total.dtype == torch.float32
+    # the total of n row entries, each within the column limit
+    t_lim = (2 * _dot_factor(m) * GAMMA * float(col.sum())
+             + 2 * _dot_factor(n) * GAMMA * float(col.sum()))
+    assert abs(float(total) - float(rtotal)) <= t_lim
+    again = tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, beta, config=cfg)[1]
+    assert torch.equal(again, total)           # no atomics: same bits
+
+
+@pytest.mark.gpu
+def test_bf16_attention_scores_are_f32(cuda_device):
+    """bf16 scores come out in f32 from the bf16 operands (no bf16
+    rounding in between), as the f32-widened product computes them, and
+    their gradients are the f32 cotangent times the other operand in
+    f32, narrowed to bf16."""
+    from repro_torch.models import attention
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k = (_rand(gen, (2, 4, 64, 32), cuda_device, torch.bfloat16)
+            .requires_grad_() for _ in range(2))
+    s = attention._scores_f32(q, k)
+    assert s.dtype == torch.float32 and s.shape == (8, 64, 64)
+    assert s._base is None                  # in place is safe
+    q2, k2 = (t.detach().clone().requires_grad_() for t in (q, k))
+    ref = torch.matmul(q2.float(), k2.float().transpose(-1, -2)).reshape(
+        8, 64, 64)
+    torch.testing.assert_close(s, ref, rtol=1e-5, atol=1e-5)
+    g = torch.randn(s.shape, generator=gen, device=cuda_device)
+    s.backward(g)
+    ref.backward(g)
+    for got, want in ((q.grad, q2.grad), (k.grad, k2.grad)):
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=2.0 ** -7, atol=1e-5)

@@ -267,15 +267,19 @@ def test_block_plans_match_jax(monkeypatch, name, label, cfg, which):
                                   "gemver_mxv2"])
 @pytest.mark.parametrize("which", ["default", "aliased", "ragged"])
 def test_specs_off_the_path_have_plain_versions(name, which):
-    """The family's specs whose kernels wait (ROADMAP Queue 1) evaluate
-    like the JAX package's, ``SumWithTotal``'s second output included;
-    their emitter raises naming the TPU template."""
+    """gemver's matrix-vector specs (named for when their kernels were
+    still to port) evaluate like the JAX package's, ``SumWithTotal``'s
+    second output included; their emitter front end now runs their
+    kernel wrappers (the plain versions on CPU tensors) and agrees with
+    the JAX emitter in interpret mode."""
     jb, tb, args, row = _spec_case(name, which, seed=3)
     want = jcg.evaluate(jb(*_j(args)), _j(args))
     got = tcg.evaluate(tb(*_t(args)), _t(args))
     _close(got, want, row)
-    with pytest.raises(NotImplementedError, match="_emit_"):
-        tcg.emit_spec(tb(*_t(args)), _t(args), TConfig(2, 1))
+    want = jcg.emit_spec(jb(*_j(args)), _j(args), JConfig(2, 1),
+                         interpret=True)
+    got = _port_emit(tb(*_t(args)), _t(args), TConfig(2, 1))
+    _close(got, want, row)
 
 
 @pytest.mark.parametrize("lookahead", [1, 3])

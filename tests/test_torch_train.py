@@ -461,10 +461,10 @@ def _carried(compute_dtype, seed=0, **kw):
 @pytest.mark.parametrize("chunked", [False, True])
 @pytest.mark.parametrize("compute_dtype,tol", [
     ("float32", {"rtol": 1e-5, "atol": 1e-5}),
-    # bf16: the port's bf16 score matmul rounds the scores to bf16 once
-    # where JAX keeps them in f32 (preferred_element_type), about 2^-9
-    # relative on a score, a few bf16 ulps on the output
-    ("bfloat16", {"rtol": 0, "atol": 3e-2})])
+    # bf16: both packages take the scores in f32 from the bf16 operands
+    # (exact products, f32 sums) and round the output once; on the CPU
+    # the two agree bit for bit (max |d| 0.0 measured)
+    ("bfloat16", {"rtol": 0, "atol": 0})])
 def test_attention_matches_jax(monkeypatch, compute_dtype, tol, chunked):
     """attn_forward on the same weights and input, whole and with the
     query axis in four checkpointed chunks (both packages' chunk size
@@ -518,8 +518,8 @@ def _tokens(cfg, b, s, seed):
 @pytest.mark.parametrize("remat", [True, False])
 @pytest.mark.parametrize("compute_dtype,tol,gtol", [
     ("float32", {"rtol": 1e-5, "atol": 1e-5}, 1e-4),
-    # bf16: activations round at other points (the bf16 scores, the
-    # backward's bf16 casts in another order); the loss agrees to 2e-3,
+    # bf16: activations round at other points (the backward's bf16
+    # casts in another order); the loss agrees to 2e-3,
     # each gradient to 5% of its largest entry
     ("bfloat16", {"rtol": 2e-3, "atol": 0}, 5e-2)])
 def test_loss_and_grads_match_jax(compute_dtype, tol, gtol, remat):
@@ -604,11 +604,10 @@ def _port_state(tparams):
         dict(tparams.named_parameters()))}
 
 
-# Weight decay is off in the train-step comparisons: the JAX package
-# decides it on the STACKED layer tree, where a layer norm's gain is
-# [n_layers, d] (ndim 2) and decays, while the port's per-layer gain is
-# [d] and does not (as final_norm does not in either): see
-# test_weight_decay_skips_every_norm_gain.
+# The train-step comparisons run without weight decay and with the
+# default 0.1 (test_two_train_steps_with_weight_decay_match_jax): the
+# port decays every per-layer tensor as the JAX package decays its
+# stacked layer tree (test_weight_decay_of_norm_gains_matches_jax).
 STEP_CFG = dict(lr=3e-3, warmup_steps=1, total_steps=4, weight_decay=0.0)
 
 
@@ -629,8 +628,17 @@ def test_two_train_steps_match_jax():
     """Two steps of ``make_train_step`` (f32 compute, remat) against the
     JAX train step on the same carried weights and batches: the metrics
     of each step and every parameter after the second."""
+    _two_steps_match_jax(STEP_CFG)
+
+
+def test_two_train_steps_with_weight_decay_match_jax():
+    """The same two steps at weight decay 0.1: every layer norm's gain
+    decays in both packages, final_norm in neither."""
+    _two_steps_match_jax(dict(STEP_CFG, weight_decay=0.1))
+
+
+def _two_steps_match_jax(ocfg):
     jmodel, jparams, tmodel, tparams = _carried("float32", seed=5)
-    ocfg = STEP_CFG
     jstep = jax.jit(jtrainstep.make_train_step(jmodel, jopt.AdamWConfig(
         **ocfg)))
     tstep = ttrainstep.make_train_step(tmodel, topt.AdamWConfig(**ocfg))
@@ -680,16 +688,20 @@ def test_grad_accum_matches_one_batch_and_jax():
                        s1["params"].named_parameters()}, ocfg["lr"])
 
 
-def test_weight_decay_skips_every_norm_gain():
-    """Weight decay applies to tensors with ndim >= 2.  In the port every
-    norm gain is [d], so none decays; the JAX package's stacked layer
-    gains are [n_layers, d] and do (its final_norm, [d], does not).
-    With zero gradients the only change a step makes is the decay."""
+def test_weight_decay_of_norm_gains_matches_jax():
+    """Weight decay by the JAX package's rule: it decays leaves of ndim
+    >= 2, and its layer norm gains are stacked [n_layers, d], so they
+    decay; final_norm [d] does not.  The port's per-layer gain
+    ``blocks.0.norm1`` is [d] and decays as the JAX [1, d] ``norm1`` does;
+    final_norm decays in neither.  With zero gradients the only change a
+    step makes is the decay."""
     d, lr, wd = 8, 1e-2, 0.1
     cfg = dict(lr=lr, warmup_steps=0, total_steps=1, min_lr_ratio=1.0,
                weight_decay=wd)
-    tparams = {"blocks.0.norm1": torch.ones(d), "w": torch.ones(d, d)}
-    jparams = {"norm1": jnp.ones((1, d)), "w": jnp.ones((d, d))}
+    tparams = {"blocks.0.norm1": torch.ones(d), "final_norm": torch.ones(d),
+               "w": torch.ones(d, d)}
+    jparams = {"norm1": jnp.ones((1, d)), "final_norm": jnp.ones((d,)),
+               "w": jnp.ones((d, d))}
     tparams, _, _ = topt.adamw_step(
         topt.AdamWConfig(**cfg), tparams,
         {k: torch.zeros_like(v) for k, v in tparams.items()},
@@ -699,11 +711,17 @@ def test_weight_decay_skips_every_norm_gain():
         {k: jnp.zeros_like(v) for k, v in jparams.items()},
         jopt.adamw_init(jparams))
     decayed = np.float32(1) - np.float32(lr) * np.float32(wd)
+    for name in ("w", "final_norm"):
+        np.testing.assert_array_equal(tparams[name].numpy(),
+                                      np.asarray(jparams[name]))
+    np.testing.assert_array_equal(tparams["blocks.0.norm1"].numpy(),
+                                  np.asarray(jparams["norm1"])[0])
     np.testing.assert_allclose(tparams["w"].numpy(), decayed, rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(jparams["w"]), decayed, rtol=1e-6)
-    assert torch.equal(tparams["blocks.0.norm1"], torch.ones(d))
-    np.testing.assert_allclose(np.asarray(jparams["norm1"]), decayed,
+    np.testing.assert_allclose(tparams["blocks.0.norm1"].numpy(), decayed,
                                rtol=1e-6)
+    assert torch.equal(tparams["final_norm"], torch.ones(d))
+    np.testing.assert_array_equal(np.asarray(jparams["final_norm"]),
+                                  np.ones(d, np.float32))
 
 
 def test_each_step_runs_the_kernels_the_chip_counts(monkeypatch):
