@@ -14,7 +14,11 @@ Phases (each raises on failure, so the script exits non-zero):
                 the main path's shapes: max error vs the stated tolerance,
                 and device times (CUDA graphs of many launches, timed with
                 CUDA events): kernel, plain version, bound, and one PyTorch
-                library call as a yardstick
+                library call as a yardstick.  Decode at B=8 x S=32768, the
+                serve shape (B=4, S=4096) and the profile's (kv_len 17-64):
+                launch counts, both passes against SDPA and the bound over the rows kv_len leaves, a D sweep; a
+                batch row with no valid position and a mask with holes;
+                two runs' bits; chatglm3-6b's g=16
   3b. linalg — mxv, mxv_t, bicg, gemver at 16384^2 and 4096^2 f32 through
                 their public functions, each kernel against its plain
                 version with lost-stream controls, and timed
@@ -38,7 +42,13 @@ Phases (each raises on failure, so the script exits non-zero):
                 ring's adamw body at lookahead 1, 3, 4; equality with the
                 plain version, a lost-stream control, times against the
                 bound and torch._fused_adamw_
-  3f. registry — every one of the 35 registry rows at its six conformance
+  3f. k4      — the K4 ring's rank-1 side write (t_rowstat: o = 2 x next
+                to r = sum_j f32(x), x f32 and bf16 at 8192 x 4096, whole-row
+                steps) and its mixed operand dtypes (adamw_update with bf16
+                p and g, f32 m and v, at 4096 x 1024), each at lookahead 1,
+                3, 4: equality (the row sums within the f32 sum limit),
+                lost-stream and lost-step controls, times against the bound
+  3g. registry — every one of the 35 registry rows at its six conformance
                 points and its bench size, kernels against plain versions
                 at the row's rtol / atol (a line per family with the worst
                 excess); then the five instances the *_gen rows brought
@@ -58,7 +68,8 @@ Phases (each raises on failure, so the script exits non-zero):
                 control, a lost segment must fall outside it, and argmax
                 must agree wherever rounding cannot close the top-2 margin
   6. profile  — where a full-width decode step's time goes (host wall
-                time, device busy share, top kernels by device time)
+                time, device busy share, decode attention's device time
+                and launches, top kernels by device time)
   7. train    — with the serve model freed: Yi-9B at full width, 8 of 48
                 layers, f32 params and bf16 compute, trains 6 steps of
                 seq 4096 x batch 2 through the launcher's path; every
@@ -212,55 +223,104 @@ def check_rmsnorm(card: str, results: dict) -> None:
                 shape=f"x [{t}, {dm}] bf16")
 
 
+DECODE_SHAPES = ((8, 32768, "uniform"), (SERVE_SLOTS, SERVE_MAX_LEN,
+                                          "uniform"),
+                 (SERVE_SLOTS, SERVE_MAX_LEN, "profile"))
+DECODE_D_SWEEP = (1, 2, 4, 8)
+
+
 def check_decode(card: str, results: dict) -> None:
+    """The decode kernels (``csrc/decode_attn.cu``) at Yi-9B's heads
+    (Hkv=4, dh=128, Hq=32, bf16): B=8 with a 32768-row cache and the
+    serve shape (B=4, S=4096), kv_len uniform on [1, S], and the profile
+    phase's shape (kv_len in [17, 64]).  Each: a main-path run with the
+    counts set to 0 just before and read just after, the kernels against
+    the plain version, the fold alone against its plain version, and
+    device times of both passes, the plain version, SDPA and the bound
+    over the rows kv_len leaves.  Then on the card: a batch row with no valid position and a
+    mask with holes; two runs' bits; a D sweep; chatglm3-6b's g = 16."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.codegen import run_spec
     from repro_torch.core import StridingConfig
-    from repro_torch.kernels import common
+    from repro_torch.kernels import common, cuda
     from repro_torch.kernels.decode_attn import kernel as dk, ops as dops
     from repro_torch.kernels.decode_attn import specs as dspecs
     from repro_torch.codegen.transforms import plan_blocks
     hkv, dh, hq = 4, 128, 32
     atol = 1e-4
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"decode_attn: tolerance out, lse: |d| <= {atol:g} + {atol:g}*|ref| "
-          "(f32 reassociation: the kernel folds each segment tile by tile "
-          "and merges D segment states; the plain version sums whole rows)")
+          "(f32 reassociation: the kernel folds 64-row tiles, scores from "
+          "the tensor cores in bf16, and merges chunk states; the plain "
+          "version sums whole rows); main path: two launches (split, "
+          f"merge); {sms} SMs, WAVES={dk.WAVES}, "
+          f"MAX_UNITS={dk.MAX_UNITS} [{card}]")
     rng = np.random.default_rng(2)
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for b, s in ((8, 32768), (SERVE_SLOTS, SERVE_MAX_LEN)):
-        kv_len = torch.as_tensor(rng.integers(1, s + 1, b), device="cuda")
+
+    def make_for(b, s, hkv_, hq_, mask):
+        def make():
+            k = torch.randn(b, s, hkv_, dh, generator=gen, device="cuda")
+            v = torch.randn(b, s, hkv_, dh, generator=gen, device="cuda")
+            q = torch.randn(b, hq_, dh, generator=gen, device="cuda")
+            return (*dops._flatten(q.bfloat16(), k.bfloat16(), v.bfloat16()),
+                    mask)
+        return make
+
+    def hold(what, got, ref):
+        for g_, r_, name in zip(got, ref, ("out", "lse")):
+            d = (g_ - r_).abs()
+            if g_.shape != r_.shape or not bool(torch.isfinite(g_).all()):
+                raise AssertionError(f"{what}: {name} shape or finiteness")
+            if not bool((d <= atol + atol * r_.abs()).all()):
+                raise AssertionError(f"{what}: {name} disagrees (max "
+                                     f"|d|={d.max():g})")
+        return max(float((g_ - r_).abs().max()) for g_, r_ in zip(got, ref))
+
+    def sdpa_inputs(b, s, a):
+        kf, vf, qf, mask = a
+        k4 = kf.reshape(b, s, hkv, dh).transpose(1, 2).contiguous()
+        v4 = vf.reshape(b, s, hkv, dh).transpose(1, 2).contiguous()
+        return (qf.reshape(b, hq, 1, dh), k4, v4,
+                (mask > 0.5)[:, None, None, :].contiguous())
+
+    def sdpa(q_, k_, v_, m_):
+        return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=m_,
+                                              enable_gqa=True)
+
+    build = dspecs.decode_spec(hkv, dh, masked=True)
+    for b, s, kind in DECODE_SHAPES:
+        lo = 17 if kind == "profile" else 1
+        hi = 65 if kind == "profile" else s + 1
+        kv_len = torch.as_tensor(rng.integers(lo, hi, b), device="cuda")
+        mask = dops.validity_mask(kv_len, b, s, "cuda")
         cfg = common.resolve_config("decode_attn", None, s,
                                     StridingConfig(4, 1))
-        build = dspecs.decode_spec(hkv, dh, masked=True)
-
-        def make():
-            k = torch.randn(b, s, hkv, dh, generator=gen, device="cuda")
-            v = torch.randn(b, s, hkv, dh, generator=gen, device="cuda")
-            q = torch.randn(b, hq, dh, generator=gen, device="cuda")
-            return (*dops._flatten(q.bfloat16(), k.bfloat16(), v.bfloat16()),
-                    dops.validity_mask(kv_len, b, s, "cuda"))
+        make = make_for(b, s, hkv, hq, mask)
         inputs = make()
-        o, lse = run_spec(build, inputs, cfg)
-        o_ref, lse_ref = run_spec(build, inputs, cfg, mode="ref")
-        torch.cuda.synchronize()
-        for got, ref, what in ((o, o_ref, "out"), (lse, lse_ref, "lse")):
-            d = (got - ref).abs()
-            if not bool((d <= atol + atol * ref.abs()).all()):
-                raise AssertionError(f"decode_attn B={b} S={s}: {what} "
-                                     f"disagrees (max |d|={d.max():g})")
-        err_t = max(float((o - o_ref).abs().max()),
-                    float((lse - lse_ref).abs().max()))
-        # the merge kernel alone, on the split kernel's states
         spec = build(*inputs)
         bp = plan_blocks(spec, cfg)
-        states = dk.split(spec, bp, inputs)
-        m_out, m_lse = dk.merge(spec.combine, *states)
-        p_out, p_lse = dk.merge_plain(spec.combine, *states)
+        upb, chunks = dk.plan_chunks(b, s, bp.d, hkv, hq // hkv, sms)
+        for k in cuda.KERNELS.values():
+            k.launches = 0
+        got = run_spec(build, inputs, cfg)              # the main path
         torch.cuda.synchronize()
-        em = max(float((m_out - p_out).abs().max()),
-                 float((m_lse - p_lse).abs().max()))
+        counts = {n: cuda.KERNELS[n].launches
+                  for n in ("decode_attn", "decode_attn_merge")}
+        want = {"decode_attn": 1, "decode_attn_merge": 1}
+        if counts != want:
+            raise AssertionError(f"decode_attn B={b} S={s}: launches "
+                                 f"{counts}, expected {want}")
+        ref = run_spec(build, inputs, cfg, mode="ref")
+        err_t = hold(f"decode_attn B={b} S={s} {kind}", got, ref)
+        # the fold alone, on the split kernel's states
+        states = dk.split(spec, bp, inputs)
+        m_got = dk.merge(spec.combine, *states)
+        m_ref = dk.merge_plain(spec.combine, *states)
+        torch.cuda.synchronize()
+        em = max(float((a - r).abs().max()) for a, r in zip(m_got, m_ref))
         if em > 1e-5:
             raise AssertionError(f"decode_attn_merge B={b} S={s}: max "
                                  f"|d|={em:g} > 1e-5")
@@ -274,80 +334,114 @@ def check_decode(card: str, results: dict) -> None:
                          state_sets)
         plain_m = device_ms(lambda *st: dk.merge_plain(spec.combine, *st),
                             state_sets)
-
-        def sdpa_inputs(a):
-            kf, vf, qf, mask = a
-            k4 = kf.reshape(b, s, hkv, dh).transpose(1, 2).contiguous()
-            v4 = vf.reshape(b, s, hkv, dh).transpose(1, 2).contiguous()
-            return (qf.reshape(b, hq, 1, dh), k4, v4,
-                    (mask > 0.5)[:, None, None, :].contiguous())
-        lib_sets = [sdpa_inputs(a) for a in sets]
-        lib = device_ms(lambda q_, k_, v_, m_: F.scaled_dot_product_attention(
-            q_, k_, v_, attn_mask=m_, enable_gqa=True), lib_sets)
+        lib_sets = [sdpa_inputs(b, s, a) for a in sets]
+        lib = device_ms(sdpa, lib_sets)
         del lib_sets
         rows = int(kv_len.sum())
         nbytes = (2 * rows * hkv * dh * 2 + b * hq * dh * 2 + b * s * 4
                   + b * hq * dh * 4 + b * hq * 4)
         bms, by = bound_ms(nbytes, 4.0 * rows * hq * dh, "bfloat16")
-        d = bp.d
-        nb_m = b * d * (2 * hq + hq * dh) * 4 + b * hq * dh * 4 + b * hq * 4
-        bms_m, by_m = bound_ms(nb_m, 6.0 * b * d * hq * dh)
+        nb_m = (b * chunks * (2 * hq + hq * dh) * 4 + b * hq * dh * 4
+                + b * hq * 4)
+        bms_m, by_m = bound_ms(nb_m, 6.0 * b * chunks * hq * dh)
         print(f"decode_attn B={b} S={s} Hkv={hkv} dh={dh} Hq={hq} bf16 "
-              f"D={d} bm={bp.bm} sum(kv_len)={rows}: max_abs_err={err_t:g} "
-              f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} ({by}) "
-              f"library_ms={lib:.5f} (SDPA, enable_gqa) [{card}]")
-        print(f"decode_attn_merge B={b} D={d} Hq={hq} dh={dh}: "
-              f"max_abs_err={em:g} ms={ms_m:.5f} plain_ms={plain_m:.5f} "
-              f"bound_ms={bms_m:.6f} ({by_m}) [{card}]")
-        if (b, s) == (SERVE_SLOTS, SERVE_MAX_LEN):
+              f"kv_len {kind} [{lo}, {hi - 1}] D={bp.d} {chunks} chunks of "
+              f"{upb} units, sum(kv_len)={rows}: max_abs_err={err_t:g} "
+              f"ms={ms:.5f} (both passes) plain_ms={plain:.5f} "
+              f"bound_ms={bms:.6f} ({by}) library_ms={lib:.5f} (SDPA, "
+              f"enable_gqa, on a [B, Hkv, S, dh] copy) "
+              f"{ms / bms:.2f}x bound, {ms / lib:.2f}x SDPA; launches "
+              f"{json.dumps(counts)} [{card}]")
+        print(f"decode_attn_merge (the second pass alone) B={b} C={chunks} "
+              f"Hq={hq} dh={dh}: max_abs_err={em:g} ms={ms_m:.5f} "
+              f"plain_ms={plain_m:.5f} bound_ms={bms_m:.6f} ({by_m}) "
+              f"[{card}]")
+        if (b, s, kind) == (SERVE_SLOTS, SERVE_MAX_LEN, "uniform"):
             results["decode_attn"] = dict(
                 name="decode_attn", route="cuda",
                 source="src/repro_torch/csrc/decode_attn.cu",
                 replaces="src/repro/codegen/emit.py:564",
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                 library_ms=lib, max_abs_err=err_t,
-                shape=f"K,V [{b}, {s}, {hkv * dh}] bf16, Hq={hq}, both passes")
+                shape=f"K,V [{b}, {s}, {hkv * dh}] bf16, Hq={hq}, kv_len "
+                      f"uniform, both passes")
             results["decode_attn_merge"] = dict(
                 name="decode_attn_merge", route="cuda",
                 source="src/repro_torch/csrc/decode_attn.cu",
                 replaces="src/repro/codegen/emit.py:564",
                 ms=ms_m, plain_ms=plain_m, bound_ms=bms_m, bound_by=by_m,
                 library_ms=None, max_abs_err=em,
-                shape=f"states [{b}, {d}, {hq}x{dh}] f32")
+                shape=f"states [{b}, {chunks}, {hq}x{dh}] f32")
+        if kind == "uniform":
+            for dd in DECODE_D_SWEEP:
+                bpd = plan_blocks(spec, StridingConfig(dd, 1))
+                t = device_ms(lambda *a: dk.merge(
+                    spec.combine, *dk.split(build(*a), bpd, a)), sets)
+                print(f"decode sweep D={dd} B={b} S={s} kv_len uniform: "
+                      f"{dk.plan_chunks(b, s, dd, hkv, hq // hkv, sms)[1]} "
+                      f"chunks, both passes ms={t:.5f} ({t / bms:.2f}x "
+                      f"bound) [{card}]")
         del sets, state_sets, inputs, states
         torch.cuda.empty_cache()
 
+    # a batch row with no valid position (the spec's mean of V over all
+    # S rows, lse = -1e30 + log S) and a mask with holes; and
+    # two runs' bits
+    b, s = SERVE_SLOTS, SERVE_MAX_LEN
+    cfg = StridingConfig(4, 1)
+    holes = torch.zeros(b, s, device="cuda")
+    holes[0] = (torch.rand(s, generator=gen, device="cuda") < 0.3).float()
+    holes[1, :64] = 1.0
+    holes[1, 1000:1064] = 1.0
+    holes[1, s - 1] = 1.0
+    holes[2, 2048:3000] = 1.0                 # row 3: no valid position
+    cases = {"kv_len [0, 1, 2048, 4096]": dops.validity_mask(
+                 torch.tensor([0, 1, 2048, 4096], device="cuda"), b, s,
+                 "cuda"),
+             "holes (row 3 empty)": holes}
+    for what, mask in cases.items():
+        inputs = make_for(b, s, hkv, hq, mask)()
+        got = run_spec(build, inputs, cfg)
+        again = run_spec(build, inputs, cfg)
+        ref = run_spec(build, inputs, cfg, mode="ref")
+        err = hold(f"decode_attn {what}", got, ref)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        if not same:
+            raise AssertionError(f"decode_attn {what}: two runs differ")
+        empty = mask.sum(1) == 0
+        mean_v = inputs[1].float().reshape(b, s, hkv, dh).mean(1)
+        mean_err = float((got[0].reshape(b, hkv, hq // hkv, dh)[empty]
+                          - mean_v[empty][:, :, None]).abs().max())
+        if mean_err > atol:
+            raise AssertionError(f"decode_attn {what}: the empty row is not "
+                                 f"the mean of V ({mean_err:g})")
+        print(f"decode_attn {what} B={b} S={s}: max_abs_err={err:g}; "
+              f"empty row vs mean of V max|d|={mean_err:g}, lse "
+              f"{float(got[1][empty].max()):g}; two runs bit-equal {same} "
+              f"[{card}]")
+        del inputs
+    torch.cuda.empty_cache()
+
     # chatglm3-6b's group (g = Hq / Hkv = 16, dh = 128) at the serve shape:
-    # two blocks of 8 heads per KV head
-    b, s, hkv, hq = SERVE_SLOTS, SERVE_MAX_LEN, 2, 32
+    # two 8-head tensor-core tiles a block
+    b, s, hkv16, hq16 = SERVE_SLOTS, SERVE_MAX_LEN, 2, 32
     kv_len = torch.as_tensor(rng.integers(1, s + 1, b), device="cuda")
     cfg = common.resolve_config("decode_attn", None, s, StridingConfig(4, 1))
-    build = dspecs.decode_spec(hkv, dh, masked=True)
-
-    def make_g16():
-        k = torch.randn(b, s, hkv, dh, generator=gen, device="cuda")
-        v = torch.randn(b, s, hkv, dh, generator=gen, device="cuda")
-        q = torch.randn(b, hq, dh, generator=gen, device="cuda")
-        return (*dops._flatten(q.bfloat16(), k.bfloat16(), v.bfloat16()),
-                dops.validity_mask(kv_len, b, s, "cuda"))
+    build16 = dspecs.decode_spec(hkv16, dh, masked=True)
+    make_g16 = make_for(b, s, hkv16, hq16,
+                        dops.validity_mask(kv_len, b, s, "cuda"))
     inputs = make_g16()
     n0 = dk.SPLIT.launches
-    o, lse = run_spec(build, inputs, cfg)
-    o_ref, lse_ref = run_spec(build, inputs, cfg, mode="ref")
+    got = run_spec(build16, inputs, cfg)
+    ref = run_spec(build16, inputs, cfg, mode="ref")
     torch.cuda.synchronize()
     if dk.SPLIT.launches != n0 + 1:
         raise AssertionError("decode_attn g=16: the split kernel did not run")
-    for got, ref, what in ((o, o_ref, "out"), (lse, lse_ref, "lse")):
-        d = (got - ref).abs()
-        if not bool((d <= atol + atol * ref.abs()).all()):
-            raise AssertionError(f"decode_attn g=16: {what} disagrees "
-                                 f"(max |d|={d.max():g})")
-    err_t = max(float((o - o_ref).abs().max()),
-                float((lse - lse_ref).abs().max()))
-    sets = _copies(make_g16, 2 * b * s * hkv * dh * 2)
-    ms = device_ms(lambda *a: run_spec(build, a, cfg), sets)
-    print(f"decode_attn g=16 (chatglm3-6b's group) B={b} S={s} Hkv={hkv} "
-          f"dh={dh} Hq={hq} bf16 D={cfg.stride_unroll}: "
+    err_t = hold("decode_attn g=16", got, ref)
+    sets = _copies(make_g16, 2 * b * s * hkv16 * dh * 2)
+    ms = device_ms(lambda *a: run_spec(build16, a, cfg), sets)
+    print(f"decode_attn g=16 (chatglm3-6b's group) B={b} S={s} Hkv={hkv16} "
+          f"dh={dh} Hq={hq16} bf16 D={cfg.stride_unroll}: "
           f"max_abs_err={err_t:g} "
           f"(tolerance as above) ms={ms:.5f} [{card}]")
     del sets, inputs
@@ -914,9 +1008,10 @@ def phase_stream(card: str, results: dict) -> None:
         for la, cfg in cfgs.items():
             rings = {}
             for body, n_in in (("copy", 1), ("triad", 2), ("fill", 0)):
-                tw = manual.ring_tile(bp, cfg, dt, smem_limit, n_in)
-                rings[body] = (tw, manual.ring_smem(n_in, 1, d, bp.bm, tw,
-                                                    la, isz))
+                sizes = ((isz,) * n_in, (isz,))
+                tw = manual.ring_tile(bp, cfg, smem_limit, *sizes)
+                rings[body] = (tw, manual.ring_smem(*sizes, d, bp.bm, tw,
+                                                    la))
             geo = ", ".join(f"{k} {tw} columns / {sm} B" for k, (tw, sm)
                             in rings.items())
             la_entry = entry and la == 3
@@ -1018,7 +1113,7 @@ def phase_stream(card: str, results: dict) -> None:
     for bm in (8, 4, 2, 1):
         cfg = _DEFAULT.replace(lookahead=3, block_rows=bm)
         bp = plan_blocks(ss.copy_spec(x), cfg)
-        tw = manual.ring_tile(bp, cfg, torch.float32, smem_limit)
+        tw = manual.ring_tile(bp, cfg, smem_limit, (4,), (4,))
         t = device_ms(lambda a: stream_copy_manual(a, config=cfg), s1)
         print(f"stream sweep K4 copy lookahead=3 D={d} bm={bp.bm} "
               f"[{rows}, {cols}] f32: step tile {tw} columns, {d * bp.bm} "
@@ -1473,6 +1568,166 @@ def check_adamw(card: str, results: dict) -> None:
                     shape=f"p, g, m, v [{shape[0]}, {shape[1]}] f32 "
                           f"(D=2, P=2, lookahead {cfg.lookahead})")
     del inputs, outs
+    torch.cuda.empty_cache()
+
+
+K4_LOOKAHEADS = (1, 3, 4)
+
+
+def check_k4_features(card: str, results: dict) -> None:
+    """The K4 ring's rank-1 side write and its mixed operand dtypes.
+    ``t_rowstat`` (the map ``o = 2 x`` next to the row statistic ``r =
+    sum_j f32(x)``, the spec of the JAX package's K4 test) at the stream
+    phase's [8192, 4096], x f32 and bf16, D=2 and one row a step (whole
+    rows: a 16 KiB row piece a stream), and ``adamw_update`` with bf16 p
+    and g and f32 m and v at the registry's bench size (blocked [8192,
+    512], D=2, P=2), each at lookahead 1, 3, 4 through the public entry
+    points, the counts set to 0 just before and read just after.  o and
+    every adamw output equal the plain version; r within the f32 sum
+    limit; lost-stream and lost-step controls above it; times against
+    the bound and, where one PyTorch call computes it, that call."""
+    import torch
+    from repro_torch.codegen import plan_blocks, run_spec
+    from repro_torch.core import StridingConfig
+    from repro_torch.kernels import cuda, manual
+    from repro_torch.kernels.adamw import _HYPER
+    from repro_torch.kernels.adamw import ops as aops
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows, cols = STREAM_SHAPE
+    rcfgs = {la: StridingConfig(2, 1, lookahead=la, block_rows=1)
+             for la in K4_LOOKAHEADS}
+    acfgs = {la: aops._DEFAULT.replace(lookahead=la) for la in K4_LOOKAHEADS}
+    shape = ADAMW_SHAPES["bench"]
+
+    def rand(shp, dt):
+        return torch.randn(*shp, generator=gen, device="cuda").to(dt)
+
+    def adamw_inputs():
+        return (rand(shape, torch.bfloat16), rand(shape, torch.bfloat16),
+                rand(shape, torch.float32),
+                torch.rand(*shape, generator=gen, device="cuda"))
+    def rowstat_input(dt):
+        # mean 1, as the read's: a lost row moves its sum by about cols,
+        # far above the f32 limit (a mean-zero row sums to about sqrt(cols))
+        return (1 + rand(STREAM_SHAPE, torch.float32)).to(getattr(torch, dt))
+    xs = {dt: rowstat_input(dt) for dt in STREAM_DTYPES}
+    ains = adamw_inputs()
+    names = ("manual_ring_rowstat", "manual_ring_adamw")
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    routs = {(dt, la): run_spec(manual.rowstat_spec, (xs[dt],), cfg)
+             for dt in STREAM_DTYPES for la, cfg in rcfgs.items()}
+    aouts = {la: aops.adamw_update(*ains, config=cfg, **_HYPER)
+             for la, cfg in acfgs.items()}
+    torch.cuda.synchronize()
+    counts = {n: cuda.KERNELS[n].launches for n in names}
+    want = {"manual_ring_rowstat": len(STREAM_DTYPES) * len(K4_LOOKAHEADS),
+            "manual_ring_adamw": len(K4_LOOKAHEADS)}
+    others = {n: k.launches for n, k in cuda.KERNELS.items()
+              if n not in names and k.launches}
+    if counts != want or others:
+        raise AssertionError(f"k4: launches {counts} (others {others}), "
+                             f"expected {want}")
+    print(f"k4: main path (t_rowstat ring {list(STREAM_DTYPES)} x lookahead "
+          f"{list(K4_LOOKAHEADS)}; adamw_update ring, bf16 p and g, f32 m "
+          f"and v, lookahead {list(K4_LOOKAHEADS)}) launches "
+          f"{json.dumps(counts)} [{card}]")
+    print(f"k4: tolerances: o and p', m', v' |d| = 0; r |d| <= 2 c 2^-24 "
+          f"sum|x| + 2^-23 |r| over a row's n = {cols} terms, c = min(n, "
+          f"{LAMBDA:g} sqrt n), on x = 1 + N(0, 1); controls: stream 1 "
+          f"lost, one step of it lost [{card}]")
+    seg = rows // 2
+    for dt in STREAM_DTYPES:
+        x = xs[dt]
+        isz = x.element_size()
+        ro, rr = run_spec(manual.rowstat_spec, (x,), rcfgs[1], mode="ref")
+        bp = plan_blocks(manual.rowstat_spec(x), rcfgs[1])
+
+        def lost(t, n_rows):
+            t = t.clone()
+            t[seg:seg + n_rows] = 0
+            return t
+        limit = _dot_limit(x.float().abs().sum(1), rr, cols)
+        sets = _copies(lambda: (rowstat_input(dt),), rows * cols * isz)
+        plain = device_ms(lambda a: run_spec(manual.rowstat_spec, (a,),
+                                             rcfgs[1], mode="ref"), sets)
+        bms, by = bound_ms(rows * cols * (isz + 4) + rows * 4,
+                           2.0 * rows * cols, dt)
+        ins, outs_, n_row = manual.ring_sizes("t_rowstat", x.dtype)
+        for la, cfg in rcfgs.items():
+            o, r = routs[(dt, la)]
+            err_o, ctl_o = _hold(f"t_rowstat {dt} la={la} o", o, ro, 0.0,
+                                 {"lost stream": lost(ro, seg)})
+            err_r, ctl_r = _hold(f"t_rowstat {dt} la={la} r", r, rr, limit,
+                                 {"lost stream": lost(rr, seg),
+                                  "lost step": lost(rr, bp.bm)})
+            smem = manual.ring_smem(ins, outs_, 2, bp.bm, cols, la, n_row)
+            ms = device_ms(lambda a, _c=cfg: run_spec(
+                manual.rowstat_spec, (a,), _c), sets)
+            print(f"manual_ring_rowstat x [{rows}, {cols}] {dt} -> o f32, r "
+                  f"[{rows}] f32, D=2, bm={bp.bm}, lookahead {la}, whole-row "
+                  f"steps ({smem} B of shared memory): max_abs_err o={err_o:g}"
+                  f" r={err_r:g}; controls o {ctl_o}; r {ctl_r}; ms={ms:.5f} "
+                  f"plain_ms={plain:.5f} bound_ms={bms:.6f} ({by}) "
+                  f"library_ms=none (no one call gives both) "
+                  f"{ms / bms:.2f}x bound [{card}]")
+            if dt == "float32" and la == 3:
+                results["manual_ring_rowstat"] = dict(
+                    name="manual_ring_rowstat", route="cuda",
+                    source="src/repro_torch/csrc/manual_ring.cu",
+                    replaces="src/repro/codegen/emit.py:708",
+                    launches=counts["manual_ring_rowstat"], ms=ms,
+                    plain_ms=plain, bound_ms=bms, bound_by=by,
+                    library_ms=None, max_abs_err=max(err_o, err_r),
+                    shape=f"x [{rows}, {cols}] f32, D=2, bm=1, lookahead 3")
+        del sets
+
+    # adamw with bf16 p and g on the ring
+    p, g, m, v = ains
+    n = p.numel()
+    ref = aops.adamw_update(p, g, m, v, mode="ref", **_HYPER)
+    arows, acols = aops._blocking(n)
+    aseg = arows // 2
+
+    def lost_a(out, inp):
+        t = out.clone().view(arows, acols)
+        t[aseg:2 * aseg] = inp.view(arows, acols)[aseg:2 * aseg].to(t.dtype)
+        return t.view(shape)
+    sets = _copies(adamw_inputs, 12 * n)
+    s7 = torch.stack(aops.scalars(torch.device("cuda"),
+                                  *_HYPER.values())).unbind()
+    plain = device_ms(lambda *a: aops.adamw_update(*a, *s7, mode="ref"), sets)
+    step = torch.ones((), device="cuda")
+
+    def library(p_, g_, m_, v_):
+        torch._fused_adamw_([p_], [g_], [m_], [v_], [], [step],
+                            lr=_HYPER["lr"], beta1=0.9, beta2=0.999,
+                            weight_decay=_HYPER["wd"], eps=_HYPER["eps"],
+                            amsgrad=False, maximize=False)
+    try:
+        lib_sets = [tuple(t.clone() for t in st) for st in sets]
+        lib = device_ms(library, lib_sets)
+        lib_line = f"{lib:.5f} (torch._fused_adamw_, bf16 p, f32 m, v)"
+    except (RuntimeError, TypeError) as exc:
+        lib, lib_line = None, (f"none (torch._fused_adamw_ refuses bf16 p "
+                               f"with f32 m, v: {str(exc)[:80]})")
+    bms, by = bound_ms(22.0 * n, ADAMW_FLOPS * n, "float32")
+    for la, cfg in acfgs.items():
+        err, ctl = 0.0, []
+        for name, got, want_, inp in zip(("p'", "m'", "v'"), aouts[la], ref,
+                                         (p, m, v)):
+            e, line = _hold(f"adamw ring bf16 la={la} {name}", got, want_,
+                            0.0, {"lost stream": lost_a(want_, inp)})
+            err = max(err, e)
+            ctl.append(f"{name} {line}")
+        ms = device_ms(lambda *a, _c=cfg: aops.adamw_update(*a, *s7,
+                                                             config=_c), sets)
+        print(f"adamw ring_la{la} p, g [{shape[0]}, {shape[1]}] bf16, m, v "
+              f"f32: max_abs_err={err:g}; controls {'; '.join(ctl)}; "
+              f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} ({by}, "
+              f"22 bytes an element) library_ms={lib_line} "
+              f"{ms / bms:.2f}x bound [{card}]")
+    del sets, xs, routs, aouts, ains
     torch.cuda.empty_cache()
 
 
@@ -2164,8 +2419,18 @@ def phase_in_model(card: str, model, params, engine) -> None:
         finally:
             dops.decode_attn = plain
 
+    from repro_torch.kernels.decode_attn import kernel as dk
     ref = run("ref")
-    reads = {"kernels": run(),
+    dk.SPLIT.launches = dk.MERGE.launches = 0
+    kernels = run()
+    launches = (dk.SPLIT.launches, dk.MERGE.launches)
+    if launches[0] != 2 * cfg.n_layers:
+        raise AssertionError(f"in-model: the decode kernel launched "
+                             f"{launches[0]} times, expected "
+                             f"{2 * cfg.n_layers}")
+    print(f"in-model: decode launches over the 2 kernel steps: split "
+          f"{launches[0]}, merge {launches[1]} [{card}]")
+    reads = {"kernels": kernels,
              "control: one ulp": run("ref", one_ulp),
              "fault: segment 1 lost": run("ref", lost_segment),
              "fault: kv_len - 1": run("ref", short_kv_len)}
@@ -2225,11 +2490,14 @@ def phase_profile(card: str, model, params, engine, steps: int = 3) -> None:
             model.decode_step(params, toks, engine.cache, pos)
         torch.cuda.synchronize()
 
+    from repro_torch.kernels.decode_attn import kernel as dk
     with torch.inference_mode():
         run(2)
+        dk.SPLIT.launches = dk.MERGE.launches = 0
         t0 = time.perf_counter()
         run(steps)
         wall = (time.perf_counter() - t0) / steps
+        launches = (dk.SPLIT.launches, dk.MERGE.launches)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run(steps)
@@ -2244,6 +2512,12 @@ def phase_profile(card: str, model, params, engine, steps: int = 3) -> None:
                if str(getattr(e, "device_type", "")).endswith("CUDA")
                and dev(e) > 0]
     total_us = sum(dev(e) for e in kernels) / steps
+    if launches[0] != cfg.n_layers * steps:
+        raise AssertionError(f"profile: the decode kernel launched "
+                             f"{launches[0]} times, expected "
+                             f"{cfg.n_layers * steps}")
+    print(f"profile: decode launches over {steps} timed steps: split "
+          f"{launches[0]}, merge {launches[1]} [{card}]")
     if total_us <= 0:
         print(f"profile: decode step wall {wall * 1e3:.3f} ms; the profiler "
               f"recorded no device kernels [{card}]")
@@ -2252,6 +2526,14 @@ def phase_profile(card: str, model, params, engine, steps: int = 3) -> None:
     print(f"profile: decode step wall {wall * 1e3:.3f} ms, device kernels "
           f"{total_us / 1e3:.3f} ms ({100 * busy:.1f}% busy, "
           f"{100 - 100 * busy:.1f}% idle) over {steps} steps [{card}]")
+    attn = [e for e in kernels if "decode_kernel" in e.key
+            or "decode_merge" in e.key]
+    attn_us = sum(dev(e) for e in attn) / steps
+    print(f"profile: decode attention (decode_kernel + decode_merge) "
+          f"{attn_us / 1e3:.4f} ms of device time a step in "
+          f"{sum(e.count for e in attn) // steps} launches, "
+          f"{100 * attn_us / total_us:.1f}% of the step's kernels; "
+          f"positions in [16, 64) of a {SERVE_MAX_LEN}-row cache [{card}]")
     for e in sorted(kernels, key=dev, reverse=True)[:12]:
         print(f"  {dev(e) / steps / 1e3:9.4f} ms/step "
               f"{100 * dev(e) / steps / total_us:5.1f}% "
@@ -2288,6 +2570,7 @@ def main() -> int:
     phase_stream(card, results)
     phase_stencil(card, results)
     check_adamw(card, results)
+    check_k4_features(card, results)
     phase_registry(card, results)
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")

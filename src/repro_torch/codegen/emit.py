@@ -179,10 +179,11 @@ def _hand_kernel(spec: loopir.TraversalSpec, t: str) -> Callable:
         path = HAND_KERNELS.get(spec.name)
     if path is None:
         raise NotImplementedError(
-            f"{spec.name}: no hand-written Hopper kernel yet — its TPU "
-            f"kernel is template {t} {_TEMPLATES[t]} with the "
-            f"{spec.name!r} body; that instance is still to port "
-            "(ROADMAP Queue 2). Use mode='ref' for the plain version.")
+            f"{spec.name}: no hand-written Hopper kernel — its TPU kernel "
+            f"would be template {t} {_TEMPLATES[t]} with the "
+            f"{spec.name!r} body, an instance the port has no kernel of "
+            "(every spec of the JAX package has one). Use mode='ref' for "
+            "the plain version.")
     return importlib.import_module(path).emit
 
 

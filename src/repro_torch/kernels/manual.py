@@ -6,25 +6,32 @@ between load and store, and bulk stores out of a 2-deep staging ring.
 The JAX package selects K4 at a ``lookahead`` other than 2 for specs
 with plain ``(stride, vector)`` reads and ``(stride, vector)`` or
 ``(stride,)`` writes (``codegen.emit.template_of``).  The port's ring
-has the bodies in :data:`BODIES`, each with one or more ``(stride,
-vector)`` writes (adamw's three: p', m', v'); it raises
-``NotImplementedError`` naming ``_emit_manual`` for a rank-1
-``(stride,)`` side write and for an eligible spec whose body is not
-ported yet.  Every operand of a ring has one dtype (``csrc/
-manual_ring.cu``): adamw's ring takes f32 parameters, and a bf16 one
-raises ``TypeError`` in ``cuda.check_operands``.
+has the bodies in :data:`BODIES`; :data:`SIGNATURES` gives each body's
+operands: every read and write is of the ring's type ``T`` or f32 (each
+operand's ring in its own dtype, as JAX's ``:819``), and a write is a
+full-row ``(stride, vector)`` output or a rank-1 ``(stride,)`` one, a
+``[rows]`` buffer of one lane a row (JAX's ``:732-734``).  adamw's ring
+takes p and g of any compiled ``T`` with f32 m and v, as the K1 kernel
+does; ``t_rowstat`` is the map-plus-row-statistic spec of the JAX
+package's K4 test (:func:`rowstat_spec`), the one spec that reaches a
+rank-1 write.
 
 A step of the ring is a (row block, column tile) of every stream: the
 TPU ring streamed whole rows, which do not fit a block's shared memory
 at the paper's widths.  :func:`ring_tile` picks the widest tile of whole
 128-element sub-portions that fits, or raises ``ValueError`` naming the
-bytes; it never changes D or ``lookahead``.  The grid splits each
-segment's steps into contiguous runs, about two blocks per SM
-(:func:`ring_runs`).
+bytes; it never changes D or ``lookahead``.  A spec with a rank-1 write
+steps by whole rows, as the TPU ring did (a row statistic needs its
+whole row in one stage), and raises the same ``ValueError`` where a
+whole-row ring does not fit.  The grid splits each segment's steps into
+contiguous runs, about two blocks per SM (:func:`ring_runs`).
 
-:func:`emit` launches the kernel on CUDA tensors (or raises) and runs
-the spec's plain version (``loopir.evaluate``) on CPU tensors: every
-ported body is elementwise, so the tile walk gives the same bits.
+:func:`emit` runs the spec's plain version (``loopir.evaluate``) on CPU
+tensors, for any spec, before it refuses anything; on CUDA tensors it
+launches the kernel or raises ``NotImplementedError`` for a spec with no
+body of its name and operands.  Every full-row output of a ported body
+is elementwise, so the tile walk gives the plain version's bits; a row
+statistic is an f32 sum in another order.
 """
 from __future__ import annotations
 
@@ -34,12 +41,13 @@ from typing import Optional
 import torch
 
 from repro_torch.codegen import loopir
+from repro_torch.codegen.loopir import Access, Axis, TraversalSpec
 from repro_torch.codegen.transforms import LANE, BlockPlan
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
 
-__all__ = ["BODIES", "OUT_STAGES", "ring_smem", "ring_tile", "ring_runs",
-           "emit"]
+__all__ = ["BODIES", "SIGNATURES", "OUT_STAGES", "ring_smem", "ring_tile",
+           "ring_runs", "ring_sizes", "rowstat_spec", "emit"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = [_I] * 8     # rows, cols, d, bm, tw, la, per, interleaved
@@ -65,43 +73,107 @@ BODIES = {
     "adamw_update": cuda.CudaKernel("manual_ring_adamw", "manual_ring",
                                     "manual_adamw_launch",
                                     [_I, *[_P] * 8, *_GEOM]),
+    # manual_rowstat_launch(dtype, x, o, r, <geometry>, stream)
+    "t_rowstat": cuda.CudaKernel("manual_ring_rowstat", "manual_ring",
+                                 "manual_rowstat_launch",
+                                 [_I, _P, _P, _P, *_GEOM]),
+}
+
+_ALL = cuda.DTYPES
+# body → (each read's type, each write's type, each write's rank, the
+# types T it is compiled for): "T" is the ring's type, "f32" f32
+SIGNATURES = {
+    "stream_copy": (("T",), ("T",), (2,), _ALL),
+    "stream_triad": (("T", "T"), ("T",), (2,), _ALL),
+    "stream_init": ((), ("T",), (2,), _ALL),
+    "gemver_sum": (("T", "T"), ("T",), (2,), _ALL),
+    "adamw_update": (("T", "T", "f32", "f32"), ("T", "f32", "f32"),
+                     (2, 2, 2), _ALL),
+    "t_rowstat": (("T",), ("f32", "f32"), (2, 1),
+                  (torch.float32, torch.bfloat16)),
 }
 
 OUT_STAGES = 2            # the staging ring's depth, as the TPU kernel's
 
 
-def ring_smem(n_in: int, n_out: int, d: int, bm: int, tw: int, la: int,
-              itemsize: int) -> int:
-    """Dynamic shared memory of a ring: the mbarrier header (8 bytes per
-    input slot, padded to 128) and ``la·D`` stages per input plus
-    ``2·D`` per output, each ``bm × tw`` elements (``csrc/manual_ring.cu``
-    ``ring_t``)."""
-    header = -(-8 * n_in * la // 128) * 128
-    return header + (la * n_in + OUT_STAGES * n_out) * d * bm * tw * itemsize
+def rowstat_spec(x: torch.Tensor) -> TraversalSpec:
+    """The JAX package's K4 test spec (``tests/test_codegen.py``
+    ``_rowstat_spec``): a full-row map ``o = 2·x`` next to the rank-1
+    row statistic ``r = Σ_j f32(x)``, both f32, ``full_width``."""
+    rows, cols = x.shape
+    return TraversalSpec(
+        name="t_rowstat",
+        axes=(Axis("i", rows), Axis("j", cols)),
+        reads=(Access("x", ("i", "j")),),
+        writes=(Access("o", ("i", "j")), Access("r", ("i",))),
+        body=lambda env: (env["x"] * 2.0, env["x"].float().sum(dim=-1)),
+        out_dtype=(torch.float32, torch.float32),
+        full_width=True,
+    )
 
 
-def ring_tile(bp: BlockPlan, config: StridingConfig, dtype: torch.dtype,
-              limit: int, n_in: int = 1, n_out: int = 1) -> int:
-    """The column width of a ring step: the widest multiple of 128
-    dividing ``bp.cols`` whose ring fits ``limit`` bytes.  Raises
-    ``ValueError`` naming the bytes where even 128 columns do not fit
-    (as the JAX checker's manual-ring budget does); D and ``lookahead``
-    are never changed to make it fit."""
-    la, isz = config.lookahead, dtype.itemsize
-    need = ring_smem(n_in, n_out, bp.d, bp.bm, LANE, la, isz)
-    if need > limit:
+def ring_smem(in_sizes: tuple, out_sizes: tuple, d: int, bm: int, tw: int,
+              la: int, n_row: int = 0) -> int:
+    """Dynamic shared memory of a ring whose inputs and full-row outputs
+    have the element sizes ``in_sizes`` and ``out_sizes``
+    (:func:`ring_sizes`): the mbarrier header (8 bytes per input slot,
+    padded to 128), ``la·D`` stages per input plus ``2·D`` per full-row
+    output, each ``bm × tw`` elements of its operand's size, and 2 slots
+    of ``D·bm`` f32 lanes, padded to 16 bytes, per each of the ``n_row``
+    rank-1 outputs (``csrc/manual_ring.cu`` ``ring_t``)."""
+    header = -(-8 * len(in_sizes) * la // 128) * 128
+    step = d * bm * tw
+    rows = OUT_STAGES * n_row * (-(-d * bm * 4 // 16) * 16)
+    return (header + step * (la * sum(in_sizes) + OUT_STAGES * sum(out_sizes))
+            + rows)
+
+
+def ring_sizes(name: str, dtype: torch.dtype) -> tuple[tuple, tuple, int]:
+    """``(in_sizes, out_sizes, n_row)`` of body ``name``'s ring of type
+    ``dtype``: each operand's element size, full-row outputs only, and
+    the number of rank-1 outputs."""
+    ins, outs, ranks, _ = SIGNATURES[name]
+
+    def size(t):
+        return 4 if t == "f32" else dtype.itemsize
+    return (tuple(size(t) for t in ins),
+            tuple(size(t) for t, r in zip(outs, ranks) if r == 2),
+            sum(r == 1 for r in ranks))
+
+
+def ring_tile(bp: BlockPlan, config: StridingConfig, limit: int,
+              in_sizes: tuple, out_sizes: tuple, n_row: int = 0) -> int:
+    """The column width of a ring step (operands as in :func:`ring_smem`):
+    the widest multiple of 128 dividing ``bp.cols`` whose ring fits
+    ``limit`` bytes, or the whole row where the ring has a rank-1 output
+    (``n_row > 0``).  Raises ``ValueError`` naming the bytes where even
+    128 columns (or the whole row) do not fit (as the JAX checker's
+    manual-ring budget does); D and ``lookahead`` are never changed to
+    make it fit."""
+    la = config.lookahead
+
+    def need(tw):
+        return ring_smem(in_sizes, out_sizes, bp.d, bp.bm, tw, la, n_row)
+    what = (f"lookahead {la} x D {bp.d} stages of {bp.bm} rows for each "
+            f"input (element bytes {in_sizes}), 2 x D for each full-row "
+            f"output ({out_sizes})")
+    if n_row:
+        if need(bp.cols) > limit:
+            raise ValueError(
+                f"K4 ring does not fit shared memory: {need(bp.cols)} bytes "
+                f"for a whole-row step of {bp.cols} columns (a (stride,) "
+                f"side write needs whole rows: {what} and {n_row} rank-1 "
+                f"outputs, and the barriers) against a limit of {limit} "
+                "bytes")
+        return bp.cols
+    if need(LANE) > limit:
         raise ValueError(
-            f"K4 ring does not fit shared memory: {need} bytes for a "
-            f"128-column step (lookahead {la} x D {bp.d} stages of "
-            f"{bp.bm} x 128 x {isz} bytes for each of {n_in} inputs, 2 x D "
-            f"for each of {n_out} outputs, and the barriers) against a "
-            f"limit of {limit} bytes")
+            f"K4 ring does not fit shared memory: {need(LANE)} bytes for a "
+            f"128-column step ({what}, and the barriers) against a limit "
+            f"of {limit} bytes")
     nsub = bp.cols // LANE
-    for units in range(nsub, 0, -1):
-        if nsub % units == 0 and ring_smem(n_in, n_out, bp.d, bp.bm,
-                                           units * LANE, la, isz) <= limit:
-            return units * LANE
-    raise AssertionError("unreachable: 128 columns fit")
+    return next(u * LANE for u in range(nsub, 0, -1)
+                if nsub % u == 0 and need(u * LANE) <= limit)
 
 
 def ring_runs(steps: int, sms: int) -> tuple[int, int]:
@@ -111,38 +183,77 @@ def ring_runs(steps: int, sms: int) -> tuple[int, int]:
     return per, -(-steps // per)
 
 
+def _ranks(spec: loopir.TraversalSpec) -> tuple:
+    return tuple(len(w.index) for w in spec.writes)
+
+
 def _refuse(spec: loopir.TraversalSpec) -> Optional[str]:
-    if any(len(w.index) != 2 for w in spec.writes):
-        return "rank-1 (stride,) side writes are not ported"
+    """Why the ring has no kernel for ``spec`` on the card, or None."""
     if spec.name not in BODIES:
         return (f"no body for {spec.name!r} in the ring yet (ported: "
                 f"{', '.join(BODIES)})")
+    ins, _, ranks, _ = SIGNATURES[spec.name]
+    if len(spec.reads) != len(ins) or _ranks(spec) != ranks:
+        return (f"the ring's {spec.name!r} body reads {len(ins)} and "
+                f"writes rank {ranks}; this spec reads {len(spec.reads)} "
+                f"and writes rank {_ranks(spec)}")
     return None
+
+
+def _ring_dtypes(name: str, arrays, out_dtypes) -> tuple:
+    """``(T, each read's dtype, each write's dtype)`` that body ``name``
+    takes for these operands; raises ``TypeError`` for a pairing no
+    compiled instance takes."""
+    ins, outs, _, compiled = SIGNATURES[name]
+    t_ins = [x.dtype for x, t in zip(arrays, ins) if t == "T"]
+    dtype = t_ins[0] if t_ins else out_dtypes[0]
+    if dtype not in compiled:
+        raise TypeError(f"{name} ring: no instance for {dtype} (compiled: "
+                        f"{', '.join(map(str, compiled))})")
+
+    def of(t):
+        return torch.float32 if t == "f32" else dtype
+    want_in = tuple(of(t) for t in ins)
+    got = tuple(x.dtype for x in arrays)
+    if got != want_in:
+        raise TypeError(f"{name} ring: reads must be {want_in} for a ring "
+                        f"of {dtype}, got {got}")
+    return dtype, want_in, tuple(of(t) for t in outs)
 
 
 def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
          config: StridingConfig, device=None):
-    """Run a (padded) K4 spec: its output, ``[rows, cols]``, or a tuple
-    of them for a spec with several writes."""
+    """Run a (padded) K4 spec: its output (``[rows, cols]``, or
+    ``[rows]`` for a rank-1 write), or a tuple of them for a spec with
+    several writes."""
+    dev = arrays[0].device if arrays else torch.device(device)
+    if dev.type != "cuda":
+        return loopir.evaluate(spec, [*arrays, *scalars], device=dev)
     why = _refuse(spec)
     if why is not None:
         raise NotImplementedError(
             f"{spec.name}: the K4 template _emit_manual "
-            f"(src/repro/codegen/emit.py:708) on Hopper: {why} "
-            "(ROADMAP Queue 2). Use mode='ref' for the plain version.")
-    dev = arrays[0].device if arrays else torch.device(device)
-    if dev.type != "cuda":
-        return loopir.evaluate(spec, [*arrays, *scalars], device=dev)
-    out_dtypes = spec.out_dtypes(arrays)
-    dtype = out_dtypes[0]
-    n_in, n_out = len(spec.reads), len(spec.writes)
-    outs = [torch.empty(bp.rows, bp.cols, dtype=dt, device=dev)
-            for dt in out_dtypes]
-    cuda.check_operands(spec.name, [*arrays, *outs],
-                        [(bp.rows, bp.cols)] * (n_in + n_out))
+            f"(src/repro/codegen/emit.py:708) on Hopper: {why}. Use "
+            "mode='ref' for the plain version.")
+    dtype, in_dtypes, out_dtypes = _ring_dtypes(
+        spec.name, arrays, spec.out_dtypes(arrays))
+    ranks = _ranks(spec)
+    outs = [torch.empty((bp.rows, bp.cols) if r == 2 else (bp.rows,),
+                        dtype=dt, device=dev)
+            for r, dt in zip(ranks, out_dtypes)]
+    full = [o for o, r in zip(outs, ranks) if r == 2]
+    shape = (bp.rows, bp.cols)
+    for dt in {*in_dtypes, *out_dtypes}:     # one check per dtype group
+        group = [t for t in [*arrays, *full] if t.dtype == dt]
+        if group:
+            cuda.check_operands(spec.name, group, [shape] * len(group))
+    for o in outs:
+        if o.ndim == 1:
+            cuda.check_arrays(spec.name, [o], [(bp.rows,)])
     props = torch.cuda.get_device_properties(dev)
-    tw = ring_tile(bp, config, dtype, props.shared_memory_per_block_optin,
-                   n_in, n_out)
+    in_sizes, out_sizes, n_row = ring_sizes(spec.name, dtype)
+    tw = ring_tile(bp, config, props.shared_memory_per_block_optin,
+                   in_sizes, out_sizes, n_row)
     steps = bp.rows // bp.d // bp.bm * (bp.cols // tw)
     per, _ = ring_runs(steps, props.multi_processor_count)
     geometry = (bp.rows, bp.cols, bp.d, bp.bm, tw, config.lookahead, per,
@@ -160,4 +271,4 @@ def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
         kernel(dev, code, *ptrs, s.data_ptr(), *optrs, *geometry)
     else:
         kernel(dev, code, *ptrs, *optrs, *geometry)
-    return outs[0] if n_out == 1 else tuple(outs)
+    return outs[0] if len(outs) == 1 else tuple(outs)

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.codegen import OnlineSoftmax, run_spec
+from repro_torch.codegen import template_of as tcg_template
 from repro_torch import registry as tregistry
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.core.striding import StridingConfig as TConfig
@@ -101,11 +102,92 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, d, g, dh, masked):
         n[0] + 1, n[1] + 1)
     ro, rl = tdops.decode_attn(q, k, v, kv_len=kv_len, config=TConfig(d, 1),
                                mode="ref", with_lse=True)
-    # f32 reassociation: the kernel folds tile by tile and merges D
-    # segment states; the plain version sums whole rows
+    # f32 reassociation: the kernel folds 64-row tiles and merges chunk
+    # states; the plain version sums whole rows
     rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ro.float(), rtol=rtol, atol=1e-4)
     torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
+
+
+def _decode_case(dev, dtype, b, s, hkv, g, dh, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, hkv * g, dh, generator=gen, device=dev)
+    k = torch.randn(b, s, hkv, dh, generator=gen, device=dev)
+    v = torch.randn(b, s, hkv, dh, generator=gen, device=dev)
+    return tuple(a.to(dtype) for a in (q, k, v))
+
+
+def _holes(dev, b, s, seed):
+    """Row 0 valid at random, row 1 in two tiles and the last row, the
+    last row valid nowhere (the spec's mean of V), as a [B, S] mask."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.zeros(b, s, device=dev)
+    m[0] = (torch.rand(s, generator=gen, device=dev) < 0.3).float()
+    m[1, :64] = (torch.rand(64, generator=gen, device=dev) < 0.5).float()
+    m[1, 128:192] = 1.0
+    m[1, s - 1] = 1.0
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,dh", [(8, 128), (16, 128), (9, 128), (2, 64),
+                                  (12, 64), (1, 32), (2, 16)])
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("case", ["kv_len_zero", "holes"])
+def test_decode_kernel_empty_row_and_holes_match_plain(cuda_device, dtype,
+                                                       g, dh, d, case):
+    """A batch row with no valid position (the spec's mean of V over all
+    S rows, lse = -1e30 + log S) and a mask with holes, split then
+    merge against the plain version on the card, at the decode
+    tolerance; the states of the split equal its plain version's where a
+    chunk is all masked."""
+    b, s, hkv = 3, 1024, 2
+    q, k, v = _decode_case(cuda_device, dtype, b, s, hkv, g, dh, g * dh + d)
+    if case == "kv_len_zero":
+        mask = tdops.validity_mask(torch.tensor([0, 300, 1024],
+                                                device=cuda_device),
+                                   b, s, cuda_device)
+    else:
+        mask = _holes(cuda_device, b, s, g + d)
+    inputs = tdops._flatten(q, k, v) + (mask,)
+    from repro_torch.codegen import plan_blocks
+    from repro_torch.kernels.decode_attn import specs as tdspecs
+    spec = tdspecs.decode_spec(hkv, dh, True)(*inputs)
+    bp = plan_blocks(spec, TConfig(d, 1))
+    n = (dkernel.SPLIT.launches, dkernel.MERGE.launches)
+    states = dkernel.split(spec, bp, inputs)
+    mo, ml = dkernel.merge(spec.combine, *states)
+    assert (dkernel.SPLIT.launches, dkernel.MERGE.launches) == (
+        n[0] + 1, n[1] + 1)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plain = dkernel.split_plain(spec, bp, inputs, sms=sms)
+    ro, rl = dkernel.merge_plain(spec.combine, *plain)
+    torch.testing.assert_close(mo, ro, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ml, rl, rtol=1e-4, atol=1e-4)
+    idle = plain[0] == -1e30                 # identity or empty-row chunks
+    assert torch.equal(states[0][idle], plain[0][idle])
+    torch.testing.assert_close(states[2], plain[2], rtol=1e-4, atol=1e-4)
+    empty = mask.sum(1) == 0
+    if bool(empty.any()):                    # the mean of V, every head
+        mean_v = v.float().mean(1)[empty]    # [rows, hkv, dh]
+        got = mo.reshape(b, hkv, g, dh)[empty]
+        torch.testing.assert_close(
+            got, mean_v[:, :, None].expand_as(got), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_kernel_bits_repeat(cuda_device, dtype):
+    """Two runs on the same inputs give the same bits: the fold takes
+    the chunks in a fixed order, and no atomic touches a value."""
+    b, s, hkv, g, dh = 4, 4096, 4, 8, 128
+    q, k, v = _decode_case(cuda_device, dtype, b, s, hkv, g, dh, 11)
+    kv_len = torch.tensor([17, 2000, 4096, 0], device=cuda_device)
+    runs = [tdops.decode_attn(q, k, v, kv_len=kv_len, config=TConfig(4, 1),
+                              with_lse=True) for _ in range(3)]
+    for out, lse in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
 
 
 @pytest.mark.gpu
@@ -443,8 +525,9 @@ def _ring_fits(spec, cfg, dtype, limit) -> bool:
     if classify(spec).blocked:
         spec, _ = block_1d(spec, cfg)
     bp = plan_blocks(spec, cfg)
-    return tmanual.ring_smem(len(spec.reads), 1, bp.d, bp.bm, 128,
-                             cfg.lookahead, dtype.itemsize) <= limit
+    isz = dtype.itemsize
+    return tmanual.ring_smem((isz,) * len(spec.reads), (isz,), bp.d, bp.bm,
+                             128, cfg.lookahead) <= limit
 
 
 @pytest.mark.gpu
@@ -513,8 +596,8 @@ def test_manual_ring_uses_the_opt_in_shared_memory(cuda_device):
     spec = tsspecs.copy_spec(x)
     from repro_torch.codegen import plan_blocks
     bp = plan_blocks(spec, cfg)
-    tw = tmanual.ring_tile(bp, cfg, torch.float32, limit)
-    assert tmanual.ring_smem(1, 1, bp.d, bp.bm, tw, 4, 4) > 48 * 1024
+    tw = tmanual.ring_tile(bp, cfg, limit, (4,), (4,))
+    assert tmanual.ring_smem((4,), (4,), bp.d, bp.bm, tw, 4) > 48 * 1024
     assert torch.equal(tsops.stream_copy_manual(x, config=cfg), x)
 
 
@@ -691,7 +774,7 @@ def test_adamw_ring_matches_plain(cuda_device, lookahead, arr, d, p, shape):
     bp = plan_blocks(taspecs.adamw_spec(torch.empty(rows, cols), None, None,
                                         None), effective_config(cfg, rows,
                                                                 cfg))
-    need = tmanual.ring_smem(4, 3, bp.d, bp.bm, 128, lookahead, 4)
+    need = tmanual.ring_smem((4,) * 4, (4,) * 3, bp.d, bp.bm, 128, lookahead)
     if need <= limit:
         got = taops.adamw_update(*args, config=cfg, **_HYPER)
         assert kernel.launches == before + 1
@@ -708,13 +791,15 @@ def test_adamw_ring_fits_at_d2_and_refuses_d4(cuda_device):
     """At the bench blocking [8192, 512], D=2 bm=8: the ring of four
     inputs and three outputs fits at lookahead 3 (144 KiB) and 4
     (176 KiB); at D=4 and lookahead 3 it does not, and the ValueError
-    says so without changing D or the lookahead.  A bf16 parameter is
-    refused by the ring (one dtype for every operand) with TypeError."""
+    says so without changing D or the lookahead.  A bf16 parameter now
+    runs on the ring (p, g and p' bf16, m and v f32) and equals the
+    plain version bit for bit."""
     limit = torch.cuda.get_device_properties(
         cuda_device).shared_memory_per_block_optin
     x = torch.zeros(8192, 512, device=cuda_device)
     for la, kib in ((3, 144), (4, 176)):
-        assert tmanual.ring_smem(4, 3, 2, 8, 128, la, 4) // 1024 == kib
+        assert tmanual.ring_smem((4,) * 4, (4,) * 3, 2, 8, 128,
+                                 la) // 1024 == kib
         out = taops.adamw_update(x, x, x, x + 1, config=TConfig(
             2, 2, lookahead=la), **_HYPER)
         assert all(torch.isfinite(o).all() for o in out)
@@ -722,10 +807,83 @@ def test_adamw_ring_fits_at_d2_and_refuses_d4(cuda_device):
     with pytest.raises(ValueError, match="does not fit shared memory"):
         taops.adamw_update(x, x, x, x + 1, config=cfg, **_HYPER)
     assert cfg.stride_unroll == 4 and cfg.lookahead == 3
-    assert tmanual.ring_smem(4, 3, 4, 8, 128, 3, 4) > limit
-    with pytest.raises(TypeError):
-        taops.adamw_update(x.bfloat16(), x.bfloat16(), x, x + 1,
-                           config=TConfig(2, 2, lookahead=3), **_HYPER)
+    assert tmanual.ring_smem((4,) * 4, (4,) * 3, 4, 8, 128, 3) > limit
+    kernel = tmanual.BODIES["adamw_update"]
+    before = kernel.launches
+    y = x + torch.linspace(-1, 1, 512, device=cuda_device)
+    args = (y.bfloat16(), (2 * y).bfloat16(), y, y.abs() + 1)
+    cfg = TConfig(2, 2, lookahead=3)
+    _adamw_equal(taops.adamw_update(*args, config=cfg, **_HYPER),
+                 taops.adamw_update(*args, config=cfg, mode="ref", **_HYPER),
+                 torch.bfloat16)
+    assert kernel.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("lookahead", [1, 3, 4])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("shape", ADAMW_SHAPES)
+def test_adamw_ring_mixed_dtypes_match_plain(cuda_device, dtype, lookahead,
+                                             arr, shape):
+    """The ring's adamw body with p and g of a 16-bit type and f32 m and
+    v (each operand's stages in its own element size) equals the plain
+    version bit for bit: p' one rounding from f32, m' and v' f32."""
+    gen = torch.Generator(device=cuda_device).manual_seed(lookahead + 40)
+    args = _adamw_inputs(gen, shape, cuda_device, dtype)
+    cfg = TConfig(2, 2, lookahead=lookahead, arrangement=arr)
+    kernel = tmanual.BODIES["adamw_update"]
+    before = kernel.launches
+    got = taops.adamw_update(*args, config=cfg, **_HYPER)
+    assert kernel.launches == before + 1
+    _adamw_equal(got, taops.adamw_update(*args, config=cfg, mode="ref",
+                                         **_HYPER), dtype)
+
+
+ROWSTAT_SHAPES = [(16, 256), (512, 1024), (96, 384)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lookahead", [1, 3, 4])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,bm", [(1, 1), (2, 1), (2, 3), (4, 8)])
+@pytest.mark.parametrize("shape", ROWSTAT_SHAPES)
+def test_rowstat_ring_matches_plain(cuda_device, dtype, lookahead, arr, d,
+                                    bm, shape):
+    """The ring's ``t_rowstat`` body (a rank-1 ``(stride,)`` side write
+    next to the full-row map): ``o = 2·x`` equals the plain version bit
+    for bit; the f32 row sums agree within the f32 sum limit (another
+    order of the same sum) and repeat bit for bit.  One launch a call;
+    steps of whole rows, and a whole-row ring that does not fit shared
+    memory raises ValueError naming the bytes and launches nothing."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 7 + bm)
+    x = _rand(gen, shape, cuda_device, dtype)
+    cfg = TConfig(d, 1, lookahead=lookahead, arrangement=arr, block_rows=bm)
+    spec = tmanual.rowstat_spec(x)
+    assert tcg_template(spec, cfg) == "K4"
+    from repro_torch.codegen import plan_blocks
+    bp = plan_blocks(spec, cfg)
+    ins, outs, n_row = tmanual.ring_sizes("t_rowstat", dtype)
+    need = tmanual.ring_smem(ins, outs, bp.d, bp.bm, bp.cols, lookahead,
+                             n_row)
+    kernel = tmanual.BODIES["t_rowstat"]
+    before = kernel.launches
+    if need > torch.cuda.get_device_properties(
+            cuda_device).shared_memory_per_block_optin:
+        with pytest.raises(ValueError, match=f"{need} bytes"):
+            run_spec(tmanual.rowstat_spec, (x,), cfg)
+        assert kernel.launches == before
+        return
+    o, r = run_spec(tmanual.rowstat_spec, (x,), cfg)
+    assert kernel.launches == before + 1
+    ro, rr = run_spec(tmanual.rowstat_spec, (x,), cfg, mode="ref")
+    assert o.dtype == r.dtype == torch.float32 and r.shape == (shape[0],)
+    assert torch.equal(o, ro)
+    n = shape[1]
+    limit = 2 * _dot_factor(n) * GAMMA * x.float().abs().sum(-1)
+    assert bool(((r - rr).abs() <= limit).all())
+    assert torch.equal(r, run_spec(tmanual.rowstat_spec, (x,), cfg)[1])
 
 
 @pytest.mark.gpu

@@ -36,6 +36,7 @@ from repro_torch.kernels import cuda
 from repro_torch.kernels.bicg import ops as tbops
 from repro_torch.kernels.bicg import ref as tbref
 from repro_torch.kernels.bicg import specs as tbspecs
+from repro_torch.kernels.gemver import kernel as gkernel  # noqa: F401  (registers its kernels)
 from repro_torch.kernels.gemver import ops as tgops
 from repro_torch.kernels.gemver import ref as tgref
 from repro_torch.kernels.gemver import specs as tgspecs

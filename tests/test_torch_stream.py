@@ -346,13 +346,13 @@ def test_ring_tiles_cover_each_segment_once_and_fit(rows, cols, d, p, la,
     cfg = TConfig(d, p, lookahead=la)
     bp = tcg.plan_blocks(spec, cfg)
     limit = SMEM_LIMIT
-    tw = tmanual.ring_tile(bp, cfg, dtype, limit, n_in)
-    isz = dtype.itemsize
+    sizes = ((dtype.itemsize,) * n_in, (dtype.itemsize,))
+    tw = tmanual.ring_tile(bp, cfg, limit, *sizes)
     assert tw % 128 == 0 and bp.cols % tw == 0
-    assert tmanual.ring_smem(n_in, 1, d, bp.bm, tw, la, isz) <= limit
+    assert tmanual.ring_smem(*sizes, d, bp.bm, tw, la) <= limit
     wider = [u * 128 for u in range(tw // 128 + 1, bp.cols // 128 + 1)
              if bp.cols % (u * 128) == 0]
-    assert all(tmanual.ring_smem(n_in, 1, d, bp.bm, w, la, isz) > limit
+    assert all(tmanual.ring_smem(*sizes, d, bp.bm, w, la) > limit
                for w in wider)            # the widest that fits
     steps = bp.rows // d // bp.bm * (bp.cols // tw)
     for sms in (1, 7, 132):
@@ -368,33 +368,132 @@ def test_ring_that_cannot_fit_raises_naming_the_bytes(d, la, dtype):
     spec = tsspecs.copy_spec(torch.empty(8192, 4096))
     cfg = TConfig(d, 1, lookahead=la)
     bp = tcg.plan_blocks(spec, cfg)
-    need = tmanual.ring_smem(1, 1, d, bp.bm, 128, la, dtype.itemsize)
+    isz = dtype.itemsize
+    need = tmanual.ring_smem((isz,), (isz,), d, bp.bm, 128, la)
     assert need > SMEM_LIMIT
     with pytest.raises(ValueError, match=f"{need} bytes"):
-        tmanual.ring_tile(bp, cfg, dtype, SMEM_LIMIT)
+        tmanual.ring_tile(bp, cfg, SMEM_LIMIT, (isz,), (isz,))
     with pytest.raises(ValueError, match="does not fit shared memory"):
-        tmanual.ring_tile(bp, cfg, dtype, SMEM_LIMIT, n_in=2)
+        tmanual.ring_tile(bp, cfg, SMEM_LIMIT, (isz, isz), (isz,))
     assert cfg.stride_unroll == d and cfg.lookahead == la
 
 
 def test_k4_refuses_what_it_does_not_take():
-    """A K4-eligible spec with no ring body yet (``transpose_gen``) and a
-    rank-1 ``(stride,)`` side write raise naming ``_emit_manual``."""
+    """A K4-eligible spec with no ring body yet (``transpose_gen``) raises
+    naming ``_emit_manual``; a rank-1 ``(stride,)`` side write is no
+    longer refused: on CPU tensors the ring's plain version runs it,
+    whatever its name, and returns the ``[rows]`` statistic."""
     x = torch.zeros(16, 256)
     cfg = TConfig(4, 2, lookahead=3)
     other = dataclasses.replace(tsspecs.copy_spec(x), name="transpose_gen")
     assert tcg.template_of(other, cfg) == "K4"
     with pytest.raises(NotImplementedError, match="_emit_manual"):
         tcg.emit_spec(other, [x], cfg)
-    side = dataclasses.replace(          # a side write wins over the name
+    side = dataclasses.replace(          # a side write with no body's name
         tsspecs.copy_spec(x), name="transpose_gen",
         writes=(tcg.Access("y", ("i", "j")), tcg.Access("s", ("i",))),
         body=lambda env: (env["x"], env["x"].sum(-1)))
     assert tcg.template_of(side, cfg) == "K4"
     bp = tcg.plan_blocks(side, cfg)
-    with pytest.raises(NotImplementedError, match="rank-1 .*_emit_manual|"
-                                                  "_emit_manual.*rank-1"):
-        tmanual.emit(side, bp, [x], [], cfg)
+    x = torch.from_numpy(_arrays((16, 256), 1, seed=21)[0])
+    y, s = tmanual.emit(side, bp, [x], [], cfg)
+    assert torch.equal(y, x) and torch.equal(s, x.sum(-1))
+
+
+# ------------------------------------------ K4: the rank-1 side write
+
+def _jrowstat_spec(rows, cols):
+    """The JAX package's K4 test spec (``tests/test_codegen.py``
+    ``_rowstat_spec``), built here with the JAX package's classes."""
+    return jcg.TraversalSpec(
+        name="t_rowstat",
+        axes=(jcg.Axis("i", rows), jcg.Axis("j", cols)),
+        reads=(jcg.Access("x", ("i", "j")),),
+        writes=(jcg.Access("o", ("i", "j")), jcg.Access("r", ("i",))),
+        body=lambda env: (env["x"] * 2.0,
+                          env["x"].astype(jnp.float32).sum(axis=-1)),
+        out_dtype=(jnp.float32, jnp.float32),
+        full_width=True,
+    )
+
+
+def _row_sum_limit(x: np.ndarray) -> np.ndarray:
+    """|a - b| between two f32 row sums of x taken in different orders:
+    each lies within c 2^-24 Σ|x| of the exact sum, c = min(n, 8 √n)
+    (Higham and Mary 2019, Thm 3.1)."""
+    n = x.shape[-1]
+    return 2 * min(n, 8 * n ** 0.5) * 2.0 ** -24 * np.abs(
+        x.astype(np.float32)).sum(-1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("la", [1, 3])
+def test_k4_rowstat_matches_jax_emit_manual(monkeypatch, la, dtype):
+    """``_rowstat_spec(16, 256)`` at lookahead 1 and 3 (the JAX test's
+    points): the JAX ``_emit_manual`` in interpret mode against the
+    port's K4 route (the ring's plain version on CPU tensors), equal
+    block plans.  The map output ``2·x`` is exact in both packages (held
+    to equality, stricter than the JAX test's rtol 1e-6); the row
+    statistic is an f32 sum in each package's order, held to the JAX
+    test's rtol 1e-6 plus the two sums' reassociation limit, in f32 and
+    in bf16 alike (a bf16 x widens exactly)."""
+    x = _arrays((16, 256), 1, seed=20 + la)[0]
+    jx = jnp.asarray(x, getattr(jnp, dtype))
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    cfg = JConfig(2, 1, lookahead=la)
+    seen = {"jax": [], "port": []}
+    for mod, key in ((jtransforms, "jax"), (ttransforms, "port")):
+        real = mod.plan_blocks
+
+        def plan(spec, config, *a, _real=real, _key=key, **kw):
+            bp = _real(spec, config, *a, **kw)
+            seen[_key].append((bp.d, bp.bm, bp.bn, bp.rows, bp.cols))
+            return bp
+        monkeypatch.setattr(mod, "plan_blocks", plan)
+    ran = []
+    real_manual = jemit._emit_manual
+
+    def spy(*a, **kw):
+        ran.append("_emit_manual")
+        return real_manual(*a, **kw)
+    monkeypatch.setattr(jemit, "_emit_manual", spy)
+    want = jcg.emit_spec(_jrowstat_spec(16, 256), (jx,), cfg,
+                         interpret=True)
+    spec = tmanual.rowstat_spec(tx)
+    assert tcg.template_of(spec, _tcfg(cfg)) == "K4"
+    before = {n: k.launches for n, k in cuda.KERNELS.items()}
+    got = tcg.emit_spec(spec, [tx], _tcfg(cfg))
+    assert {n: k.launches for n, k in cuda.KERNELS.items()} == before
+    assert ran == ["_emit_manual"] and seen["port"] == seen["jax"]
+    assert tuple(got[0].shape) == (16, 256) and tuple(got[1].shape) == (16,)
+    assert got[0].dtype == got[1].dtype == torch.float32
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    xf = np.asarray(jnp.asarray(jx, jnp.float32))
+    r_want = np.asarray(want[1])
+    d = np.abs(got[1].numpy() - r_want)
+    assert (d <= 1e-6 * np.abs(r_want) + _row_sum_limit(xf)).all(), d.max()
+
+
+def test_k4_rowstat_ring_steps_by_whole_rows():
+    """A ring with a rank-1 write steps by whole rows (one tile of every
+    column); one that does not fit shared memory raises ValueError
+    naming the bytes, without changing D or the lookahead."""
+    spec = tmanual.rowstat_spec(torch.empty(8192, 2048))
+    for dtype in (torch.float32, torch.bfloat16):
+        sizes = tmanual.ring_sizes("t_rowstat", dtype)
+        assert sizes == ((dtype.itemsize,), (4,), 1)
+        cfg = TConfig(2, 1, lookahead=4, block_rows=2)
+        bp = tcg.plan_blocks(spec, cfg)
+        tw = tmanual.ring_tile(bp, cfg, SMEM_LIMIT, *sizes)
+        assert tw == bp.cols == 2048
+        cfg = TConfig(4, 1, lookahead=4, block_rows=8)
+        bp = tcg.plan_blocks(spec, cfg)
+        need = tmanual.ring_smem(sizes[0], sizes[1], 4, bp.bm, 2048, 4,
+                                 sizes[2])
+        assert need > SMEM_LIMIT
+        with pytest.raises(ValueError, match=f"{need} bytes for a whole-row"):
+            tmanual.ring_tile(bp, cfg, SMEM_LIMIT, *sizes)
+        assert cfg.stride_unroll == 4 and cfg.lookahead == 4
 
 
 # ------------------------------------------ read passes and oracles
@@ -476,3 +575,41 @@ def test_cpu_ops_launch_nothing_and_bf16_keeps_its_dtype():
         "stream_copy", "stream_triad", "stream_init", "stream_read",
         "stream_read_merge", "manual_ring_copy", "manual_ring_triad",
         "manual_ring_fill", "manual_ring_gemver_sum"}
+
+
+@pytest.mark.parametrize("name,ins,want", [
+    ("adamw_update", ("bfloat16", "bfloat16", "float32", "float32"),
+     ("bfloat16", ("bfloat16", "float32", "float32"))),
+    ("adamw_update", ("float16", "float16", "float32", "float32"),
+     ("float16", ("float16", "float32", "float32"))),
+    ("adamw_update", ("float32",) * 4,
+     ("float32", ("float32", "float32", "float32"))),
+    ("t_rowstat", ("bfloat16",), ("bfloat16", ("float32", "float32"))),
+    ("t_rowstat", ("float32",), ("float32", ("float32", "float32"))),
+    ("stream_copy", ("bfloat16",), ("bfloat16", ("bfloat16",))),
+    ("adamw_update", ("bfloat16", "float32", "float32", "float32"), None),
+    ("adamw_update", ("bfloat16", "bfloat16", "bfloat16", "float32"), None),
+    ("t_rowstat", ("float16",), None),
+    ("stream_triad", ("float32", "bfloat16"), None),
+])
+def test_ring_operand_dtypes(name, ins, want):
+    """Each ring operand's dtype is the ring's type T or f32, as the body's
+    signature says; the output dtypes follow it (adamw's p' in p's
+    dtype, as the K1 kernel); a pairing no compiled instance takes raises
+    TypeError before anything reaches the card."""
+    arrays = [torch.empty(2, 128, dtype=getattr(torch, t)) for t in ins]
+    out_dtypes = (torch.float32,) * len(tmanual.SIGNATURES[name][1])
+    if want is None:
+        with pytest.raises(TypeError, match=name):
+            tmanual._ring_dtypes(name, arrays, out_dtypes)
+        return
+    dtype, in_dtypes, outs = tmanual._ring_dtypes(name, arrays, out_dtypes)
+    assert dtype == getattr(torch, want[0])
+    assert in_dtypes == tuple(getattr(torch, t) for t in ins)
+    assert outs == tuple(getattr(torch, t) for t in want[1])
+    in_sizes, out_sizes, n_row = tmanual.ring_sizes(name, dtype)
+    assert in_sizes == tuple(t.itemsize for t in in_dtypes)
+    ranks = tmanual.SIGNATURES[name][2]
+    assert out_sizes == tuple(t.itemsize for t, r in zip(outs, ranks)
+                              if r == 2)
+    assert n_row == sum(r == 1 for r in ranks)

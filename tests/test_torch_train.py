@@ -280,15 +280,50 @@ def test_adamw_plans_and_template_match_jax(lookahead, label, cfg, which):
 
 
 def test_ring_refuses_only_rank1_side_writes_and_unported_bodies():
-    """The ring now takes several (stride, vector) writes (adamw's
-    three); it refuses a rank-1 side write and a name with no body."""
+    """The ring takes several (stride, vector) writes (adamw's three) and
+    now a rank-1 side write (``t_rowstat``'s body); it refuses a name
+    with no body, and a spec whose operands are not its body's."""
     spec = taspecs.adamw_spec(torch.zeros(16, 256), None, None, None)
     assert tmanual._refuse(spec) is None
+    assert tmanual._refuse(tmanual.rowstat_spec(torch.zeros(16, 256))) is None
     side = dataclasses.replace(spec, writes=spec.writes[:2] + (
         tcg.Access("s", ("i",)),))
-    assert "rank-1" in tmanual._refuse(side)
+    assert "rank-1" not in tmanual._refuse(side)
+    assert "writes rank (2, 2, 1)" in tmanual._refuse(side)
     other = dataclasses.replace(spec, name="transpose_gen")
     assert "no body" in tmanual._refuse(other)
+
+
+@pytest.mark.parametrize("lookahead", [1, 3])
+def test_adamw_k4_ring_bf16_p_matches_jax_emit_manual(monkeypatch,
+                                                      lookahead):
+    """A bf16 p and g with f32 m and v on the K4 ring: the JAX
+    ``_emit_manual`` in interpret mode (each operand's ring in its own
+    dtype) against the port's K4 route on CPU tensors, at the adamw
+    row's tolerance; the ring's operand sizes are bf16 for p, g, p' and
+    f32 for m, v, m', v'."""
+    jargs, targs, d = _blocked_case("default", seed=5, d=2)
+    jargs = [jnp.asarray(a, jnp.bfloat16) for a in jargs[:2]] + jargs[2:]
+    targs = [a.bfloat16() for a in targs[:2]] + targs[2:]
+    cfg = JConfig(d, 2, lookahead=lookahead)
+    ran = []
+    real = jemit._emit_manual
+
+    def spy(*a, **kw):
+        ran.append("_emit_manual")
+        return real(*a, **kw)
+    monkeypatch.setattr(jemit, "_emit_manual", spy)
+    want = jcg.emit_spec(jaspecs.adamw_spec(*jargs), jargs, cfg,
+                         interpret=True)
+    tspec = taspecs.adamw_spec(*targs)
+    assert tcg.template_of(tspec, _tcfg(cfg)) == "K4"
+    assert tmanual._refuse(tspec) is None
+    got = _port_emit(tspec, targs, _tcfg(cfg))
+    assert ran == ["_emit_manual"] and len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        _close(a, b)
+    assert tmanual.ring_sizes("adamw_update", torch.bfloat16) == (
+        (2, 2, 4, 4), (2, 4, 4), 0)
 
 
 # ------------------------------------------------ no pad, no copy
