@@ -9,7 +9,9 @@ Phases (each raises on failure, so the script exits non-zero):
 
   1. device   — require CUDA; print the card, its count and its power limit
   2. build    — compile every CUDA source (one nvcc each, all at once) and
-                print the -Xptxas -v register / shared-memory / spill lines
+                print the -Xptxas -v register / shared-memory / spill lines,
+                and one line of every doitgen and stream instance's
+                registers and spill bytes
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 the main path's shapes: max error vs the stated tolerance,
                 and device times (CUDA graphs of many launches, timed with
@@ -29,13 +31,15 @@ Phases (each raises on failure, so the script exits non-zero):
                 for the read) with lost-stream and lost-step controls,
                 timed, and the D and lookahead sweeps of the paper's Fig. 2
   3d. stencil — jacobi2d and conv3x3 at 2050 x 2048 and 16386 x 16384,
-                doitgen at (16, 256, 256) and (256, 256, 256) x (256, 256),
-                in f32 and at the smaller size in bf16, through their public
-                functions; each kernel against its plain version (equality
-                for the stencils, the f32 dot limit for doitgen) with
-                lost-stream, lost-tap and lost-tile controls, timed, and the
-                D sweep at the larger sizes, and the stencils' again at a
-                row pitch of 16386 elements
+                in f32 and at the smaller size in bf16; doitgen at
+                (16, 256, 256) and (256, 256, 256) x (256, 256) in f32 and
+                bf16 (on the tensor cores) and at the first in f16; through
+                their public functions; each kernel against its plain
+                version (equality for the stencils, the f32 dot limit for
+                doitgen) with lost-stream, lost-tap and lost-tile controls,
+                timed, and the D sweep at the larger sizes (doitgen in f32
+                and bf16), and the stencils' again at a row pitch of 16386
+                elements
   3e. adamw  — the fused AdamW update at the registry's bench size
                 (4096 x 1024 f32) and at Yi-9B's embedding (64000 x 4096
                 f32) through its public op: the K1 kernel and the K4
@@ -172,7 +176,41 @@ def phase_build(card: str) -> float:
                 print(f"  [{stem}] {line.strip()}")
     print(f"build: {len(reports)} libraries in {secs:.1f} s "
           f"(nvcc, sm_90a) [{card}]")
+    inst = {}
+    for stem in ("doitgen", "stream"):
+        inst.update(ptxas_instances(reports.get(stem, "")))
+    print(f"ptxas doitgen and stream instances, [registers, spill store "
+          f"bytes, spill load bytes]: {json.dumps(inst)} [{card}]")
     return secs
+
+
+def ptxas_instances(report: str) -> dict:
+    """``{kernel instance: [registers, spill store bytes, spill load
+    bytes]}`` from an ``-Xptxas -v`` report, the names demangled by
+    ``c++filt`` where it is installed."""
+    import re
+    found, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            found[name] = [None, None, None]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            found[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            found[name][0] = int(m.group(1))
+    if found and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(found),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.split("\n")
+        found = {re.sub(r"\(anonymous namespace\)::", "", n).split("(")[0]
+                 .removeprefix("void "): v
+                 for n, v in zip(names, found.values())}
+    return found
 
 
 def check_rmsnorm(card: str, results: dict) -> None:
@@ -1148,6 +1186,9 @@ STREAM_SOURCES = {
 
 STENCIL_SIZES = (2050, 16386)      # the registry's bench rows, and 1 GiB
 DOITGEN_SIZES = ((16, 256, 256), (256, 256, 256))   # bench (r, q, s); p = s
+# the 16-bit doitgen lines: on the tensor cores
+DOITGEN_16BIT = (((16, 256, 256), "bfloat16"), ((256, 256, 256), "bfloat16"),
+                 ((16, 256, 256), "float16"))
 STENCIL_D_SWEEP = (1, 2, 4, 8)
 
 
@@ -1156,12 +1197,13 @@ def phase_stencil(card: str, results: dict) -> None:
     through their public functions: the stencils at the registry's bench
     size 2050 x 2048 and at 16386 x 16384, doitgen at its bench size
     (16, 256, 256) x (256, 256) and at (256, 256, 256) x (256, 256), in
-    f32, and each at the smaller size in bf16.  Then each kernel against
-    its plain version with lost-stream and lost-tap (stencils) or
-    lost-tile and lost-batch (doitgen) controls, timed beside its bound
-    and one PyTorch call, and the D sweep at the larger sizes; the
-    stencils' sweep again at 16386 x 16386, whose row pitch is not the
-    64 KiB of 16386 x 16384.
+    f32, the stencils at the smaller size in bf16, doitgen at both in
+    bf16 and at the bench size in f16.  Then each kernel against its
+    plain version with lost-stream and lost-tap (stencils) or lost-tile
+    and lost-batch (doitgen) controls, timed beside its bound and one
+    PyTorch call, and the D sweep at the larger sizes (doitgen in f32 and
+    bf16); the stencils' sweep again at 16386 x 16386, whose row pitch is
+    not the 64 KiB of 16386 x 16384.
 
     Every count is set to 0 just before the op calls and read just
     after; the JSON line's launches are those counts."""
@@ -1188,7 +1230,9 @@ def phase_stencil(card: str, results: dict) -> None:
           f"multiply-add, then once into the dtype); doitgen |d| <= 2 c "
           f"2^-24 sum_s |A C4| + 2u |ref| over its s terms, c = min(s, "
           f"{LAMBDA:g} sqrt s) (as the dot products above), u = 2^-24 in "
-          f"f32, 2^-8 in bf16, against a plain f32 product with TF32 off. "
+          f"f32, 2^-8 in bf16, 2^-11 in f16, against a plain f32 product "
+          f"with TF32 off (bf16 and f16 on the tensor cores, f32 "
+          f"accumulators). "
           f"Controls, the plain version with stream k=1's rows lost, one tap "
           f"row of stream 1 read one row too low (stencils), one p tile of "
           f"one block lost or one batch element lost (doitgen), must land "
@@ -1234,11 +1278,13 @@ def phase_stencil(card: str, results: dict) -> None:
     for shape in DOITGEN_SIZES:
         inputs[("doitgen", shape, "float32")] = (rand(shape),
                                                  rand((shape[2], shape[2])))
-    n0, sh0 = STENCIL_SIZES[0], DOITGEN_SIZES[0]
+    n0 = STENCIL_SIZES[0]
     inputs[("stencil", n0, "bfloat16")] = tuple(
         t.bfloat16() for t in inputs[("stencil", n0, "float32")])
-    inputs[("doitgen", sh0, "bfloat16")] = tuple(
-        t.bfloat16() for t in inputs[("doitgen", sh0, "float32")])
+    for shape, dt_name in DOITGEN_16BIT:
+        inputs[("doitgen", shape, dt_name)] = tuple(
+            t.to(getattr(torch, dt_name))
+            for t in inputs[("doitgen", shape, "float32")])
 
     names = ["jacobi2d", "conv3x3", "doitgen"]
     for k in cuda.KERNELS.values():
@@ -1255,7 +1301,8 @@ def phase_stencil(card: str, results: dict) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: cuda.KERNELS[n].launches for n in names}
-    want = {"jacobi2d": 3, "conv3x3": 3, "doitgen": 3}
+    want = {"jacobi2d": 3, "conv3x3": 3,
+            "doitgen": len(DOITGEN_SIZES) + len(DOITGEN_16BIT)}
     if counts != want:
         raise AssertionError(f"stencil: launches {counts}, expected {want}")
     others = {n: k.launches for n, k in cuda.KERNELS.items()
@@ -1264,7 +1311,8 @@ def phase_stencil(card: str, results: dict) -> None:
         raise AssertionError(f"stencil: other kernels launched: {others}")
     print(f"stencil: main path (jacobi2d, conv3x3 at {list(STENCIL_SIZES)} "
           f"rows f32 and {n0} bf16, D={J_DEFAULT.stride_unroll}; doitgen at "
-          f"{[list(s) for s in DOITGEN_SIZES]} f32 and {list(sh0)} bf16, "
+          f"{[list(s) for s in DOITGEN_SIZES]} f32 and "
+          f"{[f'{list(s)} {d}' for s, d in DOITGEN_16BIT]}, "
           f"D={D_DEFAULT.stride_unroll}) {wall:.3f} s host wall, launches "
           f"{json.dumps(counts)} [{card}]")
 
@@ -1354,19 +1402,22 @@ def phase_stencil(card: str, results: dict) -> None:
         r, q, s = shape
         p = c4.shape[1]
         bp = plan_blocks(dspecs.doitgen_spec(a, c4), D_DEFAULT)
-        seg, rb = q // bp.d, dk.block_rows(bp, r, p, sms)
-        u = GAMMA if dt == torch.float32 else 2.0 ** -8
+        geo = dk.geometry(bp, r, s, p, isz, (a.data_ptr(), c4.data_ptr(),
+                                             outs[key].data_ptr()), sms)
+        seg, rb, cols = q // bp.d, geo.rb, geo.cols
+        u = {torch.float32: GAMMA, torch.bfloat16: 2.0 ** -8,
+             torch.float16: 2.0 ** -11}[dt]
         ref = doitgen(a, c4, mode="ref")
         terms = torch.einsum("rqs,sp->rqp", a.float().abs(), c4.float().abs())
         limit = 2 * _dot_factor(s) * GAMMA * terms + 2 * u * ref.float().abs()
         del terms
         lost_tile = ref.clone()
-        lost_tile[0, seg:seg + rb, :dk.PT] = 0
+        lost_tile[0, seg:seg + rb, :cols] = 0
         lost_batch = ref.clone()
         lost_batch[r - 1] = 0
         err, ctl = _hold(f"doitgen {shape} {dt_name}", outs[key], ref, limit,
                          {"lost stream": lost_rows(ref, seg, dim=1),
-                          f"lost tile ({rb} rows x {dk.PT} columns)":
+                          f"lost tile ({rb} rows x {cols} columns)":
                               lost_tile,
                           "lost batch element": lost_batch})
         ctl += f"; max(limit)={float(limit.max()):.4g}"
@@ -1374,8 +1425,11 @@ def phase_stencil(card: str, results: dict) -> None:
         sets = _copies(lambda: (rand(shape, dt), c4), r * q * s * isz)
         reps = 8 if shape == DOITGEN_SIZES[-1] else 20
         report("doitgen", f"A {list(shape)} x C4 [{s}, {p}] {dt_name}, "
-               f"D={bp.d}, bm={bp.bm}, blocks of {bp.d} x {rb} rows x "
-               f"{dk.PT} columns", dt_name, err, ctl,
+               f"D={bp.d}, bm={bp.bm}, {geo.blocks} blocks of {bp.d} x {rb} "
+               f"rows x {cols} columns (tile {geo.tile}), "
+               f"{'16-byte' if geo.vec else 'staging'} instance"
+               + (", mma.sync" if dt != torch.float32 else ", FFMA"),
+               dt_name, err, ctl,
                device_ms(lambda a_, c_: doitgen(a_, c_), sets, reps=reps),
                device_ms(lambda a_, c_: doitgen(a_, c_, mode="ref"), sets,
                          reps=reps),
@@ -1391,20 +1445,25 @@ def phase_stencil(card: str, results: dict) -> None:
     n = STENCIL_SIZES[-1]
     x, w = inputs[("stencil", n, "float32")]
     a, c4 = inputs[("doitgen", DOITGEN_SIZES[-1], "float32")]
+    a16, c16 = inputs[("doitgen", DOITGEN_SIZES[-1], "bfloat16")]
     b_st = bound_ms((n * (n - 2) + (n - 2) * (n - 4)) * 4, 0.0)[0]
     r, q, s = DOITGEN_SIZES[-1]
     b_dg = bound_ms((2 * r * q * s + s * s) * 4, 2.0 * r * q * s * s)[0]
+    b_16 = bound_ms((2 * r * q * s + s * s) * 2, 2.0 * r * q * s * s,
+                    "bfloat16")[0]
     for dd in STENCIL_D_SWEEP:
         cfg = StridingConfig(dd, 1)
         tj = device_ms(lambda x_: jacobi2d(x_, config=cfg), [(x,)], reps=8)
         tc = device_ms(lambda x_: conv3x3(x_, w, config=cfg), [(x,)], reps=8)
         td = device_ms(lambda a_: doitgen(a_, c4, config=cfg), [(a,)], reps=8)
+        t16 = device_ms(lambda a_: doitgen(a_, c16, config=cfg), [(a16,)],
+                        reps=8)
         print(f"stencil sweep D={dd}: jacobi2d, conv3x3 [{n}, {n - 2}] f32 "
               f"ms={tj:.5f}, {tc:.5f} (bound {b_st:.4f}); doitgen "
               f"{list(DOITGEN_SIZES[-1])} f32 ms={td:.5f} (bound "
-              f"{b_dg:.4f}) [{card}]")
+              f"{b_dg:.4f}), bf16 ms={t16:.5f} (bound {b_16:.4f}) [{card}]")
     # the same stencils at a row pitch of n elements, not a power of two
-    del inputs, outs, x, a
+    del inputs, outs, x, a, a16
     torch.cuda.empty_cache()
     x = rand((n, n))
     b_px = bound_ms((n * n + (n - 2) * (n - 2)) * 4, 0.0)[0]

@@ -24,9 +24,15 @@
 // j*bm + bm - 1 of every segment, one warp per slot; in each column step
 // the warp starts the loads of the D rows r + k*seg over the step's P
 // 128-element sub-portions (in the config's arrangement) before it
-// stores any, 16 bytes a lane in f32.  Init loads nothing and stores
-// the D rows of each step.  copy, triad and init equal their plain
-// versions bit for bit.
+// stores any, 16 bytes a lane in f32.  In bf16 and f16 a lane also
+// loads and stores 16 bytes: its 8 consecutive elements of a pair of
+// adjacent sub-portions (row_sweep hands a body at most two), kept as
+// packed words until they are used (Lanes16), so a triad holds 8 + 8
+// words a stream and two blocks share an SM; a step's odd last
+// sub-portion takes one 8-byte load.  With one pair a piece, grouped
+// and interleaved issue the same order, the D streams one after
+// another.  Init loads nothing and stores the D rows of each step.
+// copy, triad and init equal their plain versions bit for bit.
 //
 // K2: the TPU kernel's block plan for the read is D rows of seg * cols
 // columns (bm = 1), so a grid over row slots would put one block on the
@@ -68,6 +74,13 @@ struct CopyBody {
   }
 };
 
+// a = b + alpha * c on one element, each operation rounded to T as the
+// plain version rounds it (the f32 lanes and the 16-bit lanes share it)
+template <typename T>
+__device__ __forceinline__ float triad_elem(float alpha, float b, float c) {
+  return round_to<T>(__fadd_rn(b, round_to<T>(__fmul_rn(alpha, c))));
+}
+
 template <typename T>
 struct TriadBody {
   const T* b;
@@ -87,8 +100,7 @@ struct TriadBody {
 
   __device__ __forceinline__ float operator()(int k, int p, int e,
                                               float bv) const {
-    const float t = round_to<T>(__fmul_rn(alpha, cv[k][p][e]));
-    return round_to<T>(__fadd_rn(bv, t));
+    return triad_elem<T>(alpha, bv, cv[k][p][e]);
   }
 };
 
@@ -111,29 +123,144 @@ struct FillBody {
   }
 };
 
+// The 16-bit lanes (bf16, f16) of the K1 bodies on row_sweep.  A piece
+// of np <= 2 sub-portions from column c0 is, for lane `lane`, the 8
+// elements c0 + 8 lane ... of a pair (np = 2: one 16-byte load of each
+// operand row) or the 4 elements c0 + 4 lane ... of an odd last
+// sub-portion (np = 1: one 8-byte load).  Op names its NIN read
+// operands (in) and maps their packed words of stream k to the output's
+// (a pair's 8 elements; of an odd sub-portion only x, y are stored).
+template <typename T, typename Op>
+struct Lanes16 {
+  Op op;
+  T* o;
+  int cols;
+
+  __device__ __forceinline__ void begin(int) {}
+  __device__ __forceinline__ void end(int, int, int, int) {}
+
+  __device__ __forceinline__ void step(int rk, int seg, int nk, int c0,
+                                       int np, bool, int lane) {
+    constexpr int NIN = Op::NIN;
+    const bool pair = np == 2;
+    const int col = c0 + (pair ? lane * 8 : lane * 4);
+    uint4 w[NIN > 0 ? NIN : 1][KMAX];
+#pragma unroll
+    for (int i = 0; i < NIN; ++i) {
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        if (k < nk) {
+          const T* src =
+              op.in[i] + static_cast<size_t>(rk + k * seg) * cols + col;
+          if (pair) {
+            w[i][k] = __ldg(reinterpret_cast<const uint4*>(src));
+          } else {
+            const uint2 h = __ldg(reinterpret_cast<const uint2*>(src));
+            w[i][k] = make_uint4(h.x, h.y, 0u, 0u);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < nk) {
+        const uint4 r = op(w, k);
+        T* dst = o + static_cast<size_t>(rk + k * seg) * cols + col;
+        if (pair)
+          *reinterpret_cast<uint4*>(dst) = r;
+        else
+          *reinterpret_cast<uint2*>(dst) = make_uint2(r.x, r.y);
+      }
+    }
+  }
+};
+
 template <typename T>
-__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32)
+struct Copy16 {
+  static constexpr int NIN = 1;
+  const T* in[1];
+
+  __device__ __forceinline__ uint4 operator()(const uint4 (&w)[1][KMAX],
+                                              int k) const {
+    return w[0][k];
+  }
+};
+
+// a = b + alpha * c on 8 packed elements (triad_elem)
+template <typename T>
+struct Triad16 {
+  static constexpr int NIN = 2;
+  const T* in[2];
+  float alpha;
+
+  __device__ __forceinline__ uint4 operator()(const uint4 (&w)[2][KMAX],
+                                              int k) const {
+    const uint32_t b[4] = {w[0][k].x, w[0][k].y, w[0][k].z, w[0][k].w};
+    const uint32_t c[4] = {w[1][k].x, w[1][k].y, w[1][k].z, w[1][k].w};
+    uint32_t r[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      Cvt<T>::put(r, e, triad_elem<T>(alpha, Cvt<T>::get(b, e),
+                                      Cvt<T>::get(c, e)));
+    return make_uint4(r[0], r[1], r[2], r[3]);
+  }
+};
+
+// writes-only: the fill value's bits twice in each word
+template <typename T>
+struct Fill16 {
+  static constexpr int NIN = 0;
+  const T* in[1];
+  uint32_t word;
+
+  __device__ __forceinline__ uint4 operator()(const uint4 (&)[1][KMAX],
+                                              int) const {
+    return make_uint4(word, word, word, word);
+  }
+};
+
+// In bf16 and f16 two blocks share an SM (at most 128 registers a thread).
+template <typename T>
+__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32, sizeof(T) == 2 ? 2 : 1)
 stream_copy(const T* __restrict__ x, T* __restrict__ o, int cols, int d,
             int seg, int bm, int ns, bool interleaved) {
-  Elementwise<T, CopyBody<T>> body{{x, cols}, o, cols};
-  row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  if constexpr (sizeof(T) == 2) {
+    Lanes16<T, Copy16<T>> body{{{x}}, o, cols};
+    row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  } else {
+    Elementwise<T, CopyBody<T>> body{{x, cols}, o, cols};
+    row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32)
+__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32, sizeof(T) == 2 ? 2 : 1)
 stream_triad(const T* __restrict__ b, const T* __restrict__ c,
              T* __restrict__ o, float alpha, int cols, int d, int seg,
              int bm, int ns, bool interleaved) {
-  Elementwise<T, TriadBody<T>> body{{b, c, alpha, cols}, o, cols};
-  row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  if constexpr (sizeof(T) == 2) {
+    Lanes16<T, Triad16<T>> body{{{b, c}, alpha}, o, cols};
+    row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  } else {
+    Elementwise<T, TriadBody<T>> body{{b, c, alpha, cols}, o, cols};
+    row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32)
+__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32, sizeof(T) == 2 ? 2 : 1)
 stream_init(T* __restrict__ o, float value, int cols, int d, int seg,
             int bm, int ns, bool interleaved) {
-  Elementwise<T, FillBody> body{{value}, o, cols};
-  row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  if constexpr (sizeof(T) == 2) {
+    uint32_t word = 0u;
+    Cvt<T>::put(&word, 0, value);
+    Cvt<T>::put(&word, 1, value);
+    Lanes16<T, Fill16<T>> body{{{nullptr}, word}, o, cols};
+    row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  } else {
+    Elementwise<T, FillBody> body{{value}, o, cols};
+    row_sweep(cols, d, seg, bm, ns, interleaved, body);
+  }
 }
 
 template <typename T>

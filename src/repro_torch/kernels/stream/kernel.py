@@ -4,7 +4,10 @@
   * K1 ``_emit_streaming`` (``src/repro/codegen/emit.py:410``) with the
     copy, triad and init bodies: D row streams (rows ``r + k·seg``), one
     warp per row slot, ``seg / bm`` blocks, as ``gemver.cu``; init is
-    writes-only (no read stream, D store positions).
+    writes-only (no read stream, D store positions).  A lane moves 16
+    bytes a load and a store in every type: 4 elements of a 128-element
+    sub-portion in f32, 8 elements of a pair of adjacent ones in bf16
+    and f16 (an odd last sub-portion of a step 8 bytes).
   * K2 ``_emit_reduction`` (``src/repro/codegen/emit.py:491``) with the
     read body, on ``x2 = x.reshape(D, seg·cols)``.  Its block plan is D
     rows of ``seg·cols`` columns, so :func:`read_split` (pass 1) runs a

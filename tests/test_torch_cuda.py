@@ -476,6 +476,35 @@ def test_stream_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", [(1, 2), (4, 2), (16, 2), (4, 3), (16, 1)])
+@pytest.mark.parametrize("m,n", [(512, 384), (256, 640)])
+def test_stream_16bit_lanes_equal_plain(cuda_device, dtype, arr, d, p, m,
+                                        n):
+    """The 16-bit K1 lanes (16 bytes a lane, a pair of sub-portions a
+    load): copy, triad and init equal their plain versions bit for bit.
+    384 and 640 columns are 3 and 5 sub-portions, so a step ends on an
+    odd one (8-byte loads); P=3 starts a pair on an odd sub-portion; P=1
+    takes 8-byte loads only; D=16 is two register groups of 8 streams."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n + d * p)
+    x, c = (_rand(gen, (m, n), cuda_device, dtype) for _ in range(2))
+    cfg = TConfig(d, p, arrangement=arr)
+    kernels = (skernel.COPY, skernel.TRIAD, skernel.INIT)
+    before = [k.launches for k in kernels]
+    y = tsops.stream_copy(x, config=cfg)
+    a = run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg)
+    f = tsops.stream_init((m, n), -3.7, dtype, config=cfg,
+                          device=cuda_device)
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    assert torch.equal(y, x)
+    assert torch.equal(a, run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg,
+                                   mode="ref"))
+    assert torch.equal(f, tsops.stream_init((m, n), -3.7, dtype, config=cfg,
+                                            mode="ref", device=cuda_device))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("arr", ["grouped", "interleaved"])
 @pytest.mark.parametrize("d,p", DPS)
@@ -658,32 +687,104 @@ def test_stencil_ops_launch_their_kernel_once(cuda_device, dtype):
         counts[0] + 1, counts[1] + 1)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ALL_DTYPES)
-@pytest.mark.parametrize("d", [1, 2, 4, 8])
-@pytest.mark.parametrize("r,q,s,p", [(3, 10, 32, 24), (2, 64, 256, 200),
-                                     (4, 8, 32, 32), (1, 37, 40, 100)])
-def test_doitgen_kernel_matches_plain(cuda_device, no_tf32, dtype, d, r, q,
-                                      s, p):
-    """Each output is an f32 dot of s terms, summed in another order than
-    the plain cuBLAS product: held to the dot limit, plus the rounding
-    into the dtype.  q not divisible by D pads the rows (the op clamps D
-    on r·q), p not a multiple of the kernel's 128-column tile
-    (dgkernel.PT) masks it."""
-    gen = torch.Generator(device=cuda_device).manual_seed(r * q + s + p + d)
-    a = _rand(gen, (r, q, s), cuda_device, dtype)
-    c4 = _rand(gen, (s, p), cuda_device, dtype)
-    cfg = TConfig(d, 1)
+# (r, q, s, p): q not divisible by D pads the rows, p = 24, 100, 200 and
+# 32 mask a p tile, p = 100 is no whole 16-byte group in bf16 and f16
+# (the staging instance), s = 72 is not a multiple of either chunk (32
+# in bf16 and f16, 16 in f32), then the bench size (the 64 tile) and a
+# batch of 64 (the 128 tile)
+DOITGEN_SHAPES = [(3, 10, 32, 24), (2, 64, 256, 200), (4, 8, 32, 32),
+                  (1, 37, 40, 100), (2, 16, 72, 64), (16, 256, 256, 256),
+                  (64, 256, 256, 256)]
+
+
+def _doitgen_case(dev, dtype, r, q, s, p, seed, offset=0):
+    """A [r, q, s] and C4 [s, p] drawn on the card; ``offset`` > 0 makes
+    A a contiguous view ``offset`` elements into its buffer (not 16-byte
+    aligned)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    buf = _rand(gen, (offset + r * q * s,), dev, dtype)
+    a = buf[offset:].view(r, q, s)
+    return a, _rand(gen, (s, p), dev, dtype)
+
+
+def _check_doitgen(a, c4, cfg):
+    """One launch through the spec, held against the plain version under
+    the dot limit of s terms plus the rounding into the dtype."""
     before = dgkernel.DOITGEN.launches
     out = run_spec(tdgspecs.doitgen_spec, (a, c4), cfg)
     assert dgkernel.DOITGEN.launches == before + 1
     plain = run_spec(tdgspecs.doitgen_spec, (a, c4), cfg, mode="ref")
-    assert out.dtype == dtype and out.shape == (r, q, p)
+    r, q, s = a.shape
+    assert out.dtype == a.dtype and out.shape == (r, q, c4.shape[1])
     terms = torch.einsum("rqs,sp->rqp", a.float().abs(), c4.float().abs())
     _assert_dot(out, plain, terms, s)
+
+
+class _Recorder:
+    """Stands in for ``dgkernel.DOITGEN``: records each launch's
+    arguments and launches through the real kernel."""
+
+    def __init__(self, kernel):
+        self.kernel, self.args = kernel, []
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    def __call__(self, device, *args):
+        self.args.append(args)
+        self.kernel(device, *args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("r,q,s,p", DOITGEN_SHAPES)
+def test_doitgen_kernel_matches_plain(cuda_device, no_tf32, dtype, d, r, q,
+                                      s, p):
+    """Each output is an f32 dot of s terms (on the tensor cores in bf16
+    and f16), summed in another order than the plain cuBLAS product:
+    held to the dot limit, plus the rounding into the dtype."""
+    a, c4 = _doitgen_case(cuda_device, dtype, r, q, s, p, r * q + s + p + d)
+    _check_doitgen(a, c4, TConfig(d, 1))
     before = dgkernel.DOITGEN.launches
     assert tdgops.doitgen(a, c4).shape == (r, q, p)
     assert dgkernel.DOITGEN.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("tile", dgkernel.TILES)
+@pytest.mark.parametrize("vec", [True, False])
+def test_doitgen_instances_match_plain(cuda_device, no_tf32, monkeypatch,
+                                       dtype, tile, vec):
+    """Every instance, picked by the wrapper from shapes and addresses:
+    the 64 tile at (4, 64, 96, 96), the 128 tile at (64, 256, 256, 256);
+    the staging instance where A starts one element past a 16-byte
+    boundary."""
+    rec = _Recorder(dgkernel.DOITGEN)
+    monkeypatch.setattr(dgkernel, "DOITGEN", rec)
+    r, q, s, p = (64, 256, 256, 256) if tile == 128 else (4, 64, 96, 96)
+    a, c4 = _doitgen_case(cuda_device, dtype, r, q, s, p, tile + vec,
+                          offset=0 if vec else 1)
+    _check_doitgen(a, c4, TConfig(4, 1))
+    ((*_, got_tile, got_vec, _blocks),) = rec.args
+    assert (got_tile, bool(got_vec)) == (tile, vec)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("d,bm", [(16, 0), (8, 32)])
+def test_doitgen_two_passes_match_plain(cuda_device, no_tf32, dtype, d, bm):
+    """At the bench size a block's rows take more than one pass of its
+    tile: D=16 at the default rows (16 x 8 rows, two passes of the 64
+    tile in f32) and D=8 at block_rows 32 (256 rows, four passes of the
+    64 tile in every dtype; ``test_doitgen_geometry_takes_several_passes``
+    counts them).  Every pass's stores go to its own rows before the
+    next pass takes the row table, in each of three launches."""
+    a, c4 = _doitgen_case(cuda_device, dtype, 16, 256, 256, 256, d + bm)
+    for _ in range(3):
+        _check_doitgen(a, c4, TConfig(d, 1, block_rows=bm))
 
 
 @pytest.mark.gpu

@@ -393,16 +393,121 @@ def test_doitgen_plain_version_contracts_every_batch_element():
                                    (256, 256, 8), (4, 8, 4), (3, 12, 3),
                                    (1, 40, 8)])
 @pytest.mark.parametrize("sms", [1, 132])
-def test_doitgen_block_rows_divide_the_segment_and_fill_the_card(r, q, d,
+def test_doitgen_geometry_divides_the_segment_and_fills_the_card(r, q, d,
                                                                  sms):
     """A block's run of rows per stream is a multiple of the plan's bm
-    that divides the segment; it grows past bm only while the block
-    stays within 128 rows and the grid keeps two blocks per SM."""
-    a, c4 = torch.zeros(r, q, 16), torch.zeros(16, 256)
+    that divides the segment, the largest whose D·rb rows fit the tile
+    (bm where none does); the tile is the largest of ``TILES`` whose
+    grid keeps 15/16 of the SMs busy; a block takes the tile's width of
+    p in f32,
+    ``MMA_COLS`` in bf16 and f16; the grid counts every (batch element,
+    run, p tile) once."""
+    s, p = 16, 256
+    a, c4 = torch.zeros(r, q, s), torch.zeros(s, p)
     bp = tcg.plan_blocks(tdspecs.doitgen_spec(a, c4), TConfig(d, 1))
-    rb = tdkernel.block_rows(bp, r, 256, sms)
     seg = bp.rows // bp.d
-    assert rb % bp.bm == 0 and seg % rb == 0
-    tiles = -(-256 // tdkernel.PT)
-    assert rb == bp.bm or (bp.d * rb <= 128
-                           and r * (seg // rb) * tiles >= 2 * sms)
+    for itemsize in (4, 2):
+        geo = tdkernel.geometry(bp, r, s, p, itemsize, (0, 0, 0), sms)
+        assert geo.rb % bp.bm == 0 and seg % geo.rb == 0
+        assert geo.tile in tdkernel.TILES
+        assert geo.cols == (geo.tile if itemsize == 4 else tdkernel.MMA_COLS)
+        assert geo.rb == bp.bm or bp.d * geo.rb <= geo.tile
+        larger = [rb for rb in range(geo.rb + bp.bm, seg + 1, bp.bm)
+                  if seg % rb == 0 and bp.d * rb <= geo.tile]
+        assert not larger
+        assert geo.blocks == r * (seg // geo.rb) * -(-p // geo.cols)
+        assert 16 * geo.blocks >= 15 * sms or geo.tile == tdkernel.TILES[-1]
+        for tile in tdkernel.TILES:          # no larger tile fills the card
+            if tile > geo.tile:
+                rb = tdkernel._run_rows(bp, tile)
+                cols = tile if itemsize == 4 else tdkernel.MMA_COLS
+                assert 16 * r * (seg // rb) * -(-p // cols) < 15 * sms
+
+
+@pytest.mark.parametrize("itemsize,r,tile,cols,rb,blocks", [
+    (4, 16, 64, 64, 16, 256), (2, 16, 128, 64, 32, 128),
+    (4, 256, 128, 128, 32, 1024), (2, 256, 128, 64, 32, 2048)])
+def test_doitgen_geometry_at_the_bench_sizes(itemsize, r, tile, cols, rb,
+                                             blocks):
+    """At the bench size (16, 256, 256) x (256, 256), D=4, on 132 SMs:
+    in f32 the 128 tile would give 64 blocks, so the 64 tile gives 256;
+    in bf16 (64 columns a block) the 128 tile gives 128, one wave with
+    4 SMs idle.  At a batch of 256 the 128 tile gives 1024 (f32) and
+    2048 (bf16)."""
+    a, c4 = torch.zeros(r, 256, 256), torch.zeros(256, 256)
+    bp = tcg.plan_blocks(tdspecs.doitgen_spec(a, c4), TConfig(4, 1))
+    geo = tdkernel.geometry(bp, r, 256, 256, itemsize, (256, 512, 768), 132)
+    assert geo == tdkernel.Geometry(tile, cols, rb, True, blocks)
+    assert 16 * geo.blocks >= 15 * 132
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("d,bm,passes", [(16, 0, {4: 2, 2: 1}),
+                                         (8, 32, {4: 4, 2: 4})])
+def test_doitgen_geometry_takes_several_passes(itemsize, d, bm, passes):
+    """The card's multi-pass cases (``test_doitgen_two_passes_match_plain``)
+    at the bench size on 132 SMs: D=16 takes two passes of the 64 tile
+    in f32 (one of the 128 tile in bf16 and f16), D=8 at block_rows 32
+    four passes of the 64 tile in every dtype, so each later pass's row
+    table is rewritten after the previous pass's stores."""
+    a, c4 = torch.zeros(16, 256, 256), torch.zeros(256, 256)
+    bp = tcg.plan_blocks(tdspecs.doitgen_spec(a, c4),
+                         TConfig(d, 1, block_rows=bm))
+    geo = tdkernel.geometry(bp, 16, 256, 256, itemsize, (256, 512, 768), 132)
+    assert -(-bp.d * geo.rb // geo.tile) == passes[itemsize]
+
+
+# (itemsize, s, p, A, C4 and o offsets in bytes from a 256-byte boundary,
+# the 16-byte instance?)
+STAGING_CASES = [
+    (2, 256, 256, (0, 0, 0), True), (2, 40, 200, (0, 0, 0), True),
+    (2, 40, 100, (0, 0, 0), False), (2, 36, 256, (0, 0, 0), False),
+    (2, 256, 256, (2, 0, 0), False), (2, 256, 256, (0, 8, 0), False),
+    (2, 256, 256, (0, 0, 2), False), (2, 256, 256, (16, 32, 48), True),
+    (4, 256, 100, (0, 0, 0), True), (4, 38, 256, (0, 0, 0), False),
+    (4, 256, 102, (0, 0, 0), False), (4, 256, 256, (4, 0, 0), False),
+    (4, 256, 256, (0, 0, 8), False), (4, 32, 24, (16, 16, 16), True)]
+
+
+@pytest.mark.parametrize("itemsize,s,p,offsets,vec", STAGING_CASES)
+def test_doitgen_geometry_staging_follows_the_alignment(itemsize, s, p,
+                                                        offsets, vec):
+    """The 16-byte instance needs s and p in whole 16-byte groups of
+    elements (8 in bf16 and f16, 4 in f32) and A, C4 and o 16-byte
+    aligned; anything else takes the element-wise staging instance."""
+    a, c4 = torch.zeros(2, 64, s), torch.zeros(s, p)
+    bp = tcg.plan_blocks(tdspecs.doitgen_spec(a, c4), TConfig(4, 1))
+    ptrs = tuple(4096 * (i + 1) + off for i, off in enumerate(offsets))
+    assert tdkernel.geometry(bp, 2, s, p, itemsize, ptrs, 132).vec is vec
+
+
+def _doitgen_16bit_limit(a, c4, want, dtype):
+    """|port - JAX| per element: both sum s f32 products in their own
+    order (each within c 2^-24 Σ|A C4| of the exact dot, c = min(s,
+    8 √s)), then round once into the 16-bit dtype (unit roundoff u:
+    2^-8 in bf16, 2^-11 in f16): 2 c 2^-24 Σ|A C4| + 2 u |want|."""
+    s = a.shape[-1]
+    u = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -11
+    terms = np.einsum("rqs,sp->rqp", np.abs(a), np.abs(c4))
+    return (2 * min(s, 8 * s ** 0.5) * 2.0 ** -24 * terms
+            + 2 * u * np.abs(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("label,cfg,which", POINTS, ids=IDS)
+def test_doitgen_16bit_matches_jax_ref(dtype, label, cfg, which):
+    """doitgen in bf16 and f16: the port's op on CPU tensors against the
+    JAX op in ref mode on the same 16-bit inputs, under the limit of
+    :func:`_doitgen_16bit_limit`."""
+    a, c4 = _inputs("doitgen", _sizes("doitgen", which), seed=3)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float16
+    ja, jc = jnp.asarray(a, jdt), jnp.asarray(c4, jdt)
+    a16 = np.array(ja.astype(jnp.float32))
+    c16 = np.array(jc.astype(jnp.float32))
+    want = np.asarray(jdops.doitgen(ja, jc, config=cfg, mode="ref")
+                      .astype(jnp.float32))
+    got = tdops.doitgen(torch.from_numpy(a16).to(dtype),
+                        torch.from_numpy(c16).to(dtype), config=_tcfg(cfg))
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    d = np.abs(got.float().numpy() - want)
+    assert (d <= _doitgen_16bit_limit(a16, c16, want, dtype)).all()

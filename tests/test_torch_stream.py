@@ -138,6 +138,44 @@ def test_triad_matches_jax_ref(label, cfg, which):
     _close(got, want, exact=False)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("arrangement", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", [(16, 2), (4, 3)])
+@pytest.mark.parametrize("name", ["stream_copy", "stream_triad",
+                                  "stream_init"])
+def test_16bit_k1_bodies_match_jax_ref(name, d, p, arrangement, dtype):
+    """copy, triad and init in bf16 and f16 at the shapes the 16-bit
+    lanes of ``csrc/stream.cu`` treat apart (384 columns: a step ends on
+    an odd sub-portion; D=16: two groups of 8 streams; P=3: a pair
+    starting on an odd sub-portion), both arrangements: the port's op on
+    CPU tensors equals the JAX op in ref mode, bit for bit (each
+    operation rounded to the dtype on both sides)."""
+    shape = (64, 384)
+    cfg = JConfig(d, p, arrangement=arrangement)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    b, c = (np.array(jnp.asarray(x, jdt).astype(jnp.float32))
+            for x in _arrays(shape, 2, seed=d + p))
+    if name == "stream_init":
+        want = jsops.stream_init(shape, FILL, jdt, config=cfg, mode="ref")
+        got = tsops.stream_init(shape, FILL, tdt, config=_tcfg(cfg),
+                                device="cpu")
+    elif name == "stream_copy":
+        want = jsops.stream_copy(jnp.asarray(b, jdt), config=cfg, mode="ref")
+        got = tsops.stream_copy(torch.from_numpy(b).to(tdt),
+                                config=_tcfg(cfg))
+    else:
+        want = jcg.run_spec(jsspecs.triad_spec,
+                            [jnp.asarray(b, jdt), jnp.asarray(c, jdt),
+                             ALPHA], cfg, "ref")
+        got = tcg.run_spec(tsspecs.triad_spec,
+                           [torch.from_numpy(b).to(tdt),
+                            torch.from_numpy(c).to(tdt), ALPHA],
+                           _tcfg(cfg))
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
 def test_stream_read_output_follows_the_resolved_d():
     x = torch.from_numpy(_arrays((42, 200), 1, seed=3)[0])
     assert tsops.stream_read(x).shape == (3,)          # default D=4 → 3

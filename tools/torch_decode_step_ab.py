@@ -31,15 +31,15 @@ Prints one JSON line per ROOT, then the card's name and power limit.
 """
 from __future__ import annotations
 
-import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
+import ab_turns
 
-def one(root: str, steps: int) -> dict:
+
+def one(root: str, steps: int, _first: bool) -> dict:
     sys.path.insert(0, os.path.join(root, "src"))
     import numpy as np
     import torch
@@ -120,34 +120,5 @@ def one(root: str, steps: int) -> dict:
     return out
 
 
-def main() -> int:
-    args = sys.argv[1:]
-    steps = 10
-    if "--steps" in args:
-        i = args.index("--steps")
-        steps = int(args[i + 1])
-        del args[i:i + 2]
-    if args and args[0] == "--one":
-        print(json.dumps(one(args[1], steps)), flush=True)
-        return 0
-    if not args:
-        print(__doc__, file=sys.stderr)
-        return 2
-    for root in map(os.path.abspath, args):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one", root,
-             "--steps", str(steps)], cwd=root, capture_output=True,
-            text=True)
-        if proc.returncode != 0:
-            sys.stderr.write(proc.stdout + proc.stderr)
-            return proc.returncode
-        print(proc.stdout.strip().splitlines()[-1], flush=True)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(card.strip())
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_turns.main(__file__, __doc__, one, "--steps", 10))

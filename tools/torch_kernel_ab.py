@@ -1,0 +1,108 @@
+#!/usr/bin/env python3
+"""doitgen and the K1 stream kernels of the PyTorch port, timed on one
+card for several checkouts in turn (an A/B of two commits, run as
+parent, change, change, parent).
+
+    python3 tools/torch_kernel_ab.py ROOT [ROOT ...] [--replays N]
+
+Each ROOT is a checkout of the repository (its ``src/repro_torch`` and
+``csrc`` are built and run as they stand there).  For each ROOT, in its
+own process: build the doitgen and stream libraries, then time through
+the public ops, as ``chip_smoke.py`` times them (CUDA graphs of many
+calls over input copies that together exceed 3x the 50 MB L2, between
+CUDA events):
+
+  * doitgen ``A [r, 256, 256] x C4 [256, 256]`` at r = 16 (the bench
+    size) in f32, bf16 and f16, and at r = 256 in f32 and bf16;
+  * stream copy, triad (alpha 1.5) and init at [8192, 4096] in f32 and
+    bf16, at the default config (D=4, P=2);
+
+and beside each, in the first ROOT's process only, one PyTorch call
+that computes the same function: ``torch.matmul(A.view(-1, s), C4)``,
+``x.clone()``, ``torch.add(b, c, alpha=1.5)``, ``torch.full``.  TF32
+is off.
+
+Prints one JSON line per ROOT (milliseconds), then the card's name and
+power limit.  Compare roots by the alternation, never across calls.
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+import ab_turns
+
+DOITGEN = [((16, 256, 256), "float32"), ((16, 256, 256), "bfloat16"),
+           ((16, 256, 256), "float16"), ((256, 256, 256), "float32"),
+           ((256, 256, 256), "bfloat16")]
+STREAM_SHAPE = (8192, 4096)
+STREAM_DTYPES = ("float32", "bfloat16")
+
+
+def one(root: str, replays: int, with_library: bool) -> dict:
+    sys.path.insert(0, os.path.join(root, "src"))
+    # the timing of this repository's chip_smoke.py, whichever ROOT runs
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import torch
+    from chip_smoke import _copies as copies
+    from chip_smoke import device_ms
+    from repro_torch.codegen import run_spec
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.doitgen import doitgen
+    from repro_torch.kernels.stream import stream_copy, stream_init
+    from repro_torch.kernels.stream import specs as ss
+    from repro_torch.kernels.stream.ops import _DEFAULT
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda.build(["doitgen", "stream"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(shape, dt):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    out: dict = {"root": root}
+    for shape, dt_name in DOITGEN:
+        dt = getattr(torch, dt_name)
+        r, q, s = shape
+        isz = torch.empty((), dtype=dt).element_size()
+        c4 = rand((s, s), dt)
+        sets = copies(lambda: (rand(shape, dt), c4), r * q * s * isz)
+        reps = 8 if r == 256 else 20
+        key = f"doitgen {dt_name} {list(shape)}"
+        out[key] = device_ms(lambda a, c: doitgen(a, c), sets, reps, replays)
+        if with_library:
+            out[f"{key} torch.matmul"] = device_ms(
+                lambda a, c: torch.matmul(a.view(-1, s), c), sets, reps,
+                replays)
+        del sets
+        torch.cuda.empty_cache()
+    n = STREAM_SHAPE[0] * STREAM_SHAPE[1]
+    for dt_name in STREAM_DTYPES:
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        s1 = copies(lambda: (rand(STREAM_SHAPE, dt),), n * isz)
+        s2 = copies(lambda: (rand(STREAM_SHAPE, dt), rand(STREAM_SHAPE, dt)),
+                    2 * n * isz)
+        out[f"copy {dt_name}"] = device_ms(lambda x: stream_copy(x), s1,
+                                           replays=replays)
+        out[f"triad {dt_name}"] = device_ms(
+            lambda b, c: run_spec(ss.triad_spec, (b, c, 1.5), _DEFAULT), s2,
+            replays=replays)
+        out[f"init {dt_name}"] = device_ms(
+            lambda: stream_init(STREAM_SHAPE, 3.5, dt), [()],
+            replays=replays)
+        if with_library:
+            out[f"copy {dt_name} x.clone()"] = device_ms(
+                lambda x: x.clone(), s1, replays=replays)
+            out[f"triad {dt_name} torch.add"] = device_ms(
+                lambda b, c: torch.add(b, c, alpha=1.5), s2, replays=replays)
+            out[f"init {dt_name} torch.full"] = device_ms(
+                lambda: torch.full(STREAM_SHAPE, 3.5, dtype=dt,
+                                   device="cuda"), [()], replays=replays)
+        del s1, s2
+        torch.cuda.empty_cache()
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(ab_turns.main(__file__, __doc__, one, "--replays", 5))
