@@ -29,7 +29,11 @@ Phases (each raises on failure, so the script exits non-zero):
                 fill) and gemver_sum's ring at lookahead 1, 3; each kernel
                 against its plain version (equality, or the f32 sum limit
                 for the read) with lost-stream and lost-step controls,
-                timed, and the D and lookahead sweeps of the paper's Fig. 2
+                timed, each ring's launch geometry (tile, boxes a step,
+                bytes a box, shared memory, blocks an SM, waves), the D
+                and lookahead sweeps of the paper's Fig. 2, and sweeps
+                over the ring's step rows and tile and the read's chunks
+                an SM
   3d. stencil — jacobi2d and conv3x3 at 2050 x 2048 and 16386 x 16384,
                 in f32 and at the smaller size in bf16; doitgen at
                 (16, 256, 256) and (256, 256, 256) x (256, 256) in f32 and
@@ -43,9 +47,9 @@ Phases (each raises on failure, so the script exits non-zero):
   3e. adamw  — the fused AdamW update at the registry's bench size
                 (4096 x 1024 f32) and at Yi-9B's embedding (64000 x 4096
                 f32) through its public op: the K1 kernel and the K4
-                ring's adamw body at lookahead 1, 3, 4; equality with the
-                plain version, a lost-stream control, times against the
-                bound and torch._fused_adamw_
+                ring's adamw body at lookahead 1, 3, 4 (each ring's
+                geometry); equality with the plain version, a lost-stream
+                control, times against the bound and torch._fused_adamw_
   3f. k4      — the K4 ring's rank-1 side write (t_rowstat: o = 2 x next
                 to r = sum_j f32(x), x f32 and bf16 at 8192 x 4096, whole-row
                 steps) and its mixed operand dtypes (adamw_update with bf16
@@ -154,6 +158,17 @@ def bound_ms(nbytes: float, flops: float,
     operations at the card's peak for the operands' ``dtype``."""
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def ring_line(what: str, plan, sms: int, card: str) -> str:
+    """One K4 ring's launch geometry (``kernels/manual.py`` ``ring_plan``):
+    boxes a step, bytes a box, shared memory, blocks an SM and waves."""
+    waves = -(-plan.blocks // (plan.per_sm * sms))
+    return (f"{what} ring: tile {plan.tw} columns, {plan.copies} boxes a "
+            f"step per operand of {'/'.join(map(str, plan.box_bytes))} B, "
+            f"{plan.smem} B of shared memory, {plan.per_sm} blocks an SM, "
+            f"{plan.blocks} blocks of {plan.per} steps ({plan.steps} steps), "
+            f"{waves} wave{'s' if waves > 1 else ''} [{card}]")
 
 
 def _copies(make, each_bytes: int, cap: int = 8) -> list:
@@ -812,9 +827,10 @@ def phase_stream(card: str, results: dict) -> None:
     Every count is set to 0 just before the op calls and read just
     after; the JSON line's launches are those counts."""
     import torch
-    from repro_torch.codegen import plan_blocks, run_spec
+    from repro_torch.codegen import block_1d, plan_blocks, run_spec
     from repro_torch.kernels import cuda, manual
     from repro_torch.kernels.gemver import gemver_sum
+    from repro_torch.kernels.gemver import specs as gs
     from repro_torch.kernels.stream import (stream_copy, stream_copy_manual,
                                             stream_init, stream_read)
     from repro_torch.kernels.stream import kernel as sk
@@ -1044,17 +1060,17 @@ def phase_stream(card: str, results: dict) -> None:
         # K4: the ring's bodies at each lookahead
         bp = plan_blocks(ss.copy_spec(x), _DEFAULT)
         for la, cfg in cfgs.items():
-            rings = {}
-            for body, n_in in (("copy", 1), ("triad", 2), ("fill", 0)):
-                sizes = ((isz,) * n_in, (isz,))
-                tw = manual.ring_tile(bp, cfg, smem_limit, *sizes)
-                rings[body] = (tw, manual.ring_smem(*sizes, d, bp.bm, tw,
-                                                    la))
-            geo = ", ".join(f"{k} {tw} columns / {sm} B" for k, (tw, sm)
-                            in rings.items())
+            rings = {body: manual.ring_plan(name, dt, bp, cfg, sms)
+                     for body, name in (("copy", "stream_copy"),
+                                        ("triad", "stream_triad"),
+                                        ("fill", "stream_init"))}
+            for body, plan in rings.items():
+                print(ring_line(f"manual_ring_{body} {dt_name} la={la}",
+                                plan, sms, card))
             la_entry = entry and la == 3
             shape = (f"{tag}, D={d}, bm={bp.bm}, lookahead {la}; step tile "
-                     f"{geo}")
+                     + ", ".join(f"{k} {p.tw} columns" for k, p
+                                 in rings.items()))
 
             def controls(ref, tw):
                 return {"lost stream": lost(ref, seg, seg),
@@ -1062,7 +1078,7 @@ def phase_stream(card: str, results: dict) -> None:
             ref = stream_copy(x, mode="ref")
             err, ctl = _hold(f"manual_ring_copy {dt_name} la={la}",
                             o[f"copy_la{la}"], ref, 0.0,
-                            controls(ref, rings["copy"][0]))
+                            controls(ref, rings["copy"].tw))
             report("manual_ring_copy", f"x {shape}", err, ctl,
                    device_ms(lambda a: stream_copy_manual(a, config=cfg), s1),
                    device_ms(lambda a: stream_copy_manual(a, config=cfg,
@@ -1073,7 +1089,7 @@ def phase_stream(card: str, results: dict) -> None:
                            mode="ref")
             err, ctl = _hold(f"manual_ring_triad {dt_name} la={la}",
                             o[f"triad_la{la}"], ref, 0.0,
-                            controls(ref, rings["triad"][0]))
+                            controls(ref, rings["triad"].tw))
             report("manual_ring_triad", f"b, c {shape}", err, ctl,
                    device_ms(lambda b_, c_: run_spec(
                        ss.triad_spec, (b_, c_, STREAM_ALPHA), cfg), s2),
@@ -1087,7 +1103,7 @@ def phase_stream(card: str, results: dict) -> None:
             ref = stream_init(STREAM_SHAPE, STREAM_FILL, dt, mode="ref")
             err, ctl = _hold(f"manual_ring_fill {dt_name} la={la}",
                             o[f"init_la{la}"], ref, 0.0,
-                            controls(ref, rings["fill"][0]))
+                            controls(ref, rings["fill"].tw))
             report("manual_ring_fill", f"y {shape}", err, ctl,
                    device_ms(lambda: stream_init(STREAM_SHAPE, STREAM_FILL,
                                                  dt, config=cfg), [()]),
@@ -1102,6 +1118,10 @@ def phase_stream(card: str, results: dict) -> None:
         vrows = -(-vn // cols_v)
         for la in GEMVER_SUM_LOOKAHEADS:
             cfg = _DEFAULT.replace(lookahead=la)
+            print(ring_line(f"manual_ring_gemver_sum {dt_name} la={la}",
+                            manual.ring_plan("gemver_sum", dt, plan_blocks(
+                                block_1d(gs.gemver_sum_spec(i["v"], i["z"]),
+                                         cfg)[0], cfg), cfg, sms), sms, card))
             ref = gemver_sum(i["v"], i["z"], config=cfg, mode="ref")
             tile_rows = vrows // d
             err, ctl = _hold(f"manual_ring_gemver_sum {dt_name} la={la}",
@@ -1147,15 +1167,75 @@ def phase_stream(card: str, results: dict) -> None:
               f"stream_copy_manual ms={t:.5f} "
               f"({'K1' if la == 2 else 'K4'}) [{card}]")
     # the ring at one lookahead against the rows of a step (block_rows):
-    # the same stage bytes in fewer, longer row pieces
+    # the same stage bytes in fewer, longer boxes
     for bm in (8, 4, 2, 1):
         cfg = _DEFAULT.replace(lookahead=3, block_rows=bm)
         bp = plan_blocks(ss.copy_spec(x), cfg)
-        tw = manual.ring_tile(bp, cfg, smem_limit, (4,), (4,))
+        plan = manual.ring_plan("stream_copy", torch.float32, bp, cfg, sms)
         t = device_ms(lambda a: stream_copy_manual(a, config=cfg), s1)
         print(f"stream sweep K4 copy lookahead=3 D={d} bm={bp.bm} "
-              f"[{rows}, {cols}] f32: step tile {tw} columns, {d * bp.bm} "
-              f"row pieces of {tw * 4} B a step: ms={t:.5f} [{card}]")
+              f"[{rows}, {cols}] f32: step tile {plan.tw} columns, "
+              f"{plan.copies} boxes of {plan.box_bytes[0]} B a step, "
+              f"{plan.per_sm} blocks an SM: ms={t:.5f} [{card}]")
+    # the ring against its tile at lookahead 1 and 3: one block an SM
+    # with a wide stage, or a stage small enough for two (the chosen
+    # tile marked *; fill, writes-only, takes the widest for one block)
+    for dt_name in STREAM_DTYPES:
+        dt = getattr(torch, dt_name)
+        sx = _copies(lambda: (rand(STREAM_SHAPE, dt), rand(STREAM_SHAPE, dt)),
+                     2 * n * dt.itemsize)
+        for body, name in (("copy", "stream_copy"), ("triad", "stream_triad"),
+                           ("fill", "stream_init")):
+            for la in (1, 3):
+                cfg = _DEFAULT.replace(lookahead=la)
+                spec = (ss.triad_spec(sx[0][0], sx[0][1], STREAM_ALPHA)
+                        if body == "triad" else ss.copy_spec(sx[0][0]))
+                bp = plan_blocks(spec, cfg)
+                chosen = manual.ring_plan(name, dt, bp, cfg, sms).tw
+                for tw in (128, 256, 512, 1024):
+                    try:
+                        plan = manual.ring_plan(name, dt, bp, cfg, sms,
+                                                tile=tw)
+                    except ValueError:
+                        continue
+                    if plan.smem > smem_limit:
+                        continue
+                    if body == "copy":
+                        def run(a, _b, _cfg=cfg, _bp=bp, _tw=tw):
+                            return manual.emit(ss.copy_spec(a), _bp, [a], [],
+                                               _cfg, tile=_tw)
+                    elif body == "fill":
+                        def run(a, _b, _cfg=cfg, _bp=bp, _tw=tw, _dt=dt):
+                            return manual.emit(
+                                ss.init_spec(STREAM_SHAPE, _dt, STREAM_FILL),
+                                _bp, [], [STREAM_FILL], _cfg, device=a.device,
+                                tile=_tw)
+                    else:
+                        def run(a, b, _cfg=cfg, _bp=bp, _tw=tw):
+                            return manual.emit(
+                                ss.triad_spec(a, b, STREAM_ALPHA), _bp,
+                                [a, b], [STREAM_ALPHA], _cfg, tile=_tw)
+                    t = device_ms(run, sx)
+                    print(f"stream sweep K4 {body} tile lookahead={la} "
+                          f"[{rows}, {cols}] {dt_name}: tile {tw}"
+                          f"{'*' if tw == chosen else ''} columns, "
+                          f"{plan.smem} B, {plan.per_sm} blocks an SM, "
+                          f"{plan.blocks} blocks of {plan.per} steps: "
+                          f"ms={t:.5f} [{card}]")
+        # the read's pass 1 and merge against its chunks an SM
+        r1 = _copies(lambda: ((1 + rand(STREAM_SHAPE, torch.float32))
+                              .to(dt),), n * dt.itemsize)
+        x2s = [(a.reshape(d, -1),) for (a,) in r1]
+        bp = plan_blocks(ss.read_spec(x2s[0][0]), _DEFAULT)
+        for per_sm in (1, 2, 3, 4):
+            spc, chunks = sk.read_chunks(bp, sms, per_sm)
+            t = device_ms(lambda a, _k=per_sm: sk.read_merge(sk.read_split(
+                ss.read_spec(a), bp, a, _DEFAULT, _k)), x2s)
+            print(f"stream sweep read {dt_name} [{rows}, {cols}] D={d}: "
+                  f"{per_sm} chunks an SM ({chunks} of {spc} sub-portions"
+                  f"{', the default' if per_sm == sk.READ_BLOCKS_PER_SM else ''}"
+                  f"), both passes ms={t:.5f} [{card}]")
+        del sx, r1, x2s
     del s1, inputs, outs
     torch.cuda.empty_cache()
     print(f"stream: phase took {time.perf_counter() - t_phase:.1f} s "
@@ -1520,10 +1600,12 @@ def check_adamw(card: str, results: dict) -> None:
     times: kernel, plain, torch._fused_adamw_ (the library yardstick,
     timed only) and the bound, 28 bytes an element at the memory rate."""
     import torch
+    from repro_torch.codegen import plan_blocks
     from repro_torch.kernels import cuda, manual
     from repro_torch.kernels.adamw import _HYPER
     from repro_torch.kernels.adamw import kernel as akernel
     from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.kernels.adamw import specs as aspecs
     gen = torch.Generator(device="cuda").manual_seed(15)
     cfgs = {"k1": aops._DEFAULT}
     cfgs.update({f"ring_la{la}": aops._DEFAULT.replace(lookahead=la)
@@ -1556,6 +1638,17 @@ def check_adamw(card: str, results: dict) -> None:
         raise AssertionError(f"adamw: launches {counts} (others {others}),"
                              f" expected {want}")
     print(f"adamw: main path launches {json.dumps(counts)} [{card}]")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for size, shape in ADAMW_SHAPES.items():
+        brows, bcols = aops._blocking(shape[0] * shape[1])
+        spec = aspecs.adamw_spec(torch.empty(brows, bcols, device="meta"),
+                                 None, None, None)
+        for la in ADAMW_LOOKAHEADS:
+            cfg = cfgs[f"ring_la{la}"]
+            print(ring_line(f"manual_ring_adamw {size} [{brows}, {bcols}] "
+                            f"f32 la={la}", manual.ring_plan(
+                                "adamw_update", torch.float32,
+                                plan_blocks(spec, cfg), cfg, sms), sms, card))
     for size, shape in ADAMW_SHAPES.items():
         p, g, m, v = inputs[size]
         n = p.numel()
@@ -1651,7 +1744,9 @@ def check_k4_features(card: str, results: dict) -> None:
     from repro_torch.kernels import cuda, manual
     from repro_torch.kernels.adamw import _HYPER
     from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.kernels.adamw import specs as aspecs
     gen = torch.Generator(device="cuda").manual_seed(17)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows, cols = STREAM_SHAPE
     rcfgs = {la: StridingConfig(2, 1, lookahead=la, block_rows=1)
              for la in K4_LOOKAHEADS}
@@ -1712,7 +1807,6 @@ def check_k4_features(card: str, results: dict) -> None:
                                              rcfgs[1], mode="ref"), sets)
         bms, by = bound_ms(rows * cols * (isz + 4) + rows * 4,
                            2.0 * rows * cols, dt)
-        ins, outs_, n_row = manual.ring_sizes("t_rowstat", x.dtype)
         for la, cfg in rcfgs.items():
             o, r = routs[(dt, la)]
             err_o, ctl_o = _hold(f"t_rowstat {dt} la={la} o", o, ro, 0.0,
@@ -1720,12 +1814,14 @@ def check_k4_features(card: str, results: dict) -> None:
             err_r, ctl_r = _hold(f"t_rowstat {dt} la={la} r", r, rr, limit,
                                  {"lost stream": lost(rr, seg),
                                   "lost step": lost(rr, bp.bm)})
-            smem = manual.ring_smem(ins, outs_, 2, bp.bm, cols, la, n_row)
+            plan = manual.ring_plan("t_rowstat", x.dtype, bp, cfg, sms)
+            print(ring_line(f"manual_ring_rowstat {dt} la={la}", plan, sms,
+                            card))
             ms = device_ms(lambda a, _c=cfg: run_spec(
                 manual.rowstat_spec, (a,), _c), sets)
             print(f"manual_ring_rowstat x [{rows}, {cols}] {dt} -> o f32, r "
                   f"[{rows}] f32, D=2, bm={bp.bm}, lookahead {la}, whole-row "
-                  f"steps ({smem} B of shared memory): max_abs_err o={err_o:g}"
+                  f"steps ({plan.smem} B of shared memory): max_abs_err o={err_o:g}"
                   f" r={err_r:g}; controls o {ctl_o}; r {ctl_r}; ms={ms:.5f} "
                   f"plain_ms={plain:.5f} bound_ms={bms:.6f} ({by}) "
                   f"library_ms=none (no one call gives both) "
@@ -1771,6 +1867,13 @@ def check_k4_features(card: str, results: dict) -> None:
         lib, lib_line = None, (f"none (torch._fused_adamw_ refuses bf16 p "
                                f"with f32 m, v: {str(exc)[:80]})")
     bms, by = bound_ms(22.0 * n, ADAMW_FLOPS * n, "float32")
+    aspec = aspecs.adamw_spec(torch.empty(arows, acols, device="meta"), None,
+                              None, None)
+    for la, cfg in acfgs.items():
+        print(ring_line(f"manual_ring_adamw [{arows}, {acols}] bf16 p, g "
+                        f"la={la}", manual.ring_plan(
+                            "adamw_update", torch.bfloat16,
+                            plan_blocks(aspec, cfg), cfg, sms), sms, card))
     for la, cfg in acfgs.items():
         err, ctl = 0.0, []
         for name, got, want_, inp in zip(("p'", "m'", "v'"), aouts[la], ref,

@@ -63,11 +63,9 @@
 //     shape measured: PERF.md.)
 //
 // NEG_INF is the finite -1e30 of the spec, never -inf.
-#include <cuda.h>
-
 #include <type_traits>
 
-#include "common.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -104,65 +102,6 @@ struct Cfg {
       1024 + static_cast<size_t>(STAGES) * 2 * TILE_B +
       NCW * (16 * SPW + GP) * 4 + (MMA ? 0 : GP * DH * 4);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, P1;\n"
-      "}\n" : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-// A phase that never completes (a lost copy) fails the launch with a
-// trap after 2^26 polls instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (uint32_t n = 0; !mbar_try(bar, parity); ++n)
-    if (n == (1u << 26)) __trap();
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// A 2-D TMA box of `map` at (x, y) into shared memory, on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(x),
-         "r"(y), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// Barrier of the NCW consumer warps only (the producer warp runs on).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" :: "n"(NCW * 32) : "memory");
-}
 
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
                                          const uint32_t* b) {
@@ -533,7 +472,7 @@ decode_kernel(const __grid_constant__ CUtensorMap tmK,
     }
     // the warp's state into shared memory: the K ring, once every
     // consumer warp is past its last tile
-    consumers_sync();
+    consumers_sync<NCW * 32>();
     float* wn = reinterpret_cast<float*>(kring);       // [NCW][GP][DH]
     if (lane_row0<C::MMA>(lane)) {
 #pragma unroll
@@ -641,48 +580,18 @@ int group_chunk(int g) {
   return 1;
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The [B * S, Hkv * dh] view of a K or V cache, in boxes of 64 rows by
 // `box` elements, swizzled in `swz` bytes (0: none).
-bool make_map(CUtensorMap* map, const void* base, bool bf16, int rows,
-              int cols, int box, int swz) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
+bool kv_map(CUtensorMap* map, const void* base, bool bf16, int rows,
+            int cols, int box, int swz) {
   const int es = bf16 ? 2 : 4;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * es};
   const cuuint32_t boxd[2] = {static_cast<cuuint32_t>(box), TROWS};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUtensorMapSwizzle sw =
-      swz == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : swz == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-      : swz == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE;
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-            2, const_cast<void*>(base), dims, strides, boxd, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return make_map(map, base, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                  2, dims, strides, boxd, swz);
 }
 
 template <typename T, int DH, int NT>
@@ -692,9 +601,9 @@ int launch_t(const void* K, const void* V, const void* q, const void* M,
   using C = Cfg<T, DH, NT>;
   constexpr bool bf16 = C::MMA;
   CUtensorMap tk, tv;
-  if (!make_map(&tk, K, bf16, B * G.S, G.hkv * DH, C::RB / C::ES,
+  if (!kv_map(&tk, K, bf16, B * G.S, G.hkv * DH, C::RB / C::ES,
                 bf16 ? C::RB : 0) ||
-      !make_map(&tv, V, bf16, B * G.S, G.hkv * DH, DH, 0))
+      !kv_map(&tv, V, bf16, B * G.S, G.hkv * DH, DH, 0))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = decode_kernel<T, DH, NT>;
   static bool opted_in = false;

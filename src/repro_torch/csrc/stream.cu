@@ -37,18 +37,31 @@
 // K2: the TPU kernel's block plan for the read is D rows of seg * cols
 // columns (bm = 1), so a grid over row slots would put one block on the
 // whole array.  Here the vector axis is split instead:
-//   pass 1 (read_split), grid over column chunks, about two blocks per
-//     SM: block c owns the sub-portions c*spc ... of every stream row;
-//     its warps take column steps of ns sub-portions in turn, and in each
-//     step a warp starts the loads of all D rows (in groups of at most
-//     SWEEP_KMAX) before adding any.  Each lane keeps one f32 partial per
-//     stream; the warp sums its lanes with a shuffle tree, the block its
-//     warps in warp order, and writes part[c, k].
-//   pass 2 (read_merge): y[k] = sum over c = 0 ... chunks-1 of part[c, k],
-//     in chunk order.
+//   pass 1 (read_split), grid over column chunks, two blocks per SM in
+//     one wave: block c owns the sub-portions c*spc ... of every stream
+//     row.  A lane's unit is 16 bytes of a row: 4 elements of a
+//     sub-portion in f32, 8 elements of a pair of adjacent sub-portions
+//     in bf16 and f16 (a chunk's odd last sub-portion takes one 8-byte
+//     load), widened only when added.  The read is bound by the bytes in
+//     flight (Little's law: 3.35 TB/s x ~1 us of loaded DRAM latency is
+//     about 25 KB an SM), so each warp keeps two steps in registers: it
+//     issues the loads of its next step (K streams x 8/K units, 8 loads
+//     of 16 bytes a lane) before it adds the current one, 4 KB a warp in
+//     flight while it adds, 64 KB an SM.  Streams go K at a time (K of
+//     1, 2, 4, 8: the smallest power of two up to D, at most 8), in the
+//     config's arrangement (grouped: a stream's units back to back;
+//     interleaved: the streams round-robin unit by unit).  Each lane
+//     keeps one f32 partial per stream; the warp sums its lanes with a
+//     shuffle tree, the block its warps in warp order, and writes
+//     part[c, k].
+//   pass 2 (read_merge): one warp a stream; lane l sums the partials of
+//     chunks l, l + 32, ... in order, and a fixed shuffle tree (xor 16,
+//     8, 4, 2, 1) folds the lanes.  read_merge_plain in
+//     kernels/stream/kernel.py folds in the same order, so the two agree
+//     bit for bit.
 // The fold order is fixed whatever the arrangement.  Against the plain
-// version (one vectorised sum in another order) the result agrees
-// within f32 reassociation error.
+// version of the read (one vectorised sum in another order) the result
+// agrees within f32 reassociation error.
 #include "common.cuh"
 
 namespace {
@@ -56,6 +69,7 @@ namespace {
 constexpr int KMAX = SWEEP_KMAX, PMAX = SWEEP_PMAX;
 constexpr int READ_THREADS = 256;
 constexpr int READ_WARPS = READ_THREADS / 32;
+constexpr int MERGE_WARPS = 8;
 
 template <typename T>
 struct CopyBody {
@@ -263,40 +277,105 @@ stream_init(T* __restrict__ o, float value, int cols, int d, int seg,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(READ_THREADS)
+// One warp's steps of read_split over streams k0 ... k0 + nk - 1 of a
+// chunk: a step is U = 8 / K units of each stream, unit u the 16 bytes
+// of lane `lane` at sub-portion q0 + u * PER (PER = 2 in 16-bit types:
+// the unit spans a pair).
+template <typename T, int K>
+struct ReadSteps {
+  static constexpr bool HALF = sizeof(T) == 2;
+  static constexpr int PER = HALF ? 2 : 1;          // sub-portions a unit
+  static constexpr int EPL = HALF ? 8 : 4;          // elements a lane a unit
+  static constexpr int U = 8 / K;                   // units a stream a step
+  const T* x;                                       // row k0, column q0 * SUB
+  size_t w;                                         // a stream row's elements
+  int nk, nfull, lane;
+  bool interleaved;
+
+  __device__ __forceinline__ void load1(int k, int j, int u,
+                                        uint4 (&b)[K][U]) const {
+    if (k < nk && u + j < nfull)
+      b[k][j] = __ldg(reinterpret_cast<const uint4*>(
+          x + k * w + static_cast<size_t>(u + j) * PER * SUB +
+          lane * EPL));
+  }
+
+  // the loads of the step whose first unit is u, in the arrangement
+  __device__ __forceinline__ void load(int u, uint4 (&b)[K][U]) const {
+    if (interleaved) {
+#pragma unroll
+      for (int j = 0; j < U; ++j)
+#pragma unroll
+        for (int k = 0; k < K; ++k) load1(k, j, u, b);
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int j = 0; j < U; ++j) load1(k, j, u, b);
+    }
+  }
+
+  // the step's elements into each stream's partial, in unit order
+  __device__ __forceinline__ void add(int u, const uint4 (&b)[K][U],
+                                      float (&acc)[K]) const {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int j = 0; j < U; ++j)
+        if (k < nk && u + j < nfull) {
+          const uint32_t wd[4] = {b[k][j].x, b[k][j].y, b[k][j].z, b[k][j].w};
+#pragma unroll
+          for (int e = 0; e < EPL; ++e) acc[k] += Cvt<T>::get(wd, e);
+        }
+  }
+};
+
+template <typename T, int K>
+__global__ void __launch_bounds__(READ_THREADS, 2)
 read_split(const T* __restrict__ x, float* __restrict__ part, int w, int d,
-           int ns, int spc, bool interleaved) {
-  __shared__ float red[READ_WARPS][KMAX];
+           int spc, bool interleaved) {
+  using S = ReadSteps<T, K>;
+  __shared__ float red[READ_WARPS][K];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
   const int nsub = w / SUB;
   const int q0 = blockIdx.x * spc, q1 = min(nsub, q0 + spc);
-  for (int k0 = 0; k0 < d; k0 += KMAX) {
-    const int nk = min(KMAX, d - k0);
-    float acc[KMAX];
+  const int nfull = (q1 - q0) / S::PER;             // whole units
+  const bool tail = S::HALF && ((q1 - q0) & 1);     // a lone sub-portion
+  constexpr int STRIDE = READ_WARPS * S::U;         // units between a warp's steps
+  for (int k0 = 0; k0 < d; k0 += K) {
+    const S st{x + static_cast<size_t>(k0) * w + static_cast<size_t>(q0) * SUB,
+               static_cast<size_t>(w), min(K, d - k0), nfull, lane,
+               interleaved};
+    float acc[K];
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) acc[k] = 0.f;
-    for (int qs = q0 + warp * ns; qs < q1; qs += nwarps * ns) {  // column steps
-      for (int p0 = 0; p0 < ns && qs + p0 < q1; p0 += PMAX) {
-        const int np = min(PMAX, min(ns - p0, q1 - qs - p0));
-        float v[KMAX][PMAX][4];
-        load_stream_step<T, KMAX, PMAX>(x, w, k0, 1, nk, (qs + p0) * SUB, np,
-                                        interleaved, lane, v);
+    for (int k = 0; k < K; ++k) acc[k] = 0.f;
+    // two steps in registers: the next one's loads are in flight while
+    // the current one is added
+    uint4 a[K][S::U], b[K][S::U];
+    int u = warp * S::U;
+    if (u < nfull) st.load(u, a);
+    for (; u < nfull; u += 2 * STRIDE) {
+      if (u + STRIDE < nfull) st.load(u + STRIDE, b);
+      st.add(u, a, acc);
+      if (u + STRIDE >= nfull) break;
+      if (u + 2 * STRIDE < nfull) st.load(u + 2 * STRIDE, a);
+      st.add(u + STRIDE, b, acc);
+    }
+    if (tail && warp == 0) {            // 4 elements a lane, 8 bytes
 #pragma unroll
-        for (int k = 0; k < KMAX; ++k) {
+      for (int k = 0; k < K; ++k) {
+        if (k < st.nk) {
+          float f[4];
+          load_f32<T, 4>(st.x + k * st.w +
+                             static_cast<size_t>(q1 - q0 - 1) * SUB + lane * 4,
+                         f);
 #pragma unroll
-          for (int p = 0; p < PMAX; ++p) {
-            if (k < nk && p < np) {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[k] += v[k][p][e];
-            }
-          }
+          for (int e = 0; e < 4; ++e) acc[k] += f[e];
         }
       }
     }
 #pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
+    for (int k = 0; k < K; ++k) {
       float s = acc[k];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -304,22 +383,31 @@ read_split(const T* __restrict__ x, float* __restrict__ part, int w, int d,
       if (lane == 0) red[warp][k] = s;
     }
     __syncthreads();
-    if (threadIdx.x < nk) {
+    if (threadIdx.x < st.nk) {
       float s = 0.f;
-      for (int g = 0; g < nwarps; ++g) s += red[g][threadIdx.x];
+      for (int g = 0; g < READ_WARPS; ++g) s += red[g][threadIdx.x];
       part[static_cast<size_t>(blockIdx.x) * d + k0 + threadIdx.x] = s;
     }
     __syncthreads();
   }
 }
 
-__global__ void read_merge(const float* __restrict__ part,
-                           float* __restrict__ y, int d, int chunks) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+// One warp a stream k: lane l sums part[c, k] over c = l, l + 32, ... in
+// order, then the lanes fold by xor 16, 8, 4, 2, 1.
+__global__ void __launch_bounds__(MERGE_WARPS * 32)
+read_merge(const float* __restrict__ part, float* __restrict__ y, int d,
+           int chunks) {
+  const int lane = threadIdx.x & 31;
+  const int k = blockIdx.x * MERGE_WARPS + (threadIdx.x >> 5);
   if (k >= d) return;
   float s = 0.f;
-  for (int c = 0; c < chunks; ++c) s += part[static_cast<size_t>(c) * d + k];
-  y[k] = s;
+#pragma unroll 4
+  for (int c = lane; c < chunks; c += 32)
+    s += __ldg(part + static_cast<size_t>(c) * d + k);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) y[k] = s;
 }
 
 template <typename T>
@@ -358,17 +446,27 @@ int init_t(void* o, float value, int rows, int cols, int d, int bm, int ns,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int split_t(const void* x, void* part, int w, int d, int ns, int spc,
-            int chunks, int interleaved, cudaStream_t stream) {
-  if (w <= 0 || d <= 0 || ns <= 0 || spc <= 0 || chunks <= 0 ||
-      w % SUB != 0 || static_cast<long long>(chunks - 1) * spc >= w / SUB ||
-      static_cast<long long>(chunks) * spc < w / SUB)
-    return static_cast<int>(cudaErrorInvalidValue);
-  read_split<T><<<chunks, READ_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<float*>(part), w, d, ns, spc,
+template <typename T, int K>
+int split_k(const void* x, void* part, int w, int d, int spc, int chunks,
+            int interleaved, cudaStream_t stream) {
+  read_split<T, K><<<chunks, READ_THREADS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<float*>(part), w, d, spc,
       interleaved != 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int split_t(const void* x, void* part, int w, int d, int spc, int chunks,
+            int interleaved, cudaStream_t stream) {
+  if (w <= 0 || d <= 0 || spc <= 0 || chunks <= 0 || w % SUB != 0 ||
+      static_cast<long long>(chunks - 1) * spc >= w / SUB ||
+      static_cast<long long>(chunks) * spc < w / SUB)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // streams in registers: the smallest power of two up to d, at most 8
+  if (d > 4) return split_k<T, 8>(x, part, w, d, spc, chunks, interleaved, stream);
+  if (d > 2) return split_k<T, 4>(x, part, w, d, spc, chunks, interleaved, stream);
+  if (d > 1) return split_k<T, 2>(x, part, w, d, spc, chunks, interleaved, stream);
+  return split_k<T, 1>(x, part, w, d, spc, chunks, interleaved, stream);
 }
 
 }  // namespace
@@ -419,16 +517,16 @@ extern "C" int stream_init_launch(int dtype, void* o, float value, int rows,
 
 // Pass 1 of the read.  x: [d, w] of `dtype`, row-major (w a multiple of
 // 128); part: [chunks, d] f32.  Chunk c takes the sub-portions c*spc ...
-// min((c+1)*spc, w/128) - 1 of every row (none empty), in column steps
-// of ns sub-portions.
+// min((c+1)*spc, w/128) - 1 of every row (none empty), loaded grouped
+// (interleaved = 0) or interleaved (1).
 extern "C" int read_split_launch(int dtype, const void* x, void* part, int w,
-                                 int d, int ns, int spc, int chunks,
-                                 int interleaved, void* stream) {
+                                 int d, int spc, int chunks, int interleaved,
+                                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return split_t<float>(x, part, w, d, ns, spc, chunks, interleaved, st);
-    case kBF16: return split_t<__nv_bfloat16>(x, part, w, d, ns, spc, chunks, interleaved, st);
-    case kF16: return split_t<__half>(x, part, w, d, ns, spc, chunks, interleaved, st);
+    case kF32: return split_t<float>(x, part, w, d, spc, chunks, interleaved, st);
+    case kBF16: return split_t<__nv_bfloat16>(x, part, w, d, spc, chunks, interleaved, st);
+    case kF16: return split_t<__half>(x, part, w, d, spc, chunks, interleaved, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -437,7 +535,8 @@ extern "C" int read_split_launch(int dtype, const void* x, void* part, int w,
 extern "C" int read_merge_launch(const void* part, void* y, int d, int chunks,
                                  void* stream) {
   if (d <= 0 || chunks <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  read_merge<<<(d + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  read_merge<<<(d + MERGE_WARPS - 1) / MERGE_WARPS, MERGE_WARPS * 32, 0,
+               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(part), static_cast<float*>(y), d, chunks);
   return static_cast<int>(cudaGetLastError());
 }

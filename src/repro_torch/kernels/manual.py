@@ -1,7 +1,8 @@
 """The K4 template, ``_emit_manual`` (``src/repro/codegen/emit.py:708``),
-as a CUDA kernel (``csrc/manual_ring.cu``): explicit ``lookahead``-deep
-rings of bulk copies into shared memory on mbarriers, the body fused
-between load and store, and bulk stores out of a 2-deep staging ring.
+as a CUDA kernel (``csrc/manual_ring.cu``): a producer warp keeps TMA
+copies in flight into ``lookahead``-deep rings of shared-memory stages
+on full / empty mbarriers, consumer warps run the body between load and
+store, and TMA stores drain a 2-deep staging ring.
 
 The JAX package selects K4 at a ``lookahead`` other than 2 for specs
 with plain ``(stride, vector)`` reads and ``(stride, vector)`` or
@@ -18,13 +19,18 @@ rank-1 write.
 
 A step of the ring is a (row block, column tile) of every stream: the
 TPU ring streamed whole rows, which do not fit a block's shared memory
-at the paper's widths.  :func:`ring_tile` picks the widest tile of whole
-128-element sub-portions that fits, or raises ``ValueError`` naming the
-bytes; it never changes D or ``lookahead``.  A spec with a rank-1 write
-steps by whole rows, as the TPU ring did (a row statistic needs its
-whole row in one stage), and raises the same ``ValueError`` where a
-whole-row ring does not fit.  The grid splits each segment's steps into
-contiguous runs, about two blocks per SM (:func:`ring_runs`).
+at the paper's widths.  Each operand's stage of a stream is one TMA box
+of its ``[rows, cols]`` array seen as 3-D ``[rows, cols/128, 128]``, so
+a step is D copies per operand whatever the tile (:func:`ring_boxes`).
+:func:`ring_tile` therefore no longer takes the widest tile that fits:
+it takes the widest whose ring lets two blocks share an SM, or 128
+columns where none does, and raises ``ValueError`` naming the bytes
+where even that does not fit one block; it never changes D or
+``lookahead``.  A spec with a rank-1 write steps by whole rows, as the
+TPU ring did (a row statistic needs its whole row in one stage), and
+raises the same ``ValueError`` where a whole-row ring does not fit.
+:func:`ring_runs` cuts the steps into one contiguous run per resident
+block: the grid is one wave.
 
 :func:`emit` runs the spec's plain version (``loopir.evaluate``) on CPU
 tensors, for any spec, before it refuses anything; on CUDA tensors it
@@ -36,7 +42,7 @@ statistic is an f32 sum in another order.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,11 +52,13 @@ from repro_torch.codegen.transforms import LANE, BlockPlan
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
 
-__all__ = ["BODIES", "SIGNATURES", "OUT_STAGES", "ring_smem", "ring_tile",
-           "ring_runs", "ring_sizes", "rowstat_spec", "emit"]
+__all__ = ["BODIES", "SIGNATURES", "OUT_STAGES", "MAX_BLOCKS_PER_SM",
+           "RingPlan", "ring_smem", "ring_layout", "ring_tile",
+           "ring_blocks_per_sm", "ring_runs", "ring_boxes", "box_rows",
+           "ring_plan", "ring_sizes", "rowstat_spec", "emit"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_GEOM = [_I] * 8     # rows, cols, d, bm, tw, la, per, interleaved
+_GEOM = [_I] * 8     # rows, cols, d, bm, bh, tw, la, per
 
 # one launcher per body: spec name → its kernel
 BODIES = {
@@ -94,6 +102,14 @@ SIGNATURES = {
 }
 
 OUT_STAGES = 2            # the staging ring's depth, as the TPU kernel's
+GROUPS = 2                # consumer warp groups (one where lookahead 1 loads)
+ROW_CHUNKS = 4            # warp chunks of a row statistic
+MAX_BLOCKS_PER_SM = 2     # the kernel's __launch_bounds__ minimum
+BOX_MAX = 256             # a TMA box's extent on each side, elements
+RESERVED = 1024           # shared memory the card keeps per resident block
+SLACK = 128               # bytes to align the dynamic shared base to 128
+# shared memory of an H100 SM, and the most one block may opt into
+SM_SMEM, BLOCK_SMEM = 233472, 232448
 
 
 def rowstat_spec(x: torch.Tensor) -> TraversalSpec:
@@ -112,44 +128,81 @@ def rowstat_spec(x: torch.Tensor) -> TraversalSpec:
     )
 
 
+class RingLayout(NamedTuple):
+    """Byte offsets of a ring's shared memory from its 128-aligned base
+    (``csrc/manual_ring.cu`` ``manual_ring``)."""
+    inputs: tuple      # [input][slot]: each stage of D boxes
+    outputs: tuple     # [full-row output][staging slot]
+    rows: tuple        # [rank-1 output][staging slot]
+    end: int           # bytes used from the base
+
+
+def ring_layout(in_sizes: tuple, out_sizes: tuple, d: int, bm: int, tw: int,
+                la: int, n_row: int = 0) -> RingLayout:
+    """Where a ring's stages lie (operands as in :func:`ring_smem`): the
+    mbarrier header (8 bytes for each full barrier, one per input, slot
+    and consumer group, and each of the ``la`` empty barriers, padded to
+    128), then
+    ``la`` slots per input, 2 staging slots per full-row output, each
+    ``D·bm·tw`` elements of its operand's size, then 2 slots of
+    ``D·bm·4`` f32 partials (a row's four chunks), padded to 16 bytes,
+    per rank-1 output."""
+    groups = GROUPS if la > 1 or not in_sizes else 1
+    off = -(-8 * (len(in_sizes) * groups + 1) * la // 128) * 128
+    step = d * bm * tw
+
+    def slots(sizes, n):
+        nonlocal off
+        out = []
+        for e in sizes:
+            out.append(tuple(off + i * step * e for i in range(n)))
+            off += n * step * e
+        return tuple(out)
+    inputs, outputs = slots(in_sizes, la), slots(out_sizes, OUT_STAGES)
+    rslot = -(-d * bm * ROW_CHUNKS * 4 // 16) * 16
+    rows = tuple(tuple(off + (w * OUT_STAGES + i) * rslot
+                       for i in range(OUT_STAGES)) for w in range(n_row))
+    return RingLayout(inputs, outputs, rows,
+                      off + n_row * OUT_STAGES * rslot)
+
+
 def ring_smem(in_sizes: tuple, out_sizes: tuple, d: int, bm: int, tw: int,
               la: int, n_row: int = 0) -> int:
     """Dynamic shared memory of a ring whose inputs and full-row outputs
     have the element sizes ``in_sizes`` and ``out_sizes``
-    (:func:`ring_sizes`): the mbarrier header (8 bytes per input slot,
-    padded to 128), ``la·D`` stages per input plus ``2·D`` per full-row
-    output, each ``bm × tw`` elements of its operand's size, and 2 slots
-    of ``D·bm`` f32 lanes, padded to 16 bytes, per each of the ``n_row``
-    rank-1 outputs (``csrc/manual_ring.cu`` ``ring_t``)."""
-    header = -(-8 * len(in_sizes) * la // 128) * 128
-    step = d * bm * tw
-    rows = OUT_STAGES * n_row * (-(-d * bm * 4 // 16) * 16)
-    return (header + step * (la * sum(in_sizes) + OUT_STAGES * sum(out_sizes))
-            + rows)
+    (:func:`ring_sizes`) and which has ``n_row`` rank-1 outputs: the
+    :func:`ring_layout` and 128 bytes to align its base
+    (``csrc/manual_ring.cu`` ``ring_t``)."""
+    return SLACK + ring_layout(in_sizes, out_sizes, d, bm, tw, la,
+                               n_row).end
 
 
-def ring_sizes(name: str, dtype: torch.dtype) -> tuple[tuple, tuple, int]:
-    """``(in_sizes, out_sizes, n_row)`` of body ``name``'s ring of type
-    ``dtype``: each operand's element size, full-row outputs only, and
-    the number of rank-1 outputs."""
-    ins, outs, ranks, _ = SIGNATURES[name]
-
-    def size(t):
-        return 4 if t == "f32" else dtype.itemsize
-    return (tuple(size(t) for t in ins),
-            tuple(size(t) for t, r in zip(outs, ranks) if r == 2),
-            sum(r == 1 for r in ranks))
+def ring_blocks_per_sm(smem: int, sm_smem: int = SM_SMEM) -> int:
+    """Blocks of a ring of ``smem`` bytes that share one SM: as many as
+    its shared memory holds (each also takes the card's 1 KB reserve),
+    at most :data:`MAX_BLOCKS_PER_SM` (288 threads, at most 112
+    registers each at two blocks).  The launcher refuses a grid that
+    the occupancy API says is not resident at once."""
+    return min(MAX_BLOCKS_PER_SM, sm_smem // (smem + RESERVED))
 
 
 def ring_tile(bp: BlockPlan, config: StridingConfig, limit: int,
-              in_sizes: tuple, out_sizes: tuple, n_row: int = 0) -> int:
-    """The column width of a ring step (operands as in :func:`ring_smem`):
-    the widest multiple of 128 dividing ``bp.cols`` whose ring fits
-    ``limit`` bytes, or the whole row where the ring has a rank-1 output
-    (``n_row > 0``).  Raises ``ValueError`` naming the bytes where even
-    128 columns (or the whole row) do not fit (as the JAX checker's
-    manual-ring budget does); D and ``lookahead`` are never changed to
-    make it fit."""
+              in_sizes: tuple, out_sizes: tuple, n_row: int = 0,
+              sm_smem: int = SM_SMEM) -> int:
+    """The column width of a ring step (operands as in :func:`ring_smem`).
+
+    A step's copies do not depend on the tile (one box a stream), so the
+    widest tile is no longer the aim: this is the widest multiple of 128
+    dividing ``bp.cols`` (at most 256 sub-portions, one box) whose ring
+    lets :data:`MAX_BLOCKS_PER_SM` blocks share an SM of ``sm_smem``
+    bytes, or, where even 128 columns do not, 128 columns with one
+    block an SM.  A writes-only ring (no inputs: no loads to keep in
+    flight) takes the widest tile that fits one block: longer row
+    pieces store faster (measured on the H100, ``PERF.md``).  A ring
+    with a rank-1 output (``n_row > 0``) steps by the whole row.  Raises ``ValueError`` naming the bytes where the
+    ring does not fit ``limit`` bytes, a block's opt-in maximum (as the
+    JAX checker's manual-ring budget does); D and ``lookahead`` are
+    never changed to make it fit."""
     la = config.lookahead
 
     def need(tw):
@@ -165,6 +218,10 @@ def ring_tile(bp: BlockPlan, config: StridingConfig, limit: int,
                 f"side write needs whole rows: {what} and {n_row} rank-1 "
                 f"outputs, and the barriers) against a limit of {limit} "
                 "bytes")
+        if bp.cols > BOX_MAX * LANE:
+            raise ValueError(
+                f"K4 ring: a whole-row step of {bp.cols} columns is more "
+                f"than one TMA box of {BOX_MAX} sub-portions")
         return bp.cols
     if need(LANE) > limit:
         raise ValueError(
@@ -172,15 +229,86 @@ def ring_tile(bp: BlockPlan, config: StridingConfig, limit: int,
             f"128-column step ({what}, and the barriers) against a limit "
             f"of {limit} bytes")
     nsub = bp.cols // LANE
-    return next(u * LANE for u in range(nsub, 0, -1)
-                if nsub % u == 0 and need(u * LANE) <= limit)
+    blocks = 1 if not in_sizes else MAX_BLOCKS_PER_SM
+    fits = [u * LANE for u in range(1, min(nsub, BOX_MAX) + 1)
+            if nsub % u == 0 and need(u * LANE) <= limit
+            and ring_blocks_per_sm(need(u * LANE), sm_smem) >= blocks]
+    return fits[-1] if fits else LANE
 
 
-def ring_runs(steps: int, sms: int) -> tuple[int, int]:
-    """``(steps per block, blocks)``: each segment's steps cut into
-    contiguous runs, about two blocks per SM, none empty."""
-    per = -(-steps // max(1, min(steps, 2 * sms)))
+def ring_runs(steps: int, sms: int, per_sm: int) -> tuple[int, int]:
+    """``(steps per block, blocks)``: the steps cut into contiguous runs,
+    one for each of the ``per_sm · sms`` blocks that are resident at
+    once (:func:`ring_blocks_per_sm`), none empty: one wave."""
+    per = -(-steps // max(1, min(steps, per_sm * sms)))
     return per, -(-steps // per)
+
+
+def box_rows(bm: int) -> int:
+    """Rows of a stage's box: ``bm``, or where ``bm`` exceeds a box's
+    256, its largest divisor up to 256."""
+    return next(h for h in range(min(bm, BOX_MAX), 0, -1) if bm % h == 0)
+
+
+def ring_boxes(bp: BlockPlan, tw: int, step: int) -> list[tuple]:
+    """The TMA boxes of one step, as every operand's copies issue them
+    in stream order: ``(row, col, rows, cols, offset)``, the box's first
+    row and column in the ``[rows, cols]`` array, its extent (a 3-D box
+    of ``(128, tw/128, rows)`` elements), and its first element's offset
+    in the operand's slot (stream k's stage at ``k·bm·tw``, row-major
+    ``[bm][tw]``)."""
+    seg, bh = bp.rows // bp.d, box_rows(bp.bm)
+    t, j = divmod(step, bp.cols // tw)
+    return [(k * seg + t * bp.bm + b * bh, j * tw, bh, tw,
+             (k * bp.bm + b * bh) * tw)
+            for k in range(bp.d) for b in range(bp.bm // bh)]
+
+
+class RingPlan(NamedTuple):
+    """What the launcher does with a ring (:func:`ring_plan`)."""
+    tw: int            # columns a step
+    bh: int            # rows a box
+    copies: int        # boxes a step per operand (D · bm / bh)
+    box_bytes: tuple   # bytes of one box, per input then full-row output
+    smem: int          # dynamic shared memory of a block
+    per_sm: int        # blocks an SM
+    steps: int
+    per: int           # steps a block
+    blocks: int        # the grid: at most per_sm · SMs, one wave
+
+
+def ring_plan(name: str, dtype: torch.dtype, bp: BlockPlan,
+              config: StridingConfig, sms: int, limit: int = BLOCK_SMEM,
+              sm_smem: int = SM_SMEM, tile: Optional[int] = None
+              ) -> RingPlan:
+    """The launch of body ``name``'s ring of type ``dtype`` on ``bp``:
+    its tile (``tile``, or :func:`ring_tile`'s), boxes, shared memory,
+    blocks an SM and one-wave grid on a card of ``sms`` SMs."""
+    in_sizes, out_sizes, n_row = ring_sizes(name, dtype)
+    tw = tile or ring_tile(bp, config, limit, in_sizes, out_sizes, n_row,
+                           sm_smem)
+    smem = ring_smem(in_sizes, out_sizes, bp.d, bp.bm, tw,
+                     config.lookahead, n_row)
+    bh = box_rows(bp.bm)
+    steps = bp.rows // bp.d // bp.bm * (bp.cols // tw)
+    per_sm = ring_blocks_per_sm(smem, sm_smem)
+    per, blocks = ring_runs(steps, sms, per_sm)
+    return RingPlan(tw, bh, bp.d * bp.bm // bh,
+                    tuple(bh * tw * e for e in (*in_sizes, *out_sizes)),
+                    smem, per_sm, steps, per, blocks)
+
+
+def ring_sizes(name: str, dtype: torch.dtype) -> tuple[tuple, tuple, int]:
+    """``(in_sizes, out_sizes, n_row)`` of body ``name``'s ring of type
+    ``dtype``: each operand's element size, full-row outputs only, and
+    the number of rank-1 outputs."""
+    ins, outs, ranks, _ = SIGNATURES[name]
+
+    def size(t):
+        return 4 if t == "f32" else dtype.itemsize
+    return (tuple(size(t) for t in ins),
+            tuple(size(t) for t, r in zip(outs, ranks) if r == 2),
+            sum(r == 1 for r in ranks))
 
 
 def _ranks(spec: loopir.TraversalSpec) -> tuple:
@@ -222,10 +350,11 @@ def _ring_dtypes(name: str, arrays, out_dtypes) -> tuple:
 
 
 def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
-         config: StridingConfig, device=None):
+         config: StridingConfig, device=None, tile: Optional[int] = None):
     """Run a (padded) K4 spec: its output (``[rows, cols]``, or
     ``[rows]`` for a rank-1 write), or a tuple of them for a spec with
-    several writes."""
+    several writes.  ``tile`` overrides :func:`ring_tile`'s column width
+    (a sweep's)."""
     dev = arrays[0].device if arrays else torch.device(device)
     if dev.type != "cuda":
         return loopir.evaluate(spec, [*arrays, *scalars], device=dev)
@@ -251,13 +380,12 @@ def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
         if o.ndim == 1:
             cuda.check_arrays(spec.name, [o], [(bp.rows,)])
     props = torch.cuda.get_device_properties(dev)
-    in_sizes, out_sizes, n_row = ring_sizes(spec.name, dtype)
-    tw = ring_tile(bp, config, props.shared_memory_per_block_optin,
-                   in_sizes, out_sizes, n_row)
-    steps = bp.rows // bp.d // bp.bm * (bp.cols // tw)
-    per, _ = ring_runs(steps, props.multi_processor_count)
-    geometry = (bp.rows, bp.cols, bp.d, bp.bm, tw, config.lookahead, per,
-                int(config.arrangement == "interleaved"))
+    plan = ring_plan(spec.name, dtype, bp, config,
+                     props.multi_processor_count,
+                     props.shared_memory_per_block_optin,
+                     props.shared_memory_per_multiprocessor, tile)
+    geometry = (bp.rows, bp.cols, bp.d, bp.bm, plan.bh, plan.tw,
+                config.lookahead, plan.per)
     ptrs = [t.data_ptr() for t in arrays]
     optrs = [o.data_ptr() for o in outs]
     kernel = BODIES[spec.name]

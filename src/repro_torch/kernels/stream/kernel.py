@@ -11,10 +11,13 @@
   * K2 ``_emit_reduction`` (``src/repro/codegen/emit.py:491``) with the
     read body, on ``x2 = x.reshape(D, seg·cols)``.  Its block plan is D
     rows of ``seg·cols`` columns, so :func:`read_split` (pass 1) runs a
-    grid over column chunks, about two blocks per SM, each writing the
-    f32 partial sums of its chunk of the D streams ``[chunks, D]``, and
-    :func:`read_merge` (pass 2) sums each stream's partials in chunk
-    order.
+    grid over column chunks, two blocks per SM, each writing the f32
+    partial sums of its chunk of the D streams ``[chunks, D]``; a lane
+    loads 16 bytes a unit in every type (:func:`read_units`) and keeps
+    the next step's loads in flight while it adds.  :func:`read_merge`
+    (pass 2) folds each stream's partials in one warp: lane ``l`` sums
+    chunks ``l, l+32, ...`` in order, then a shuffle tree, the order of
+    :func:`read_merge_plain`.
 
 :func:`emit` launches the kernels on CUDA tensors (or raises) and runs
 their plain versions on CPU tensors: the spec through
@@ -33,8 +36,8 @@ from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
 
 __all__ = ["COPY", "TRIAD", "INIT", "READ", "READ_MERGE", "emit",
-           "read_chunks", "read_split", "read_merge", "read_split_plain",
-           "read_merge_plain"]
+           "READ_BLOCKS_PER_SM", "read_chunks", "read_units", "read_split",
+           "read_merge", "read_split_plain", "read_merge_plain"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -50,25 +53,38 @@ TRIAD = cuda.CudaKernel("stream_triad", "stream", "stream_triad_launch",
 #                    stream)
 INIT = cuda.CudaKernel("stream_init", "stream", "stream_init_launch",
                        [_I, _P, _F, _I, _I, _I, _I, _I, _I])
-# read_split_launch(dtype, x, part, w, d, ns, spc, chunks, interleaved,
-#                   stream)
+# read_split_launch(dtype, x, part, w, d, spc, chunks, interleaved, stream)
 READ = cuda.CudaKernel("stream_read", "stream", "read_split_launch",
-                       [_I, _P, _P, _I, _I, _I, _I, _I, _I])
+                       [_I, _P, _P, _I, _I, _I, _I, _I])
 # read_merge_launch(part, y, d, chunks, stream)
 READ_MERGE = cuda.CudaKernel("stream_read_merge", "stream",
                              "read_merge_launch", [_P, _P, _I, _I])
 
 _PLAIN_SMS = 132                   # chunks of the plain read split on a CPU
+READ_BLOCKS_PER_SM = 2             # read_split's __launch_bounds__ minimum
+_WARP = 32
 
 
-def read_chunks(bp: BlockPlan, sms: int) -> tuple[int, int]:
+def read_chunks(bp: BlockPlan, sms: int,
+                per_sm: int = READ_BLOCKS_PER_SM) -> tuple[int, int]:
     """``(sub-portions per chunk, chunks)`` of the read's pass 1: the
     ``cols / 128`` sub-portions of each stream row are cut into chunks
-    so the grid has about two blocks per SM, no chunk empty."""
+    so the grid has ``per_sm`` blocks per SM (one wave at the default),
+    no chunk empty."""
     nsub = bp.cols // LANE
-    chunks = max(1, min(nsub, 2 * sms))
+    chunks = max(1, min(nsub, per_sm * sms))
     spc = -(-nsub // chunks)
     return spc, -(-nsub // spc)
+
+
+def read_units(n_sub: int, itemsize: int) -> list[tuple[int, int]]:
+    """The loads of one lane over a chunk of ``n_sub`` sub-portions, as
+    ``(first sub-portion, bytes)``: 16 bytes a unit, a sub-portion's 4
+    elements in f32 and a pair's 8 in 16-bit types, where an odd last
+    sub-portion takes one 8-byte load (``csrc/stream.cu`` ``ReadSteps``)."""
+    per = 2 if itemsize == 2 else 1
+    units = [(q, 16) for q in range(0, n_sub - n_sub % per, per)]
+    return units + ([(n_sub - 1, 8)] if n_sub % per else [])
 
 
 def read_split_plain(spec: loopir.TraversalSpec, bp: BlockPlan, x2,
@@ -82,26 +98,40 @@ def read_split_plain(spec: loopir.TraversalSpec, bp: BlockPlan, x2,
 
 
 def read_merge_plain(part: torch.Tensor) -> torch.Tensor:
-    """Plain version of pass 2: each stream's partials summed in chunk
-    order, from the sum's identity."""
-    acc = torch.zeros(part.shape[1], dtype=torch.float32, device=part.device)
-    for row in part:
-        acc = acc + row
-    return acc
+    """Plain version of pass 2, in the kernel's order: lane ``l`` of 32
+    sums the partials of chunks ``l, l+32, ...`` in order from the sum's
+    identity, then the lanes fold pairwise, ``l`` with ``l+16``, then
+    ``l+8``, ``l+4``, ``l+2``, ``l+1``."""
+    chunks, d = part.shape
+    rounds = -(-chunks // _WARP)
+    padded = torch.zeros(rounds * _WARP, d, dtype=torch.float32,
+                         device=part.device)
+    padded[:chunks] = part
+    lanes = torch.zeros(_WARP, d, dtype=torch.float32, device=part.device)
+    for block in padded.view(rounds, _WARP, d):
+        lanes = lanes + block
+    n = _WARP
+    while n > 1:
+        n //= 2
+        lanes = lanes[:n] + lanes[n:2 * n]
+    return lanes[0]
 
 
 def read_split(spec: loopir.TraversalSpec, bp: BlockPlan, x2,
-               config: StridingConfig | None = None) -> torch.Tensor:
-    """Pass 1: f32 partial sums ``[chunks, D]``."""
+               config: StridingConfig | None = None,
+               per_sm: int = READ_BLOCKS_PER_SM) -> torch.Tensor:
+    """Pass 1: f32 partial sums ``[chunks, D]`` (``per_sm`` chunks an SM:
+    a sweep's)."""
     if not x2.is_cuda:
         return read_split_plain(spec, bp, x2, *read_chunks(bp, _PLAIN_SMS))
     cuda.check_operands(spec.name, [x2], [(bp.rows, bp.cols)])
     sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    spc, chunks = read_chunks(bp, sms)
-    _, _, d, _, ns, interleaved = cuda.sweep_geometry(bp, config)
+    spc, chunks = read_chunks(bp, sms, per_sm)
+    d = bp.d
+    interleaved = config is not None and config.arrangement == "interleaved"
     part = torch.empty(chunks, d, dtype=torch.float32, device=x2.device)
     READ(x2.device, cuda.dtype_code(x2.dtype), x2.data_ptr(), part.data_ptr(),
-         bp.cols, d, ns, spc, chunks, interleaved)
+         bp.cols, d, spc, chunks, int(interleaved))
     return part
 
 

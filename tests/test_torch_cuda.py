@@ -505,7 +505,8 @@ def test_stream_16bit_lanes_equal_plain(cuda_device, dtype, arr, d, p, m,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("arr", ["grouped", "interleaved"])
 @pytest.mark.parametrize("d,p", DPS)
 def test_stream_read_pass1_matches_plain_chunk_by_chunk(cuda_device, dtype,
@@ -535,6 +536,62 @@ def test_stream_read_pass1_matches_plain_chunk_by_chunk(cuda_device, dtype,
     limit = 2 * _dot_factor(w) * GAMMA * terms + 2 * GAMMA * ref.abs()
     assert bool(((part - ref).abs() <= limit).all())
     assert float(ref[-1].abs().min()) > float(limit[-1].max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 16])
+@pytest.mark.parametrize("per_sm", [1, 2, 4])
+def test_stream_read_odd_subportions_and_merge_bits(cuda_device, dtype, arr,
+                                                    d, per_sm):
+    """The read at an odd number of sub-portions in every chunk (16-bit
+    lanes: pairs, then one 8-byte load) and at 1, 2 or 4 chunks an SM:
+    pass 1 within each chunk's f32 sum limit of its plain version; the
+    merge equal to ``read_merge_plain`` bit for bit (the same fold
+    order); and the op's two launches give those bits."""
+    from repro_torch.codegen import plan_blocks
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 7 + per_sm)
+    spc0 = 7                             # sub-portions a chunk: odd
+    nsub = spc0 * per_sm * sms - 2       # the last chunk holds 5
+    x2 = (1 + _rand(gen, (d, nsub * 128), cuda_device,
+                    torch.float32)).to(dtype)
+    cfg = TConfig(d, 2, arrangement=arr)
+    spec = tsspecs.read_spec(x2)
+    bp = plan_blocks(spec, cfg)
+    spc, chunks = skernel.read_chunks(bp, sms, per_sm)
+    assert (spc, chunks) == (spc0, per_sm * sms)
+    part = skernel.read_split(spec, bp, x2, cfg, per_sm)
+    ref = skernel.read_split_plain(spec, bp, x2, spc, chunks)
+    ax = x2.float().abs()
+    w = spc * 128
+    terms = torch.stack([ax[:, q * w:(q + 1) * w].sum(1)
+                         for q in range(chunks)])
+    limit = 2 * _dot_factor(w) * GAMMA * terms + 2 * GAMMA * ref.abs()
+    assert bool(((part - ref).abs() <= limit).all())
+    assert float(ref[-1].abs().min()) > float(limit[-1].max())
+    y = skernel.read_merge(part)
+    assert torch.equal(y, skernel.read_merge_plain(part))
+    if per_sm == skernel.READ_BLOCKS_PER_SM:
+        before = skernel.READ.launches, skernel.READ_MERGE.launches
+        got = tsops.stream_read(x2.reshape(d * 8, -1), config=cfg)
+        assert (skernel.READ.launches, skernel.READ_MERGE.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [1, 31, 33, 264, 1000])
+@pytest.mark.parametrize("d", [1, 4, 9])
+def test_stream_read_merge_equals_plain_bits(cuda_device, chunks, d):
+    """The merge folds each stream's partials in one warp in the order of
+    ``read_merge_plain``: the same bits, for any number of chunks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(chunks + d)
+    part = _rand(gen, (chunks, d), cuda_device, torch.float32) * 1e3
+    assert torch.equal(skernel.read_merge(part),
+                       skernel.read_merge_plain(part))
 
 
 @pytest.mark.gpu
@@ -616,18 +673,82 @@ def test_manual_ring_matches_plain(cuda_device, lookahead, dtype, arr, d, p,
 
 @pytest.mark.gpu
 def test_manual_ring_uses_the_opt_in_shared_memory(cuda_device):
-    """The widest tile of the bench copy at lookahead 4 needs more than
-    the 48 KB a launch gets without opting in, and still runs."""
-    x = torch.randn(8192, 4096, device=cuda_device)
+    """The bench copy's ring at lookahead 4 (a 128-column tile, two
+    blocks an SM) and triad's (one block an SM) need more than the 48 KB
+    a launch gets without opting in, run in one wave, and equal their
+    plain versions."""
+    x, c = (torch.randn(8192, 4096, device=cuda_device) for _ in range(2))
     cfg = TConfig(4, 2, lookahead=4)
-    limit = torch.cuda.get_device_properties(
-        cuda_device).shared_memory_per_block_optin
-    spec = tsspecs.copy_spec(x)
+    props = torch.cuda.get_device_properties(cuda_device)
     from repro_torch.codegen import plan_blocks
-    bp = plan_blocks(spec, cfg)
-    tw = tmanual.ring_tile(bp, cfg, limit, (4,), (4,))
-    assert tmanual.ring_smem((4,), (4,), bp.d, bp.bm, tw, 4) > 48 * 1024
+    bp = plan_blocks(tsspecs.copy_spec(x), cfg)
+    for name, per_sm in (("stream_copy", 2), ("stream_triad", 1)):
+        plan = tmanual.ring_plan(name, x.dtype, bp, cfg,
+                                 props.multi_processor_count)
+        assert plan.tw == 128 and plan.per_sm == per_sm
+        assert plan.smem > 48 * 1024 and plan.copies == 4
+        assert plan.blocks <= per_sm * props.multi_processor_count
     assert torch.equal(tsops.stream_copy_manual(x, config=cfg), x)
+    assert torch.equal(run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg),
+                       run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg,
+                                mode="ref"))
+
+
+RING_RUN_SHAPES = [(2144, 1280), (4096, 2048)]   # 67 row blocks: ragged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lookahead", [1, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", RING_RUN_SHAPES)
+def test_manual_ring_runs_and_waves_match_plain(cuda_device, lookahead,
+                                                dtype, m, n):
+    """Copy, triad, fill and gemver_sum on rings whose blocks each take
+    several steps (more steps than one wave has blocks), with a ragged
+    last run and runs that are no multiple of the lookahead: every
+    output equals its plain version bit for bit, one launch a call."""
+    from repro_torch.codegen import block_1d, classify, plan_blocks
+    gen = torch.Generator(device=cuda_device).manual_seed(m + lookahead)
+    x, c = (_rand(gen, (m, n), cuda_device, dtype) for _ in range(2))
+    v, z = (_rand(gen, (m * n,), cuda_device, dtype) for _ in range(2))
+    cfg = TConfig(4, 2, lookahead=lookahead)
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    cases = {
+        "stream_copy": ((tsspecs.copy_spec(x)),
+                        lambda: tsops.stream_copy_manual(x, config=cfg), x),
+        "stream_triad": (tsspecs.triad_spec(x, c, ALPHA),
+                         lambda: run_spec(tsspecs.triad_spec, (x, c, ALPHA),
+                                          cfg),
+                         run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg,
+                                  mode="ref")),
+        "stream_init": (tsspecs.init_spec((m, n), dtype, 0.7),
+                        lambda: tsops.stream_init((m, n), 0.7, dtype,
+                                                  config=cfg,
+                                                  device=cuda_device),
+                        tsops.stream_init((m, n), 0.7, dtype, config=cfg,
+                                          mode="ref", device=cuda_device)),
+        "gemver_sum": (tgspecs.gemver_sum_spec(v, z),
+                       lambda: tgops.gemver_sum(v, z, config=cfg),
+                       tgops.gemver_sum(v, z, config=cfg, mode="ref")),
+    }
+    plans = []
+    for name, (spec, run, want) in cases.items():
+        if classify(spec).blocked:
+            spec, _ = block_1d(spec, cfg)
+        plan = tmanual.ring_plan(name, dtype, plan_blocks(spec, cfg), cfg,
+                                 sms)
+        assert plan.blocks <= plan.per_sm * sms
+        plans.append(plan)
+        kernel = tmanual.BODIES[name]
+        before = kernel.launches
+        out = run()
+        assert kernel.launches == before + 1, name
+        assert torch.equal(out, want), name
+    assert any(p.per > 1 for p in plans)
+    if m == 2144:                        # 67 row blocks a segment
+        assert any(p.steps % p.per for p in plans)
+        assert lookahead == 1 or any(p.per % lookahead for p in plans)
 
 
 # ------------------------------------------- stencils and doitgen
@@ -891,7 +1012,7 @@ def test_adamw_ring_matches_plain(cuda_device, lookahead, arr, d, p, shape):
 def test_adamw_ring_fits_at_d2_and_refuses_d4(cuda_device):
     """At the bench blocking [8192, 512], D=2 bm=8: the ring of four
     inputs and three outputs fits at lookahead 3 (144 KiB) and 4
-    (176 KiB); at D=4 and lookahead 3 it does not, and the ValueError
+    (176 KiB), one block an SM; at D=4 and lookahead 3 it does not, and the ValueError
     says so without changing D or the lookahead.  A bf16 parameter now
     runs on the ring (p, g and p' bf16, m and v f32) and equals the
     plain version bit for bit."""
@@ -899,11 +1020,14 @@ def test_adamw_ring_fits_at_d2_and_refuses_d4(cuda_device):
         cuda_device).shared_memory_per_block_optin
     x = torch.zeros(8192, 512, device=cuda_device)
     for la, kib in ((3, 144), (4, 176)):
-        assert tmanual.ring_smem((4,) * 4, (4,) * 3, 2, 8, 128,
-                                 la) // 1024 == kib
+        smem = tmanual.ring_smem((4,) * 4, (4,) * 3, 2, 8, 128, la)
+        assert smem // 1024 == kib and tmanual.ring_blocks_per_sm(smem) == 1
         out = taops.adamw_update(x, x, x, x + 1, config=TConfig(
             2, 2, lookahead=la), **_HYPER)
         assert all(torch.isfinite(o).all() for o in out)
+    # bf16 p and g: 112 KiB at lookahead 3, so two blocks share an SM
+    assert tmanual.ring_blocks_per_sm(tmanual.ring_smem(
+        (2, 2, 4, 4), (2, 4, 4), 2, 8, 128, 3)) == 2
     cfg = TConfig(4, 2, lookahead=3)
     with pytest.raises(ValueError, match="does not fit shared memory"):
         taops.adamw_update(x, x, x, x + 1, config=cfg, **_HYPER)
@@ -941,7 +1065,7 @@ def test_adamw_ring_mixed_dtypes_match_plain(cuda_device, dtype, lookahead,
                                          **_HYPER), dtype)
 
 
-ROWSTAT_SHAPES = [(16, 256), (512, 1024), (96, 384)]
+ROWSTAT_SHAPES = [(16, 256), (512, 1024), (96, 384), (4096, 640)]
 
 
 @pytest.mark.gpu

@@ -373,30 +373,96 @@ RING_CASES = [
 ]
 
 
+def _ring_case(rows, cols, d, p, la, dtype, n_in, bm=0):
+    spec = tsspecs.copy_spec(torch.empty(rows, cols))
+    cfg = TConfig(d, p, lookahead=la, block_rows=bm)
+    return cfg, tcg.plan_blocks(spec, cfg), ((dtype.itemsize,) * n_in,
+                                             (dtype.itemsize,))
+
+
 @pytest.mark.parametrize("rows,cols,d,p,la,dtype,n_in", RING_CASES)
 def test_ring_tiles_cover_each_segment_once_and_fit(rows, cols, d, p, la,
                                                     dtype, n_in):
     """The step tile is a whole number of 128-column sub-portions that
     divides the row (so a segment's (row block, tile) steps cover it
-    once), the widest whose ring fits the limit; the blocks' runs
-    partition the steps, none empty."""
-    spec = tsspecs.copy_spec(torch.empty(rows, cols))
-    cfg = TConfig(d, p, lookahead=la)
-    bp = tcg.plan_blocks(spec, cfg)
-    limit = SMEM_LIMIT
-    sizes = ((dtype.itemsize,) * n_in, (dtype.itemsize,))
-    tw = tmanual.ring_tile(bp, cfg, limit, *sizes)
-    assert tw % 128 == 0 and bp.cols % tw == 0
-    assert tmanual.ring_smem(*sizes, d, bp.bm, tw, la) <= limit
-    wider = [u * 128 for u in range(tw // 128 + 1, bp.cols // 128 + 1)
+    once), at most one box's 256 sub-portions, and fits the limit.  It
+    is the widest tile whose ring lets two blocks share an SM (a
+    writes-only ring: the widest that fits one), or 128 columns where no
+    tile does (a step's copies no longer grow as the tile narrows).  The grid is one wave: one run of steps for each
+    resident block, the runs partitioning the steps, none empty."""
+    cfg, bp, sizes = _ring_case(rows, cols, d, p, la, dtype, n_in)
+    tw = tmanual.ring_tile(bp, cfg, SMEM_LIMIT, *sizes)
+    assert tw % 128 == 0 and bp.cols % tw == 0 and tw // 128 <= 256
+    smem = tmanual.ring_smem(*sizes, d, bp.bm, tw, la)
+    assert smem <= SMEM_LIMIT
+
+    want = 2 if n_in else 1              # a writes-only ring: one block
+
+    def fits(w):
+        need = tmanual.ring_smem(*sizes, d, bp.bm, w, la)
+        return (need <= SMEM_LIMIT
+                and tmanual.ring_blocks_per_sm(need) >= want)
+    tiles = [u * 128 for u in range(1, min(bp.cols // 128, 256) + 1)
              if bp.cols % (u * 128) == 0]
-    assert all(tmanual.ring_smem(*sizes, d, bp.bm, w, la) > limit
-               for w in wider)            # the widest that fits
+    if any(fits(w) for w in tiles):
+        assert fits(tw) and not any(fits(w) for w in tiles if w > tw)
+    else:
+        assert tw == 128
     steps = bp.rows // d // bp.bm * (bp.cols // tw)
+    per_sm = tmanual.ring_blocks_per_sm(smem)
+    assert per_sm in (1, 2)
     for sms in (1, 7, 132):
-        per, blocks = tmanual.ring_runs(steps, sms)
+        per, blocks = tmanual.ring_runs(steps, sms, per_sm)
         assert per >= 1 and (blocks - 1) * per < steps <= blocks * per
-        assert blocks <= max(1, 2 * sms)
+        assert blocks <= per_sm * sms          # resident at once
+
+
+BOX_CASES = RING_CASES + [
+    # (rows, cols, D, P, lookahead, dtype, inputs, block_rows)
+    (1200, 128, 1, 1, 1, torch.bfloat16, 1, 300),     # bm > 256: 2 boxes
+    (96, 384, 2, 1, 3, torch.float16, 2, 3),
+]
+
+
+@pytest.mark.parametrize("case", BOX_CASES)
+def test_ring_box_plan(case):
+    """The TMA boxes of every step (``ring_boxes``) cover each segment's
+    ``[rows, cols]`` once, each box at most 256 elements a side (a 3-D
+    box of ``(128, tw/128, bh)``) with 16-byte multiples of inner bytes;
+    every stage and box lands 128-byte aligned in shared memory; a
+    slot's expect-tx bytes are its boxes' bytes; the blocks' runs
+    partition the steps in one wave."""
+    rows, cols, d, p, la, dtype, n_in, *bm = case
+    cfg, bp, sizes = _ring_case(rows, cols, d, p, la, dtype, n_in, *bm)
+    isz = dtype.itemsize
+    name = ("stream_init", "stream_copy", "stream_triad")[n_in]
+    plan = tmanual.ring_plan(name, dtype, bp, cfg, sms=7)
+    tw, bh = plan.tw, plan.bh
+    assert bh <= 256 and bp.bm % bh == 0 and tw // 128 <= 256
+    assert 128 * isz % 16 == 0
+    covered = np.zeros((bp.rows, bp.cols), dtype=np.int32)
+    for step in range(plan.steps):
+        boxes = tmanual.ring_boxes(bp, tw, step)
+        assert len(boxes) == plan.copies == d * bp.bm // bh
+        for row, col, nr, nc, off in boxes:
+            assert (nr, nc) == (bh, tw)
+            covered[row:row + nr, col:col + nc] += 1
+            assert off * isz % 128 == 0
+        # expect-tx: the slot's bytes are its boxes' bytes
+        assert sum(nr * nc for _, _, nr, nc, _ in boxes) * isz == \
+            d * bp.bm * tw * isz
+        assert sorted(o for *_, o in boxes) == \
+            [i * bh * tw for i in range(len(boxes))]
+    assert (covered == 1).all()
+    layout = tmanual.ring_layout(*sizes, d, bp.bm, tw, la)
+    offsets = [o for group in (*layout.inputs, *layout.outputs) for o in group]
+    assert all(o % 128 == 0 for o in offsets)
+    assert plan.box_bytes == tuple(bh * tw * e for e in (*sizes[0], *sizes[1]))
+    assert plan.smem == tmanual.ring_smem(*sizes, d, bp.bm, tw, la)
+    runs = [range(b * plan.per, min((b + 1) * plan.per, plan.steps))
+            for b in range(plan.blocks)]
+    assert sorted(s for r in runs for s in r) == list(range(plan.steps))
+    assert all(len(r) for r in runs) and plan.blocks <= plan.per_sm * 7
 
 
 @pytest.mark.parametrize("d,la,dtype", [(16, 4, torch.float32),
@@ -554,6 +620,49 @@ def test_stream_read_two_passes_equal_one_sweep(d, sms):
     y = skernel.read_merge_plain(part)
     torch.testing.assert_close(y, tcg.evaluate(spec, [x2]), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("nsub", [1, 3, 7, 255, 2 * 132 * 7 + 3])
+@pytest.mark.parametrize("sms,per_sm", [(1, 2), (7, 1), (132, 2), (132, 4)])
+def test_read_chunks_and_16bit_lane_split(nsub, sms, per_sm):
+    """Pass 1's chunks cover a stream row's sub-portions once, none
+    empty, at most ``per_sm`` a SM; in a chunk a lane loads 16 bytes a
+    unit, a sub-portion in f32 and a pair in bf16 / f16, and an odd
+    last sub-portion with one 8-byte load."""
+    x2 = torch.empty(2, nsub * 128)
+    bp = tcg.plan_blocks(tsspecs.read_spec(x2), TConfig(2, 2))
+    spc, chunks = skernel.read_chunks(bp, sms, per_sm)
+    assert chunks <= per_sm * sms and (chunks - 1) * spc < nsub
+    assert nsub <= chunks * spc
+    sizes = [min(spc, nsub - c * spc) for c in range(chunks)]
+    assert sum(sizes) == nsub and min(sizes) >= 1
+    for n in set(sizes):
+        for isz, per in ((4, 1), (2, 2)):
+            units = skernel.read_units(n, isz)
+            subs = [q + i for q, b in units for i in range(b * per // 16)]
+            assert subs == list(range(n))
+            assert all(b == 16 for _, b in units[:-1])
+            assert units[-1][1] == (8 if per == 2 and n % 2 else 16)
+            assert len(units) == -(-n // per)
+
+
+@pytest.mark.parametrize("chunks", [1, 31, 32, 33, 264])
+def test_read_merge_plain_folds_in_the_kernels_order(chunks):
+    """The plain merge is the kernel's fold: lane l of 32 sums chunks l,
+    l+32, ... in order from 0, then the lanes fold by xor 16, 8, 4, 2, 1
+    (each lane's sum and its partner's, commutative in IEEE f32), so
+    the two agree bit for bit; an emulation in numpy f32 gives the same
+    bits."""
+    rng = np.random.default_rng(chunks)
+    part = (rng.standard_normal((chunks, 5)) * 1e3).astype(np.float32)
+    lanes = np.zeros((32, 5), dtype=np.float32)
+    for c in range(chunks):
+        lanes[c % 32] = lanes[c % 32] + part[c]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[np.arange(32) ^ off]
+    got = skernel.read_merge_plain(torch.from_numpy(part))
+    np.testing.assert_array_equal(got.numpy(), lanes[0])
+    assert (lanes == lanes[0]).all()       # every lane holds the fold
 
 
 def test_oracles_match_jax_oracles():

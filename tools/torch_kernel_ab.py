@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""doitgen and the K1 stream kernels of the PyTorch port, timed on one
-card for several checkouts in turn (an A/B of two commits, run as
-parent, change, change, parent).
+"""doitgen, the stream kernels (K1, the K2 read, the K4 ring) and the
+ring's adamw body of the PyTorch port, timed on one card for several
+checkouts in turn (an A/B of two commits, run as parent, change,
+change, parent).
 
     python3 tools/torch_kernel_ab.py ROOT [ROOT ...] [--replays N]
 
@@ -15,12 +16,19 @@ CUDA events):
   * doitgen ``A [r, 256, 256] x C4 [256, 256]`` at r = 16 (the bench
     size) in f32, bf16 and f16, and at r = 256 in f32 and bf16;
   * stream copy, triad (alpha 1.5) and init at [8192, 4096] in f32 and
-    bf16, at the default config (D=4, P=2);
+    bf16, at the default config (D=4, P=2), on K1 and on the K4 ring at
+    lookahead 1, 3 and 4, and ``gemver_sum`` at vn = 4·2²⁰ on the ring;
+  * ``stream_read`` at [8192, 4096] in f32 and bf16 (both passes), and
+    its merge alone on the pass-1 partials;
+  * ``adamw_update`` on the ring at lookahead 1, 3, 4 on Yi-9B's
+    embedding [64000, 4096] f32 (timed eagerly: a graph would hold every
+    call's 3 GB of outputs);
 
 and beside each, in the first ROOT's process only, one PyTorch call
 that computes the same function: ``torch.matmul(A.view(-1, s), C4)``,
-``x.clone()``, ``torch.add(b, c, alpha=1.5)``, ``torch.full``.  TF32
-is off.
+``x.clone()``, ``torch.add(b, c, alpha=1.5)``, ``torch.full``, ``x +
+z``, ``x.view(D, -1).sum(1, dtype=float32)``, ``part.sum(0)``,
+``torch._fused_adamw_``.  TF32 is off.
 
 Prints one JSON line per ROOT (milliseconds), then the card's name and
 power limit.  Compare roots by the alternation, never across calls.
@@ -37,6 +45,9 @@ DOITGEN = [((16, 256, 256), "float32"), ((16, 256, 256), "bfloat16"),
            ((256, 256, 256), "bfloat16")]
 STREAM_SHAPE = (8192, 4096)
 STREAM_DTYPES = ("float32", "bfloat16")
+RING_LOOKAHEADS = (1, 3, 4)
+GEMVER_SUM_N = 4 * 2 ** 20
+EMBED = (64000, 4096)
 
 
 def one(root: str, replays: int, with_library: bool) -> dict:
@@ -46,15 +57,20 @@ def one(root: str, replays: int, with_library: bool) -> dict:
         os.path.abspath(__file__))))
     import torch
     from chip_smoke import _copies as copies
-    from chip_smoke import device_ms
-    from repro_torch.codegen import run_spec
+    from chip_smoke import device_ms, eager_ms
+    from repro_torch.codegen import plan_blocks, run_spec
     from repro_torch.kernels import cuda
+    from repro_torch.kernels.adamw import _HYPER
+    from repro_torch.kernels.adamw import ops as aops
     from repro_torch.kernels.doitgen import doitgen
-    from repro_torch.kernels.stream import stream_copy, stream_init
+    from repro_torch.kernels.gemver import gemver_sum
+    from repro_torch.kernels.stream import (stream_copy, stream_copy_manual,
+                                            stream_init, stream_read)
+    from repro_torch.kernels.stream import kernel as sk
     from repro_torch.kernels.stream import specs as ss
     from repro_torch.kernels.stream.ops import _DEFAULT
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda.build(["doitgen", "stream"])
+    cuda.build(["doitgen", "stream", "manual_ring", "gemver", "adamw"])
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dt):
@@ -99,8 +115,65 @@ def one(root: str, replays: int, with_library: bool) -> dict:
             out[f"init {dt_name} torch.full"] = device_ms(
                 lambda: torch.full(STREAM_SHAPE, 3.5, dtype=dt,
                                    device="cuda"), [()], replays=replays)
-        del s1, s2
+        for la in RING_LOOKAHEADS:
+            cfg = _DEFAULT.replace(lookahead=la)
+            out[f"ring copy {dt_name} la{la}"] = device_ms(
+                lambda x: stream_copy_manual(x, config=cfg), s1,
+                replays=replays)
+            out[f"ring triad {dt_name} la{la}"] = device_ms(
+                lambda b, c: run_spec(ss.triad_spec, (b, c, 1.5), cfg), s2,
+                replays=replays)
+            out[f"ring fill {dt_name} la{la}"] = device_ms(
+                lambda: stream_init(STREAM_SHAPE, 3.5, dt, config=cfg),
+                [()], replays=replays)
+        vn = GEMVER_SUM_N
+        vsets = copies(lambda: (rand((vn,), dt), rand((vn,), dt)),
+                       2 * vn * isz)
+        for la in RING_LOOKAHEADS:
+            cfg = _DEFAULT.replace(lookahead=la)
+            out[f"ring gemver_sum {dt_name} la{la}"] = device_ms(
+                lambda x, z: gemver_sum(x, z, config=cfg), vsets,
+                replays=replays)
+        if with_library:
+            out[f"gemver_sum {dt_name} x + z"] = device_ms(
+                lambda x, z: x + z, vsets, replays=replays)
+        # the read, both passes, then its merge alone
+        r1 = copies(lambda: ((1 + rand(STREAM_SHAPE, torch.float32)).to(dt),),
+                    n * isz)
+        d = _DEFAULT.stride_unroll
+        out[f"read {dt_name}"] = device_ms(lambda x: stream_read(x), r1,
+                                           replays=replays)
+        x2 = r1[0][0].reshape(d, -1)
+        spec = ss.read_spec(x2)
+        part = sk.read_split(spec, plan_blocks(spec, _DEFAULT), x2, _DEFAULT)
+        psets = [(part.clone(),) for _ in range(64)]
+        out[f"read merge {dt_name} {list(part.shape)}"] = device_ms(
+            lambda p: sk.read_merge(p), psets, replays=replays)
+        if with_library:
+            out[f"read {dt_name} x.view(D, -1).sum(1)"] = device_ms(
+                lambda x: x.view(d, -1).sum(1, dtype=torch.float32), r1,
+                replays=replays)
+            out[f"read merge {dt_name} part.sum(0)"] = device_ms(
+                lambda p: p.sum(0), psets, replays=replays)
+        del s1, s2, vsets, r1, psets
         torch.cuda.empty_cache()
+    # adamw on the ring, Yi-9B's embedding, f32
+    p, g, m = (rand(EMBED, torch.float32) for _ in range(3))
+    v = torch.rand(*EMBED, generator=gen, device="cuda")
+    s7 = torch.stack(aops.scalars(torch.device("cuda"),
+                                  *_HYPER.values())).unbind()
+    for la in RING_LOOKAHEADS:
+        cfg = aops._DEFAULT.replace(lookahead=la)
+        out[f"ring adamw f32 {list(EMBED)} la{la}"] = eager_ms(
+            lambda *a: aops.adamw_update(*a, *s7, config=cfg), (p, g, m, v))
+    if with_library:
+        step = torch.ones((), device="cuda")
+        out[f"adamw f32 {list(EMBED)} torch._fused_adamw_"] = eager_ms(
+            lambda p_, g_, m_, v_: torch._fused_adamw_(
+                [p_], [g_], [m_], [v_], [], [step], lr=_HYPER["lr"],
+                beta1=0.9, beta2=0.999, weight_decay=_HYPER["wd"],
+                eps=_HYPER["eps"], amsgrad=False, maximize=False),
+            (p, g, m, v))
     return out
 
 
