@@ -10,10 +10,15 @@ Phases (each raises on failure, so the script exits non-zero):
   1. device   — require CUDA; print the card, its count and its power limit
   2. build    — compile every CUDA source (one nvcc each, all at once) and
                 print the -Xptxas -v register / shared-memory / spill lines,
-                and one line of every doitgen and stream instance's
-                registers and spill bytes
+                and one line of every doitgen, stream, rmsnorm and
+                reduction instance's registers and spill bytes (an
+                rmsnorm or rowstat instance that spills fails the run)
   3. kernels  — each kernel against its plain PyTorch version on the card at
-                the main path's shapes: max error vs the stated tolerance,
+                the main path's shapes: rmsnorm at the decode rows (1, 4)
+                and the train rows (8192) of 4096, and 4 f32 rows of
+                12288 (a cluster), with each launch's geometry, a
+                lost-chunk or lost-stream control and a sweep of the
+                geometry's choices; max error vs the stated tolerance,
                 and device times (CUDA graphs of many launches, timed with
                 CUDA events): kernel, plain version, bound, and one PyTorch
                 library call as a yardstick.  Decode at B=8 x S=32768, the
@@ -62,7 +67,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 excess); then the five instances the *_gen rows brought
                 (transpose, rowstat, gemver_mxv2, gemver_mxv1,
                 gemver_mxv1_sum) at 16384^2 and 4096^2 f32 (transpose and
-                rowstat also bf16 at 4096^2) through their public ops:
+                rowstat also bf16 at both) through their public ops:
                 equality or the f32 dot limit, lost-stream controls, and
                 times against the bound and one PyTorch call
   4. serve    — Yi-9B at full width (random weights from a seeded
@@ -192,10 +197,16 @@ def phase_build(card: str) -> float:
     print(f"build: {len(reports)} libraries in {secs:.1f} s "
           f"(nvcc, sm_90a) [{card}]")
     inst = {}
-    for stem in ("doitgen", "stream"):
+    for stem in ("doitgen", "stream", "rmsnorm", "reduction"):
         inst.update(ptxas_instances(reports.get(stem, "")))
-    print(f"ptxas doitgen and stream instances, [registers, spill store "
-          f"bytes, spill load bytes]: {json.dumps(inst)} [{card}]")
+    print(f"ptxas doitgen, stream, rmsnorm and reduction instances, "
+          f"[registers, spill store bytes, spill load bytes]: "
+          f"{json.dumps(inst)} [{card}]")
+    spills = {n: v for n, v in inst.items()
+              if ("rmsnorm" in n or "rowstat" in n) and any(v[1:])}
+    if spills:
+        raise AssertionError(f"build: rmsnorm / rowstat instances spill: "
+                             f"{spills}")
     return secs
 
 
@@ -228,52 +239,135 @@ def ptxas_instances(report: str) -> dict:
     return found
 
 
+# (rows, width, dtype): the serve path's decode rows and the train
+# step's rows of Yi-9B's 4096, and a Mistral-Large-wide f32 row (12288:
+# 48 KB, over one block's registers, so a cluster of two)
+RMSNORM_CASES = ((1, 4096, "bfloat16"), (SERVE_SLOTS, 4096, "bfloat16"),
+                 (8192, 4096, "bfloat16"), (8192, 4096, "float32"),
+                 (SERVE_SLOTS, 12288, "float32"))
+RMSNORM_SWEEP_CLUSTERS = (1, 2, 4, 8)     # at the decode rows
+RMSNORM_SWEEP_ITEMS = (1, 2, 4, 16)       # items a block at 8192 rows
+
+
 def check_rmsnorm(card: str, results: dict) -> None:
+    """rmsnorm at the serve path's decode rows (1 and 4 of Yi-9B's 4096,
+    bf16), the train step's 8192 rows (bf16, and f32) and 4 f32 rows of
+    12288: each launch's geometry, the kernel against its plain version
+    (o within one ulp of its dtype, r within 1e-5) with a control that
+    must land outside the limit (a cluster rank's columns lost where the
+    launch has a cluster, else stream 1's rows), and times; then the
+    sweep of the geometry's choices (cluster size at the decode rows,
+    items a block at 8192 rows)."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.codegen import plan_blocks
+    from repro_torch.kernels import common
+    from repro_torch.kernels.rmsnorm import kernel as rk
     from repro_torch.kernels.rmsnorm import ops as rops
-    dm, eps = 4096, 1e-5
+    from repro_torch.kernels.rmsnorm import specs as rspecs
+    eps = 1e-5
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rtol_o, rtol_r = 2.0 ** -7, 1e-5
-    print(f"rmsnorm: tolerance o: |d| <= {rtol_o:g}*|ref| + 1e-6 (one bf16 "
-          f"ulp: the kernel's f32 row sum is reassociated, which can flip "
-          f"one rounding); r: |d| <= {rtol_r:g}*|ref| (f32 reassociation "
-          "over 4096 squares)")
-    for t in (4, 8192):
+    rtol_r = 1e-5
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"rmsnorm: tolerance o: |d| <= u*|ref| + 1e-6 (one ulp of o's "
+          f"dtype, u = 2^-7 in bf16, {rtol_r:g} in f32: the kernel's f32 "
+          f"row sum is reassociated, which can flip one rounding); r: "
+          f"|d| <= {rtol_r:g}*|ref| (f32 reassociation over the squares)")
+    for t, dm, dt_name in RMSNORM_CASES:
+        dt = getattr(torch, dt_name)
+        rtol_o = 2.0 ** -7 if dt == torch.bfloat16 else rtol_r
+
         def make():
             x = torch.randn(t, dm, generator=gen, device="cuda")
             w = 1 + 0.1 * torch.randn(dm, generator=gen, device="cuda")
-            return x.bfloat16(), w.bfloat16()
+            return x.to(dt), w.to(dt)
         x, w = make()
+        cfg = common.resolve_config("rmsnorm", None, t, rops._DEFAULT)
+        bp = plan_blocks(rspecs.rmsnorm_spec(x, w, eps), cfg)
+        g = rk.geometry(bp.rows, dm, x.element_size(), bp.d, sms)
+        print(_rms_geometry_line(f"x [{t}, {dm}] {dt_name}", bp, g, dt,
+                                 sms, card))
         o, r = rops.rmsnorm(x, w, eps, with_inv_rms=True)
         o_ref, r_ref = rops.rmsnorm(x, w, eps, mode="ref", with_inv_rms=True)
         torch.cuda.synchronize()
-        do = (o.float() - o_ref.float()).abs()
-        dr = (r - r_ref).abs()
-        if not (bool((do <= rtol_o * o_ref.float().abs() + 1e-6).all())
-                and bool((dr <= rtol_r * r_ref.abs()).all())):
-            raise AssertionError(f"rmsnorm t={t}: kernel disagrees with the "
-                                 f"plain version (max |do|={do.max():g}, "
-                                 f"max |dr|={dr.max():g})")
-        err_t = max(float(do.max()), float(dr.max()))
-        sets = _copies(make, t * dm * 2)
+        lost, what = _rms_control(x, bp, g)
+        lo, lr = rops.rmsnorm(lost, w, eps, mode="ref", with_inv_rms=True)
+        err_o, line_o = _hold(f"rmsnorm t={t} dm={dm} {dt_name} o", o, o_ref,
+                              rtol_o * o_ref.float().abs() + 1e-6,
+                              {what: lo})
+        err_r, line_r = _hold(f"rmsnorm t={t} dm={dm} {dt_name} r", r, r_ref,
+                              rtol_r * r_ref.abs(), {what: lr})
+        err_t = max(err_o, err_r)
+        isz = x.element_size()
+        sets = _copies(make, t * dm * isz)
         ms = device_ms(lambda a, b: rops.rmsnorm(a, b, eps), sets)
         plain = device_ms(lambda a, b: rops.rmsnorm(a, b, eps, mode="ref"),
                           sets)
         lib = device_ms(lambda a, b: F.rms_norm(a, (dm,), b, eps), sets)
-        bms, by = bound_ms(2 * t * dm * 2 + dm * 2 + 4 * t, 4.0 * t * dm,
-                           "bfloat16")
-        print(f"rmsnorm t={t} dm={dm} bf16: max_abs_err={err_t:g} "
-              f"ms={ms:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} "
-              f"({by}) library_ms={lib:.5f} (F.rms_norm) [{card}]")
-        if t == SERVE_SLOTS:      # the serve path's shape
-            results["rmsnorm"] = dict(
+        bms, by = bound_ms(2 * t * dm * isz + dm * isz + 4 * t, 4.0 * t * dm,
+                           dt_name)
+        print(f"rmsnorm t={t} dm={dm} {dt_name}: max_abs_err={err_t:g}; o "
+              f"{line_o}; r {line_r}; ms={ms:.5f} plain_ms={plain:.5f} "
+              f"bound_ms={bms:.6f} ({by}) library_ms={lib:.5f} "
+              f"(F.rms_norm) [{card}]")
+        if (t, dm, dt) == (SERVE_SLOTS, 4096, torch.bfloat16):
+            results["rmsnorm"] = dict(          # the serve path's shape
                 name="rmsnorm", route="cuda",
                 source="src/repro_torch/csrc/rmsnorm.cu",
                 replaces="src/repro/codegen/emit.py:410",
                 ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
                 library_ms=lib, max_abs_err=err_t,
-                shape=f"x [{t}, {dm}] bf16")
+                shape=f"x [{t}, {dm}] {dt_name}")
+        sweep = {}
+        if (t, dm, dt) == (SERVE_SLOTS, 4096, torch.bfloat16):
+            sweep = {f"cluster {c}": rk.geometry(bp.rows, dm, isz, bp.d, sms,
+                                                  cluster=c)
+                     for c in RMSNORM_SWEEP_CLUSTERS}
+        if (t, dm, dt) == (8192, 4096, torch.bfloat16):
+            sweep = {f"{i} items a block": rk.geometry(bp.rows, dm, isz,
+                                                       bp.d, sms, items=i)
+                     for i in RMSNORM_SWEEP_ITEMS}
+        for label, sg in sweep.items():
+            sweep_ms = device_ms(lambda a, b: rk.launch(a, b, eps, bp, sg),
+                                 sets)
+            print(f"rmsnorm sweep x [{t}, {dm}] {dt_name} {label}: ms="
+                  f"{sweep_ms:.5f} ({sg.blocks} blocks of {sg.threads} "
+                  f"threads, {sg.vectors} vectors of {sg.streams} rows a "
+                  f"thread, {sg.items} items a block) [{card}]")
+        del sets, x, w, o, r, o_ref, r_ref, lost, lo, lr
+        torch.cuda.empty_cache()
+
+
+def _rms_control(x, bp, g):
+    """x with one unit of the kernel's work lost, for the plain version:
+    a cluster rank's columns (rank 1) where the launch has a cluster,
+    else stream 1's rows, else (one stream) the vectors thread 1 holds."""
+    lost = x.clone()
+    per = 16 // x.element_size()
+    if g.cluster > 1:
+        lost[:, g.chunk * per:2 * g.chunk * per] = 0
+        return lost, "lost chunk"
+    seg = bp.rows // bp.d
+    if bp.d > 1:
+        lost[seg:2 * seg] = 0
+        return lost, "lost stream"
+    for v in range(1, g.nvec, g.threads):
+        lost[:, v * per:(v + 1) * per] = 0
+    return lost, "lost thread"
+
+
+def _rms_geometry_line(what, bp, g, dtype, sms, card) -> str:
+    """One rmsnorm launch's geometry (``kernels/rmsnorm/kernel.py``
+    ``geometry``): cluster, blocks, blocks an SM (the occupancy API) and
+    waves."""
+    from repro_torch.kernels.rmsnorm import kernel as rk
+    per_sm = rk.occupancy(dtype, g)
+    waves = -(-g.blocks // (per_sm * sms))
+    return (f"rmsnorm {what} launch: D={bp.d}, cluster {g.cluster}, "
+            f"{g.blocks} blocks of {g.threads} threads ({g.chunk} of a row's "
+            f"{g.nvec} 16-byte vectors a block, {g.vectors} a thread, "
+            f"{g.streams} rows an item, {g.items} items a block), {per_sm} "
+            f"blocks an SM, {waves} wave{'s' if waves > 1 else ''} [{card}]")
 
 
 DECODE_SHAPES = ((8, 32768, "uniform"), (SERVE_SLOTS, SERVE_MAX_LEN,
@@ -1925,7 +2019,7 @@ def phase_registry(card: str, results: dict) -> None:
     row's rtol / atol; the counts are set to 0 just before and read just
     after, and every kernel of the five new instances must have run.
     (b) The five new instances through their public ``*_gen`` ops at
-    16384^2 and 4096^2 f32 (transpose and rowstat also in bf16 at 4096^2):
+    16384^2 and 4096^2 f32 (transpose and rowstat also in bf16 at both):
     each against its plain version (equality for transpose and the row
     max, the f32 dot limit otherwise) with a lost-stream control that must
     land outside the limit, and timed: kernel, plain version, bound and
@@ -2014,7 +2108,7 @@ def phase_registry(card: str, results: dict) -> None:
           f"Controls: the plain output with stream k=1's segment lost "
           f"[{card}]")
     for n in REGISTRY_FULL:
-        for dtype in (("float32", "bfloat16") if n < 8192 else ("float32",)):
+        for dtype in ("float32", "bfloat16"):
             _registry_instances(card, results, n, getattr(torch, dtype), cfg)
             torch.cuda.empty_cache()
     print(f"registry: phase took {time.perf_counter() - t_phase:.1f} s "
@@ -2026,6 +2120,7 @@ def _registry_instances(card, results, n, dtype, cfg):
     import torch
     from repro_torch.codegen import plan_blocks
     from repro_torch.kernels.gemver import specs as gspecs
+    from repro_torch.kernels.gen import kernel as genk
     from repro_torch.kernels.gen import (gemver_mxv1_gen, gemver_mxv1_sum_gen,
                                          gemver_mxv2_gen, rowstat_gen,
                                          transpose_gen)
@@ -2077,6 +2172,13 @@ def _registry_instances(card, results, n, dtype, cfg):
           f"x {shape}, D={cfg.stride_unroll} (plain: a transposed view)")
     del y_k, y_p
     # rowstat: the max bit for bit, the sum within the sum limit
+    g = genk.rowstat_geometry(n, n, size, cfg.stride_unroll,
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+    print(f"rowstat x {shape} launch: {g.streams} streams a group, "
+          f"{g.parts} parts a slot of {g.per_part} of a row's {g.units} "
+          f"16-byte lane units, {g.blocks} blocks of {g.slots} row slots "
+          f"[{card}]")
     mx_k, sm_k = rowstat_gen(a, config=cfg)
     mx_p, sm_p = rowstat_gen(a, config=cfg, mode="ref")
     err_m, line_m = _hold(f"rowstat max n={n}", mx_k, mx_p, 0.0,
@@ -2696,6 +2798,11 @@ def phase_profile(card: str, model, params, engine, steps: int = 3) -> None:
           f"{sum(e.count for e in attn) // steps} launches, "
           f"{100 * attn_us / total_us:.1f}% of the step's kernels; "
           f"positions in [16, 64) of a {SERVE_MAX_LEN}-row cache [{card}]")
+    rms = [e for e in kernels if "rmsnorm_ms" in e.key]
+    rms_us = sum(dev(e) for e in rms) / steps
+    print(f"profile: rmsnorm {rms_us / 1e3:.4f} ms of device time a step in "
+          f"{sum(e.count for e in rms) // steps} launches, "
+          f"{100 * rms_us / total_us:.1f}% of the step's kernels [{card}]")
     for e in sorted(kernels, key=dev, reverse=True)[:12]:
         print(f"  {dev(e) / steps / 1e3:9.4f} ms/step "
               f"{100 * dev(e) / steps / total_us:5.1f}% "

@@ -17,7 +17,7 @@ exercising an emitter feature:
   * ``jacobi2d_gen``     — 5-point stencil
   * ``rowstat_gen``      — row max AND row sum in ONE sweep: two writes
     with *per-write combinators* (``reduce=("max", "sum")``); its kernel
-    is ``RowStat`` in ``csrc/reduction.cu`` (``kernel.py``).
+    is ``rowstat`` in ``csrc/reduction.cu`` (``kernel.py``).
   * ``transpose_gen``    — y = xᵀ via a *transposed store*: the write's
     access map is the (vector, stride) pair; its kernel is
     ``csrc/transpose.cu`` (``kernel.py``).

@@ -81,6 +81,54 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, dtype, t, d):
     torch.testing.assert_close(r, rr, rtol=RMS_TOL, atol=RMS_TOL)
 
 
+# one ulp of the output type, relative (a reassociated f32 row sum can
+# flip one rounding)
+RMS_OUT_RTOL = {torch.bfloat16: BF16_RTOL, torch.float16: 2.0 ** -10,
+                torch.float32: RMS_TOL}
+
+
+def _rms_matches_plain(dev, dtype, t, dm, d):
+    gen = torch.Generator(device=dev).manual_seed(t + dm + d)
+    x = torch.randn(t, dm, generator=gen, device=dev).to(dtype)
+    w = (1 + 0.1 * torch.randn(dm, generator=gen, device=dev)).to(dtype)
+    cfg = TConfig(d, 1)
+    n = rkernel.RMSNORM.launches
+    o, r = trops.rmsnorm(x, w, 1e-5, config=cfg, with_inv_rms=True)
+    assert rkernel.RMSNORM.launches == n + 1
+    ro, rr = trops.rmsnorm(x, w, 1e-5, config=cfg, mode="ref",
+                           with_inv_rms=True)
+    torch.testing.assert_close(o.float(), ro.float(),
+                               rtol=RMS_OUT_RTOL[dtype], atol=RMS_TOL)
+    torch.testing.assert_close(r, rr, rtol=RMS_TOL, atol=0.0)
+    o2, r2 = trops.rmsnorm(x, w, 1e-5, config=cfg, with_inv_rms=True)
+    assert torch.equal(r2, r) and torch.equal(o2, o)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("t", [1, 2, 4, 8, 96, 8192])
+@pytest.mark.parametrize("dm", [128, 1000, 4096, 8192])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+def test_rmsnorm_geometries_match_plain(cuda_device, dtype, t, dm, d):
+    """Every geometry of the kernel at rows that fit a block (1-8 vectors
+    of a row a thread, one item a block at few rows, runs of two at 8192
+    rows) against the plain version: o within one ulp, r within 1e-5;
+    both bit-equal from one run to the next."""
+    _rms_matches_plain(cuda_device, dtype, t, dm, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d", [(1, 1), (4, 4), (96, 4), (512, 2)])
+@pytest.mark.parametrize("dm", [12288, 16384, 32768, 65536])
+def test_rmsnorm_cluster_rows_match_plain(cuda_device, dtype, t, d, dm):
+    """Rows at and over one block's registers (32 KB): one block, and
+    clusters of 2, 4 and 8 blocks (the partial sums pushed to every rank,
+    added in rank order), as above."""
+    _rms_matches_plain(cuda_device, dtype, t, dm, d)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [1, 4, 16])
@@ -1192,13 +1240,55 @@ def test_rowstat_kernel_matches_plain(cuda_device, dtype, arr, d, p, m, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [1, 4])
-def test_rowstat_arrangements_give_the_same_bits(cuda_device, d):
-    gen = torch.Generator(device=cuda_device).manual_seed(d)
-    x = _rand(gen, (256, 2048), cuda_device, torch.float32)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [1, 4, 8])
+@pytest.mark.parametrize("m,n", [(256, 2048), (96, 1152), (4096, 4096)])
+def test_rowstat_arrangements_give_the_same_bits(cuda_device, dtype, d, m,
+                                                 n):
+    """Grouped and interleaved loads give the same bits in 16-bit types
+    as in f32, with one part a slot and with several (these shapes and
+    D values take 1, 2, 4 and 8 parts)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + m)
+    x = _rand(gen, (m, n), cuda_device, dtype)
     got = [tgen.rowstat_gen(x, config=TConfig(d, 2, arrangement=arr))
            for arr in ("grouped", "interleaved")]
     assert all(torch.equal(g, i) for g, i in zip(*got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d", [1, 4, 8])
+@pytest.mark.parametrize("n", [384, 1152])
+def test_rowstat_16bit_odd_subportions_nan_and_neg_inf(cuda_device, dtype,
+                                                       arr, d, n):
+    """16-bit rows of an odd count of sub-portions (the last one an
+    8-byte load of the last part): a NaN in the upper half of a lane's
+    16-byte unit and one in the odd last sub-portion propagate to the
+    max and the sum; a row of -inf gives -inf for both; every other row
+    agrees with the plain version (max equal, sum within the sum
+    limit)."""
+    m = 96
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+    x = _rand(gen, (m, n), cuda_device, dtype) - 3.0
+    x[5, 8 * 3 + 7] = float("nan")      # lane 3's first unit, element 7
+    x[17, n - 1] = float("nan")         # the odd last sub-portion
+    x[40] = float("-inf")
+    x[71, n - 2] = float("inf")
+    cfg = TConfig(d, 2, arrangement=arr)
+    before = genkernel.ROWSTAT.launches
+    mx, sm = tgen.rowstat_gen(x, config=cfg)
+    assert genkernel.ROWSTAT.launches == before + 1
+    rmx, rsm = tgen.rowstat_gen(x, config=cfg, mode="ref")
+    for got, ref in ((mx, rmx), (sm, rsm)):
+        assert torch.equal(got.isnan(), ref.isnan())
+        assert bool(got.isnan()[[5, 17]].all())
+    assert mx[40] == rmx[40] == float("-inf") == sm[40]
+    assert mx[71] == sm[71] == float("inf")
+    ok = ~rsm.isnan() & rsm.isfinite()
+    assert torch.equal(mx[~rmx.isnan()], rmx[~rmx.isnan()])
+    _assert_dot(sm[ok], rsm[ok], x.float().abs().sum(-1)[ok], n)
 
 
 @pytest.mark.gpu

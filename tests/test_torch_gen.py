@@ -27,6 +27,7 @@ from repro_torch import codegen as tcg
 from repro_torch.core.striding import StridingConfig as TConfig
 from repro_torch.kernels import cuda
 from repro_torch.kernels import gen as tgen
+from repro_torch.kernels.gen import kernel as genkernel
 from repro_torch.kernels.gemver import specs as tgspecs
 
 CONFIGS = [(label, cfg) for label, cfg in jregistry.base.CONFORMANCE_CONFIGS]
@@ -268,3 +269,53 @@ def test_mxv1_sum_returns_a_scalar_total():
     for g, w in zip(tout, jout):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.parametrize("nsub", [1, 2, 3, 8, 9, 32, 33, 128])
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+def test_rowstat_units_cover_each_subportion_once(nsub, parts):
+    """A lane's loads of one row, part by part: 16 bytes a unit (a
+    sub-portion in f32, a pair of adjacent ones in bf16 / f16), the
+    parts in order and each a contiguous run of units; a 16-bit row's
+    odd last sub-portion is one 8-byte load in the last part."""
+    for isz, per in ((4, 1), (2, 2)):
+        loads = genkernel.rowstat_units(nsub, isz, parts)
+        assert len(loads) == parts
+        flat = [ld for part in loads for ld in part]
+        subs = [q + i for q, b in flat for i in range(b * per // 16)]
+        assert subs == list(range(nsub))
+        assert all(b == 16 for _, b in flat[:-1])
+        assert flat[-1][1] == (8 if per == 2 and nsub % 2 else 16)
+        assert all(b == 16 for part in loads[:-1] for _, b in part)
+
+
+@pytest.mark.parametrize("rows,cols,d", [(4096, 4096, 4), (16384, 16384, 4),
+                                         (512, 1024, 1), (96, 384, 8),
+                                         (256, 2048, 4), (200, 1152, 2),
+                                         (8, 128, 8), (40, 256, 4)])
+@pytest.mark.parametrize("isz", [4, 2])
+@pytest.mark.parametrize("sms", [132, 7, 1])
+def test_rowstat_grid_is_one_wave_over_every_slot(rows, cols, d, isz, sms):
+    """``rowstat``'s grid: streams K the smallest power of two up to D
+    (at most 4); parts a slot a power of two up to the 8 warps of a
+    block, more than one only where the slots times the parts fit one
+    wave of two blocks an SM and each part keeps two steps (2 x 8 / K
+    units); each block walks a run of whole rounds (8 / parts slots)
+    and the runs cover every row slot once, within one wave; the parts'
+    units are the row's whole units, cut evenly."""
+    g = genkernel.rowstat_geometry(rows, cols, isz, d, sms)
+    seg = rows // d
+    assert g.streams in (1, 2, 4) and g.streams >= min(d, 4) > g.streams // 2
+    assert g.parts in (1, 2, 4, 8)
+    if g.parts > 1:
+        assert seg * g.parts <= genkernel.ROWSTAT_WARPS * 2 * sms
+        assert g.per_part >= 2 * 8 // g.streams
+    assert g.slots % (genkernel.ROWSTAT_WARPS // g.parts) == 0
+    assert g.blocks <= genkernel.ROWSTAT_BLOCKS_PER_SM * sms
+    assert (g.blocks - 1) * g.slots < seg <= g.blocks * g.slots
+    per = 2 if isz == 2 else 1
+    assert g.units == cols // 128 // per
+    assert g.per_part == -(-g.units // g.parts)
+    if (rows, cols, d, sms) == (4096, 4096, 4, 132):
+        # the registry's 4096^2: two parts a slot, 256 blocks of 4 slots
+        assert (g.streams, g.parts, g.slots, g.blocks) == (4, 2, 4, 256)

@@ -72,6 +72,116 @@ def test_rmsnorm_matches_jax(dtype, jmode, rows, d):
                                atol=RMS_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("jmode", ["interpret", "ref"])
+@pytest.mark.parametrize("rows,dm", [(1, 4096), (2, 4096), (4, 4096),
+                                     (8192, 256)])
+def test_rmsnorm_matches_jax_at_decode_and_train_rows(dtype, jmode, rows,
+                                                      dm):
+    """The serve path's decode rows (1, 2 and 4 of Yi-9B's 4096) and an
+    8192-row shape (the train step's row count), at D=4."""
+    rng = np.random.default_rng(rows + dm)
+    x = rng.standard_normal((rows, dm)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(dm)).astype(np.float32)
+    jx, jw = jnp.asarray(x, _jdtype(dtype)), jnp.asarray(w, _jdtype(dtype))
+    jo, jinv = jcg.run_spec(jrspecs.rmsnorm_spec, (jx, jw, 1e-5),
+                            JConfig(4, 1), jmode)
+    tx = torch.from_numpy(x).to(_tdtype(dtype))
+    tw = torch.from_numpy(w).to(_tdtype(dtype))
+    to, tinv = trops.rmsnorm(tx, tw, 1e-5, config=TConfig(4, 1),
+                             with_inv_rms=True)
+    assert to.shape == (rows, dm) and tinv.shape == (rows,)
+    np.testing.assert_allclose(tinv.numpy(), _f32(jinv), rtol=RMS_TOL,
+                               atol=RMS_TOL)
+    rtol = RMS_TOL if dtype == "float32" else BF16_RTOL
+    np.testing.assert_allclose(to.float().numpy(), _f32(jo), rtol=rtol,
+                               atol=RMS_TOL)
+
+
+def _rms_geometry_cases():
+    # (rows, dm, itemsize, d, sms): decode rows, the train rows, the
+    # gpu tests' widths, Mistral-Large's 12288 and rows long enough for
+    # clusters of 2-8 blocks, small and odd SM counts
+    cases = [(t, dm, isz, d, 132)
+             for t in (1, 2, 4, 8, 96, 8192)
+             for dm in (128, 1000, 4096, 8192, 12288, 32768)
+             for isz in (4, 2) for d in (1, 2, 4, 8)
+             if t % d == 0 and (dm * isz) % 16 == 0]
+    return cases + [(8192, 4096, 2, 4, 1), (64, 4096, 4, 4, 7),
+                    (16, 65536, 4, 1, 132)]
+
+
+@pytest.mark.parametrize("rows,dm,isz,d,sms", _rms_geometry_cases())
+def test_rmsnorm_geometry_covers_each_vector_and_row_once(rows, dm, isz, d,
+                                                          sms):
+    """``rmsnorm.cu``'s launch geometry: the cluster (a power of two, at
+    most 8) divides the grid and is the fewest blocks whose registers
+    (256 threads x 8 vectors) hold a row; its ranks' chunks and the
+    threads' vectors in them cover every 16-byte vector of a row once; a
+    thread holds 8 vectors an item (streams x vectors), the fewest of a
+    row that let 128 threads cover a chunk; the clusters' runs of items
+    (a slot's streams in groups) cover every row once, one item a run
+    where they fit two blocks an SM, else two."""
+    g = rkernel.geometry(rows, dm, isz, d, sms)
+    nvec, seg = dm * isz // 16, rows // d
+    assert g.nvec == nvec
+    assert g.cluster in (1, 2, 4, 8) and g.blocks % g.cluster == 0
+    assert g.cluster * rkernel.THREADS * rkernel.HOLD >= nvec
+    assert g.cluster == 1 or (g.cluster // 2) * 256 * 8 < nvec
+    assert g.streams * g.vectors == rkernel.HOLD
+    assert g.threads % 32 == 0 and 32 <= g.threads <= rkernel.THREADS
+    assert g.threads * g.vectors >= g.chunk
+    assert g.vectors in (1, 2, 4, 8)
+    assert g.vectors == 8 or g.vectors * 128 >= g.chunk
+    assert g.vectors == 1 or (g.vectors // 2) * 128 < g.chunk
+    seen = []
+    for rank in range(g.cluster):
+        v0, v1 = rank * g.chunk, min(nvec, (rank + 1) * g.chunk)
+        seen += [v0 + t + j * g.threads for t in range(g.threads)
+                 for j in range(g.vectors) if v0 + t + j * g.threads < v1]
+    assert sorted(seen) == list(range(nvec))
+    groups = -(-d // g.streams)
+    items = seg * groups
+    assert g.items == (1 if items <= 2 * sms else 2)
+    runs = [range(c * g.items, min(items, (c + 1) * g.items))
+            for c in range(g.blocks // g.cluster)]
+    assert min(len(run) for run in runs) >= 1
+    rows_seen = [i // groups + ((i % groups) * g.streams + k) * seg
+                 for run in runs for i in run for k in range(g.streams)
+                 if (i % groups) * g.streams + k < d]
+    assert sorted(rows_seen) == list(range(rows))
+
+
+def test_rmsnorm_geometry_at_the_serve_and_train_shapes():
+    """At the decode shape (4 rows of 4096 bf16, D=4) a thread holds 4
+    vectors of 2 rows, so the slot is two items on two blocks of 128
+    threads; the train rows (8192) run in pairs of items, 2048 blocks.
+    f32 rows of 4096 hold 8 vectors a thread and one row an item; a row
+    over one block's 32 KB of registers (f32 16384, Mistral-Large's
+    12288 in f32) goes to a cluster; a row over the 256 KB of a cluster
+    of 8 is refused."""
+    dec = rkernel.geometry(4, 4096, 2, 4, 132)
+    assert (dec.cluster, dec.blocks, dec.threads, dec.vectors, dec.streams,
+            dec.items) == (1, 2, 128, 4, 2, 1)
+    tr = rkernel.geometry(8192, 4096, 2, 4, 132)
+    assert (tr.cluster, tr.blocks, tr.threads, tr.items) == (1, 2048, 128, 2)
+    f32 = rkernel.geometry(8192, 4096, 4, 4, 132)
+    assert (f32.vectors, f32.streams, f32.threads) == (8, 1, 128)
+    assert rkernel.geometry(8192, 16384, 4, 4, 132).cluster == 2
+    mis = rkernel.geometry(4, 12288, 4, 4, 132)
+    assert (mis.cluster, mis.chunk, mis.threads, mis.blocks) == (2, 1536,
+                                                                 192, 8)
+    assert rkernel.geometry(4, 65536, 4, 4, 132).cluster == 8
+    # a sweep's choices: a larger cluster, longer runs
+    swept = rkernel.geometry(4, 4096, 2, 4, 132, cluster=4)
+    assert (swept.cluster, swept.chunk, swept.blocks) == (4, 128, 4)
+    assert rkernel.geometry(8192, 4096, 2, 4, 132, items=16).blocks == 256
+    with pytest.raises(ValueError, match="exceeds"):
+        rkernel.geometry(8, 70000, 4, 4, 132)
+    with pytest.raises(ValueError, match="16-byte"):
+        rkernel.geometry(8, 1001, 2, 4, 132)
+
+
 def test_rmsnorm_batch_dims_and_oracle():
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((2, 3, 64)).astype(np.float32))

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
-"""doitgen, the stream kernels (K1, the K2 read, the K4 ring) and the
-ring's adamw body of the PyTorch port, timed on one card for several
-checkouts in turn (an A/B of two commits, run as parent, change,
-change, parent).
+"""doitgen, the stream kernels (K1, the K2 read, the K4 ring), the
+ring's adamw body, rmsnorm, rowstat and mxv of the PyTorch port, timed
+on one card for several checkouts in turn (an A/B of two commits, run
+as parent, change, change, parent).
 
     python3 tools/torch_kernel_ab.py ROOT [ROOT ...] [--replays N]
 
 Each ROOT is a checkout of the repository (its ``src/repro_torch`` and
 ``csrc`` are built and run as they stand there).  For each ROOT, in its
-own process: build the doitgen and stream libraries, then time through
+own process: build the libraries it times, then time through
 the public ops, as ``chip_smoke.py`` times them (CUDA graphs of many
 calls over input copies that together exceed 3x the 50 MB L2, between
 CUDA events):
@@ -23,12 +23,18 @@ CUDA events):
   * ``adamw_update`` on the ring at lookahead 1, 3, 4 on Yi-9B's
     embedding [64000, 4096] f32 (timed eagerly: a graph would hold every
     call's 3 GB of outputs);
+  * rmsnorm at x [4, 4096] (a decode step's rows) and [8192, 4096] (a
+    train step's) in bf16, at the op's resolved config;
+  * rowstat (``rowstat_gen``, D=4, P=2) at 4096^2 and 16384^2 in f32
+    and bf16, and mxv (the row-dot that shares its library) at the same
+    sizes in f32;
 
 and beside each, in the first ROOT's process only, one PyTorch call
 that computes the same function: ``torch.matmul(A.view(-1, s), C4)``,
 ``x.clone()``, ``torch.add(b, c, alpha=1.5)``, ``torch.full``, ``x +
 z``, ``x.view(D, -1).sum(1, dtype=float32)``, ``part.sum(0)``,
-``torch._fused_adamw_``.  TF32 is off.
+``torch._fused_adamw_``, ``F.rms_norm``, ``(x.amax(1), x.sum(1))``,
+``torch.mv``.  TF32 is off.
 
 Prints one JSON line per ROOT (milliseconds), then the card's name and
 power limit.  Compare roots by the alternation, never across calls.
@@ -48,6 +54,10 @@ STREAM_DTYPES = ("float32", "bfloat16")
 RING_LOOKAHEADS = (1, 3, 4)
 GEMVER_SUM_N = 4 * 2 ** 20
 EMBED = (64000, 4096)
+RMSNORM_ROWS = (4, 8192)
+RMSNORM_DM = 4096
+ROWSTAT = [(4096, "float32"), (4096, "bfloat16"), (16384, "float32"),
+           (16384, "bfloat16")]
 
 
 def one(root: str, replays: int, with_library: bool) -> dict:
@@ -70,7 +80,13 @@ def one(root: str, replays: int, with_library: bool) -> dict:
     from repro_torch.kernels.stream import specs as ss
     from repro_torch.kernels.stream.ops import _DEFAULT
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda.build(["doitgen", "stream", "manual_ring", "gemver", "adamw"])
+    import torch.nn.functional as F
+    from repro_torch.core.striding import StridingConfig
+    from repro_torch.kernels.gen import rowstat_gen
+    from repro_torch.kernels.mxv import mxv
+    from repro_torch.kernels.rmsnorm import ops as rops
+    cuda.build(["doitgen", "stream", "manual_ring", "gemver", "adamw",
+                "rmsnorm", "reduction"])
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dt):
@@ -156,6 +172,40 @@ def one(root: str, replays: int, with_library: bool) -> dict:
             out[f"read merge {dt_name} part.sum(0)"] = device_ms(
                 lambda p: p.sum(0), psets, replays=replays)
         del s1, s2, vsets, r1, psets
+        torch.cuda.empty_cache()
+    # rmsnorm (bf16), rowstat and the row-dot that shares its library
+    dm = RMSNORM_DM
+    for t in RMSNORM_ROWS:
+        rsets = copies(lambda: (rand((t, dm), torch.bfloat16),
+                                (1 + 0.1 * rand((dm,), torch.float32))
+                                .to(torch.bfloat16)), t * dm * 2)
+        key = f"rmsnorm bfloat16 [{t}, {dm}]"
+        out[key] = device_ms(lambda x, w: rops.rmsnorm(x, w, 1e-5), rsets,
+                             replays=replays)
+        if with_library:
+            out[f"{key} F.rms_norm"] = device_ms(
+                lambda x, w: F.rms_norm(x, (dm,), w, 1e-5), rsets,
+                replays=replays)
+        del rsets
+    cfg42 = StridingConfig(4, 2)
+    for n, dt_name in ROWSTAT:
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        xsets = copies(lambda: (rand((n, n), dt),), n * n * isz)
+        key = f"rowstat {dt_name} [{n}, {n}]"
+        out[key] = device_ms(lambda x: rowstat_gen(x, config=cfg42), xsets,
+                             replays=replays)
+        if with_library:
+            out[f"{key} x.amax(1), x.sum(1)"] = device_ms(
+                lambda x: (x.amax(1), x.sum(1)), xsets, replays=replays)
+        if dt == torch.float32:
+            v = rand((n,), dt)
+            out[f"mxv {dt_name} [{n}, {n}]"] = device_ms(
+                lambda a: mxv(a, v, config=cfg42), xsets, replays=replays)
+            if with_library:
+                out[f"mxv {dt_name} [{n}, {n}] torch.mv"] = device_ms(
+                    lambda a: torch.mv(a, v), xsets, replays=replays)
+        del xsets
         torch.cuda.empty_cache()
     # adamw on the ring, Yi-9B's embedding, f32
     p, g, m = (rand(EMBED, torch.float32) for _ in range(3))
