@@ -10,13 +10,17 @@ Phases (each raises on failure, so the script exits non-zero):
   1. device   — require CUDA; print the card, its count and its power limit
   2. build    — compile every CUDA source (one nvcc each, all at once) and
                 print the -Xptxas -v register / shared-memory / spill lines,
-                and one line of every doitgen, stream, rmsnorm and
-                reduction instance's registers and spill bytes (an
-                rmsnorm or rowstat instance that spills fails the run)
+                and one line of every doitgen, stream, rmsnorm, reduction,
+                stream_reduction and decode_attn instance's registers and
+                spill bytes (an rmsnorm, rowstat, column-dot or K1 stream
+                instance that spills fails the run)
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 the main path's shapes: rmsnorm at the decode rows (1, 4)
-                and the train rows (8192) of 4096, and 4 f32 rows of
-                12288 (a cluster), with each launch's geometry, a
+                and the train rows (8192) of 4096, 4 f32 rows of 12288 (a
+                cluster), and rows that are not whole 16-byte vectors
+                ([8, 1001], [3, 4098] in f32 and bf16: the narrower-lane
+                instances, with a lost-element control), with each
+                launch's geometry, a
                 lost-chunk or lost-stream control and a sweep of the
                 geometry's choices; max error vs the stated tolerance,
                 and device times (CUDA graphs of many launches, timed with
@@ -25,16 +29,25 @@ Phases (each raises on failure, so the script exits non-zero):
                 serve shape (B=4, S=4096) and the profile's (kv_len 17-64):
                 launch counts, both passes against SDPA and the bound over the rows kv_len leaves, a D sweep; a
                 batch row with no valid position and a mask with holes;
-                two runs' bits; chatglm3-6b's g=16
+                two runs' bits; chatglm3-6b's g=16; Phi-2's dh=80 and
+                Phi-3-mini's dh=96 at kv_len 17-64 and uniform (B=4,
+                S=4096) against the plain version, SDPA and the bound
   3b. linalg — mxv, mxv_t, bicg, gemver at 16384^2 and 4096^2 f32 through
                 their public functions, each kernel against its plain
-                version with lost-stream controls, and timed
+                version with lost-stream controls, and timed; the
+                column-dot's launch geometry (cluster, blocks, clusters
+                resident, waves) in f32 and bf16 and its cluster sweep at
+                4096^2,
+                mxv_t in bf16 against its plain fold with a lost-chunk
+                control
   3c. stream  — read, copy, init, triad at 8192 x 4096 in f32 and bf16
                 (K1, K2), the K4 ring at lookahead 1, 3, 4 (copy, triad,
                 fill) and gemver_sum's ring at lookahead 1, 3; each kernel
                 against its plain version (equality, or the f32 sum limit
                 for the read) with lost-stream and lost-step controls,
-                timed, each ring's launch geometry (tile, boxes a step,
+                timed, each K1 launch's geometry (blocks, blocks an SM,
+                waves, registers), each ring's launch
+                geometry (tile, boxes a step,
                 bytes a box, shared memory, blocks an SM, waves), the D
                 and lookahead sweeps of the paper's Fig. 2, and sweeps
                 over the ring's step rows and tile and the read's chunks
@@ -197,17 +210,32 @@ def phase_build(card: str) -> float:
     print(f"build: {len(reports)} libraries in {secs:.1f} s "
           f"(nvcc, sm_90a) [{card}]")
     inst = {}
-    for stem in ("doitgen", "stream", "rmsnorm", "reduction"):
+    for stem in ("doitgen", "stream", "rmsnorm", "reduction",
+                 "stream_reduction", "decode_attn"):
         inst.update(ptxas_instances(reports.get(stem, "")))
-    print(f"ptxas doitgen, stream, rmsnorm and reduction instances, "
-          f"[registers, spill store bytes, spill load bytes]: "
-          f"{json.dumps(inst)} [{card}]")
+    PTXAS.update(inst)
+    print(f"ptxas doitgen, stream, rmsnorm, reduction, stream_reduction and "
+          f"decode_attn instances, [registers, spill store bytes, spill "
+          f"load bytes]: {json.dumps(inst)} [{card}]")
     spills = {n: v for n, v in inst.items()
-              if ("rmsnorm" in n or "rowstat" in n) and any(v[1:])}
+              if any(w in n for w in ("rmsnorm", "rowstat", "coldot",
+                                      "stream_copy", "stream_triad",
+                                      "stream_init")) and any(v[1:])}
     if spills:
-        raise AssertionError(f"build: rmsnorm / rowstat instances spill: "
-                             f"{spills}")
+        raise AssertionError(f"build: rmsnorm / rowstat / column-dot / K1 "
+                             f"stream instances spill: {spills}")
     return secs
+
+
+# {kernel instance: [registers, spill store bytes, spill load bytes]} of
+# the build (ptxas_instances), for the geometry lines
+PTXAS: dict = {}
+
+
+def _regs(prefix: str):
+    """The ptxas entry of the first instance whose name starts with
+    ``prefix`` (None where the build printed none)."""
+    return next((v for n, v in PTXAS.items() if n.startswith(prefix)), None)
 
 
 def ptxas_instances(report: str) -> dict:
@@ -240,11 +268,15 @@ def ptxas_instances(report: str) -> dict:
 
 
 # (rows, width, dtype): the serve path's decode rows and the train
-# step's rows of Yi-9B's 4096, and a Mistral-Large-wide f32 row (12288:
-# 48 KB, over one block's registers, so a cluster of two)
+# step's rows of Yi-9B's 4096, a Mistral-Large-wide f32 row (12288:
+# 48 KB, over one block's registers, so a cluster of two), and rows
+# that are not whole 16-byte vectors (1001: 2-byte vectors in bf16,
+# 4-byte in f32; 4098: 4- and 8-byte vectors over a cluster of two)
 RMSNORM_CASES = ((1, 4096, "bfloat16"), (SERVE_SLOTS, 4096, "bfloat16"),
                  (8192, 4096, "bfloat16"), (8192, 4096, "float32"),
-                 (SERVE_SLOTS, 12288, "float32"))
+                 (SERVE_SLOTS, 12288, "float32"), (8, 1001, "bfloat16"),
+                 (8, 1001, "float32"), (3, 4098, "bfloat16"),
+                 (3, 4098, "float32"))
 RMSNORM_SWEEP_CLUSTERS = (1, 2, 4, 8)     # at the decode rows
 RMSNORM_SWEEP_ITEMS = (1, 2, 4, 16)       # items a block at 8192 rows
 
@@ -292,11 +324,17 @@ def check_rmsnorm(card: str, results: dict) -> None:
         torch.cuda.synchronize()
         lost, what = _rms_control(x, bp, g)
         lo, lr = rops.rmsnorm(lost, w, eps, mode="ref", with_inv_rms=True)
+        ctl_o, ctl_r = {what: lo}, {what: lr}
+        if g.vector_bytes < 16:         # narrow lanes: one element lost,
+            one = x.clone()             # row 1's largest (it moves r too)
+            row = min(1, t - 1)
+            one[row, int(x[row].float().abs().argmax())] = 0
+            eo, er = rops.rmsnorm(one, w, eps, mode="ref", with_inv_rms=True)
+            ctl_o["lost element"], ctl_r["lost element"] = eo, er
         err_o, line_o = _hold(f"rmsnorm t={t} dm={dm} {dt_name} o", o, o_ref,
-                              rtol_o * o_ref.float().abs() + 1e-6,
-                              {what: lo})
+                              rtol_o * o_ref.float().abs() + 1e-6, ctl_o)
         err_r, line_r = _hold(f"rmsnorm t={t} dm={dm} {dt_name} r", r, r_ref,
-                              rtol_r * r_ref.abs(), {what: lr})
+                              rtol_r * r_ref.abs(), ctl_r)
         err_t = max(err_o, err_r)
         isz = x.element_size()
         sets = _copies(make, t * dm * isz)
@@ -343,7 +381,7 @@ def _rms_control(x, bp, g):
     a cluster rank's columns (rank 1) where the launch has a cluster,
     else stream 1's rows, else (one stream) the vectors thread 1 holds."""
     lost = x.clone()
-    per = 16 // x.element_size()
+    per = g.vector_bytes // x.element_size()
     if g.cluster > 1:
         lost[:, g.chunk * per:2 * g.chunk * per] = 0
         return lost, "lost chunk"
@@ -365,7 +403,8 @@ def _rms_geometry_line(what, bp, g, dtype, sms, card) -> str:
     waves = -(-g.blocks // (per_sm * sms))
     return (f"rmsnorm {what} launch: D={bp.d}, cluster {g.cluster}, "
             f"{g.blocks} blocks of {g.threads} threads ({g.chunk} of a row's "
-            f"{g.nvec} 16-byte vectors a block, {g.vectors} a thread, "
+            f"{g.nvec} {g.vector_bytes}-byte vectors a block, {g.vectors} "
+            f"a thread, "
             f"{g.streams} rows an item, {g.items} items a block), {per_sm} "
             f"blocks an SM, {waves} wave{'s' if waves > 1 else ''} [{card}]")
 
@@ -374,6 +413,8 @@ DECODE_SHAPES = ((8, 32768, "uniform"), (SERVE_SLOTS, SERVE_MAX_LEN,
                                           "uniform"),
                  (SERVE_SLOTS, SERVE_MAX_LEN, "profile"))
 DECODE_D_SWEEP = (1, 2, 4, 8)
+# (model, Hkv, Hq, dh): head dims of public models other than 2^k x 16
+DECODE_HEAD_DIMS = (("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96))
 
 
 def check_decode(card: str, results: dict) -> None:
@@ -594,11 +635,74 @@ def check_decode(card: str, results: dict) -> None:
     del sets, inputs
     torch.cuda.empty_cache()
 
+    # head dims that are not 16, 32, 64 or 128: Phi-2's 80 and
+    # Phi-3-mini's 96 (32 query and 32 KV heads each), at the profile
+    # phase's kv_len 17-64 and kv_len uniform on [1, S], B=4, S=4096
+    for model, hkv_d, hq_d, dh_d in DECODE_HEAD_DIMS:
+        build_d = dspecs.decode_spec(hkv_d, dh_d, masked=True)
+        for kind in ("profile", "uniform"):
+            lo, hi = (17, 65) if kind == "profile" else (1, s + 1)
+            kv_len = torch.as_tensor(rng.integers(lo, hi, b), device="cuda")
+            mask = dops.validity_mask(kv_len, b, s, "cuda")
+
+            def make_d(mask=mask, hkv_d=hkv_d, hq_d=hq_d, dh_d=dh_d):
+                k = torch.randn(b, s, hkv_d, dh_d, generator=gen,
+                                device="cuda")
+                v = torch.randn(b, s, hkv_d, dh_d, generator=gen,
+                                device="cuda")
+                q = torch.randn(b, hq_d, dh_d, generator=gen, device="cuda")
+                return (*dops._flatten(q.bfloat16(), k.bfloat16(),
+                                       v.bfloat16()), mask)
+            inputs = make_d()
+            for k in cuda.KERNELS.values():
+                k.launches = 0
+            got = run_spec(build_d, inputs, cfg)        # the main path
+            torch.cuda.synchronize()
+            counts = {n: cuda.KERNELS[n].launches
+                      for n in ("decode_attn", "decode_attn_merge")}
+            if counts != {"decode_attn": 1, "decode_attn_merge": 1}:
+                raise AssertionError(f"decode_attn dh={dh_d}: launches "
+                                     f"{counts}")
+            ref = run_spec(build_d, inputs, cfg, mode="ref")
+            err_t = hold(f"decode_attn dh={dh_d} {kind}", got, ref)
+            sets = _copies(make_d, 2 * b * s * hkv_d * dh_d * 2)
+            ms = device_ms(lambda *a: run_spec(build_d, a, cfg), sets)
+            plain = device_ms(lambda *a: run_spec(build_d, a, cfg,
+                                                  mode="ref"), sets)
+
+            def sdpa_d(q_, k_, v_, m_):
+                return F.scaled_dot_product_attention(
+                    q_, k_, v_, attn_mask=m_, enable_gqa=True)
+            lib_sets = [(qf.reshape(b, hq_d, 1, dh_d),
+                         kf.reshape(b, s, hkv_d, dh_d).transpose(1, 2)
+                         .contiguous(),
+                         vf.reshape(b, s, hkv_d, dh_d).transpose(1, 2)
+                         .contiguous(),
+                         (m > 0.5)[:, None, None, :].contiguous())
+                        for kf, vf, qf, m in sets]
+            lib = device_ms(sdpa_d, lib_sets)
+            del lib_sets
+            rows = int(kv_len.sum())
+            nbytes = (2 * rows * hkv_d * dh_d * 2 + b * hq_d * dh_d * 2
+                      + b * s * 4 + b * hq_d * dh_d * 4 + b * hq_d * 4)
+            bms, by = bound_ms(nbytes, 4.0 * rows * hq_d * dh_d, "bfloat16")
+            print(f"decode_attn dh={dh_d} ({model}) B={b} S={s} Hkv={hkv_d} "
+                  f"Hq={hq_d} bf16 kv_len {kind} [{lo}, {hi - 1}] "
+                  f"D={cfg.stride_unroll}, sum(kv_len)={rows}: "
+                  f"max_abs_err={err_t:g} (tolerance as above) "
+                  f"ms={ms:.5f} (both passes) plain_ms={plain:.5f} "
+                  f"bound_ms={bms:.6f} ({by}) library_ms={lib:.5f} (SDPA, "
+                  f"enable_gqa) {ms / bms:.2f}x bound, {ms / lib:.2f}x SDPA; "
+                  f"launches {json.dumps(counts)} [{card}]")
+            del sets, inputs, got, ref
+            torch.cuda.empty_cache()
+
 
 GAMMA = 2.0 ** -24              # f32 unit roundoff
 LAMBDA = 8.0                    # confidence of the probabilistic dot limit
 LINALG_SIZES = (16384, 4096)    # square f32 matrices: 1 GiB, 64 MiB
 GEMVER_SUM_N = 4 * 2 ** 20      # the registry's bench size of gemver_sum
+COLDOT_CLUSTERS = (1, 2, 4, 8)    # the column-dot's cluster sweep
 ALPHA, BETA = 1.5, 1.2
 
 
@@ -685,7 +789,8 @@ def phase_linalg(card: str, results: dict) -> None:
     from repro_torch.kernels.mxv import specs as mspecs
     from repro_torch.kernels.mxv.ops import _DEFAULT as MXV_DEFAULT
     t_phase = time.perf_counter()
-    names = ("mxv", "mxv_t", "mxv_t_merge", "gemver_outer", "gemver_sum")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    names = ("mxv", "mxv_t", "gemver_outer", "gemver_sum")
     launches = dict.fromkeys(names, 0)
     print(f"linalg: tolerances: dot products (mxv, mxv_t, bicg, gemver's "
           f"x and w) |d| <= 2 c 2^-24 sum|a x| + 2^-23 |ref| with c = "
@@ -693,8 +798,10 @@ def phase_linalg(card: str, results: dict) -> None:
           f"sum|a x| of the exact one: worst case c = n, and c = "
           f"{LAMBDA:g} sqrt n but with probability 2 n exp(-{LAMBDA:g}^2/2) "
           f"for independent mean-zero roundings, Higham and Mary 2019; plus "
-          f"one output rounding each); merge |d| <= P 2^-24 sum|partials| "
-          f"over its P partial rows; gemver_outer, gemver_sum |d| <= 2^-24 "
+          f"one output rounding each; in bf16 a rank's c over its rows "
+          f"against the plain fold in the kernel's rank order, plus 2^-8 "
+          f"|ref| for the output's rounding); gemver_outer, gemver_sum "
+          f"|d| <= 2^-24 "
           f"|ref| (the kernels round each operation as the body does). "
           f"Controls, the plain version with stream k=1's segment dropped "
           f"and (dot products) with one bm-row tile of it dropped, must land "
@@ -714,8 +821,7 @@ def phase_linalg(card: str, results: dict) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = {name: cuda.KERNELS[name].launches for name in names}
-        want = {"mxv": 3, "mxv_t": 3, "mxv_t_merge": 3, "gemver_outer": 1,
-                "gemver_sum": 1}
+        want = {"mxv": 3, "mxv_t": 3, "gemver_outer": 1, "gemver_sum": 1}
         if counts != want:
             raise AssertionError(f"linalg n={n}: launches {counts}, "
                                  f"expected {want}")
@@ -776,7 +882,7 @@ def phase_linalg(card: str, results: dict) -> None:
                           / limit.clamp_min(1e-30)).max())
 
         def measure(name, fn, plain, library, make, nbytes, flops,
-                    got, want_t, limit, controls, shape, cap=8):
+                    got, want_t, limit, controls, shape, cap=8, entry=True):
             err = float((got.float() - want_t.float()).abs().max())
             if _excess(got, want_t, limit) > 0:
                 raise AssertionError(f"{name} n={n}: max |d|={err:g} over "
@@ -799,7 +905,7 @@ def phase_linalg(card: str, results: dict) -> None:
                   f" bound_ms={bms:.6f} ({by}) library_ms="
                   + ("none" if lib_ms is None else f"{lib_ms:.5f}")
                   + f" ({len(sets)} input sets) [{card}]")
-            if n == LINALG_SIZES[0]:
+            if n == LINALG_SIZES[0] and entry:
                 results[name] = dict(
                     name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], ms=ms, plain_ms=plain_ms,
@@ -830,24 +936,67 @@ def phase_linalg(card: str, results: dict) -> None:
                 _dot_limit(y.abs() @ aa, yt_p, n),
                 {"lost segment": mxv_t(a, drop_rows(y, seg, seg), mode="ref"),
                  "lost tile": mxv_t(a, drop_rows(y, seg, bp.bm), mode="ref")},
-                f"A {f32}, D={bp.d}, both passes")
-        part = mk.split(spec_t, bp, [a, y])
-        chunks = part.shape[0] // bp.d
-        m_k, m_p = mk.merge(part, torch.float32), mk.merge_plain(
-            part, torch.float32)
-        lost = part.clone().reshape(bp.d, chunks, n)
-        lost[1] = 0
-        measure("mxv_t_merge", lambda pt: mk.merge(pt, torch.float32),
-                lambda pt: mk.merge_plain(pt, torch.float32),
-                lambda pt: pt.sum(0),
-                lambda: (part.clone(),), part.numel() * 4 + n * 4,
-                float(part.numel()), m_k, m_p,
-                part.shape[0] * GAMMA * part.abs().sum(0),
-                {"lost segment": mk.merge_plain(lost.reshape(part.shape),
-                                                torch.float32)},
-                f"partials [{part.shape[0]}, {n}] f32 (D={bp.d} x "
-                f"{chunks} row chunks)", cap=1024)
-        del part, lost, y_k, y_p, yt_k, yt_p, m_k, m_p
+                f"A {f32}, D={bp.d}, one launch (a cluster of "
+                f"{mk.launch_geometry(bp, a).cluster} a column block)")
+        # the column-dot's launch geometry and its cluster sweep, f32 and
+        # bf16; bf16 against the plain fold in the kernel's rank order
+        for dt in (torch.float32, torch.bfloat16):
+            dname = "f32" if dt == torch.float32 else "bf16"
+            ab, yb = a.to(dt), y.to(dt)
+            spec_d = mspecs.mxv_t_spec(ab, yb)
+            g = mk.launch_geometry(bp, ab)
+            print(f"mxv_t A [{n}, {n}] {dname} launch: D={bp.d}, "
+                  f"{g.ncb} column blocks of 128, cluster {g.cluster} "
+                  f"({mk.clusters(dt, bp.d, g.cluster)} clusters "
+                  f"resident), {g.blocks} blocks of {mk.THREADS} threads "
+                  f"({g.column_threads} "
+                  f"column threads x {g.row_groups} row groups), a step "
+                  f"{g.streams} streams x {g.slots} slots, {g.rows_a_rank} "
+                  f"rows of each segment a rank, {g.waves} wave"
+                  f"{'s' if g.waves > 1 else ''} [{card}]")
+            # the sweep at 4096^2 only (at 16384^2 the geometry's
+            # cluster of 2 already fills the card; the A/B tool times it)
+            if n < 8192:
+                sets_d = _copies(
+                    lambda: (torch.randn(n, n, generator=gen, device="cuda")
+                             .to(dt), vec().to(dt)),
+                    n * n * ab.element_size())
+                for cs in COLDOT_CLUSTERS:
+                    gs = mk.launch_geometry(bp, ab, cs)
+                    t = device_ms(lambda a_, y_, _cs=cs: mk.coldot(
+                        mspecs.mxv_t_spec(a_, y_), bp, [a_, y_],
+                        cluster=_cs), sets_d)
+                    print(f"mxv_t sweep A [{n}, {n}] {dname} D={bp.d}: "
+                          f"cluster {cs}{'*' if cs == g.cluster else ''} "
+                          f"({gs.blocks} blocks, "
+                          f"{mk.clusters(dt, bp.d, cs)} clusters "
+                          f"resident): ms={t:.5f} [{card}]")
+                del sets_d
+            if dt == torch.bfloat16:
+                part = mk.split_plain(spec_d, bp, [ab, yb], g)
+                yk = mxv_t(ab, yb)
+                ref_b = mk.merge_plain(part, torch.float32)
+                terms = yb.float().abs() @ ab.float().abs()
+                limit = (2 * _dot_factor(g.rows_a_rank * bp.d) * GAMMA * terms
+                         + 2.0 ** -8 * ref_b.abs() + 2 * GAMMA * ref_b.abs())
+                lost_k = part.clone()
+                lost_k[1] = 0
+                measure("mxv_t", lambda a_, y_: mxv_t(a_, y_),
+                        lambda a_, y_: mxv_t(a_, y_, mode="ref"),
+                        lambda a_, y_: torch.mv(a_.t(), y_),
+                        (lambda: (torch.randn(n, n, generator=gen,
+                                              device="cuda").to(dt),
+                                  vec().to(dt))) if n < 8192
+                        else (lambda: (ab, yb)), n * n * 2 + 2 * n * 2,
+                        2.0 * n * n, yk, ref_b, limit,
+                        {"lost chunk": mk.merge_plain(lost_k,
+                                                      torch.float32)},
+                        f"A [{n}, {n}] bf16, D={bp.d}, one launch (cluster "
+                        f"{g.cluster}), vs the plain fold in rank order",
+                        entry=False)
+                del part, yk, ref_b, terms, limit, lost_k
+            del ab, yb
+        del y_k, y_p, yt_k, yt_p
         o_k = gemver_outer(a, u1, v1, u2, v2)
         o_p = gemver_outer(a, u1, v1, u2, v2, mode="ref")
         measure("gemver_outer",
@@ -892,9 +1041,9 @@ SOURCES = {
     "mxv": ("src/repro_torch/csrc/reduction.cu",
             "src/repro/codegen/emit.py:491"),
     "mxv_t": ("src/repro_torch/csrc/stream_reduction.cu",
-              "src/repro/codegen/emit.py:564"),
-    "mxv_t_merge": ("src/repro_torch/csrc/stream_reduction.cu",
-                    "src/repro/codegen/emit.py:564"),
+              "src/repro/codegen/emit.py:564 (its merge of the D streams' "
+              "partial rows folded into the same launch: a cluster's "
+              "distributed shared memory)"),
     "gemver_outer": ("src/repro_torch/csrc/gemver.cu",
                      "src/repro/codegen/emit.py:410"),
     "gemver_sum": ("src/repro_torch/csrc/gemver.cu",
@@ -1008,6 +1157,21 @@ def phase_stream(card: str, results: dict) -> None:
           f"lookahead {list(STREAM_LOOKAHEADS)}; gemver_sum at lookahead "
           f"{list(GEMVER_SUM_LOOKAHEADS)}, vn={vn}) {wall:.3f} s host wall, "
           f"launches {json.dumps(counts)} [{card}]")
+    # each K1 launch's geometry: blocks, blocks an SM, waves, registers
+    bp_k1 = plan_blocks(ss.copy_spec(inputs["float32"]["x"]), _DEFAULT)
+    g = sk.k1_geometry(bp_k1)
+    for dt_name in STREAM_DTYPES:
+        dt = getattr(torch, dt_name)
+        for name in ("stream_copy", "stream_triad", "stream_init"):
+            per_sm = sk.k1_occupancy(name, dt, g.threads)
+            inst = (f"{name}<float>" if dt == torch.float32
+                    else f"{name}<__nv_bfloat16>")
+            print(f"{name} {dt_name} launch: D={d}, bm={bp_k1.bm}, "
+                  f"{g.blocks} blocks of {g.threads} threads, {g.streams} "
+                  f"streams of a step in registers ({g.groups} group"
+                  f"{'s' if g.groups > 1 else ''}), {per_sm} blocks an SM, "
+                  f"{g.blocks / (per_sm * sms):.2f} waves; ptxas {inst} "
+                  f"[registers, spill bytes]: {_regs(inst)} [{card}]")
 
     def lost(t, first_row, n_rows, col0=0, ncols=None):
         """The plain output with rows first_row ... first_row+n_rows-1 (of
@@ -1996,13 +2160,11 @@ REGISTRY_SOURCES = {
     "gemver_mxv2": ("src/repro_torch/csrc/reduction.cu",
                     "src/repro/codegen/emit.py:491"),
     "gemver_mxv1": ("src/repro_torch/csrc/stream_reduction.cu",
-                    "src/repro/codegen/emit.py:564"),
-    "gemver_mxv1_merge": ("src/repro_torch/csrc/stream_reduction.cu",
-                          "src/repro/codegen/emit.py:564"),
+                    "src/repro/codegen/emit.py:564 (its merge folded into "
+                    "the same launch)"),
     "gemver_mxv1_sum": ("src/repro_torch/csrc/stream_reduction.cu",
-                        "src/repro/codegen/emit.py:564"),
-    "gemver_mxv1_sum_merge": ("src/repro_torch/csrc/stream_reduction.cu",
-                              "src/repro/codegen/emit.py:564"),
+                        "src/repro/codegen/emit.py:564 (its merge and "
+                        "total folded into the same launch)"),
 }
 
 
@@ -2118,13 +2280,10 @@ def phase_registry(card: str, results: dict) -> None:
 def _registry_instances(card, results, n, dtype, cfg):
     """The five instances at [n, n] in ``dtype`` (see phase_registry)."""
     import torch
-    from repro_torch.codegen import plan_blocks
-    from repro_torch.kernels.gemver import specs as gspecs
     from repro_torch.kernels.gen import kernel as genk
     from repro_torch.kernels.gen import (gemver_mxv1_gen, gemver_mxv1_sum_gen,
                                          gemver_mxv2_gen, rowstat_gen,
                                          transpose_gen)
-    from repro_torch.kernels.mxv import kernel as mk
     gen = torch.Generator(device="cuda").manual_seed(16 + n)
     f32 = dtype == torch.float32
     tname = "f32" if f32 else "bf16"
@@ -2231,28 +2390,8 @@ def _registry_instances(card, results, n, dtype, cfg):
           lambda a_, y_, x_: x_ + BETA * torch.mv(a_.t(), y_),
           lambda: (mat(), vec(), vec()) if n < 8192 else (a, y, x),
           n * n * 4 + 4 * n * 4, 2.0 * n * n, err, line,
-          f"A {shape}, D={cfg.stride_unroll}, both passes")
-    # its merge alone, on its partial rows
-    spec = gspecs.gemver_mxv1_spec(a, y, BETA)
-    bp = plan_blocks(spec, cfg)
-    part = mk.split(spec, bp, [a, y], [BETA])
-    m_k = mk.merge(part, torch.float32, "gemver_mxv1")
-    m_p = mk.merge_plain(part, torch.float32)
-    chunks = part.shape[0] // bp.d
-    lost = part.clone().reshape(bp.d, chunks, n)
-    lost[1] = 0
-    err, line = _hold(f"gemver_mxv1_merge n={n}", m_k, m_p,
-                      part.shape[0] * GAMMA * part.abs().sum(0),
-                      {"lost stream": mk.merge_plain(
-                          lost.reshape(part.shape), torch.float32)})
-    timed("gemver_mxv1_merge",
-          lambda pt: mk.merge(pt, torch.float32, "gemver_mxv1"),
-          lambda pt: mk.merge_plain(pt, torch.float32),
-          lambda pt: pt.sum(0), lambda: (part.clone(),),
-          part.numel() * 4 + n * 4, float(part.numel()), err, line,
-          f"partials [{part.shape[0]}, {n}] f32 (D={bp.d} x {chunks} row "
-          f"chunks)")
-    del x1_k, x1_p, part, lost, m_k, m_p
+          f"A {shape}, D={cfg.stride_unroll}, one launch")
+    del x1_k, x1_p
     # gemver_mxv1_sum: (x + s + z, total), full width, on A and y of
     # 1 + N(0, 1) entries (PolyBench fills gemver with positive values):
     # with zero-mean entries the total cancels to a random size, and a
@@ -2293,36 +2432,9 @@ def _registry_instances(card, results, n, dtype, cfg):
                    else (a, y, x, z)),
           n * n * 4 + 4 * n * 4 + 4, 2.0 * n * n, max(err_o, err_t),
           f"x' {line_o}; total {line_t} (bits repeat)",
-          f"A {shape}, D={cfg.stride_unroll}, full width, both passes; "
+          f"A {shape}, D={cfg.stride_unroll}, full width, one launch; "
           f"checked on A, y of 1 + N(0, 1)")
-    spec = gspecs.gemver_mxv1_sum_spec(a, y, BETA)
-    bp = plan_blocks(spec, cfg)
-    part = mk.split(spec, bp, [a, y], [BETA])
-    r_k, s_k = mk.merge_total(part)
-    r_p = mk.merge_plain(part, torch.float32)
-    s_p = r_p.sum().reshape(1)
-    chunks = part.shape[0] // bp.d
-    lost = part.clone().reshape(bp.d, chunks, n)
-    lost[1] = 0
-    lost_row = mk.merge_plain(lost.reshape(part.shape), torch.float32)
-    m_lim = part.shape[0] * GAMMA * part.abs().sum(0)
-    err_r, line_r = _hold(f"gemver_mxv1_sum_merge n={n}", r_k, r_p, m_lim,
-                          {"lost stream": lost_row})
-    err_s, line_s = _hold(f"gemver_mxv1_sum_merge total n={n}", s_k, s_p,
-                          _total_limit(part.abs().sum(0), 2 * part.shape[0],
-                                       r_p.abs().sum(), n,
-                                       s_p).reshape(1),
-                          {"lost stream": lost_row.sum().reshape(1)})
-    timed("gemver_mxv1_sum_merge", lambda pt: mk.merge_total(pt),
-          lambda pt: (lambda r: (r, r.sum().reshape(1)))(
-              mk.merge_plain(pt, torch.float32)),
-          lambda pt: (lambda r: (r, r.sum()))(pt.sum(0)),
-          lambda: (part.clone(),), part.numel() * 4 + n * 4 + 4,
-          float(part.numel() + n), max(err_r, err_s),
-          f"row {line_r}; total {line_s}",
-          f"partials [{part.shape[0]}, {n}] f32 (D={bp.d} x {chunks} row "
-          f"chunks), row and total")
-    del a, aa, x, y, z, col, o_k, o_p, t_k, t_p, lo_p, lt_p, part, lost
+    del a, aa, x, y, z, col, o_k, o_p, t_k, t_p, lo_p, lt_p
 
 
 def phase_train(card: str) -> dict:

@@ -81,7 +81,12 @@ struct Cfg {
   static constexpr int ES = static_cast<int>(sizeof(T));
   static constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
   static constexpr int ROWB = DH * ES;              // bytes of a head row
-  static constexpr int RB = MMA ? (ROWB < 128 ? ROWB : 128) : ROWB;
+  // K's TMA box width in bytes (bf16): the widest swizzle span of 128,
+  // 64 or 32 bytes that divides the row (dh = 48, 80, 112 take 32-byte
+  // boxes, dh = 96 64-byte ones), so a tile is NSUB boxes side by side
+  static constexpr int RB =
+      !MMA ? ROWB
+           : (ROWB % 128 == 0 ? 128 : (ROWB % 64 == 0 ? 64 : 32));
   static constexpr int NSUB = ROWB / RB;            // K boxes a tile
   static constexpr int SWZ = MMA ? RB / 16 - 1 : 0; // TMA swizzle mask
   static constexpr int TILE_B = TROWS * ROWB;       // K or V tile bytes
@@ -90,10 +95,15 @@ struct Cfg {
       : (98304 / (2 * TILE_B) > MAX_STAGES ? MAX_STAGES
                                            : 98304 / (2 * TILE_B));
   // a consumer warp's P V: DG lanes cover the head's dims, 4 each; HS
-  // head sets a warp, JPL heads a lane
+  // head sets a warp, JPL heads a lane; where DG does not divide 32 (dh
+  // = 48, 80, 96, 112) the last 32 - HS * DG lanes take no part in P V
   static constexpr int DG = DH / 4;
   static constexpr int HS = 32 / DG;
+  static constexpr int PV_LANES = HS * DG;
   static constexpr int JPL = GP / HS;
+  static_assert(DH % 16 == 0 && DH <= 128, "dh a multiple of 16, at most 128");
+  static_assert(ROWB % RB == 0 && (TROWS * RB) % 1024 == 0,
+                "K boxes tile a row; each box's stage stays 1024-aligned");
   static constexpr int SPW = GP + 4;                // P row stride, 16-byte rows
   // dynamic shared memory: the K and V rings, each consumer warp's P
   // [16][SPW] and alpha [GP], the f32 query heads (CUDA-core path), and
@@ -444,12 +454,12 @@ decode_kernel(const __grid_constant__ CUtensorMap tmK,
       const float* pp = pw + hs * C::JPL;
 #pragma unroll
       for (int jj = 0; jj < C::JPL; ++jj) {
-        const float a2 = aw[hs * C::JPL + jj];
+        const float a2 = lane < C::PV_LANES ? aw[hs * C::JPL + jj] : 0.f;
 #pragma unroll
         for (int e = 0; e < 4; ++e) num[jj][e] *= a2;
       }
 #pragma unroll 4
-      for (int r = 0; r < 16; ++r) {
+      for (int r = 0; r < (lane < C::PV_LANES ? 16 : 0); ++r) {
         float vv[4], pr[C::JPL];
         get4<T>(vp + r * DH, vv);
         if constexpr (C::JPL % 4 == 0) {
@@ -481,11 +491,13 @@ decode_kernel(const __grid_constant__ CUtensorMap tmK,
         wd[warp][lane_head<C::MMA, C::GP>(lane, i2)] = den_w[i2];
       }
     }
+    if (lane < C::PV_LANES) {
 #pragma unroll
-    for (int jj = 0; jj < C::JPL; ++jj)
-      *reinterpret_cast<float4*>(wn + (warp * C::GP + hs * C::JPL + jj) * DH +
-                                 dg * 4) =
-          make_float4(num[jj][0], num[jj][1], num[jj][2], num[jj][3]);
+      for (int jj = 0; jj < C::JPL; ++jj)
+        *reinterpret_cast<float4*>(wn + (warp * C::GP + hs * C::JPL + jj) * DH +
+                                   dg * 4) =
+            make_float4(num[jj][0], num[jj][1], num[jj][2], num[jj][3]);
+    }
   }
   __syncthreads();
 
@@ -630,9 +642,13 @@ int launch_dt(int nt, int dh, const void* K, const void* V, const void* q,
   if (nt == NT_ && dh == DH_)                                              \
     return launch_t<T, DH_, NT_>(K, V, q, M, pm, pnum, pden, B, G, st);
   REPRO_DECODE_CASE(1, 16) REPRO_DECODE_CASE(1, 32)
-  REPRO_DECODE_CASE(1, 64) REPRO_DECODE_CASE(1, 128)
+  REPRO_DECODE_CASE(1, 48) REPRO_DECODE_CASE(1, 64)
+  REPRO_DECODE_CASE(1, 80) REPRO_DECODE_CASE(1, 96)
+  REPRO_DECODE_CASE(1, 112) REPRO_DECODE_CASE(1, 128)
   REPRO_DECODE_CASE(2, 16) REPRO_DECODE_CASE(2, 32)
-  REPRO_DECODE_CASE(2, 64) REPRO_DECODE_CASE(2, 128)
+  REPRO_DECODE_CASE(2, 48) REPRO_DECODE_CASE(2, 64)
+  REPRO_DECODE_CASE(2, 80) REPRO_DECODE_CASE(2, 96)
+  REPRO_DECODE_CASE(2, 112) REPRO_DECODE_CASE(2, 128)
 #undef REPRO_DECODE_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

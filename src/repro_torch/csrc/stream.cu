@@ -515,6 +515,29 @@ extern "C" int stream_init_launch(int dtype, void* o, float value, int rows,
   }
 }
 
+// Blocks of the K1 copy (kind 0), triad (1) or init (2) instance of
+// `dtype` that one SM keeps resident at `threads` threads a block (the
+// occupancy API), into *blocks.
+template <typename T>
+int k1_occupancy_t(int kind, int threads, int* blocks) {
+  const void* fn = kind == 0 ? reinterpret_cast<const void*>(stream_copy<T>)
+                   : kind == 1 ? reinterpret_cast<const void*>(stream_triad<T>)
+                               : reinterpret_cast<const void*>(stream_init<T>);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, threads, 0));
+}
+
+extern "C" int stream_k1_occupancy(int dtype, int kind, int threads,
+                                   int* blocks) {
+  if (kind < 0 || kind > 2) return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case kF32: return k1_occupancy_t<float>(kind, threads, blocks);
+    case kBF16: return k1_occupancy_t<__nv_bfloat16>(kind, threads, blocks);
+    case kF16: return k1_occupancy_t<__half>(kind, threads, blocks);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // Pass 1 of the read.  x: [d, w] of `dtype`, row-major (w a multiple of
 // 128); part: [chunks, d] f32.  Chunk c takes the sub-portions c*spc ...
 // min((c+1)*spc, w/128) - 1 of every row (none empty), loaded grouped

@@ -60,7 +60,7 @@ TILE = 64                 # rows of a unit (csrc/decode_attn.cu TROWS)
 WAVES = 2                 # blocks planned per SM (plan_chunks): one wave
 MAX_UNITS = 16            # units a chunk takes at most (plan_chunks)
 _PLAIN_SMS = 132          # the chunking of the plain version on a CPU
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 
 
 def admits(g: int, dh: int) -> bool:

@@ -6,31 +6,37 @@ with gemver's matrix-vector steps, which are instances of the same two.
     ``gemver_mxv2`` bodies: y[i] = s · Σ_j A[i, j] x[j] (s = α for
     ``gemver_mxv2``, else 1).  Grid ``rows / (D·bm)`` blocks, one warp
     per row slot, D rows in flight per column step.
-  * :func:`split` and :func:`merge` — ``csrc/stream_reduction.cu``,
-    replacing ``_emit_stream_reduction`` (``src/repro/codegen/emit.py:
-    564``) with the ``mxv_t``, ``bicg_s`` and ``gemver_mxv1`` bodies and
-    the "sum" combinator: y[j] = s · Σ_i x[i] A[i, j] (s = β for
-    ``gemver_mxv1``).  The TPU kernel carried one accumulator row across
-    a row grid that runs in order; Hopper blocks run in no order, so
-    pass 1 (grid column blocks × D × row chunks) writes f32 partial rows,
-    each scaled by s as the TPU kernel scaled each block, and pass 2 sums
-    them in order k = 0 … D-1, chunk by chunk, and casts.
-    ``gemver_mxv1_sum`` (``SumWithTotal``) keeps the row in f32 and its
-    pass 2 (:func:`merge_total`) also writes the row's total, summed in
-    a fixed order by a one-block tail.
+  * :func:`coldot` — ``csrc/stream_reduction.cu``, replacing
+    ``_emit_stream_reduction`` (``src/repro/codegen/emit.py:564``) with
+    the ``mxv_t``, ``bicg_s`` and ``gemver_mxv1`` bodies and the "sum"
+    combinator: y[j] = s · Σ_i x[i] A[i, j] (s = β for ``gemver_mxv1``),
+    in one launch.  The TPU kernel carried one accumulator row across a
+    row grid that runs in order; here a block of a 128-column block
+    keeps the D streams' loads in flight (16 bytes a thread, the next
+    step's loads issued before the current one is folded) and one f32
+    partial row, scaled by s as the TPU kernel scaled each block; the
+    ``cluster`` blocks of a column block (:func:`geometry`) each take
+    1/cluster of every segment's rows and fold their partial rows in
+    rank order through distributed shared memory: no second pass.
+    ``gemver_mxv1_sum`` (``SumWithTotal``) keeps the row in f32 and
+    :func:`coldot_total` also writes its total: each cluster sums its
+    columns in a fixed order, and the last cluster (a ticket on a
+    per-device, per-stream counter) folds the column-block sums.
 
 A scalar s reaches the kernel as an f32 argument when it is a Python
 number, and as a pointer to a 0-d f32 on the card when it is a tensor
 (no host sync).  Each instance has its own launch counts.  Each wrapper
 launches its kernel on CUDA tensors (or raises) and runs its plain
 version on CPU tensors: the spec through ``loopir.evaluate`` for the
-row-dot, the spec body over each segment chunk and an in-order sum for
-the two passes of the column-dot.
+row-dot; for the column-dot the spec body over each cluster rank's rows
+(:func:`split_plain`) and their sum in rank order (:func:`merge_plain`),
+the kernel's order up to f32 reassociation within a rank.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -40,9 +46,10 @@ from repro_torch.codegen.transforms import LANE, BlockPlan
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
 
-__all__ = ["ROWDOT", "SPLIT", "MERGE", "MXV2", "MXV1", "MXV1_MERGE",
-           "MXV1_SUM", "MXV1_SUM_MERGE", "emit", "rowdot", "split", "merge",
-           "merge_total", "split_plain", "merge_plain", "row_chunks"]
+__all__ = ["ROWDOT", "COLDOT", "MXV2", "MXV1", "MXV1_SUM", "Geometry",
+           "geometry", "launch_geometry", "clusters", "emit", "rowdot",
+           "coldot", "coldot_total", "split_plain", "merge_plain",
+           "rank_rows"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -52,33 +59,97 @@ _ROWDOT_ARGS = [_I, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I]
 ROWDOT = cuda.CudaKernel("mxv", "reduction", "rowdot_launch", _ROWDOT_ARGS)
 MXV2 = cuda.CudaKernel("gemver_mxv2", "reduction", "rowdot_launch",
                        _ROWDOT_ARGS)
-# colsum_split_launch(dtype, A, x, part, scale_ptr, scale, rows, cols, d,
-#                     bm, ns, tpc, chunks, stream)
-_SPLIT_ARGS = [_I, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I]
-SPLIT = cuda.CudaKernel("mxv_t", "stream_reduction", "colsum_split_launch",
-                        _SPLIT_ARGS)
-MXV1 = cuda.CudaKernel("gemver_mxv1", "stream_reduction",
-                       "colsum_split_launch", _SPLIT_ARGS)
+# coldot_launch(dtype, A, x, y, csum, total, ticket, scale_ptr, scale,
+#               rows, cols, d, spr, cs, stream)
+_COLDOT_ARGS = [_I, _P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I]
+COLDOT = cuda.CudaKernel("mxv_t", "stream_reduction", "coldot_launch",
+                         _COLDOT_ARGS)
+MXV1 = cuda.CudaKernel("gemver_mxv1", "stream_reduction", "coldot_launch",
+                       _COLDOT_ARGS)
 MXV1_SUM = cuda.CudaKernel("gemver_mxv1_sum", "stream_reduction",
-                           "colsum_split_launch", _SPLIT_ARGS)
-# colsum_merge_launch(dtype, part, y, cols, nparts, stream)
-MERGE = cuda.CudaKernel("mxv_t_merge", "stream_reduction",
-                        "colsum_merge_launch", [_I, _P, _P, _I, _I])
-MXV1_MERGE = cuda.CudaKernel("gemver_mxv1_merge", "stream_reduction",
-                             "colsum_merge_launch", [_I, _P, _P, _I, _I])
-# colsum_merge_total_launch(part, y, total, cols, nparts, stream)
-MXV1_SUM_MERGE = cuda.CudaKernel("gemver_mxv1_sum_merge", "stream_reduction",
-                                 "colsum_merge_total_launch",
-                                 [_P, _P, _P, _I, _I])
+                           "coldot_launch", _COLDOT_ARGS)
 
 # K2 instances → their row-dot launch count
 _ROW_DOT = {"mxv": ROWDOT, "bicg_q": ROWDOT, "gemver_mxv2": MXV2}
-# K3 instances → (pass 1, pass 2) launch counts
-_COL_DOT = {"mxv_t": (SPLIT, MERGE), "bicg_s": (SPLIT, MERGE),
-            "gemver_mxv1": (MXV1, MXV1_MERGE),
-            "gemver_mxv1_sum": (MXV1_SUM, MXV1_SUM_MERGE)}
-_SPLIT_SUB = 8                     # sub-portions a split block spans at most
-_PLAIN_SMS = 132                   # row chunks of the plain split on a CPU
+# K3 instances → their column-dot launch count
+_COL_DOT = {"mxv_t": COLDOT, "bicg_s": COLDOT, "gemver_mxv1": MXV1,
+            "gemver_mxv1_sum": MXV1_SUM}
+COLS = 128                         # columns of a column block (COLS in .cu)
+THREADS = 128                      # a block's threads (THREADS in .cu)
+LOADS = 8                          # 16-byte loads a thread a step
+BLOCKS_PER_SM = 2                  # blocks an SM the grid aims at
+MAX_CLUSTER = 8                    # the portable cluster size
+_PLAIN_SMS = 132                   # the plain version's geometry on a CPU
+
+
+@dataclass(frozen=True)
+class Geometry:
+    """One launch of ``csrc/stream_reduction.cu`` ``coldot``: ``ncb``
+    column blocks of :data:`COLS` columns, each a cluster of ``cluster``
+    blocks; rank r takes the slots ``r·rows_a_rank ...`` of every one of
+    the D segments of ``seg`` rows; a block's :data:`THREADS` threads
+    are ``column_threads`` (16 bytes each) by ``row_groups``; a step is
+    ``streams`` streams by ``slots`` consecutive slots; ``blocks`` blocks
+    in ``waves`` waves of :data:`BLOCKS_PER_SM` blocks an SM."""
+    ncb: int
+    cluster: int
+    seg: int
+    rows_a_rank: int
+    column_threads: int
+    row_groups: int
+    streams: int
+    slots: int
+    blocks: int
+    waves: int
+
+
+def geometry(rows: int, cols: int, d: int, itemsize: int, sms: int,
+             cluster: int | None = None, resident=None) -> Geometry:
+    """The column-dot's launch geometry for ``[rows, cols]`` (``cols`` a
+    multiple of 128) in ``d`` streams on a card of ``sms`` SMs.
+
+    Blocks are :data:`THREADS` threads.  The cluster is the largest power
+    of two, at most ``MAX_CLUSTER`` and at most the ``rows / d`` rows of
+    a segment, that keeps the grid of ``cols / 128`` clusters within
+    ``BLOCKS_PER_SM`` blocks an SM and, where ``resident(cs)`` (the
+    clusters of ``cs`` blocks the card keeps resident at once) is given,
+    within one wave of resident clusters.  ``cluster`` (a power of two
+    up to 8) replaces the rule's choice, for a sweep.  A step is K
+    streams (the smallest power of two up to ``d``, at most 8) by
+    ``8 / K`` slots."""
+    seg = rows // d
+    ncb = cols // COLS
+    cs = 1
+    while (cs * 2 <= MAX_CLUSTER and cs * 2 <= seg
+           and ncb * cs * 2 <= BLOCKS_PER_SM * sms
+           and (resident is None or ncb <= resident(cs * 2))):
+        cs *= 2
+    if cluster is not None:
+        if cluster not in (1, 2, 4, 8):
+            raise ValueError(f"column-dot: a cluster of {cluster} blocks")
+        cs = cluster
+    k = 1
+    while k < min(d, LOADS):
+        k *= 2
+    ct = COLS * itemsize // 16
+    blocks = ncb * cs
+    return Geometry(ncb, cs, seg, -(-seg // cs), ct, THREADS // ct, k,
+                    LOADS // k, blocks,
+                    -(-blocks // (BLOCKS_PER_SM * sms)))
+
+
+def clusters(dtype: torch.dtype, d: int, cs: int) -> int:
+    """Clusters of ``cs`` blocks of the instance for ``dtype`` (f32, or
+    the 16-bit one) and ``d`` streams that the current card keeps
+    resident at once (the occupancy API)."""
+    out = ctypes.c_int(0)
+    fn = cuda.library("stream_reduction").coldot_clusters
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(cuda.dtype_code(dtype), d, cs, ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"column-dot clusters: CUDA error {err}")
+    return out.value
 
 
 def _scale(scalars, device):
@@ -92,25 +163,6 @@ def _scale(scalars, device):
         t = s.to(device=device, dtype=torch.float32).reshape(())
         return t.data_ptr(), 0.0, t
     return None, float(s), None
-
-
-def _split_sub(bp: BlockPlan) -> int:
-    """Sub-portions per column block of the column-dot's pass 1: the
-    step's (``bn / 128``, as the JAX package's ``_lane_slices``), at most
-    the 256 threads of a block (one column thread per 4 columns)."""
-    return min(max(1, bp.bn // LANE), _SPLIT_SUB)
-
-
-def row_chunks(bp: BlockPlan, sms: int) -> tuple[int, int]:
-    """``(tiles per chunk, chunks)`` of the column-dot's pass 1: each
-    segment's ``seg / bm`` row tiles are cut into chunks so the grid has
-    about two blocks per SM, no chunk empty."""
-    tiles = bp.rows // bp.d // bp.bm
-    ncb = -(-(bp.cols // LANE) // _split_sub(bp))
-    want = -(-2 * sms // (ncb * bp.d))
-    chunks = max(1, min(tiles, want))
-    tpc = -(-tiles // chunks)
-    return tpc, -(-tiles // tpc)
 
 
 def rowdot(spec: loopir.TraversalSpec, bp: BlockPlan, arrays,
@@ -129,83 +181,128 @@ def rowdot(spec: loopir.TraversalSpec, bp: BlockPlan, arrays,
     return y
 
 
+def rank_rows(bp: BlockPlan, g: Geometry, rank: int) -> torch.Tensor:
+    """The rows cluster rank ``rank`` sums: its slots ``rank·rows_a_rank
+    ...`` of each of the D segments, segment by segment."""
+    lo = rank * g.rows_a_rank
+    hi = min(g.seg, lo + g.rows_a_rank)
+    return torch.cat([torch.arange(k * g.seg + lo, k * g.seg + hi)
+                      for k in range(bp.d)]) if hi > lo else (
+        torch.zeros(0, dtype=torch.long))
+
+
 def split_plain(spec: loopir.TraversalSpec, bp: BlockPlan, arrays,
-                tpc: int, chunks: int, scalars=()) -> torch.Tensor:
-    """Plain version of pass 1: the spec body over each chunk of each
-    segment, ``[D · chunks, cols]`` f32 in order (k, chunk)."""
+                g: Geometry, scalars=()) -> torch.Tensor:
+    """Plain version of the ranks' partial rows: the spec body over each
+    rank's rows, ``[cluster, cols]`` f32 in rank order."""
     A, x = arrays
-    seg, tiles = bp.rows // bp.d, bp.rows // bp.d // bp.bm
     env = dict(zip(spec.scalars, scalars))
     parts = []
-    for k in range(bp.d):
-        for c in range(chunks):
-            lo = k * seg + c * tpc * bp.bm
-            hi = k * seg + min((c + 1) * tpc, tiles) * bp.bm
-            env[spec.reads[0].array] = A[lo:hi]
-            env[spec.reads[1].array] = x[lo:hi]
-            parts.append(spec.body(env).float())
+    for r in range(g.cluster):
+        idx = rank_rows(bp, g, r).to(A.device)
+        env[spec.reads[0].array] = A.index_select(0, idx)
+        env[spec.reads[1].array] = x.index_select(0, idx)
+        parts.append(spec.body(env).float())
     return torch.stack(parts)
 
 
 def merge_plain(part: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Plain version of pass 2: the partial rows summed in order, from
-    the sum's identity, then cast."""
+    """Plain version of the fold: the partial rows summed in rank order,
+    from the sum's identity, then cast."""
     acc = torch.zeros(part.shape[1], dtype=torch.float32, device=part.device)
     for row in part:
         acc = acc + row
     return acc.to(dtype)
 
 
-def split(spec: loopir.TraversalSpec, bp: BlockPlan, arrays,
-          scalars=()) -> torch.Tensor:
-    """Pass 1: f32 partial rows ``[D · chunks, cols]``."""
-    A, x = arrays
+# (device, f32?, d, cluster) → clusters resident (the occupancy API,
+# asked once)
+_RESIDENT: dict = {}
+
+
+def launch_geometry(bp: BlockPlan, A: torch.Tensor,
+                    cluster=None) -> Geometry:
+    """The geometry :func:`coldot` launches for ``A`` under ``bp``: on
+    the card with its SM count and the clusters it keeps resident; on
+    the CPU (the plain version's rank split) at 132 SMs."""
     if not A.is_cuda:
-        return split_plain(spec, bp, arrays, *row_chunks(bp, _PLAIN_SMS),
-                           scalars=scalars)
-    cuda.check_operands(spec.name, [A, x], [(bp.rows, bp.cols), (bp.rows,)])
+        return geometry(bp.rows, bp.cols, bp.d, A.element_size(),
+                        _PLAIN_SMS, cluster)
     sms = torch.cuda.get_device_properties(A.device).multi_processor_count
-    tpc, chunks = row_chunks(bp, sms)
-    part = torch.empty(bp.d * chunks, bp.cols, dtype=torch.float32,
-                       device=A.device)
+
+    def resident(cs):
+        key = (A.device.index, A.dtype == torch.float32, bp.d, cs)
+        if key not in _RESIDENT:
+            with torch.cuda.device(A.device):
+                _RESIDENT[key] = clusters(A.dtype, bp.d, cs)
+        return _RESIDENT[key]
+    return geometry(bp.rows, bp.cols, bp.d, A.element_size(), sms, cluster,
+                    resident)
+
+
+# per (device, stream): gemver_mxv1_sum's ticket counter, zeroed once;
+# the last cluster of each launch leaves it 0 again
+_TICKETS: dict = {}
+
+
+def _ticket(device: torch.device) -> torch.Tensor:
+    """The launch's ticket counter.  Under CUDA graph capture each launch
+    gets a counter of its own, never shared or cached: it lies in the
+    graph's memory pool and its zero fill is a node of the graph, run
+    before the kernel on every replay, so graphs captured on one stream
+    and replayed in any order, or on two streams at once, never share a
+    counter."""
+    with torch.cuda.device(device):
+        if torch.cuda.is_current_stream_capturing():
+            return torch.zeros(1, dtype=torch.int32, device=device)
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
+
+
+def _launch(spec, bp, A, x, g, scalars, y, extra=(None, None, None)):
     ptr, scale, keep = _scale(scalars, A.device)
-    _COL_DOT[spec.name][0](A.device, cuda.dtype_code(A.dtype), A.data_ptr(),
-                           x.data_ptr(), part.data_ptr(), ptr, scale, bp.rows,
-                           bp.cols, bp.d, bp.bm, _split_sub(bp), tpc, chunks)
-    return part
+    _COL_DOT[spec.name](A.device, cuda.dtype_code(A.dtype), A.data_ptr(),
+                        x.data_ptr(), y.data_ptr(), *extra, ptr, scale,
+                        bp.rows, bp.cols, bp.d, g.rows_a_rank, g.cluster)
+    del keep
 
 
-def _check_part(part: torch.Tensor, dtype: torch.dtype) -> None:
-    if (part.dtype != torch.float32 or part.ndim != 2
-            or not part.is_contiguous() or dtype not in cuda.DTYPES):
-        raise ValueError("column-dot merge: partials must be contiguous 2-D "
-                         f"f32 and the output f32, bf16 or f16, got {dtype}")
-
-
-def merge(part: torch.Tensor, dtype: torch.dtype,
-          name: str = "mxv_t") -> torch.Tensor:
-    """Pass 2: ``y [cols]`` in ``dtype``; ``name`` is the spec whose
-    launch count it adds to."""
-    if not part.is_cuda:
-        return merge_plain(part, dtype)
-    _check_part(part, dtype)
-    y = torch.empty(part.shape[1], dtype=dtype, device=part.device)
-    _COL_DOT[name][1](part.device, cuda.dtype_code(dtype), part.data_ptr(),
-                      y.data_ptr(), part.shape[1], part.shape[0])
+def coldot(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars=(),
+           cluster: int | None = None) -> torch.Tensor:
+    """The column-dot: ``y [cols]`` in A's dtype, one launch
+    (``cluster`` replaces the geometry's, for a sweep)."""
+    A, x = arrays
+    g = launch_geometry(bp, A, cluster)
+    if not A.is_cuda:
+        return merge_plain(split_plain(spec, bp, arrays, g, scalars),
+                           A.dtype)
+    cuda.check_operands(spec.name, [A, x], [(bp.rows, bp.cols), (bp.rows,)])
+    y = torch.empty(bp.cols, dtype=A.dtype, device=A.device)
+    _launch(spec, bp, A, x, g, scalars, y)
     return y
 
 
-def merge_total(part: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pass 2 of ``gemver_mxv1_sum``: the f32 row ``[cols]`` and its
-    total ``[1]``, summed from the row as stored."""
-    if not part.is_cuda:
-        row = merge_plain(part, torch.float32)
+def coldot_total(spec: loopir.TraversalSpec, bp: BlockPlan, arrays,
+                 scalars=(), cluster: int | None = None):
+    """``gemver_mxv1_sum``'s column-dot: the f32 row ``[cols]`` and its
+    total ``[1]``, one launch."""
+    A, x = arrays
+    g = launch_geometry(bp, A, cluster)
+    if not A.is_cuda:
+        row = merge_plain(split_plain(spec, bp, arrays, g, scalars),
+                          torch.float32)
         return row, row.sum(dim=-1, keepdim=True)
-    _check_part(part, torch.float32)
-    y = torch.empty(part.shape[1], dtype=torch.float32, device=part.device)
-    total = torch.empty(1, dtype=torch.float32, device=part.device)
-    MXV1_SUM_MERGE(part.device, part.data_ptr(), y.data_ptr(),
-                   total.data_ptr(), part.shape[1], part.shape[0])
+    cuda.check_operands(spec.name, [A, x], [(bp.rows, bp.cols), (bp.rows,)])
+    y = torch.empty(bp.cols, dtype=torch.float32, device=A.device)
+    csum = torch.empty(g.ncb, dtype=torch.float32, device=A.device)
+    total = torch.empty(1, dtype=torch.float32, device=A.device)
+    ticket = _ticket(A.device)
+    _launch(spec, bp, A, x, g, scalars, y,
+            (csum.data_ptr(), total.data_ptr(), ticket.data_ptr()))
     return y, total
 
 
@@ -226,9 +323,8 @@ def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
             wide = -(-cols // LANE) * LANE
             A = F.pad(A, (0, wide - cols))
             bp = dataclasses.replace(bp, cols=wide, bn=wide)
-        row, total = merge_total(split(spec, bp, [A, x], scalars))
+        row, total = coldot_total(spec, bp, [A, x], scalars)
         return row[:cols], total
     if spec.name in _COL_DOT:
-        return merge(split(spec, bp, arrays, scalars), arrays[0].dtype,
-                     spec.name)
+        return coldot(spec, bp, arrays, scalars)
     raise NotImplementedError(f"{spec.name}: not an mxv-family instance")

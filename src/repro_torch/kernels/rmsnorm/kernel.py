@@ -2,10 +2,13 @@
 (``csrc/rmsnorm.cu``), replacing ``_emit_streaming``
 (``src/repro/codegen/emit.py:410``) with the rmsnorm body.
 
-A thread keeps its 16-byte vectors of the rows in registers; a block
-takes a short run of items (an item: a row slot's D rows ``s + k·seg``
-in groups of K), two in flight; a row too long for one block's
-registers is split over a thread-block cluster (:func:`geometry`).
+A thread keeps its vectors of the rows in registers (16 bytes each,
+or, where a row is not a whole number of 16-byte vectors, the widest of
+8, 4, 2 bytes that keeps every row's start on a vector boundary); a
+block takes a short run of items (an item: a row slot's D rows
+``s + k·seg`` in groups of K), two in flight; a row too long for one
+block's registers is split over a thread-block cluster
+(:func:`geometry`).
 
 :func:`emit` launches it on CUDA tensors (or raises); on CPU tensors it
 runs the kernel's plain version, the spec through ``loopir.evaluate``.
@@ -13,6 +16,7 @@ runs the kernel's plain version, the spec through ``loopir.evaluate``.
 from __future__ import annotations
 
 import ctypes
+import math
 from dataclasses import dataclass
 
 import torch
@@ -25,11 +29,11 @@ __all__ = ["RMSNORM", "Geometry", "geometry", "occupancy", "launch", "emit"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# rmsnorm_ms_launch(dtype, x, w, o, r, rows, dm, d, bm, vecs, cs, chunk,
-#                   ipb, grid, threads, eps, stream)
+# rmsnorm_ms_launch(dtype, x, w, o, r, rows, dm, d, bm, vb, vecs, cs,
+#                   chunk, ipb, grid, threads, eps, stream)
 RMSNORM = cuda.CudaKernel("rmsnorm", "rmsnorm", "rmsnorm_ms_launch",
                           [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _F])
+                           _I, _I, _I, _I, _F])
 
 THREADS = 256          # at most, a block (rmsnorm.cu THREADS)
 PREFER_THREADS = 128   # a block's threads where the row allows
@@ -42,11 +46,12 @@ _WARP = 32
 @dataclass(frozen=True)
 class Geometry:
     """One launch of ``csrc/rmsnorm.cu``: ``cluster`` blocks split each
-    row's ``nvec`` 16-byte vectors into chunks of ``chunk`` (the last
-    rank's may be shorter); a thread holds ``vectors`` of a row's chunk
-    for ``streams`` rows at a time (an item: ``streams · vectors =
-    HOLD``); a cluster takes a run of ``items`` consecutive items;
-    ``blocks`` blocks of ``threads`` threads."""
+    row's ``nvec`` vectors of ``vector_bytes`` into chunks of ``chunk``
+    (the last rank's may be shorter); a thread holds ``vectors`` of a
+    row's chunk for ``streams`` rows at a time (an item: ``streams ·
+    vectors = HOLD``); a cluster takes a run of ``items`` consecutive
+    items; ``blocks`` blocks of ``threads`` threads."""
+    vector_bytes: int
     nvec: int
     cluster: int
     chunk: int
@@ -63,38 +68,42 @@ def geometry(rows: int, dm: int, itemsize: int, d: int, sms: int,
     """The launch geometry for ``rows`` rows of ``dm`` elements of
     ``itemsize`` bytes in ``d`` streams on a card of ``sms`` SMs.
 
-    The cluster is the fewest blocks (a power of two) whose registers
-    hold a row, ``THREADS · HOLD`` vectors a block; a row over
-    ``MAX_CLUSTER`` such blocks (256 KB) is refused (``ValueError``).  A
+    A vector is 16 bytes where ``dm · itemsize`` is a multiple of 16,
+    else the widest of 8, 4, 2 bytes that divides it, so every row
+    starts on a vector boundary.  The cluster is the fewest blocks (a
+    power of two) whose registers hold a row, ``THREADS · HOLD`` vectors
+    a block; a row over ``MAX_CLUSTER`` such blocks (256 KB of 16-byte
+    vectors, less of narrower ones) is refused (``ValueError``).  A
     thread holds the fewest vectors of a row (a power of two, at most
     ``HOLD``) that let ``PREFER_THREADS`` threads cover a chunk, so what
-    it holds follows ``dm · itemsize``; it holds ``HOLD / vectors`` rows
-    at a time.  The ``rows / d`` slots in groups of those rows are the
+    it holds follows ``dm · itemsize``; narrower vectors are held
+    ``HOLD`` a thread (one instance a width); it holds ``HOLD /
+    vectors`` rows at a time.  The ``rows / d`` slots in groups of those rows are the
     items: one a cluster where they fit ``ONE_ITEM_PER_SM`` an SM, else
     runs of two (the second's loads in flight while the first is
     reduced).  ``cluster`` (a larger power of two) and ``items`` replace
     the rule's choices, for a sweep."""
-    if (dm * itemsize) % 16:
-        raise ValueError(f"rmsnorm kernel: a row of {dm} elements is not "
-                         "a whole number of 16-byte vectors")
-    nvec, seg = dm * itemsize // 16, rows // d
+    vb = math.gcd(dm * itemsize, 16)
+    nvec, seg = dm * itemsize // vb, rows // d
     cs = 1
     while cs * THREADS * HOLD < nvec:
         cs *= 2
     if cs > MAX_CLUSTER:
         raise ValueError(f"rmsnorm kernel: a row of {dm * itemsize} bytes "
-                         f"exceeds the {MAX_CLUSTER * THREADS * HOLD * 16} "
-                         "a cluster holds in registers")
+                         f"exceeds the {MAX_CLUSTER * THREADS * HOLD * vb} "
+                         f"a cluster holds in registers as {vb}-byte "
+                         "vectors")
     cs = max(cs, cluster or 1)
     chunk = -(-nvec // cs)
-    v = 1
+    v = 1 if vb == 16 else HOLD
     while v < HOLD and v * PREFER_THREADS < chunk:
         v *= 2
     threads = -(-chunk // (v * _WARP)) * _WARP
     k = HOLD // v
     n = seg * -(-d // k)
     ipb = items or (1 if n <= ONE_ITEM_PER_SM * sms else 2)
-    return Geometry(nvec, cs, chunk, v, k, threads, ipb, -(-n // ipb) * cs)
+    return Geometry(vb, nvec, cs, chunk, v, k, threads, ipb,
+                    -(-n // ipb) * cs)
 
 
 def occupancy(dtype: torch.dtype, g: Geometry) -> int:
@@ -103,9 +112,10 @@ def occupancy(dtype: torch.dtype, g: Geometry) -> int:
     out = ctypes.c_int(0)
     lib = cuda.library("rmsnorm")
     fn = lib.rmsnorm_ms_occupancy
-    fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    err = fn(cuda.dtype_code(dtype), g.vectors, g.threads, ctypes.byref(out))
+    err = fn(cuda.dtype_code(dtype), g.vector_bytes, g.vectors, g.threads,
+             ctypes.byref(out))
     if err:
         raise RuntimeError(f"rmsnorm occupancy: CUDA error {err}")
     return out.value
@@ -119,8 +129,9 @@ def launch(x: torch.Tensor, w: torch.Tensor, eps: float, bp: BlockPlan,
     o = torch.empty_like(x)
     r = torch.empty(rows, dtype=torch.float32, device=x.device)
     RMSNORM(x.device, cuda.dtype_code(x.dtype), x.data_ptr(), w.data_ptr(),
-            o.data_ptr(), r.data_ptr(), rows, dm, bp.d, bp.bm, g.vectors,
-            g.cluster, g.chunk, g.items, g.blocks, g.threads, float(eps))
+            o.data_ptr(), r.data_ptr(), rows, dm, bp.d, bp.bm,
+            g.vector_bytes, g.vectors, g.cluster, g.chunk, g.items,
+            g.blocks, g.threads, float(eps))
     return o, r
 
 

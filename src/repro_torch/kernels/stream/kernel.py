@@ -7,7 +7,8 @@
     writes-only (no read stream, D store positions).  A lane moves 16
     bytes a load and a store in every type: 4 elements of a 128-element
     sub-portion in f32, 8 elements of a pair of adjacent ones in bf16
-    and f16 (an odd last sub-portion of a step 8 bytes).
+    and f16 (an odd last sub-portion of a step 8 bytes).  Up to 8
+    streams of a step sit in registers (:func:`k1_geometry`).
   * K2 ``_emit_reduction`` (``src/repro/codegen/emit.py:491``) with the
     read body, on ``x2 = x.reshape(D, seg·cols)``.  Its block plan is D
     rows of ``seg·cols`` columns, so :func:`read_split` (pass 1) runs a
@@ -27,6 +28,7 @@ chunk and an in-order sum.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -36,6 +38,7 @@ from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
 
 __all__ = ["COPY", "TRIAD", "INIT", "READ", "READ_MERGE", "emit",
+           "K1Geometry", "k1_geometry", "k1_occupancy",
            "READ_BLOCKS_PER_SM", "read_chunks", "read_units", "read_split",
            "read_merge", "read_split_plain", "read_merge_plain"]
 
@@ -59,6 +62,45 @@ READ = cuda.CudaKernel("stream_read", "stream", "read_split_launch",
 # read_merge_launch(part, y, d, chunks, stream)
 READ_MERGE = cuda.CudaKernel("stream_read_merge", "stream",
                              "read_merge_launch", [_P, _P, _I, _I])
+
+_KINDS = {"stream_copy": 0, "stream_triad": 1, "stream_init": 2}
+_SWEEP_KMAX = 8                    # common.cuh SWEEP_KMAX
+_SWEEP_MAX_WARPS = 8               # common.cuh SWEEP_MAX_WARPS
+
+
+@dataclass(frozen=True)
+class K1Geometry:
+    """One launch of a K1 stream kernel (``row_sweep``): ``blocks`` blocks
+    of ``threads`` threads, ``streams`` streams of a step in registers
+    (``groups`` groups of them walk the D streams of a slot)."""
+    blocks: int
+    threads: int
+    streams: int
+    groups: int
+
+
+def k1_geometry(bp: BlockPlan) -> K1Geometry:
+    """The K1 copy / triad / init launch for a block plan: ``rows / (D ·
+    bm)`` blocks, a warp a row slot (at most 8), up to 8 streams of a
+    step in registers, in every type."""
+    k = min(bp.d, _SWEEP_KMAX)
+    return K1Geometry(bp.rows // bp.d // bp.bm,
+                      min(bp.bm, _SWEEP_MAX_WARPS) * 32, k, -(-bp.d // k))
+
+
+def k1_occupancy(name: str, dtype: torch.dtype, threads: int) -> int:
+    """Blocks of the K1 kernel ``name`` one SM keeps resident (the
+    occupancy API on the current card)."""
+    out = ctypes.c_int(0)
+    fn = cuda.library("stream").stream_k1_occupancy
+    fn.argtypes = [_I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(cuda.dtype_code(dtype), _KINDS[name], threads,
+             ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"{name} occupancy: CUDA error {err}")
+    return out.value
+
 
 _PLAIN_SMS = 132                   # chunks of the plain read split on a CPU
 READ_BLOCKS_PER_SM = 2             # read_split's __launch_bounds__ minimum

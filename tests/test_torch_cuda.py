@@ -17,6 +17,7 @@ from repro_torch.codegen import template_of as tcg_template
 from repro_torch import registry as tregistry
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.core.striding import StridingConfig as TConfig
+from repro_torch.kernels import cuda
 from repro_torch.kernels import stencil as tstencil
 from repro_torch.kernels.adamw import _HYPER
 from repro_torch.kernels.adamw import kernel as akernel
@@ -127,6 +128,28 @@ def test_rmsnorm_cluster_rows_match_plain(cuda_device, dtype, t, d, dm):
     clusters of 2, 4 and 8 blocks (the partial sums pushed to every rank,
     added in rank order), as above."""
     _rms_matches_plain(cuda_device, dtype, t, dm, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("t,dm", [(8, 1001), (3, 4098), (96, 1001),
+                                  (4, 12289), (8192, 1001)])
+def test_rmsnorm_rows_of_odd_vectors_match_plain(cuda_device, dtype, t, dm):
+    """Rows that are not a whole number of 16-byte vectors run the
+    narrower-lane instances (8, 4 or 2 bytes a vector; 12289 f32 over a
+    cluster), as above; a lost-element control (one element of row 1
+    zeroed) lies outside the limit."""
+    _rms_matches_plain(cuda_device, dtype, t, dm, 1 if t == 3 else 4)
+    gen = torch.Generator(device=cuda_device).manual_seed(dm)
+    x = torch.randn(t, dm, generator=gen, device=cuda_device).to(dtype)
+    w = torch.ones(dm, device=cuda_device, dtype=dtype)
+    o = trops.rmsnorm(x, w, 1e-5)
+    lost = x.clone()
+    lost[1, int(x[1].float().abs().argmax())] = 0
+    lo = trops.rmsnorm(lost, w, 1e-5, mode="ref")
+    assert not torch.allclose(lo.float(), o.float(),
+                              rtol=RMS_OUT_RTOL[dtype], atol=RMS_TOL)
 
 
 @pytest.mark.gpu
@@ -259,8 +282,8 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda_device):
     w = torch.ones(4096, device=cuda_device)          # wrong dtype
     with pytest.raises(TypeError):
         trops.rmsnorm(x, w.float().to(torch.float16), 1e-5)
-    q = torch.randn(2, 4, 48, device=cuda_device)     # dh=48 not compiled
-    k = torch.randn(2, 64, 2, 48, device=cuda_device)
+    q = torch.randn(2, 4, 40, device=cuda_device)     # dh=40 not compiled
+    k = torch.randn(2, 64, 2, 40, device=cuda_device)
     with pytest.raises(NotImplementedError):
         tdops.decode_attn(q, k, k, kv_len=torch.tensor([3, 9]))
 
@@ -305,7 +328,9 @@ def test_decode_kernel_admits_every_dense_config():
     for cfg in dense + [reduced(c) for c in dense]:
         g = cfg.n_heads // cfg.n_kv_heads
         assert dkernel.admits(g, cfg.head_dim), cfg.name
-    assert not dkernel.admits(8, 48) and not dkernel.admits(0, 128)
+    assert not dkernel.admits(8, 40) and not dkernel.admits(0, 128)
+    assert not dkernel.admits(8, 72) and not dkernel.admits(8, 144)
+    assert all(dkernel.admits(8, dh) for dh in range(16, 129, 16))
 
 
 @pytest.mark.gpu
@@ -330,6 +355,43 @@ def test_decode_kernel_matches_plain_at_every_dense_group(cuda_device,
     rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ro.float(), rtol=rtol, atol=1e-4)
     torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [2, 16])
+@pytest.mark.parametrize("dh", [48, 80, 96, 112])
+def test_decode_kernel_matches_plain_at_head_dims_48_to_112(cuda_device,
+                                                           dtype, g, dh):
+    """The head dims whose rows are not a power of two of 16-element
+    pieces (K in 32- or 64-byte swizzled TMA boxes, P V lanes left idle
+    where dh / 4 does not divide a warp), at kv_len 17-64 and S = 4096,
+    against the plain version; a lost-segment control lies outside the
+    limit."""
+    b, hkv = 4, 2
+    for s, kv in ((64, [17, 40, 64, 33]), (4096, [700, 4096, 1, 2500])):
+        gen = torch.Generator(device=cuda_device).manual_seed(g * dh + s)
+        q, k, v = (torch.randn(*shape, generator=gen, device=cuda_device)
+                   .to(dtype) for shape in ((b, hkv * g, dh),
+                                            (b, s, hkv, dh), (b, s, hkv, dh)))
+        kv_len = torch.tensor(kv, device=cuda_device)
+        n = dkernel.SPLIT.launches
+        out, lse = tdops.decode_attn(q, k, v, kv_len=kv_len,
+                                     config=TConfig(4, 1), with_lse=True)
+        assert dkernel.SPLIT.launches == n + 1
+        ro, rl = tdops.decode_attn(q, k, v, kv_len=kv_len,
+                                   config=TConfig(4, 1), mode="ref",
+                                   with_lse=True)
+        rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(out.float(), ro.float(), rtol=rtol,
+                                   atol=1e-4)
+        torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
+        lost = v.clone()
+        lost[:, : s // 4] = 0                       # segment 0 lost
+        lo = tdops.decode_attn(q, k, lost, kv_len=kv_len,
+                               config=TConfig(4, 1), mode="ref")
+        assert not torch.allclose(lo.float(), ro.float(), rtol=rtol,
+                                  atol=1e-4)
 
 
 # ----------------------------------------------- mxv / bicg / gemver
@@ -376,11 +438,14 @@ def test_mxv_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
     x, xt = (_rand(gen, (n,), cuda_device, dtype),
              _rand(gen, (m,), cuda_device, dtype))
     cfg = TConfig(d, p, arrangement=arr)
-    counts = (mkernel.ROWDOT.launches, mkernel.SPLIT.launches,
-              mkernel.MERGE.launches)
+    counts = (mkernel.ROWDOT.launches, mkernel.COLDOT.launches,
+              sum(k.launches for k in cuda.KERNELS.values()))
     y, yt = tmops.mxv(a, x, config=cfg), tmops.mxv_t(a, xt, config=cfg)
-    assert (mkernel.ROWDOT.launches, mkernel.SPLIT.launches,
-            mkernel.MERGE.launches) == tuple(c + 1 for c in counts)
+    # one launch each: the column-dot folds its partial rows in its own
+    # launch (a cluster's distributed shared memory), no merge pass
+    assert (mkernel.ROWDOT.launches, mkernel.COLDOT.launches,
+            sum(k.launches for k in cuda.KERNELS.values())) == (
+                counts[0] + 1, counts[1] + 1, counts[2] + 2)
     ry = tmops.mxv(a, x, config=cfg, mode="ref")
     ryt = tmops.mxv_t(a, xt, config=cfg, mode="ref")
     assert y.dtype == yt.dtype == dtype
@@ -444,11 +509,13 @@ def test_one_gemver_call_launches_each_kernel_once(cuda_device):
                  for _ in range(3))
     v1, v2, z = (_rand(gen, (n,), cuda_device, torch.float32)
                  for _ in range(3))
-    kernels = (gkernel.OUTER, mkernel.SPLIT, mkernel.MERGE, gkernel.SUM,
-               mkernel.ROWDOT)
+    kernels = (gkernel.OUTER, mkernel.COLDOT, gkernel.SUM, mkernel.ROWDOT)
     before = [k.launches for k in kernels]
+    total = sum(k.launches for k in cuda.KERNELS.values())
     a_hat, x, w = tgops.gemver(a, u1, v1, u2, v2, y, z, 1.5, 1.2)
     assert [k.launches for k in kernels] == [b + 1 for b in before]
+    # four kernels, one launch each (the column-dot has no merge pass)
+    assert sum(k.launches for k in cuda.KERNELS.values()) == total + 4
     ra, rx, rw = tgops.gemver(a, u1, v1, u2, v2, y, z, 1.5, 1.2, mode="ref")
     assert torch.equal(a_hat, ra)
     # x = 0 + 1.2 Aᵀy + z: the sum's bound plus the roundings of the
@@ -521,6 +588,38 @@ def test_stream_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
     terms = x.float().abs().reshape(cfg.stride_unroll, -1).sum(1)
     limit = 2 * _dot_factor(seg * n) * GAMMA * terms + 2 * GAMMA * rr.abs()
     assert bool(((r - rr).abs() <= limit).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", [(1, 2), (2, 2), (3, 1), (4, 2), (8, 2),
+                                 (16, 1)])
+def test_stream_f32_lanes_equal_plain(cuda_device, arr, d, p):
+    """The f32 K1 lanes (up to 8 streams of a step in registers, D = 16
+    in two groups): copy, triad and init through their ops equal their
+    plain versions bit for bit, and a lost-stream control (stream 1's
+    rows of the plain output set to -1) does not."""
+    m, n = 480, 640
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 4 + p)
+    x, c = (_rand(gen, (m, n), cuda_device, torch.float32) for _ in range(2))
+    cfg = TConfig(d, p, arrangement=arr)
+    kernels = (skernel.COPY, skernel.TRIAD, skernel.INIT)
+    before = [k.launches for k in kernels]
+    got = {"copy": tsops.stream_copy(x, config=cfg),
+           "triad": run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg),
+           "init": tsops.stream_init((m, n), 3.7, torch.float32, config=cfg,
+                                     device=cuda_device)}
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    want = {"copy": x,
+            "triad": run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg,
+                              mode="ref"),
+            "init": torch.full((m, n), 3.7, device=cuda_device)}
+    for name, ref in want.items():
+        assert torch.equal(got[name], ref), name
+        if d > 1:
+            lost = ref.clone()
+            lost[m // d: 2 * m // d] = -1.0
+            assert not torch.equal(got[name], lost)
 
 
 @pytest.mark.gpu
@@ -1312,13 +1411,16 @@ def test_gemver_mxv_kernels_match_plain(cuda_device, dtype, scalar, d, p, m,
         alpha = torch.tensor(alpha, device=cuda_device)
         beta = torch.tensor(beta, device=cuda_device)
     cfg = TConfig(d, p)
-    kernels = (mkernel.MXV2, mkernel.MXV1, mkernel.MXV1_MERGE,
-               mkernel.MXV1_SUM, mkernel.MXV1_SUM_MERGE)
+    kernels = (mkernel.MXV2, mkernel.MXV1, mkernel.MXV1_SUM)
     before = [k.launches for k in kernels]
+    n_all = sum(k.launches for k in cuda.KERNELS.values())
     w = tgen.gemver_mxv2_gen(a, xn, alpha, config=cfg)
     x1 = tgen.gemver_mxv1_gen(a, ym, xn, beta, config=cfg)
     x2, total = tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, beta, config=cfg)
     assert [k.launches for k in kernels] == [b + 1 for b in before]
+    # one launch each: the row, its merge and gemver_mxv1_sum's total in
+    # the column-dot's own launch
+    assert sum(k.launches for k in cuda.KERNELS.values()) == n_all + 3
     rw = tgen.gemver_mxv2_gen(a, xn, alpha, config=cfg, mode="ref")
     rx1 = tgen.gemver_mxv1_gen(a, ym, xn, beta, config=cfg, mode="ref")
     rx2, rtotal = tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, beta, config=cfg,
@@ -1340,6 +1442,131 @@ def test_gemver_mxv_kernels_match_plain(cuda_device, dtype, scalar, d, p, m,
     assert abs(float(total) - float(rtotal)) <= t_lim
     again = tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, beta, config=cfg)[1]
     assert torch.equal(again, total)           # no atomics: same bits
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [4096, 16384])
+@pytest.mark.parametrize("d", [1, 4, 8])
+def test_column_dot_clusters_match_plain(cuda_device, dtype, n, d):
+    """The column-dot at 4096^2 and 16384^2 at every cluster size (1, 2,
+    4, 8 and the geometry's own) against its plain version in the same
+    rank order, within the f32 dot limit of a rank's rows; a lost-chunk
+    control (one rank's partial row dropped from the fold) lies outside
+    the limit; two calls give the same bits."""
+    from repro_torch.codegen import plan_blocks
+    from repro_torch.kernels.mxv import specs as tmspecs
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d)
+    a = _rand(gen, (n, n), cuda_device, dtype)
+    x = (1 + torch.rand(n, generator=gen, device=cuda_device)).to(dtype)
+    spec = tmspecs.mxv_t_spec(a, x)
+    bp = plan_blocks(spec, TConfig(d, 2))
+    for cs in (None, 1, 2, 4, 8):
+        g = mkernel.launch_geometry(bp, a, cs)
+        n0 = mkernel.COLDOT.launches
+        y = mkernel.coldot(spec, bp, [a, x], cluster=cs)
+        assert mkernel.COLDOT.launches == n0 + 1 and y.dtype == dtype
+        part = mkernel.split_plain(spec, bp, [a, x], g)
+        ref = mkernel.merge_plain(part, torch.float32)
+        terms = (x.float().abs()[:, None] * a.float().abs()).sum(0)
+        limit = (2 * _dot_factor(n // g.cluster) * GAMMA * terms
+                 + (2.0 ** -7 if dtype != torch.float32 else 2 * GAMMA)
+                 * ref.abs())
+        assert bool(((y.float() - ref).abs() <= limit).all())
+        if g.cluster > 1:
+            lost = merge_plain_without(part, 1)
+            assert not bool(((lost - ref).abs() <= limit).all())
+        assert torch.equal(mkernel.coldot(spec, bp, [a, x], cluster=cs), y)
+
+
+def merge_plain_without(part, rank):
+    """The plain fold with one rank's partial row lost."""
+    kept = part.clone()
+    kept[rank] = 0
+    return mkernel.merge_plain(kept, torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [4096, 16384])
+def test_column_dot_total_bits_repeat_and_ticket_resets(cuda_device, n):
+    """gemver_mxv1_sum's row and total: two calls, a call on a second
+    stream (its own ticket counter) and three replays of a CUDA graph
+    give the same bits, and every counter is back at 0 after each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    a = 1 + torch.rand(n, n, generator=gen, device=cuda_device)
+    ym, xn, zn = (torch.rand(n, generator=gen, device=cuda_device)
+                  for _ in range(3))
+    cfg = TConfig(4, 2)
+
+    def run():
+        return tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, 1.2, config=cfg)
+    x1, t1 = run()
+    x2, t2 = run()
+    assert torch.equal(x1, x2) and torch.equal(t1, t2)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        x3, t3 = run()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    assert torch.equal(x3, x1) and torch.equal(t3, t1)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        xg, tg = run()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(xg, x1) and torch.equal(tg, t1)
+    assert all(int(t.item()) == 0 for t in mkernel._TICKETS.values())
+    rx, rt = tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, 1.2, config=cfg,
+                                      mode="ref")
+    assert abs(float(t1) - float(rt)) <= 1e-4 * abs(float(rt))
+
+
+@pytest.mark.gpu
+def test_column_dot_total_graphs_own_their_tickets(cuda_device,
+                                                   monkeypatch):
+    """Two CUDA graphs of gemver_mxv1_sum captured one after the other
+    (torch.cuda.graph captures both on one stream), with no counter made
+    before: each owns its ticket counter, zeroed inside the graph, so the
+    second replayed alone before the first ever is, and the two replayed
+    at once on two streams, give the eager call's bits; capture caches
+    no counter."""
+    n = 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    a = 1 + torch.rand(n, n, generator=gen, device=cuda_device)
+    ym, xn, zn = (torch.rand(n, generator=gen, device=cuda_device)
+                  for _ in range(3))
+    cfg = TConfig(4, 2)
+
+    def run():
+        return tgen.gemver_mxv1_sum_gen(a, ym, xn, zn, 1.2, config=cfg)
+    x1, t1 = run()
+    torch.cuda.synchronize()
+    monkeypatch.setattr(mkernel, "_TICKETS", {})
+    graphs, outs = [], []
+    for _ in range(2):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(run())
+        graphs.append(graph)
+    assert mkernel._TICKETS == {}
+    for _ in range(3):
+        graphs[1].replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[1][0], x1) and torch.equal(outs[1][1], t1)
+    main = torch.cuda.current_stream(cuda_device)
+    streams = [torch.cuda.Stream(cuda_device) for _ in graphs]
+    for _ in range(5):
+        for stream, graph in zip(streams, graphs):
+            stream.wait_stream(main)
+            with torch.cuda.stream(stream):
+                graph.replay()
+        for stream in streams:
+            main.wait_stream(stream)
+        torch.cuda.synchronize()
+        for xg, tg in outs:
+            assert torch.equal(xg, x1) and torch.equal(tg, t1)
 
 
 @pytest.mark.gpu

@@ -98,32 +98,65 @@ def test_rmsnorm_matches_jax_at_decode_and_train_rows(dtype, jmode, rows,
                                atol=RMS_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("jmode", ["interpret", "ref"])
+@pytest.mark.parametrize("rows,dm", [(8, 1001), (3, 4098)])
+def test_rmsnorm_matches_jax_at_rows_of_odd_vectors(dtype, jmode, rows, dm):
+    """Rows that are not a whole number of 16-byte vectors (the kernel's
+    narrower-lane instances on the card): [8, 1001] (2002 / 4004 bytes a
+    row) and [3, 4098] (rows padded to D=4), against the JAX rmsnorm."""
+    rng = np.random.default_rng(rows * dm)
+    x = rng.standard_normal((rows, dm)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(dm)).astype(np.float32)
+    jx, jw = jnp.asarray(x, _jdtype(dtype)), jnp.asarray(w, _jdtype(dtype))
+    jo, jinv = jcg.run_spec(jrspecs.rmsnorm_spec, (jx, jw, 1e-5),
+                            JConfig(4, 1), jmode)
+    tx = torch.from_numpy(x).to(_tdtype(dtype))
+    tw = torch.from_numpy(w).to(_tdtype(dtype))
+    to, tinv = trops.rmsnorm(tx, tw, 1e-5, config=TConfig(4, 1),
+                             with_inv_rms=True)
+    assert to.shape == (rows, dm) and tinv.shape == (rows,)
+    np.testing.assert_allclose(tinv.numpy(), _f32(jinv), rtol=RMS_TOL,
+                               atol=RMS_TOL)
+    rtol = RMS_TOL if dtype == "float32" else BF16_RTOL
+    np.testing.assert_allclose(to.float().numpy(), _f32(jo), rtol=rtol,
+                               atol=RMS_TOL)
+
+
 def _rms_geometry_cases():
     # (rows, dm, itemsize, d, sms): decode rows, the train rows, the
     # gpu tests' widths, Mistral-Large's 12288 and rows long enough for
-    # clusters of 2-8 blocks, small and odd SM counts
+    # clusters of 2-8 blocks, small and odd SM counts; rows that are not
+    # whole 16-byte vectors (1001, 4098: narrower vectors)
     cases = [(t, dm, isz, d, 132)
              for t in (1, 2, 4, 8, 96, 8192)
-             for dm in (128, 1000, 4096, 8192, 12288, 32768)
+             for dm in (128, 1000, 1001, 4096, 4098, 8192, 12288, 32768)
              for isz in (4, 2) for d in (1, 2, 4, 8)
-             if t % d == 0 and (dm * isz) % 16 == 0]
+             if t % d == 0 and (dm * isz) % 16 == 0 or dm in (1001, 4098)
+             and t % d == 0 and t <= 96]
     return cases + [(8192, 4096, 2, 4, 1), (64, 4096, 4, 4, 7),
-                    (16, 65536, 4, 1, 132)]
+                    (16, 65536, 4, 1, 132), (4, 1001, 2, 4, 7),
+                    (8, 16383, 2, 1, 132)]
 
 
 @pytest.mark.parametrize("rows,dm,isz,d,sms", _rms_geometry_cases())
 def test_rmsnorm_geometry_covers_each_vector_and_row_once(rows, dm, isz, d,
                                                           sms):
-    """``rmsnorm.cu``'s launch geometry: the cluster (a power of two, at
-    most 8) divides the grid and is the fewest blocks whose registers
-    (256 threads x 8 vectors) hold a row; its ranks' chunks and the
-    threads' vectors in them cover every 16-byte vector of a row once; a
-    thread holds 8 vectors an item (streams x vectors), the fewest of a
-    row that let 128 threads cover a chunk; the clusters' runs of items
-    (a slot's streams in groups) cover every row once, one item a run
-    where they fit two blocks an SM, else two."""
+    """``rmsnorm.cu``'s launch geometry: a vector is the widest of 16,
+    8, 4, 2 bytes that divides the row's bytes (so every row starts on a
+    vector boundary); the cluster (a power of two, at most 8) divides
+    the grid and is the fewest blocks whose registers (256 threads x 8
+    vectors) hold a row; its ranks' chunks and the threads' vectors in
+    them cover every vector of a row once; a thread holds 8 vectors an
+    item (streams x vectors), the fewest of a row that let 128 threads
+    cover a chunk (all 8 of one row in narrower vectors); the clusters'
+    runs of items (a slot's streams in groups) cover every row once, one
+    item a run where they fit two blocks an SM, else two."""
     g = rkernel.geometry(rows, dm, isz, d, sms)
-    nvec, seg = dm * isz // 16, rows // d
+    vb = g.vector_bytes
+    assert vb in (16, 8, 4, 2) and (dm * isz) % vb == 0
+    assert vb == 16 or (dm * isz) % (2 * vb) != 0
+    nvec, seg = dm * isz // vb, rows // d
     assert g.nvec == nvec
     assert g.cluster in (1, 2, 4, 8) and g.blocks % g.cluster == 0
     assert g.cluster * rkernel.THREADS * rkernel.HOLD >= nvec
@@ -133,7 +166,8 @@ def test_rmsnorm_geometry_covers_each_vector_and_row_once(rows, dm, isz, d,
     assert g.threads * g.vectors >= g.chunk
     assert g.vectors in (1, 2, 4, 8)
     assert g.vectors == 8 or g.vectors * 128 >= g.chunk
-    assert g.vectors == 1 or (g.vectors // 2) * 128 < g.chunk
+    assert (g.vectors == 1 or (g.vectors // 2) * 128 < g.chunk
+            or (vb < 16 and g.vectors == 8))
     seen = []
     for rank in range(g.cluster):
         v0, v1 = rank * g.chunk, min(nvec, (rank + 1) * g.chunk)
@@ -178,8 +212,22 @@ def test_rmsnorm_geometry_at_the_serve_and_train_shapes():
     assert rkernel.geometry(8192, 4096, 2, 4, 132, items=16).blocks == 256
     with pytest.raises(ValueError, match="exceeds"):
         rkernel.geometry(8, 70000, 4, 4, 132)
-    with pytest.raises(ValueError, match="16-byte"):
-        rkernel.geometry(8, 1001, 2, 4, 132)
+    # a row that is not whole 16-byte vectors (2002 bytes: rows start
+    # 2 bytes apart from a 16-byte boundary) runs in 2-byte vectors, 8 of
+    # one row a thread; 4098 bf16 (8196 bytes) in 4-byte ones, 2049 of a
+    # row over a cluster of two
+    odd = rkernel.geometry(8, 1001, 2, 4, 132)
+    assert (odd.vector_bytes, odd.nvec, odd.cluster, odd.vectors,
+            odd.streams, odd.threads, odd.items, odd.blocks) == (
+                2, 1001, 1, 8, 1, 128, 1, 8)
+    assert rkernel.geometry(8, 1001, 4, 4, 132).vector_bytes == 4
+    wide = rkernel.geometry(4, 4098, 2, 4, 132)
+    assert (wide.vector_bytes, wide.nvec, wide.cluster, wide.chunk,
+            wide.threads, wide.blocks) == (4, 2049, 2, 1025, 160, 8)
+    assert rkernel.geometry(4, 4098, 4, 4, 132).vector_bytes == 8
+    # narrow vectors fill a cluster sooner: 32 KB of 2-byte vectors
+    with pytest.raises(ValueError, match="2-byte vectors"):
+        rkernel.geometry(8, 16385, 2, 4, 132)
 
 
 def test_rmsnorm_batch_dims_and_oracle():
@@ -247,6 +295,32 @@ def test_decode_attn_matches_jax_interpret(d, g, masked):
         None if kv_len is None else torch.from_numpy(kv_len))
     torch.testing.assert_close(to, ref_out, rtol=DEC_TOL, atol=DEC_TOL)
     torch.testing.assert_close(tl, ref_lse, rtol=DEC_TOL, atol=DEC_TOL)
+
+
+@pytest.mark.parametrize("dh", [80, 96])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("jmode", ["interpret", "ref"])
+def test_decode_attn_matches_jax_at_head_dims_80_and_96(dh, masked, jmode):
+    """The head dims of Phi-2 (80) and Phi-3-mini (96), which the kernel
+    now admits (dh any multiple of 16 up to 128), at B=2, S=64, Hkv=2,
+    g=2, D=2, against the JAX decode_attn."""
+    b, s, hkv, g = 2, 64, 2, 2
+    assert dkernel.admits(g, dh)
+    q, k, v = _decode_inputs(dh + masked, b, s, hkv, dh, g)
+    kv_len = np.array([23, 64], np.int32) if masked else None
+    jo, jl = jdops.decode_attn(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        kv_len=None if kv_len is None else jnp.asarray(kv_len),
+        config=JConfig(2, 1), mode=jmode, with_lse=True)
+    to, tl = tdops.decode_attn(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        kv_len=None if kv_len is None else torch.from_numpy(kv_len),
+        config=TConfig(2, 1), with_lse=True)
+    assert to.shape == q.shape and tl.shape == (b, hkv * g)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), rtol=DEC_TOL,
+                               atol=DEC_TOL)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=DEC_TOL,
+                               atol=DEC_TOL)
 
 
 def test_decode_attn_bf16_matches_jax():

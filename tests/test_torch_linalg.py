@@ -316,22 +316,93 @@ def test_k4_specs_refuse_until_that_template_lands(monkeypatch, lookahead):
 @pytest.mark.parametrize("d", [1, 2, 4, 8])
 @pytest.mark.parametrize("sms", [1, 7, 132])
 def test_column_dot_two_passes_equal_one_sweep(d, sms):
-    """The column-dot's split into (segment, row chunk) partial rows and
-    their in-order merge, through the wrappers' plain versions, equal the
-    one-sweep spec for any chunking the card's SM count gives."""
+    """The column-dot's partial rows of its cluster ranks (each rank's
+    slots of every segment, every row once) and their fold in rank
+    order, through the wrappers' plain versions, equal the one-sweep
+    spec for any cluster the card's SM count gives."""
     rng = np.random.default_rng(d * sms)
     a = torch.from_numpy(rng.standard_normal((96, 384)).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal(96).astype(np.float32))
     spec = tmspecs.mxv_t_spec(a, x)
     bp = tcg.plan_blocks(spec, TConfig(d, 2))
-    tpc, chunks = mkernel.row_chunks(bp, sms)
-    tiles = bp.rows // bp.d // bp.bm
-    assert (chunks - 1) * tpc < tiles <= chunks * tpc
-    part = mkernel.split_plain(spec, bp, [a, x], tpc, chunks)
-    assert tuple(part.shape) == (d * chunks, 384)
+    g = mkernel.geometry(bp.rows, bp.cols, bp.d, 4, sms)
+    rows = torch.cat([mkernel.rank_rows(bp, g, r) for r in range(g.cluster)])
+    assert sorted(rows.tolist()) == list(range(bp.rows))
+    part = mkernel.split_plain(spec, bp, [a, x], g)
+    assert tuple(part.shape) == (g.cluster, 384)
     y = mkernel.merge_plain(part, torch.float32)
     torch.testing.assert_close(y, tcg.evaluate(spec, [a, x]), rtol=1e-5,
                                atol=1e-5)
+
+
+def _coldot_geometry_cases():
+    return [(n, isz, d) for n in (4096, 16384) for isz in (4, 2)
+            for d in (1, 2, 4, 8)]
+
+
+@pytest.mark.parametrize("n,isz,d", _coldot_geometry_cases())
+def test_column_dot_geometry_at_the_bench_sizes(n, isz, d):
+    """The column-dot's launch geometry on 132 SMs: 128-column blocks of
+    128 threads, 16 bytes a thread (32 column threads by 4 row groups in
+    f32, 16 by 8 in bf16), a step of K streams (the smallest power of
+    two up to D) by 8 / K slots; a cluster of 8 at 4096^2 and 2 at
+    16384^2, so 256 blocks, one wave at two blocks an SM; the ranks'
+    slots cover each segment once; a card that keeps fewer clusters
+    resident than the grid has gets a smaller cluster."""
+    g = mkernel.geometry(n, n, d, isz, 132)
+    assert g.ncb == n // 128 and g.seg == n // d
+    assert (g.column_threads, g.row_groups) == ((32, 4) if isz == 4
+                                                else (16, 8))
+    assert g.streams == d and g.slots == 8 // d
+    assert g.cluster == (8 if n == 4096 else 2)
+    assert (g.blocks, g.waves) == (256, 1)
+    assert g.rows_a_rank == g.seg // g.cluster
+    assert g.cluster * g.rows_a_rank >= g.seg
+    # the sweep's override, and the rule's limits: a cluster fits the
+    # rows of a segment and the grid one wave
+    assert mkernel.geometry(n, n, d, isz, 132, cluster=1).blocks == n // 128
+    assert mkernel.geometry(8, 1024, 4, isz, 132).cluster == 2
+    assert mkernel.geometry(n, n, d, isz, 1).cluster == 1
+    # 30 resident clusters of 8 cannot hold 4096^2's 32 in one wave
+    few = mkernel.geometry(n, n, d, isz, 132,
+                           resident=lambda cs: 240 // cs)
+    assert few.cluster == (4 if n == 4096 else 1)
+    with pytest.raises(ValueError):
+        mkernel.geometry(n, n, d, isz, 132, cluster=3)
+
+
+@pytest.mark.parametrize("name", ["mxv_t", "bicg_s", "gemver_mxv1",
+                                  "gemver_mxv1_sum"])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("sms", [7, 132])
+def test_column_dot_rank_fold_matches_jax_ref(name, d, sms, monkeypatch):
+    """The column-dot's plain version in the kernel's order (each cluster
+    rank's rows through the spec body, the ranks folded in order; the
+    total of gemver_mxv1_sum from the folded row) against the JAX spec
+    in ref mode on the same numpy inputs, at the registry row's
+    rtol / atol, at 512 x 384 (clusters of 1-8 ranks)."""
+    rng = np.random.default_rng(d + sms)
+    a = rng.standard_normal((512, 384)).astype(np.float32)
+    x = rng.standard_normal(512).astype(np.float32)
+    jb, tb = {
+        "mxv_t": (jmspecs.mxv_t_spec, tmspecs.mxv_t_spec),
+        "bicg_s": (jbspecs.bicg_s_spec, tbspecs.bicg_s_spec),
+        "gemver_mxv1": (jgspecs.gemver_mxv1_spec, tgspecs.gemver_mxv1_spec),
+        "gemver_mxv1_sum": (jgspecs.gemver_mxv1_sum_spec,
+                            tgspecs.gemver_mxv1_sum_spec)}[name]
+    args = [a, x] + ([1.2] if name.startswith("gemver") else [])
+    row = jreg.get(SPEC_ROWS[name][0])
+    monkeypatch.setattr(mkernel, "_PLAIN_SMS", sms)
+    want = jcg.run_spec(jb, _j(args), JConfig(d, 2), "ref")
+    got = tcg.run_spec(tb, _t(args), TConfig(d, 2))
+    _close(got, want, row)
+    spec = tb(*_t(args))
+    bp = tcg.plan_blocks(spec, TConfig(d, 2))
+    g = mkernel.geometry(bp.rows, bp.cols, bp.d, 4, sms)
+    part = mkernel.split_plain(spec, bp, _t(args[:2]), g, args[2:])
+    assert part.shape == (g.cluster, 384)
+    _close(mkernel.merge_plain(part, torch.float32),
+           want[0] if name == "gemver_mxv1_sum" else want, row)
 
 
 def test_oracles_match_jax_oracles():
@@ -377,5 +448,8 @@ def test_cpu_ops_launch_nothing_and_bf16_keeps_its_dtype():
                                np.asarray(want.astype(jnp.float32)),
                                rtol=2.0 ** -7, atol=1e-4)
     assert {n: k.launches for n, k in cuda.KERNELS.items()} == before
-    assert set(cuda.KERNELS) >= {"mxv", "mxv_t", "mxv_t_merge",
-                                 "gemver_outer", "gemver_sum"}
+    assert set(cuda.KERNELS) >= {"mxv", "mxv_t", "gemver_outer",
+                                 "gemver_sum"}
+    # the column-dot folds its partial rows in its own launch
+    assert not any(n.endswith("_merge") and n.startswith(("mxv", "gemver"))
+                   for n in cuda.KERNELS)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """doitgen, the stream kernels (K1, the K2 read, the K4 ring), the
-ring's adamw body, rmsnorm, rowstat and mxv of the PyTorch port, timed
+ring's adamw body, rmsnorm, rowstat, mxv, the column-dot and decode
+attention of the PyTorch port, timed
 on one card for several checkouts in turn (an A/B of two commits, run
 as parent, change, change, parent).
 
@@ -28,13 +29,22 @@ CUDA events):
   * rowstat (``rowstat_gen``, D=4, P=2) at 4096^2 and 16384^2 in f32
     and bf16, and mxv (the row-dot that shares its library) at the same
     sizes in f32;
+  * the column-dot: ``mxv_t``, ``gemver_mxv1_gen`` and
+    ``gemver_mxv1_sum_gen`` (D=4, P=2) at 4096^2 and 16384^2 in f32 and
+    bf16;
+  * rmsnorm at x [8, 1001] in bf16 and f32 (rows that are not whole
+    16-byte vectors) and decode attention (``decode_attn``, B=4,
+    S=4096, kv_len uniform) at Yi-9B's heads (Hkv=4, Hq=32, dh=128) and
+    Phi-2's (Hkv=Hq=32, dh=80); a checkout whose kernels refuse a shape
+    records ``"refused"``;
 
 and beside each, in the first ROOT's process only, one PyTorch call
 that computes the same function: ``torch.matmul(A.view(-1, s), C4)``,
 ``x.clone()``, ``torch.add(b, c, alpha=1.5)``, ``torch.full``, ``x +
 z``, ``x.view(D, -1).sum(1, dtype=float32)``, ``part.sum(0)``,
 ``torch._fused_adamw_``, ``F.rms_norm``, ``(x.amax(1), x.sum(1))``,
-``torch.mv``.  TF32 is off.
+``torch.mv``, ``torch.mv(A.t(), y)`` (with gemver's scaling and adds),
+SDPA with ``enable_gqa``.  TF32 is off.
 
 Prints one JSON line per ROOT (milliseconds), then the card's name and
 power limit.  Compare roots by the alternation, never across calls.
@@ -58,6 +68,22 @@ RMSNORM_ROWS = (4, 8192)
 RMSNORM_DM = 4096
 ROWSTAT = [(4096, "float32"), (4096, "bfloat16"), (16384, "float32"),
            (16384, "bfloat16")]
+COLDOT = [(4096, "float32"), (4096, "bfloat16"), (16384, "float32"),
+          (16384, "bfloat16")]
+RMSNORM_ODD = [((8, 1001), "bfloat16"), ((8, 1001), "float32")]
+# (model, Hkv, Hq, dh) at B=4, S=4096
+DECODE = [("yi-9b", 4, 32, 128), ("phi-2", 32, 32, 80)]
+DECODE_B, DECODE_S = 4, 4096
+
+
+def refused(fn, *args):
+    """Time ``fn(*args)``, or ``"refused"`` where this checkout's kernels
+    do not take the shape (its wrapper raises ValueError or
+    NotImplementedError before any launch)."""
+    try:
+        return fn(*args)
+    except (ValueError, NotImplementedError):
+        return "refused"
 
 
 def one(root: str, replays: int, with_library: bool) -> dict:
@@ -86,7 +112,7 @@ def one(root: str, replays: int, with_library: bool) -> dict:
     from repro_torch.kernels.mxv import mxv
     from repro_torch.kernels.rmsnorm import ops as rops
     cuda.build(["doitgen", "stream", "manual_ring", "gemver", "adamw",
-                "rmsnorm", "reduction"])
+                "rmsnorm", "reduction", "stream_reduction", "decode_attn"])
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dt):
@@ -206,6 +232,80 @@ def one(root: str, replays: int, with_library: bool) -> dict:
                 out[f"mxv {dt_name} [{n}, {n}] torch.mv"] = device_ms(
                     lambda a: torch.mv(a, v), xsets, replays=replays)
         del xsets
+        torch.cuda.empty_cache()
+    # the column-dot: mxv_t, gemver_mxv1 and gemver_mxv1_sum
+    from repro_torch.kernels.gen import gemver_mxv1_gen, gemver_mxv1_sum_gen
+    from repro_torch.kernels.mxv import mxv_t
+    beta = 1.2
+    for n, dt_name in COLDOT:
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        csets = copies(lambda: (rand((n, n), dt), rand((n,), dt),
+                                rand((n,), dt), rand((n,), dt)),
+                       n * n * isz)
+        tag = f"{dt_name} [{n}, {n}]"
+        out[f"mxv_t {tag}"] = device_ms(
+            lambda a, y, x, z: mxv_t(a, y, config=cfg42), csets,
+            replays=replays)
+        out[f"gemver_mxv1 {tag}"] = device_ms(
+            lambda a, y, x, z: gemver_mxv1_gen(a, y, x, beta, config=cfg42),
+            csets, replays=replays)
+        out[f"gemver_mxv1_sum {tag}"] = device_ms(
+            lambda a, y, x, z: gemver_mxv1_sum_gen(a, y, x, z, beta,
+                                                   config=cfg42),
+            csets, replays=replays)
+        if with_library:
+            out[f"mxv_t {tag} torch.mv(A.t(), y)"] = device_ms(
+                lambda a, y, x, z: torch.mv(a.t(), y), csets,
+                replays=replays)
+            out[f"gemver_mxv1 {tag} x + b*torch.mv(A.t(), y)"] = device_ms(
+                lambda a, y, x, z: x + beta * torch.mv(a.t(), y), csets,
+                replays=replays)
+
+            def mxv1_sum_lib(a, y, x, z):
+                s = beta * torch.mv(a.t(), y).float()
+                return x + s + z, s.sum()
+            out[f"gemver_mxv1_sum {tag} x + s + z, s.sum()"] = device_ms(
+                mxv1_sum_lib, csets, replays=replays)
+        del csets
+        torch.cuda.empty_cache()
+    # rmsnorm at rows that are not whole 16-byte vectors
+    for (t, dm), dt_name in RMSNORM_ODD:
+        dt = getattr(torch, dt_name)
+        rsets = copies(lambda: (rand((t, dm), dt),
+                                (1 + 0.1 * rand((dm,), torch.float32))
+                                .to(dt)), t * dm * 4)
+        key = f"rmsnorm {dt_name} [{t}, {dm}]"
+        out[key] = refused(device_ms, lambda x, w: rops.rmsnorm(x, w, 1e-5),
+                           rsets, 20, replays)
+        if with_library:
+            out[f"{key} F.rms_norm"] = device_ms(
+                lambda x, w: F.rms_norm(x, (dm,), w, 1e-5), rsets,
+                replays=replays)
+    # decode attention, bf16, both passes
+    from repro_torch.kernels.decode_attn import ops as dops
+    kv_len = torch.randint(1, DECODE_S + 1, (DECODE_B,), generator=gen,
+                           device="cuda")
+    for model, hkv, hq, dh in DECODE:
+        b, s = DECODE_B, DECODE_S
+        dsets = copies(lambda: (rand((b, hq, dh), torch.bfloat16),
+                                rand((b, s, hkv, dh), torch.bfloat16),
+                                rand((b, s, hkv, dh), torch.bfloat16)),
+                       2 * b * s * hkv * dh * 2)
+        key = f"decode_attn bfloat16 {model} dh={dh} B={b} S={s}"
+        out[key] = refused(device_ms, lambda q, k, v: dops.decode_attn(
+            q, k, v, kv_len=kv_len), dsets, 20, replays)
+        if with_library:
+            mask = (torch.arange(s, device="cuda")[None, :]
+                    < kv_len[:, None])[:, None, None, :]
+            lsets = [(q[:, :, None], k.transpose(1, 2).contiguous(),
+                      v.transpose(1, 2).contiguous()) for q, k, v in dsets]
+            out[f"{key} SDPA enable_gqa"] = device_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True), lsets,
+                replays=replays)
+            del lsets
+        del dsets
         torch.cuda.empty_cache()
     # adamw on the ring, Yi-9B's embedding, f32
     p, g, m = (rand(EMBED, torch.float32) for _ in range(3))
