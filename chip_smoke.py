@@ -11,9 +11,10 @@ Phases (each raises on failure, so the script exits non-zero):
   2. build    — compile every CUDA source (one nvcc each, all at once) and
                 print the -Xptxas -v register / shared-memory / spill lines,
                 and one line of every doitgen, stream, rmsnorm, reduction,
-                stream_reduction and decode_attn instance's registers and
-                spill bytes (an rmsnorm, rowstat, column-dot or K1 stream
-                instance that spills fails the run)
+                stream_reduction, decode_attn, gemver and stencil
+                instance's registers and spill bytes (an rmsnorm, rowstat,
+                column-dot, K1 stream, gemver_sum or stencil instance that
+                spills fails the run)
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 the main path's shapes: rmsnorm at the decode rows (1, 4)
                 and the train rows (8192) of 4096, 4 f32 rows of 12288 (a
@@ -53,15 +54,18 @@ Phases (each raises on failure, so the script exits non-zero):
                 over the ring's step rows and tile and the read's chunks
                 an SM
   3d. stencil — jacobi2d and conv3x3 at 2050 x 2048 and 16386 x 16384,
-                in f32 and at the smaller size in bf16; doitgen at
+                in f32 and bf16, and at 2050 x 2047 (an output row of 2045
+                columns) in bf16 and f16; doitgen at
                 (16, 256, 256) and (256, 256, 256) x (256, 256) in f32 and
                 bf16 (on the tensor cores) and at the first in f16; through
                 their public functions; each kernel against its plain
                 version (equality for the stencils, the f32 dot limit for
-                doitgen) with lost-stream, lost-tap and lost-tile controls,
-                timed, and the D sweep at the larger sizes (doitgen in f32
-                and bf16), and the stencils' again at a row pitch of 16386
-                elements
+                doitgen) with lost-stream, lost-tap, lost-tail-column and
+                lost-tile controls, each stencil launch's geometry
+                (streams, tiles, runs, blocks an SM, waves), timed, conv3x3's
+                weight packing alone, and the D sweep at the larger sizes
+                (the stencils in f32 and bf16, doitgen in f32 and bf16), and
+                the stencils' again at a row pitch of 16386 elements
   3e. adamw  — the fused AdamW update at the registry's bench size
                 (4096 x 1024 f32) and at Yi-9B's embedding (64000 x 4096
                 f32) through its public op: the K1 kernel and the K4
@@ -139,11 +143,16 @@ def _card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def device_ms(fn, arg_sets, reps: int = 20, replays: int = 5) -> float:
+def device_ms(fn, arg_sets, reps: int = 20, replays: int = 5,
+              hold: bool = False) -> float:
     """Device time of one ``fn(*args)`` call: ``reps`` calls, at least one
     per argument set (cycling over ``arg_sets``, so inputs larger than L2
     in total arrive cold), captured in one CUDA graph, replayed
-    ``replays`` times between CUDA events."""
+    ``replays`` times between CUDA events.  With ``hold`` every call's
+    output is kept to the end of the capture, so each call writes memory
+    of its own: an output that fits L2 no longer stays there from one
+    call to the next (the graph would otherwise give every call the same
+    buffer), and its bytes reach HBM as the inputs' do."""
     import torch
     reps = max(reps, len(arg_sets))
     side = torch.cuda.Stream()
@@ -153,9 +162,12 @@ def device_ms(fn, arg_sets, reps: int = 20, replays: int = 5) -> float:
             fn(*a)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
+    held = []
     with torch.cuda.graph(graph):
         for i in range(reps):
-            fn(*arg_sets[i % len(arg_sets)])
+            out = fn(*arg_sets[i % len(arg_sets)])
+            if hold:
+                held.append(out)
     graph.replay()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -166,7 +178,7 @@ def device_ms(fn, arg_sets, reps: int = 20, replays: int = 5) -> float:
     t1.record()
     t1.synchronize()
     ms = t0.elapsed_time(t1) / (replays * reps)
-    del graph
+    del graph, held
     return ms
 
 
@@ -211,19 +223,21 @@ def phase_build(card: str) -> float:
           f"(nvcc, sm_90a) [{card}]")
     inst = {}
     for stem in ("doitgen", "stream", "rmsnorm", "reduction",
-                 "stream_reduction", "decode_attn"):
+                 "stream_reduction", "decode_attn", "gemver", "stencil"):
         inst.update(ptxas_instances(reports.get(stem, "")))
     PTXAS.update(inst)
-    print(f"ptxas doitgen, stream, rmsnorm, reduction, stream_reduction and "
-          f"decode_attn instances, [registers, spill store bytes, spill "
-          f"load bytes]: {json.dumps(inst)} [{card}]")
+    print(f"ptxas doitgen, stream, rmsnorm, reduction, stream_reduction, "
+          f"decode_attn, gemver and stencil instances, [registers, spill "
+          f"store bytes, spill load bytes]: {json.dumps(inst)} [{card}]")
     spills = {n: v for n, v in inst.items()
               if any(w in n for w in ("rmsnorm", "rowstat", "coldot",
                                       "stream_copy", "stream_triad",
-                                      "stream_init")) and any(v[1:])}
+                                      "stream_init", "gemver_sum",
+                                      "stencil<")) and any(v[1:])}
     if spills:
         raise AssertionError(f"build: rmsnorm / rowstat / column-dot / K1 "
-                             f"stream instances spill: {spills}")
+                             f"stream / gemver_sum / stencil instances "
+                             f"spill: {spills}")
     return secs
 
 
@@ -882,7 +896,8 @@ def phase_linalg(card: str, results: dict) -> None:
                           / limit.clamp_min(1e-30)).max())
 
         def measure(name, fn, plain, library, make, nbytes, flops,
-                    got, want_t, limit, controls, shape, cap=8, entry=True):
+                    got, want_t, limit, controls, shape, cap=8, entry=True,
+                    hold=False):
             err = float((got.float() - want_t.float()).abs().max())
             if _excess(got, want_t, limit) > 0:
                 raise AssertionError(f"{name} n={n}: max |d|={err:g} over "
@@ -894,9 +909,9 @@ def phase_linalg(card: str, results: dict) -> None:
             ctl = " ".join(f"{what}={ratio(c, want_t, limit):.4g}"
                            for what, c in controls.items())
             sets = _copies(make, nbytes, cap)
-            ms = device_ms(fn, sets)
-            plain_ms = device_ms(plain, sets)
-            lib_ms = device_ms(library, sets) if library else None
+            ms = device_ms(fn, sets, hold=hold)
+            plain_ms = device_ms(plain, sets, hold=hold)
+            lib_ms = device_ms(library, sets, hold=hold) if library else None
             bms, by = bound_ms(nbytes, flops)
             print(f"{name} {shape}: max_abs_err={err:g} "
                   f"max|d|/limit={ratio(got, want_t, limit):.4g} "
@@ -1027,14 +1042,84 @@ def phase_linalg(card: str, results: dict) -> None:
                     {"lost segment": drop_rows(s_p, tile_rows, tile_rows,
                                                cols)},
                     f"x, z [{vn}] f32 ({-(-vn // cols)} x {cols} tiles, "
-                    f"D={MXV_DEFAULT.stride_unroll})")
+                    f"D={MXV_DEFAULT.stride_unroll}; every call's output "
+                    f"held)", hold=True)
             del xs, zs, s_k, s_p
+            check_gemver_sum(card, vec, sms)
         del x, y, r, p, u1, v1, u2, v2, z
         torch.cuda.empty_cache()
     for name in names:
         results[name]["launches"] = launches[name]
     print(f"linalg: phase took {time.perf_counter() - t_phase:.1f} s "
           f"[{card}]")
+
+
+GEMVER_SUM_DTYPES = ("float32", "bfloat16", "float16")
+
+
+def check_gemver_sum(card: str, vec, sms: int) -> None:
+    """gemver_sum's launch (blocks, chunks, blocks an SM, waves,
+    registers) at vn in f32, bf16 and f16, then each type at vn and at vn
+    + 77 (a padded tiling) held to |d| = 0 against its plain version with
+    a lost-segment and a lost-last-vector control; the 16-bit types at vn
+    timed beside the bound and ``x + z``.  ``vec(n)`` draws an f32 [n] on
+    the card."""
+    import torch
+    from repro_torch.codegen import block_1d, plan_blocks
+    from repro_torch.kernels.gemver import gemver_sum
+    from repro_torch.kernels.gemver import kernel as gk
+    from repro_torch.kernels.gemver import specs as gspecs
+    from repro_torch.kernels.gemver.ops import _DEFAULT as G_DEFAULT
+    vn = GEMVER_SUM_N
+    for dt_name in GEMVER_SUM_DTYPES:
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        for n in (vn, vn + 77):
+            x, z = vec(n).to(dt), vec(n).to(dt)
+            spec2, _ = block_1d(gspecs.gemver_sum_spec(x, z), G_DEFAULT)
+            bp = plan_blocks(spec2, G_DEFAULT)
+            g = gk.sum_geometry(bp, isz)
+            if n == vn:
+                per_sm = gk.sum_occupancy(dt, g.threads)
+                print(f"gemver_sum x, z [{n}] {dt_name} launch: D={bp.d}, "
+                      f"{g.blocks} blocks of {g.threads} threads ({g.steps} "
+                      f"steps of {g.units} x {gk.SUM_UNIT} 16-byte vectors "
+                      f"of {g.vec} elements of each of {bp.d} segments of "
+                      f"{g.segv} vectors, {bp.d} blocks a step), {per_sm} "
+                      f"blocks an SM, {g.blocks / (per_sm * sms):.2f} waves; "
+                      f"ptxas gemver_sum [registers, spill bytes]: "
+                      f"{_regs(f'gemver_sum<{_CTYPES[dt_name]}>')} [{card}]")
+            got, ref = gemver_sum(x, z), gemver_sum(x, z, mode="ref")
+            seg = bp.rows // bp.d * bp.cols
+            lost_seg = ref.clone()
+            lost_seg[seg:min(2 * seg, n)] = 0
+            lost_vec = ref.clone()
+            last = lost_vec[(n - 1) // g.vec * g.vec:]
+            last.copy_(torch.where(last == 0, -1.0, 0.0).to(dt))
+            err, ctl = _hold(f"gemver_sum [{n}] {dt_name}", got, ref, 0.0,
+                             {"lost segment": lost_seg,
+                              "lost last vector": lost_vec})
+            line = (f"gemver_sum x, z [{n}] {dt_name}: max_abs_err={err:g} "
+                    f"(|d| = 0); controls {ctl}")
+            if n == vn and dt != torch.float32:
+                sets = _copies(lambda: (vec(n).to(dt), vec(n).to(dt)),
+                               3 * n * isz)
+                bms, by = bound_ms(3 * n * isz, float(n), dt_name)
+                ms = device_ms(gemver_sum, sets, hold=True)
+                plain = device_ms(lambda a, b: gemver_sum(a, b, mode="ref"),
+                                  sets, hold=True)
+                lib = device_ms(lambda a, b: a + b, sets, hold=True)
+                line += (f"; ms={ms:.5f} plain_ms={plain:.5f} bound_ms="
+                         f"{bms:.6f} ({by}) library_ms={lib:.5f} (x + z; "
+                         f"every call's output held)")
+                del sets
+            print(f"{line} [{card}]")
+            del x, z, got, ref, lost_seg, lost_vec, last
+
+
+# the C++ element type of each dtype, as ptxas_instances names instances
+_CTYPES = {"float32": "float", "bfloat16": "__nv_bfloat16",
+           "float16": "__half"}
 
 
 SOURCES = {
@@ -1523,25 +1608,35 @@ STREAM_SOURCES = {
 
 
 STENCIL_SIZES = (2050, 16386)      # the registry's bench rows, and 1 GiB
+# the stencils' cases, x [n, m] in a dtype: the bench size and 16386 x
+# 16384 in f32 and bf16, and at 2047 columns (an output row of 2045: no
+# whole 16-byte vectors, rows 2 bytes off 16-byte boundaries) in bf16
+# and f16
+STENCIL_CASES = tuple(((n, n - 2), dt) for dt in ("float32", "bfloat16")
+                      for n in STENCIL_SIZES) + tuple(
+    ((STENCIL_SIZES[0], STENCIL_SIZES[0] - 3), dt)
+    for dt in ("bfloat16", "float16"))
 DOITGEN_SIZES = ((16, 256, 256), (256, 256, 256))   # bench (r, q, s); p = s
 # the 16-bit doitgen lines: on the tensor cores
 DOITGEN_16BIT = (((16, 256, 256), "bfloat16"), ((256, 256, 256), "bfloat16"),
                  ((16, 256, 256), "float16"))
 STENCIL_D_SWEEP = (1, 2, 4, 8)
+STENCIL_SWEEP_DTYPES = ("float32", "bfloat16")
 
 
 def phase_stencil(card: str, results: dict) -> None:
     """The paper's stencil and tensor kernels (jacobi2d, conv3x3, doitgen)
-    through their public functions: the stencils at the registry's bench
-    size 2050 x 2048 and at 16386 x 16384, doitgen at its bench size
-    (16, 256, 256) x (256, 256) and at (256, 256, 256) x (256, 256), in
-    f32, the stencils at the smaller size in bf16, doitgen at both in
-    bf16 and at the bench size in f16.  Then each kernel against its
-    plain version with lost-stream and lost-tap (stencils) or lost-tile
-    and lost-batch (doitgen) controls, timed beside its bound and one
-    PyTorch call, and the D sweep at the larger sizes (doitgen in f32 and
-    bf16); the stencils' sweep again at 16386 x 16386, whose row pitch is
-    not the 64 KiB of 16386 x 16384.
+    through their public functions: the stencils at STENCIL_CASES (the
+    registry's bench size 2050 x 2048 and 16386 x 16384 in f32 and bf16,
+    2050 x 2047 in bf16 and f16), doitgen at its bench size (16, 256,
+    256) x (256, 256) and at (256, 256, 256) x (256, 256), in f32, at
+    both in bf16 and at the bench size in f16.  Then each kernel against
+    its plain version with lost-stream, lost-tap and lost-tail-column
+    (stencils) or lost-tile and lost-batch (doitgen) controls, timed
+    beside its bound and one PyTorch call, and the D sweep at the larger
+    sizes (the stencils and doitgen in f32 and bf16); the stencils' sweep
+    again at 16386 x 16386 in f32, whose row pitch is not the 64 KiB of
+    16386 x 16384.
 
     Every count is set to 0 just before the op calls and read just
     after; the JSON line's launches are those counts."""
@@ -1572,7 +1667,8 @@ def phase_stencil(card: str, results: dict) -> None:
           f"with TF32 off (bf16 and f16 on the tensor cores, f32 "
           f"accumulators). "
           f"Controls, the plain version with stream k=1's rows lost, one tap "
-          f"row of stream 1 read one row too low (stencils), one p tile of "
+          f"row of stream 1 read one row too low, the last column of one "
+          f"row lost (stencils), one p tile of "
           f"one block lost or one batch element lost (doitgen), must land "
           f"above each limit [{card}]")
 
@@ -1610,15 +1706,16 @@ def phase_stencil(card: str, results: dict) -> None:
         cut.copy_(torch.where(cut == 0, -1.0, 0.0).to(t.dtype))
         return t
 
-    inputs = {}
-    for n in STENCIL_SIZES:
-        inputs[("stencil", n, "float32")] = (rand((n, n - 2)), rand((3, 3)))
+    inputs, base = {}, {}
+    for shape, dt_name in STENCIL_CASES:     # one f32 draw a shape
+        if shape not in base:
+            base[shape] = (rand(shape), rand((3, 3)))
+        inputs[("stencil", shape, dt_name)] = tuple(
+            t.to(getattr(torch, dt_name)) for t in base[shape])
+    del base
     for shape in DOITGEN_SIZES:
         inputs[("doitgen", shape, "float32")] = (rand(shape),
                                                  rand((shape[2], shape[2])))
-    n0 = STENCIL_SIZES[0]
-    inputs[("stencil", n0, "bfloat16")] = tuple(
-        t.bfloat16() for t in inputs[("stencil", n0, "float32")])
     for shape, dt_name in DOITGEN_16BIT:
         inputs[("doitgen", shape, dt_name)] = tuple(
             t.to(getattr(torch, dt_name))
@@ -1639,7 +1736,7 @@ def phase_stencil(card: str, results: dict) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {n: cuda.KERNELS[n].launches for n in names}
-    want = {"jacobi2d": 3, "conv3x3": 3,
+    want = {"jacobi2d": len(STENCIL_CASES), "conv3x3": len(STENCIL_CASES),
             "doitgen": len(DOITGEN_SIZES) + len(DOITGEN_16BIT)}
     if counts != want:
         raise AssertionError(f"stencil: launches {counts}, expected {want}")
@@ -1647,8 +1744,9 @@ def phase_stencil(card: str, results: dict) -> None:
               if n not in names and k.launches}
     if others:
         raise AssertionError(f"stencil: other kernels launched: {others}")
-    print(f"stencil: main path (jacobi2d, conv3x3 at {list(STENCIL_SIZES)} "
-          f"rows f32 and {n0} bf16, D={J_DEFAULT.stride_unroll}; doitgen at "
+    print(f"stencil: main path (jacobi2d, conv3x3 at "
+          f"{[f'{list(s)} {d}' for s, d in STENCIL_CASES]}, "
+          f"D={J_DEFAULT.stride_unroll}; doitgen at "
           f"{[list(s) for s in DOITGEN_SIZES]} f32 and "
           f"{[f'{list(s)} {d}' for s, d in DOITGEN_16BIT]}, "
           f"D={D_DEFAULT.stride_unroll}) {wall:.3f} s host wall, launches "
@@ -1670,62 +1768,88 @@ def phase_stencil(card: str, results: dict) -> None:
                 bound_ms=bms, bound_by=by, library_ms=lib_ms,
                 max_abs_err=err, shape=shape)
 
+    def lost_tail(ref, row):
+        """ref with the last column of one output row changed."""
+        t = ref.clone()
+        t[row, -1] = -1.0 if float(t[row, -1]) == 0 else 0.0
+        return t
+
     cross = torch.tensor([[0.0, 0.2, 0.0], [0.2, 0.2, 0.2], [0.0, 0.2, 0.0]],
                          device="cuda")
+    occ = {(dt, conv): st.occupancy(getattr(torch, dt), conv)
+           for dt in ("float32", "bfloat16", "float16")
+           for conv in (False, True)}
     for key, args in inputs.items():
         if key[0] != "stencil":
             continue
-        _, n, dt_name = key
+        _, (n, m), dt_name = key
         dt = getattr(torch, dt_name)
         isz = torch.empty((), dtype=dt).element_size()
         x, w = args
-        rows, cols = n - 2, n - 4
+        rows, cols = n - 2, m - 2
         seg = rows // J_DEFAULT.stride_unroll
-        entry = n == STENCIL_SIZES[-1] and dt_name == "float32"
-        reps = 8 if n == STENCIL_SIZES[-1] else 20
-        nbytes = (n * (n - 2) + rows * cols) * isz
+        big = n == STENCIL_SIZES[-1]
+        entry = big and dt_name == "float32"
+        reps = 8 if big else 20
+        # the plain version's and the library's times, the yardsticks:
+        # one replay of the graph at the larger size (tens of ms a call);
+        # at the smaller size each call's output is held (16 MB or less
+        # would stay in L2 from one call to the next)
+        yard = 1 if big else 5
+        hold = not big
+        nbytes = (n * m + rows * cols) * isz
         bp = plan_blocks(jspecs.jacobi_spec(x), J_DEFAULT)
-        run, runs = st.stencil_runs(bp, sms)
-        geo = (f"D={bp.d}, {-(-bp.cols // st.TILE)} column tiles x {runs} "
-               f"runs of {run} rows")
+        g = st.geometry(bp, isz, sms)
+        per_sm = occ[(dt_name, False)]
+        geo = (f"D={bp.d}, {g.d} streams x {g.tiles} column tiles of "
+               f"{g.tile} x {g.runs} runs of {g.run} rows, {g.blocks} blocks "
+               f"of {st.THREADS} threads, {per_sm} blocks an SM "
+               f"({occ[(dt_name, True)]} conv3x3), "
+               f"{g.blocks / (per_sm * sms):.2f} waves")
         cross_dt = cross.to(dt)
-        sets = _copies(lambda: (rand((n, n - 2), dt), w), n * (n - 2) * isz)
+        sets = _copies(lambda: (rand((n, m), dt), w), n * m * isz)
         for name, op, ww, flops in (("jacobi2d", jacobi2d, None, 5.0),
                                     ("conv3x3", conv3x3, w, 17.0)):
             ref = stencil_plain(x, ww)
-            got = outs[(name, n, dt_name)]
+            got = outs[(name, (n, m), dt_name)]
             if not torch.equal(ref, op(x, ww, mode="ref") if ww is not None
                                else op(x, mode="ref")):
                 raise AssertionError(f"{name}: the script's plain body "
                                      "differs from the op's")
             err, ctl = _hold(
-                f"{name} {n} {dt_name}", got, ref, 0.0,
+                f"{name} {[n, m]} {dt_name}", got, ref, 0.0,
                 {"lost stream": lost_rows(ref, seg),
                  "lost tap": stream_fault(ref, seg,
-                                          stencil_plain(x, ww, top=0))})
+                                          stencil_plain(x, ww, top=0)),
+                 "lost tail column": lost_tail(ref, seg + 1)})
             if ww is None:
                 fn, plain = (lambda a, _w: jacobi2d(a),
                              lambda a, _w: jacobi2d(a, mode="ref"))
                 lib = device_ms(lambda a, _w: F.conv2d(
-                    a[None, None], cross_dt[None, None]), sets, reps=reps)
+                    a[None, None], cross_dt[None, None]), sets, reps=reps,
+                    replays=yard, hold=hold)
                 lib_name = "F.conv2d with the 5-point cross of 0.2"
             else:
                 fn, plain = (lambda a, w_: conv3x3(a, w_),
                              lambda a, w_: conv3x3(a, w_, mode="ref"))
                 lib = device_ms(lambda a, w_: F.conv2d(
-                    a[None, None], w_[None, None]), sets, reps=reps)
+                    a[None, None], w_[None, None]), sets, reps=reps,
+                    replays=yard, hold=hold)
                 lib_name = "F.conv2d"
-            ms = device_ms(fn, sets, reps=reps)
-            report(name, f"x [{n}, {n - 2}] {dt_name}, {geo}", dt_name,
-                   err, ctl, ms, device_ms(plain, sets, reps=reps), nbytes,
+            ms = device_ms(fn, sets, reps=reps, hold=hold)
+            report(name, f"x [{n}, {m}] {dt_name}, {geo}", dt_name,
+                   err, ctl, ms,
+                   device_ms(plain, sets, reps=reps, replays=yard,
+                             hold=hold), nbytes,
                    flops * rows * cols, lib, lib_name, entry)
             if ww is not None:      # the op's weight packing, timed alone
                 w9 = [ww[r_, c_] for r_ in range(3) for c_ in range(3)]
-                w_ms = device_ms(lambda: st.conv_weights(w9, x.device), [()],
-                                 reps=reps)
-                print(f"conv3x3 [{n}, {n - 2}] {dt_name}: the nine weights "
-                      f"packed alone ms={w_ms:.5f}, the op less them "
-                      f"{ms - w_ms:.5f} [{card}]")
+                w_ms = device_ms(lambda: st.kernel_weights(w9, x.device),
+                                 [()], reps=reps)
+                print(f"conv3x3 [{n}, {m}] {dt_name}: the nine weights "
+                      f"({ww.dtype}, a contiguous [3, 3]) packed alone "
+                      f"ms={w_ms:.5f}, the op less them {ms - w_ms:.5f} "
+                      f"[{card}]")
             del ref, got
         del sets
         torch.cuda.empty_cache()
@@ -1781,26 +1905,34 @@ def phase_stencil(card: str, results: dict) -> None:
 
     # D at the larger sizes (lines only): the paper's claim for stencils
     n = STENCIL_SIZES[-1]
-    x, w = inputs[("stencil", n, "float32")]
     a, c4 = inputs[("doitgen", DOITGEN_SIZES[-1], "float32")]
     a16, c16 = inputs[("doitgen", DOITGEN_SIZES[-1], "bfloat16")]
-    b_st = bound_ms((n * (n - 2) + (n - 2) * (n - 4)) * 4, 0.0)[0]
     r, q, s = DOITGEN_SIZES[-1]
     b_dg = bound_ms((2 * r * q * s + s * s) * 4, 2.0 * r * q * s * s)[0]
     b_16 = bound_ms((2 * r * q * s + s * s) * 2, 2.0 * r * q * s * s,
                     "bfloat16")[0]
     for dd in STENCIL_D_SWEEP:
         cfg = StridingConfig(dd, 1)
-        tj = device_ms(lambda x_: jacobi2d(x_, config=cfg), [(x,)], reps=8)
-        tc = device_ms(lambda x_: conv3x3(x_, w, config=cfg), [(x,)], reps=8)
+        line = []
+        for dt_name in STENCIL_SWEEP_DTYPES:
+            x, w = inputs[("stencil", (n, n - 2), dt_name)]
+            isz = x.element_size()
+            b_st = bound_ms((n * (n - 2) + (n - 2) * (n - 4)) * isz, 0.0)[0]
+            tj = device_ms(lambda x_: jacobi2d(x_, config=cfg), [(x,)],
+                           reps=8)
+            tc = device_ms(lambda x_: conv3x3(x_, w, config=cfg), [(x,)],
+                           reps=8)
+            line.append(f"{dt_name} ms={tj:.5f}, {tc:.5f} (bound "
+                        f"{b_st:.4f})")
         td = device_ms(lambda a_: doitgen(a_, c4, config=cfg), [(a,)], reps=8)
         t16 = device_ms(lambda a_: doitgen(a_, c16, config=cfg), [(a16,)],
                         reps=8)
-        print(f"stencil sweep D={dd}: jacobi2d, conv3x3 [{n}, {n - 2}] f32 "
-              f"ms={tj:.5f}, {tc:.5f} (bound {b_st:.4f}); doitgen "
+        print(f"stencil sweep D={dd}: jacobi2d, conv3x3 [{n}, {n - 2}] "
+              f"{'; '.join(line)}; doitgen "
               f"{list(DOITGEN_SIZES[-1])} f32 ms={td:.5f} (bound "
               f"{b_dg:.4f}), bf16 ms={t16:.5f} (bound {b_16:.4f}) [{card}]")
     # the same stencils at a row pitch of n elements, not a power of two
+    w = inputs[("stencil", (n, n - 2), "float32")][1]
     del inputs, outs, x, a, a16
     torch.cuda.empty_cache()
     x = rand((n, n))

@@ -477,7 +477,8 @@ def test_arrangements_give_the_same_bits(cuda_device, d, p):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("arr", ["grouped", "interleaved"])
 @pytest.mark.parametrize("d,p", DPS)
 @pytest.mark.parametrize("m,n", LINALG_SHAPES)
@@ -497,6 +498,30 @@ def test_gemver_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
         counts[0] + 1, counts[1] + 1)
     assert torch.equal(o, tgops.gemver_outer(a, u1, v1, u2, v2, config=cfg,
                                              mode="ref"))
+    assert torch.equal(s, tgops.gemver_sum(x, z, config=cfg, mode="ref"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", [(1, 2), (3, 1), (8, 2), (16, 1), (4, 3),
+                                 (2, 5)])
+@pytest.mark.parametrize("n", [1, 300, 2 * 256 * 4 + 77, 3 * 2 ** 16 + 5])
+def test_gemver_sum_short_segments_match_plain(cuda_device, dtype, arr, d,
+                                               p, n):
+    """gemver_sum where the steps do not fill the segments: one element,
+    segments of one tile row (n = 300 at D = 8), a step cut short at
+    every segment's end, P = 3 (a thread's units one short of a pass),
+    P = 5 (two passes, the second of one unit) and D = 16 (16 blocks a
+    step), bit for bit and in one launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + d * 10 + p)
+    x, z = (_rand(gen, (n,), cuda_device, dtype) for _ in range(2))
+    cfg = TConfig(d, p, arrangement=arr)
+    before = gkernel.SUM.launches
+    s = tgops.gemver_sum(x, z, config=cfg)
+    assert gkernel.SUM.launches == before + 1
+    assert s.dtype == dtype and s.shape == (n,)
     assert torch.equal(s, tgops.gemver_sum(x, z, config=cfg, mode="ref"))
 
 
@@ -901,8 +926,11 @@ def test_manual_ring_runs_and_waves_match_plain(cuda_device, lookahead,
 # ------------------------------------------- stencils and doitgen
 
 ALL_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
-# output columns: the aliased and conformance widths, the bench width
-STENCIL_COLS = [126, 128, 130, 2046]
+# output columns: one column and fewer than a vector, the aliased and
+# conformance widths, the bench width and its neighbours (2045 and 2047
+# are no whole vectors in any dtype; 2046 rows of bf16 start 16, 4, 8, 4
+# bytes into a 16-byte boundary)
+STENCIL_COLS = [1, 7, 126, 128, 130, 2045, 2046, 2047]
 
 
 @pytest.fixture
@@ -917,12 +945,14 @@ def no_tf32():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ALL_DTYPES)
 @pytest.mark.parametrize("cols", STENCIL_COLS)
-@pytest.mark.parametrize("d", [1, 2, 4, 8])
-@pytest.mark.parametrize("rows", [37, 64])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("rows", [6, 37, 64])
 def test_stencil_kernels_match_plain(cuda_device, dtype, cols, d, rows):
     """Both stencils round as their bodies do, so kernel and plain version
     agree bit for bit.  37 rows do not divide D > 1: the emitter pads the
-    rows (the op would clamp D), so the spec is run as the op runs it."""
+    rows (the op would clamp D), so the spec is run as the op runs it.
+    At 6 rows every segment is shorter than one run; D = 3 leaves a
+    stream of the group of 4 idle, D = 8 is two groups."""
     gen = torch.Generator(device=cuda_device).manual_seed(cols * d + rows)
     x = _rand(gen, (rows + 2, cols + 2), cuda_device, dtype)
     w = _rand(gen, (3, 3), cuda_device, dtype)
@@ -953,6 +983,99 @@ def test_stencil_ops_launch_their_kernel_once(cuda_device, dtype):
     assert torch.equal(c, tcops.conv3x3(x, w, mode="ref"))
     assert (tstencil.JACOBI.launches, tstencil.CONV.launches) == (
         counts[0] + 1, counts[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("cols", [2045, 2046])
+@pytest.mark.parametrize("d", [1, 3, 4, 8])
+@pytest.mark.parametrize("run", [1, 2, 3, 4, 5, 7, 64])
+def test_stencil_geometries_match_plain(cuda_device, dtype, cols, d, run):
+    """Every run length through ``stencil.launch`` (the loop's ring of 5
+    rows is unrolled: runs of 1-7 rows end at each slot): the rows of
+    each run of each stream are written once, bit for bit."""
+    from repro_torch.codegen import plan_blocks
+    gen = torch.Generator(device=cuda_device).manual_seed(cols + d + run)
+    rows = 24
+    x = _rand(gen, (rows + 2, cols + 2), cuda_device, dtype)
+    w = _rand(gen, (3, 3), cuda_device, dtype)
+    w9 = [w[r, c] for r in range(3) for c in range(3)]
+    for name, build, args in (("jacobi2d", tjspecs.jacobi_spec, (x,)),
+                              ("conv3x3", tcspecs.conv3x3_spec, (x, *w9))):
+        spec = build(*args)
+        bp = plan_blocks(spec, TConfig(d, 1))
+        g = tstencil.geometry(bp, x.element_size(), 132, run=run)
+        out = tstencil.launch(name, x, tstencil.conv_weights(w9, x.device)
+                              if name == "conv3x3" else None, bp, g)
+        plain = run_spec(build, args, TConfig(d, 1), mode="ref")
+        assert torch.equal(out, plain), (name, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("cols", [125, 2046])
+def test_stencil_rows_at_any_alignment_match_plain(cuda_device, dtype,
+                                                   offset, cols):
+    """x a contiguous view ``offset`` elements into its buffer: every
+    input row starts off a 16-byte boundary (2, 4, 6, 8 or 12 bytes), so
+    rows load in narrower pieces; the output's own rows as they fall."""
+    gen = torch.Generator(device=cuda_device).manual_seed(offset + cols)
+    rows = 40
+    buf = _rand(gen, (offset + (rows + 2) * (cols + 2),), cuda_device,
+                dtype)
+    x = buf[offset:].view(rows + 2, cols + 2)
+    w = _rand(gen, (3, 3), cuda_device, dtype)
+    assert torch.equal(tjops.jacobi2d(x), tjops.jacobi2d(x, mode="ref"))
+    assert torch.equal(tcops.conv3x3(x, w), tcops.conv3x3(x, w, mode="ref"))
+
+
+@pytest.mark.gpu
+def test_conv_weights_of_one_f32_tensor_take_no_launch(cuda_device):
+    """conv3x3's nine weights, as the op unpacks a contiguous [3, 3]: the
+    kernel reads that storage (f32, bf16 or f16), and nothing is
+    launched to pack it; another layout is packed on the card, in the
+    same order; a 16-bit weight widens to f32 in one cast where f32 is
+    asked for."""
+    w = torch.randn(3, 3, device=cuda_device)
+    for wd in (w, w.bfloat16(), w.half()):
+        w9 = [wd[r, c] for r in range(3) for c in range(3)]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = tstencil.kernel_weights(w9, w.device)
+            torch.cuda.synchronize()
+        assert got.data_ptr() == wd.data_ptr() and got.dtype == wd.dtype
+        assert not [e for e in prof.events() if e.device_type ==
+                    torch.autograd.DeviceType.CUDA]
+        assert torch.equal(got, wd.reshape(9))
+    assert tstencil.conv_weights([w[r, c] for r in range(3)
+                                  for c in range(3)], w.device).data_ptr() \
+        == w.data_ptr()
+    wt = w.t()
+    packed = tstencil.conv_weights([wt[r, c] for r in range(3)
+                                    for c in range(3)], w.device)
+    assert packed.data_ptr() != w.data_ptr()
+    assert torch.equal(packed, wt.reshape(9))
+    wb = w.bfloat16()
+    assert torch.equal(tstencil.conv_weights(
+        [wb[r, c] for r in range(3) for c in range(3)], w.device),
+        wb.float().reshape(9))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("wdtype", ALL_DTYPES)
+def test_conv3x3_weights_in_any_type_match_plain(cuda_device, dtype,
+                                                 wdtype):
+    """conv3x3 with its weight in each type beside x's: the kernel widens
+    the weights of their own storage as the plain body widens them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    x = _rand(gen, (40, 133), cuda_device, dtype)
+    w = _rand(gen, (3, 3), cuda_device, wdtype)
+    before = tstencil.CONV.launches
+    got = tcops.conv3x3(x, w)
+    assert tstencil.CONV.launches == before + 1
+    assert torch.equal(got, tcops.conv3x3(x, w, mode="ref"))
 
 
 # (r, q, s, p): q not divisible by D pads the rows, p = 24, 100, 200 and

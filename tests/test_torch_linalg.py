@@ -453,3 +453,86 @@ def test_cpu_ops_launch_nothing_and_bf16_keeps_its_dtype():
     # the column-dot folds its partial rows in its own launch
     assert not any(n.endswith("_merge") and n.startswith(("mxv", "gemver"))
                    for n in cuda.KERNELS)
+
+
+# gemver_sum's launch (kernel.sum_geometry) worked by hand: the §5.1.1
+# tiling [ceil(n / 256), 256] at P = 2, its rows padded to D segments of
+# seg rows = seg·256 / vec 16-byte vectors, steps of 2 units of 128
+# vectors, D blocks of 128 threads a step, each thread its vector of both
+# units in one pass; (n, D, itemsize) -> (vectors a segment, steps, blocks)
+@pytest.mark.parametrize("n,d,itemsize,want", [
+    (4 * 2 ** 20, 1, 4, (1048576, 4096, 4096)),
+    (4 * 2 ** 20, 2, 4, (524288, 2048, 4096)),
+    (4 * 2 ** 20, 4, 4, (262144, 1024, 4096)),
+    (4 * 2 ** 20, 8, 4, (131072, 512, 4096)),
+    (4 * 2 ** 20, 16, 4, (65536, 256, 4096)),
+    (4 * 2 ** 20, 4, 2, (131072, 512, 2048)),
+    (4 * 2 ** 20, 8, 2, (65536, 256, 2048)),
+    # + 77: 16385 tile rows, padded to 16388 at D = 4 (seg 4097, the
+    # last step 64 vectors in f32, 32 in bf16), to 16386 at D = 3
+    (4 * 2 ** 20 + 77, 4, 4, (262208, 1025, 4100)),
+    (4 * 2 ** 20 + 77, 4, 2, (131104, 513, 2052)),
+    (4 * 2 ** 20 + 77, 3, 4, (349568, 1366, 4098)),
+    # 2·256·4 + 77: 9 tile rows padded to 12, seg 3: one short step
+    (2 * 256 * 4 + 77, 4, 4, (192, 1, 4)),
+    (2 * 256 * 4 + 77, 4, 2, (96, 1, 4)),
+])
+def test_gemver_sum_geometry_by_d(n, d, itemsize, want):
+    from repro_torch.codegen import block_1d, plan_blocks
+    cfg = TConfig(d, 2)
+    x = torch.empty(n)
+    spec2, _ = block_1d(tgspecs.gemver_sum_spec(x, x), cfg)
+    bp = plan_blocks(spec2, cfg)
+    g = gkernel.sum_geometry(bp, itemsize)
+    assert (g.segv, g.steps, g.blocks) == want
+    assert g.vec == 16 // itemsize and g.units == 2 and g.threads == 128
+    assert g.passes == 1
+    step = g.units * gkernel.SUM_UNIT                  # vectors a step
+    assert step == 256 and (g.steps - 1) * step < g.segv <= g.steps * step
+    assert g.segv * g.vec * d == bp.rows * bp.cols      # every element once
+
+
+@pytest.mark.parametrize("p,passes", [(1, 1), (2, 1), (3, 1), (8, 2),
+                                      (16, 4)])
+def test_gemver_sum_blocks_take_p_units(p, passes):
+    """A block of 128 threads runs P units, a thread its vector of each,
+    holding at most 4 units at once (a larger P takes more passes)."""
+    from repro_torch.codegen.transforms import BlockPlan
+    bp = BlockPlan(info=None, d=4, bm=8, bn=128 * p, rows=64, cols=128 * p)
+    g = gkernel.sum_geometry(bp, 4)
+    assert (g.units, g.threads, g.passes) == (p, 128, passes)
+    assert gkernel.SUM_HELD == 4
+    assert g.steps == 16 * 128 * p // 4 // (128 * p) == 4
+
+
+@pytest.mark.parametrize("dt", [("bf16", torch.bfloat16, jnp.bfloat16),
+                                ("f16", torch.float16, jnp.float16)],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("label,cfg", CONFIGS, ids=[c[0] for c in CONFIGS])
+def test_gemver_sum_16bit_matches_jax(dt, label, cfg):
+    """gemver_sum in bf16 and f16 at n = 2·256·4 + 77 (a padded tiling):
+    the port's op against the JAX op in ref mode, and the port's emitter
+    front end against the JAX Pallas kernel in interpret mode, on one
+    numpy draw rounded to the type, within the registry row's rtol /
+    atol (both add in f32 and round once)."""
+    _, tdt, jdt = dt
+    rng = np.random.default_rng(11)
+    n = 2 * 256 * 4 + 77
+    jx, jz = (jnp.asarray(rng.standard_normal(n).astype(np.float32), jdt)
+              for _ in range(2))
+    tx, tz = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+              for a in (jx, jz))
+    row = jreg.get("gemver_sum")
+    want = jgops.gemver_sum(jx, jz, config=cfg, mode="ref")
+    got = tgops.gemver_sum(tx, tz, config=_tcfg(cfg))
+    assert got.dtype == tdt and tuple(got.shape) == (n,)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=row.rtol, atol=row.atol)
+    want_i = jcg.emit_spec(jgspecs.gemver_sum_spec(jx, jz), [jx, jz], cfg,
+                           interpret=True)
+    got_i = _port_emit(tgspecs.gemver_sum_spec(tx, tz), [tx, tz],
+                       _tcfg(cfg))
+    np.testing.assert_allclose(got_i.float().numpy(),
+                               np.asarray(want_i.astype(jnp.float32)),
+                               rtol=row.rtol, atol=row.atol)

@@ -329,22 +329,104 @@ def test_stencil_bodies_round_as_their_kernels():
 
 
 @pytest.mark.parametrize("rows,cols,d", [(2048, 2046, 4), (16384, 16384, 4),
-                                         (32, 128, 1), (36, 131, 4),
-                                         (32, 126, 8), (7, 9, 1)])
+                                         (16384, 16382, 4), (32, 128, 1),
+                                         (36, 131, 4), (32, 126, 8),
+                                         (7, 9, 1), (35, 131, 5),
+                                         (8, 1, 8), (2048, 2045, 3),
+                                         (2 ** 20, 128, 1)])
 @pytest.mark.parametrize("sms", [1, 132])
-def test_stencil_runs_cover_each_segment_once(rows, cols, d, sms):
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_stencil_runs_cover_each_segment_once(rows, cols, d, sms, itemsize):
     """Every stream's segment is cut into runs that cover it exactly once
-    (the last may be short, none is empty), no run shorter than the
-    minimum unless the segment is, and about the aimed blocks per SM."""
+    (the last may be short, none is empty); a run is 8 rows, halved only
+    while the grid is under its blocks an SM, no longer than the segment
+    and long enough for the grid's z extent; the tiles cover the
+    columns."""
     from repro_torch.codegen.transforms import BlockPlan
     bp = BlockPlan(info=None, d=d, bm=1, bn=cols, rows=rows, cols=cols)
-    run, runs = stencil.stencil_runs(bp, sms)
+    run, runs = stencil.stencil_runs(bp, sms, itemsize)
     seg = rows // d
     assert 1 <= run <= seg and (runs - 1) * run < seg <= runs * run
-    assert run >= min(seg, stencil._MIN_RUN)
-    tiles = -(-cols // stencil.TILE)
-    if run > stencil._MIN_RUN and run < seg:
-        assert tiles * runs >= stencil._BLOCKS_PER_SM * sms // 2
+    assert runs <= stencil._MAX_RUNS
+    g = stencil.geometry(bp, itemsize, sms)
+    assert (g.run, g.runs) == (run, runs)
+    assert g.tile == stencil.THREADS * 16 // itemsize
+    assert (g.tiles - 1) * g.tile < cols <= g.tiles * g.tile
+    assert g.blocks == d * g.tiles * runs
+    cap = -(-seg // stencil._MAX_RUNS)       # the shortest run the grid fits
+    if cap < run < min(stencil._RUN, seg):   # halved: twice as long is
+        assert (d * g.tiles * -(-seg // (2 * run))       # too few blocks
+                < stencil._MIN_BLOCKS_PER_SM * sms)
+    if run > stencil._RUN:                    # lengthened for the grid
+        assert run == cap
+    for r in (1, 3, seg, seg + 5):       # an explicit run length
+        h = stencil.geometry(bp, itemsize, sms, run=r)
+        assert (h.runs - 1) * h.run < seg <= h.runs * h.run
+
+
+# (rows, cols, itemsize, D, 132 SMs) -> (vector, tiles, run, runs,
+# blocks), worked by hand: tile = 128 threads x 16 bytes; a block a
+# (stream, tile, run); run = 8, halved while D x tiles x runs < 15 x 132
+# = 1980, at most seg, the last run short
+@pytest.mark.parametrize("rows,cols,itemsize,d,want", [
+    # x [2050, 2048]: seg 512; 2046 columns in 4 tiles of 512 (f32):
+    # 4 x 4 x 64 = 1024 blocks at 8 rows, 2048 at 4; 2 tiles of 1024
+    # (bf16): 512 blocks at 8 rows, 1024 at 4, 2048 at 2
+    (2048, 2046, 4, 4, (4, 4, 4, 128, 2048)),
+    (2048, 2046, 2, 4, (8, 2, 2, 256, 2048)),
+    # x [16386, 16384]: seg 4096, 512 runs of 8; 16382 columns in 32
+    # tiles (f32), 16 (bf16)
+    (16384, 16382, 4, 4, (4, 32, 8, 512, 65536)),
+    (16384, 16382, 2, 4, (8, 16, 8, 512, 32768)),
+    # x [16386, 16386] (the pitch sweep) at D = 8: seg 2048, 32 tiles
+    (16384, 16384, 4, 8, (4, 32, 8, 256, 65536)),
+    # the ragged x [37, 133]: 35 output rows, 131 columns in one tile;
+    # D = 5 (7 rows a segment) and D = 1: too few blocks at any run, so
+    # runs of 1
+    (35, 131, 2, 5, (8, 1, 1, 7, 35)),
+    (35, 131, 4, 1, (4, 1, 1, 35, 35)),
+    # one column, one row a segment: a run of 1
+    (8, 1, 2, 8, (8, 1, 1, 1, 8)),
+    # 2^20 rows in one stream: 131072 runs of 8 exceed the grid's 65535,
+    # so runs of ceil(2^20 / 65535) = 17
+    (2 ** 20, 128, 4, 1, (4, 1, 17, 61681, 61681)),
+])
+def test_stencil_geometry_at_hand_worked_shapes(rows, cols, itemsize, d,
+                                                want):
+    from repro_torch.codegen.transforms import BlockPlan
+    bp = BlockPlan(info=None, d=d, bm=1, bn=cols, rows=rows, cols=cols)
+    g = stencil.geometry(bp, itemsize, 132)
+    assert (g.vec, g.tiles, g.run, g.runs, g.blocks) == want
+
+
+# (cols, itemsize) -> (whole vectors, tail columns) of an output row
+@pytest.mark.parametrize("cols,itemsize,want", [
+    (2046, 4, (511, 2)), (2046, 2, (255, 6)), (2045, 2, (255, 5)),
+    (2047, 2, (255, 7)), (2048, 2, (256, 0)), (16382, 4, (4095, 2)),
+    (16382, 2, (2047, 6)), (131, 4, (32, 3)), (131, 2, (16, 3)),
+    (1, 4, (0, 1)), (1, 2, (0, 1)), (7, 2, (0, 7))])
+def test_stencil_split_by_dtype(cols, itemsize, want):
+    assert stencil.split(cols, itemsize) == want
+    assert stencil.vector(itemsize) * want[0] + want[1] == cols
+
+
+# (row pitch in bytes) -> the pieces of rows 0-3 from a 16-byte aligned
+# base: the widest of 16, 8, 4, 2 bytes dividing each row's address
+@pytest.mark.parametrize("pitch,want", [
+    (2048 * 2, [16, 16, 16, 16]),       # x [2050, 2048] bf16 input
+    (2046 * 2, [16, 4, 8, 4]),          # its output, bf16
+    (2046 * 4, [16, 8, 16, 8]),         # its output, f32
+    (2045 * 2, [16, 2, 4, 2]),          # x [2050, 2047] bf16 output
+    (16386 * 2, [16, 4, 8, 4]),         # x [16386, 16386] bf16 input
+    (16386 * 4, [16, 8, 16, 8]),        # its f32 input
+    (16382 * 2, [16, 4, 8, 4]),         # x [16386, 16384] output, bf16
+    (133 * 2, [16, 2, 4, 2]),           # the ragged x [37, 133], bf16
+    (133 * 4, [16, 4, 8, 4]),           # in f32
+    (1 * 2, [16, 2, 4, 2]),             # one column of bf16
+])
+def test_stencil_row_pieces_by_pitch(pitch, want):
+    assert [stencil.piece_bytes(r * pitch) for r in range(4)] == want
+    assert stencil.piece_bytes(256 + 6) == 2
 
 
 def test_conv_weights_widen_in_order():
@@ -355,6 +437,39 @@ def test_conv_weights_widen_in_order():
     assert torch.equal(got, w.bfloat16().float().reshape(9))
     assert torch.equal(stencil.conv_weights([0.5] * 9, "cpu"),
                        torch.full((9,), 0.5))
+
+
+def test_conv_weights_hand_over_one_f32_storage():
+    """The nine elements of a contiguous f32 [3, 3], as the op unpacks
+    them, are handed over as that storage (no copy, no launch on the
+    card); a transposed view or separate scalars are packed, each in
+    C3_NAMES order."""
+    w = torch.arange(9, dtype=torch.float32).reshape(3, 3) / 7
+    w9 = [w[r, c] for r in range(3) for c in range(3)]
+    got = stencil.conv_weights(w9, torch.device("cpu"))
+    assert got.data_ptr() == w.data_ptr() and tuple(got.shape) == (9,)
+    assert torch.equal(got, w.reshape(9))
+    big = torch.arange(20, dtype=torch.float32)[5:14].reshape(3, 3)
+    view = stencil.conv_weights([big[r, c] for r in range(3)
+                                 for c in range(3)], "cpu")
+    assert view.data_ptr() == big.data_ptr()
+    assert torch.equal(view, torch.arange(5, 14, dtype=torch.float32))
+    wt = w.t()
+    packed = stencil.conv_weights([wt[r, c] for r in range(3)
+                                   for c in range(3)], "cpu")
+    assert packed.data_ptr() != w.data_ptr()
+    assert torch.equal(packed, wt.reshape(9))
+    loose = [torch.tensor(float(i)) for i in range(9)]
+    assert torch.equal(stencil.conv_weights(loose, "cpu"),
+                       torch.arange(9, dtype=torch.float32))
+    # the kernel's own read: a 16-bit [3, 3]'s storage in its own type
+    for dt in (torch.bfloat16, torch.float16):
+        wd = w.to(dt)
+        own = stencil.kernel_weights([wd[r, c] for r in range(3)
+                                      for c in range(3)], "cpu")
+        assert own.dtype == dt and own.data_ptr() == wd.data_ptr()
+        assert torch.equal(own.float(), wd.float().reshape(9))
+    assert stencil.kernel_weights(loose, "cpu").dtype == torch.float32
 
 
 def test_check_arrays_takes_any_width_and_refuses_the_rest():
@@ -511,3 +626,46 @@ def test_doitgen_16bit_matches_jax_ref(dtype, label, cfg, which):
     assert got.dtype == dtype and tuple(got.shape) == want.shape
     d = np.abs(got.float().numpy() - want)
     assert (d <= _doitgen_16bit_limit(a16, c16, want, dtype)).all()
+
+
+# the 16-bit types of the kernels, as (id, torch dtype, jnp dtype)
+SIXTEEN = [("bf16", torch.bfloat16, jnp.bfloat16),
+           ("f16", torch.float16, jnp.float16)]
+
+
+@pytest.mark.parametrize("kernel", ["jacobi2d", "conv3x3"])
+@pytest.mark.parametrize("shape", [(37, 133), (34, 2047)],
+                         ids=["37x133", "34x2047"])
+@pytest.mark.parametrize("mode", ["ref", "interpret"])
+@pytest.mark.parametrize("dt", SIXTEEN, ids=[s[0] for s in SIXTEEN])
+def test_stencils_16bit_match_jax(kernel, shape, mode, dt):
+    """jacobi2d and conv3x3 in bf16 and f16 on one numpy draw rounded to
+    the type: the port's op (its plain version on CPU tensors) against
+    the JAX op in ref mode, and the port's emitter against the JAX Pallas
+    kernel in interpret mode, at the ragged 37 x 133 and at 2047 columns
+    (an output row of 2045: no whole 16-byte vectors), within the
+    registry row's rtol / atol; both round the f32 body once into the
+    type."""
+    _, tdt, jdt = dt
+    rng = np.random.default_rng(shape[1] + len(kernel))
+    args = [rng.standard_normal(shape).astype(np.float32)]
+    if kernel == "conv3x3":
+        args.append(rng.standard_normal((3, 3)).astype(np.float32))
+    jargs = [jnp.asarray(a, jdt) for a in args]
+    targs = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+             for a in jargs]
+    cfg = JConfig(4, 1)
+    if mode == "ref":
+        want = OPS[kernel][0](*jargs, config=cfg, mode="ref")
+        got = OPS[kernel][1](*targs, config=_tcfg(cfg))
+    else:
+        jb, tb = SPECS[kernel]
+        js, ts = _spec_args(kernel, jargs, list), _spec_args(kernel, targs,
+                                                             list)
+        want = jcg.emit_spec(jb(*js), js, cfg, interpret=True)
+        got = tcg.emit_spec(tb(*ts), ts, _tcfg(cfg))
+    assert got.dtype == tdt
+    row = jreg.get(kernel)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=row.rtol, atol=row.atol)

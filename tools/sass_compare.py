@@ -30,7 +30,8 @@ import sys
 
 # ROOT_B's name → ROOT_A's, for instances that gained a template
 # parameter: rmsnorm's vector width, whose 16-byte instances are the
-# kernels of rows of whole 16-byte vectors
+# kernels of rows of whole 16-byte vectors.  A rename applies only where
+# ROOT_A has no instance of B's own name.
 RENAMES = [(re.compile(r"rmsnorm_ms<([^,<>]+), 16, "), r"rmsnorm_ms<\1, ")]
 
 _BUILD = ("import sys; sys.path.insert(0, 'src');"
@@ -87,8 +88,9 @@ def functions(lib: str) -> dict[str, list[str]]:
 def compare(a: dict, b: dict) -> dict:
     renamed = {}
     for name, code in b.items():
-        for pattern, repl in RENAMES:
-            name = pattern.sub(repl, name)
+        if name not in a:
+            for pattern, repl in RENAMES:
+                name = pattern.sub(repl, name)
         renamed[name] = code
     same, differ = [], {}
     for name, code in sorted(a.items()):

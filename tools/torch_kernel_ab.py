@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """doitgen, the stream kernels (K1, the K2 read, the K4 ring), the
-ring's adamw body, rmsnorm, rowstat, mxv, the column-dot and decode
-attention of the PyTorch port, timed
+ring's adamw body, rmsnorm, rowstat, mxv, the column-dot, decode
+attention, gemver's elementwise steps and the stencils of the PyTorch
+port, timed
 on one card for several checkouts in turn (an A/B of two commits, run
 as parent, change, change, parent).
 
@@ -37,6 +38,15 @@ CUDA events):
     S=4096, kv_len uniform) at Yi-9B's heads (Hkv=4, Hq=32, dh=128) and
     Phi-2's (Hkv=Hq=32, dh=80); a checkout whose kernels refuse a shape
     records ``"refused"``;
+  * the K1 ``gemver_sum`` at vn = 4·2²⁰ in f32, bf16 and f16 at the
+    default config (D=4, P=2) and over D = 1, 2, 4, 8 (P=2), and
+    ``gemver_outer`` at 16384² in bf16;
+  * jacobi2d and conv3x3 (the op, conv3x3's weight packing included) at
+    x [2050, 2048] and [16386, 16384] in f32 and bf16, and at [16386,
+    16386] (a row pitch that is not a power of two) in f32; where the
+    checkout's ``stencil.geometry`` takes a run length, both kernels at
+    x [2050, 2048] and [16386, 16384] over the runs of ``STENCIL_RUNS``
+    and the rule's own (``stencil_runs``);
 
 and beside each, in the first ROOT's process only, one PyTorch call
 that computes the same function: ``torch.matmul(A.view(-1, s), C4)``,
@@ -44,13 +54,18 @@ that computes the same function: ``torch.matmul(A.view(-1, s), C4)``,
 z``, ``x.view(D, -1).sum(1, dtype=float32)``, ``part.sum(0)``,
 ``torch._fused_adamw_``, ``F.rms_norm``, ``(x.amax(1), x.sum(1))``,
 ``torch.mv``, ``torch.mv(A.t(), y)`` (with gemver's scaling and adds),
-SDPA with ``enable_gqa``.  TF32 is off.
+SDPA with ``enable_gqa``, ``torch.addr`` twice, ``F.conv2d`` (the
+5-point cross of 0.2 for jacobi2d).  TF32 is off.  The K1
+``gemver_sum`` rows, the stencils and their library calls hold every
+call's output (``device_ms(..., hold=True)``), so an output that fits
+L2 is written to HBM as in use, not to one buffer that stays in L2.
 
 Prints one JSON line per ROOT (milliseconds), then the card's name and
 power limit.  Compare roots by the alternation, never across calls.
 """
 from __future__ import annotations
 
+import inspect
 import os
 import sys
 
@@ -74,6 +89,18 @@ RMSNORM_ODD = [((8, 1001), "bfloat16"), ((8, 1001), "float32")]
 # (model, Hkv, Hq, dh) at B=4, S=4096
 DECODE = [("yi-9b", 4, 32, 128), ("phi-2", 32, 32, 80)]
 DECODE_B, DECODE_S = 4, 4096
+SUM_DTYPES = ("float32", "bfloat16", "float16")
+SUM_D = (1, 2, 4, 8)
+OUTER_N = 16384
+# (x shape, dtype) of the stencils
+STENCILS = [((2050, 2048), "float32"), ((2050, 2048), "bfloat16"),
+            ((16386, 16384), "float32"), ((16386, 16384), "bfloat16"),
+            ((16386, 16386), "float32")]
+# run lengths (rows) of the stencil run table, by (x shape, dtype)
+STENCIL_RUNS = {((2050, 2048), "float32"): (1, 2, 4, 8, 16),
+                ((2050, 2048), "bfloat16"): (1, 2, 4, 8, 16),
+                ((16386, 16384), "float32"): (8, 16, 32, 64, 128),
+                ((16386, 16384), "bfloat16"): (8, 16, 32, 64, 128)}
 
 
 def refused(fn, *args):
@@ -112,7 +139,8 @@ def one(root: str, replays: int, with_library: bool) -> dict:
     from repro_torch.kernels.mxv import mxv
     from repro_torch.kernels.rmsnorm import ops as rops
     cuda.build(["doitgen", "stream", "manual_ring", "gemver", "adamw",
-                "rmsnorm", "reduction", "stream_reduction", "decode_attn"])
+                "rmsnorm", "reduction", "stream_reduction", "decode_attn",
+                "stencil"])
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dt):
@@ -306,6 +334,85 @@ def one(root: str, replays: int, with_library: bool) -> dict:
                 replays=replays)
             del lsets
         del dsets
+        torch.cuda.empty_cache()
+    # the K1 gemver_sum, gemver_outer in bf16, the stencils
+    from repro_torch.kernels.conv3x3 import conv3x3
+    from repro_torch.kernels.gemver import gemver_outer
+    from repro_torch.kernels.jacobi2d import jacobi2d
+    vn = GEMVER_SUM_N
+    for dt_name in SUM_DTYPES:
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        vsets = copies(lambda: (rand((vn,), dt), rand((vn,), dt)),
+                       3 * vn * isz)
+        device_ms(lambda x, z: x + z, vsets, replays=replays)   # warm-up
+        out[f"gemver_sum {dt_name}"] = device_ms(
+            lambda x, z: gemver_sum(x, z), vsets, replays=replays, hold=True)
+        for d in SUM_D:
+            cfg = StridingConfig(d, 2)
+            out[f"gemver_sum {dt_name} D={d}"] = device_ms(
+                lambda x, z: gemver_sum(x, z, config=cfg), vsets,
+                replays=replays, hold=True)
+        if with_library:
+            out[f"gemver_sum {dt_name} K1 x + z"] = device_ms(
+                lambda x, z: x + z, vsets, replays=replays, hold=True)
+        del vsets
+    n = OUTER_N
+    dt = torch.bfloat16
+    osets = [(rand((n, n), dt), *(rand((n,), dt) for _ in range(4)))]
+    out[f"gemver_outer bfloat16 [{n}, {n}]"] = device_ms(
+        lambda *t: gemver_outer(*t), osets, replays=replays)
+    if with_library:
+        out[f"gemver_outer bfloat16 [{n}, {n}] torch.addr twice"] = device_ms(
+            lambda a, u1, v1, u2, v2: torch.addr(torch.addr(a, u1, v1), u2,
+                                                  v2), osets, replays=replays)
+    del osets
+    torch.cuda.empty_cache()
+    from repro_torch.kernels import stencil as st
+    from repro_torch.kernels.jacobi2d import specs as jspecs
+    # a checkout whose stencil geometry takes a run length also times
+    # the runs of STENCIL_RUNS beside its rule's own
+    geo = getattr(st, "geometry", None)
+    runs_of = STENCIL_RUNS if geo is not None and "run" in \
+        inspect.signature(geo).parameters else {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    w = rand((3, 3), torch.float32)
+    cross = torch.tensor([[0.0, 0.2, 0.0], [0.2, 0.2, 0.2],
+                          [0.0, 0.2, 0.0]], device="cuda")
+    for shape, dt_name in STENCILS:
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        ssets = copies(lambda: (rand(shape, dt),), shape[0] * shape[1] * isz)
+        reps = 8 if shape[0] > 4096 else 20
+        tag = f"{dt_name} x {list(shape)}"
+        out[f"jacobi2d {tag}"] = device_ms(lambda x: jacobi2d(x), ssets, reps,
+                                           replays, hold=True)
+        out[f"conv3x3 {tag}"] = device_ms(lambda x: conv3x3(x, w), ssets,
+                                          reps, replays, hold=True)
+        if with_library:
+            cd, wd = cross.to(dt), w.to(dt)
+            out[f"jacobi2d {tag} F.conv2d"] = device_ms(
+                lambda x: F.conv2d(x[None, None], cd[None, None]), ssets,
+                reps, replays, hold=True)
+            out[f"conv3x3 {tag} F.conv2d"] = device_ms(
+                lambda x: F.conv2d(x[None, None], wd[None, None]), ssets,
+                reps, replays, hold=True)
+        if (shape, dt_name) in runs_of:
+            bp = plan_blocks(jspecs.jacobi_spec(ssets[0][0]),
+                             StridingConfig(4, 1))
+            w9 = st.kernel_weights([w[r, c] for r in range(3)
+                                    for c in range(3)], w.device)
+            rule = geo(bp, isz, sms).run
+            for run in sorted(set(runs_of[(shape, dt_name)]) | {rule}):
+                g = geo(bp, isz, sms, run=run)
+                out[f"stencil runs {tag} run {run}"
+                    + (" (the rule's)" if run == rule else "")
+                    + f", {g.blocks} blocks: jacobi2d, conv3x3"] = [
+                    device_ms(lambda x: st.launch("jacobi2d", x, None, bp, g),
+                              ssets, reps, replays, hold=True),
+                    device_ms(lambda x: st.launch("conv3x3", x, w9, bp, g),
+                              ssets, reps, replays, hold=True)]
+        del ssets
         torch.cuda.empty_cache()
     # adamw on the ring, Yi-9B's embedding, f32
     p, g, m = (rand(EMBED, torch.float32) for _ in range(3))
