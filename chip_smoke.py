@@ -35,7 +35,10 @@ Phases (each raises on failure, so the script exits non-zero):
                 S=4096) against the plain version, SDPA and the bound
   3b. linalg — mxv, mxv_t, bicg, gemver at 16384^2 and 4096^2 f32 through
                 their public functions, each kernel against its plain
-                version with lost-stream controls, and timed; the
+                version with lost-stream controls, and timed; mxv in
+                bf16 and gemver_outer in bf16 and f16 at both sizes (the
+                f32 arrays cast), with the row-dot's and gemver_outer's
+                launch geometry in every type; the
                 column-dot's launch geometry (cluster, blocks, clusters
                 resident, waves) in f32 and bf16 and its cluster sweep at
                 4096^2,
@@ -230,13 +233,15 @@ def phase_build(card: str) -> float:
           f"decode_attn, gemver and stencil instances, [registers, spill "
           f"store bytes, spill load bytes]: {json.dumps(inst)} [{card}]")
     spills = {n: v for n, v in inst.items()
-              if any(w in n for w in ("rmsnorm", "rowstat", "coldot",
-                                      "stream_copy", "stream_triad",
-                                      "stream_init", "gemver_sum",
+              if any(w in n for w in ("rmsnorm", "rowstat", "rowdot",
+                                      "coldot", "stream_copy",
+                                      "stream_triad", "stream_init",
+                                      "gemver_sum", "gemver_outer",
                                       "stencil<")) and any(v[1:])}
     if spills:
-        raise AssertionError(f"build: rmsnorm / rowstat / column-dot / K1 "
-                             f"stream / gemver_sum / stencil instances "
+        raise AssertionError(f"build: rmsnorm / rowstat / row-dot / "
+                             f"column-dot / K1 stream / gemver_sum / "
+                             f"gemver_outer / stencil instances "
                              f"spill: {spills}")
     return secs
 
@@ -892,12 +897,14 @@ def phase_linalg(card: str, results: dict) -> None:
             return t
 
         def ratio(got, want_t, limit):
-            return float(((got.float() - want_t.float()).abs()
-                          / limit.clamp_min(1e-30)).max())
+            d = (got.float() - want_t.float()).abs()
+            if not bool((limit > 0).any()):     # |d| = 0: the distance
+                return float(d.max())
+            return float((d / limit.clamp_min(1e-30)).max())
 
         def measure(name, fn, plain, library, make, nbytes, flops,
                     got, want_t, limit, controls, shape, cap=8, entry=True,
-                    hold=False):
+                    hold=False, dtype="float32"):
             err = float((got.float() - want_t.float()).abs().max())
             if _excess(got, want_t, limit) > 0:
                 raise AssertionError(f"{name} n={n}: max |d|={err:g} over "
@@ -912,7 +919,7 @@ def phase_linalg(card: str, results: dict) -> None:
             ms = device_ms(fn, sets, hold=hold)
             plain_ms = device_ms(plain, sets, hold=hold)
             lib_ms = device_ms(library, sets, hold=hold) if library else None
-            bms, by = bound_ms(nbytes, flops)
+            bms, by = bound_ms(nbytes, flops, dtype)
             print(f"{name} {shape}: max_abs_err={err:g} "
                   f"max|d|/limit={ratio(got, want_t, limit):.4g} "
                   f"max(limit)={float(limit.max()):.4g}; controls "
@@ -1026,7 +1033,10 @@ def phase_linalg(card: str, results: dict) -> None:
                 GAMMA * o_p.abs(),
                 {"lost segment": drop_rows(o_p, seg, seg, n).reshape(n, n)},
                 f"A {f32}, D={bp.d}, P={MXV_DEFAULT.portion_unroll}")
-        del o_k, o_p, a, aa
+        del o_k, o_p
+        linalg_16bit(card, n, a, x, u1, v1, u2, v2, vec, gen, bp, bm_row,
+                     sms, measure, drop_rows)
+        del a, aa
         torch.cuda.empty_cache()
         if n == LINALG_SIZES[0]:
             vn = GEMVER_SUM_N
@@ -1052,6 +1062,99 @@ def phase_linalg(card: str, results: dict) -> None:
         results[name]["launches"] = launches[name]
     print(f"linalg: phase took {time.perf_counter() - t_phase:.1f} s "
           f"[{card}]")
+
+
+def _launch_lines(card, n, dt, d, sms) -> None:
+    """The row-dot's and gemver_outer's launch geometry on A [n, n] of
+    ``dt`` in ``d`` streams, with their registers and spill bytes."""
+    import torch
+    from repro_torch.kernels.gemver import kernel as gk
+    from repro_torch.kernels.gen.kernel import ROWSTAT_BLOCKS_PER_SM
+    from repro_torch.kernels.mxv import kernel as mk
+    isz = torch.empty((), dtype=dt).element_size()
+    name = str(dt).removeprefix("torch.")
+    ct = _CTYPES[name]
+    r = mk.rowdot_geometry(n, n, isz, d, sms)
+    waves = r.blocks / (ROWSTAT_BLOCKS_PER_SM * sms)
+    print(f"mxv A [{n}, {n}] {name} launch: D={d}, {r.blocks} blocks of "
+          f"{r.slots} row slots, {r.streams} streams a group, {r.parts} "
+          f"parts a slot of {r.per_part} of a row's {r.units} 16-byte lane "
+          f"units{' + an 8-byte tail' if r.tail else ''}, x "
+          + (f"in {r.smem} B of shared memory" if r.smem else "by __ldg")
+          + f", {waves:.2f} waves of two blocks an SM; ptxas rowdot "
+          f"[registers, spill bytes]: "
+          f"{_regs(f'rowdot<{ct}, {r.streams}, {str(bool(r.smem)).lower()}>')}"
+          f" [{card}]")
+    g = gk.outer_geometry(n, n, isz, d, sms)
+    per_sm = gk.outer_occupancy(dt, d)
+    print(f"gemver_outer A [{n}, {n}] {name} launch: D={d}, {g.tiles} "
+          f"column tiles of {g.threads} 16-byte vectors of {g.vec} "
+          f"elements x {g.runs} runs of {g.run} row slots = {g.blocks} "
+          f"blocks, a step {g.streams} streams x {g.slots} slots, "
+          f"{g.steps} steps a block, {per_sm} blocks an SM, "
+          f"{g.blocks / (per_sm * sms):.2f} waves; ptxas gemver_outer "
+          f"[registers, spill bytes]: "
+          f"{_regs(f'gemver_outer<{ct}, {g.streams}>')} [{card}]")
+
+
+LINALG_16BIT = ("bfloat16", "float16")
+
+
+def linalg_16bit(card, n, a, x, u1, v1, u2, v2, vec, gen, bp, bm_row, sms,
+                 measure, drop_rows) -> None:
+    """The row-dot (mxv) in bf16 and gemver_outer in bf16 and f16 at
+    A [n, n], on the phase's f32 arrays cast (nothing new is drawn at
+    16384^2), with the launch lines of every type: mxv within the dot
+    limit plus 2^-8 |ref| for the output's rounding, with lost-segment
+    and lost-tile controls; gemver_outer equal to its plain version, with
+    a lost-segment control; each timed (outputs held) beside the bound,
+    its plain version and torch.mv / torch.addr twice."""
+    import torch
+    from repro_torch.kernels.gemver import gemver_outer
+    from repro_torch.kernels.mxv import mxv
+    seg = n // bp.d
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        _launch_lines(card, n, dt, bp.d, sms)
+    for dt_name in LINALG_16BIT:
+        dt = getattr(torch, dt_name)
+        isz = dt.itemsize
+        ab = a.to(dt)
+        tag = f"[{n}, {n}] {dt_name}, D={bp.d}"
+        if dt == torch.bfloat16:
+            xb = x.to(dt)
+            y_k, y_p = mxv(ab, xb), mxv(ab, xb, mode="ref")
+            terms = ab.float().abs() @ xb.float().abs()
+            limit = _dot_limit(terms, y_p.float(), n) + 2.0 ** -8 * (
+                y_p.float().abs())
+            measure("mxv", lambda a_, x_: mxv(a_, x_),
+                    lambda a_, x_: mxv(a_, x_, mode="ref"),
+                    lambda a_, x_: torch.mv(a_, x_),
+                    lambda: ((torch.randn(n, n, generator=gen, device="cuda")
+                              .to(dt), vec().to(dt)) if n < 8192
+                             else (ab, xb)),
+                    n * n * isz + 2 * n * isz, 2.0 * n * n, y_k, y_p, limit,
+                    {"lost segment": drop_rows(y_p, seg, seg),
+                     "lost tile": drop_rows(y_p, seg, bm_row)},
+                    f"A {tag} (outputs held)", entry=False, hold=True,
+                    dtype=dt_name)
+            del xb, y_k, y_p, terms, limit
+        vs = [t.to(dt) for t in (u1, v1, u2, v2)]
+        o_k = gemver_outer(ab, *vs)
+        o_p = gemver_outer(ab, *vs, mode="ref")
+        measure("gemver_outer", lambda *t: gemver_outer(*t),
+                lambda *t: gemver_outer(*t, mode="ref"),
+                lambda a_, u1_, v1_, u2_, v2_: torch.addr(
+                    torch.addr(a_, u1_, v1_), u2_, v2_),
+                lambda: ((torch.randn(n, n, generator=gen, device="cuda")
+                          .to(dt), *(vec().to(dt) for _ in range(4)))
+                         if n < 8192 else (ab, *vs)),
+                2 * n * n * isz + 4 * n * isz, 4.0 * n * n, o_k, o_p,
+                torch.zeros(o_p.shape, device=o_p.device),
+                {"lost segment": drop_rows(o_p, seg, seg, n).reshape(n, n)},
+                f"A {tag} (|d| = 0: controls as max|d|; outputs held)",
+                entry=False, hold=True, dtype=dt_name)
+        del ab, vs, o_k, o_p
+        torch.cuda.empty_cache()
 
 
 GEMVER_SUM_DTYPES = ("float32", "bfloat16", "float16")

@@ -18,7 +18,7 @@
 // far below the card's ~20 flops per byte of f32 arithmetic.
 //
 // What the design does about it: it keeps the paper's D concurrent
-// streams, on common.cuh's row_sweep as gemver.cu and stream.cu do.  The
+// streams, on common.cuh's row_sweep as stream.cu's K1 kernels do.  The
 // rows are split into D segments of seg = rows / D; block j owns the row
 // slots j*bm ... j*bm + bm - 1 of every segment, one warp per slot.  In
 // each column step the warp starts the 16-byte (f32) loads of all four

@@ -154,8 +154,8 @@ __device__ __forceinline__ void load_stream_step(
   }
 }
 
-// The D-stream row sweep of the row templates (K2 reduction.cu, K1
-// gemver.cu and stream.cu).  The rows of a row-major [rows, cols] array are split into
+// The D-stream row sweep of the row templates (the K1 stream.cu and
+// adamw.cu).  The rows of a row-major [rows, cols] array are split into
 // d segments of seg = rows / d; block j owns the row slots j*bm ...
 // j*bm + bm - 1 of every segment, one warp per slot (a block has
 // sweep_warps(bm) warps; a warp takes every nwarps-th slot).  For each
@@ -209,9 +209,9 @@ inline int sweep_warps(int bm) {
   return bm < SWEEP_MAX_WARPS ? bm : SWEEP_MAX_WARPS;
 }
 
-// The elementwise body of row_sweep (the K1 instances of gemver.cu and
-// stream.cu): Op loads a column step of its operands (the first into v;
-// a writes-only Op loads nothing) and gives the output of stream k,
+// The elementwise body of row_sweep (the K1 instances of stream.cu):
+// Op loads a column step of its operands (the first into v; a
+// writes-only Op loads nothing) and gives the output of stream k,
 // sub-portion p, element e, which is stored to o, 16 bytes a lane in
 // f32.
 template <typename T, typename Op>

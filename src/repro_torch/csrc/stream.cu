@@ -19,7 +19,7 @@
 // read once (read), for at most two flops.
 //
 // What the design does about it.  K1: the paper's D concurrent streams
-// on common.cuh's row_sweep, as gemver.cu: the rows are split into D
+// on common.cuh's row_sweep, as adamw.cu: the rows are split into D
 // segments of seg = rows / D; block j owns the row slots j*bm ...
 // j*bm + bm - 1 of every segment, one warp per slot; in each column step
 // the warp starts the loads of the D rows r + k*seg over the step's P

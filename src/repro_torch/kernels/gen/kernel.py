@@ -69,14 +69,15 @@ class RowstatGeometry:
 
 
 def rowstat_geometry(rows: int, cols: int, itemsize: int, d: int,
-                     sms: int) -> RowstatGeometry:
+                     sms: int, parts: int | None = None) -> RowstatGeometry:
     """The launch geometry for x ``[rows, cols]`` of ``itemsize`` bytes
     in ``d`` streams on a card of ``sms`` SMs.  The warps of one wave
     (``ROWSTAT_BLOCKS_PER_SM`` blocks an SM) take the ``rows / d`` row
     slots; the parts a slot double while the slots times the parts fit
     in that wave and each part keeps at least two steps of units.  A
     block walks a run of slots in whole rounds, so the grid stays within
-    the wave."""
+    the wave.  ``parts`` (1, 2, 4 or 8) replaces the rule's, for a
+    sweep."""
     seg = rows // d
     k = 1
     while k < min(d, ROWSTAT_MAX_STREAMS):
@@ -85,11 +86,12 @@ def rowstat_geometry(rows: int, cols: int, itemsize: int, d: int,
     per = 2 if itemsize == 2 else 1
     units = cols // LANE // per
     wave = ROWSTAT_BLOCKS_PER_SM * sms
-    parts = 1
-    while (parts < ROWSTAT_WARPS
-           and seg * 2 * parts <= wave * ROWSTAT_WARPS
-           and 2 * parts * 2 * step <= units):
-        parts *= 2
+    if parts is None:
+        parts = 1
+        while (parts < ROWSTAT_WARPS
+               and seg * 2 * parts <= wave * ROWSTAT_WARPS
+               and 2 * parts * 2 * step <= units):
+            parts *= 2
     spr = ROWSTAT_WARPS // parts
     need = -(-seg // spr)
     spb = -(-need // min(need, wave)) * spr

@@ -4,8 +4,10 @@ with gemver's matrix-vector steps, which are instances of the same two.
   * :func:`rowdot` — ``csrc/reduction.cu``, replacing ``_emit_reduction``
     (``src/repro/codegen/emit.py:491``) with the ``mxv``, ``bicg_q`` and
     ``gemver_mxv2`` bodies: y[i] = s · Σ_j A[i, j] x[j] (s = α for
-    ``gemver_mxv2``, else 1).  Grid ``rows / (D·bm)`` blocks, one warp
-    per row slot, D rows in flight per column step.
+    ``gemver_mxv2``, else 1), on rowstat's sweep: one wave of blocks of
+    8 warps, a warp a (row slot, column part), 16-byte lanes with the
+    next step's loads in flight, x staged once a block in shared memory
+    where it takes at most 64 KiB (:func:`rowdot_geometry`).
   * :func:`coldot` — ``csrc/stream_reduction.cu``, replacing
     ``_emit_stream_reduction`` (``src/repro/codegen/emit.py:564``) with
     the ``mxv_t``, ``bicg_s`` and ``gemver_mxv1`` bodies and the "sum"
@@ -47,15 +49,16 @@ from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
 
 __all__ = ["ROWDOT", "COLDOT", "MXV2", "MXV1", "MXV1_SUM", "Geometry",
-           "geometry", "launch_geometry", "clusters", "emit", "rowdot",
+           "geometry", "launch_geometry", "clusters", "RowdotGeometry",
+           "rowdot_geometry", "X_SHARED", "emit", "rowdot",
            "coldot", "coldot_total", "split_plain", "merge_plain",
            "rank_rows"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# rowdot_launch(dtype, A, x, y, scale_ptr, scale, rows, cols, d, bm, ns,
-#               interleaved, stream)
-_ROWDOT_ARGS = [_I, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I]
+# rowdot_launch(dtype, A, x, y, scale_ptr, scale, rows, cols, d, bm,
+#               parts, spb, grid, xs, interleaved, stream)
+_ROWDOT_ARGS = [_I, _P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I]
 ROWDOT = cuda.CudaKernel("mxv", "reduction", "rowdot_launch", _ROWDOT_ARGS)
 MXV2 = cuda.CudaKernel("gemver_mxv2", "reduction", "rowdot_launch",
                        _ROWDOT_ARGS)
@@ -80,6 +83,7 @@ LOADS = 8                          # 16-byte loads a thread a step
 BLOCKS_PER_SM = 2                  # blocks an SM the grid aims at
 MAX_CLUSTER = 8                    # the portable cluster size
 _PLAIN_SMS = 132                   # the plain version's geometry on a CPU
+X_SHARED = 65536                   # most bytes of x a row-dot block stages
 
 
 @dataclass(frozen=True)
@@ -138,6 +142,42 @@ def geometry(rows: int, cols: int, d: int, itemsize: int, sms: int,
                     -(-blocks // (BLOCKS_PER_SM * sms)))
 
 
+@dataclass(frozen=True)
+class RowdotGeometry:
+    """One launch of ``csrc/reduction.cu`` ``rowdot``: rowstat's sweep
+    (:func:`~repro_torch.kernels.gen.kernel.rowstat_geometry`: ``streams``
+    rows a group, ``parts`` warps a row slot of ``per_part`` of a row's
+    ``units`` 16-byte lane units, ``blocks`` blocks of ``slots`` row
+    slots), ``tail`` where a 16-bit row ends in an odd sub-portion (one
+    8-byte load a lane, in the last part), and x staged in ``smem``
+    bytes of shared memory a block (0: read through ``__ldg``)."""
+    streams: int
+    parts: int
+    units: int
+    per_part: int
+    slots: int
+    blocks: int
+    tail: bool
+    smem: int
+
+
+def rowdot_geometry(rows: int, cols: int, itemsize: int, d: int,
+                    sms: int, parts: int | None = None,
+                    x_shared: bool = True) -> RowdotGeometry:
+    """The row-dot's launch for A ``[rows, cols]`` (``cols`` a multiple
+    of 128) of ``itemsize`` bytes in ``d`` streams on a card of ``sms``
+    SMs: rowstat's geometry (x in shared memory adds no registers), and
+    x staged where its ``cols · itemsize`` bytes are at most
+    :data:`X_SHARED`.  ``parts`` replaces the rule's, and ``x_shared=
+    False`` reads x through ``__ldg`` at every width, for a sweep."""
+    from repro_torch.kernels.gen.kernel import rowstat_geometry
+    g = rowstat_geometry(rows, cols, itemsize, d, sms, parts)
+    xbytes = cols * itemsize
+    return RowdotGeometry(g.streams, g.parts, g.units, g.per_part, g.slots,
+                          g.blocks, itemsize == 2 and (cols // LANE) % 2 == 1,
+                          xbytes if x_shared and xbytes <= X_SHARED else 0)
+
+
 def clusters(dtype: torch.dtype, d: int, cs: int) -> int:
     """Clusters of ``cs`` blocks of the instance for ``dtype`` (f32, or
     the 16-bit one) and ``d`` streams that the current card keeps
@@ -166,18 +206,25 @@ def _scale(scalars, device):
 
 
 def rowdot(spec: loopir.TraversalSpec, bp: BlockPlan, arrays,
-           config: StridingConfig | None = None,
-           scalars=()) -> torch.Tensor:
-    """The K2 row-dot: ``y [rows]`` in A's dtype."""
+           config: StridingConfig | None = None, scalars=(),
+           parts: int | None = None, x_shared: bool = True) -> torch.Tensor:
+    """The K2 row-dot: ``y [rows]`` in A's dtype (``parts`` and
+    ``x_shared`` as :func:`rowdot_geometry` takes them, for a sweep)."""
     A, x = arrays
     if not A.is_cuda:
         return loopir.evaluate(spec, [A, x, *scalars])
     cuda.check_operands(spec.name, [A, x], [(bp.rows, bp.cols), (bp.cols,)])
     y = torch.empty(bp.rows, dtype=A.dtype, device=A.device)
     ptr, scale, keep = _scale(scalars, A.device)
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    g = rowdot_geometry(bp.rows, bp.cols, A.element_size(), bp.d, sms,
+                        parts, x_shared)
+    interleaved = config is not None and config.arrangement == "interleaved"
     _ROW_DOT[spec.name](A.device, cuda.dtype_code(A.dtype), A.data_ptr(),
-                        x.data_ptr(), y.data_ptr(), ptr, scale,
-                        *cuda.sweep_geometry(bp, config))
+                        x.data_ptr(), y.data_ptr(), ptr, scale, bp.rows,
+                        bp.cols, bp.d, bp.bm, g.parts, g.slots, g.blocks,
+                        int(g.smem > 0), int(interleaved))
+    del keep
     return y
 
 

@@ -424,11 +424,17 @@ def _rand(gen, shape, dev, dtype):
 
 
 DPS = [(d, p) for d in (1, 2, 4, 8) for p in (1, 2)]
-LINALG_SHAPES = [(512, 1024), (200, 1000)]     # the second is ragged
+# the second is ragged; then 5 sub-portions of 128 on 64 rows (an odd
+# last sub-portion in 16-bit types, rows too few for a wave), a row that
+# the row-dot cuts into parts, 129 sub-portions (x over 64 KiB in f32),
+# and 257 (x over 64 KiB in 16-bit types)
+LINALG_SHAPES = [(512, 1024), (200, 1000), (64, 640), (1024, 16384),
+                 (96, 16512), (64, 32896)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("arr", ["grouped", "interleaved"])
 @pytest.mark.parametrize("d,p", DPS)
 @pytest.mark.parametrize("m,n", LINALG_SHAPES)
@@ -458,15 +464,14 @@ def test_mxv_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,p", [(4, 2), (8, 1)])
-def test_arrangements_give_the_same_bits(cuda_device, d, p):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,p", [(4, 2), (8, 1), (1, 2), (2, 1)])
+def test_arrangements_give_the_same_bits(cuda_device, dtype, d, p):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    a = _rand(gen, (1024, 2048), cuda_device, torch.float32)
-    x = _rand(gen, (2048,), cuda_device, torch.float32)
-    u1, u2 = (_rand(gen, (1024,), cuda_device, torch.float32)
-              for _ in range(2))
-    v1, v2 = (_rand(gen, (2048,), cuda_device, torch.float32)
-              for _ in range(2))
+    a = _rand(gen, (1024, 2048), cuda_device, dtype)
+    x = _rand(gen, (2048,), cuda_device, dtype)
+    u1, u2 = (_rand(gen, (1024,), cuda_device, dtype) for _ in range(2))
+    v1, v2 = (_rand(gen, (2048,), cuda_device, dtype) for _ in range(2))
     out = {}
     for arr in ("grouped", "interleaved"):
         cfg = TConfig(d, p, arrangement=arr)
@@ -499,6 +504,55 @@ def test_gemver_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
     assert torch.equal(o, tgops.gemver_outer(a, u1, v1, u2, v2, config=cfg,
                                              mode="ref"))
     assert torch.equal(s, tgops.gemver_sum(x, z, config=cfg, mode="ref"))
+
+
+def _last_launch(source: str, symbol: str) -> list:
+    """The last launch's (instance, grid) record of a kernel library."""
+    import ctypes
+    fn = getattr(cuda.library(source), symbol)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    out = (ctypes.c_int * 3)()
+    fn(out)
+    return list(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("m,n", [(4096, 4096), (200, 1000), (64, 640),
+                                 (1024, 16384), (96, 16512), (64, 32896)])
+def test_rowdot_and_outer_launch_the_instance_their_geometry_picks(
+        cuda_device, dtype, d, m, n):
+    """Each wrapper launches once, the instance (streams a group, x in
+    shared memory) and grid that rowdot_geometry / outer_geometry give
+    for the padded operands."""
+    from repro_torch.codegen import plan_blocks
+    from repro_torch.kernels import common as tcommon
+    from repro_torch.kernels.mxv import specs as tmspecs
+    gen = torch.Generator(device=cuda_device).manual_seed(m + n + d)
+    a = _rand(gen, (m, n), cuda_device, dtype)
+    x = _rand(gen, (n,), cuda_device, dtype)
+    u1, u2 = (_rand(gen, (m,), cuda_device, dtype) for _ in range(2))
+    v1, v2 = (_rand(gen, (n,), cuda_device, dtype) for _ in range(2))
+    cfg = TConfig(d, 2)
+    # the ops take D as effective_config clamps it (to divide the rows)
+    bp = plan_blocks(tmspecs.mxv_spec(a, x),
+                     tcommon.effective_config(cfg, m, cfg))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    isz = a.element_size()
+    rg = mkernel.rowdot_geometry(bp.rows, bp.cols, isz, bp.d, sms)
+    og = gkernel.outer_geometry(bp.rows, bp.cols, isz, bp.d, sms)
+    before = (mkernel.ROWDOT.launches, gkernel.OUTER.launches)
+    tmops.mxv(a, x, config=cfg)
+    assert _last_launch("reduction", "rowdot_last_launch") == [
+        rg.streams, int(rg.smem > 0), rg.blocks]
+    tgops.gemver_outer(a, u1, v1, u2, v2, config=cfg)
+    assert _last_launch("gemver", "gemver_outer_last_launch") == [
+        og.streams, og.tiles, og.runs]
+    assert (mkernel.ROWDOT.launches, gkernel.OUTER.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.gpu

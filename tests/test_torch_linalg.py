@@ -536,3 +536,206 @@ def test_gemver_sum_16bit_matches_jax(dt, label, cfg):
     np.testing.assert_allclose(got_i.float().numpy(),
                                np.asarray(want_i.astype(jnp.float32)),
                                rtol=row.rtol, atol=row.atol)
+
+
+# ------------------------------------ 16-bit gemver_outer and row-dot
+
+DT16 = {"bf16": (torch.bfloat16, jnp.bfloat16),
+        "f16": (torch.float16, jnp.float16)}
+# A [m, n]: the registry's default size, a ragged one (rows to D
+# segments, 1000 columns to 8 sub-portions) and one of an odd number of
+# sub-portions (300 columns to 3)
+SHAPES16 = {"aligned": (48, 256), "ragged": (200, 1000), "odd": (40, 300)}
+
+
+def _draw16(shapes, dt: str, seed: int):
+    """One numpy draw rounded to the type: (JAX arrays, torch tensors)."""
+    tdt, jdt = DT16[dt]
+    rng = np.random.default_rng(seed)
+    j = [jnp.asarray(rng.standard_normal(s).astype(np.float32), jdt)
+         for s in shapes]
+    t = [torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+         for a in j]
+    return j, t
+
+
+def _close16(got, want, tdt, rtol, atol):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == tdt and tuple(g.shape) == tuple(w.shape)
+        g, w = g.float().numpy(), np.asarray(w.astype(jnp.float32))
+        excess = np.abs(g - w) - (atol + rtol * np.abs(w))
+        assert excess.max() <= 0, float(excess.max())
+
+
+@pytest.mark.parametrize("dt", list(DT16))
+@pytest.mark.parametrize("shape", list(SHAPES16))
+@pytest.mark.parametrize("label,cfg", CONFIGS, ids=[c[0] for c in CONFIGS])
+def test_gemver_outer_16bit_matches_jax(dt, shape, label, cfg):
+    """gemver_outer in bf16 and f16: the port's op against the JAX op in
+    ref mode, and the port's emitter front end against the JAX Pallas
+    kernel in interpret mode, on one numpy draw rounded to the type.
+    bf16 within the registry row's rtol / atol.  In f16 the JAX package
+    evaluates the body with excess precision (no rounding between its
+    ops: one f16 ulp off the port's per-operation rounding at |o| ~ 8 on
+    this draw), so in f16 the limit is what the two evaluations' own
+    roundings allow: each rounds each of its four operations at most
+    once, within 2^-11 of the value rounded, so they lie within 2^-10
+    (|u1 v1| + |u2 v2| + |A + u1 v1| + |o|) of each other."""
+    tdt, _ = DT16[dt]
+    m, n = SHAPES16[shape]
+    j, t = _draw16([(m, n), (m,), (n,), (m,), (n,)], dt, seed=13)
+    row = jreg.get("gemver_outer")
+    atol = row.atol
+    if dt == "f16":
+        a, u1, v1, u2, v2 = (x.float() for x in t)
+        t1, t2 = u1[:, None] * v1[None, :], u2[:, None] * v2[None, :]
+        o = np.abs(np.asarray(jgops.gemver_outer(*j, config=cfg,
+                                                 mode="ref")
+                              .astype(jnp.float32)))
+        atol = row.atol + 2.0 ** -10 * (
+            o + (t1.abs() + t2.abs() + (a + t1).abs()).numpy())
+    want = jgops.gemver_outer(*j, config=cfg, mode="ref")
+    got = tgops.gemver_outer(*t, config=_tcfg(cfg))
+    _close16(got, want, tdt, row.rtol, atol)
+    want_i = jcg.emit_spec(jgspecs.gemver_outer_spec(*j), j, cfg,
+                           interpret=True)
+    got_i = _port_emit(tgspecs.gemver_outer_spec(*t), t, _tcfg(cfg))
+    _close16(got_i, want_i, tdt, row.rtol, atol)
+
+
+# the row-dot's f16 rows: (registry row, JAX op, port op, JAX spec, port
+# spec, inputs past A and x)
+ROWDOT16 = {
+    "mxv": ("mxv", jmops.mxv, tmops.mxv, jmspecs.mxv_spec,
+            tmspecs.mxv_spec, ()),
+    "bicg": ("bicg", jbops.bicg, tbops.bicg, jbspecs.bicg_q_spec,
+             tbspecs.bicg_q_spec, ()),
+    "gemver_mxv2": ("gemver_mxv2_gen", None, None, jgspecs.gemver_mxv2_spec,
+                    tgspecs.gemver_mxv2_spec, (1.5,)),
+}
+
+
+@pytest.mark.parametrize("kernel", list(ROWDOT16))
+@pytest.mark.parametrize("shape", list(SHAPES16))
+@pytest.mark.parametrize("label,cfg", CONFIGS, ids=[c[0] for c in CONFIGS])
+def test_row_dot_f16_matches_jax(kernel, shape, label, cfg):
+    """mxv, bicg and gemver_mxv2_gen in f16 (the row-dot's instances; bf16
+    mxv is held above): the port's op against the JAX op in ref mode and
+    the port's emitter front end against the JAX Pallas kernel in
+    interpret mode, on one numpy draw rounded to f16.  Both sum in f32
+    and round once to f16, in other orders, so the sums may round to
+    neighbours: within the registry row's atol and one f16 ulp, rtol
+    2^-10 (the bf16 test above allows one bf16 ulp, 2^-7)."""
+    from repro.kernels import gen as jgen
+    from repro_torch.kernels import gen as tgen
+    name, jop, top, jspec, tspec, extra = ROWDOT16[kernel]
+    if jop is None:
+        jop, top = jgen.gemver_mxv2_gen, tgen.gemver_mxv2_gen
+    tdt, _ = DT16["f16"]
+    m, n = SHAPES16[shape]
+    shapes = [(m, n), (n,)] + ([(m,)] if kernel == "bicg" else [])
+    j, t = _draw16(shapes, "f16", seed=17)
+    row = jreg.get(name)
+    if kernel == "bicg":          # bicg(A, r, p): q = A p, s = Aᵀ r
+        jargs, targs = [j[0], j[2], j[1]], [t[0], t[2], t[1]]
+    else:
+        jargs, targs = j + list(extra), t + list(extra)
+    rtol = max(row.rtol, 2.0 ** -10)
+    want = jop(*jargs, config=cfg, mode="ref")
+    got = top(*targs, config=_tcfg(cfg))
+    _close16(got, want, tdt, rtol, row.atol)
+    want_i = jcg.emit_spec(jspec(*j[:2], *extra), j[:2] + list(extra), cfg,
+                           interpret=True)
+    got_i = _port_emit(tspec(*t[:2], *extra), t[:2] + list(extra),
+                       _tcfg(cfg))
+    _close16(got_i, want_i, tdt, rtol, row.atol)
+
+
+# gemver_outer's launch (kernel.outer_geometry) worked by hand: 16-byte
+# vectors of 16 / itemsize elements, 128 a column tile (the last tile's
+# `last` of them holding a vector); K the smallest power of two up to D
+# (at most 4), U = 4 / K slots a step; a run of max(2, U) slots, halved
+# (not under U) while tiles * runs < 8 blocks an SM; (rows, cols,
+# itemsize, D, SMs) -> (vec, tiles, last, K, U, groups, run, runs,
+# blocks, steps)
+@pytest.mark.parametrize("rows,cols,isz,d,sms,want", [
+    # 16384^2 at D = 4: 32 / 16 tiles x 2048 runs of 2 of 4096 slots
+    (16384, 16384, 4, 4, 132, (4, 32, 128, 4, 1, 1, 2, 2048, 65536, 2)),
+    (16384, 16384, 2, 4, 132, (8, 16, 128, 4, 1, 1, 2, 2048, 32768, 2)),
+    (16384, 16384, 2, 4, 114, (8, 16, 128, 4, 1, 1, 2, 2048, 32768, 2)),
+    # D = 1: a step is 4 slots of one stream, a run one step
+    (16384, 16384, 2, 1, 132, (8, 16, 128, 1, 4, 1, 4, 4096, 65536, 1)),
+    (16384, 16384, 2, 2, 132, (8, 16, 128, 2, 2, 1, 2, 4096, 65536, 1)),
+    # D = 8: two groups of 4 streams, so a run of 2 slots is 4 steps
+    (16384, 16384, 2, 8, 132, (8, 16, 128, 4, 1, 2, 2, 1024, 16384, 4)),
+    # 4096^2: 2048 (bf16) and 4096 (f32) blocks already fill 8 an SM
+    (4096, 4096, 4, 4, 132, (4, 8, 128, 4, 1, 1, 2, 512, 4096, 2)),
+    (4096, 4096, 2, 4, 132, (8, 4, 128, 4, 1, 1, 2, 512, 2048, 2)),
+    (4096, 4096, 2, 4, 114, (8, 4, 128, 4, 1, 1, 2, 512, 2048, 2)),
+    (4096, 4096, 4, 4, 114, (4, 8, 128, 4, 1, 1, 2, 512, 4096, 2)),
+    # ragged [200, 1000] padded to 1024 columns: one tile; 25 blocks are
+    # under 8 an SM, so runs of 1 slot
+    (200, 1024, 2, 4, 132, (8, 1, 128, 4, 1, 1, 1, 50, 50, 1)),
+    # 5 sub-portions: 80 bf16 vectors (one tile, 48 threads idle), 160
+    # f32 vectors (the second tile 32); D = 8 over 64 rows: seg 8
+    (64, 640, 2, 8, 132, (8, 1, 80, 4, 1, 2, 1, 8, 8, 2)),
+    (64, 640, 4, 8, 114, (4, 2, 32, 4, 1, 2, 1, 8, 16, 2)),
+    # 2^21 rows at D = 1: runs of 4 would be 524288 grid rows, so 33 (the
+    # last step of a run one slot of four)
+    (2 ** 21, 128, 2, 1, 132, (8, 1, 16, 1, 4, 1, 33, 63551, 63551, 9)),
+])
+def test_outer_geometry_by_hand(rows, cols, isz, d, sms, want):
+    g = gkernel.outer_geometry(rows, cols, isz, d, sms)
+    assert (g.vec, g.tiles, g.last, g.streams, g.slots, g.groups, g.run,
+            g.runs, g.blocks, g.steps) == want
+    assert g.threads == gkernel.OUTER_THREADS == 128
+    assert g.streams * g.slots == gkernel.OUTER_LOADS
+    assert (g.tiles - 1) * 128 + g.last == cols // g.vec    # every vector
+    assert (g.runs - 1) * g.run < rows // d <= g.runs * g.run  # every slot
+    assert g.runs <= 65535
+
+
+# the row-dot's launch (kernel.rowdot_geometry) worked by hand: rowstat's
+# sweep, a wave of 2 blocks an SM of 8 warps; parts double while seg * 2
+# * parts <= 16 * SMs and 4 * parts * (8 / K) <= units; x staged where
+# cols * itemsize <= 64 KiB; (rows, cols, itemsize, D, SMs) -> (K, parts,
+# units, per_part, slots, blocks, tail, smem)
+@pytest.mark.parametrize("rows,cols,isz,d,sms,want", [
+    # 16384^2: 4096 slots need no parts; 512 rounds of 8 over 264 blocks
+    (16384, 16384, 4, 4, 132, (4, 1, 128, 128, 16, 256, False, 65536)),
+    (16384, 16384, 2, 4, 132, (4, 1, 64, 64, 16, 256, False, 32768)),
+    # at 114 SMs: 512 rounds over 228 blocks, 3 rounds a block
+    (16384, 16384, 2, 4, 114, (4, 1, 64, 64, 24, 171, False, 32768)),
+    # 4096^2: 1024 slots x 2 parts = 2048 warps <= 2112
+    (4096, 4096, 4, 4, 132, (4, 2, 32, 16, 4, 256, False, 16384)),
+    (4096, 4096, 2, 4, 132, (4, 2, 16, 8, 4, 256, False, 8192)),
+    (4096, 4096, 2, 4, 114, (4, 1, 16, 16, 8, 128, False, 8192)),
+    # [1024, 16384]: 256 slots cut into 8 parts of 8 units
+    (1024, 16384, 2, 4, 132, (4, 8, 64, 8, 1, 256, False, 32768)),
+    # 129 sub-portions: bf16 64 pairs and an 8-byte tail; f32 x over
+    # 64 KiB read through __ldg
+    (96, 16512, 2, 4, 132, (4, 8, 64, 8, 1, 24, True, 33024)),
+    (96, 16512, 4, 4, 132, (4, 8, 129, 17, 1, 24, False, 0)),
+    # 257 sub-portions, D = 1: bf16 x over 64 KiB, a tail
+    (64, 32896, 2, 1, 132, (1, 8, 128, 16, 1, 64, True, 0)),
+    # ragged [200, 1000] -> 1024; 5 sub-portions over 64 rows at D = 8
+    (200, 1024, 2, 4, 132, (4, 1, 4, 4, 8, 7, False, 2048)),
+    (64, 640, 2, 8, 132, (4, 1, 2, 2, 8, 1, True, 1280)),
+    (64, 640, 4, 8, 114, (4, 1, 5, 5, 8, 1, False, 2560)),
+])
+def test_rowdot_geometry_by_hand(rows, cols, isz, d, sms, want):
+    g = mkernel.rowdot_geometry(rows, cols, isz, d, sms)
+    assert (g.streams, g.parts, g.units, g.per_part, g.slots, g.blocks,
+            g.tail, g.smem) == want
+    seg = rows // d
+    assert (g.blocks - 1) * g.slots < seg <= g.blocks * g.slots
+    assert g.blocks <= 2 * sms                               # one wave
+    # every 16-byte unit (and the tail's 8 bytes) once, in part order
+    from repro_torch.kernels.gen.kernel import rowstat_units
+    loads = rowstat_units(cols // 128, isz, g.parts)
+    assert sum(b for part in loads for _, b in part) == (
+        cols // 128 * 128 * 16 // (16 // isz) // 32)
+    assert any(b == 8 for part in loads for _, b in part) == g.tail

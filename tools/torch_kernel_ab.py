@@ -28,8 +28,12 @@ CUDA events):
   * rmsnorm at x [4, 4096] (a decode step's rows) and [8192, 4096] (a
     train step's) in bf16, at the op's resolved config;
   * rowstat (``rowstat_gen``, D=4, P=2) at 4096^2 and 16384^2 in f32
-    and bf16, and mxv (the row-dot that shares its library) at the same
-    sizes in f32;
+    and bf16;
+  * the row-dot: ``mxv`` and ``gemver_mxv2_gen`` (alpha 1.5, D=4, P=2)
+    at 4096^2 and 16384^2 in f32, bf16 and f16, outputs held; where the
+    checkout's ``rowdot`` takes ``parts``, ``mxv`` over the parts of
+    ``ROWDOT_PARTS`` and at the rule's parts with x read through
+    ``__ldg`` (not staged in shared memory);
   * the column-dot: ``mxv_t``, ``gemver_mxv1_gen`` and
     ``gemver_mxv1_sum_gen`` (D=4, P=2) at 4096^2 and 16384^2 in f32 and
     bf16;
@@ -40,7 +44,9 @@ CUDA events):
     records ``"refused"``;
   * the K1 ``gemver_sum`` at vn = 4·2²⁰ in f32, bf16 and f16 at the
     default config (D=4, P=2) and over D = 1, 2, 4, 8 (P=2), and
-    ``gemver_outer`` at 16384² in bf16;
+    ``gemver_outer`` at 16384² and 4096² in f32, bf16 and f16, outputs
+    held, and where the checkout's ``outer_geometry`` takes a run, over
+    the runs of ``OUTER_RUNS`` (row slots a block) at D = 1, 4, 8;
   * jacobi2d and conv3x3 (the op, conv3x3's weight packing included) at
     x [2050, 2048] and [16386, 16384] in f32 and bf16, and at [16386,
     16386] (a row pitch that is not a power of two) in f32; where the
@@ -53,12 +59,17 @@ that computes the same function: ``torch.matmul(A.view(-1, s), C4)``,
 ``x.clone()``, ``torch.add(b, c, alpha=1.5)``, ``torch.full``, ``x +
 z``, ``x.view(D, -1).sum(1, dtype=float32)``, ``part.sum(0)``,
 ``torch._fused_adamw_``, ``F.rms_norm``, ``(x.amax(1), x.sum(1))``,
-``torch.mv``, ``torch.mv(A.t(), y)`` (with gemver's scaling and adds),
+``torch.mv`` (and ``1.5 * torch.mv``), ``torch.mv(A.t(), y)`` (with
+gemver's scaling and adds),
 SDPA with ``enable_gqa``, ``torch.addr`` twice, ``F.conv2d`` (the
 5-point cross of 0.2 for jacobi2d).  TF32 is off.  The K1
 ``gemver_sum`` rows, the stencils and their library calls hold every
 call's output (``device_ms(..., hold=True)``), so an output that fits
-L2 is written to HBM as in use, not to one buffer that stays in L2.
+L2 is written to HBM as in use, not to one buffer that stays in L2;
+so do the row-dot and ``gemver_outer`` rows.
+
+``AB_ONLY=section,...`` in the environment times only those sections
+(of :data:`SECTIONS`), e.g. ``AB_ONLY=rowdot,gemver_outer``.
 
 Prints one JSON line per ROOT (milliseconds), then the card's name and
 power limit.  Compare roots by the alternation, never across calls.
@@ -91,7 +102,28 @@ DECODE = [("yi-9b", 4, 32, 128), ("phi-2", 32, 32, 80)]
 DECODE_B, DECODE_S = 4, 4096
 SUM_DTYPES = ("float32", "bfloat16", "float16")
 SUM_D = (1, 2, 4, 8)
-OUTER_N = 16384
+# the row-dot (mxv, gemver_mxv2_gen) and gemver_outer: (n, dtype) of
+# A [n, n]
+ROWDOT = [(n, dt) for n in (4096, 16384)
+          for dt in ("float32", "bfloat16", "float16")]
+OUTER = [(n, dt) for n in (16384, 4096)
+         for dt in ("float32", "bfloat16", "float16")]
+# run lengths (row slots a block) of the gemver_outer run table, by
+# (n, dtype, D) of A [n, n]
+OUTER_RUNS = {(16384, "float32", 4): (1, 2, 4, 8, 16),
+              (16384, "bfloat16", 4): (1, 2, 4, 8, 16),
+              (16384, "bfloat16", 1): (4, 8, 16, 32, 64),
+              (16384, "bfloat16", 8): (1, 2, 4, 8),
+              (4096, "float32", 4): (1, 2, 4, 8),
+              (4096, "bfloat16", 4): (1, 2, 4, 8)}
+D_SWEEP = (1, 2, 4, 8)
+# column parts a row slot of the row-dot's parts table, by (n, dtype)
+ROWDOT_PARTS = {(16384, "float32"): (1, 2, 4, 8),
+                (16384, "bfloat16"): (1, 2, 4, 8),
+                (4096, "bfloat16"): (1, 2, 4, 8)}
+SECTIONS = ("doitgen", "stream", "rmsnorm", "rowstat", "rowdot", "coldot",
+            "rmsnorm_odd", "decode", "gemver_sum", "gemver_outer",
+            "stencil", "adamw")
 # (x shape, dtype) of the stencils
 STENCILS = [((2050, 2048), "float32"), ((2050, 2048), "bfloat16"),
             ((16386, 16384), "float32"), ((16386, 16384), "bfloat16"),
@@ -113,7 +145,20 @@ def refused(fn, *args):
         return "refused"
 
 
+def _sections() -> set:
+    """The sections ``AB_ONLY`` names (every one where it is unset)."""
+    only = os.environ.get("AB_ONLY")
+    if not only:
+        return set(SECTIONS)
+    picked = set(only.split(","))
+    unknown = picked - set(SECTIONS)
+    if unknown:
+        raise SystemExit(f"AB_ONLY: unknown sections {sorted(unknown)}")
+    return picked
+
+
 def one(root: str, replays: int, with_library: bool) -> dict:
+    on = _sections()
     sys.path.insert(0, os.path.join(root, "src"))
     # the timing of this repository's chip_smoke.py, whichever ROOT runs
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -141,13 +186,14 @@ def one(root: str, replays: int, with_library: bool) -> dict:
     cuda.build(["doitgen", "stream", "manual_ring", "gemver", "adamw",
                 "rmsnorm", "reduction", "stream_reduction", "decode_attn",
                 "stencil"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(shape, dt):
         return torch.randn(*shape, generator=gen, device="cuda").to(dt)
 
     out: dict = {"root": root}
-    for shape, dt_name in DOITGEN:
+    for shape, dt_name in (DOITGEN if "doitgen" in on else ()):
         dt = getattr(torch, dt_name)
         r, q, s = shape
         isz = torch.empty((), dtype=dt).element_size()
@@ -163,7 +209,7 @@ def one(root: str, replays: int, with_library: bool) -> dict:
         del sets
         torch.cuda.empty_cache()
     n = STREAM_SHAPE[0] * STREAM_SHAPE[1]
-    for dt_name in STREAM_DTYPES:
+    for dt_name in (STREAM_DTYPES if "stream" in on else ()):
         dt = getattr(torch, dt_name)
         isz = torch.empty((), dtype=dt).element_size()
         s1 = copies(lambda: (rand(STREAM_SHAPE, dt),), n * isz)
@@ -229,7 +275,7 @@ def one(root: str, replays: int, with_library: bool) -> dict:
         torch.cuda.empty_cache()
     # rmsnorm (bf16), rowstat and the row-dot that shares its library
     dm = RMSNORM_DM
-    for t in RMSNORM_ROWS:
+    for t in (RMSNORM_ROWS if "rmsnorm" in on else ()):
         rsets = copies(lambda: (rand((t, dm), torch.bfloat16),
                                 (1 + 0.1 * rand((dm,), torch.float32))
                                 .to(torch.bfloat16)), t * dm * 2)
@@ -242,7 +288,7 @@ def one(root: str, replays: int, with_library: bool) -> dict:
                 replays=replays)
         del rsets
     cfg42 = StridingConfig(4, 2)
-    for n, dt_name in ROWSTAT:
+    for n, dt_name in (ROWSTAT if "rowstat" in on else ()):
         dt = getattr(torch, dt_name)
         isz = torch.empty((), dtype=dt).element_size()
         xsets = copies(lambda: (rand((n, n), dt),), n * n * isz)
@@ -252,20 +298,57 @@ def one(root: str, replays: int, with_library: bool) -> dict:
         if with_library:
             out[f"{key} x.amax(1), x.sum(1)"] = device_ms(
                 lambda x: (x.amax(1), x.sum(1)), xsets, replays=replays)
-        if dt == torch.float32:
-            v = rand((n,), dt)
-            out[f"mxv {dt_name} [{n}, {n}]"] = device_ms(
-                lambda a: mxv(a, v, config=cfg42), xsets, replays=replays)
-            if with_library:
-                out[f"mxv {dt_name} [{n}, {n}] torch.mv"] = device_ms(
-                    lambda a: torch.mv(a, v), xsets, replays=replays)
+        del xsets
+        torch.cuda.empty_cache()
+    # the row-dot: mxv and gemver_mxv2 (alpha A x), and (where the
+    # checkout's row-dot takes them) the parts of ROWDOT_PARTS
+    from repro_torch.kernels.gen import gemver_mxv2_gen
+    from repro_torch.kernels.mxv import kernel as mk
+    alpha = 1.5
+    for n, dt_name in (ROWDOT if "rowdot" in on else ()):
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        xsets = copies(lambda: (rand((n, n), dt), rand((n,), dt)),
+                       n * n * isz)
+        tag = f"{dt_name} [{n}, {n}]"
+        reps = 8 if n > 8192 else 20
+        out[f"mxv {tag}"] = device_ms(
+            lambda a, v: mxv(a, v, config=cfg42), xsets, reps, replays,
+            hold=True)
+        out[f"gemver_mxv2 {tag}"] = device_ms(
+            lambda a, v: gemver_mxv2_gen(a, v, alpha, config=cfg42), xsets,
+            reps, replays, hold=True)
+        rowdot_takes_parts = "parts" in inspect.signature(
+            mk.rowdot).parameters
+        for parts in (ROWDOT_PARTS.get((n, dt_name), ())
+                      if rowdot_takes_parts else ()):
+            from repro_torch.codegen import plan_blocks
+            from repro_torch.kernels.mxv import specs as mspecs
+            bp = plan_blocks(mspecs.mxv_spec(*xsets[0]), cfg42)
+            rule = mk.rowdot_geometry(bp.rows, bp.cols, isz, bp.d, sms).parts
+            out[f"mxv parts {tag} parts {parts}"
+                + (" (the rule's)" if parts == rule else "")] = device_ms(
+                lambda a, v, _p=parts, _bp=bp: mk.rowdot(
+                    mspecs.mxv_spec(a, v), _bp, [a, v], cfg42, (), _p),
+                xsets, reps, replays, hold=True)
+            if parts == rule:
+                out[f"mxv parts {tag} parts {parts}, x by __ldg"] = (
+                    device_ms(lambda a, v, _bp=bp: mk.rowdot(
+                        mspecs.mxv_spec(a, v), _bp, [a, v], cfg42, (),
+                        x_shared=False), xsets, reps, replays, hold=True))
+        if with_library:
+            out[f"mxv {tag} torch.mv"] = device_ms(
+                lambda a, v: torch.mv(a, v), xsets, reps, replays, hold=True)
+            out[f"gemver_mxv2 {tag} alpha * torch.mv"] = device_ms(
+                lambda a, v: alpha * torch.mv(a, v), xsets, reps, replays,
+                hold=True)
         del xsets
         torch.cuda.empty_cache()
     # the column-dot: mxv_t, gemver_mxv1 and gemver_mxv1_sum
     from repro_torch.kernels.gen import gemver_mxv1_gen, gemver_mxv1_sum_gen
     from repro_torch.kernels.mxv import mxv_t
     beta = 1.2
-    for n, dt_name in COLDOT:
+    for n, dt_name in (COLDOT if "coldot" in on else ()):
         dt = getattr(torch, dt_name)
         isz = torch.empty((), dtype=dt).element_size()
         csets = copies(lambda: (rand((n, n), dt), rand((n,), dt),
@@ -298,7 +381,7 @@ def one(root: str, replays: int, with_library: bool) -> dict:
         del csets
         torch.cuda.empty_cache()
     # rmsnorm at rows that are not whole 16-byte vectors
-    for (t, dm), dt_name in RMSNORM_ODD:
+    for (t, dm), dt_name in (RMSNORM_ODD if "rmsnorm_odd" in on else ()):
         dt = getattr(torch, dt_name)
         rsets = copies(lambda: (rand((t, dm), dt),
                                 (1 + 0.1 * rand((dm,), torch.float32))
@@ -314,7 +397,7 @@ def one(root: str, replays: int, with_library: bool) -> dict:
     from repro_torch.kernels.decode_attn import ops as dops
     kv_len = torch.randint(1, DECODE_S + 1, (DECODE_B,), generator=gen,
                            device="cuda")
-    for model, hkv, hq, dh in DECODE:
+    for model, hkv, hq, dh in (DECODE if "decode" in on else ()):
         b, s = DECODE_B, DECODE_S
         dsets = copies(lambda: (rand((b, hq, dh), torch.bfloat16),
                                 rand((b, s, hkv, dh), torch.bfloat16),
@@ -340,7 +423,7 @@ def one(root: str, replays: int, with_library: bool) -> dict:
     from repro_torch.kernels.gemver import gemver_outer
     from repro_torch.kernels.jacobi2d import jacobi2d
     vn = GEMVER_SUM_N
-    for dt_name in SUM_DTYPES:
+    for dt_name in (SUM_DTYPES if "gemver_sum" in on else ()):
         dt = getattr(torch, dt_name)
         isz = torch.empty((), dtype=dt).element_size()
         vsets = copies(lambda: (rand((vn,), dt), rand((vn,), dt)),
@@ -357,17 +440,48 @@ def one(root: str, replays: int, with_library: bool) -> dict:
             out[f"gemver_sum {dt_name} K1 x + z"] = device_ms(
                 lambda x, z: x + z, vsets, replays=replays, hold=True)
         del vsets
-    n = OUTER_N
-    dt = torch.bfloat16
-    osets = [(rand((n, n), dt), *(rand((n,), dt) for _ in range(4)))]
-    out[f"gemver_outer bfloat16 [{n}, {n}]"] = device_ms(
-        lambda *t: gemver_outer(*t), osets, replays=replays)
-    if with_library:
-        out[f"gemver_outer bfloat16 [{n}, {n}] torch.addr twice"] = device_ms(
-            lambda a, u1, v1, u2, v2: torch.addr(torch.addr(a, u1, v1), u2,
-                                                  v2), osets, replays=replays)
-    del osets
-    torch.cuda.empty_cache()
+    # a checkout whose outer_geometry takes a run also times the runs of
+    # OUTER_RUNS beside its rule's own
+    from repro_torch.kernels.gemver import kernel as gk
+    outer_geo = getattr(gk, "outer_geometry", None)
+    outer_runs = (outer_geo if outer_geo is not None and "run" in
+                  inspect.signature(outer_geo).parameters else None)
+    for n, dt_name in (OUTER if "gemver_outer" in on else ()):
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        osets = copies(lambda: (rand((n, n), dt),
+                                *(rand((n,), dt) for _ in range(4))),
+                       2 * n * n * isz)
+        key = f"gemver_outer {dt_name} [{n}, {n}]"
+        reps = 8 if n > 8192 else 20
+        out[key] = device_ms(lambda *t: gemver_outer(*t), osets, reps,
+                             replays, hold=True)
+        if with_library:
+            out[f"{key} torch.addr twice"] = device_ms(
+                lambda a, u1, v1, u2, v2: torch.addr(
+                    torch.addr(a, u1, v1), u2, v2), osets, reps, replays,
+                hold=True)
+        for d in (D_SWEEP if outer_runs is not None else ()):
+            if (n, dt_name, d) not in OUTER_RUNS:
+                continue
+            from repro_torch.codegen import plan_blocks
+            from repro_torch.kernels.gemver import specs as gspecs
+            bp = plan_blocks(gspecs.gemver_outer_spec(*osets[0]),
+                             StridingConfig(d, 2))
+            rule = gk.outer_geometry(n, n, isz, d, sms).run
+            for run in sorted(set(OUTER_RUNS[(n, dt_name, d)]) | {rule}):
+                g = gk.outer_geometry(n, n, isz, d, sms, run=run)
+
+                def launch(*t, _g=g, _bp=bp):
+                    o = torch.empty_like(t[0])
+                    gk.outer_launch(t, o, _bp, _g)
+                    return o
+                out[f"gemver_outer runs {dt_name} [{n}, {n}] D={d} run "
+                    f"{run}" + (" (the rule's)" if run == rule else "")
+                    + f", {g.blocks} blocks"] = device_ms(
+                    launch, osets, reps, replays, hold=True)
+        del osets
+        torch.cuda.empty_cache()
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels.jacobi2d import specs as jspecs
     # a checkout whose stencil geometry takes a run length also times
@@ -375,11 +489,10 @@ def one(root: str, replays: int, with_library: bool) -> dict:
     geo = getattr(st, "geometry", None)
     runs_of = STENCIL_RUNS if geo is not None and "run" in \
         inspect.signature(geo).parameters else {}
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     w = rand((3, 3), torch.float32)
     cross = torch.tensor([[0.0, 0.2, 0.0], [0.2, 0.2, 0.2],
                           [0.0, 0.2, 0.0]], device="cuda")
-    for shape, dt_name in STENCILS:
+    for shape, dt_name in (STENCILS if "stencil" in on else ()):
         dt = getattr(torch, dt_name)
         isz = torch.empty((), dtype=dt).element_size()
         ssets = copies(lambda: (rand(shape, dt),), shape[0] * shape[1] * isz)
@@ -414,6 +527,8 @@ def one(root: str, replays: int, with_library: bool) -> dict:
                               ssets, reps, replays, hold=True)]
         del ssets
         torch.cuda.empty_cache()
+    if "adamw" not in on:
+        return out
     # adamw on the ring, Yi-9B's embedding, f32
     p, g, m = (rand(EMBED, torch.float32) for _ in range(3))
     v = torch.rand(*EMBED, generator=gen, device="cuda")
