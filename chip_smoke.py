@@ -90,11 +90,26 @@ Phases (each raises on failure, so the script exits non-zero):
                 rowstat also bf16 at both) through their public ops:
                 equality or the f32 dot limit, lost-stream controls, and
                 times against the bound and one PyTorch call
+  3h. resolve — config resolution on the card: with the tune cache at a
+                temporary file, tune() mxv bf16 4096^2, decode attention at
+                the serve shape (B=4, S=4096, Hkv=4, dh=128, Hq=32, bf16),
+                stream_copy f32 [8192, 4096] and adamw_update [4096, 1024]
+                (a "tune:" line per trial); re-tune (every result from the
+                cache, no kernel launched); each op with config=None must
+                resolve source="tuned" at the tuned config and hold its
+                output against the plain version at the row's rtol / atol
+                (rtol 2^-7 for a bf16 output: one rounding of its own);
+                with the tuned config quarantined, resolution must skip it.
+                Then every registry row at its default sizes with
+                config=None and at the stream model's top-ranked and
+                second-ranked configs, each against its plain version at
+                the config the row resolved, at the row's rtol / atol
   4. serve    — Yi-9B at full width (random weights from a seeded
                 torch.Generator) serves 8 requests x 16 tokens through the
                 continuous-batching engine; the launch counts, reset just
                 before the run, must show every step went through both
-                kernels
+                kernels; the (kernel, D, P, block_rows, source) each op
+                resolved to with no config given
   5. in-model — two decode steps with the kernels and with mode="ref" on
                 the same weights, tokens and a cache filled in every decode
                 segment; logits must agree within 2x a one-ulp rounding
@@ -111,7 +126,8 @@ Phases (each raises on failure, so the script exits non-zero):
                 checkpoint round trip of the state, one step with the
                 kernels against one with mode="ref" from the same state
                 (with a lost-stream control), and where a step's time
-                goes (torch.profiler)
+                goes (torch.profiler); the configs step 0's ops resolved
+                to
   8. report   — a JSON line of kernels, the card's name and power limit, and
                 as the last line {"ok": true, "device": {...}}
 
@@ -119,6 +135,7 @@ Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -130,10 +147,30 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory
-# H100 SXM dense peaks by operand type: f32 outside the tensor cores;
-# bf16 and f16 on the tensor cores (products exact in their f32 sums)
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+
+
+def _hw():
+    """The card's constants (``repro_torch.roofline.hw.H100_HW``), loaded
+    from this checkout's file by path: a tool that imports this script
+    to time another checkout keeps that checkout's ``repro_torch``.
+    None where the file is missing (a copy of this script alone)."""
+    import importlib.util
+    path = os.path.join(ROOT, "src", "repro_torch", "roofline", "hw.py")
+    if not os.path.exists(path):
+        return None
+    spec = importlib.util.spec_from_file_location("_chip_smoke_hw", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod       # dataclasses resolve it by name
+    spec.loader.exec_module(mod)
+    return mod.H100_HW
+
+
+_H100 = _hw()
+# H100 SXM device memory; dense peaks by operand type (f32 outside the
+# tensor cores; bf16 and f16 on the tensor cores, products exact in their
+# f32 sums)
+HBM_BYTES_PER_S = _H100.hbm_bw if _H100 else None
+PEAK_FLOPS = dict(_H100.peak_flops) if _H100 else {}
 
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW, SERVE_REQUESTS = 4, 4096, 16, 8
 
@@ -333,7 +370,7 @@ def check_rmsnorm(card: str, results: dict) -> None:
             w = 1 + 0.1 * torch.randn(dm, generator=gen, device="cuda")
             return x.to(dt), w.to(dt)
         x, w = make()
-        cfg = common.resolve_config("rmsnorm", None, t, rops._DEFAULT)
+        cfg = common.resolve_for("rmsnorm", x, None, t, rops._DEFAULT)
         bp = plan_blocks(rspecs.rmsnorm_spec(x, w, eps), cfg)
         g = rk.geometry(bp.rows, dm, x.element_size(), bp.d, sms)
         print(_rms_geometry_line(f"x [{t}, {dm}] {dt_name}", bp, g, dt,
@@ -503,8 +540,7 @@ def check_decode(card: str, results: dict) -> None:
         hi = 65 if kind == "profile" else s + 1
         kv_len = torch.as_tensor(rng.integers(lo, hi, b), device="cuda")
         mask = dops.validity_mask(kv_len, b, s, "cuda")
-        cfg = common.resolve_config("decode_attn", None, s,
-                                    StridingConfig(4, 1))
+        cfg = common.effective_config(dops._DEFAULT, s, dops._DEFAULT)
         make = make_for(b, s, hkv, hq, mask)
         inputs = make()
         spec = build(*inputs)
@@ -633,7 +669,7 @@ def check_decode(card: str, results: dict) -> None:
     # two 8-head tensor-core tiles a block
     b, s, hkv16, hq16 = SERVE_SLOTS, SERVE_MAX_LEN, 2, 32
     kv_len = torch.as_tensor(rng.integers(1, s + 1, b), device="cuda")
-    cfg = common.resolve_config("decode_attn", None, s, StridingConfig(4, 1))
+    cfg = common.effective_config(dops._DEFAULT, s, dops._DEFAULT)
     build16 = dspecs.decode_spec(hkv16, dh, masked=True)
     make_g16 = make_for(b, s, hkv16, hq16,
                         dops.validity_mask(kv_len, b, s, "cuda"))
@@ -807,6 +843,12 @@ def phase_linalg(card: str, results: dict) -> None:
     from repro_torch.kernels.mxv import mxv, mxv_t
     from repro_torch.kernels.mxv import specs as mspecs
     from repro_torch.kernels.mxv.ops import _DEFAULT as MXV_DEFAULT
+    # the kernels at the ops' static default, whose geometry and controls
+    # this phase prints (with none given, the ops plan theirs: see the
+    # resolve, serve and train phases)
+    mxv, mxv_t, bicg, gemver, gemver_outer = (
+        functools.partial(f, config=MXV_DEFAULT)
+        for f in (mxv, mxv_t, bicg, gemver, gemver_outer))
     t_phase = time.perf_counter()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     names = ("mxv", "mxv_t", "gemver_outer", "gemver_sum")
@@ -1112,6 +1154,10 @@ def linalg_16bit(card, n, a, x, u1, v1, u2, v2, vec, gen, bp, bm_row, sms,
     import torch
     from repro_torch.kernels.gemver import gemver_outer
     from repro_torch.kernels.mxv import mxv
+    from repro_torch.kernels.mxv.ops import _DEFAULT as MXV_DEFAULT
+    # at the ops' static default (see phase_linalg)
+    mxv, gemver_outer = (functools.partial(f, config=MXV_DEFAULT)
+                         for f in (mxv, gemver_outer))
     seg = n // bp.d
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         _launch_lines(card, n, dt, bp.d, sms)
@@ -1267,6 +1313,10 @@ def phase_stream(card: str, results: dict) -> None:
     from repro_torch.kernels.stream import kernel as sk
     from repro_torch.kernels.stream import specs as ss
     from repro_torch.kernels.stream.ops import _DEFAULT
+    # the kernels at the ops' static default (see phase_linalg)
+    stream_copy, stream_read, stream_init = (
+        functools.partial(f, config=_DEFAULT)
+        for f in (stream_copy, stream_read, stream_init))
     t_phase = time.perf_counter()
     rows, cols = STREAM_SHAPE
     d = _DEFAULT.stride_unroll
@@ -1757,6 +1807,9 @@ def phase_stencil(card: str, results: dict) -> None:
     from repro_torch.kernels.jacobi2d import jacobi2d
     from repro_torch.kernels.jacobi2d import specs as jspecs
     from repro_torch.kernels.jacobi2d.ops import _DEFAULT as J_DEFAULT
+    # doitgen at its static default (see phase_linalg); the stencils'
+    # wrappers pass no Traffic, so theirs resolve to it
+    doitgen = functools.partial(doitgen, config=D_DEFAULT)
     t_phase = time.perf_counter()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(14)
@@ -2671,6 +2724,172 @@ def _registry_instances(card, results, n, dtype, cfg):
           f"checked on A, y of 1 + N(0, 1)")
     del a, aa, x, y, z, col, o_k, o_p, t_k, t_p, lo_p, lt_p
 
+RESOLVE_TUNE = (("mxv", {"m": 4096, "n": 4096}, "bfloat16"),
+                ("decode_attn", {"b": SERVE_SLOTS, "s": SERVE_MAX_LEN,
+                                 "hq": 32, "hkv": 4, "dh": 128}, "bfloat16"),
+                ("stream_copy", {"rows": 8192, "cols": 4096}, "float32"),
+                ("adamw_update", {"rows": 4096, "cols": 1024}, "float32"))
+
+
+def _resolved(events) -> list:
+    """Sorted distinct (kernel, D, P, block_rows, source) of a run's
+    ``kernel.resolve`` events."""
+    return sorted({(e.attrs["kernel"], e.attrs["d"], e.attrs["p"],
+                    e.attrs["block_rows"], e.attrs["source"])
+                   for e in events})
+
+
+def _row_tolerance(row, dtype: str) -> tuple[float, float]:
+    """A registry row's (rtol, atol), stated for f32; a 16-bit output
+    may differ from the plain version's by one rounding of its own, so
+    its rtol widens to 2^-7 (one bf16 ulp relative)."""
+    if dtype in ("bfloat16", "float16"):
+        return max(row.rtol, 2.0 ** -7), row.atol
+    return row.rtol, row.atol
+
+
+def _tol_excess(got, want, rtol, atol) -> float:
+    """Worst |got - want| over atol + rtol |want| across the outputs."""
+    worst = -math.inf
+    for g, w in zip(_leaves(got), _leaves(want)):
+        if g.shape != w.shape:
+            return math.inf
+        worst = max(worst, float(((g.float() - w.float()).abs()
+                                  - (atol + rtol * w.float().abs())).max()))
+    return worst
+
+
+def phase_resolve(card: str) -> None:
+    """Config resolution on the card (see the module doc, 3h): tune,
+    re-tune from the cache, resolve the tuned config, skip it once
+    quarantined; then every registry row at its top two planned
+    configs.  The tune cache is a temporary file, dropped at the end."""
+    import torch
+    from repro_torch import obs, registry
+    from repro_torch.core.planner import rank_configs
+    from repro_torch.core.striding import StridingConfig
+    from repro_torch.kernels import common, cuda
+    from repro_torch.registry import autotune, tunecache
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_tune_")
+    prev = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(tmp, "tune.json")
+    tunecache.reset_default_cache()
+    common.reset_plan_memo()
+    try:
+        cache = tunecache.default_cache()
+        tuned = {}
+        for name, sizes, dt in RESOLVE_TUNE:
+            t0 = time.perf_counter()
+            res = registry.tune(name, sizes, getattr(torch, dt), device=dev)
+            if res.from_cache or not res.trials:
+                raise AssertionError(f"resolve: tune {name} measured "
+                                     f"nothing ({res})")
+            for c, sec in res.trials:
+                print(f"tune: {name} {dt} {sizes} D={c.stride_unroll} "
+                      f"P={c.portion_unroll} block_rows={c.block_rows}: "
+                      f"{sec * 1e3:.5f} ms"
+                      + (" (best)" if c == res.config else "")
+                      + f" [{card}]")
+            print(f"tune: {name} {dt} {sizes}: {len(res.trials)} trials in "
+                  f"{time.perf_counter() - t0:.1f} s, best D="
+                  f"{res.config.stride_unroll} P={res.config.portion_unroll}"
+                  f" block_rows={res.config.block_rows}, key {res.key} "
+                  f"[{card}]")
+            tuned[name] = res
+        before = {n: k.launches for n, k in cuda.KERNELS.items()}
+        for name, sizes, dt in RESOLVE_TUNE:
+            res = registry.tune(name, sizes, getattr(torch, dt), device=dev)
+            if not res.from_cache or res.config != tuned[name].config:
+                raise AssertionError(f"resolve: re-tune of {name} was not "
+                                     f"a cache hit of the tuned config "
+                                     f"({res})")
+        after = {n: k.launches for n, k in cuda.KERNELS.items()}
+        if after != before:
+            raise AssertionError(f"resolve: the re-tune launched kernels "
+                                 f"{ {n: after[n] - before[n] for n in after if after[n] != before[n]} }")
+        print(f"resolve: re-tune of {len(RESOLVE_TUNE)} rows all from the "
+              f"cache, no kernel launched [{card}]")
+        for name, sizes, dt in RESOLVE_TUNE:
+            row, want_cfg = registry.get(name), tuned[name].config
+            inputs = row.make_inputs(dict(sizes), getattr(torch, dt), dev)
+            with obs.collect() as col:
+                got = row.run(inputs, None, None)
+            ev = col.named("kernel.resolve")[0].attrs
+            cfg = (ev["d"], ev["p"], ev["block_rows"])
+            if ev["source"] != "tuned" or cfg != (
+                    want_cfg.stride_unroll, want_cfg.portion_unroll,
+                    want_cfg.block_rows):
+                raise AssertionError(f"resolve: {name} resolved {ev}, not "
+                                     f"the tuned {want_cfg}")
+            excess = _tol_excess(got, row.run(inputs, want_cfg, "ref"),
+                                 *_row_tolerance(row, dt))
+            if not excess <= 0:
+                raise AssertionError(f"resolve: {name} at its tuned config "
+                                     f"is over rtol / atol by {excess:g}")
+            key = tunecache.cache_key(name, autotune._shape(row, sizes),
+                                      getattr(torch, dt), dev, "cuda")
+            cache.quarantine(key, want_cfg, "smoke")
+            with obs.collect() as col:
+                row.run(inputs, None, None)
+            ev2 = col.named("kernel.resolve")[0].attrs
+            if (ev2["source"] == "tuned" or (ev2["d"], ev2["p"],
+                                             ev2["block_rows"]) == cfg):
+                raise AssertionError(f"resolve: {name} resolved its "
+                                     f"quarantined config again ({ev2})")
+            print(f"resolve: {name} {dt} config=None -> source=tuned D="
+                  f"{cfg[0]} P={cfg[1]} block_rows={cfg[2]}, worst excess "
+                  f"over rtol / atol {excess:.3g}; quarantined -> source="
+                  f"{ev2['source']} D={ev2['d']} P={ev2['p']} block_rows="
+                  f"{ev2['block_rows']} [{card}]")
+            del inputs, got
+        torch.cuda.empty_cache()
+
+        # every row with config=None and at its two top-ranked configs,
+        # small shapes
+        failures, n_runs = [], 0
+        for row in registry.all_specs():
+            sizes = dict(row.default_sizes)
+            trav = (row.traversal(sizes, torch.float32)
+                    if row.traversal else None)
+            ranked = [c for c, _, _ in rank_configs(
+                row.traffic(sizes, torch.float32), spec=trav)][:2]
+            inputs = row.make_inputs(sizes, torch.float32, dev)
+            line = []
+            for label, cfg in [("none", None), *zip(("top", "second"),
+                                                    ranked)]:
+                with obs.collect() as col:
+                    out = row.run(inputs, cfg, None)
+                ev = col.named("kernel.resolve")[0].attrs
+                ran = StridingConfig(ev["d"], ev["p"],
+                                     block_rows=ev["block_rows"])
+                excess = _tol_excess(out, row.run(inputs, ran, "ref"),
+                                     *_row_tolerance(row, "float32"))
+                n_runs += 1
+                line.append(f"{label} D={ran.stride_unroll} "
+                            f"P={ran.portion_unroll} bm={ran.block_rows} "
+                            f"({ev['source']}) excess {excess:.3g}")
+                if not excess <= 0:
+                    failures.append(f"{row.name} {label} {ran}: {excess:g}")
+                del out
+            print(f"resolve: {row.name} {sizes}: " + "; ".join(line)
+                  + f" [{card}]")
+            del inputs
+        if failures:
+            raise AssertionError("resolve: planned configs disagree with "
+                                 "the plain versions: " + "; ".join(failures))
+        print(f"resolve: {n_runs} planned-config runs agree; phase took "
+              f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    finally:
+        if prev is None:
+            os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = prev
+        tunecache.reset_default_cache()
+        common.reset_plan_memo()
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def phase_train(card: str) -> dict:
     """Yi-9B at full width, depth cut to 8 layers, trains through the
@@ -2683,6 +2902,7 @@ def phase_train(card: str) -> dict:
     step's time goes.  Returns the launches over the six steps."""
     import numpy as np
     import torch
+    from repro_torch import obs
     from repro_torch.kernels import cuda
     from repro_torch.launch import train as launch
     from repro_torch.train import trainstep
@@ -2710,7 +2930,15 @@ def phase_train(card: str) -> dict:
             for k in cuda.KERNELS.values():
                 k.launches = 0
             t0 = time.perf_counter()
-            state, metrics = run.step_fn(state, batch)
+            if step == 0:
+                with obs.collect() as col:
+                    state, metrics = run.step_fn(state, batch)
+                print(f"train: configs step 0 resolved with none given "
+                      f"(kernel, D, P, block_rows, source): "
+                      f"{json.dumps(_resolved(col.named('kernel.resolve')))}"
+                      f" [{card}]")
+            else:
+                state, metrics = run.step_fn(state, batch)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = {n: k.launches for n, k in cuda.KERNELS.items()
@@ -2911,6 +3139,7 @@ def _profile_train(card, run, state) -> None:
 def phase_serve(card: str):
     import numpy as np
     import torch
+    from repro_torch import obs
     from repro_torch.configs import get_config
     from repro_torch.kernels import cuda
     from repro_torch.models.lm import build_model
@@ -2938,10 +3167,14 @@ def phase_serve(card: str):
     for k in cuda.KERNELS.values():
         k.launches = 0
     t0 = time.perf_counter()
-    results = engine.run()
-    torch.cuda.synchronize()
+    with obs.collect() as col:
+        results = engine.run()
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {name: k.launches for name, k in cuda.KERNELS.items()}
+    print(f"serve: configs resolved with none given (kernel, D, P, "
+          f"block_rows, source): "
+          f"{json.dumps(_resolved(col.named('kernel.resolve')))} [{card}]")
     st = engine.stats()
     steps = st["decode_steps"] + st["prefill_steps"]
     for uid in prompts:
@@ -2983,13 +3216,15 @@ def phase_in_model(card: str, model, params, engine) -> None:
     one short (read, not required)."""
     import numpy as np
     import torch
-    from repro_torch.kernels import common
     from repro_torch.kernels.decode_attn import ops as dops
     cfg = model.cfg
     rng = np.random.default_rng(3)
     gen = torch.Generator(device="cuda").manual_seed(3)
     b, s = SERVE_SLOTS, SERVE_MAX_LEN
-    d = common.resolve_config("decode_attn", None, s, dops._DEFAULT).stride_unroll
+    # the D decode attention resolves in the model (its planned config)
+    d = dops.resolve(torch.empty(b, s, cfg.n_kv_heads, cfg.head_dim,
+                                 dtype=torch.bfloat16,
+                                 device="cuda")).stride_unroll
     seg = s // d
     pos = torch.as_tensor([int(rng.integers((k % d) * seg + 16,
                                             (k % d + 1) * seg - 2))
@@ -3171,6 +3406,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # an empty tune cache of this run's own: every op with no config
+    # resolves its planned (or static default) config
+    cache_dir = tempfile.mkdtemp(prefix="repro_torch_cache_")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(cache_dir,
+                                                        "tune_cache.json")
+    try:
+        return _run(t_start)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+
+
+def _run(t_start: float) -> int:
+    import torch
 
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -3188,6 +3436,7 @@ def main() -> int:
     check_adamw(card, results)
     check_k4_features(card, results)
     phase_registry(card, results)
+    phase_resolve(card)
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 

@@ -37,8 +37,8 @@ import torch.nn.functional as F
 from repro_torch.codegen import loopir, transforms
 from repro_torch.core.striding import StridingConfig
 
-__all__ = ["HAND_KERNELS", "template_of", "block_1d", "emit_spec",
-           "run_spec", "make_kernel_op"]
+__all__ = ["HAND_KERNELS", "template_of", "block_1d", "check_config",
+           "emit_spec", "run_spec", "make_kernel_op"]
 
 # spec name → module whose ``emit(spec, bp, arrays, scalars, config)``
 # launches the hand-written K1-K3 kernel for that instance (imported at
@@ -242,6 +242,23 @@ def block_1d(spec: loopir.TraversalSpec, config: StridingConfig,
     return spec2, n
 
 
+def check_config(spec: loopir.TraversalSpec,
+                 config: StridingConfig) -> None:
+    """Raise what :func:`emit_spec` raises for ``(spec, config)`` before
+    it touches an operand: the template's refusals (``_refuse``) and a
+    spec with no hand kernel under the template the config selects.  The
+    planner's gate (``core.planner.rank_configs(spec=...)``): a config
+    this refuses is never ranked."""
+    info = loopir.classify(spec)
+    if info.blocked:
+        spec, _ = block_1d(spec, config, info)
+        info = loopir.classify(spec)
+    bp = transforms.plan_blocks(spec, config, info=info)
+    template = template_of(spec, config, info)
+    _refuse(spec, bp, template)
+    _hand_kernel(spec, template)
+
+
 def _emit_blocked(spec: loopir.TraversalSpec, info: loopir.NestInfo,
                   arrays: Sequence, scalars: Sequence,
                   config: StridingConfig):
@@ -336,9 +353,12 @@ def make_kernel_op(name: str,
     """Wrap a spec builder as a public kernel op, as the JAX package's
     ``make_kernel_op`` (``src/repro/codegen/emit.py:990``):
     ``op(*arrays, *scalars, config=None, mode=None)``, config resolution
-    (explicit > static default, clamped so D divides the stride extent)
-    and device dispatch (:func:`run_spec`: the hand kernel on the card,
-    the plain version on the CPU or with ``mode="ref"``).
+    (explicit > tuned > planned > default, ``kernels.common.
+    resolve_config``; the spec's Traffic goes to the planner only when
+    no config is given, and the spec gates the planner's candidates
+    through :func:`check_config`) and device dispatch (:func:`run_spec`:
+    the hand kernel on the card, the plain version on the CPU or with
+    ``mode="ref"``).
 
     The spec, the stride extent the clamp uses and the Traffic signature
     are pure in the input shapes and dtypes, and memoized per shape key.
@@ -364,8 +384,13 @@ def make_kernel_op(name: str,
                                                   info=info), spec)
         else:
             obs.counter("codegen.spec_memo.hit", kernel=name)
-        rows, _traffic, spec = facts[key]
-        cfg = common.resolve_config(name, config, rows, default)
+        rows, traffic, spec = facts[key]
+        lead = inputs[0]
+        cfg = common.resolve_config(
+            name, lead.shape, lead.dtype, config, rows, default,
+            traffic=(None if config is not None else traffic),
+            mode=common.kernel_mode(lead, mode), device=lead.device,
+            spec=spec)
         return _dispatch(spec, inputs, cfg, mode, None)
 
     op.__name__ = name

@@ -20,6 +20,8 @@ __all__ = [
     "stream_offsets",
     "pad_to_multiple",
     "choose_block",
+    "divisors",
+    "valid_stride_unrolls",
 ]
 
 
@@ -73,6 +75,26 @@ class StridingConfig:
 
 
 SINGLE_STRIDED = StridingConfig(1, 1)
+
+
+def divisors(n: int) -> list[int]:
+    """All divisors of n, ascending."""
+    if n < 1:
+        raise ValueError(f"n must be positive, got {n}")
+    small, large = [], []
+    i = 1
+    while i * i <= n:
+        if n % i == 0:
+            small.append(i)
+            if i != n // i:
+                large.append(n // i)
+        i += 1
+    return small + large[::-1]
+
+
+def valid_stride_unrolls(extent: int, max_d: int = 32) -> list[int]:
+    """Stride-unroll candidates that evenly divide ``extent``."""
+    return [d for d in divisors(extent) if d <= max_d]
 
 
 def stream_offsets(extent: int, d: int) -> list[int]:

@@ -8,7 +8,9 @@ hand-written K1-instance kernel (``csrc/adamw.cu``) on a CUDA tensor, or
 the K4 ring's adamw body at a ``lookahead`` other than 2.  The flatten
 is a view and pads nothing where ``n`` is a multiple of ``cols`` (every
 Yi-9B parameter), and the D streams split the rows without padding
-(``resolve_config`` clamps D to divide them).
+(``resolve_config`` clamps D to divide them).  With no config given, the
+op resolves explicit > tuned > planned > default on the blocked Traffic
+(4 read and 3 write arrays), as the JAX op does.
 
 On a CPU tensor, or with ``mode="ref"``, the body is evaluated at the
 tensor's native shape, as the JAX ``ref`` branch does.
@@ -27,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.codegen import loopir, run_spec
+from repro_torch.core.planner import Traffic
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import common
 from repro_torch.kernels.adamw import specs
@@ -76,6 +79,12 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     shape = p.shape
     n = p.numel()
     s = scalars(p.device, lr, b1, b2, eps, wd, bc1, bc2)
+    rows, cols = _blocking(max(n, 1))
+    # 4 read + 3 write arrays per stride: the write-stream cap applies
+    traffic = Traffic(rows=rows, cols=cols, dtype=p.dtype,
+                      read_arrays=4, write_arrays=3)
+    cfg = common.resolve_for("adamw_update", p, config, rows, _DEFAULT,
+                             traffic, mode)
     if common.kernel_mode(p, mode) == "ref":
         # the elementwise body at the tensor's NATIVE shape; the spec's
         # axes only describe the traversal, evaluate() never tiles
@@ -83,8 +92,6 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                                 else p.reshape(1, -1), None, None, None)
         po, mo, vo = loopir.evaluate(spec, (p, g, m.float(), v.float(), *s))
         return po.to(p.dtype), mo, vo
-    rows, cols = _blocking(max(n, 1))
-    cfg = common.resolve_config("adamw_update", config, rows, _DEFAULT)
     po, mo, vo = run_spec(specs.adamw_spec,
                           (_flat(p, rows, cols, p.dtype),
                            _flat(g, rows, cols, g.dtype),

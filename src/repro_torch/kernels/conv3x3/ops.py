@@ -26,6 +26,8 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor,
     """3x3 correlation stencil, valid region (paper conv): ``[h, w]`` →
     ``[h-2, w-2]``, with D clamped to divide ``h - 2``."""
     h_out = max(x.shape[0] - 2, 1)
-    cfg = common.resolve_config("conv3x3", config, h_out, _DEFAULT)
+    # no Traffic, as the JAX op: explicit > tuned > default
+    cfg = common.resolve_for("conv3x3", x, config, h_out, _DEFAULT,
+                             mode=mode)
     w9 = [w[r, c] for r in range(3) for c in range(3)]
     return run_spec(specs.conv3x3_spec, (x, *w9), cfg, mode)

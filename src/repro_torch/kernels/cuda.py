@@ -16,6 +16,7 @@ plain integer a caller may reset to 0 before a run it wants to audit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -26,7 +27,8 @@ from typing import Iterable, Optional, Sequence
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "CudaKernel",
-           "build", "library", "DTYPES", "dtype_code", "check_arrays",
+           "build", "library", "source_hash", "DTYPES", "dtype_code",
+           "check_arrays",
            "check_operands", "sweep_geometry", "f32_scalars"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -118,11 +120,19 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(source: Path) -> Path:
+@functools.lru_cache(maxsize=None)
+def source_hash(stem: str) -> str:
+    """12 hex digits of the SHA-256 of ``csrc/<stem>.cu``, the shared
+    headers and the compiler flags: the tag of its library's name, and
+    the provenance the tune cache checks an entry's freshness by."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for part in (source, *sorted(CSRC.glob("*.cuh"))):   # shared headers
+    for part in (CSRC / f"{stem}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
-    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
+    return h.hexdigest()[:12]
+
+
+def _lib_path(source: Path) -> Path:
+    return BUILD_DIR / f"lib{source.stem}-{source_hash(source.stem)}.so"
 
 
 def build(stems: Optional[Iterable[str]] = None) -> dict[str, str]:

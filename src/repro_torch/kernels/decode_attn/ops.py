@@ -6,9 +6,9 @@ split-KV kernel pair (``kernel.py``), on a CPU tensor or with
 ``mode="ref"`` the plain version.  ``kv_len`` masking rides a validity
 row stream (the ``masked=True`` spec variant).
 
-The port has no planner yet, so the default D is the static default
-clamped to divide S — it may differ from the D the JAX package's planner
-picks for the same shape; pass ``config`` to pin it.
+With no config given, D resolves explicit > tuned > planned > default
+on the cache's Traffic (S rows of Hkv·dh, K and V read), as the JAX op
+does, clamped to divide S.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.codegen import run_spec
+from repro_torch.core.planner import Traffic
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import common
 from repro_torch.kernels.decode_attn import specs
@@ -40,6 +41,17 @@ def validity_mask(kv_len, b: int, s: int, device) -> torch.Tensor:
             < kv_len[:, None]).float()
 
 
+def resolve(kc: torch.Tensor, config: Optional[StridingConfig] = None,
+            mode: Optional[str] = None) -> StridingConfig:
+    """The config decode attention runs at over the cache ``kc`` [B, S,
+    Hkv, dh]: explicit > tuned > planned (S rows of Hkv·dh, K and V read)
+    > default, D clamped to divide S."""
+    s, hkv, dh = kc.shape[1:]
+    traffic = Traffic(rows=s, cols=hkv * dh, dtype=kc.dtype, read_arrays=2)
+    return common.resolve_for("decode_attn", kc, config, s, _DEFAULT,
+                              traffic, mode)
+
+
 def decode_attn(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                 kv_len=None, config: Optional[StridingConfig] = None,
                 mode: Optional[str] = None, with_lse: bool = False):
@@ -50,7 +62,7 @@ def decode_attn(q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     dtype, or ``(out, lse)`` with lse [B, Hq] f32 when ``with_lse``.
     """
     b, s, hkv, dh = kc.shape
-    cfg = common.resolve_config("decode_attn", config, s, _DEFAULT)
+    cfg = resolve(kc, config, mode)
     inputs = _flatten(q, kc, vc)
     if kv_len is not None:
         inputs += (validity_mask(kv_len, b, s, kc.device),)

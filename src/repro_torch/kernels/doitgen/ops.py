@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.codegen import run_spec
+from repro_torch.core.planner import Traffic
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import common
 from repro_torch.kernels.doitgen import specs
@@ -26,6 +27,10 @@ def doitgen(a: torch.Tensor, c4: torch.Tensor,
             mode: Optional[str] = None) -> torch.Tensor:
     """A[r,q,:] ← A[r,q,:] @ C4 (paper doitgen, incl. write-back):
     ``[r, q, s] × [s, p]`` → ``[r, q, p]`` in A's dtype."""
-    r, q, _ = a.shape
-    cfg = common.resolve_config("doitgen", config, r * q, _DEFAULT)
+    r, q, s = a.shape
+    m = r * q
+    traffic = Traffic(rows=m, cols=s, dtype=a.dtype, read_arrays=1,
+                      write_arrays=1, resident_bytes=s * c4.shape[1] * 4)
+    cfg = common.resolve_for("doitgen", a, config, m, _DEFAULT, traffic,
+                             mode)
     return run_spec(specs.doitgen_spec, (a, c4), cfg, mode)

@@ -16,7 +16,8 @@ the hand-named ops and the ``*_gen`` rows here.
     ``[rows, 512]`` tiles, p′/m′/v′ written as three outputs (K1,
     ``csrc/adamw.cu``).
 
-Each resolves one config under its own name (explicit > default).
+Each resolves one config under its own name (explicit > tuned > planned
+> default, with the JAX ops' Traffic).
 """
 
 from repro_torch.codegen import run_spec
@@ -49,8 +50,9 @@ def decode_attn_gen(q, kc, vc, config=None, mode=None, with_lse=False):
     head) f32 log-sum-exp."""
     b, hq = q.shape[0], q.shape[1]
     s, hkv, dh = kc.shape[1], kc.shape[2], kc.shape[3]
-    cfg = common.resolve_config("decode_attn_gen", config, s,
-                                StridingConfig(4, 1))
+    traffic = Traffic(rows=s, cols=hkv * dh, dtype=kc.dtype, read_arrays=2)
+    cfg = common.resolve_for("decode_attn_gen", kc, config, s,
+                             StridingConfig(4, 1), traffic, mode)
     out, lse = run_spec(_decode_spec(hkv, dh),
                         (kc.reshape(b, s, hkv * dh),
                          vc.reshape(b, s, hkv * dh), q.reshape(b, hq * dh)),
@@ -67,8 +69,11 @@ def rmsnorm_gen(x, w, eps=1e-6, config=None, mode=None,
     f32 inverse rms per row (the kernel's second output)."""
     shape = x.shape
     t = max(x.numel() // max(shape[-1], 1), 1)
-    cfg = common.resolve_config("rmsnorm_gen", config, t,
-                                StridingConfig(4, 1))
+    traffic = Traffic(rows=t, cols=shape[-1], dtype=x.dtype,
+                      read_arrays=1, write_arrays=1,
+                      resident_bytes=shape[-1] * 4)
+    cfg = common.resolve_for("rmsnorm_gen", x, config, t,
+                             StridingConfig(4, 1), traffic, mode)
     out, inv = run_spec(rmsnorm_spec,
                         (x.reshape(-1, shape[-1]).contiguous(), w, eps),
                         cfg, mode)
@@ -82,8 +87,12 @@ def adamw_update_gen(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=0.0,
                      bc1=1.0, bc2=1.0, config=None, mode=None):
     """Fused-AdamW step (generated): the hand op's blocked spec under a
     config resolved as ``adamw_update_gen``.  Returns (p', m', v')."""
-    cfg = common.resolve_config("adamw_update_gen", config, None,
-                                StridingConfig(2, 2))
+    rows, cols = _adamw_blocking(max(p.numel(), 1))
+    # rows=None: the emitter's pad and crop make any D valid
+    traffic = Traffic(rows=rows, cols=cols, dtype=p.dtype,
+                      read_arrays=4, write_arrays=3)
+    cfg = common.resolve_for("adamw_update_gen", p, config, None,
+                             StridingConfig(2, 2), traffic, mode)
     return adamw_update(p, g, m, v, lr, b1, b2, eps, wd, bc1, bc2,
                         config=cfg, mode=mode)
 

@@ -21,7 +21,8 @@ its hand family's problem sizes and oracle.  Archetypes:
 
 The composite ops (``bicg_gen``, ``gemver_mxv1_gen``,
 ``gemver_mxv1_sum_gen``, ``conv3x3_gen``) resolve one config under
-their own name and run every inner spec with it.
+their own name (explicit > tuned > planned > default, with the JAX ops'
+Traffic) and run every inner spec with it.
 """
 
 from repro_torch.codegen import make_kernel_op, run_spec, traffic_of
@@ -56,12 +57,19 @@ __all__ = ["bicg_gen", "gemver_outer_gen", "gemver_sum_gen",
 _D4P2, _D4P1 = StridingConfig(4, 2), StridingConfig(4, 1)
 
 
+def _mn_traffic(a) -> Traffic:
+    """The composite ops' signature: two sweeps of A [m, n]."""
+    m, n = a.shape
+    return Traffic(rows=m, cols=n, dtype=a.dtype, read_arrays=2)
+
 
 # ---------------------------------------------------------------- bicg
 
 def bicg_gen(a, r, p, config=None, mode=None):
     """q = A p ; s = Aᵀ r (generated; two specs under one config)."""
-    cfg = common.resolve_config("bicg_gen", config, a.shape[0], _D4P2)
+    m, n = a.shape
+    cfg = common.resolve_for("bicg_gen", a, config, m, _D4P2,
+                             _mn_traffic(a), mode)
     return (run_spec(bicg_q_spec, (a, p), cfg, mode),
             run_spec(bicg_s_spec, (a, r), cfg, mode))
 
@@ -78,8 +86,8 @@ gemver_mxv2_gen = make_kernel_op("gemver_mxv2_gen", gemver_mxv2_spec,
 
 def gemver_mxv1_gen(a, y, x, beta, config=None, mode=None):
     """x = x + β Aᵀ y (generated core + affine update)."""
-    cfg = common.resolve_config("gemver_mxv1_gen", config, a.shape[0],
-                                _D4P2)
+    cfg = common.resolve_for("gemver_mxv1_gen", a, config, a.shape[0],
+                             _D4P2, _mn_traffic(a), mode)
     return x + run_spec(gemver_mxv1_spec, (a, y, beta), cfg, mode)
 
 
@@ -87,8 +95,8 @@ def gemver_mxv1_sum_gen(a, y, x, z, beta, config=None, mode=None):
     """Fused gemver mxv1 + sum steps: x' = x + β Aᵀ y + z, with the
     sweep's own reduction Σⱼ(βAᵀy)ⱼ as a native side output — one sweep
     of A.  Returns (x', ssum), ssum a 0-d f32."""
-    cfg = common.resolve_config("gemver_mxv1_sum_gen", config, a.shape[0],
-                                _D4P2)
+    cfg = common.resolve_for("gemver_mxv1_sum_gen", a, config, a.shape[0],
+                             _D4P2, _mn_traffic(a), mode)
     s, total = run_spec(gemver_mxv1_sum_spec, (a, y, beta), cfg, mode)
     return x + s.to(x.dtype) + z, total.reshape(())
 
@@ -98,7 +106,10 @@ def gemver_mxv1_sum_gen(a, y, x, z, beta, config=None, mode=None):
 def conv3x3_gen(x, w, config=None, mode=None):
     """3x3 correlation stencil (generated; weights lowered as scalars)."""
     h_out = max(x.shape[0] - 2, 1)
-    cfg = common.resolve_config("conv3x3_gen", config, h_out, _D4P1)
+    traffic = Traffic(rows=h_out, cols=max(x.shape[1] - 2, 1),
+                      dtype=x.dtype, read_arrays=3, write_arrays=1)
+    cfg = common.resolve_for("conv3x3_gen", x, config, h_out, _D4P1,
+                             traffic, mode)
     w9 = [w[r, c] for r in range(3) for c in range(3)]
     return run_spec(conv3x3_spec, (x, *w9), cfg, mode)
 

@@ -25,5 +25,7 @@ def jacobi2d(x: torch.Tensor, config: Optional[StridingConfig] = None,
     """One Jacobi 5-point sweep over the interior (paper jacobi2d):
     ``[h, w]`` → ``[h-2, w-2]``, with D clamped to divide ``h - 2``."""
     h_out = max(x.shape[0] - 2, 1)
-    cfg = common.resolve_config("jacobi2d", config, h_out, _DEFAULT)
+    # no Traffic, as the JAX op: explicit > tuned > default
+    cfg = common.resolve_for("jacobi2d", x, config, h_out, _DEFAULT,
+                             mode=mode)
     return run_spec(specs.jacobi_spec, (x,), cfg, mode)

@@ -51,6 +51,7 @@ from repro_torch.codegen.loopir import Access, Axis, TraversalSpec
 from repro_torch.codegen.transforms import LANE, BlockPlan
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
+from repro_torch.roofline.hw import H100_HW
 
 __all__ = ["BODIES", "SIGNATURES", "OUT_STAGES", "MAX_BLOCKS_PER_SM",
            "RingPlan", "ring_smem", "ring_layout", "ring_tile",
@@ -109,7 +110,7 @@ BOX_MAX = 256             # a TMA box's extent on each side, elements
 RESERVED = 1024           # shared memory the card keeps per resident block
 SLACK = 128               # bytes to align the dynamic shared base to 128
 # shared memory of an H100 SM, and the most one block may opt into
-SM_SMEM, BLOCK_SMEM = 233472, 232448
+SM_SMEM, BLOCK_SMEM = H100_HW.sm_smem, H100_HW.block_smem
 
 
 def rowstat_spec(x: torch.Tensor) -> TraversalSpec:

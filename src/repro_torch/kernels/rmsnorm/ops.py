@@ -28,7 +28,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
     kernel's native second output), shaped ``x.shape[:-1]``."""
     shape = x.shape
     t = max(math.prod(shape[:-1]), 1)
-    cfg = common.resolve_config("rmsnorm", config, t, _DEFAULT)
+    # no Traffic, as the JAX op: explicit > tuned > default
+    cfg = common.resolve_for("rmsnorm", x, config, t, _DEFAULT, mode=mode)
     out, inv = run_spec(specs.rmsnorm_spec,
                         (x.reshape(-1, shape[-1]).contiguous(), w, eps),
                         cfg, mode)

@@ -1,11 +1,14 @@
-"""Deterministic fault injection (the serving engine's slow-step site).
+"""Deterministic fault injection.
 
 A guarded code path rots unless its fault can be *forced*.  A site asks
 ``should_fire(site, target)`` and, when a rule is armed, behaves as the
-real fault would; here the one wired site is ``serve_slow`` in
-``serve.engine``: one engine step sleeps past the slow-step threshold
-(``sleep_if``).  Nothing runs unless a plan is armed: the disarmed fast
-path is one module-global ``is None`` check.
+real fault would.  The wired sites: ``serve_slow`` in ``serve.engine``
+(one engine step sleeps past the slow-step threshold, ``sleep_if``);
+``cache_corrupt`` in ``registry.tunecache`` (a read sees a torn file);
+``tune_trial``, ``tune_slow`` and ``tune_outlier`` in
+``registry.autotune`` (a candidate raises, stalls, or has one sample
+inflated).  Any site name may be armed.  Nothing runs unless a plan is
+armed: the disarmed fast path is one module-global ``is None`` check.
 
 Arming is programmatic only: ``with inject("serve_slow:slot0:1"):``
 arms a plan of ``site[:target][:count]`` rules for the scope of the
@@ -26,8 +29,12 @@ from typing import Iterator, Optional
 
 from repro_torch import obs
 
-__all__ = ["FaultRule", "FaultPlan", "parse_plan", "inject",
-           "should_fire", "sleep_if"]
+__all__ = ["FaultRule", "FaultPlan", "InjectedFault", "parse_plan",
+           "inject", "should_fire", "fire_if", "sleep_if"]
+
+
+class InjectedFault(RuntimeError):
+    """The failure an armed ``fire_if`` site raises."""
 
 
 @dataclasses.dataclass
@@ -142,6 +149,12 @@ def should_fire(site: str, target: str = "") -> bool:
     if plan is None:
         return False
     return plan.should_fire(site, target)
+
+
+def fire_if(site: str, target: str = "") -> None:
+    """Raise :class:`InjectedFault` when an armed rule matches."""
+    if should_fire(site, target):
+        raise InjectedFault(f"injected fault at {site}:{target}")
 
 
 def sleep_if(site: str, target: str = "", seconds: float = 0.05) -> float:

@@ -260,11 +260,17 @@ def test_kernel_mode_follows_the_device():
 
 
 @pytest.mark.parametrize("rows,want", [(8, 4), (6, 3), (7, 1), (1, 1)])
-def test_resolve_config_clamps_d_to_a_divisor(rows, want):
-    cfg = common.resolve_config("k", None, rows, TConfig(4, 1))
+def test_resolve_config_clamps_d_to_a_divisor(monkeypatch, tmp_path, rows,
+                                              want):
+    from repro_torch.registry import tunecache
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "tc.json"))
+    tunecache.reset_default_cache()
+    # no Traffic and no tuned entry: the static default, clamped
+    cfg = common.resolve_config("k", (rows, 8), torch.float32, None, rows,
+                                TConfig(4, 1))
     assert cfg.stride_unroll == want
-    assert common.resolve_config("k", TConfig(2, 2), 8,
-                                 TConfig(4, 1)) == TConfig(2, 2)
+    assert common.resolve_config("k", (8, 8), torch.float32, TConfig(2, 2),
+                                 8, TConfig(4, 1)) == TConfig(2, 2)
 
 
 @pytest.mark.parametrize("extent,d", [(8, 1), (8, 4), (96, 3), (1024, 8)])

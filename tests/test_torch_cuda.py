@@ -1770,3 +1770,82 @@ def test_bf16_attention_scores_are_f32(cuda_device):
         assert got.dtype == torch.bfloat16
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=2.0 ** -7, atol=1e-5)
+
+
+# ------------------------------------------ config resolution on the card
+
+@pytest.fixture
+def fresh_cache(tmp_path, monkeypatch):
+    from repro_torch.kernels import common
+    from repro_torch.registry import tunecache
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "t.json"))
+    tunecache.reset_default_cache()
+    common.reset_plan_memo()
+    yield tunecache.default_cache()
+    tunecache.reset_default_cache()
+    common.reset_plan_memo()
+
+
+def _leaves(out) -> list:
+    if isinstance(out, (tuple, list)):
+        return [leaf for o in out for leaf in _leaves(o)]
+    return [out]
+
+
+@pytest.mark.gpu
+def test_cuda_event_tune_hits_the_cache_and_resolves_tuned(cuda_device,
+                                                          fresh_cache):
+    """A tune on the card (CUDA events, inputs rotated past L2, outputs
+    held): trials measured, the launched sources in its provenance; a
+    re-tune from the cache launches nothing; the op with no config runs
+    the tuned config, equal to its plain version."""
+    from repro_torch import obs
+    from repro_torch.registry import autotune
+    sizes = {"rows": 1024, "cols": 1024}
+    res = autotune.tune("stream_copy", sizes, device=cuda_device, iters=3,
+                        warmup=1, max_candidates=3)
+    assert not res.from_cache and res.trials and res.mode == "cuda"
+    assert all(s > 0 for _, s in res.trials)
+    entry = fresh_cache.lookup(res.key)
+    assert entry["provenance"]["sources"] == {
+        "stream": cuda.source_hash("stream")}
+    before = {n: k.launches for n, k in cuda.KERNELS.items()}
+    again = autotune.tune("stream_copy", sizes, device=cuda_device)
+    assert again.from_cache and again.config == res.config
+    assert {n: k.launches for n, k in cuda.KERNELS.items()} == before
+    x = torch.randn(1024, 1024, device=cuda_device)
+    with obs.collect() as col:
+        got = tsops.stream_copy(x)
+    ev = col.named("kernel.resolve")[0].attrs
+    assert ev["source"] == "tuned"
+    assert (ev["d"], ev["p"], ev["block_rows"]) == (
+        res.config.stride_unroll, res.config.portion_unroll,
+        res.config.block_rows)
+    assert torch.equal(got, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", tregistry.names())
+def test_registry_row_at_its_top_two_card_configs_matches_plain(
+        cuda_device, fresh_cache, name):
+    """Each row at its default sizes with no config (its resolved
+    config) and at the H100 model's two top-ranked configs, against its
+    plain version at that config, at the row's rtol / atol."""
+    from repro_torch import obs
+    from repro_torch.core.planner import rank_configs
+    row = tregistry.get(name)
+    sizes = dict(row.default_sizes)
+    trav = row.traversal(sizes, torch.float32) if row.traversal else None
+    ranked = [c for c, _, _ in rank_configs(row.traffic(sizes, torch.float32),
+                                            spec=trav)][:2]
+    inputs = row.make_inputs(sizes, torch.float32, cuda_device)
+    for cfg in [None, *ranked]:
+        with obs.collect() as col:
+            got = row.run(inputs, cfg, None)
+        ev = col.named("kernel.resolve")[0].attrs
+        ran = TConfig(ev["d"], ev["p"], block_rows=ev["block_rows"])
+        want = row.run(inputs, ran, "ref")
+        for g, w in zip(_leaves(got), _leaves(want), strict=True):
+            assert g.device.type == "cuda"
+            torch.testing.assert_close(g.float(), w.float(), rtol=row.rtol,
+                                       atol=row.atol)

@@ -270,9 +270,16 @@ def test_registry_sizes_are_the_jax_rows():
         assert pkg.bench_sizes == dict(row.bench_sizes)
 
 
-def test_ops_clamp_d_as_the_jax_ops_do(monkeypatch):
-    """Default D=4 clamped to divide h - 2 (stencils) or r·q (doitgen),
-    as the JAX ops pass their rows to ``resolve_config``."""
+def test_ops_clamp_d_as_the_jax_ops_do(monkeypatch, tmp_path):
+    """D clamped to divide h - 2 (stencils) or r·q (doitgen), as the JAX
+    ops pass their rows to ``resolve_config``: the stencils' default
+    D=4 (their wrappers pass no Traffic), doitgen's planned D=2 (its
+    Traffic, under the card's stream model)."""
+    from repro_torch.kernels import common
+    from repro_torch.registry import tunecache
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "tc.json"))
+    tunecache.reset_default_cache()
+    common.reset_plan_memo()
     seen = []
 
     def run_spec(build, inputs, cfg, mode=None):
@@ -285,7 +292,7 @@ def test_ops_clamp_d_as_the_jax_ops_do(monkeypatch):
     tcops.conv3x3(torch.zeros(32, 20), torch.ones(3, 3))       # 30 rows
     tdops.doitgen(torch.zeros(3, 10, 8), torch.zeros(8, 4))    # m = 30
     tdops.doitgen(torch.zeros(2, 6, 8), torch.zeros(8, 4))     # m = 12
-    assert seen == [1, 4, 3, 3, 4]
+    assert seen == [1, 4, 3, 2, 2]
 
 
 def test_cpu_ops_launch_nothing_and_keep_their_dtype():

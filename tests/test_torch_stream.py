@@ -176,9 +176,14 @@ def test_16bit_k1_bodies_match_jax_ref(name, d, p, arrangement, dtype):
                                   np.asarray(want.astype(jnp.float32)))
 
 
-def test_stream_read_output_follows_the_resolved_d():
+def test_stream_read_output_follows_the_resolved_d(monkeypatch, tmp_path):
+    from repro_torch.kernels import common
+    from repro_torch.registry import tunecache
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "tc.json"))
+    tunecache.reset_default_cache()
+    common.reset_plan_memo()
     x = torch.from_numpy(_arrays((42, 200), 1, seed=3)[0])
-    assert tsops.stream_read(x).shape == (3,)          # default D=4 → 3
+    assert tsops.stream_read(x).shape == (2,)          # planned D=2
     assert tsops.stream_read(x, config=TConfig(7, 1)).shape == (7,)
     assert tsops.stream_read(x, config=TConfig(1, 1)).shape == (1,)
 
@@ -715,8 +720,9 @@ def test_cpu_ops_launch_nothing_and_bf16_keeps_its_dtype():
                              device="cpu").dtype == torch.bfloat16
     want = jsops.stream_read(jnp.asarray(x, jnp.bfloat16), mode="ref",
                              config=JConfig(4, 2))
-    np.testing.assert_allclose(tsops.stream_read(tx).numpy(),
-                               np.asarray(want), **TOL)
+    np.testing.assert_allclose(
+        tsops.stream_read(tx, config=TConfig(4, 2)).numpy(),
+        np.asarray(want), **TOL)
     assert {n: k.launches for n, k in cuda.KERNELS.items()} == before
     assert set(cuda.KERNELS) >= {
         "stream_copy", "stream_triad", "stream_init", "stream_read",

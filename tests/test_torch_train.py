@@ -333,11 +333,18 @@ YI_SHAPES = sorted({(64000, 4096), (4096, 64000), (4096, 4096),
 
 
 @pytest.mark.parametrize("shape", YI_SHAPES)
-def test_no_yi9b_parameter_pads_or_copies(monkeypatch, shape):
+def test_no_yi9b_parameter_pads_or_copies(monkeypatch, tmp_path, shape):
     """Every Yi-9B parameter shape blocks into whole [rows, 512] tiles
-    whose rows the default D=2 streams split without padding: the
-    flatten of p, g, m and v is a view, and the emitter's pad step hands
-    back the same tensors.  Counted on meta tensors (no memory)."""
+    whose rows the op's resolved D=2 streams (planned from its Traffic,
+    as with no config given) split without padding: the flatten of p, g,
+    m and v is a view, and the emitter's pad step hands back the same
+    tensors.  Counted on meta tensors (no memory)."""
+    from repro_torch.core.planner import Traffic
+    from repro_torch.kernels import common
+    from repro_torch.registry import tunecache
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "tc.json"))
+    tunecache.reset_default_cache()
+    common.reset_plan_memo()
     assert get_config("yi-9b").padded_vocab == 64000
     n = math.prod(shape)
     rows, cols = taops._blocking(n)
@@ -350,7 +357,11 @@ def test_no_yi9b_parameter_pads_or_copies(monkeypatch, shape):
         f = taops._flat(a, rows, cols, torch.float32)
         assert f._base is a or f._base is a._base, "the flatten copied"
         flat.append(f)
-    cfg = resolve_config("adamw_update", None, rows, taops._DEFAULT)
+    cfg = resolve_config("adamw_update", shape, torch.float32, None, rows,
+                         taops._DEFAULT,
+                         traffic=Traffic(rows, cols, torch.float32,
+                                         read_arrays=4, write_arrays=3),
+                         mode="ref", device="cpu")
     assert cfg.stride_unroll == 2
     spec = taspecs.adamw_spec(*flat, *[0.0] * 7)
     bp = ttransforms.plan_blocks(spec, cfg)

@@ -18,7 +18,11 @@ of 4096 rows, and time ``CausalLM.decode_step`` at positions in
     (``run_spec`` of the masked decode spec at the serve shape: B=4,
     S=4096, Hkv=4, dh=128, Hq=32, bf16, kv_len 17-64), the median and
     the least of 7 runs of 200 calls enqueued back to back, synchronized
-    once at the end of a run; ``split_host_us`` and ``merge_host_us``
+    once at the end of a run, at the config the op resolves with none
+    given (``decode_config``: D, P, block_rows and the resolve source);
+    ``op_host_us`` the same for the ``decode_attn`` op itself (its
+    config resolution and mask included); ``split_host_us`` and
+    ``merge_host_us``
     the same for the kernel module's ``split`` and ``merge`` wrappers
     alone (the plan made once);
   * ``attn_events_ms``: CUDA events around a run of 200 ``run_spec``
@@ -43,11 +47,12 @@ def one(root: str, steps: int, _first: bool) -> dict:
     sys.path.insert(0, os.path.join(root, "src"))
     import numpy as np
     import torch
+    from repro_torch import obs
     from repro_torch.codegen import run_spec
     from repro_torch.codegen.transforms import plan_blocks
     from repro_torch.configs import get_config
     from repro_torch.core import StridingConfig
-    from repro_torch.kernels import common, cuda
+    from repro_torch.kernels import cuda
     from repro_torch.kernels.decode_attn import kernel as dk
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.kernels.decode_attn import specs as dspecs
@@ -84,8 +89,12 @@ def one(root: str, steps: int, _first: bool) -> dict:
     inputs = (*dops._flatten(q, k, v), dops.validity_mask(kv_len, b, s,
                                                           "cuda"))
     build = dspecs.decode_spec(hkv, dh, masked=True)
-    scfg = common.resolve_config("decode_attn", None, s,
-                                 StridingConfig(4, 1))
+    # the config the op runs with none given, from its kernel.resolve
+    # event (each checkout's own resolution)
+    with obs.collect() as col:
+        dops.decode_attn(q, k, v, kv_len=kv_len)
+    ev = col.named("kernel.resolve")[0].attrs
+    scfg = StridingConfig(ev["d"], ev["p"], block_rows=ev["block_rows"])
     spec = build(*inputs)
     bp = plan_blocks(spec, scfg)
     states = dk.split(spec, bp, inputs)
@@ -109,10 +118,14 @@ def one(root: str, steps: int, _first: bool) -> dict:
         return host, events
 
     attn, events = host_us(lambda: run_spec(build, inputs, scfg))
+    op, _ = host_us(lambda: dops.decode_attn(q, k, v, kv_len=kv_len))
     split, _ = host_us(lambda: dk.split(spec, bp, inputs))
     merge, _ = host_us(lambda: dk.merge(spec.combine, *states))
-    out = {"root": root, "steps": steps, "step_runs_ms": runs}
+    out = {"root": root, "steps": steps, "step_runs_ms": runs,
+           "decode_config": [ev["d"], ev["p"], ev["block_rows"],
+                             ev["source"]]}
     for name, xs in (("step_ms", runs), ("attn_host_us", attn),
+                     ("op_host_us", op),
                      ("split_host_us", split), ("merge_host_us", merge),
                      ("attn_events_ms", events)):
         out[name] = statistics.median(xs)

@@ -68,6 +68,11 @@ call's output (``device_ms(..., hold=True)``), so an output that fits
 L2 is written to HBM as in use, not to one buffer that stays in L2;
 so do the row-dot and ``gemver_outer`` rows.
 
+``AB_ONLY=plain`` times the plain versions (``mode="ref"`` on the card,
+outputs held) of ``PLAIN``: jacobi2d and conv3x3 at x [16386, 16386]
+f32, ``mxv`` f16, ``gemver_mxv2_gen``, ``gemver_mxv1_gen`` and
+``gemver_mxv1_sum_gen`` in 16-bit at 16384^2 and 4096^2.
+
 ``AB_ONLY=section,...`` in the environment times only those sections
 (of :data:`SECTIONS`), e.g. ``AB_ONLY=rowdot,gemver_outer``.
 
@@ -123,7 +128,18 @@ ROWDOT_PARTS = {(16384, "float32"): (1, 2, 4, 8),
                 (4096, "bfloat16"): (1, 2, 4, 8)}
 SECTIONS = ("doitgen", "stream", "rmsnorm", "rowstat", "rowdot", "coldot",
             "rmsnorm_odd", "decode", "gemver_sum", "gemver_outer",
-            "stencil", "adamw")
+            "stencil", "plain", "adamw")
+# the plain versions (``mode="ref"`` on the card) that PERF.md's kernel
+# table had no time for: (op name, n of A [n, n] or of x [n, n], dtype)
+PLAIN = [("jacobi2d", 16386, "float32"), ("conv3x3", 16386, "float32"),
+         ("mxv", 16384, "float16"), ("mxv", 4096, "float16"),
+         ("gemver_mxv2_gen", 16384, "bfloat16"),
+         ("gemver_mxv2_gen", 16384, "float16"),
+         ("gemver_mxv2_gen", 4096, "bfloat16"),
+         ("gemver_mxv1_gen", 16384, "bfloat16"),
+         ("gemver_mxv1_gen", 4096, "bfloat16"),
+         ("gemver_mxv1_sum_gen", 16384, "bfloat16"),
+         ("gemver_mxv1_sum_gen", 4096, "bfloat16")]
 # (x shape, dtype) of the stencils
 STENCILS = [((2050, 2048), "float32"), ((2050, 2048), "bfloat16"),
             ((16386, 16384), "float32"), ((16386, 16384), "bfloat16"),
@@ -526,6 +542,34 @@ def one(root: str, replays: int, with_library: bool) -> dict:
                     device_ms(lambda x: st.launch("conv3x3", x, w9, bp, g),
                               ssets, reps, replays, hold=True)]
         del ssets
+        torch.cuda.empty_cache()
+    for name, n, dt_name in (PLAIN if "plain" in on else ()):
+        import repro_torch.kernels as K
+        dt = getattr(torch, dt_name)
+        isz = torch.empty((), dtype=dt).element_size()
+        op = getattr(K, name)
+        if name in ("jacobi2d", "conv3x3"):
+            w = rand((3, 3), dt)
+            psets = copies(lambda: (rand((n, n), dt),), n * n * isz)
+            fn = ((lambda x: op(x, mode="ref")) if name == "jacobi2d"
+                  else (lambda x: op(x, w, mode="ref")))
+        elif name == "gemver_mxv1_sum_gen":
+            psets = copies(lambda: (rand((n, n), dt), *(rand((n,), dt)
+                                                       for _ in range(3))),
+                           n * n * isz)
+            fn = lambda a, y, x, z: op(a, y, x, z, 1.25, mode="ref")
+        elif name == "gemver_mxv1_gen":
+            psets = copies(lambda: (rand((n, n), dt), rand((n,), dt),
+                                    rand((n,), dt)), n * n * isz)
+            fn = lambda a, y, x: op(a, y, x, 1.25, mode="ref")
+        else:
+            psets = copies(lambda: (rand((n, n), dt), rand((n,), dt)),
+                           n * n * isz)
+            fn = ((lambda a, x: op(a, x, mode="ref")) if name == "mxv"
+                  else (lambda a, x: op(a, x, 1.5, mode="ref")))
+        out[f"plain {name} {dt_name} [{n}, {n}]"] = device_ms(
+            fn, psets, 4 if n > 8192 else 10, replays, hold=True)
+        del psets
         torch.cuda.empty_cache()
     if "adamw" not in on:
         return out
