@@ -104,6 +104,29 @@ Phases (each raises on failure, so the script exits non-zero):
                 config=None and at the stream model's top-ranked and
                 second-ranked configs, each against its plain version at
                 the config the row resolved, at the row's rtol / atol
+  3i. guard  — the static verifier, guarded dispatch and the JSONL sink:
+                (a) tools/torch_speclint.py's sweep of every registry row
+                with a traversal (default, aliased and bench sizes, f32
+                and bf16, the conformance points and the planner's
+                candidates) must find no error, each of the five fixtures
+                must be flagged with its rule, and RES001's budget must
+                equal the card's shared_memory_per_block_optin; the card's
+                own failure messages (CUDA errors 1, 700, 701, 716, 719, a
+                1 TiB allocation, the ring launcher's opt-in refusal) and
+                the guard's class for each; (b) the registry phase, run
+                under a MemoryCollector, must show no kernel.fallback and
+                no error-severity analysis.violation; then the host us of
+                a warm mxv_gen call with the gate and guard and with both
+                bypassed, in turns; (c) with lower:mxv_gen:1 armed and a
+                fresh tune cache, mxv_gen at 4096^2 f32 must land on one
+                alt_config fallback within the dot limit of the plain
+                version, quarantine the failed config, and the next call
+                resolve quarantine_alt and launch the row-dot once, with
+                loopir.evaluate made to raise throughout; (d) with
+                lower:mxv_gen armed, the call must raise InjectedFault
+                after three attempts; (e) (c) and (d) ran through a
+                JsonlSink with sink_io:2 armed: the file's records by name
+                must be the MemoryCollector's less the two dropped
   4. serve    — Yi-9B at full width (random weights from a seeded
                 torch.Generator) serves 8 requests x 16 tokens through the
                 continuous-batching engine; the launch counts, reset just
@@ -2759,6 +2782,16 @@ def _tol_excess(got, want, rtol, atol) -> float:
     return worst
 
 
+def _no_fallback(col, what: str) -> None:
+    """Fail when ``col`` (a MemoryCollector) holds a ``kernel.fallback``:
+    a config asked for by name, or the one resolution chose, failed and
+    another config served the call."""
+    evs = col.named("kernel.fallback")
+    if evs:
+        raise AssertionError(f"{what}: the config failed and another "
+                             f"served the call: {[e.attrs for e in evs]}")
+
+
 def phase_resolve(card: str) -> None:
     """Config resolution on the card (see the module doc, 3h): tune,
     re-tune from the cache, resolve the tuned config, skip it once
@@ -2816,6 +2849,7 @@ def phase_resolve(card: str) -> None:
             inputs = row.make_inputs(dict(sizes), getattr(torch, dt), dev)
             with obs.collect() as col:
                 got = row.run(inputs, None, None)
+            _no_fallback(col, f"resolve: {name} at its tuned config")
             ev = col.named("kernel.resolve")[0].attrs
             cfg = (ev["d"], ev["p"], ev["block_rows"])
             if ev["source"] != "tuned" or cfg != (
@@ -2833,6 +2867,8 @@ def phase_resolve(card: str) -> None:
             cache.quarantine(key, want_cfg, "smoke")
             with obs.collect() as col:
                 row.run(inputs, None, None)
+            _no_fallback(col, f"resolve: {name} past its quarantined "
+                         "config")
             ev2 = col.named("kernel.resolve")[0].attrs
             if (ev2["source"] == "tuned" or (ev2["d"], ev2["p"],
                                              ev2["block_rows"]) == cfg):
@@ -2861,6 +2897,7 @@ def phase_resolve(card: str) -> None:
                                                     ranked)]:
                 with obs.collect() as col:
                     out = row.run(inputs, cfg, None)
+                _no_fallback(col, f"resolve: {row.name} {label}")
                 ev = col.named("kernel.resolve")[0].attrs
                 ran = StridingConfig(ev["d"], ev["p"],
                                      block_rows=ev["block_rows"])
@@ -2889,6 +2926,281 @@ def phase_resolve(card: str) -> None:
         tunecache.reset_default_cache()
         common.reset_plan_memo()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+GUARD_N = 4096                 # mxv_gen's bench size, f32: parts (c)-(e)
+GUARD_CALLS = 200              # warm calls a turn of the gate's host time
+
+
+class _Tee:
+    """A collector that records into a MemoryCollector and a JsonlSink
+    (part (e): the sink's file against the memory's events)."""
+
+    def __init__(self, mem, sink):
+        self.mem, self.sink = mem, sink
+
+    def record(self, ev) -> None:
+        self.mem.record(ev)
+        self.sink.record(ev)
+
+    def close(self) -> None:
+        self.sink.close()
+
+
+def _bypass_gate():
+    """Context manager: ``make_kernel_op`` ops run with the static gate
+    and the guard replaced by direct calls (the host cost they add)."""
+    import contextlib
+    from repro_torch.codegen import emit
+    from repro_torch.kernels import common
+
+    @contextlib.contextmanager
+    def bypass():
+        gate, guard = emit.gate, common.guarded_run
+        emit.gate = lambda *a, **k: None
+        common.guarded_run = (lambda kernel, run, cfg, mode, **kw:
+                              run(cfg, mode))
+        try:
+            yield
+        finally:
+            emit.gate, common.guarded_run = gate, guard
+    return bypass()
+
+
+def _host_us(call, n: int = GUARD_CALLS) -> float:
+    """Median host microseconds of one ``call()`` over ``n`` calls: the
+    enqueue, which the card keeps up with (an op whose kernel takes less
+    device time than its call takes on the host)."""
+    import torch
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        ts.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    ts.sort()
+    return ts[len(ts) // 2] * 1e6
+
+
+def phase_guard(card: str, registry_events) -> None:
+    """The static verifier, guarded dispatch and the JSONL sink on the
+    card (see the module doc, 3i).  ``registry_events`` is the
+    MemoryCollector phase_registry ran under."""
+    import importlib.util
+    import torch
+    from repro_torch import obs
+    from repro_torch.analysis import checker, fixtures
+    from repro_torch.codegen import loopir
+    from repro_torch.codegen.transforms import plan_blocks
+    from repro_torch.kernels import common, cuda, manual
+    from repro_torch.kernels import gen as tgen
+    from repro_torch.kernels.mxv import kernel as mk
+    from repro_torch.registry import tunecache
+    from repro_torch.runtime import faults
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    props = torch.cuda.get_device_properties(dev)
+
+    # (a) the checker over every registry point, the fixtures, the budget
+    spec = importlib.util.spec_from_file_location(
+        "torch_speclint", os.path.join(ROOT, "tools", "torch_speclint.py"))
+    speclint = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(speclint)
+    report = speclint.sweep()
+    print(f"guard (a): checker over {len(report['kernels'])} registry rows "
+          f"x default, aliased and bench sizes x f32, bf16: "
+          f"{report['configs']} configs (the conformance points and the "
+          f"planner's candidates), {report['findings']} findings, "
+          f"{report['errors']} errors [{card}]")
+    if report["errors"]:
+        raise AssertionError("guard: the checker rejects a registry point")
+    for name in ("race", "redsplit", "halo", "smem", "reassoc"):
+        fx = speclint.run_fixture(name)
+        if not fx["flagged"]:
+            raise AssertionError(f"guard: fixture {name} not flagged")
+        print(f"guard (a): fixture {name}: {fx['expected_rule']} flagged "
+              f"({', '.join(sorted({f['rule'] for f in fx['findings']}))})"
+              f" [{card}]")
+    optin = props.shared_memory_per_block_optin
+    print(f"guard (a): RES001 budget {checker.SMEM_BUDGET} B, the card's "
+          f"shared_memory_per_block_optin {optin} B [{card}]")
+    if checker.SMEM_BUDGET != optin:
+        raise AssertionError("guard: RES001's budget is not the card's "
+                             "opt-in")
+    fx = fixtures.build("smem")
+    try:
+        manual.ring_plan(fx.spec.name, torch.float32,
+                         plan_blocks(fx.spec, fx.config), fx.config,
+                         props.multi_processor_count, optin,
+                         props.shared_memory_per_multiprocessor)
+        raise AssertionError("guard: the ring launcher takes the smem "
+                             "fixture")
+    except ValueError as exc:
+        ring_msg = str(exc)
+    print(f"guard (a): the ring's launcher refuses the smem fixture: "
+          f"{ring_msg} [{card}]")
+
+    # the card's own failure messages and their classes
+    lib = cuda.library("reduction")
+    msgs = {code: lib.repro_cuda_error_string(code).decode()
+            for code in (1, 700, 701, 716, 719)}
+    try:
+        torch.empty(1 << 40, dtype=torch.uint8, device=dev)
+        raise AssertionError("guard: a 1 TiB allocation succeeded")
+    except torch.OutOfMemoryError as exc:
+        oom = exc
+    torch.cuda.empty_cache()
+    cases = [(f"launch {c}", cuda.LaunchError(
+        f"rowdot: launch failed with CUDA error {c} ({m})", c))
+        for c, m in msgs.items()]
+    cases += [("torch OOM", oom), ("ring opt-in", ValueError(ring_msg))]
+    want = {"launch 1": ("backend", False), "launch 700": ("backend", True),
+            "launch 701": ("resource", False),
+            "launch 716": ("backend", True), "launch 719": ("backend", True),
+            "torch OOM": ("resource", True),
+            "ring opt-in": ("resource", False)}
+    for label, exc in cases:
+        got = (common.classify_failure(exc), common.unrecoverable(exc))
+        text = str(exc).splitlines()[0]
+        print(f"guard (a): {label}: {text!r} -> class {got[0]}, "
+              f"unrecoverable {got[1]} [{card}]")
+        if got != want[label]:
+            raise AssertionError(f"guard: {label} classified {got}, "
+                                 f"expected {want[label]}")
+
+    # (b) no fallback on the main path
+    fallbacks = registry_events.counter_value("kernel.fallback.count")
+    errors = [e for e in registry_events.named("analysis.violation")
+              if e.attrs["severity"] == "error"]
+    print(f"guard (b): registry phase: {len(registry_events.events)} "
+          f"events, {len(registry_events.named('analysis.pass'))} "
+          f"analysis.pass, {len(errors)} error violations, "
+          f"kernel.fallback.count {fallbacks:g} [{card}]")
+    if fallbacks or errors or not registry_events.named("analysis.pass"):
+        raise AssertionError("guard: the registry phase fell back or the "
+                             "checker rejected a main-path launch")
+
+    n = GUARD_N
+    gen = torch.Generator(device=dev).manual_seed(25)
+    a = torch.randn(n, n, generator=gen, device=dev)
+    x = torch.randn(n, generator=gen, device=dev)
+    want_y = tgen.mxv_gen(a, x, mode="ref")
+    limit = _dot_limit(a.abs() @ x.abs(), want_y, n)
+
+    # the gate's host cost on a warm call, in turns after one untimed
+    host = {"gate": [], "bypassed": []}
+    _host_us(lambda: tgen.mxv_gen(a, x))
+    for which in ("gate", "bypassed", "bypassed", "gate"):
+        if which == "gate":
+            host[which].append(_host_us(lambda: tgen.mxv_gen(a, x)))
+        else:
+            with _bypass_gate():
+                host[which].append(_host_us(lambda: tgen.mxv_gen(a, x)))
+    print(f"guard: host us of one warm mxv_gen call [{n}, {n}] f32, median "
+          f"of {GUARD_CALLS} calls a turn: with the gate and guard "
+          f"{host['gate'][0]:.2f}, {host['gate'][1]:.2f}; bypassed "
+          f"{host['bypassed'][0]:.2f}, {host['bypassed'][1]:.2f} [{card}]")
+
+    tmp = tempfile.mkdtemp(prefix="repro_torch_guard_")
+    prev = os.environ.get("REPRO_TORCH_TUNE_CACHE")
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = os.path.join(tmp, "tune.json")
+    tunecache.reset_default_cache()
+    common.reset_plan_memo()
+    evaluate = loopir.evaluate
+
+    def plain(*args, **kw):
+        raise AssertionError("guard: a tier ran the plain version")
+    mem = obs.MemoryCollector()
+    sink = obs.JsonlSink(os.path.join(tmp, "obs.jsonl"))
+    loopir.evaluate = plain
+    obs.install(_Tee(mem, sink))
+    try:
+        # (c) one fallback
+        cache = tunecache.default_cache()
+        qkey = tunecache.cache_key("mxv_gen", a.shape, a.dtype, dev, "cuda")
+        before = mk.ROWDOT.launches
+        start = len(mem.events)
+        with faults.inject("sink_io::2,lower:mxv_gen:1"):
+            got = tgen.mxv_gen(a, x)
+        torch.cuda.synchronize()
+        evs = [e for e in mem.events[start:] if e.name == "kernel.fallback"]
+        excess = _excess(got, want_y, limit)
+        if len(evs) != 1 or evs[0].attrs["tier"] != "alt_config":
+            raise AssertionError(f"guard (c): fallback events {evs}")
+        ev = evs[0].attrs
+        q = cache.quarantined(qkey)
+        failed = (ev["failed_d"], ev["failed_p"], ev["failed_block_rows"])
+        if [(r["d"], r["p"], r["block_rows"]) for r in q.values()] != [
+                failed] or not excess <= 0:
+            raise AssertionError(f"guard (c): quarantine {q}, excess "
+                                 f"{excess:g}")
+        print(f"guard (c): lower:mxv_gen:1 at [{n}, {n}] f32: one "
+              f"kernel.fallback, tier {ev['tier']}, failure {ev['failure']}"
+              f", D={failed[0]} P={failed[1]} block_rows={failed[2]} -> "
+              f"D={ev['d']} P={ev['p']}; quarantined {list(q)}; excess over "
+              f"the dot limit {excess:.3g}; row-dot launches "
+              f"{mk.ROWDOT.launches - before} [{card}]")
+        start, before = len(mem.events), mk.ROWDOT.launches
+        again = tgen.mxv_gen(a, x)
+        torch.cuda.synchronize()
+        res = [e.attrs for e in mem.events[start:]
+               if e.name == "kernel.resolve"]
+        if (len(res) != 1 or res[0]["source"] != "quarantine_alt"
+                or mk.ROWDOT.launches != before + 1
+                or not _excess(again, want_y, limit) <= 0):
+            raise AssertionError(f"guard (c): next call resolved {res}, "
+                                 f"{mk.ROWDOT.launches - before} launches")
+        print(f"guard (c): next call, nothing armed: source "
+              f"{res[0]['source']} D={res[0]['d']} P={res[0]['p']}, "
+              f"row-dot launches +{mk.ROWDOT.launches - before} [{card}]")
+
+        # (d) no tier left
+        start, before = len(mem.events), mk.ROWDOT.launches
+        try:
+            with faults.inject("lower:mxv_gen") as plan:
+                tgen.mxv_gen(a, x)
+            raise AssertionError("guard (d): the call did not raise")
+        except faults.InjectedFault:
+            pass
+        fired = plan.rules[0].fired
+        if fired != 3 or mk.ROWDOT.launches != before:
+            raise AssertionError(f"guard (d): {fired} attempts, "
+                                 f"{mk.ROWDOT.launches - before} launches")
+        print(f"guard (d): lower:mxv_gen armed: InjectedFault after {fired}"
+              f" attempts (the config and two alt configs), "
+              f"{len(cache.quarantined(qkey))} configs quarantined, no "
+              f"launch [{card}]")
+    finally:
+        obs.uninstall()
+        loopir.evaluate = evaluate
+        if prev is None:
+            os.environ.pop("REPRO_TORCH_TUNE_CACHE", None)
+        else:
+            os.environ["REPRO_TORCH_TUNE_CACHE"] = prev
+        tunecache.reset_default_cache()
+        common.reset_plan_memo()
+
+    # (e) the sink against the memory, less the two dropped records
+    from collections import Counter
+    recs = obs.read_jsonl(os.path.join(tmp, "obs.jsonl"))
+    dropped = [mem.events[i - 1] for i, e in enumerate(mem.events)
+               if e.name == "fault.injected" and e.attrs["site"] == "sink_io"]
+    expect = Counter(e.name for e in mem.events)
+    expect.subtract(Counter(e.name for e in dropped))
+    got_names = Counter(r["name"] for r in recs)
+    print(f"guard (e): sink {len(recs)} records ({obs.read_jsonl.skipped} "
+          f"torn), memory {len(mem.events)}, dropped {sink.dropped} "
+          f"({', '.join(e.name for e in dropped)}); by name "
+          f"{json.dumps(dict(sorted(got_names.items())))} [{card}]")
+    if (sink.dropped != 2 or len(dropped) != 2
+            or +expect != got_names or obs.read_jsonl.skipped):
+        raise AssertionError(f"guard (e): the sink's {dict(got_names)} is "
+                             f"not the memory's {dict(+expect)}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    del a, x, want_y, got, again
+    torch.cuda.empty_cache()
+    print(f"guard: phase took {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]")
 
 
 def phase_train(card: str) -> dict:
@@ -3435,8 +3747,12 @@ def _run(t_start: float) -> int:
     phase_stencil(card, results)
     check_adamw(card, results)
     check_k4_features(card, results)
-    phase_registry(card, results)
+    from repro_torch import obs
+    with obs.collect() as registry_events:
+        phase_registry(card, results)
     phase_resolve(card)
+    phase_guard(card, registry_events)
+    del registry_events
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 

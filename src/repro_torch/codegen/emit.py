@@ -37,8 +37,9 @@ import torch.nn.functional as F
 from repro_torch.codegen import loopir, transforms
 from repro_torch.core.striding import StridingConfig
 
-__all__ = ["HAND_KERNELS", "template_of", "block_1d", "check_config",
-           "emit_spec", "run_spec", "make_kernel_op"]
+__all__ = ["HAND_KERNELS", "template_of", "hand_module", "block_1d",
+           "check_config", "emit_spec", "run_spec", "shape_key", "gate",
+           "guarded", "make_kernel_op"]
 
 # spec name → module whose ``emit(spec, bp, arrays, scalars, config)``
 # launches the hand-written K1-K3 kernel for that instance (imported at
@@ -169,9 +170,10 @@ def _refuse(spec: loopir.TraversalSpec, bp: transforms.BlockPlan,
                 "full_width=True")
 
 
-def _hand_kernel(spec: loopir.TraversalSpec, t: str) -> Callable:
-    """The ``emit`` of the kernel that runs ``spec`` under template
-    ``t``."""
+def hand_module(spec: loopir.TraversalSpec, t: str) -> str:
+    """The module of the kernel that runs ``spec`` under template ``t``
+    (its ``emit`` launches it; its ``smem_of``, where it has one, gives
+    the dynamic shared memory the launch requests)."""
     if t == "K4":
         manual = importlib.import_module(_MANUAL)
         path = _MANUAL if spec.name in manual.BODIES else None
@@ -184,7 +186,13 @@ def _hand_kernel(spec: loopir.TraversalSpec, t: str) -> Callable:
             f"{spec.name!r} body, an instance the port has no kernel of "
             "(every spec of the JAX package has one). Use mode='ref' for "
             "the plain version.")
-    return importlib.import_module(path).emit
+    return path
+
+
+def _hand_kernel(spec: loopir.TraversalSpec, t: str) -> Callable:
+    """The ``emit`` of the kernel that runs ``spec`` under template
+    ``t``."""
+    return importlib.import_module(hand_module(spec, t)).emit
 
 
 # ---------------------------------------------------- pad / crop / run
@@ -341,9 +349,72 @@ def run_spec(build_spec: Callable[..., loopir.TraversalSpec],
     return _dispatch(build_spec(*inputs), inputs, config, mode, device)
 
 
-def _shape_key(inputs: Sequence) -> tuple:
+def shape_key(inputs: Sequence) -> tuple:
+    """What a spec built from ``inputs`` depends on: each tensor's shape
+    and dtype (a scalar: None)."""
     return tuple((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
                  else None for x in inputs)
+
+
+def gate(kernel: str, verdicts: dict, key, specs, config: StridingConfig,
+         dtype) -> None:
+    """The static verifier's gate before a launch on the card: raise an
+    ``AnalysisError`` when ``analysis.ensure_valid(kernel, specs, config,
+    dtype=dtype)`` rejects the plan.  The error findings (none when it
+    passes) are memoized in ``verdicts`` per ``(key, config)``, ``key``
+    the call's shape key, and a fresh error is raised on every hit, so
+    the memo holds no traceback.  After a shape's first call at a config
+    the gate is a dict lookup."""
+    vkey = (key, config)
+    errs = verdicts.get(vkey)
+    if errs is None:
+        from repro_torch import analysis   # deferred: analysis imports us
+        try:
+            analysis.ensure_valid(kernel, specs, config, dtype=dtype)
+            errs = ()
+        except analysis.AnalysisError as err:
+            errs = err.findings
+        verdicts[vkey] = errs
+    if errs:
+        from repro_torch.analysis import AnalysisError
+        raise AnalysisError(kernel, errs)
+
+
+def guarded(kernel: str) -> Callable:
+    """The screened and guarded launch of one op, as the JAX package's
+    ``make_kernel_op`` and ``polybench._guarded`` run theirs:
+    ``dispatch(run, inputs, build, cfg, mode, rows, traffic)`` calls
+    ``run(config)`` inside ``kernels.common.guarded_run``, and before
+    each launch on the card :func:`gate` screens ``build()`` — the spec,
+    or the tuple of specs, the call runs, built once per shape key of
+    ``inputs`` — at that config.  ``rows`` and ``traffic`` give the
+    guard its alternatives.  ``mode="ref"`` and CPU inputs skip both.
+    Each op keeps its own specs and verdicts."""
+    from repro_torch.kernels import common   # the kernels import codegen
+
+    specs_of: dict[tuple, object] = {}       # shape key → spec(s)
+    verdicts: dict[tuple, tuple] = {}        # (shape key, config) → errors
+
+    def dispatch(run: Callable, inputs: Sequence, build: Callable,
+                 cfg: StridingConfig, mode: Optional[str],
+                 rows: Optional[int], traffic):
+        lead = inputs[0]
+        key = shape_key(inputs)
+        specs = specs_of.get(key)
+        if specs is None:
+            specs = specs_of[key] = build()
+
+        def attempt(c: StridingConfig, m: str):
+            if m != "ref":
+                gate(kernel, verdicts, key, specs, c, lead.dtype)
+            return run(c)
+
+        return common.guarded_run(
+            kernel, attempt, cfg, common.kernel_mode(lead, mode),
+            shape=lead.shape, dtype=lead.dtype, device=lead.device,
+            rows=rows, traffic=traffic, spec=specs)
+
+    return dispatch
 
 
 def make_kernel_op(name: str,
@@ -356,22 +427,36 @@ def make_kernel_op(name: str,
     (explicit > tuned > planned > default, ``kernels.common.
     resolve_config``; the spec's Traffic goes to the planner only when
     no config is given, and the spec gates the planner's candidates
-    through :func:`check_config`) and device dispatch (:func:`run_spec`:
-    the hand kernel on the card, the plain version on the CPU or with
-    ``mode="ref"``).
+    through the static verifier and :func:`check_config`) and device
+    dispatch (:func:`run_spec`: the hand kernel on the card, the plain
+    version on the CPU or with ``mode="ref"``).
+
+    A launch on the card is screened and guarded (:func:`guarded`), as
+    in the JAX package.  Before it the static verifier
+    (``repro_torch.analysis``) must pass the (spec, config, dtype)
+    triple (:func:`gate`): a rejected plan raises ``AnalysisError`` with
+    nothing launched.  The launch runs inside ``kernels.common.
+    guarded_run``: a config that fails (the gate's rejection included)
+    is classified and quarantined in the tune cache, and up to two
+    next-ranked configs of the same hand kernel are tried, with a
+    ``kernel.fallback`` event; when none is left the original exception
+    is raised.  No tier runs the plain version, and
+    a kernel that does not build or a poisoned CUDA context re-raises at
+    once.  ``mode="ref"`` and CPU inputs skip the gate and the guard.
 
     The spec, the stride extent the clamp uses and the Traffic signature
-    are pure in the input shapes and dtypes, and memoized per shape key.
-    There is no guarded fallback: a kernel that fails raises."""
+    are pure in the input shapes and dtypes, and memoized per shape key;
+    the gate's verdicts per (shape key, config)."""
     # imported here: the kernels package imports the codegen at its top
     from repro_torch import obs
     from repro_torch.kernels import common
 
     facts: dict[tuple, tuple] = {}     # shape key → (rows, traffic, spec)
+    dispatch = guarded(name)
 
     def op(*inputs, config: Optional[StridingConfig] = None,
            mode: Optional[str] = None):
-        key = _shape_key(inputs)
+        key = shape_key(inputs)
         if key not in facts:
             obs.counter("codegen.spec_memo.miss", kernel=name)
             spec = build_spec(*inputs)
@@ -391,7 +476,8 @@ def make_kernel_op(name: str,
             traffic=(None if config is not None else traffic),
             mode=common.kernel_mode(lead, mode), device=lead.device,
             spec=spec)
-        return _dispatch(spec, inputs, cfg, mode, None)
+        return dispatch(lambda c: _dispatch(spec, inputs, c, mode, None),
+                        inputs, lambda: spec, cfg, mode, rows, traffic)
 
     op.__name__ = name
     op.__qualname__ = name

@@ -14,10 +14,13 @@ tie-break):
     which the always-resident operands count too.
 
 Scores come from the card's stream model (``core.dma_model``).  Where a
-``spec`` is given, every candidate is first gated through the port's own
-emitter (``codegen.emit.check_config``): a config the emitter would
-refuse is never ranked, and each drop ticks the
-``analysis.rejected_candidates`` counter.
+``spec`` is given, every candidate is first gated as the JAX planner
+gates it, through the static verifier (``repro_torch.analysis``: its
+config-independent rules once per spec, then the per-config rules at
+the traffic's dtype), and then through the port's own emitter
+(``codegen.emit.check_config``): a config either one rejects is never
+ranked, and each drop ticks the ``analysis.rejected_candidates``
+counter.
 """
 from __future__ import annotations
 
@@ -89,14 +92,24 @@ def _buffers(traffic: Traffic, cfg: StridingConfig,
             + traffic.resident_bytes)
 
 
-def _gate(spec):
-    """``rejects(cfg)`` for a spec (or a tuple of them): True where the
-    port's emitter refuses the config for any of them."""
-    # imported here: the codegen imports the planner's Traffic
+def _gate(spec, dtype):
+    """``rejects(cfg)`` for a spec (or a tuple of them) at operands of
+    ``dtype``: True where the static verifier finds an error (the
+    config-independent rules checked once, here) or the port's emitter
+    refuses the config, for any of them."""
+    # imported here: the codegen and the analysis import the planner
+    from repro_torch.analysis import checker
     from repro_torch.codegen import emit
     specs = spec if isinstance(spec, tuple) else (spec,)
+    static_bad = any(f.severity == "error" for f in checker.check(specs))
 
     def rejects(cfg: StridingConfig) -> bool:
+        if static_bad:
+            return True
+        if any(f.severity == "error"
+               for f in checker.check(specs, cfg, dtype=dtype,
+                                      static=False)):
+            return True
         for s in specs:
             try:
                 emit.check_config(s, cfg)
@@ -122,13 +135,14 @@ def rank_configs(traffic: Traffic,
     (0 = the emitter's default); a (block, D, P) point whose buffers
     exceed ``budget`` is pruned like a plain (D, P) point.  ``spec`` (a
     ``TraversalSpec`` or a tuple of them, at the traffic's shape) gates
-    every candidate through the port's emitter.  ``model=None`` scores
-    with :func:`~repro_torch.core.dma_model.default_model`.  Raises
-    ``ValueError`` when no config is feasible."""
+    every candidate through the static verifier and the port's emitter.
+    ``model=None`` scores with :func:`~repro_torch.core.dma_model.
+    default_model`.  Raises ``ValueError`` when no config is feasible
+    (every candidate over the budget or rejected by the gate)."""
     if model is None:
         model = default_model()
     lay = model.layout
-    rejects = _gate(spec) if spec is not None else None
+    rejects = _gate(spec, traffic.dtype) if spec is not None else None
     size = layout.itemsize(traffic.dtype)
     out = []
     for d in valid_stride_unrolls(traffic.rows, max_d=max_streams):

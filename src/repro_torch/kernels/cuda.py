@@ -9,9 +9,11 @@ of the source, so an edited source rebuilds), and loaded with
 module is imported.
 
 A :class:`CudaKernel` is one ``extern "C"`` launcher: it launches on
-PyTorch's current stream, raises if the launcher returns a non-zero
-``cudaGetLastError()``, and counts its launches in ``launches`` — a
-plain integer a caller may reset to 0 before a run it wants to audit.
+PyTorch's current stream, raises :class:`LaunchError` (with the CUDA
+error code) if the launcher returns a non-zero ``cudaGetLastError()``,
+and counts its launches in ``launches`` — a plain integer a caller may
+reset to 0 before a run it wants to audit.  A source that does not
+build raises :class:`BuildError`; both are ``RuntimeError`` subclasses.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from typing import Iterable, Optional, Sequence
 import torch
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "CudaKernel",
+           "BuildError", "LaunchError", "STICKY_ERRORS",
            "build", "library", "source_hash", "DTYPES", "dtype_code",
            "check_arrays",
            "check_operands", "sweep_geometry", "f32_scalars"]
@@ -44,6 +47,33 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DTYPES = tuple(_DTYPE_CODES)
 # elements of a sub-portion, a warp's row unit (csrc/common.cuh SUB)
 _SUB = 128
+
+
+class BuildError(RuntimeError):
+    """A kernel source that does not build (``nvcc`` or ``ptxas``), or no
+    ``nvcc`` at all: no config of any kernel of that source can run."""
+
+
+class LaunchError(RuntimeError):
+    """A launcher returned a CUDA error; ``code`` is its ``cudaError_t``."""
+
+    def __init__(self, message: str, code: int):
+        super().__init__(message)
+        self.code = code
+
+
+# cudaError_t codes after which the context is unusable: every later
+# call in the process returns the same error
+STICKY_ERRORS = frozenset({
+    700,    # cudaErrorIllegalAddress
+    710,    # cudaErrorAssert
+    714,    # cudaErrorHardwareStackError
+    715,    # cudaErrorIllegalInstruction
+    716,    # cudaErrorMisalignedAddress
+    717,    # cudaErrorInvalidAddressSpace
+    718,    # cudaErrorInvalidPc
+    719,    # cudaErrorLaunchFailure
+})
 
 
 def dtype_code(dtype: torch.dtype) -> int:
@@ -115,8 +145,8 @@ def _nvcc() -> str:
     path = shutil.which("nvcc") or str(
         Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc")
     if not Path(path).exists():
-        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on "
-                           "PATH); the CUDA kernels cannot be built")
+        raise BuildError("nvcc not found (set CUDA_HOME or put nvcc on "
+                         "PATH); the CUDA kernels cannot be built")
     return path
 
 
@@ -141,7 +171,7 @@ def build(stems: Optional[Iterable[str]] = None) -> dict[str, str]:
 
     Returns ``{stem: compiler report}`` (``-Xptxas -v`` register,
     shared-memory and spill lines) for the sources built now; raises
-    ``RuntimeError`` with the compiler's output if any build fails."""
+    :class:`BuildError` with the compiler's output if any build fails."""
     sources = ([CSRC / f"{s}.cu" for s in stems] if stems is not None
                else sorted(CSRC.glob("*.cu")))
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -164,7 +194,7 @@ def build(stems: Optional[Iterable[str]] = None) -> dict[str, str]:
         os.replace(tmp, lib)
         reports[src.stem] = out
     if failures:
-        raise RuntimeError("\n".join(failures))
+        raise BuildError("\n".join(failures))
     return reports
 
 
@@ -219,6 +249,6 @@ class CudaKernel:
             err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err:
             msg = library(self.source).repro_cuda_error_string(err).decode()
-            raise RuntimeError(f"{self.name}: launch failed with CUDA "
-                               f"error {err} ({msg})")
+            raise LaunchError(f"{self.name}: launch failed with CUDA "
+                              f"error {err} ({msg})", err)
         self.launches += 1

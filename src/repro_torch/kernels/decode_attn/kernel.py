@@ -41,7 +41,7 @@ from repro_torch.kernels import cuda
 
 __all__ = ["SPLIT", "MERGE", "TILE", "WAVES", "MAX_UNITS", "emit", "split",
            "merge", "split_plain", "merge_plain", "admits", "group_chunk",
-           "plan_chunks"]
+           "plan_chunks", "split_smem", "smem_of"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -74,6 +74,35 @@ def group_chunk(g: int) -> int:
     """The query heads a block keeps: the largest divisor of ``g`` up to
     16 (one or two 8-head ``mma`` tiles, zero-padded)."""
     return next(c for c in range(min(g, 16), 0, -1) if g % c == 0)
+
+
+def split_smem(itemsize: int, dh: int, g: int) -> int:
+    """Dynamic shared memory of the split's instance for ``g`` query
+    heads a KV head at head dim ``dh`` (``csrc/decode_attn.cu``
+    ``Cfg<T, DH, NT>::SMEM``, NT = ⌈GC / 8⌉): 1024 bytes of alignment
+    slack, the K and V TMA rings (as many stages of a 64-row tile as
+    fit 96 KiB, 2 to 4), each of the 4 consumer warps' P [16][8·NT + 4]
+    and alpha [8·NT] in f32, and the f32 query heads where the scores
+    are not on the tensor cores (f32)."""
+    gp = 8 * -(-group_chunk(g) // 8)
+    tile_b = TILE * dh * itemsize
+    stages = min(max(98304 // (2 * tile_b), 2), 4)
+    return (1024 + stages * 2 * tile_b + 4 * (16 * (gp + 4) + gp) * 4
+            + (0 if itemsize == 2 else gp * dh * 4))
+
+
+def smem_of(spec: loopir.TraversalSpec, bp: BlockPlan, config,
+            dtype: torch.dtype, sms: int) -> int:
+    """Dynamic shared memory :func:`split` requests for ``spec`` (the
+    static verifier's RES001; the merge takes none): 0 for a type or a
+    head shape no instance takes (the launcher refuses those by type)."""
+    comb = spec.combine
+    dh = comb.vwidth
+    hkv = spec.axis("e").extent // dh
+    g = comb.groups // max(hkv, 1)
+    if dtype not in (torch.float32, torch.bfloat16) or not admits(g, dh):
+        return 0
+    return split_smem(dtype.itemsize, dh, g)
 
 
 def plan_chunks(b: int, s: int, d: int, hkv: int, g: int,

@@ -30,7 +30,8 @@ from repro_torch.codegen.transforms import BlockPlan
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
 
-__all__ = ["DOITGEN", "TILES", "MMA_COLS", "Geometry", "geometry", "emit"]
+__all__ = ["DOITGEN", "TILES", "MMA_COLS", "Geometry", "geometry", "smem",
+           "smem_of", "emit"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -99,6 +100,31 @@ def geometry(bp: BlockPlan, batch: int, s: int, p: int, itemsize: int,
         if 16 * blocks >= 15 * sms:
             break
     return Geometry(tile, cols, rb, vec, blocks)
+
+
+def smem(tile: int, itemsize: int) -> int:
+    """Dynamic shared memory of the instance for ``tile`` rows a pass
+    (``csrc/doitgen.cu``): bf16 / f16, ``mma_smem_bytes<tile>``, 4
+    stages of an A chunk [tile][32 + 8] and a C4 chunk [32][64 + 8];
+    f32, ``f32_smem_bytes<tile / 16>``, 3 stages of A transposed
+    [bk][tile + 4] and C4 [bk][tile], bk = 8 at tile 128, else 16."""
+    if itemsize == 2:
+        return 4 * (tile * (32 + 8) + 32 * (MMA_COLS + 8)) * 2
+    bk = 8 if tile > 64 else 16
+    return 3 * bk * ((tile + 4) + tile) * 4
+
+
+def smem_of(spec: loopir.TraversalSpec, bp: BlockPlan,
+            config: StridingConfig | None, dtype: torch.dtype,
+            sms: int) -> int:
+    """Dynamic shared memory :func:`emit` requests for ``spec`` (the
+    static verifier's RES001): :func:`smem` at :func:`geometry`'s tile
+    (the tile does not depend on the operands' alignment)."""
+    (batch,) = bp.info.batch_axes
+    (free,) = bp.info.free_axes
+    geo = geometry(bp, spec.axis(batch).extent, spec.axis(free).extent,
+                   bp.cols, dtype.itemsize, (), sms)
+    return smem(geo.tile, dtype.itemsize)
 
 
 def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,

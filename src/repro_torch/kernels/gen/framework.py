@@ -17,10 +17,13 @@ the hand-named ops and the ``*_gen`` rows here.
     ``csrc/adamw.cu``).
 
 Each resolves one config under its own name (explicit > tuned > planned
-> default, with the JAX ops' Traffic).
+> default, with the JAX ops' Traffic) and dispatches through the same
+static gate and guard as ``make_kernel_op`` kernels
+(``codegen.emit.guarded``).
 """
 
 from repro_torch.codegen import run_spec
+from repro_torch.codegen.emit import guarded
 from repro_torch.core import Traffic
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import common
@@ -41,6 +44,12 @@ __all__ = ["decode_attn_gen", "rmsnorm_gen", "adamw_update_gen",
            "adamw_spec", "rmsnorm_spec"]
 
 
+# the composites' screened and guarded launches
+_decode = guarded("decode_attn_gen")
+_rmsnorm = guarded("rmsnorm_gen")
+_adamw = guarded("adamw_update_gen")
+
+
 # --------------------------------------------------------- decode attn
 
 def decode_attn_gen(q, kc, vc, config=None, mode=None, with_lse=False):
@@ -53,10 +62,12 @@ def decode_attn_gen(q, kc, vc, config=None, mode=None, with_lse=False):
     traffic = Traffic(rows=s, cols=hkv * dh, dtype=kc.dtype, read_arrays=2)
     cfg = common.resolve_for("decode_attn_gen", kc, config, s,
                              StridingConfig(4, 1), traffic, mode)
-    out, lse = run_spec(_decode_spec(hkv, dh),
-                        (kc.reshape(b, s, hkv * dh),
-                         vc.reshape(b, s, hkv * dh), q.reshape(b, hq * dh)),
-                        cfg, mode)
+    flat = (kc.reshape(b, s, hkv * dh), vc.reshape(b, s, hkv * dh),
+            q.reshape(b, hq * dh))
+    out, lse = _decode(
+        lambda c: run_spec(_decode_spec(hkv, dh), flat, c, mode),
+        (kc, vc, q), lambda: (_decode_spec(hkv, dh)(*flat),), cfg, mode, s,
+        traffic)
     out = out.reshape(b, hq, dh).to(q.dtype)
     return (out, lse.reshape(b, hq)) if with_lse else out
 
@@ -74,9 +85,10 @@ def rmsnorm_gen(x, w, eps=1e-6, config=None, mode=None,
                       resident_bytes=shape[-1] * 4)
     cfg = common.resolve_for("rmsnorm_gen", x, config, t,
                              StridingConfig(4, 1), traffic, mode)
-    out, inv = run_spec(rmsnorm_spec,
-                        (x.reshape(-1, shape[-1]).contiguous(), w, eps),
-                        cfg, mode)
+    x2 = x.reshape(-1, shape[-1]).contiguous()
+    out, inv = _rmsnorm(
+        lambda c: run_spec(rmsnorm_spec, (x2, w, eps), c, mode),
+        (x, w), lambda: (rmsnorm_spec(x2, w, eps),), cfg, mode, t, traffic)
     out = out.reshape(shape)
     return (out, inv.reshape(shape[:-1])) if with_inv_rms else out
 
@@ -93,8 +105,12 @@ def adamw_update_gen(p, g, m, v, lr, b1=0.9, b2=0.999, eps=1e-8, wd=0.0,
                       read_arrays=4, write_arrays=3)
     cfg = common.resolve_for("adamw_update_gen", p, config, None,
                              StridingConfig(2, 2), traffic, mode)
-    return adamw_update(p, g, m, v, lr, b1, b2, eps, wd, bc1, bc2,
-                        config=cfg, mode=mode)
+    return _adamw(
+        lambda c: adamw_update(p, g, m, v, lr, b1, b2, eps, wd, bc1, bc2,
+                               config=c, mode=mode),
+        (p, g, m, v), lambda: (adamw_spec(
+            *(placeholder((rows, cols), t.dtype) for t in (p, g, m, v))),),
+        cfg, mode, None, traffic)
 
 
 # ---------------------------------------------------------- registry

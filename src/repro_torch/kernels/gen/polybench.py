@@ -20,12 +20,14 @@ its hand family's problem sizes and oracle.  Archetypes:
   * ``doitgen``                 — batched 3-D nest with a free axis (K1).
 
 The composite ops (``bicg_gen``, ``gemver_mxv1_gen``,
-``gemver_mxv1_sum_gen``, ``conv3x3_gen``) resolve one config under
-their own name (explicit > tuned > planned > default, with the JAX ops'
-Traffic) and run every inner spec with it.
+``gemver_mxv1_sum_gen``, ``conv3x3_gen``, and ``framework``'s) resolve
+one config under their own name (explicit > tuned > planned > default,
+with the JAX ops' Traffic), run every inner spec with it, and dispatch
+through the same static gate and guard as ``make_kernel_op`` kernels
+(``codegen.emit.guarded``).
 """
-
 from repro_torch.codegen import make_kernel_op, run_spec, traffic_of
+from repro_torch.codegen.emit import guarded
 from repro_torch.core import Traffic
 from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import common
@@ -57,6 +59,13 @@ __all__ = ["bicg_gen", "gemver_outer_gen", "gemver_sum_gen",
 _D4P2, _D4P1 = StridingConfig(4, 2), StridingConfig(4, 1)
 
 
+# the composites' screened and guarded launches (emit.guarded)
+_bicg = guarded("bicg_gen")
+_mxv1 = guarded("gemver_mxv1_gen")
+_mxv1_sum = guarded("gemver_mxv1_sum_gen")
+_conv = guarded("conv3x3_gen")
+
+
 def _mn_traffic(a) -> Traffic:
     """The composite ops' signature: two sweeps of A [m, n]."""
     m, n = a.shape
@@ -68,10 +77,13 @@ def _mn_traffic(a) -> Traffic:
 def bicg_gen(a, r, p, config=None, mode=None):
     """q = A p ; s = Aᵀ r (generated; two specs under one config)."""
     m, n = a.shape
-    cfg = common.resolve_for("bicg_gen", a, config, m, _D4P2,
-                             _mn_traffic(a), mode)
-    return (run_spec(bicg_q_spec, (a, p), cfg, mode),
-            run_spec(bicg_s_spec, (a, r), cfg, mode))
+    traffic = _mn_traffic(a)
+    cfg = common.resolve_for("bicg_gen", a, config, m, _D4P2, traffic, mode)
+    return _bicg(
+        lambda c: (run_spec(bicg_q_spec, (a, p), c, mode),
+                   run_spec(bicg_s_spec, (a, r), c, mode)),
+        (a, r, p), lambda: (bicg_q_spec(a, p), bicg_s_spec(a, r)), cfg,
+        mode, m, traffic)
 
 
 # -------------------------------------------------------------- gemver
@@ -86,18 +98,26 @@ gemver_mxv2_gen = make_kernel_op("gemver_mxv2_gen", gemver_mxv2_spec,
 
 def gemver_mxv1_gen(a, y, x, beta, config=None, mode=None):
     """x = x + β Aᵀ y (generated core + affine update)."""
+    traffic = _mn_traffic(a)
     cfg = common.resolve_for("gemver_mxv1_gen", a, config, a.shape[0],
-                             _D4P2, _mn_traffic(a), mode)
-    return x + run_spec(gemver_mxv1_spec, (a, y, beta), cfg, mode)
+                             _D4P2, traffic, mode)
+    return x + _mxv1(
+        lambda c: run_spec(gemver_mxv1_spec, (a, y, beta), c, mode),
+        (a, y, x, beta), lambda: (gemver_mxv1_spec(a, y, beta),), cfg, mode,
+        a.shape[0], traffic)
 
 
 def gemver_mxv1_sum_gen(a, y, x, z, beta, config=None, mode=None):
     """Fused gemver mxv1 + sum steps: x' = x + β Aᵀ y + z, with the
     sweep's own reduction Σⱼ(βAᵀy)ⱼ as a native side output — one sweep
     of A.  Returns (x', ssum), ssum a 0-d f32."""
+    traffic = _mn_traffic(a)
     cfg = common.resolve_for("gemver_mxv1_sum_gen", a, config, a.shape[0],
-                             _D4P2, _mn_traffic(a), mode)
-    s, total = run_spec(gemver_mxv1_sum_spec, (a, y, beta), cfg, mode)
+                             _D4P2, traffic, mode)
+    s, total = _mxv1_sum(
+        lambda c: run_spec(gemver_mxv1_sum_spec, (a, y, beta), c, mode),
+        (a, y, x, z, beta), lambda: (gemver_mxv1_sum_spec(a, y, beta),),
+        cfg, mode, a.shape[0], traffic)
     return x + s.to(x.dtype) + z, total.reshape(())
 
 
@@ -111,7 +131,9 @@ def conv3x3_gen(x, w, config=None, mode=None):
     cfg = common.resolve_for("conv3x3_gen", x, config, h_out, _D4P1,
                              traffic, mode)
     w9 = [w[r, c] for r in range(3) for c in range(3)]
-    return run_spec(conv3x3_spec, (x, *w9), cfg, mode)
+    return _conv(
+        lambda c: run_spec(conv3x3_spec, (x, *w9), c, mode),
+        (x, w), lambda: (conv3x3_spec(x, *w9),), cfg, mode, h_out, traffic)
 
 
 # ------------------------------------------------------------- doitgen

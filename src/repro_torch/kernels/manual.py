@@ -56,7 +56,7 @@ from repro_torch.roofline.hw import H100_HW
 __all__ = ["BODIES", "SIGNATURES", "OUT_STAGES", "MAX_BLOCKS_PER_SM",
            "RingPlan", "ring_smem", "ring_layout", "ring_tile",
            "ring_blocks_per_sm", "ring_runs", "ring_boxes", "box_rows",
-           "ring_plan", "ring_sizes", "rowstat_spec", "emit"]
+           "ring_plan", "ring_sizes", "smem_of", "rowstat_spec", "emit"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _GEOM = [_I] * 8     # rows, cols, d, bm, bh, tw, la, per
@@ -284,12 +284,20 @@ def ring_plan(name: str, dtype: torch.dtype, bp: BlockPlan,
               ) -> RingPlan:
     """The launch of body ``name``'s ring of type ``dtype`` on ``bp``:
     its tile (``tile``, or :func:`ring_tile`'s), boxes, shared memory,
-    blocks an SM and one-wave grid on a card of ``sms`` SMs."""
+    blocks an SM and one-wave grid on a card of ``sms`` SMs.  Raises
+    ``ValueError`` naming the bytes where the ring needs more shared
+    memory than ``limit``, the opt-in of one block (the launcher's
+    ``cudaFuncSetAttribute`` would refuse it)."""
     in_sizes, out_sizes, n_row = ring_sizes(name, dtype)
     tw = tile or ring_tile(bp, config, limit, in_sizes, out_sizes, n_row,
                            sm_smem)
     smem = ring_smem(in_sizes, out_sizes, bp.d, bp.bm, tw,
                      config.lookahead, n_row)
+    if smem > limit:
+        raise ValueError(
+            f"K4 ring does not fit shared memory: {smem} bytes for a "
+            f"{tw}-column step against a limit of {limit} bytes, the most "
+            "one block may opt into")
     bh = box_rows(bp.bm)
     steps = bp.rows // bp.d // bp.bm * (bp.cols // tw)
     per_sm = ring_blocks_per_sm(smem, sm_smem)
@@ -297,6 +305,26 @@ def ring_plan(name: str, dtype: torch.dtype, bp: BlockPlan,
     return RingPlan(tw, bh, bp.d * bp.bm // bh,
                     tuple(bh * tw * e for e in (*in_sizes, *out_sizes)),
                     smem, per_sm, steps, per, blocks)
+
+
+def smem_of(spec: loopir.TraversalSpec, bp: BlockPlan,
+            config: StridingConfig, dtype: torch.dtype, sms: int) -> int:
+    """Dynamic shared memory :func:`emit` requests for ``spec``'s ring of
+    ``dtype`` (the static verifier's RES001): :func:`ring_smem` at
+    :func:`ring_tile`'s tile within :data:`BLOCK_SMEM`, which raises
+    ``ValueError`` where no tile fits.  0 for a type no instance takes
+    (the launcher refuses it by type); ``NotImplementedError`` where the
+    ring has no body for ``spec``."""
+    del sms
+    why = _refuse(spec)
+    if why is not None:
+        raise NotImplementedError(f"{spec.name}: {why}")
+    if dtype not in SIGNATURES[spec.name][3]:
+        return 0
+    in_sizes, out_sizes, n_row = ring_sizes(spec.name, dtype)
+    tw = ring_tile(bp, config, BLOCK_SMEM, in_sizes, out_sizes, n_row)
+    return ring_smem(in_sizes, out_sizes, bp.d, bp.bm, tw,
+                     config.lookahead, n_row)
 
 
 def ring_sizes(name: str, dtype: torch.dtype) -> tuple[tuple, tuple, int]:

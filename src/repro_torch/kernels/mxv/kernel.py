@@ -50,7 +50,7 @@ from repro_torch.kernels import cuda
 
 __all__ = ["ROWDOT", "COLDOT", "MXV2", "MXV1", "MXV1_SUM", "Geometry",
            "geometry", "launch_geometry", "clusters", "RowdotGeometry",
-           "rowdot_geometry", "X_SHARED", "emit", "rowdot",
+           "rowdot_geometry", "X_SHARED", "smem_of", "emit", "rowdot",
            "coldot", "coldot_total", "split_plain", "merge_plain",
            "rank_rows"]
 
@@ -176,6 +176,18 @@ def rowdot_geometry(rows: int, cols: int, itemsize: int, d: int,
     return RowdotGeometry(g.streams, g.parts, g.units, g.per_part, g.slots,
                           g.blocks, itemsize == 2 and (cols // LANE) % 2 == 1,
                           xbytes if x_shared and xbytes <= X_SHARED else 0)
+
+
+def smem_of(spec: loopir.TraversalSpec, bp: BlockPlan,
+            config: StridingConfig | None, dtype: torch.dtype,
+            sms: int) -> int:
+    """Dynamic shared memory :func:`emit` requests for ``spec`` (the
+    static verifier's RES001): the row-dot's staged x
+    (:func:`rowdot_geometry`); the column-dot takes none."""
+    if spec.name not in _ROW_DOT:
+        return 0
+    return rowdot_geometry(bp.rows, bp.cols, dtype.itemsize, bp.d,
+                           sms).smem
 
 
 def clusters(dtype: torch.dtype, d: int, cs: int) -> int:

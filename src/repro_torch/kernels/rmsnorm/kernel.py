@@ -25,7 +25,8 @@ from repro_torch.codegen import loopir
 from repro_torch.codegen.transforms import BlockPlan
 from repro_torch.kernels import cuda
 
-__all__ = ["RMSNORM", "Geometry", "geometry", "occupancy", "launch", "emit"]
+__all__ = ["RMSNORM", "Geometry", "geometry", "smem_of", "occupancy",
+           "launch", "emit"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -104,6 +105,15 @@ def geometry(rows: int, dm: int, itemsize: int, d: int, sms: int,
     ipb = items or (1 if n <= ONE_ITEM_PER_SM * sms else 2)
     return Geometry(vb, nvec, cs, chunk, v, k, threads, ipb,
                     -(-n // ipb) * cs)
+
+
+def smem_of(spec: loopir.TraversalSpec, bp: BlockPlan, config,
+            dtype: torch.dtype, sms: int) -> int:
+    """Dynamic shared memory :func:`emit` requests (the static verifier's
+    RES001): none (w and the partials are static arrays), but
+    :func:`geometry`'s ``ValueError`` for a row no cluster holds."""
+    geometry(bp.rows, bp.cols, dtype.itemsize, bp.d, sms)
+    return 0
 
 
 def occupancy(dtype: torch.dtype, g: Geometry) -> int:

@@ -238,7 +238,12 @@ def _measure(spec: base.KernelSpec, sets: list, cfg: StridingConfig,
     card) takes longer than ``timeout_s``.  Fault sites: ``tune_trial``
     (the candidate raises), ``tune_slow`` (each call stalls),
     ``tune_outlier`` (one sample inflated, which the MAD filter must
-    absorb)."""
+    absorb).
+
+    Every call runs ``cfg`` and nothing else
+    (``common.exact_config``): a candidate that fails raises here, and
+    is never timed under another config by the guard's fallback chain."""
+    from repro_torch.kernels import common
     from repro_torch.runtime import faults
 
     faults.fire_if("tune_trial", spec.name)
@@ -246,7 +251,8 @@ def _measure(spec: base.KernelSpec, sets: list, cfg: StridingConfig,
 
     def call(inputs):
         faults.sleep_if("tune_slow", spec.name, seconds=0.05)
-        return spec.run(inputs, cfg, run_mode)
+        with common.exact_config():
+            return spec.run(inputs, cfg, run_mode)
 
     def check(dt):
         if timeout_s is not None and dt > timeout_s:

@@ -2,19 +2,31 @@
 
 A guarded code path rots unless its fault can be *forced*.  A site asks
 ``should_fire(site, target)`` and, when a rule is armed, behaves as the
-real fault would.  The wired sites: ``serve_slow`` in ``serve.engine``
-(one engine step sleeps past the slow-step threshold, ``sleep_if``);
-``cache_corrupt`` in ``registry.tunecache`` (a read sees a torn file);
-``tune_trial``, ``tune_slow`` and ``tune_outlier`` in
-``registry.autotune`` (a candidate raises, stalls, or has one sample
-inflated).  Any site name may be armed.  Nothing runs unless a plan is
-armed: the disarmed fast path is one module-global ``is None`` check.
+real fault would.  Any site name may be armed.  Nothing runs unless a
+plan is armed: the disarmed fast path is one module-global ``is None``
+check.  The wired sites:
 
-Arming is programmatic only: ``with inject("serve_slow:slot0:1"):``
-arms a plan of ``site[:target][:count]`` rules for the scope of the
-block.  ``target`` filters by the caller-supplied target string
-(substring match, empty = any); ``count`` caps how many times the rule
-fires (default: unlimited).
+  ================= ==================================================
+  ``lower``         ``kernels.common.guarded_run`` — a launch on the
+                    card (any mode but ``ref``) fails as if the kernel
+                    had (raises :class:`InjectedFault`; exercises the
+                    alt-config chain)
+  ``sink_io``       ``obs.sinks.JsonlSink.record`` — the write fails
+                    and the record is dropped (``JsonlSink.dropped``)
+  ``tune_trial``    ``registry.autotune`` — one candidate raises
+  ``tune_slow``     ``registry.autotune`` — one candidate stalls past
+                    its trial timeout
+  ``tune_outlier``  ``registry.autotune`` — one timing sample inflated
+  ``cache_corrupt`` ``registry.tunecache`` — a read sees a torn file
+  ``serve_slow``    ``serve.engine`` — one engine step sleeps past the
+                    slow-step threshold (``sleep_if``)
+  ================= ==================================================
+
+Arming is programmatic only: ``with inject("lower:mxv_gen:1"):`` arms a
+plan of ``site[:target][:count]`` rules for the scope of the block.
+``target`` filters by the caller-supplied target string (substring
+match, empty = any); ``count`` caps how many times the rule fires
+(default: unlimited).
 
 Every fired rule emits a ``fault.injected`` obs event (site, target,
 fire index).
@@ -30,7 +42,7 @@ from typing import Iterator, Optional
 from repro_torch import obs
 
 __all__ = ["FaultRule", "FaultPlan", "InjectedFault", "parse_plan",
-           "inject", "should_fire", "fire_if", "sleep_if"]
+           "inject", "enabled", "should_fire", "fire_if", "sleep_if"]
 
 
 class InjectedFault(RuntimeError):
@@ -142,6 +154,11 @@ def inject(spec: str) -> Iterator[FaultPlan]:
 
 
 # --------------------------------------------------------------- probes
+
+def enabled() -> bool:
+    """True while a plan is armed."""
+    return _plan is not None
+
 
 def should_fire(site: str, target: str = "") -> bool:
     """True when an armed rule matches (and consumes one fire)."""

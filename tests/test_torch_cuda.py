@@ -53,6 +53,32 @@ RMS_TOL = 1e-5
 BF16_RTOL = 2.0 ** -7
 
 
+@pytest.fixture(autouse=True)
+def no_fallback(request, monkeypatch):
+    """Fail a test in which a guarded launch failed on the card: another
+    config would then have served a call that asked for one config by
+    name, or that should have run the one resolution chose, and the
+    test would pass on a kernel that failed.  A test that arms a fault
+    on purpose asks for ``allow_fallback``."""
+    from repro_torch import obs
+    failed = []
+    real = obs.counter
+
+    def counter(name, *args, **attrs):
+        if name == "kernel.fallback.count":
+            failed.append(attrs.get("kernel"))
+        return real(name, *args, **attrs)
+    monkeypatch.setattr(obs, "counter", counter)
+    yield
+    if "allow_fallback" not in request.fixturenames:
+        assert not failed, f"a guarded launch failed and fell back: {failed}"
+
+
+@pytest.fixture
+def allow_fallback():
+    """Lets :func:`no_fallback` pass a test that arms a fault."""
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -1849,3 +1875,50 @@ def test_registry_row_at_its_top_two_card_configs_matches_plain(
             assert g.device.type == "cuda"
             torch.testing.assert_close(g.float(), w.float(), rtol=row.rtol,
                                        atol=row.atol)
+
+
+@pytest.mark.gpu
+def test_lower_fault_lands_on_an_alt_config_of_the_row_dot(cuda_device,
+                                                           fresh_cache,
+                                                           monkeypatch,
+                                                           allow_fallback):
+    """chip_smoke.py's guard phase, part (c): with ``lower:mxv_gen:1``
+    armed, mxv_gen at 4096^2 f32 is served by one alt-config fallback
+    within the f32 dot limit of the plain version, the failed config is
+    quarantined, and the next call resolves ``quarantine_alt`` and
+    launches the row-dot once; no tier runs the plain version."""
+    from repro_torch import obs
+    from repro_torch.codegen import loopir
+    from repro_torch.registry import tunecache
+    from repro_torch.runtime import faults
+    n = 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    a = torch.randn(n, n, generator=gen, device=cuda_device)
+    x = torch.randn(n, generator=gen, device=cuda_device)
+    want = tgen.mxv_gen(a, x, mode="ref")
+    # n 2^-24 sum|a x|: the worst case of an f32 dot of length n, plus
+    # one rounding of each side into the output
+    limit = n * 2.0 ** -24 * (a.abs() @ x.abs()) + 2.0 ** -23 * want.abs()
+
+    def plain(*args, **kw):
+        raise AssertionError("a tier ran the plain version")
+    monkeypatch.setattr(loopir, "evaluate", plain)
+    before = mkernel.ROWDOT.launches
+    with obs.collect() as col:
+        with faults.inject("lower:mxv_gen:1"):
+            got = tgen.mxv_gen(a, x)
+    assert bool(((got - want).abs() <= limit).all())
+    (ev,) = col.named("kernel.fallback")
+    assert ev.attrs["tier"] == "alt_config"
+    assert mkernel.ROWDOT.launches == before + 1
+    qkey = tunecache.cache_key("mxv_gen", a.shape, a.dtype, cuda_device,
+                               "cuda")
+    (rec,) = tunecache.default_cache().quarantined(qkey).values()
+    assert (rec["d"], rec["p"], rec["reason"]) == (
+        ev.attrs["failed_d"], ev.attrs["failed_p"], "injected")
+    with obs.collect() as col:
+        again = tgen.mxv_gen(a, x)
+    (res,) = col.named("kernel.resolve")
+    assert res.attrs["source"] == "quarantine_alt"
+    assert mkernel.ROWDOT.launches == before + 2
+    assert bool(((again - want).abs() <= limit).all())
