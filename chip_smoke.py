@@ -16,8 +16,9 @@ Phases (each raises on failure, so the script exits non-zero):
                 column-dot, K1 stream, gemver_sum or stencil instance that
                 spills fails the run)
   3. kernels  — each kernel against its plain PyTorch version on the card at
-                the main path's shapes: rmsnorm at the decode rows (1, 4)
-                and the train rows (8192) of 4096, 4 f32 rows of 12288 (a
+                the main path's shapes: rmsnorm at the decode rows (1, 4),
+                the train rows (8192) and the prefill rows (16128) of
+                4096, 4 f32 rows of 12288 (a
                 cluster), and rows that are not whole 16-byte vectors
                 ([8, 1001], [3, 4098] in f32 and bf16: the narrower-lane
                 instances, with a lost-element control), with each
@@ -141,6 +142,22 @@ Phases (each raises on failure, so the script exits non-zero):
   6. profile  — where a full-width decode step's time goes (host wall
                 time, device busy share, decode attention's device time
                 and launches, top kernels by device time)
+  6b. prefill — single-pass prefill on the serve phase's weights
+                (``launch.steps.build_prefill_step``): (a) prefill_32k
+                cut to B=4, S=4032 at max_len 4096 (97 rmsnorm launches,
+                no decode launch), 16 decode steps from its cache (97
+                rmsnorm, 48 decode_attn, 48 merge a step), and a
+                64-token prompt's prefill against one teacher-forced
+                decode step a token (the engine's path): last logits
+                within 2x a one-ulp control, the greedy tokens; (b) the
+                kernels against mode="ref": last logits and the worst
+                cache row of every layer within 2x the control of every
+                rmsnorm output one bf16 ulp off, with the last 64 rows
+                of one norm's output lost landing above; (c) prefill_32k
+                cut to B=1 (S=32768): the attention chunk and peak
+                memory; (d) wall and device time, tokens/s, count_flops beside
+                model_flops, roofline_terms(n_chips=1) and the share of
+                the bound reached, and (a)'s time by kernel
   7. train    — with the serve model freed: Yi-9B at full width, 8 of 48
                 layers, f32 params and bf16 compute, trains 6 steps of
                 seq 4096 x batch 2 through the launcher's path; every
@@ -196,6 +213,8 @@ HBM_BYTES_PER_S = _H100.hbm_bw if _H100 else None
 PEAK_FLOPS = dict(_H100.peak_flops) if _H100 else {}
 
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW, SERVE_REQUESTS = 4, 4096, 16, 8
+# prefill_32k cut to the serve phase's cache: B=4 prompts of 4032 tokens
+PREFILL_B, PREFILL_S = 4, 4032
 
 
 def _card_line() -> str:
@@ -353,6 +372,7 @@ def ptxas_instances(report: str) -> dict:
 # 4-byte in f32; 4098: 4- and 8-byte vectors over a cluster of two)
 RMSNORM_CASES = ((1, 4096, "bfloat16"), (SERVE_SLOTS, 4096, "bfloat16"),
                  (8192, 4096, "bfloat16"), (8192, 4096, "float32"),
+                 (PREFILL_B * PREFILL_S, 4096, "bfloat16"),
                  (SERVE_SLOTS, 12288, "float32"), (8, 1001, "bfloat16"),
                  (8, 1001, "float32"), (3, 4098, "bfloat16"),
                  (3, 4098, "float32"))
@@ -362,9 +382,10 @@ RMSNORM_SWEEP_ITEMS = (1, 2, 4, 16)       # items a block at 8192 rows
 
 def check_rmsnorm(card: str, results: dict) -> None:
     """rmsnorm at the serve path's decode rows (1 and 4 of Yi-9B's 4096,
-    bf16), the train step's 8192 rows (bf16, and f32) and 4 f32 rows of
-    12288: each launch's geometry, the kernel against its plain version
-    (o within one ulp of its dtype, r within 1e-5) with a control that
+    bf16), the train step's 8192 rows (bf16, and f32), the prefill
+    phase's 16128 rows (bf16) and 4 f32 rows of 12288: each launch's
+    geometry, the kernel against its plain version (o within one ulp of
+    its dtype, r within 1e-5) with a control that
     must land outside the limit (a cluster rank's columns lost where the
     launch has a cluster, else stream 1's rows), and times; then the
     sweep of the geometry's choices (cluster size at the decode rows,
@@ -3703,6 +3724,356 @@ def phase_profile(card: str, model, params, engine, steps: int = 3) -> None:
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
 
 
+PREFILL_DECODE = 16                 # decode steps from the prefilled cache
+PREFILL_SHORT = 64                  # tokens of the prompt held against decode
+PREFILL_FAULT_LAYER = 24            # the planted fault's layer (its norm1)
+PREFILL_FAULT_ROWS = 64             # rows of the norm output left unwritten
+_MANTISSA = {"bfloat16": 8, "float16": 11, "float32": 24}
+
+
+def _ulp_moved(t, gen):
+    """``t`` with every nonzero element moved one ulp of its dtype, the
+    sign drawn at random: one more rounding than the kernels add."""
+    import torch
+    f = t.float()
+    ulp = torch.ldexp(torch.ones_like(f), torch.frexp(f).exponent
+                      - _MANTISSA[str(t.dtype).removeprefix("torch.")])
+    sign = torch.randint(0, 2, f.shape, generator=gen,
+                         device=f.device) * 2 - 1
+    return (f + sign * torch.where(f == 0, 0, ulp)).to(t.dtype)
+
+
+def _rel(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def _cache_rel(got, want, s: int) -> float:
+    """The worst cache row's ||K - K_ref|| / ||K_ref|| (or V's): a row is
+    one (layer, batch row, position) of the first ``s`` positions, all
+    its heads, so a few lost rows stand out of the rounding."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        for n in ("k", "v"):
+            a, b = (t[:, :s].flatten(2).float() for t in (g[n], w[n]))
+            rel = (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
+            worst = max(worst, float(rel.max()))
+    return worst
+
+
+def _launches(fn):
+    """``fn()`` with every kernel count set to 0 just before and read
+    just after (the nonzero ones), the device synchronized."""
+    import torch
+    from repro_torch.kernels import cuda
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: k.launches for n, k in cuda.KERNELS.items()
+                 if k.launches}
+
+
+def _timed(fn):
+    """(``fn()``, host wall s, CUDA-event device ms) of one call."""
+    import torch
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, time.perf_counter() - w0, t0.elapsed_time(t1)
+
+
+def _margin_check(what, got, want, card) -> int:
+    """Greedy next tokens: how many rows agree, and a fault where a row
+    disagrees whose reference top-2 margin is above 2 max|d|, which
+    rounding cannot close."""
+    got, want = got.float(), want.float()
+    top2 = want.topk(2, dim=-1).values
+    clear = top2[:, 0] - top2[:, 1] > 2 * (got - want).abs().amax(-1)
+    same = got.argmax(-1) == want.argmax(-1)
+    print(f"{what}: greedy next token agrees on {int(same.sum())}/"
+          f"{same.numel()} rows; {int(clear.sum())} rows have a top-2 "
+          f"margin above 2 max|d| and must agree [{card}]")
+    if not bool(same[clear].all()):
+        raise AssertionError(f"{what}: the greedy token differs on a row "
+                             "whose margin rounding cannot close")
+    return int(same.sum())
+
+
+def phase_prefill(card: str, model, params) -> None:
+    """Single-pass prefill on the serve phase's Yi-9B weights (full width,
+    all 48 layers, bf16), through ``launch.steps.build_prefill_step``:
+
+    (a) prefill_32k cut to B=4, S=4032 at the serve phase's max_len
+        4096 (97 rmsnorm launches and no decode launch a call), then 16
+        greedy decode steps from the prefilled cache (97 rmsnorm, 48
+        decode_attn and 48 merge launches a step); a 64-token prompt's
+        prefill held against the engine's path (one teacher-forced
+        decode step a token): last logits within 2x a control's distance
+        (the plain prefill with every rmsnorm and attention output moved
+        one bf16 ulp, the two paths rounding attention differently), and
+        the greedy tokens;
+    (b) the kernels against mode="ref" at (a)'s shape: last logits and
+        the worst row of every layer's cache within 2x the control of the
+        plain path with every rmsnorm output moved one bf16 ulp; a fault
+        (the last 64 rows of layer 24's norm1 output left unwritten) must
+        land above;
+    (c) prefill_32k cut to B=1 (S=32768, its own max_len), prefill only:
+        the attention chunk and peak memory;
+    (d) wall and device time, tokens/s, count_flops beside model_flops,
+        roofline_terms(n_chips=1) and the share of the bound reached,
+        and where (a)'s time goes (torch.profiler)."""
+    import dataclasses
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.kernels.rmsnorm import ops as trops
+    from repro_torch.launch import steps
+    from repro_torch.models import attention as tatt
+    from repro_torch.roofline import analysis
+    cfg = model.cfg
+    n_l = cfg.n_layers
+    per_prefill = {"rmsnorm": 2 * n_l + 1}
+    per_step = {"rmsnorm": 2 * n_l + 1, "decode_attn": n_l,
+                "decode_attn_merge": n_l}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    # (a) prefill, then decode
+    shape = dataclasses.replace(get_shape("prefill_32k"),
+                                global_batch=PREFILL_B, seq_len=PREFILL_S)
+    prefill, (_, batch) = steps.build_prefill_step(cfg, shape, "cuda",
+                                                   params=params)
+    tokens = PREFILL_B * PREFILL_S
+
+    def run_a(mode=None):
+        return prefill(params, batch, max_len=SERVE_MAX_LEN, mode=mode)
+
+    run_a()                                   # warm: cuBLAS plans, caches
+    ((logits, cache), wall, a_ms), counts = _launches(
+        lambda: _timed(run_a))
+    if counts != per_prefill:
+        raise AssertionError(f"prefill (a): launches {counts}, expected "
+                             f"{per_prefill}")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            PREFILL_B, cfg.vocab_size):
+        raise AssertionError(f"prefill (a): logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    print(f"prefill (a): B={PREFILL_B} S={PREFILL_S} max_len "
+          f"{SERVE_MAX_LEN}, launches {json.dumps(counts)}; wall "
+          f"{wall:.4f} s, device {a_ms:.2f} ms, {tokens / wall:.0f} "
+          f"tokens/s (wall), {tokens / a_ms * 1e3:.0f} (device); q "
+          f"chunk {tatt._pick_q_chunk(PREFILL_B, cfg.n_heads, PREFILL_S,
+                                      PREFILL_S)} [{card}]")
+
+    def decode_from(cache, tok):
+        out = []
+        with torch.inference_mode():
+            for i in range(PREFILL_DECODE):
+                lg, cache = model.decode_step(params, tok, cache,
+                                              PREFILL_S + i)
+                tok = lg.argmax(-1, keepdim=True)
+                out.append(lg)
+        return out
+
+    (steps_out, wall, dev_ms), counts = _launches(
+        lambda: _timed(lambda: decode_from(cache, logits.argmax(
+            -1, keepdim=True))))
+    want = {k: v * PREFILL_DECODE for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"prefill (a) decode: launches {counts}, "
+                             f"expected {want}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in steps_out):
+        raise AssertionError("prefill (a) decode: non-finite logits")
+    print(f"prefill (a): {PREFILL_DECODE} greedy decode steps from the "
+          f"prefilled cache (positions {PREFILL_S}-"
+          f"{PREFILL_S + PREFILL_DECODE - 1}): launches "
+          f"{json.dumps(counts)}, {wall / PREFILL_DECODE * 1e3:.2f} ms a "
+          f"step wall, {dev_ms / PREFILL_DECODE:.2f} ms between events "
+          f"[{card}]")
+    del steps_out
+
+    rng = np.random.default_rng(5)
+    short = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_SHORT)), device="cuda")}
+
+    def teacher_forced():
+        """The engine's path: a decode step a prompt token, each row at
+        its own position (a [B] vector, as the engine steps its slots)."""
+        tc = model.init_cache(PREFILL_B, SERVE_MAX_LEN, device="cuda")
+        with torch.inference_mode():
+            for t in range(PREFILL_SHORT):
+                lg, tc = model.decode_step(
+                    params, short["tokens"][:, t:t + 1], tc,
+                    torch.full((PREFILL_B,), t, device="cuda"))
+        return lg, tc
+
+    def one_ulp_norm(x, w, eps=1e-6, config=None, mode=None,
+                     with_inv_rms=False):
+        out, inv = plain_norm(x, w, eps=eps, config=config, mode=mode,
+                              with_inv_rms=True)
+        out = _ulp_moved(out, gen)
+        return (out, inv) if with_inv_rms else out
+
+    def one_ulp_attn(*a, **kw):
+        return _ulp_moved(plain_sdpa(*a, **kw), gen)
+
+    plain_norm, plain_sdpa = trops.rmsnorm, tatt._sdpa
+    lp, cp = model.prefill(params, short, max_len=SERVE_MAX_LEN)
+    lt, ct = teacher_forced()
+    lr_ = model.prefill(params, short, max_len=PREFILL_SHORT, mode="ref")[0]
+    with mock.patch.object(trops, "rmsnorm", one_ulp_norm), \
+            mock.patch.object(tatt, "_sdpa", one_ulp_attn):
+        lc = model.prefill(params, short, max_len=PREFILL_SHORT,
+                           mode="ref")[0]
+    rel, ctl = _rel(lp, lt), _rel(lc, lr_)
+    limit = 2 * ctl
+    print(f"prefill (a) vs the engine's path, B={PREFILL_B} x "
+          f"{PREFILL_SHORT} tokens: ||logits - logits_tf|| / ||logits_tf||"
+          f" {rel:.3e}, limit {limit:.3e} (2x the control {ctl:.3e}: the "
+          f"plain prefill with every rmsnorm and attention output one bf16 "
+          f"ulp off); worst cache row {_cache_rel(cp, ct, PREFILL_SHORT):.3e}"
+          f" [{card}]")
+    _margin_check("prefill (a) vs the engine's path", lp, lt, card)
+    if rel > limit:
+        raise AssertionError(f"prefill (a): prefill and the engine's path "
+                             f"disagree ({rel:.3e} > {limit:.3e})")
+    del cp, ct
+
+    # (b) in-model: the kernels against mode="ref" at (a)'s shape
+    ref_logits, ref_cache = run_a("ref")
+    calls = [0]
+
+    def lost_rows(x, w, eps=1e-6, config=None, mode=None,
+                  with_inv_rms=False):
+        out, inv = plain_norm(x, w, eps=eps, config=config, mode=mode,
+                              with_inv_rms=True)
+        if calls[0] == 2 * PREFILL_FAULT_LAYER:
+            out = out.clone()
+            out.view(-1, out.shape[-1])[-PREFILL_FAULT_ROWS:] = 0
+        calls[0] += 1
+        return (out, inv) if with_inv_rms else out
+
+    lost = (f"fault: {PREFILL_FAULT_ROWS} rows of layer "
+            f"{PREFILL_FAULT_LAYER}'s norm1 lost")
+    reads = {"kernels": (logits, cache)}
+    for name, fault in (("control: one ulp", one_ulp_norm),
+                        (lost, lost_rows)):
+        with mock.patch.object(trops, "rmsnorm", fault):
+            reads[name] = run_a("ref")
+    rel = {k: (_rel(lg, ref_logits), _cache_rel(c, ref_cache, PREFILL_S))
+           for k, (lg, c) in reads.items()}
+    ctl = rel["control: one ulp"]
+    lim = (2 * ctl[0], 2 * ctl[1])
+    print(f"prefill (b) in-model, B={PREFILL_B} S={PREFILL_S}, "
+          f"||logits - logits_ref|| / ||logits_ref|| and the worst cache "
+          f"row's ||c - c_ref|| / ||c_ref||: "
+          + ", ".join(f"{k} {a:.3e}, {c:.3e}" for k, (a, c) in rel.items())
+          + f"; limits {lim[0]:.3e}, {lim[1]:.3e} (2x the one-ulp control)"
+          f" [{card}]")
+    _margin_check("prefill (b) kernels vs ref", logits, ref_logits, card)
+    k_rel, f_rel = rel["kernels"], rel[lost]
+    if k_rel[0] > lim[0] or k_rel[1] > lim[1]:
+        raise AssertionError(f"prefill (b): the kernels disagree with ref "
+                             f"({k_rel} > {lim})")
+    if f_rel[1] <= lim[1]:
+        raise AssertionError("prefill (b): lost norm rows stay inside the "
+                             "limit, so the check cannot see them")
+    del reads, ref_cache, ref_logits
+
+    # (d) for (a): FLOPs, roofline terms, where the time goes
+    flops = analysis.count_flops(run_a)
+    _roofline_line("prefill (d) (a)", cfg, shape, flops,
+                   analysis.roofline_terms(cfg, shape, 1, flops), a_ms, card)
+    _profile_prefill(card, run_a)
+    del logits, cache
+    torch.cuda.empty_cache()
+
+    # (c) the long prompt, prefill only, at its own max_len
+    long = dataclasses.replace(get_shape("prefill_32k"), global_batch=1)
+    prefill_l, (_, batch_l) = steps.build_prefill_step(cfg, long,
+                                                       "cuda", params=params)
+    s = long.seq_len
+    qc = tatt._pick_q_chunk(1, cfg.n_heads, s, s)
+    tpu_qc = min(2 ** 33 // (cfg.n_heads * s), s)   # the JAX package's
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    (flops, wall, dev_ms), counts = _launches(lambda: _timed(
+        lambda: analysis.count_flops(
+            lambda: out.update(r=prefill_l(params, batch_l)))))
+    peak = torch.cuda.max_memory_allocated()
+    lg, lc = out.pop("r")
+    if counts != per_prefill or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"prefill (c): launches {counts} (expected "
+                             f"{per_prefill}) or non-finite logits")
+    print(f"prefill (c): B=1 S={s} max_len {lc[0]['k'].shape[1]}, q chunk "
+          f"{qc} ({s // qc} chunks, {4 * cfg.n_heads * qc * s / 1e9:.2f} GB "
+          f"of f32 scores each; the budget {tatt.SCORE_BUDGET_BYTES / 1e9:.1f}"
+          f" GB; at the JAX package's 2**33 elements {tpu_qc}, "
+          f"{4 * cfg.n_heads * tpu_qc * s / 1e9:.1f} GB), "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; launches "
+          f"{json.dumps(counts)}; wall {wall:.3f} s, device "
+          f"{dev_ms:.1f} ms, {s / wall:.0f} tokens/s (wall; FLOPs counted "
+          f"in the same run) [{card}]")
+    _roofline_line("prefill (d) (c)", cfg, long, flops,
+                   analysis.roofline_terms(cfg, long, 1, flops), dev_ms, card)
+    del lg, lc, out
+    torch.cuda.empty_cache()
+
+
+def _roofline_line(what, cfg, shape, flops, terms, dev_ms, card) -> None:
+    from repro_torch.roofline import analysis
+    bound = max(terms["compute_s"], terms["memory_s"])
+    mflops = analysis.model_flops(cfg, shape)
+    print(f"{what}: count_flops {flops['flops']:.6e} (aten.mm "
+          f"{flops['by_op'].get('aten.mm', 0):.4e}, aten.bmm "
+          f"{flops['by_op'].get('aten.bmm', 0):.4e}), model_flops "
+          f"{mflops:.6e} (causal half of attention); roofline_terms "
+          f"n_chips=1: compute_s {terms['compute_s']:.4f}, memory_s "
+          f"{terms['memory_s']:.4f}, dominant {terms['dominant']}, "
+          f"roofline_fraction {terms['roofline_fraction']:.3f}; device "
+          f"{dev_ms / 1e3:.4f} s, {100 * bound / (dev_ms / 1e3):.1f}% of the "
+          f"bound reached, {flops['flops'] / (dev_ms / 1e3) / 1e12:.1f} "
+          f"TFLOP/s counted [{card}]")
+
+
+def _profile_prefill(card, run) -> None:
+    """Where one prefill's time goes: device time by kernel and the busy
+    share (torch.profiler over one call against its unprofiled wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    (_, wall, _) = _timed(run)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev(e) > 0]
+    total_ms = sum(dev(e) for e in kernels) / 1e3
+    if total_ms <= 0:
+        print(f"profile prefill: wall {wall * 1e3:.1f} ms; the profiler "
+              f"recorded no device kernels [{card}]")
+        return
+    rms = [e for e in kernels if "rmsnorm_ms" in e.key]
+    rms_ms = sum(dev(e) for e in rms) / 1e3
+    print(f"profile prefill: wall {wall * 1e3:.1f} ms, device kernels "
+          f"{total_ms:.1f} ms ({100 * total_ms / (wall * 1e3):.1f}% busy); "
+          f"rmsnorm {rms_ms:.3f} ms in {sum(e.count for e in rms)} launches "
+          f"({rms_ms / max(sum(e.count for e in rms), 1) * 1e3:.1f} us "
+          f"each) [{card}]")
+    for e in sorted(kernels, key=dev, reverse=True)[:12]:
+        print(f"  {dev(e) / 1e3:9.3f} ms {100 * dev(e) / 1e3 / total_ms:5.1f}% "
+              f"{e.count:6d} calls  {e.key[:90]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3759,6 +4130,7 @@ def _run(t_start: float) -> int:
     model, params, engine, counts = phase_serve(card)
     phase_in_model(card, model, params, engine)
     phase_profile(card, model, params, engine)
+    phase_prefill(card, model, params)
     del model, params, engine          # free the serve weights and cache
     torch.cuda.empty_cache()
     train_counts = phase_train(card)

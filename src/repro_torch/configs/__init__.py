@@ -1,10 +1,13 @@
-"""Config registry: the 10 architectures of the JAX package."""
+"""Config registry: the 10 architectures of the JAX package × its 4
+input-shape cells."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
+from repro_torch.configs.base import (DECODE_32K, LONG_500K, PREFILL_32K,
+                                      SHAPES, TRAIN_4K, ModelConfig,
+                                      MoEConfig, ShapeConfig, SSMConfig)
 
 _MODULES = {
     "mamba2-2.7b": "mamba2_2p7b",
@@ -27,6 +30,26 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; choose from {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     return mod.CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape) cells. long_500k only for sub-quadratic archs
+    (pure full-attention archs skip it); with ``include_skipped`` every
+    pair, as (arch, shape, skipped)."""
+    out = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            skipped = shape.name == "long_500k" and not cfg.sub_quadratic
+            if skipped and not include_skipped:
+                continue
+            out.append((arch, shape.name) if not include_skipped
+                       else (arch, shape.name, skipped))
+    return out
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -1,4 +1,5 @@
-"""Model configuration dataclasses (the JAX package's, field for field)."""
+"""Model and input-shape configuration dataclasses (the JAX package's,
+field for field)."""
 from __future__ import annotations
 
 import dataclasses
@@ -81,6 +82,15 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // self.n_kv_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can serve 500k-token contexts (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
+    def has_decoder(self) -> bool:
+        return True  # all assigned archs are decoders or enc-dec
+
     def pdtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype)
 
@@ -119,6 +129,18 @@ class ModelConfig:
             total += self.n_layers * (attn + d)  # cross attention + norm
         return total
 
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.moe is None:
+            return self.n_params()
+        e = self.moe
+        d = self.d_model
+        expert_p = 3 * d * e.d_ff_expert
+        n_moe_layers = sum(1 for i in range(self.n_layers)
+                           if i % e.every_n_layers == e.every_n_layers - 1)
+        inactive = n_moe_layers * (e.n_experts - e.top_k) * expert_p
+        return self.n_params() - inactive
+
     def _is_attn_layer(self, i: int) -> bool:
         if self.family == "ssm":
             return False
@@ -135,3 +157,19 @@ class ModelConfig:
         in_proj = d * (2 * di + 2 * s.n_groups * s.d_state + nh)
         return (in_proj + conv_dim * s.d_conv + 3 * nh + di
                 + di * d)  # conv, A/D/dt_bias, norm, out_proj
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}

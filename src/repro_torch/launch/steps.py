@@ -1,0 +1,197 @@
+"""Build ``(step_fn, args)`` pairs for any (arch × shape) cell on one card,
+the one-card form of the JAX package's ``repro/launch/steps.py``.
+
+The ``abstract_*`` builders give shapes and dtypes with no storage, on
+``torch.device("meta")``, as ``jax.eval_shape`` gives them there.  Their
+dtypes follow the port's rule: serving weights in the compute dtype
+(``abstract_params``), training state in ``param_dtype`` with f32 AdamW
+moments (``abstract_state``), the KV cache and tokens as the JAX
+package's (compute dtype, int32).
+
+The ``build_*`` functions return a step and real arguments on the device
+(the card unless ``device="cpu"``; without a card they raise): weights
+drawn from seed 0 (or the caller's, for prefill), tokens from seeded
+numpy, a zero KV cache.  ``arch`` is a name or a ``ModelConfig`` and
+``shape`` a name or a ``ShapeConfig``, so a caller can cut a cell to
+what one card holds; every field that differs from the named config or
+shape is printed, with the bytes the uncut cell would need.
+
+Sharding (``mesh_ctx``, ``_shard``, ``state_specs``,
+``_decode_cache_specs``) needs several cards and is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, get_shape
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models.lm import build_model
+from repro_torch.train import optimizer as opt
+from repro_torch.train import trainstep
+
+__all__ = ["abstract_batch", "abstract_params", "abstract_state",
+           "abstract_cache", "tree_bytes", "build_train_step",
+           "build_prefill_step", "build_decode_step", "build_cell"]
+
+_META = torch.device("meta")
+
+Arch = Union[str, ModelConfig]
+Shape = Union[str, ShapeConfig]
+
+
+# --------------------------------------------------------------- abstract
+
+def abstract_batch(cfg: ModelConfig, shape: ShapeConfig,
+                   for_decode: bool = False) -> dict:
+    b = shape.global_batch
+    s = 1 if for_decode else shape.seq_len
+    batch = {"tokens": torch.empty((b, s), dtype=torch.int32,
+                                   device=_META)}
+    if cfg.n_prefix_embeds and not for_decode:
+        batch["prefix_embeds"] = torch.empty(
+            (b, cfg.n_prefix_embeds, cfg.d_model), dtype=torch.float32,
+            device=_META)
+    if cfg.encdec and not for_decode:
+        batch["frames"] = torch.empty((b, cfg.enc_seq, cfg.d_model),
+                                      dtype=torch.float32, device=_META)
+    return batch
+
+
+def abstract_params(model):
+    """Serving weights on meta, in the compute dtype."""
+    return model.init(device=_META)
+
+
+def abstract_state(model) -> dict:
+    """Training state on meta: params in ``param_dtype``, f32 m and v."""
+    return trainstep.init_state(model, device=_META)
+
+
+def abstract_cache(model, cfg: ModelConfig, shape: ShapeConfig):
+    """The KV cache of ``shape.seq_len`` positions on meta."""
+    return model.init_cache(shape.global_batch, shape.seq_len,
+                            device=_META)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor in a (nested) tree: a module's parameters,
+    dicts, lists."""
+    if isinstance(tree, torch.nn.Module):
+        return sum(p.numel() * p.element_size() for p in tree.parameters())
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return 0
+
+
+# ------------------------------------------------------------------ cells
+
+def _resolve(arch: Arch, shape: Shape) -> tuple[ModelConfig, ShapeConfig]:
+    cfg = get_config(arch) if isinstance(arch, str) else arch
+    shp = get_shape(shape) if isinstance(shape, str) else shape
+    return cfg, shp
+
+
+def _cuts(cfg: ModelConfig, shape: ShapeConfig) -> None:
+    """Print every field of ``cfg`` and ``shape`` that differs from the
+    registry's config and shape of the same name, with the bytes the
+    uncut cell needs."""
+    full_cfg, full_shape = get_config(cfg.name), get_shape(shape.name)
+    lines = []
+    for given, named in ((cfg, full_cfg), (shape, full_shape)):
+        diff = [f"{f.name} {getattr(named, f.name)} -> "
+                f"{getattr(given, f.name)}"
+                for f in dataclasses.fields(given)
+                if getattr(given, f.name) != getattr(named, f.name)]
+        if diff:
+            lines.append(f"{given.name} cut: {', '.join(diff)}")
+    if not lines:
+        return
+    full = build_model(full_cfg)
+    if full_shape.kind == "train":
+        need = {"state": tree_bytes(abstract_state(full))}
+    else:
+        need = {"weights": tree_bytes(abstract_params(full)),
+                "KV cache": tree_bytes(abstract_cache(full, full_cfg,
+                                                      full_shape))}
+    print("; ".join(lines) + f" (uncut {full_cfg.name} {full_shape.name}: "
+          + ", ".join(f"{k} {v / 1e9:.1f} GB" for k, v in need.items())
+          + ")")
+
+
+def _tokens(cfg: ModelConfig, b: int, s: int, dev):
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s),
+                                         dtype=np.int32)).to(dev)
+
+
+def build_train_step(arch: Arch, shape: Shape, device=None,
+                     remat: bool = True, grad_accum: int = 1):
+    """``(train_step, (state, batch))``: AdamW at its defaults, the state
+    drawn from seed 0, the batch ``[global_batch, seq_len]`` from
+    seeded numpy."""
+    dev = resolve_device(device)
+    cfg, shp = _resolve(arch, shape)
+    model = build_model(cfg)
+    _cuts(cfg, shp)
+    step = trainstep.make_train_step(model, opt.AdamWConfig(), remat=remat,
+                                     grad_accum=grad_accum)
+    state = trainstep.init_state(model, device=dev)
+    batch = {"tokens": _tokens(cfg, shp.global_batch, shp.seq_len, dev)}
+    return step, (state, batch)
+
+
+def build_prefill_step(arch: Arch, shape: Shape, device=None, params=None):
+    """``(prefill, (params, batch))``; ``prefill(params, batch,
+    max_len=None, mode=None)`` fills a cache of ``max_len`` positions,
+    by default ``seq_len + n_prefix_embeds`` as the JAX package's (vlm
+    prefix embeds extend the internal sequence).  ``params``: weights to
+    use (drawn from seed 0 when None), so a caller that serves can
+    prefill on its own."""
+    dev = resolve_device(device)
+    cfg, shp = _resolve(arch, shape)
+    model = build_model(cfg)
+    _cuts(cfg, shp)
+
+    def prefill(params, batch, max_len: Optional[int] = None,
+                mode: Optional[str] = None):
+        max_len = max_len or shp.seq_len + cfg.n_prefix_embeds
+        return model.prefill(params, batch, max_len=max_len, mode=mode)
+
+    if params is None:
+        params = model.init(device=dev)
+    batch = {"tokens": _tokens(cfg, shp.global_batch, shp.seq_len, dev)}
+    return prefill, (params, batch)
+
+
+def build_decode_step(arch: Arch, shape: Shape, device=None):
+    """serve_step: ``(decode, (params, tokens, cache, pos))``, one new
+    token ``[global_batch, 1]`` at ``pos = seq_len - 1`` against a zero
+    cache of ``seq_len`` positions (updated in place)."""
+    dev = resolve_device(device)
+    cfg, shp = _resolve(arch, shape)
+    model = build_model(cfg)
+    _cuts(cfg, shp)
+    params = model.init(device=dev)
+    cache = model.init_cache(shp.global_batch, shp.seq_len, device=dev)
+    tokens = _tokens(cfg, shp.global_batch, 1, dev)
+    pos = torch.tensor(shp.seq_len - 1, dtype=torch.int32, device=dev)
+    return model.decode_step, (params, tokens, cache, pos)
+
+
+def build_cell(arch: Arch, shape: Shape, device=None, **kw):
+    """The step of the cell's kind: train, prefill or decode."""
+    _, shp = _resolve(arch, shape)
+    if shp.kind == "train":
+        return build_train_step(arch, shape, device, **kw)
+    if shp.kind == "prefill":
+        return build_prefill_step(arch, shape, device, **kw)
+    return build_decode_step(arch, shape, device, **kw)

@@ -17,6 +17,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attn import ops as da_ops
 from repro_torch.models import common
+from repro_torch.roofline.hw import H100_HW
 
 _NEG = -1e30
 
@@ -114,10 +115,18 @@ def _sdpa_block(q, k, v, causal: bool, q_offset: int):
     return torch.matmul(p, vh).transpose(1, 2)               # [B,Sq,H,dh]
 
 
-def _pick_q_chunk(b, hq, sq, sk, budget=2 ** 33):
-    """Largest q-chunk keeping the score tensor under budget elements;
-    must divide sq."""
-    qc = max(int(budget // max(b * hq * sk, 1)), 128)
+# One q-chunk's f32 scores may take an eighth of the card's memory: the
+# chunk also holds softmax's f32 output and its compute-dtype copy (2.5x
+# the scores in all), beside the weights and the KV cache.  The JAX
+# package's budget, 2**33 elements over a whole TPU mesh, is 34 GB of
+# scores on one card.
+SCORE_BUDGET_BYTES = H100_HW.hbm_bytes // 8
+
+
+def _pick_q_chunk(b, hq, sq, sk):
+    """Largest q-chunk keeping the f32 score tensor ``[b, hq, qc, sk]``
+    under ``SCORE_BUDGET_BYTES``; must divide sq."""
+    qc = max(int(SCORE_BUDGET_BYTES // max(4 * b * hq * sk, 1)), 128)
     qc = min(qc, sq)
     while sq % qc:
         qc -= 1
@@ -127,8 +136,8 @@ def _pick_q_chunk(b, hq, sq, sk, budget=2 ** 33):
 def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
     """Memory-efficient exact attention: KV expanded to query heads, the
     query axis processed in chunks under activation checkpointing
-    (scores never exceed ~budget elements), as the JAX package's scan of
-    checkpointed chunks."""
+    (scores never exceed ~``SCORE_BUDGET_BYTES``), as the JAX package's
+    scan of checkpointed chunks."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     if hkv != hq:

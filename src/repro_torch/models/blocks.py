@@ -80,6 +80,30 @@ def stack_forward(stack: nn.ModuleList, x, cfg: ModelConfig, rope,
     return x, aux
 
 
+def _layer_prefill(p: Layer, c, x, cfg: ModelConfig, rope,
+                   mode: Optional[str] = None):
+    """``_layer_forward`` plus cache capture in one pass: the layer's K, V
+    written into ``c["k"][:, :S]`` and ``c["v"][:, :S]`` IN PLACE, where
+    the JAX package returns an updated copy
+    (``dynamic_update_slice_in_dim(..., 0, 1)``)."""
+    h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
+    a, (k, v) = attention.attn_forward(p.attn, h, cfg, rope, causal=True)
+    s = x.shape[1]
+    c["k"][:, :s] = k.to(c["k"].dtype)
+    c["v"][:, :s] = v.to(c["v"].dtype)
+    x = x + a
+    h = common.rms_norm(x, p.norm2, cfg.norm_eps, mode)
+    return x + ffn.ffn_forward(p.ffn, h, cfg.act), c
+
+
+def stack_prefill(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
+                  mode: Optional[str] = None):
+    """One pass over the layers: hidden states and the filled caches."""
+    for i, layer in enumerate(stack):
+        x, cache[i] = _layer_prefill(layer, cache[i], x, cfg, rope, mode)
+    return x, cache
+
+
 def _layer_decode(p: Layer, c, x, cfg: ModelConfig, rope, pos,
                   mode: Optional[str] = None):
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)

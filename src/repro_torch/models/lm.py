@@ -1,7 +1,7 @@
 """Causal LM for dense decoders: ``init`` → params, the train path
 (``hidden``, ``loss``, ``logits``, ``chunked_nll``) and the serving path
-(``init_cache``, ``decode_step(params, tokens, cache, pos)`` → (logits,
-cache)).
+(``init_cache``, ``prefill(params, batch)`` → (last logits, cache),
+``decode_step(params, tokens, cache, pos)`` → (logits, cache)).
 
 For serving, weights are stored in the compute dtype without gradients.
 The JAX package keeps them in ``param_dtype`` (f32) and casts each
@@ -10,7 +10,7 @@ rounding, and on the card it halves the bytes every decode step reads.
 For training (``trainable=True``) they are stored in ``param_dtype``
 with gradients and cast at use, as the JAX package does.
 
-``prefill`` and the other model families are later slices.
+The other model families are later slices.
 """
 from __future__ import annotations
 
@@ -99,11 +99,15 @@ class CausalLM:
         drawn on ``device`` (the card unless ``device="cpu"``).  Same
         distributions as the JAX package's init; not the same numbers.
         Stored in the compute dtype for serving, or in ``param_dtype``
-        with gradients where ``trainable``."""
+        with gradients where ``trainable``.  On ``device="meta"`` nothing
+        is drawn (meta has no generator): shapes and dtypes only, as
+        ``launch.steps.abstract_params`` wants them."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = None
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         dt = cfg.pdtype() if trainable else cfg.cdtype()
         embed = common.embed_init(gen, cfg.padded_vocab, cfg.d_model, dt,
                                   dev)
@@ -156,6 +160,29 @@ class CausalLM:
         return blocks.init_stack_cache(self.cfg, batch, max_len,
                                        self.cfg.cdtype(),
                                        resolve_device(device))
+
+    def prefill(self, params: LMParams, batch, max_len: Optional[int] = None,
+                mode: Optional[str] = None):
+        """Single-pass prefill of ``batch["tokens"]`` [B, S]: hidden
+        states and the KV caches from one walk over the layers.  Returns
+        (the last position's logits [B, vocab_size], the cache of
+        ``max_len`` (default ``cfg.max_seq``) positions, filled at
+        [0, S)).  ``mode="ref"`` runs every kernel's plain version."""
+        cfg = self.cfg
+        dev = params.embed.device
+        with torch.no_grad():
+            tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+            x = _embed_tokens(params, tokens, cfg)
+            b, s = tokens.shape
+            rope = common.make_rope(torch.arange(s, device=dev),
+                                    cfg.head_dim, cfg.rope_theta,
+                                    cfg.rope_style)
+            cache = self.init_cache(b, max_len or cfg.max_seq, device=dev)
+            x, cache = blocks.stack_prefill(params.blocks, cache, x, cfg,
+                                            rope, mode)
+            x = common.rms_norm(x, params.final_norm, cfg.norm_eps, mode)
+            logits = _head_logits(params, x[:, -1:], cfg)
+        return logits[:, 0, :cfg.vocab_size], cache
 
     def decode_step(self, params: LMParams, tokens: torch.Tensor, cache,
                     pos, mode: Optional[str] = None):

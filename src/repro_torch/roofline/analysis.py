@@ -1,0 +1,167 @@
+"""Roofline terms of one step on one card.
+
+The JAX package's ``repro/roofline/analysis.py`` has two halves.  The
+analytic half, ``analytic_memory_bytes``, ``_kv_cache_bytes`` and
+``model_flops``, is arithmetic on the configs and is carried over here
+as it is.  The other half parses XLA's post-SPMD HLO text
+(``parse_hlo``, ``analyze_hlo``, ``collective_bytes``) to count one
+step's per-device dot FLOPs and collective bytes.  PyTorch runs eagerly
+and has no HLO, so that half has no counterpart here; its role is taken
+by :func:`count_flops`, which runs the step under
+``torch.utils.flop_counter.FlopCounterMode`` and counts every matrix
+product the step dispatches (the same dots the HLO parser counts, each
+masked attention score included).  One card has no collectives, so the
+collective keys of its result are empty and :func:`roofline_terms`
+refuses ``n_chips > 1``.
+"""
+from __future__ import annotations
+
+from collections import defaultdict
+
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.roofline.hw import H100_HW, HwSpec
+
+__all__ = ["analytic_memory_bytes", "model_flops", "count_flops",
+           "roofline_terms"]
+
+
+# ------------------------------------------------------------- op counts
+
+def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
+    """``aten.bmm`` in both its overloads: ``bmm(a, b)`` and
+    ``bmm.dtype(a, b, out_dtype)``, the f32 scores from 16-bit operands
+    (``models/attention.py`` ``_ScoresF32``).  The stock formula takes
+    ``out_dtype``, the third positional argument, for its output shape
+    and fails."""
+    b, m, k = a_shape
+    b2, k2, n = b_shape
+    if (b, k) != (b2, k2):
+        raise ValueError(f"bmm of {tuple(a_shape)} and {tuple(b_shape)}")
+    return 2 * b * m * n * k
+
+
+def count_flops(fn, *args, **kw) -> dict:
+    """Run ``fn(*args, **kw)`` once and count its matrix products' FLOPs
+    (2 per multiply-add, as the HLO parser counts a dot), on whatever
+    device the arguments live.  Returns the keys of the JAX package's
+    ``analyze_hlo`` (``flops``, empty collective maps, zero wire bytes)
+    and ``by_op``, the FLOPs of each ATen op."""
+    counter = FlopCounterMode(display=False,
+                              custom_mapping={torch.ops.aten.bmm: _bmm_flop})
+    with counter:
+        fn(*args, **kw)
+    by_op: dict = defaultdict(int)
+    for op, n in counter.get_flop_counts()["Global"].items():
+        by_op[str(op)] += n
+    return {"flops": float(counter.get_total_flops()),
+            "collective_operand_bytes": {},
+            "collective_wire_bytes": {},
+            "total_wire_bytes": 0.0,
+            "total_collective_operand_bytes": 0.0,
+            "by_op": dict(by_op)}
+
+
+# ------------------------------------------------------------- memory model
+
+def analytic_memory_bytes(cfg: ModelConfig, shape: ShapeConfig,
+                          n_chips: int) -> float:
+    """Per-device HBM traffic (bytes) for one step — structural model.
+
+    train: params read twice (fwd+bwd) in compute dtype + optimizer
+    read/write (p,m,v fp32 ×2) + rematerialized activations (~2 writes +
+    3 reads of one activations set per layer at bf16).
+    prefill: params once + activations once.
+    decode: params once + full KV cache read + one-token write.
+    """
+    cd = 2  # bf16
+    n_params_shard = cfg.n_params() / n_chips
+    n_active_shard = cfg.n_active_params() / n_chips
+    tokens = shape.global_batch * shape.seq_len / n_chips
+    act_unit = tokens * cfg.d_model * cd  # one activations tensor, sharded
+    if shape.kind == "train":
+        opt = n_params_shard * 4 * 3 * 2          # p,m,v fp32 read+write
+        wread = 2 * n_active_shard * cd + n_params_shard * cd
+        acts = cfg.n_layers * act_unit * 5
+        return opt + wread + acts
+    if shape.kind == "prefill":
+        return n_active_shard * cd + cfg.n_layers * act_unit * 2
+    # decode: one token
+    kv = _kv_cache_bytes(cfg, shape) / n_chips
+    tok = shape.global_batch * cfg.d_model * cd * cfg.n_layers / n_chips
+    return n_active_shard * cd + kv + tok
+
+
+def _kv_cache_bytes(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    cd = 2
+    n_attn = sum(1 for i in range(cfg.n_layers) if cfg._is_attn_layer(i))
+    kv = (n_attn * 2 * shape.global_batch * shape.seq_len
+          * cfg.n_kv_heads * cfg.head_dim * cd)
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        n_ssm = cfg.n_layers - n_attn
+        kv += n_ssm * shape.global_batch * (
+            s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
+            + (s.d_conv - 1) * (s.d_inner(cfg.d_model)
+                                + 2 * s.n_groups * s.d_state) * cd)
+    return kv
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
+    """Global MODEL_FLOPS: 6·N_active·D tokens (train: fwd+bwd; serve:
+    2·N_active·D). Attention O(s²) term added for train/prefill."""
+    tokens = shape.global_batch * shape.seq_len
+    n = cfg.n_active_params()
+    n_attn = sum(1 for i in range(cfg.n_layers) if cfg._is_attn_layer(i))
+    attn_flops = (4 * shape.global_batch * shape.seq_len ** 2
+                  * cfg.n_heads * cfg.head_dim * n_attn) / 2  # causal
+    if shape.kind == "train":
+        return 6.0 * n * tokens + 3 * attn_flops
+    if shape.kind == "prefill":
+        return 2.0 * n * tokens + attn_flops
+    # decode: one token per sequence + KV attention
+    dec_attn = (4 * shape.global_batch * shape.seq_len
+                * cfg.n_heads * cfg.head_dim * n_attn)
+    return 2.0 * n * shape.global_batch + dec_attn
+
+
+# ------------------------------------------------------------- roofline
+
+def roofline_terms(cfg: ModelConfig, shape: ShapeConfig, n_chips: int,
+                   counts: dict, hw: HwSpec = H100_HW) -> dict:
+    """The roofline terms (seconds) of one step, its bottleneck and the
+    share of the card's peak the bound allows, with the keys of the JAX
+    package's ``roofline_terms``.  ``counts`` is :func:`count_flops`'s
+    result for the step; compute time is its FLOPs over the card's peak
+    for ``cfg.compute_dtype``, memory time the analytic bytes over
+    ``hw.hbm_bw``."""
+    if n_chips != 1:
+        raise NotImplementedError(
+            f"roofline_terms: n_chips={n_chips}; the port counts no "
+            "collectives yet, so only one card has a collective term "
+            "(several cards: ROADMAP.md Queue 1 item 4)")
+    peak = hw.peak_flops[cfg.compute_dtype]
+    flops_dev = counts["flops"]
+    mflops = model_flops(cfg, shape)
+    compute_s = flops_dev / peak
+    mem_bytes = analytic_memory_bytes(cfg, shape, n_chips)
+    memory_s = mem_bytes / hw.hbm_bw
+    collective_s = 0.0
+    dominant = max(("compute", compute_s), ("memory", memory_s),
+                   ("collective", collective_s), key=lambda t: t[1])[0]
+    bound = max(compute_s, memory_s, collective_s)
+    mfu_at_roofline = (mflops / n_chips / peak) / bound if bound > 0 else 0.0
+    return {
+        "compute_s": compute_s,
+        "memory_s": memory_s,
+        "collective_s": collective_s,
+        "dominant": dominant,
+        "hlo_flops_per_device": flops_dev,
+        "model_flops_global": mflops,
+        "useful_ratio": (mflops / n_chips) / flops_dev if flops_dev else 0.0,
+        "memory_bytes_per_device": mem_bytes,
+        "wire_bytes_per_device": counts["total_wire_bytes"],
+        "roofline_fraction": min(mfu_at_roofline, 1.0),
+    }

@@ -2,8 +2,10 @@
 
 The one home of the card's numbers: ``chip_smoke.py``'s bounds (bytes
 over ``hbm_bw``, operations over ``peak_flops`` of the operands' type),
-the planner's budget (``block_smem``) and the K4 ring's shared-memory
-plan (``kernels/manual.py``) read them from here."""
+the planner's budget (``block_smem``), the K4 ring's shared-memory
+plan (``kernels/manual.py``), attention's score budget (``hbm_bytes``)
+and the roofline terms (``roofline/analysis.py``) read them from
+here."""
 from __future__ import annotations
 
 import dataclasses

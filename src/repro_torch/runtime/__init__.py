@@ -1,2 +1,6 @@
 """Runtime services the serving engine uses: straggler detection,
-heartbeats and deterministic fault injection."""
+heartbeats, the restart policy and deterministic fault injection."""
+from repro_torch.runtime.fault_tolerance import (HeartbeatRegistry,
+                                                 RestartPolicy, StepMonitor)
+
+__all__ = ["HeartbeatRegistry", "RestartPolicy", "StepMonitor"]

@@ -1,14 +1,17 @@
-"""Fault tolerance: straggler detection and heartbeats.
+"""Fault tolerance: straggler detection, heartbeats and the restart
+policy.
 
 Stragglers (a slow step, a throttled card) are detected from the
 step-time distribution; liveness from heartbeat timestamps.  The serving
 engine records per-slot step times and beats once per step.
+``RestartPolicy`` turns both into a recovery action.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
-from typing import Callable
+from typing import Callable, Optional
 
 
 class StepMonitor:
@@ -71,3 +74,42 @@ class HeartbeatRegistry:
     def alive(self) -> list[str]:
         now = self.clock()
         return [h for h, t in self._last.items() if now - t <= self.timeout]
+
+    def dead(self) -> list[str]:
+        now = self.clock()
+        return [h for h, t in self._last.items() if now - t > self.timeout]
+
+
+@dataclasses.dataclass
+class RestartPolicy:
+    """Decides the recovery action after failures.
+
+    evict_stragglers: drop flagged hosts at the next checkpoint boundary
+    (cheaper than mid-step); max_failures_per_hour bounds crash-looping —
+    beyond it, halt for operator attention instead of thrashing the
+    cluster.
+    """
+    max_failures_per_hour: int = 6
+    evict_stragglers: bool = True
+    _failures: list = dataclasses.field(default_factory=list)
+
+    def on_failure(self, now: Optional[float] = None) -> str:
+        now = time.monotonic() if now is None else now
+        self._failures = [t for t in self._failures if now - t < 3600]
+        self._failures.append(now)
+        if len(self._failures) > self.max_failures_per_hour:
+            return "halt"
+        return "restore_and_remesh"
+
+    def plan(self, monitor: StepMonitor, heartbeats: HeartbeatRegistry,
+             now: Optional[float] = None) -> dict:
+        dead = heartbeats.dead()
+        stragglers = monitor.stragglers() if self.evict_stragglers else []
+        evict = sorted(set(dead) | set(stragglers))
+        action = "none"
+        if dead:
+            action = self.on_failure(now)
+        elif stragglers:
+            action = "evict_at_checkpoint"
+        return {"action": action, "evict": evict, "dead": dead,
+                "stragglers": stragglers}

@@ -1922,3 +1922,105 @@ def test_lower_fault_lands_on_an_alt_config_of_the_row_dot(cuda_device,
     assert res.attrs["source"] == "quarantine_alt"
     assert mkernel.ROWDOT.launches == before + 2
     assert bool(((again - want).abs() <= limit).all())
+
+
+# ------------------------------------------------------ prefill on the card
+
+def _prefill_model(dev, compute_dtype="bfloat16"):
+    from repro_torch.models.lm import build_model
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")),
+                              compute_dtype=compute_dtype)
+    model = build_model(cfg)
+    return model, model.init(seed=7, device=dev)
+
+
+def _prompt(model, dev, b=3, s=40):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    return {"tokens": torch.randint(0, model.cfg.vocab_size, (b, s),
+                                    generator=gen, device=dev)}
+
+
+@pytest.mark.gpu
+def test_prefill_kernels_match_ref(cuda_device):
+    """Prefill with the rmsnorm kernel against ``mode="ref"`` on the same
+    weights: the kernel's output differs from the plain version's by at
+    most one bf16 ulp (its f32 row sum is taken in another order), which
+    after two layers and the head stays within the bf16 tolerance the
+    decode tests hold the port to (5e-2)."""
+    model, params = _prefill_model(cuda_device)
+    batch = _prompt(model, cuda_device)
+    lk, ck = model.prefill(params, batch, max_len=48)
+    lr, cr = model.prefill(params, batch, max_len=48, mode="ref")
+    torch.testing.assert_close(lk.float(), lr.float(), rtol=5e-2,
+                               atol=5e-2)
+    for got, want in zip(ck, cr):
+        for n in ("k", "v"):
+            torch.testing.assert_close(got[n].float(), want[n].float(),
+                                       rtol=5e-2, atol=5e-2)
+            assert not got[n][:, 40:].any()
+
+
+@pytest.mark.gpu
+def test_prefill_and_decode_launch_counts(cuda_device):
+    """2·L+1 rmsnorm launches and no decode launch a prefill call; then
+    2·L+1 rmsnorm, L decode_attn and L merge launches a decode step."""
+    model, params = _prefill_model(cuda_device)
+    n_l = model.cfg.n_layers
+    batch = _prompt(model, cuda_device)
+
+    def launches(fn):
+        for k in cuda.KERNELS.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: k.launches for n, k in cuda.KERNELS.items()
+                     if k.launches}
+
+    (logits, cache), counts = launches(
+        lambda: model.prefill(params, batch, max_len=48))
+    assert counts == {"rmsnorm": 2 * n_l + 1}
+    with torch.inference_mode():
+        _, counts = launches(lambda: model.decode_step(
+            params, logits.argmax(-1, keepdim=True), cache, 40))
+    assert counts == {"rmsnorm": 2 * n_l + 1, "decode_attn": n_l,
+                      "decode_attn_merge": n_l}
+
+
+@pytest.mark.gpu
+def test_count_flops_counts_the_f32_scores_of_16bit_operands(cuda_device):
+    """In bf16 the scores go through ``torch.bmm(..., out_dtype=float32)``
+    (``aten.bmm.dtype``), which ``count_flops`` counts as the f32 path's
+    ``aten.bmm``: the two prefills count the same FLOPs, the hand count
+    of their matrix products."""
+    from repro_torch.roofline import analysis
+    counts = {}
+    for dt in ("bfloat16", "float32"):
+        model, params = _prefill_model(cuda_device, dt)
+        batch = _prompt(model, cuda_device, b=2, s=24)
+        counts[dt] = analysis.count_flops(model.prefill, params, batch,
+                                          max_len=24)
+    cfg, b, s = model.cfg, 2, 24
+    d, dh, f = cfg.d_model, cfg.head_dim, cfg.d_ff
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    per_tok = 2 * d * dh * (hq + 2 * hkv) + 2 * hq * dh * d + 6 * d * f
+    want = (cfg.n_layers * (b * s * per_tok + 4 * b * hq * s * s * dh)
+            + 2 * b * d * cfg.padded_vocab)
+    assert counts["bfloat16"]["flops"] == counts["float32"]["flops"] == want
+    assert counts["bfloat16"]["by_op"]["aten.bmm"] == \
+        counts["float32"]["by_op"]["aten.bmm"] > 0
+
+
+@pytest.mark.gpu
+def test_build_cell_runs_each_kind_on_the_card(cuda_device):
+    from repro_torch.launch import steps
+    cfg = reduced(get_config("yi-9b"))
+    for kind in ("train_4k", "prefill_32k", "decode_32k"):
+        shape = dataclasses.replace(steps.get_shape(kind), global_batch=2,
+                                    seq_len=32)
+        fn, args = steps.build_cell(cfg, shape)
+        tokens = args[1] if kind == "decode_32k" else args[1]["tokens"]
+        assert tokens.is_cuda
+        out = fn(*args)
+        torch.cuda.synchronize()
+        first = out[1]["loss"] if kind == "train_4k" else out[0]
+        assert bool(torch.isfinite(first).all()), kind

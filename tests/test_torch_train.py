@@ -683,25 +683,61 @@ def test_two_train_steps_with_weight_decay_match_jax():
     _two_steps_match_jax(dict(STEP_CFG, weight_decay=0.1))
 
 
-def _two_steps_match_jax(ocfg):
+def _two_steps_match_jax(ocfg, steps=2, batches=None):
+    """``steps`` train steps of both packages on the same carried weights
+    and batches (``batches(step, cfg)``, seeded numpy by default); returns
+    each step's (port, JAX) metrics."""
     jmodel, jparams, tmodel, tparams = _carried("float32", seed=5)
     jstep = jax.jit(jtrainstep.make_train_step(jmodel, jopt.AdamWConfig(
         **ocfg)))
     tstep = ttrainstep.make_train_step(tmodel, topt.AdamWConfig(**ocfg))
     jstate = {"params": jparams, "opt_state": jopt.adamw_init(jparams)}
     tstate = _port_state(tparams)
-    for step in range(2):
-        toks = _tokens(tmodel.cfg, 4, 17, seed=20 + step)
+    seen = []
+    for step in range(steps):
+        toks = (batches(step, tmodel.cfg) if batches
+                else _tokens(tmodel.cfg, 4, 17, seed=20 + step))
         jstate, jm = jstep(jstate, {"tokens": jnp.asarray(toks)})
         tstate, tm = tstep(tstate, {"tokens": torch.from_numpy(toks)})
         assert set(tm) == set(jm) == {"loss", "nll", "aux", "lr",
                                       "grad_norm"}
         for k in jm:
             _close(tm[k], jm[k], rtol=1e-5, atol=1e-6)
+        seen.append(({k: float(v) for k, v in tm.items()},
+                     {k: float(v) for k, v in jm.items()}))
     _params_close(dict(tstate["params"].named_parameters()),
                   _named_grads_of_jax(jstate["params"], tmodel.cfg),
                   ocfg["lr"])
-    assert int(tstate["opt_state"]["step"]) == 2
+    assert int(tstate["opt_state"]["step"]) == steps
+    return seen
+
+
+def test_six_train_steps_at_the_chip_schedule_match_jax():
+    """chip_smoke's train phase at reduced size: six steps of AdamW(lr
+    3e-3, warmup 10, 50 total steps, weight decay 0.1) on
+    ``SyntheticTokens(seed=0)``, whose loss rises over the later steps
+    on the card.  The port's metrics follow the JAX package's at every
+    step, so the rise is not the port's: the tokens are uniform over the
+    vocabulary (nothing to learn, no loss below ln V), and the warmup
+    raises the learning rate every step, so each update adds more noise
+    than it removes."""
+    data = SyntheticTokens(DataConfig(seq_len=33, global_batch=4,
+                                      vocab_size=512))
+    jdata = JSyntheticTokens(JDataConfig(seq_len=33, global_batch=4,
+                                         vocab_size=512))
+
+    def batches(step, cfg):
+        toks = data.batch(step)
+        np.testing.assert_array_equal(toks, jdata.batch(step))
+        return toks
+
+    seen = _two_steps_match_jax(dict(lr=3e-3, warmup_steps=10,
+                                     total_steps=50), steps=6,
+                                batches=batches)
+    lrs = [tm["lr"] for tm, _ in seen]
+    assert lrs == pytest.approx([3e-3 * s / 10 for s in range(1, 7)],
+                                rel=1e-6)
+    assert all(tm["loss"] > np.log(512) for tm, _ in seen)
 
 
 def test_grad_accum_matches_one_batch_and_jax():
