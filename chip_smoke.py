@@ -18,7 +18,8 @@ Phases (each raises on failure, so the script exits non-zero):
   3. kernels  — each kernel against its plain PyTorch version on the card at
                 the main path's shapes: rmsnorm at the decode rows (1, 4),
                 the train rows (8192) and the prefill rows (16128) of
-                4096, 4 f32 rows of 12288 (a
+                4096, the families phase's rows (4096 of 2048, 16384 of
+                2560 and of 5120, and 4 of each), 4 f32 rows of 12288 (a
                 cluster), and rows that are not whole 16-byte vectors
                 ([8, 1001], [3, 4098] in f32 and bf16: the narrower-lane
                 instances, with a lost-element control), with each
@@ -31,9 +32,10 @@ Phases (each raises on failure, so the script exits non-zero):
                 serve shape (B=4, S=4096) and the profile's (kv_len 17-64):
                 launch counts, both passes against SDPA and the bound over the rows kv_len leaves, a D sweep; a
                 batch row with no valid position and a mask with holes;
-                two runs' bits; chatglm3-6b's g=16; Phi-2's dh=80 and
-                Phi-3-mini's dh=96 at kv_len 17-64 and uniform (B=4,
-                S=4096) against the plain version, SDPA and the bound
+                two runs' bits; chatglm3-6b's g=16; Phi-2's dh=80,
+                Phi-3-mini's dh=96 and InternVL2-2B's g=2 at kv_len 17-64
+                and uniform (B=4, S=4096) against the plain version, SDPA
+                and the bound
   3b. linalg — mxv, mxv_t, bicg, gemver at 16384^2 and 4096^2 f32 through
                 their public functions, each kernel against its plain
                 version with lost-stream controls, and timed; mxv in
@@ -158,6 +160,27 @@ Phases (each raises on failure, so the script exits non-zero):
                 memory; (d) wall and device time, tokens/s, count_flops beside
                 model_flops, roofline_terms(n_chips=1) and the share of
                 the bound reached, and (a)'s time by kernel
+  6c. families — with the serve model freed, the MoE, SSM and VLM
+                families at full width and depth on random bf16 weights:
+                Qwen3-MoE-30B-A3B (prefill B=4 x 1024 at max_len 2048),
+                Mamba2-2.7B (B=4 x 4096) and InternVL2-2B (256 prefix
+                embeds + 768 tokens, B=4, max_len 1040), each through
+                launch.steps.build_prefill_step and 16 greedy decode steps
+                from its cache: launches a prefill and a decode step,
+                wall time, time between events, tokens/s, count_flops and
+                its bound, the decode step's byte floor (a MoE layer's
+                chosen experts only), peak memory, a torch.profiler
+                breakdown of a prefill and of two decode steps; then
+                against mode="ref": last logits and the worst cache or
+                state row within 2x a one-ulp control, a lost-rows fault
+                above it, 4 teacher-forced decode steps (greedy tokens,
+                logits within 2x the step's control); Mamba2's serving
+                invariant at B=1 (prefill 1024 + one decode step against
+                the full forward over 1025 tokens, which runs the SSD in
+                chunks of 1); (d) Jamba (one 8-layer period) and Arctic
+                (dense residual) at reduced() dims, not a full-width
+                path: prefill + 4 decode steps, launches, against
+                mode="ref"
   7. train    — with the serve model freed: Yi-9B at full width, 8 of 48
                 layers, f32 params and bf16 compute, trains 6 steps of
                 seq 4096 x batch 2 through the launcher's path; every
@@ -170,6 +193,8 @@ Phases (each raises on failure, so the script exits non-zero):
                 to
   8. report   — a JSON line of kernels, the card's name and power limit, and
                 as the last line {"ok": true, "device": {...}}
+
+Phases 4-7 print their seconds ("phase <name>: N s").
 
 Nothing here imports JAX or the JAX package.
 """
@@ -375,7 +400,15 @@ RMSNORM_CASES = ((1, 4096, "bfloat16"), (SERVE_SLOTS, 4096, "bfloat16"),
                  (PREFILL_B * PREFILL_S, 4096, "bfloat16"),
                  (SERVE_SLOTS, 12288, "float32"), (8, 1001, "bfloat16"),
                  (8, 1001, "float32"), (3, 4098, "bfloat16"),
-                 (3, 4098, "float32"))
+                 (3, 4098, "float32"),
+                 # the families phase's rows: Qwen3-MoE's and InternVL2's
+                 # 2048 (a prefill of 4 x 1024 positions), Mamba2's block
+                 # norms at 2560 and gated norm at d_inner 5120 (4 x 4096),
+                 # and the decode rows of each
+                 (4096, 2048, "bfloat16"), (16384, 2560, "bfloat16"),
+                 (16384, 5120, "bfloat16"), (SERVE_SLOTS, 2048, "bfloat16"),
+                 (SERVE_SLOTS, 2560, "bfloat16"),
+                 (SERVE_SLOTS, 5120, "bfloat16"))
 RMSNORM_SWEEP_CLUSTERS = (1, 2, 4, 8)     # at the decode rows
 RMSNORM_SWEEP_ITEMS = (1, 2, 4, 16)       # items a block at 8192 rows
 
@@ -513,8 +546,10 @@ DECODE_SHAPES = ((8, 32768, "uniform"), (SERVE_SLOTS, SERVE_MAX_LEN,
                                           "uniform"),
                  (SERVE_SLOTS, SERVE_MAX_LEN, "profile"))
 DECODE_D_SWEEP = (1, 2, 4, 8)
-# (model, Hkv, Hq, dh): head dims of public models other than 2^k x 16
-DECODE_HEAD_DIMS = (("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96))
+# (model, Hkv, Hq, dh): head dims of public models other than 2^k x 16,
+# and InternVL2-2B's group g = 2 (the families phase's)
+DECODE_HEAD_DIMS = (("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96),
+                    ("internvl2-2b", 8, 16, 128))
 
 
 def check_decode(card: str, results: dict) -> None:
@@ -785,7 +820,8 @@ def check_decode(card: str, results: dict) -> None:
             nbytes = (2 * rows * hkv_d * dh_d * 2 + b * hq_d * dh_d * 2
                       + b * s * 4 + b * hq_d * dh_d * 4 + b * hq_d * 4)
             bms, by = bound_ms(nbytes, 4.0 * rows * hq_d * dh_d, "bfloat16")
-            print(f"decode_attn dh={dh_d} ({model}) B={b} S={s} Hkv={hkv_d} "
+            print(f"decode_attn dh={dh_d} g={hq_d // hkv_d} ({model}) B={b} "
+                  f"S={s} Hkv={hkv_d} "
                   f"Hq={hq_d} bf16 kv_len {kind} [{lo}, {hi - 1}] "
                   f"D={cfg.stride_unroll}, sum(kv_len)={rows}: "
                   f"max_abs_err={err_t:g} (tolerance as above) "
@@ -3743,6 +3779,33 @@ def _ulp_moved(t, gen):
     return (f + sign * torch.where(f == 0, 0, ulp)).to(t.dtype)
 
 
+def _ulp_norm(plain, gen):
+    """rmsnorm (``plain``, called in its plain version) with every output
+    moved one ulp of its dtype: the one-ulp control."""
+    def norm(x, w, eps=1e-6, config=None, mode=None, with_inv_rms=False):
+        out, inv = plain(x, w, eps=eps, config=config, mode=mode,
+                         with_inv_rms=True)
+        out = _ulp_moved(out, gen)
+        return (out, inv) if with_inv_rms else out
+    return norm
+
+
+def _lost_rows_norm(plain, call: int, rows: int):
+    """rmsnorm (``plain``) whose ``call``-th call (from 0) leaves the last
+    ``rows`` rows of its output unwritten (zero): the planted fault."""
+    calls = [0]
+
+    def norm(x, w, eps=1e-6, config=None, mode=None, with_inv_rms=False):
+        out, inv = plain(x, w, eps=eps, config=config, mode=mode,
+                         with_inv_rms=True)
+        if calls[0] == call:
+            out = out.clone()
+            out.view(-1, out.shape[-1])[-rows:] = 0
+        calls[0] += 1
+        return (out, inv) if with_inv_rms else out
+    return norm
+
+
 def _rel(got, want) -> float:
     return float((got.float() - want.float()).norm() / want.float().norm())
 
@@ -3750,11 +3813,19 @@ def _rel(got, want) -> float:
 def _cache_rel(got, want, s: int) -> float:
     """The worst cache row's ||K - K_ref|| / ||K_ref|| (or V's): a row is
     one (layer, batch row, position) of the first ``s`` positions, all
-    its heads, so a few lost rows stand out of the rounding."""
+    its heads, so a few lost rows stand out of the rounding.  A Mamba-2
+    layer's rows are its conv window and its SSM state of one (layer,
+    batch row)."""
     worst = 0.0
     for g, w in zip(got, want):
-        for n in ("k", "v"):
-            a, b = (t[:, :s].flatten(2).float() for t in (g[n], w[n]))
+        if "k" in g:
+            pairs = [(g[n][:, :s].flatten(2), w[n][:, :s].flatten(2))
+                     for n in ("k", "v")]
+        else:
+            pairs = [(g[n].flatten(1), w[n].flatten(1))
+                     for n in ("conv", "ssm")]
+        for a, b in pairs:
+            a, b = a.float(), b.float()
             rel = (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
             worst = max(worst, float(rel.max()))
     return worst
@@ -3911,17 +3982,11 @@ def phase_prefill(card: str, model, params) -> None:
                     torch.full((PREFILL_B,), t, device="cuda"))
         return lg, tc
 
-    def one_ulp_norm(x, w, eps=1e-6, config=None, mode=None,
-                     with_inv_rms=False):
-        out, inv = plain_norm(x, w, eps=eps, config=config, mode=mode,
-                              with_inv_rms=True)
-        out = _ulp_moved(out, gen)
-        return (out, inv) if with_inv_rms else out
-
     def one_ulp_attn(*a, **kw):
         return _ulp_moved(plain_sdpa(*a, **kw), gen)
 
     plain_norm, plain_sdpa = trops.rmsnorm, tatt._sdpa
+    one_ulp_norm = _ulp_norm(plain_norm, gen)
     lp, cp = model.prefill(params, short, max_len=SERVE_MAX_LEN)
     lt, ct = teacher_forced()
     lr_ = model.prefill(params, short, max_len=PREFILL_SHORT, mode="ref")[0]
@@ -3945,18 +4010,8 @@ def phase_prefill(card: str, model, params) -> None:
 
     # (b) in-model: the kernels against mode="ref" at (a)'s shape
     ref_logits, ref_cache = run_a("ref")
-    calls = [0]
-
-    def lost_rows(x, w, eps=1e-6, config=None, mode=None,
-                  with_inv_rms=False):
-        out, inv = plain_norm(x, w, eps=eps, config=config, mode=mode,
-                              with_inv_rms=True)
-        if calls[0] == 2 * PREFILL_FAULT_LAYER:
-            out = out.clone()
-            out.view(-1, out.shape[-1])[-PREFILL_FAULT_ROWS:] = 0
-        calls[0] += 1
-        return (out, inv) if with_inv_rms else out
-
+    lost_rows = _lost_rows_norm(plain_norm, 2 * PREFILL_FAULT_LAYER,
+                                PREFILL_FAULT_ROWS)
     lost = (f"fault: {PREFILL_FAULT_ROWS} rows of layer "
             f"{PREFILL_FAULT_LAYER}'s norm1 lost")
     reads = {"kernels": (logits, cache)}
@@ -4040,9 +4095,10 @@ def _roofline_line(what, cfg, shape, flops, terms, dev_ms, card) -> None:
           f"TFLOP/s counted [{card}]")
 
 
-def _profile_prefill(card, run) -> None:
-    """Where one prefill's time goes: device time by kernel and the busy
-    share (torch.profiler over one call against its unprofiled wall)."""
+def _profile_prefill(card, run, what: str = "prefill") -> None:
+    """Where one call's time goes (a prefill, or a few decode steps):
+    device time by kernel and the busy share (torch.profiler over one
+    call against its unprofiled wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     (_, wall, _) = _timed(run)
@@ -4059,12 +4115,12 @@ def _profile_prefill(card, run) -> None:
                and dev(e) > 0]
     total_ms = sum(dev(e) for e in kernels) / 1e3
     if total_ms <= 0:
-        print(f"profile prefill: wall {wall * 1e3:.1f} ms; the profiler "
+        print(f"profile {what}: wall {wall * 1e3:.1f} ms; the profiler "
               f"recorded no device kernels [{card}]")
         return
     rms = [e for e in kernels if "rmsnorm_ms" in e.key]
     rms_ms = sum(dev(e) for e in rms) / 1e3
-    print(f"profile prefill: wall {wall * 1e3:.1f} ms, device kernels "
+    print(f"profile {what}: wall {wall * 1e3:.1f} ms, device kernels "
           f"{total_ms:.1f} ms ({100 * total_ms / (wall * 1e3):.1f}% busy); "
           f"rmsnorm {rms_ms:.3f} ms in {sum(e.count for e in rms)} launches "
           f"({rms_ms / max(sum(e.count for e in rms), 1) * 1e3:.1f} us "
@@ -4072,6 +4128,458 @@ def _profile_prefill(card, run) -> None:
     for e in sorted(kernels, key=dev, reverse=True)[:12]:
         print(f"  {dev(e) / 1e3:9.3f} ms {100 * dev(e) / 1e3 / total_ms:5.1f}% "
               f"{e.count:6d} calls  {e.key[:90]}")
+
+
+# the families phase: (arch, B, prompt tokens S, max_len); a VLM's prefix
+# embeds come before the S tokens, so its cache holds Np + S rows
+FAMILY_CELLS = (("qwen3-moe-30b-a3b", 4, 1024, 2048),
+                ("mamba2-2.7b", 4, 4096, 4096),
+                ("internvl2-2b", 4, 768, 1040))
+FAMILY_DECODE = 16                  # greedy decode steps from the prefill
+FAMILY_GREEDY = 4                   # teacher-forced steps kernels vs ref
+FAMILY_FAULT_ROWS = 64              # rows of one norm output left unwritten
+# (d): compositions at reduced() dims, not a full-width path
+FAMILY_REDUCED = ("jamba-1.5-large-398b", "arctic-480b")
+FAMILY_REDUCED_SHAPE = (2, 64, 80)  # B, S, max_len
+MAMBA_INVARIANT_S = 1024            # B=1: prefill S, then decode token S+1
+
+
+class _Routing:
+    """The MoE router's picks of one run (``record``), replayed into the
+    plain runs it is compared with (``replay``).  Every rounding
+    difference between two runs can move a router near-tie (two experts'
+    probabilities an ulp apart) to the other expert, an O(1) change to
+    that token and, through attention, to its row's later tokens: on the
+    card the one-ulp control moved the worst cache row of Qwen3-MoE by
+    0.51.  Replayed, each plain run routes as the kernels' run did (gates
+    from its own probabilities), so the comparison reads the kernels'
+    rounding, not the router's discontinuity; ``replay`` counts the
+    tokens whose own top-k set differs from the replayed one."""
+
+    def __init__(self):
+        self.picks = []
+
+    def record(self):
+        from unittest import mock
+        from repro_torch.models import moe
+        route = moe._route
+
+        def routed(xt, w, e):
+            out = route(xt, w, e)
+            self.picks.append(out[2])
+            return out
+        return mock.patch.object(moe, "_route", routed)
+
+    def replay(self, moved: dict, key: str):
+        from unittest import mock
+        from repro_torch.models import moe
+        route, picks = moe._route, iter(self.picks)
+        moved.setdefault(key, [0, 0])
+
+        def replayed(xt, w, e):
+            probs, _, own = route(xt, w, e)
+            idx = next(picks)
+            moved[key][0] += int((own.sort(-1).values != idx.sort(-1)
+                                  .values).any(-1).sum())
+            moved[key][1] += idx.shape[0]
+            gates = probs.gather(-1, idx)
+            gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+            return probs, gates.to(xt.dtype), idx
+        return mock.patch.object(moe, "_route", replayed)
+
+
+def _moved_line(moved: dict) -> str:
+    return "; ".join(f"{k} {a} of {n}" for k, (a, n) in moved.items())
+
+
+def _family_launches(cfg) -> tuple[dict, dict]:
+    """The kernel launches of one prefill call and of one decode step:
+    rmsnorm for each layer's norm1, norm2 (a layer with an FFN) and
+    Mamba-2's gated norm, and the final norm; decode_attn and its merge
+    once per attention layer in a decode step."""
+    from repro_torch.models import blocks
+    descs = blocks.stack_descriptors(cfg)
+    rms = 1 + sum(1 + (d.ffn != "none") + (d.mixer == "mamba")
+                  for d in descs)
+    n_attn = sum(d.mixer == "attn" for d in descs)
+    step = {"rmsnorm": rms}
+    if n_attn:
+        step.update(decode_attn=n_attn, decode_attn_merge=n_attn)
+    return {"rmsnorm": rms}, step
+
+
+def _decode_floor_bytes(model, params, cache, b, pos, experts) -> float:
+    """Bytes a decode step at ``pos`` must move: every weight it reads
+    once (the embedding's B rows where the head is its own; of a MoE
+    layer's experts, those its tokens chose: ``experts``, distinct experts
+    per MoE layer), the KV rows [0, pos] read and row pos written, a
+    Mamba-2 state read and written."""
+    cfg = model.cfg
+    total = 0.0
+    for name, p in params.named_parameters():
+        nb = p.numel() * p.element_size()
+        if name == "embed" and not cfg.tie_embeddings:
+            nb = b * p.shape[1] * p.element_size()
+        if ".moe.w_" in name:
+            continue
+        total += nb
+    moe_layers = [layer.moe for layer in params.blocks
+                  if layer.desc.ffn == "moe"]
+    for m, n in zip(moe_layers, experts):
+        per = sum(getattr(m, w)[0].numel() * getattr(m, w).element_size()
+                  for w in ("w_in", "w_gate", "w_out"))
+        total += n * per
+    for c in cache:
+        if "k" in c:
+            row = c["k"][0, 0].numel() * c["k"].element_size()
+            total += 2 * b * (pos + 2) * row        # read [0, pos], write pos
+        else:
+            total += 2 * sum(t.numel() * t.element_size()
+                             for t in c.values())
+    return total
+
+
+def _family_cell(card: str, arch: str, b: int, s: int, max_len: int) -> None:
+    """One model family at full width and depth on random bf16 weights
+    (seeded ``torch.Generator``): a prefill of B x (Np + S) through
+    ``launch.steps.build_prefill_step`` and 16 greedy decode steps from
+    its cache, counted, timed and profiled; then the kernels against
+    mode="ref": last logits and the worst cache or state row within 2x
+    the one-ulp control (every rmsnorm output one bf16 ulp off, in the
+    plain path), a planted fault (the last 64 rows of the middle layer's
+    norm1 output lost) above it, and 4 teacher-forced decode steps whose
+    greedy tokens must agree wherever rounding cannot close the top-2
+    margin; for Mamba-2, the serving invariant at B=1."""
+    import dataclasses
+    from unittest import mock
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.kernels.rmsnorm import ops as trops
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.lm import build_model
+    from repro_torch.roofline import analysis
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    per_prefill, per_step = _family_launches(cfg)
+    npre = cfg.n_prefix_embeds
+    tag = f"families {cfg.name}"
+    print(f"{tag}: {cfg.family}, n_layers={cfg.n_layers} d_model="
+          f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}x"
+          f"{cfg.head_dim} d_ff={cfg.d_ff} vocab={cfg.vocab_size}"
+          + (f" experts {cfg.moe.n_experts} top-{cfg.moe.top_k} d_ff_expert "
+             f"{cfg.moe.d_ff_expert}" if cfg.moe else "")
+          + (f" ssm d_inner {cfg.ssm.d_inner(cfg.d_model)} heads "
+             f"{cfg.ssm.n_heads(cfg.d_model)}x{cfg.ssm.head_dim} d_state "
+             f"{cfg.ssm.d_state} chunk {cfg.ssm.chunk}" if cfg.ssm else "")
+          + (f" prefix embeds {npre}" if npre else "")
+          + f", n_params={cfg.n_params() / 1e9:.2f}B bf16 [{card}]")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"{tag}: weights {wbytes / 1e9:.2f} GB drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    shape = dataclasses.replace(get_shape("prefill_32k"), global_batch=b,
+                                seq_len=s)
+    prefill, (_, batch) = steps.build_prefill_step(cfg, shape, "cuda",
+                                                   params=params)
+    pos0 = npre + s
+
+    def run(mode=None):
+        return prefill(params, batch, max_len=max_len, mode=mode)
+
+    flops = analysis.count_flops(run)          # also the warm-up call
+    routing = _Routing()
+    with routing.record():
+        ((logits, cache), wall, ev_ms), counts = _launches(
+            lambda: _timed(run))
+    if counts != per_prefill:
+        raise AssertionError(f"{tag} prefill: launches {counts}, expected "
+                             f"{per_prefill}")
+    if logits.shape != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} prefill: logits {tuple(logits.shape)}"
+                             " not finite or of the wrong shape")
+    bound_s = flops["flops"] / PEAK_FLOPS["bfloat16"]
+    print(f"{tag} prefill: B={b} x ({npre} + {s}) positions, max_len "
+          f"{max_len}: launches {json.dumps(counts)}; wall {wall:.4f} s, "
+          f"{ev_ms:.2f} ms between events, {b * pos0 / wall:.0f} positions/s"
+          f"; count_flops {flops['flops']:.4e} (aten.mm "
+          f"{flops['by_op'].get('aten.mm', 0):.4e}, aten.bmm "
+          f"{flops['by_op'].get('aten.bmm', 0):.4e}), their bf16 bound "
+          f"{bound_s * 1e3:.2f} ms ({100 * bound_s / wall:.1f}% of it "
+          f"reached); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    _profile_prefill(card, run, f"{tag} prefill")
+
+    # 16 greedy decode steps from (a clone of) the prefilled cache
+    experts = []
+    route = tmoe._route
+
+    def routed(xt, w, e):
+        out = route(xt, w, e)
+        experts.append(out[2])
+        return out
+
+    def decode(c, tok, n, mode=None):
+        outs = []
+        with torch.inference_mode():
+            for i in range(n):
+                lg, c = model.decode_step(params, tok, c, pos0 + i,
+                                          mode=mode)
+                tok = lg.argmax(-1, keepdim=True)
+                outs.append(lg)
+        return outs, c
+
+    main = [{k: v.clone() for k, v in c.items()} for c in cache]
+    first = logits.argmax(-1, keepdim=True)
+    with mock.patch.object(tmoe, "_route", routed):
+        ((outs, main), wall, ev_ms), counts = _launches(
+            lambda: _timed(lambda: decode(main, first, FAMILY_DECODE)))
+    want = {k: v * FAMILY_DECODE for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{tag} decode: launches {counts}, expected "
+                             f"{want}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in outs):
+        raise AssertionError(f"{tag} decode: non-finite logits")
+    n_moe = sum(1 for layer in params.blocks if layer.desc.ffn == "moe")
+    chosen = [int(t.unique().numel()) for t in experts]
+    step0 = chosen[:n_moe]
+    floor = _decode_floor_bytes(model, params, cache, b, pos0, step0)
+    print(f"{tag} decode: {FAMILY_DECODE} greedy steps at positions "
+          f"{pos0}-{pos0 + FAMILY_DECODE - 1}, B={b}: launches "
+          f"{json.dumps(counts)} ({json.dumps(per_step)} a step); "
+          f"{wall / FAMILY_DECODE * 1e3:.2f} ms a step wall, "
+          f"{ev_ms / FAMILY_DECODE:.2f} ms between events, "
+          f"{b * FAMILY_DECODE / wall:.1f} tokens/s; floor "
+          f"{floor / 1e9:.2f} GB a step, {floor / HBM_BYTES_PER_S * 1e3:.2f}"
+          f" ms at the memory rate"
+          + (f"; distinct experts a MoE layer (step 0) mean "
+             f"{sum(step0) / len(step0):.1f} of {cfg.moe.n_experts}, all "
+             f"{FAMILY_DECODE} steps mean {sum(chosen) / len(chosen):.1f}"
+             if n_moe else "")
+          + f"; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del outs
+    _profile_prefill(card, lambda: decode(main, first, 2),
+                     f"{tag} decode (2 steps)")
+    del main
+
+    # the kernels against mode="ref": prefill logits and cache rows
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    plain_norm = trops.rmsnorm
+    fault_layer = cfg.n_layers // 2
+    # rmsnorm calls before layer L's norm1: norm1, the gated norm and
+    # norm2 of each layer before it
+    fault_call = sum(1 + (d.ffn != "none") + (d.mixer == "mamba")
+                     for d in blocks.stack_descriptors(cfg)[:fault_layer])
+    lost = (f"fault: {FAMILY_FAULT_ROWS} rows of layer {fault_layer}'s "
+            f"norm1 lost")
+    moved = {}
+    with routing.replay(moved, "ref"):
+        ref_logits, ref_cache = run("ref")
+    ulp = _ulp_norm(plain_norm, gen)
+    with mock.patch.object(trops, "rmsnorm", ulp), \
+            routing.replay(moved, "control"):
+        ctl_logits, ctl_cache = run("ref")
+    with mock.patch.object(trops, "rmsnorm", _lost_rows_norm(
+            plain_norm, fault_call, FAMILY_FAULT_ROWS)), \
+            routing.replay(moved, "fault"):
+        f_logits, f_cache = run("ref")
+    rel = {"kernels": (_rel(logits, ref_logits),
+                       _cache_rel(cache, ref_cache, pos0)),
+           "control: one ulp": (_rel(ctl_logits, ref_logits),
+                                _cache_rel(ctl_cache, ref_cache, pos0)),
+           lost: (_rel(f_logits, ref_logits),
+                  _cache_rel(f_cache, ref_cache, pos0))}
+    del f_logits, f_cache
+    ctl = rel["control: one ulp"]
+    lim = (2 * ctl[0], 2 * ctl[1])
+    print(f"{tag} vs ref, prefill: ||logits - logits_ref|| / "
+          f"||logits_ref|| and the worst cache or state row's "
+          f"||c - c_ref|| / ||c_ref||: "
+          + ", ".join(f"{k} {a:.3e}, {c:.3e}" for k, (a, c) in rel.items())
+          + f"; limits {lim[0]:.3e}, {lim[1]:.3e} (2x the one-ulp control)"
+          + (f"; the plain runs routed as the kernels' run, tokens x MoE "
+             f"layers whose own top-{cfg.moe.top_k} differed: "
+             f"{_moved_line(moved)}" if cfg.moe else "")
+          + f" [{card}]")
+    _margin_check(f"{tag} vs ref, prefill", logits, ref_logits, card)
+    k_rel = rel["kernels"]
+    if k_rel[0] > lim[0] or k_rel[1] > lim[1]:
+        raise AssertionError(f"{tag}: the kernels disagree with ref "
+                             f"({k_rel} > {lim})")
+    if rel[lost][1] <= lim[1]:
+        raise AssertionError(f"{tag}: the lost norm rows stay inside the "
+                             "limit, so the check cannot see them")
+
+    # 4 teacher-forced steps (the kernels' greedy tokens fed to all three)
+    tok = logits.argmax(-1, keepdim=True)
+    agree, worst, limit = 0, 0.0, 0.0
+    moved = {}
+    with torch.inference_mode():
+        for i in range(FAMILY_GREEDY):
+            p = pos0 + i
+            step = _Routing()
+            with step.record():
+                lk, cache = model.decode_step(params, tok, cache, p)
+            with step.replay(moved, "ref"):
+                lr, ref_cache = model.decode_step(params, tok, ref_cache, p,
+                                                  mode="ref")
+            with mock.patch.object(trops, "rmsnorm", ulp), \
+                    step.replay(moved, "control"):
+                lc, ctl_cache = model.decode_step(params, tok, ctl_cache, p,
+                                                  mode="ref")
+            worst = max(worst, _rel(lk, lr))
+            limit = max(limit, 2 * _rel(lc, lr))
+            agree += _margin_check(f"{tag} vs ref, decode step {i}", lk, lr,
+                                   card)
+            tok = lk.argmax(-1, keepdim=True)
+    print(f"{tag} vs ref, {FAMILY_GREEDY} teacher-forced decode steps: "
+          f"greedy tokens agree {agree}/{FAMILY_GREEDY * b}; worst "
+          f"||logits - logits_ref|| / ||logits_ref|| {worst:.3e}, limit "
+          f"{limit:.3e} (2x the step's one-ulp control)"
+          + (f"; routed as the kernels' steps, own top-k differing: "
+             f"{_moved_line(moved)}" if cfg.moe else "") + f" [{card}]")
+    if worst > limit:
+        raise AssertionError(f"{tag}: decode steps disagree with ref "
+                             f"({worst:.3e} > {limit:.3e})")
+    del logits, cache, ref_logits, ref_cache, ctl_logits, ctl_cache
+    torch.cuda.empty_cache()
+    if cfg.ssm is not None and not cfg.attn_period:
+        _mamba_invariant(card, tag, model, params, gen)
+
+
+def _mamba_invariant(card, tag, model, params, gen) -> None:
+    """The serving invariant (tests/test_serve_consistency.py) at full
+    width, B=1: prefill of S tokens, then one decode step of token S+1,
+    against ``logits`` of all S+1 tokens, which runs the SSD in chunks of
+    1 (the chunk rule at an odd length).  Limit: 2x the one-ulp control of
+    the prefill's last logits."""
+    import numpy as np
+    import torch
+    from unittest import mock
+    from repro_torch.kernels.rmsnorm import ops as trops
+    from repro_torch.models import mamba2
+    cfg = model.cfg
+    s = MAMBA_INVARIANT_S
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (1, s + 1)), device="cuda")
+    lp, cache = model.prefill(params, {"tokens": toks[:, :s]}, max_len=s)
+    with torch.inference_mode():
+        ld, _ = model.decode_step(params, toks[:, s:], cache, s)
+    with torch.no_grad():
+        full, wall, _ = _timed(lambda: model.logits(params, {"tokens": toks}))
+    lr = model.prefill(params, {"tokens": toks[:, :s]}, max_len=s,
+                       mode="ref")[0]
+    with mock.patch.object(trops, "rmsnorm", _ulp_norm(trops.rmsnorm, gen)):
+        lc = model.prefill(params, {"tokens": toks[:, :s]}, max_len=s,
+                           mode="ref")[0]
+    ctl = _rel(lc, lr)
+    rel_p, rel_d = _rel(lp, full[:, s - 1]), _rel(ld, full[:, s])
+    print(f"{tag} invariant, B=1: prefill {s} tokens (chunk "
+          f"{mamba2.chunk_size(cfg, s)}) vs logits of all {s + 1} (chunk "
+          f"{mamba2.chunk_size(cfg, s + 1)}, {wall:.2f} s wall) at position "
+          f"{s - 1}: {rel_p:.3e}; one decode step vs position {s}: "
+          f"{rel_d:.3e}; limit {2 * ctl:.3e} (2x the one-ulp control of the "
+          f"prefill's logits, {ctl:.3e}) [{card}]")
+    _margin_check(f"{tag} invariant, decode vs full", ld, full[:, s], card)
+    if max(rel_p, rel_d) > 2 * ctl:
+        raise AssertionError(f"{tag}: prefill + decode disagree with the "
+                             f"full forward ({rel_p:.3e}, {rel_d:.3e} > "
+                             f"{2 * ctl:.3e})")
+
+
+def _family_reduced(card: str, arch: str) -> None:
+    """(d) A composition at ``reduced()`` dims on the card (not a
+    full-width path): prefill and 4 decode steps with the kernels,
+    counted, and the same under mode="ref" (logits within 2x the one-ulp
+    control)."""
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels.rmsnorm import ops as trops
+    from repro_torch.models.lm import build_model
+    cfg = reduced(get_config(arch))
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    b, s, max_len = FAMILY_REDUCED_SHAPE
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (b, s)), device="cuda")}
+    per_prefill, per_step = _family_launches(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    ulp = _ulp_norm(trops.rmsnorm, gen)
+
+    toks = []
+
+    def run(mode=None, norm=None):
+        """Prefill and 4 decode steps: the kernels' run picks the greedy
+        tokens, the others are fed the same ones."""
+        with mock.patch.object(trops, "rmsnorm", norm or trops.rmsnorm):
+            lg, c = model.prefill(params, batch, max_len=max_len, mode=mode)
+            out = [lg]
+            with torch.inference_mode():
+                for i in range(4):
+                    if len(toks) == i:
+                        toks.append(out[-1].argmax(-1, keepdim=True))
+                    lg, c = model.decode_step(params, toks[i], c, s + i,
+                                              mode=mode)
+                    out.append(lg)
+        return out
+
+    model.prefill(params, batch, max_len=max_len)        # warm
+    routing, moved = _Routing(), {}
+    with routing.record():
+        outs, counts = _launches(run)
+    want = {k: per_prefill.get(k, 0) + 4 * v for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"families (d) {arch}: launches {counts}, "
+                             f"expected {want}")
+    with routing.replay(moved, "ref"):
+        refs = run("ref")
+    with routing.replay(moved, "control"):
+        ctls = run("ref", ulp)
+    rels = [_rel(a, r) for a, r in zip(outs, refs)]
+    lims = [2 * _rel(c, r) for c, r in zip(ctls, refs)]
+    d = cfg.moe
+    print(f"families (d) {arch} at reduced() dims (n_layers {cfg.n_layers}, "
+          f"d_model {cfg.d_model}"
+          + (f", experts {d.n_experts} top-{d.top_k}" if d else "")
+          + (", dense residual" if d and d.dense_residual else "")
+          + f"; not a full-width path): B={b} S={s}, prefill + 4 decode "
+          f"steps, launches {json.dumps(counts)}; vs ref ||logits - "
+          f"logits_ref|| / ||logits_ref|| "
+          f"{', '.join(f'{r:.2e}' for r in rels)}, limits "
+          f"{', '.join(f'{x:.2e}' for x in lims)}"
+          + (f"; routed as the kernels' run, own top-k differing: "
+             f"{_moved_line(moved)}" if d else "") + f" [{card}]")
+    if any(r > x for r, x in zip(rels, lims)) or not all(
+            bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"families (d) {arch}: kernels disagree with "
+                             "ref or logits not finite")
+
+
+def phase_families(card: str) -> None:
+    """The MoE, SSM and VLM families at full width and depth (cells
+    (a)-(c)), then the hybrid and dense-residual compositions at reduced
+    dims (d); each phase's seconds printed."""
+    import gc
+    import torch
+    for arch, b, s, max_len in FAMILY_CELLS:
+        t0 = time.perf_counter()
+        _family_cell(card, arch, b, s, max_len)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"families {arch}: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    for arch in FAMILY_REDUCED:
+        _family_reduced(card, arch)
+    print(f"families (d): {time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def main() -> int:
@@ -4127,13 +4635,20 @@ def _run(t_start: float) -> int:
     print(f"kernels checked in {time.perf_counter() - t_start:.1f} s "
           f"[{card}]")
 
-    model, params, engine, counts = phase_serve(card)
-    phase_in_model(card, model, params, engine)
-    phase_profile(card, model, params, engine)
-    phase_prefill(card, model, params)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s [{card}]")
+        return out
+
+    model, params, engine, counts = timed("serve", phase_serve, card)
+    timed("in-model", phase_in_model, card, model, params, engine)
+    timed("profile", phase_profile, card, model, params, engine)
+    timed("prefill", phase_prefill, card, model, params)
     del model, params, engine          # free the serve weights and cache
     torch.cuda.empty_cache()
-    train_counts = phase_train(card)
+    timed("families", phase_families, card)
+    train_counts = timed("train", phase_train, card)
     # the K1 adamw kernel's launches are those of the training run; the
     # ring's, those of check_adamw's main path (training runs K1)
     results["adamw_update"]["launches"] = train_counts["adamw_update"]

@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs import get_config, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.lm import build_model
+from repro_torch.models.lm import build_model, check_trainable
 from repro_torch.train import optimizer as opt
 from repro_torch.train import trainstep
 
@@ -73,7 +73,9 @@ def abstract_state(model) -> dict:
 
 
 def abstract_cache(model, cfg: ModelConfig, shape: ShapeConfig):
-    """The KV cache of ``shape.seq_len`` positions on meta."""
+    """The cache on meta: ``{"k", "v"}`` of ``shape.seq_len`` positions
+    for an attention layer, ``{"conv", "ssm"}`` (SSM state in f32) for a
+    Mamba-2 layer."""
     return model.init_cache(shape.global_batch, shape.seq_len,
                             device=_META)
 
@@ -133,13 +135,22 @@ def _tokens(cfg: ModelConfig, b: int, s: int, dev):
                                          dtype=np.int32)).to(dev)
 
 
+def _prefix_embeds(cfg: ModelConfig, b: int, dev):
+    """A VLM's ``[B, Np, D]`` f32 patch embeddings (the frontend stub's
+    output), standard normal from seeded numpy."""
+    rng = np.random.default_rng(1)
+    return torch.from_numpy(rng.standard_normal(
+        (b, cfg.n_prefix_embeds, cfg.d_model), dtype=np.float32)).to(dev)
+
+
 def build_train_step(arch: Arch, shape: Shape, device=None,
                      remat: bool = True, grad_accum: int = 1):
     """``(train_step, (state, batch))``: AdamW at its defaults, the state
     drawn from seed 0, the batch ``[global_batch, seq_len]`` from
-    seeded numpy."""
+    seeded numpy.  Dense decoders only (``lm.check_trainable``)."""
     dev = resolve_device(device)
     cfg, shp = _resolve(arch, shape)
+    check_trainable(cfg)
     model = build_model(cfg)
     _cuts(cfg, shp)
     step = trainstep.make_train_step(model, opt.AdamWConfig(), remat=remat,
@@ -153,9 +164,11 @@ def build_prefill_step(arch: Arch, shape: Shape, device=None, params=None):
     """``(prefill, (params, batch))``; ``prefill(params, batch,
     max_len=None, mode=None)`` fills a cache of ``max_len`` positions,
     by default ``seq_len + n_prefix_embeds`` as the JAX package's (vlm
-    prefix embeds extend the internal sequence).  ``params``: weights to
-    use (drawn from seed 0 when None), so a caller that serves can
-    prefill on its own."""
+    prefix embeds extend the internal sequence).  The batch holds
+    ``tokens`` and, for a VLM, ``prefix_embeds`` ``[B, Np, D]`` f32 (as
+    ``abstract_batch`` declares them).  ``params``: weights to use
+    (drawn from seed 0 when None), so a caller that serves can prefill
+    on its own."""
     dev = resolve_device(device)
     cfg, shp = _resolve(arch, shape)
     model = build_model(cfg)
@@ -169,13 +182,17 @@ def build_prefill_step(arch: Arch, shape: Shape, device=None, params=None):
     if params is None:
         params = model.init(device=dev)
     batch = {"tokens": _tokens(cfg, shp.global_batch, shp.seq_len, dev)}
+    if cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = _prefix_embeds(cfg, shp.global_batch, dev)
     return prefill, (params, batch)
 
 
 def build_decode_step(arch: Arch, shape: Shape, device=None):
     """serve_step: ``(decode, (params, tokens, cache, pos))``, one new
     token ``[global_batch, 1]`` at ``pos = seq_len - 1`` against a zero
-    cache of ``seq_len`` positions (updated in place)."""
+    cache of ``seq_len`` positions (attention's updated in place; a
+    Mamba-2 layer's entry is its zero decode state ``{"conv", "ssm"}``,
+    replaced by the step's)."""
     dev = resolve_device(device)
     cfg, shp = _resolve(arch, shape)
     model = build_model(cfg)

@@ -22,7 +22,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.lm import build_model
+from repro_torch.models.lm import build_model, check_trainable
 from repro_torch.runtime.fault_tolerance import StepMonitor
 from repro_torch.train import AdamWConfig, make_train_step
 from repro_torch.train.trainstep import (init_state, load_state_tree,
@@ -65,6 +65,7 @@ def setup(argv=None) -> SimpleNamespace:
         cfg = reduced(cfg)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    check_trainable(cfg)
     model = build_model(cfg)
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps)
     step_fn = make_train_step(model, ocfg, remat=True)

@@ -1,74 +1,152 @@
-"""Layer composition for the dense decoder: pre-norm attention + FFN
-layers, one module per layer, and the train and decode paths over the
-stack.
+"""Layer composition: pre-norm layers of a mixer (attention or Mamba-2)
+and an FFN (dense, MoE or none), homogeneous stacks and Jamba-style
+periods, and the train, prefill and decode paths over the stack.
 
-The JAX package scans stacked per-period params; here the stack is an
-``nn.ModuleList`` walked by a Python loop (PyTorch runs eagerly).  A
-dense period is one layer, so the JAX package's ``nothing_saveable``
-checkpoint of each period is one ``torch.utils.checkpoint`` per layer
-here."""
+A *period* is the smallest repeating group of layers (1 for homogeneous
+archs; ``attn_period`` for hybrids), described by ``layer_descriptors``.
+The JAX package scans stacked per-period params; here the stack is a
+flat ``nn.ModuleList`` walked by a Python loop (PyTorch runs eagerly):
+layer ``l`` is period ``l // P``, position ``l % P``.  The JAX package's
+``nothing_saveable`` checkpoint of each period is one
+``torch.utils.checkpoint`` per layer here.  Whisper's cross-attention
+(``LayerDesc.cross``) is not ported."""
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, ffn
+from repro_torch.models import attention, common, ffn, mamba2, moe
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerDesc:
+    mixer: str          # "attn" | "mamba"
+    ffn: str            # "dense" | "moe" | "none"
+
+
+def layer_descriptors(cfg: ModelConfig) -> tuple[LayerDesc, ...]:
+    """Descriptors for one period (static composition)."""
+    period = cfg.attn_period or 1
+    descs = []
+    for pos in range(period):
+        mixer = "mamba" if cfg.family == "ssm" else "attn"
+        if cfg.attn_period:
+            mixer = "attn" if pos == cfg.attn_offset else "mamba"
+        if cfg.moe is not None:
+            is_moe = pos % cfg.moe.every_n_layers == cfg.moe.every_n_layers - 1
+            f = "moe" if is_moe else "dense"
+        elif cfg.family == "ssm":
+            f = "none"
+        else:
+            f = "dense"
+        descs.append(LayerDesc(mixer=mixer, ffn=f))
+    return tuple(descs)
+
+
+def n_periods(cfg: ModelConfig) -> int:
+    period = cfg.attn_period or 1
+    if cfg.n_layers % period:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} not a "
+                         f"multiple of period {period}")
+    return cfg.n_layers // period
+
+
+def stack_descriptors(cfg: ModelConfig) -> list[LayerDesc]:
+    """Every layer's descriptor: layer ``l`` takes position ``l % P``."""
+    descs = layer_descriptors(cfg)
+    return [descs[i % len(descs)]
+            for i in range(n_periods(cfg) * len(descs))]
+
+
+Mixer = Union[attention.Attention, mamba2.Mamba]
+FFNLike = Union[ffn.FFN, moe.MoE, None]
 
 
 class Layer(nn.Module):
-    """norm1 → attention → residual, norm2 → FFN → residual."""
+    """norm1 → mixer (``attn`` or ``mamba``) → residual, then, unless the
+    layer has no FFN, norm2 → FFN (``ffn`` or ``moe``) → residual."""
 
-    def __init__(self, norm1, attn: attention.Attention, norm2,
-                 ffn_: ffn.FFN):
+    def __init__(self, norm1, mixer: Mixer, norm2=None,
+                 ffn_: FFNLike = None):
         super().__init__()
         self.norm1 = nn.Parameter(norm1, requires_grad=False)
-        self.attn = attn
-        self.norm2 = nn.Parameter(norm2, requires_grad=False)
-        self.ffn = ffn_
+        kind = "attn" if isinstance(mixer, attention.Attention) else "mamba"
+        setattr(self, kind, mixer)
+        f = "none"
+        if ffn_ is not None:
+            self.norm2 = nn.Parameter(norm2, requires_grad=False)
+            f = "moe" if isinstance(ffn_, moe.MoE) else "dense"
+            setattr(self, "moe" if f == "moe" else "ffn", ffn_)
+        self.desc = LayerDesc(mixer=kind, ffn=f)
 
 
-def init_layer(generator: torch.Generator, cfg: ModelConfig, dtype,
-               device) -> Layer:
+def init_layer(generator: torch.Generator, cfg: ModelConfig,
+               desc: LayerDesc, dtype, device) -> Layer:
     ones = torch.ones(cfg.d_model, dtype=dtype, device=device)
-    return Layer(ones, attention.init_attn(generator, cfg, dtype, device),
-                 ones.clone(),
-                 ffn.init_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act,
-                              dtype, device))
+    if desc.mixer == "attn":
+        mixer = attention.init_attn(generator, cfg, dtype, device)
+    else:
+        mixer = mamba2.init_mamba(generator, cfg, dtype, device)
+    f = None
+    if desc.ffn == "moe":
+        f = moe.init_moe(generator, cfg, dtype, device)
+    elif desc.ffn == "dense":
+        f = ffn.init_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype,
+                         device)
+    return Layer(ones, mixer, ones.clone() if f is not None else None, f)
 
 
 def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype,
                device) -> nn.ModuleList:
-    return nn.ModuleList(init_layer(generator, cfg, dtype, device)
-                         for _ in range(cfg.n_layers))
+    return nn.ModuleList(init_layer(generator, cfg, desc, dtype, device)
+                         for desc in stack_descriptors(cfg))
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device) -> list[dict[str, torch.Tensor]]:
+    """A layer's cache: ``{"k", "v"}`` [B, max_len, Hkv, dh] for
+    attention, the decode state ``{"conv", "ssm"}`` for Mamba-2."""
     return [attention.init_cache(cfg, batch, max_len, dtype, device)
-            for _ in range(cfg.n_layers)]
+            if desc.mixer == "attn"
+            else mamba2.init_state(cfg, batch, dtype, device)
+            for desc in stack_descriptors(cfg)]
+
+
+def _ffn(p: Layer, x, cfg: ModelConfig, mode: Optional[str]):
+    """The layer's FFN half: (x', aux), aux the MoE router's loss (None
+    for a dense FFN or none)."""
+    if p.desc.ffn == "none":
+        return x, None
+    h = common.rms_norm(x, p.norm2, cfg.norm_eps, mode)
+    if p.desc.ffn == "moe":
+        f, aux = moe.moe_forward(p.moe, h, cfg)
+        return x + f, aux
+    return x + ffn.ffn_forward(p.ffn, h, cfg.act), None
 
 
 def _layer_forward(p: Layer, x, cfg: ModelConfig, rope, causal: bool = True,
                    mode: Optional[str] = None):
-    """One dense layer over the whole sequence: (x', aux), aux = 0 (no
-    MoE router in a dense layer)."""
+    """One layer over the whole sequence: (x', aux), aux None where the
+    layer has no MoE."""
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
-    a, _ = attention.attn_forward(p.attn, h, cfg, rope, causal)
-    x = x + a
-    h = common.rms_norm(x, p.norm2, cfg.norm_eps, mode)
-    x = x + ffn.ffn_forward(p.ffn, h, cfg.act)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if p.desc.mixer == "attn":
+        a, _ = attention.attn_forward(p.attn, h, cfg, rope, causal)
+    else:
+        a = mamba2.mamba_forward(p.mamba, h, cfg, mode=mode)
+    return _ffn(p, x + a, cfg, mode)
 
 
 def stack_forward(stack: nn.ModuleList, x, cfg: ModelConfig, rope,
                   causal: bool = True, remat: bool = True,
                   mode: Optional[str] = None):
-    """Every layer in turn: (x, summed aux).  ``remat`` saves only each
-    layer's input and recomputes the layer in the backward pass."""
+    """Every layer in turn: (x, the MoE layers' aux summed).  ``remat``
+    saves only each layer's input and recomputes the layer in the
+    backward pass."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in stack:
         if remat:
@@ -76,24 +154,30 @@ def stack_forward(stack: nn.ModuleList, x, cfg: ModelConfig, rope,
                               mode, use_reentrant=False)
         else:
             x, a = _layer_forward(layer, x, cfg, rope, causal, mode)
-        aux = aux + a
+        if a is not None:
+            aux = aux + a
     return x, aux
 
 
 def _layer_prefill(p: Layer, c, x, cfg: ModelConfig, rope,
                    mode: Optional[str] = None):
-    """``_layer_forward`` plus cache capture in one pass: the layer's K, V
-    written into ``c["k"][:, :S]`` and ``c["v"][:, :S]`` IN PLACE, where
-    the JAX package returns an updated copy
-    (``dynamic_update_slice_in_dim(..., 0, 1)``)."""
+    """``_layer_forward`` plus cache capture in one pass.  Attention:
+    the layer's K, V written into ``c["k"][:, :S]`` and ``c["v"][:, :S]``
+    IN PLACE, where the JAX package returns an updated copy
+    (``dynamic_update_slice_in_dim(..., 0, 1)``).  Mamba-2: the entry is
+    replaced by the state after the sequence."""
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
-    a, (k, v) = attention.attn_forward(p.attn, h, cfg, rope, causal=True)
-    s = x.shape[1]
-    c["k"][:, :s] = k.to(c["k"].dtype)
-    c["v"][:, :s] = v.to(c["v"].dtype)
-    x = x + a
-    h = common.rms_norm(x, p.norm2, cfg.norm_eps, mode)
-    return x + ffn.ffn_forward(p.ffn, h, cfg.act), c
+    if p.desc.mixer == "attn":
+        a, (k, v) = attention.attn_forward(p.attn, h, cfg, rope,
+                                           causal=True)
+        s = x.shape[1]
+        c["k"][:, :s] = k.to(c["k"].dtype)
+        c["v"][:, :s] = v.to(c["v"].dtype)
+    else:
+        a, c = mamba2.mamba_forward(p.mamba, h, cfg, return_state=True,
+                                    mode=mode)
+    x, _ = _ffn(p, x + a, cfg, mode)
+    return x, c
 
 
 def stack_prefill(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
@@ -107,10 +191,13 @@ def stack_prefill(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
 def _layer_decode(p: Layer, c, x, cfg: ModelConfig, rope, pos,
                   mode: Optional[str] = None):
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
-    a, c = attention.attn_decode(p.attn, h, cfg, c, pos, rope, mode=mode)
-    x = x + a
-    h = common.rms_norm(x, p.norm2, cfg.norm_eps, mode)
-    return x + ffn.ffn_forward(p.ffn, h, cfg.act), c
+    if p.desc.mixer == "attn":
+        a, c = attention.attn_decode(p.attn, h, cfg, c, pos, rope,
+                                     mode=mode)
+    else:
+        a, c = mamba2.mamba_decode(p.mamba, h, cfg, c, mode=mode)
+    x, _ = _ffn(p, x + a, cfg, mode)
+    return x, c
 
 
 def stack_decode(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,

@@ -1,16 +1,25 @@
-"""Causal LM for dense decoders: ``init`` → params, the train path
-(``hidden``, ``loss``, ``logits``, ``chunked_nll``) and the serving path
-(``init_cache``, ``prefill(params, batch)`` → (last logits, cache),
+"""Causal LM for decoder-only models (dense, MoE, SSM, hybrid and VLM):
+``init`` → params, the train path (``hidden``, ``loss``, ``logits``,
+``chunked_nll``) and the serving path (``init_cache``,
+``prefill(params, batch)`` → (last logits, cache),
 ``decode_step(params, tokens, cache, pos)`` → (logits, cache)).
+
+batch keys: ``tokens`` [B, S]; for a VLM optionally ``prefix_embeds``
+[B, Np, D] (the vision frontend's output, a stub here as in the JAX
+package), cast to the compute dtype and put before the tokens.
 
 For serving, weights are stored in the compute dtype without gradients.
 The JAX package keeps them in ``param_dtype`` (f32) and casts each
 weight to the compute dtype at use; storing the cast once is the same
 rounding, and on the card it halves the bytes every decode step reads.
 For training (``trainable=True``) they are stored in ``param_dtype``
-with gradients and cast at use, as the JAX package does.
+with gradients and cast at use, as the JAX package does.  Mamba-2's
+``dt_bias``, ``a_log`` and ``d_skip`` are f32 in both, as the JAX
+package keeps them.
 
-The other model families are later slices.
+Not ported: the encoder-decoder model (whisper: ``encdec`` and the
+``audio_stub`` frontend), which ``build_model`` refuses; and training
+any family but dense on the card (``check_trainable``).
 """
 from __future__ import annotations
 
@@ -24,9 +33,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import attention, blocks, common, ffn
+from repro_torch.models import attention, blocks, common, ffn, mamba2, moe
 
-__all__ = ["LMParams", "CausalLM", "build_model", "params_from_numpy"]
+__all__ = ["LMParams", "CausalLM", "build_model", "check_trainable",
+           "params_from_numpy"]
 
 
 class LMParams(nn.Module):
@@ -118,21 +128,35 @@ class CausalLM:
                           torch.ones(cfg.d_model, dtype=dt, device=dev), head)
         return params.requires_grad_(trainable)
 
+    def _inputs(self, params: LMParams, batch):
+        """(the embedded inputs [B, Np + S, D], Np): a VLM's
+        ``prefix_embeds`` cast to the compute dtype before the tokens'
+        embeddings; Np = 0 without them."""
+        cfg = self.cfg
+        dev = params.embed.device
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        x = _embed_tokens(params, tokens, cfg)
+        n_prefix = 0
+        if cfg.n_prefix_embeds and "prefix_embeds" in batch:
+            pre = torch.as_tensor(batch["prefix_embeds"],
+                                  device=dev).to(x.dtype)
+            x = torch.cat([pre, x], dim=1)
+            n_prefix = pre.shape[1]
+        return x, n_prefix
+
     # ---------------------------------------------------------- train
     def hidden(self, params: LMParams, batch, remat: bool = True,
                mode: Optional[str] = None):
-        """(final-normed hidden states [B, S, D], aux, n_prefix)."""
+        """(final-normed hidden states [B, Np + S, D], aux, n_prefix)."""
         cfg = self.cfg
-        tokens = torch.as_tensor(batch["tokens"],
-                                 device=params.embed.device).long()
-        x = _embed_tokens(params, tokens, cfg)
+        x, n_prefix = self._inputs(params, batch)
         s = x.shape[1]
         rope = common.make_rope(torch.arange(s, device=x.device),
                                 cfg.head_dim, cfg.rope_theta, cfg.rope_style)
         x, aux = blocks.stack_forward(params.blocks, x, cfg, rope,
                                       causal=True, remat=remat, mode=mode)
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps, mode)
-        return x, aux, 0
+        return x, aux, n_prefix
 
     def loss(self, params: LMParams, batch, remat: bool = True,
              mode: Optional[str] = None):
@@ -163,17 +187,19 @@ class CausalLM:
 
     def prefill(self, params: LMParams, batch, max_len: Optional[int] = None,
                 mode: Optional[str] = None):
-        """Single-pass prefill of ``batch["tokens"]`` [B, S]: hidden
-        states and the KV caches from one walk over the layers.  Returns
-        (the last position's logits [B, vocab_size], the cache of
-        ``max_len`` (default ``cfg.max_seq``) positions, filled at
-        [0, S)).  ``mode="ref"`` runs every kernel's plain version."""
+        """Single-pass prefill of ``batch["tokens"]`` [B, S] (after a
+        VLM's ``prefix_embeds`` [B, Np, D]): hidden states and the caches
+        from one walk over the layers.  Returns (the last position's
+        logits [B, vocab_size], the cache of ``max_len`` (default
+        ``cfg.max_seq``) positions, attention's filled at [0, Np + S),
+        Mamba-2's the state after the sequence).  The next decode
+        position is Np + S.  ``mode="ref"`` runs every kernel's plain
+        version."""
         cfg = self.cfg
         dev = params.embed.device
         with torch.no_grad():
-            tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-            x = _embed_tokens(params, tokens, cfg)
-            b, s = tokens.shape
+            x, _ = self._inputs(params, batch)
+            b, s = x.shape[:2]
             rope = common.make_rope(torch.arange(s, device=dev),
                                     cfg.head_dim, cfg.rope_theta,
                                     cfg.rope_style)
@@ -205,15 +231,23 @@ class CausalLM:
 
 def _check_supported(cfg: ModelConfig) -> None:
     missing = [what for what, present in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
-        ("moe", cfg.moe is not None), ("ssm", cfg.ssm is not None),
-        ("hybrid attn_period", bool(cfg.attn_period)),
-        ("encdec", cfg.encdec), ("prefix embeds", bool(cfg.n_prefix_embeds)),
-        (f"frontend {cfg.frontend!r}", bool(cfg.frontend))) if present]
+        ("encdec", cfg.encdec),
+        (f"frontend {cfg.frontend!r}", cfg.frontend == "audio_stub"))
+        if present]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            "serves and trains dense decoder LMs)")
+            "serves decoder-only LMs: dense, MoE, SSM, hybrid and VLM; "
+            "whisper is ROADMAP Queue 1 item 5's last part)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Training on the card is ported for dense decoders only."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family is not ported "
+            "yet (ROADMAP Queue 1 item 5: the port serves it; training it "
+            "on the card is a later slice)")
 
 
 def build_model(cfg: ModelConfig) -> CausalLM:
@@ -226,11 +260,12 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None,
     """Carry a JAX ``CausalLM.init`` tree (as numpy arrays, with the JAX
     key paths) into port params on ``device``: cast to the compute dtype
     for serving, or kept in ``param_dtype`` with gradients where
-    ``trainable``.
+    ``trainable``; Mamba-2's ``dt_bias``, ``a_log`` and ``d_skip`` stay
+    f32 in both.
 
     ``embed [Vp, D]``, ``head [D, Vp]``, ``final_norm [D]``; every
-    ``blocks/pos0/...`` leaf has a leading ``[n_layers]`` axis, sliced
-    here into one module per layer."""
+    ``blocks/pos{i}/...`` leaf has a leading ``[n_periods]`` axis, and
+    layer ``l`` is period ``l // P`` of position ``l % P``."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = cfg.pdtype() if trainable else cfg.cdtype()
@@ -238,17 +273,37 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None,
     def t(a) -> torch.Tensor:
         return torch.tensor(np.asarray(a)).to(dev, dt)
 
-    lp = tree["blocks"]["pos0"]
+    def dense_ffn(f, i) -> ffn.FFN:
+        return ffn.FFN(t(f["w_in"][i]), t(f["w_out"][i]),
+                       t(f["w_gate"][i]) if "w_gate" in f else None)
+
+    descs = blocks.layer_descriptors(cfg)
     layers = nn.ModuleList()
-    for i in range(cfg.n_layers):
-        a, f = lp["attn"], lp["ffn"]
+    for layer in range(cfg.n_layers):
+        desc, i = descs[layer % len(descs)], layer // len(descs)
+        lp = tree["blocks"][f"pos{layer % len(descs)}"]
+        if desc.mixer == "attn":
+            a = lp["attn"]
+            mixer = attention.Attention(t(a["wq"][i]), t(a["wk"][i]),
+                                        t(a["wv"][i]), t(a["wo"][i]))
+        else:
+            m = lp["mamba"]
+            mixer = mamba2.Mamba(*(
+                torch.tensor(np.asarray(m[k][i])).to(dev, torch.float32)
+                if k in mamba2.F32_PARAMS else t(m[k][i])
+                for k in ("in_proj", "conv_w", "conv_b", "dt_bias", "a_log",
+                          "d_skip", "norm", "out_proj")))
+        f = None
+        if desc.ffn == "moe":
+            e = lp["moe"]
+            f = moe.MoE(t(e["router"][i]), t(e["w_in"][i]),
+                        t(e["w_gate"][i]), t(e["w_out"][i]),
+                        dense_ffn(e["dense"], i) if "dense" in e else None)
+        elif desc.ffn == "dense":
+            f = dense_ffn(lp["ffn"], i)
         layers.append(blocks.Layer(
-            t(lp["norm1"][i]),
-            attention.Attention(t(a["wq"][i]), t(a["wk"][i]),
-                                t(a["wv"][i]), t(a["wo"][i])),
-            t(lp["norm2"][i]),
-            ffn.FFN(t(f["w_in"][i]), t(f["w_out"][i]),
-                    t(f["w_gate"][i]) if "w_gate" in f else None)))
+            t(lp["norm1"][i]), mixer,
+            t(lp["norm2"][i]) if f is not None else None, f))
     params = LMParams(t(tree["embed"]), layers, t(tree["final_norm"]),
                       None if cfg.tie_embeddings else t(tree["head"]))
     return params.requires_grad_(trainable)

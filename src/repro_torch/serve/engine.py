@@ -10,7 +10,9 @@ Finished slots (EOS/max_tokens) are retired and refilled from the
 queue.  On the card every step runs the multi-strided rmsnorm and
 flash-decode kernels, so the paper's technique is on the hot path of
 every generated token.  ``ServeConfig.shards > 1`` (the sequence-sharded
-KV cache) is not ported yet and raises.
+KV cache) is not ported yet and raises, as does a model with SSM state
+(mamba2, jamba: see ``ServingEngine.__init__``); MoE and VLM models
+(tokens only, no prefix embeds) are served as dense ones are.
 
 Serving telemetry (always collected engine-side; exported via
 ``stats()`` and, with ``repro_torch.obs`` enabled, per-step/per-request
@@ -79,6 +81,18 @@ class ServingEngine:
             raise NotImplementedError(
                 "ServeConfig.shards > 1 (sequence-sharded flash-decode, "
                 "serve/sharded.py) is not ported yet")
+        mcfg = getattr(model, "cfg", None)
+        if mcfg is not None and mcfg.ssm is not None:
+            raise NotImplementedError(
+                f"{mcfg.name}: the engine does not serve models with SSM "
+                "state.  It teacher-forces a prompt with one batched step "
+                "for all slots, and the slots that are not advancing step "
+                "a pad token: an attention cache row written by a pad is "
+                "overwritten before it is read, but Mamba-2's decode "
+                "ignores the position, so the pad would advance every "
+                "other slot's SSM state; and a reused slot would keep its "
+                "previous occupant's state.  Serve such a model through "
+                "CausalLM.prefill and decode_step")
         self.model = model
         self.params = params
         self.cfg = cfg

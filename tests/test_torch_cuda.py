@@ -1987,6 +1987,64 @@ def test_prefill_and_decode_launch_counts(cuda_device):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b",
+                                  "mamba2-2.7b", "jamba-1.5-large-398b",
+                                  "internvl2-2b"])
+def test_family_launch_counts_and_ref(cuda_device, arch):
+    """The other families at reduced size (bf16): a prefill launches
+    rmsnorm for each norm1, norm2 and Mamba-2 gated norm and the final
+    norm, no decode kernel; a decode step the same rmsnorms and
+    decode_attn and its merge once per attention layer.  Without a MoE
+    router (whose near-ties turn on rounding) the logits are the plain
+    path's within 5e-2 of their norm."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import build_model
+    model = build_model(reduced(get_config(arch)))
+    params = model.init(seed=0, device=cuda_device)
+    cfg = model.cfg
+    descs = blocks.stack_descriptors(cfg)
+    rms = 1 + sum(1 + (d.ffn != "none") + (d.mixer == "mamba")
+                  for d in descs)
+    n_attn = sum(d.mixer == "attn" for d in descs)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda_device,
+                         generator=gen)
+    batch = {"tokens": toks}
+    if cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = torch.randn(
+            2, cfg.n_prefix_embeds, cfg.d_model, device=cuda_device,
+            generator=gen)
+    pos = cfg.n_prefix_embeds + 24
+
+    def launches(fn):
+        for k in cuda.KERNELS.values():
+            k.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {n: k.launches for n, k in cuda.KERNELS.items()
+                     if k.launches}
+
+    (logits, cache), counts = launches(
+        lambda: model.prefill(params, batch, max_len=pos + 4))
+    assert counts == {"rmsnorm": rms}
+    step_want = {"rmsnorm": rms}
+    if n_attn:
+        step_want.update(decode_attn=n_attn, decode_attn_merge=n_attn)
+    tok = logits.argmax(-1, keepdim=True)
+    with torch.inference_mode():
+        (step, _), counts = launches(
+            lambda: model.decode_step(params, tok, cache, pos))
+    assert counts == step_want
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(step).all())
+    if cfg.moe is None:
+        ref, _ = model.prefill(params, batch, max_len=pos + 4, mode="ref")
+        rel = float((logits.float() - ref.float()).norm()
+                    / ref.float().norm())
+        assert rel <= 5e-2, rel
+
+
+@pytest.mark.gpu
 def test_count_flops_counts_the_f32_scores_of_16bit_operands(cuda_device):
     """In bf16 the scores go through ``torch.bmm(..., out_dtype=float32)``
     (``aten.bmm.dtype``), which ``count_flops`` counts as the f32 path's

@@ -129,9 +129,7 @@ def test_port_init_is_seeded_and_runs():
     assert logits.shape == (2, 512) and torch.isfinite(logits).all()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "qwen3-moe-30b-a3b",
-                                  "jamba-1.5-large-398b", "whisper-medium",
-                                  "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["whisper-medium"])
 def test_build_model_refuses_what_the_slice_lacks(arch):
     with pytest.raises(NotImplementedError):
         build_model(reduced(get_config(arch)))
