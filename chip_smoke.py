@@ -19,7 +19,8 @@ Phases (each raises on failure, so the script exits non-zero):
                 the main path's shapes: rmsnorm at the decode rows (1, 4),
                 the train rows (8192) and the prefill rows (16128) of
                 4096, the families phase's rows (4096 of 2048, 16384 of
-                2560 and of 5120, and 4 of each), 4 f32 rows of 12288 (a
+                2560 and of 5120, and 4 of each), the whisper phase's
+                rows of 1024 (6000, 16, 4), 4 f32 rows of 12288 (a
                 cluster), and rows that are not whole 16-byte vectors
                 ([8, 1001], [3, 4098] in f32 and bf16: the narrower-lane
                 instances, with a lost-element control), with each
@@ -34,8 +35,9 @@ Phases (each raises on failure, so the script exits non-zero):
                 batch row with no valid position and a mask with holes;
                 two runs' bits; chatglm3-6b's g=16; Phi-2's dh=80,
                 Phi-3-mini's dh=96 and InternVL2-2B's g=2 at kv_len 17-64
-                and uniform (B=4, S=4096) against the plain version, SDPA
-                and the bound
+                and uniform (B=4, S=4096), and Whisper-medium's g=1,
+                dh=64 at kv_len 5-36 and uniform (B=4, S=448), against the
+                plain version, SDPA and the bound
   3b. linalg — mxv, mxv_t, bicg, gemver at 16384^2 and 4096^2 f32 through
                 their public functions, each kernel against its plain
                 version with lost-stream controls, and timed; mxv in
@@ -175,12 +177,33 @@ Phases (each raises on failure, so the script exits non-zero):
                 state row within 2x a one-ulp control, a lost-rows fault
                 above it, 4 teacher-forced decode steps (greedy tokens,
                 logits within 2x the step's control); Mamba2's serving
-                invariant at B=1 (prefill 1024 + one decode step against
-                the full forward over 1025 tokens, which runs the SSD in
-                chunks of 1); (d) Jamba (one 8-layer period) and Arctic
+                invariant at B=1 on 8 of its 64 layers (prefill 1024 +
+                one decode step against the full forward over 1025
+                tokens, which runs the SSD in chunks of 1); (d) Jamba
+                (one 8-layer period) and Arctic
                 (dense residual) at reduced() dims, not a full-width
                 path: prefill + 4 decode steps, launches, against
                 mode="ref"
+  6d. whisper — Whisper-medium at full width and depth on random bf16
+                weights: B=4 clips of 1500 frames, the 4-token
+                start-of-transcript prompt, max_len 448: the encoder
+                alone, a prefill (122 rmsnorm launches) and 32 greedy
+                decode steps (73 rmsnorm, 24 decode_attn, 24 merge a
+                step), timed and profiled, against the prefill's compute
+                bound and the step's byte floor; then against mode="ref"
+                (logits, the worst self-cache and cross K/V rows within
+                2x the one-ulp control, 64 lost rows of the encoder's
+                output norm above it), 4 teacher-forced steps, and the
+                serving invariant at B=1 (64 tokens + one step)
+  6e. train-families — Whisper-medium (B=4 x 448 on 1500 frames),
+                Mamba2-2.7B (B=2 x 4096), InternVL2-2B (B=2 x (256 +
+                4096)) and Qwen3-MoE-30B-A3B (4 of 48 layers, B=2 x 4096)
+                at full width through launch.steps.build_train_step:
+                three steps each (launches, wall, tokens/s, loss, grad
+                norm, the third profiled: busy share, peak memory), then
+                step 0 again from the same seed with mode="ref" and with
+                a one-ulp control (every norm output of a call moved one
+                way): loss, grad norm and sampled updates within 2x it
   7. train    — with the serve model freed: Yi-9B at full width, 8 of 48
                 layers, f32 params and bf16 compute, trains 6 steps of
                 seq 4096 x batch 2 through the launcher's path; every
@@ -200,6 +223,7 @@ Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -240,6 +264,13 @@ PEAK_FLOPS = dict(_H100.peak_flops) if _H100 else {}
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW, SERVE_REQUESTS = 4, 4096, 16, 8
 # prefill_32k cut to the serve phase's cache: B=4 prompts of 4032 tokens
 PREFILL_B, PREFILL_S = 4, 4032
+# the whisper phase: B=4 clips of 1500 frames, the decoder prompt of
+# Whisper's start-of-transcript sequence (<|startoftranscript|> <|en|>
+# <|transcribe|> <|notimestamps|>), its 448-position text context, and
+# greedy decode steps
+WHISPER_B, WHISPER_FRAMES = 4, 1500
+WHISPER_PROMPT = (50258, 50259, 50359, 50363)
+WHISPER_MAX_LEN, WHISPER_DECODE = 448, 32
 
 
 def _card_line() -> str:
@@ -408,7 +439,12 @@ RMSNORM_CASES = ((1, 4096, "bfloat16"), (SERVE_SLOTS, 4096, "bfloat16"),
                  (4096, 2048, "bfloat16"), (16384, 2560, "bfloat16"),
                  (16384, 5120, "bfloat16"), (SERVE_SLOTS, 2048, "bfloat16"),
                  (SERVE_SLOTS, 2560, "bfloat16"),
-                 (SERVE_SLOTS, 5120, "bfloat16"))
+                 (SERVE_SLOTS, 5120, "bfloat16"),
+                 # the whisper phase's rows of 1024: the encoder's 4 x 1500
+                 # frames, the decoder prompt's 4 x 4 tokens, a decode step
+                 (WHISPER_B * WHISPER_FRAMES, 1024, "bfloat16"),
+                 (WHISPER_B * len(WHISPER_PROMPT), 1024, "bfloat16"),
+                 (WHISPER_B, 1024, "bfloat16"))
 RMSNORM_SWEEP_CLUSTERS = (1, 2, 4, 8)     # at the decode rows
 RMSNORM_SWEEP_ITEMS = (1, 2, 4, 16)       # items a block at 8192 rows
 
@@ -546,10 +582,17 @@ DECODE_SHAPES = ((8, 32768, "uniform"), (SERVE_SLOTS, SERVE_MAX_LEN,
                                           "uniform"),
                  (SERVE_SLOTS, SERVE_MAX_LEN, "profile"))
 DECODE_D_SWEEP = (1, 2, 4, 8)
-# (model, Hkv, Hq, dh): head dims of public models other than 2^k x 16,
-# and InternVL2-2B's group g = 2 (the families phase's)
-DECODE_HEAD_DIMS = (("phi-2", 32, 32, 80), ("phi-3-mini", 32, 32, 96),
-                    ("internvl2-2b", 8, 16, 128))
+# (model, Hkv, Hq, dh, S, the profile kind's kv_len range): head dims of
+# public models other than 2^k x 16, InternVL2-2B's group g = 2 (the
+# families phase's), and Whisper-medium's self-attention (g = 1, dh 64)
+# at its 448-position text context, kv_len that of the whisper phase's
+# decode steps (prompt 4 + 32 steps)
+DECODE_HEAD_DIMS = (("phi-2", 32, 32, 80, SERVE_MAX_LEN, (17, 64)),
+                    ("phi-3-mini", 32, 32, 96, SERVE_MAX_LEN, (17, 64)),
+                    ("internvl2-2b", 8, 16, 128, SERVE_MAX_LEN, (17, 64)),
+                    ("whisper-medium", 16, 16, 64, WHISPER_MAX_LEN,
+                     (len(WHISPER_PROMPT) + 1,
+                      len(WHISPER_PROMPT) + WHISPER_DECODE)))
 
 
 def check_decode(card: str, results: dict) -> None:
@@ -771,11 +814,15 @@ def check_decode(card: str, results: dict) -> None:
 
     # head dims that are not 16, 32, 64 or 128: Phi-2's 80 and
     # Phi-3-mini's 96 (32 query and 32 KV heads each), at the profile
-    # phase's kv_len 17-64 and kv_len uniform on [1, S], B=4, S=4096
-    for model, hkv_d, hq_d, dh_d in DECODE_HEAD_DIMS:
+    # phase's kv_len 17-64 and kv_len uniform on [1, S], B=4, S=4096;
+    # InternVL2-2B's g = 2 there, and Whisper-medium's g = 1, dh = 64 at
+    # S = 448, kv_len 5-36 and uniform
+    for model, hkv_d, hq_d, dh_d, s, prof in DECODE_HEAD_DIMS:
         build_d = dspecs.decode_spec(hkv_d, dh_d, masked=True)
+        cfg = common.effective_config(dops._DEFAULT, s, dops._DEFAULT)
         for kind in ("profile", "uniform"):
-            lo, hi = (17, 65) if kind == "profile" else (1, s + 1)
+            lo, hi = (prof[0], prof[1] + 1) if kind == "profile" else (
+                1, s + 1)
             kv_len = torch.as_tensor(rng.integers(lo, hi, b), device="cuda")
             mask = dops.validity_mask(kv_len, b, s, "cuda")
 
@@ -3362,7 +3409,10 @@ def phase_train(card: str) -> dict:
               f"{t_restore:.1f} s, bit-equal [{card}]")
         del flat, tree
         shutil.rmtree(os.path.join(run.mgr.dir, f"step_{TRAIN_STEPS:09d}"))
-        _in_model_train(card, run, state, snap)
+        batch = {"tokens": torch.from_numpy(
+            run.data.batch(TRAIN_STEPS)).cuda()}
+        _in_model_train(card, "in-model train", run.model, run.ocfg,
+                        run.step_fn, state, snap, batch)
         del snap
         _profile_train(card, run, state)
         return total
@@ -3370,77 +3420,144 @@ def phase_train(card: str) -> dict:
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
-def _in_model_train(card, run, state, snap) -> None:
-    """One step with the kernels and one with mode="ref" (plain rmsnorm
-    and AdamW on the card) from the same state and batch.  Limits: the
-    loss within 1e-3 and the grad norm within 1e-2 of the plain path's,
-    relative (the kernels' one difference in the forward is rmsnorm's
-    f32 row sum taken in another order, which can move a bf16 output one
-    ulp); each parameter's update within 1e-2 of the plain update's
-    norm, ||p_k - p_r|| <= 1e-2 ||p_r - p_0|| (an update is about lr per
-    entry, so this scales with lr).  Control: the embedding's update with
-    stream 1 of its AdamW blocking lost (rows left at p_0) must land
-    above that limit."""
-    import numpy as np
-    import torch
-    from repro_torch.kernels import cuda
-    from repro_torch.kernels.adamw import ops as aops
+def _host_tree(state) -> dict:
+    """A host copy of the train state, as ``trainstep.state_tree`` gives
+    it (a snapshot ``trainstep.load_state_tree`` restores)."""
     from repro_torch.train import trainstep
-    ref_step = trainstep.make_train_step(run.model, run.ocfg, mode="ref")
-    batch = {"tokens": torch.from_numpy(
-        run.data.batch(TRAIN_STEPS)).cuda()}
-    for k in cuda.KERNELS.values():
-        k.launches = 0
-    state, mk = run.step_fn(state, batch)
-    counts = {n: k.launches for n, k in cuda.KERNELS.items() if k.launches}
-    pk = {k: p.detach().clone()
-          for k, p in state["params"].named_parameters()}
+    tree = trainstep.state_tree(state)
+    ost = tree["opt_state"]
+    def host(t):
+        return t.to("cpu", copy=True)
+    return {"params": {k: host(t) for k, t in tree["params"].items()},
+            "opt_state": {w: {k: host(t) for k, t in ost[w].items()}
+                          for w in ("m", "v")} | {"step": host(ost["step"])}}
+
+
+def _ulps(got, want) -> float:
+    """max |got - want| in ulps of ``want``'s dtype at each element."""
+    import torch
+    w = want.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent
+                      - _MANTISSA[str(want.dtype).removeprefix("torch.")])
+    return float(((got.float() - w).abs() / ulp).max())
+
+
+@contextlib.contextmanager
+def _paired(fault_call: int, embed):
+    """Within the block every rmsnorm and adamw_update call runs its kernel
+    (the main path; the counts are its launches) and then its plain version
+    on the same inputs, which launches nothing, and passes the kernel's
+    outputs on.  Yields the readings: ``norm``, each rmsnorm call's output
+    distance from the plain one in ulps and its inverse rms's relative
+    distance; ``adamw``, each tensor's ||x_k - x_r|| / ||x_r - x_0|| for
+    x = p, m, v, the worst of the three.  Controls, read the same way on a
+    corrupted copy of one kernel output: rmsnorm call ``fault_call`` with
+    its last FAMILY_FAULT_ROWS rows lost, and the update of ``embed``
+    with stream 1 of its AdamW blocking lost (rows left at p_0)."""
+    from unittest import mock
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.kernels.rmsnorm import ops as trops
+    norm_fn, adamw_fn = trops.rmsnorm, aops.adamw_update
+    got = {"norm": [], "inv": [], "adamw": [], "norm_fault": None,
+           "adamw_fault": None}
+
+    def norm(x, w, eps=1e-6, config=None, mode=None, with_inv_rms=False):
+        out, inv = norm_fn(x, w, eps=eps, config=config, mode=mode,
+                           with_inv_rms=True)
+        ro, ri = norm_fn(x, w, eps=eps, mode="ref", with_inv_rms=True)
+        if len(got["norm"]) == fault_call:
+            lost = out.clone()
+            lost.view(-1, lost.shape[-1])[-FAMILY_FAULT_ROWS:] = 0
+            got["norm_fault"] = _ulps(lost, ro)
+        got["norm"].append(_ulps(out, ro))
+        got["inv"].append(float(((inv - ri).abs() / ri.abs()).max()))
+        return (out, inv) if with_inv_rms else out
+
+    def update(p, g, m, v, *scalars, mode=None, **kw):
+        out = adamw_fn(p, g, m, v, *scalars, mode=mode, **kw)
+        ref = adamw_fn(p, g, m, v, *scalars, mode="ref", **kw)
+
+        def ratio(k, r, x0):
+            return float((k.float() - r.float()).norm()
+                         / (r.float() - x0.float()).norm().clamp_min(1e-30))
+        got["adamw"].append(max(ratio(k, r, x0) for k, r, x0
+                                in zip(out, ref, (p, m, v))))
+        if p.data_ptr() == embed.data_ptr():
+            rows, cols = aops._blocking(p.numel())
+            seg = rows // 2
+            lost = out[0].clone().view(rows, cols)
+            lost[seg:2 * seg] = p.view(rows, cols)[seg:2 * seg]
+            got["adamw_fault"] = ratio(lost.view(p.shape), ref[0], p)
+        return out
+    with mock.patch.object(trops, "rmsnorm", norm), \
+            mock.patch.object(aops, "adamw_update", update):
+        yield got
+
+
+def _in_model_train(card, tag, model, ocfg, step_fn, state, snap,
+                    batch) -> None:
+    """The next step of the main path (``step_fn``, the kernels) from
+    ``state`` with every kernel call held against its plain version on
+    the same inputs (``_paired``): each rmsnorm output within 1 ulp and
+    its inverse rms within 1e-5 relative (the kernel sums a row's
+    squares in f32 in another order), each tensor's AdamW p, m and v
+    within 1e-2 of the plain step's change, ||x_k - x_r|| <= 1e-2
+    ||x_r - x_0||, at every shape the model has.  The controls, lost
+    norm rows of the middle decoder layer's norm1 and a lost AdamW stream
+    of the embedding, must land above those limits.  Then one step with
+    mode="ref" (plain rmsnorm and AdamW on the card) from the same state
+    ``snap`` (a later step's: m and v warm) and batch: the loss within
+    1e-3 and the grad norm within 1e-2 of the kernels' step, relative.
+    A MoE's plain step replays the kernels' step's routing
+    (``_Routing``).  The two whole steps' parameters are not compared:
+    in a bf16 forward any one-ulp difference, even in 0.0003% of the
+    norm outputs, reaches every token (``tools/torch_norm_shift.py``),
+    and AdamW's update of an entry whose gradient is near 0 swings."""
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import norm_calls
+    from repro_torch.train import trainstep
+    params = state["params"]
+    mid = len(params.blocks) // 2
+    fault_call = (norm_calls(params) - 1
+                  - blocks.norm_calls(params.blocks[mid:]))
+    routing, moved = _Routing(), {}
+    with routing.record(), _paired(fault_call, params.embed) as got:
+        (state, mk), counts = _launches(lambda: step_fn(state, batch))
     trainstep.load_state_tree(state, snap)
-    for k in cuda.KERNELS.values():
-        k.launches = 0
-    state, mr = ref_step(state, batch)
-    torch.cuda.synchronize()
-    ref_counts = {n: k.launches for n, k in cuda.KERNELS.items()
-                  if k.launches}
+    ref_step = trainstep.make_train_step(model, ocfg, mode="ref")
+    with routing.replay(moved, "ref"):
+        (state, mr), ref_counts = _launches(lambda: ref_step(state, batch))
     if ref_counts:
-        raise AssertionError(f"in-model train: the ref step launched "
-                             f"{ref_counts}")
-    lr = float(mr["lr"])
+        raise AssertionError(f"{tag}: the plain step launched {ref_counts}")
     dl = abs(float(mk["loss"]) - float(mr["loss"])) / abs(float(mr["loss"]))
     dg = abs(float(mk["grad_norm"]) - float(mr["grad_norm"])) / float(
         mr["grad_norm"])
-    worst, worst_name, max_abs = 0.0, "", 0.0
-    for k, p in state["params"].named_parameters():
-        p0 = torch.from_numpy(np.asarray(snap["params"][k])).cuda()
-        upd = float((p.detach() - p0).norm())
-        ratio = float((pk[k] - p.detach()).norm()) / max(upd, 1e-30)
-        max_abs = max(max_abs, float((pk[k] - p.detach()).abs().max()))
-        if ratio > worst:
-            worst, worst_name = ratio, k
-        if k == "embed":
-            rows, cols = aops._blocking(p.numel())
-            seg = rows // 2
-            ctl = pk[k].clone().view(rows, cols)
-            ctl[seg:2 * seg] = p0.view(rows, cols)[seg:2 * seg]
-            ctl_ratio = float((ctl.view(p.shape) - p.detach()).norm()) / upd
-            del ctl
-        del p0
-    print(f"in-model train: kernels vs mode=\"ref\" from the same state "
-          f"(step {TRAIN_STEPS}, lr {lr:.3e}): loss {float(mk['loss']):.6f} "
-          f"vs {float(mr['loss']):.6f} (rel {dl:.2e}, limit 1e-3), grad_norm "
+    worst = {"norm": max(got["norm"]), "inv": max(got["inv"]),
+             "adamw": max(got["adamw"])}
+    print(f"{tag}: step {int(snap['opt_state']['step'])}, each kernel call "
+          f"against its plain version on the same inputs: rmsnorm over "
+          f"{len(got['norm'])} calls within {worst['norm']:.0f} ulp (limit "
+          f"1), inverse rms {worst['inv']:.2e} (limit 1e-5); adamw_update "
+          f"over {len(got['adamw'])} tensors, worst ||x_k - x_r|| / ||x_r "
+          f"- x_0|| of p, m, v {worst['adamw']:.2e} (limit 1e-2); controls: "
+          f"{FAMILY_FAULT_ROWS} rows of layer {mid}'s norm1 lost (call "
+          f"{fault_call}) {got['norm_fault']:.0f} ulp, embed with stream 1 "
+          f"of its AdamW lost {got['adamw_fault']:.3f}.  Against the plain "
+          f"step from the same state: loss {float(mk['loss']):.6f} vs "
+          f"{float(mr['loss']):.6f} (rel {dl:.2e}, limit 1e-3), grad_norm "
           f"{float(mk['grad_norm']):.6f} vs {float(mr['grad_norm']):.6f} "
-          f"(rel {dg:.2e}, limit 1e-2); worst update ratio "
-          f"||p_k - p_r|| / ||p_r - p_0|| {worst:.2e} ({worst_name}, limit "
-          f"1e-2), max|p_k - p_r| {max_abs:.3e} = {max_abs / lr:.3f} lr; "
-          f"control, embed with stream 1 lost: {ctl_ratio:.3f}; kernel step "
-          f"launches {json.dumps(counts)} [{card}]")
-    if dl > 1e-3 or dg > 1e-2 or worst > 1e-2:
-        raise AssertionError("in-model train: kernels disagree with the "
-                             "plain path beyond the limits")
-    if ctl_ratio <= 1e-2:
-        raise AssertionError("in-model train: a lost AdamW stream stays "
-                             "inside the limit, so the check cannot see it")
-    del pk
+          f"(rel {dg:.2e}, limit 1e-2)"
+          + (f"; the plain step routed as the kernels' step, tokens x MoE "
+             f"layer calls whose own top-k differed: {_moved_line(moved)}"
+             if any(n for _, n in moved.values()) else "")
+          + f"; kernel step launches {json.dumps(counts)} [{card}]")
+    if (worst["norm"] > 1 or worst["inv"] > 1e-5 or worst["adamw"] > 1e-2
+            or dl > 1e-3 or dg > 1e-2):
+        raise AssertionError(f"{tag}: kernels disagree with the plain path "
+                             "beyond the limits")
+    if got["norm_fault"] <= 1 or got["adamw_fault"] <= 1e-2:
+        raise AssertionError(f"{tag}: a control stays inside its limit, so "
+                             "the check cannot see it")
 
 
 def _profile_train(card, run, state) -> None:
@@ -4142,6 +4259,8 @@ FAMILY_FAULT_ROWS = 64              # rows of one norm output left unwritten
 FAMILY_REDUCED = ("jamba-1.5-large-398b", "arctic-480b")
 FAMILY_REDUCED_SHAPE = (2, 64, 80)  # B, S, max_len
 MAMBA_INVARIANT_S = 1024            # B=1: prefill S, then decode token S+1
+MAMBA_INVARIANT_LAYERS = 8          # of Mamba2-2.7B's 64 (time, not memory)
+WHISPER_INVARIANT_S = 64            # B=1: prefill S, then decode token S+1
 
 
 class _Routing:
@@ -4456,15 +4575,24 @@ def _family_cell(card: str, arch: str, b: int, s: int, max_len: int) -> None:
 
 def _mamba_invariant(card, tag, model, params, gen) -> None:
     """The serving invariant (tests/test_serve_consistency.py) at full
-    width, B=1: prefill of S tokens, then one decode step of token S+1,
-    against ``logits`` of all S+1 tokens, which runs the SSD in chunks of
-    1 (the chunk rule at an odd length).  Limit: 2x the one-ulp control of
-    the prefill's last logits."""
+    width, B=1, on the first ``MAMBA_INVARIANT_LAYERS`` layers of the
+    weights (the same tensors, no copy) and their final norm and head:
+    prefill of S tokens, then one decode step of token S+1, against
+    ``logits`` of all S+1 tokens, which runs the SSD in chunks of 1 (the
+    chunk rule at an odd length, 61 s at all 64 layers).  Limit: 2x the
+    one-ulp control of the prefill's last logits."""
+    import dataclasses
     import numpy as np
     import torch
     from unittest import mock
     from repro_torch.kernels.rmsnorm import ops as trops
     from repro_torch.models import mamba2
+    from repro_torch.models.lm import LMParams, build_model
+    n = MAMBA_INVARIANT_LAYERS
+    tag = f"{tag} ({n} of {model.cfg.n_layers} layers)"
+    model = build_model(dataclasses.replace(model.cfg, n_layers=n))
+    params = LMParams(params.embed, params.blocks[:n], params.final_norm,
+                      params.head)
     cfg = model.cfg
     s = MAMBA_INVARIANT_S
     toks = torch.as_tensor(np.random.default_rng(8).integers(
@@ -4582,6 +4710,419 @@ def phase_families(card: str) -> None:
     print(f"families (d): {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+def _whisper_floor_bytes(params, cache, b: int, pos: int) -> float:
+    """Bytes a decode step at ``pos`` must move: every decoder weight it
+    reads once (of the cross layers wq and wo: their K and V are
+    cached), the final norm, the head and the embedding's B rows; the
+    cross K/V read whole; the self K/V rows [0, pos] read and row pos
+    written."""
+    total = b * params.embed.shape[1] * params.embed.element_size()
+    for name, t in params.named_parameters():
+        if name.startswith(("enc_", "embed")) or name.endswith(
+                (".cross.wk", ".cross.wv")):
+            continue
+        total += t.numel() * t.element_size()
+    for c in cache["cross"]:
+        total += sum(t.numel() * t.element_size() for t in c.values())
+    for c in cache["self"]:
+        row = c["k"][0, 0].numel() * c["k"].element_size()
+        total += 2 * b * (pos + 2) * row
+    return total
+
+
+def phase_whisper(card: str) -> None:
+    """Whisper-medium (arXiv:2212.04356) at full width and depth on random
+    bf16 weights (seeded ``torch.Generator``): 24 encoder and 24 decoder
+    layers, d_model 1024, 16 heads of 64, d_ff 4096 gelu, vocabulary
+    51865.  B=4 clips of 1500 frames x 1024 (the audio_stub frontend's
+    output, f32 normal from seeded numpy), the 4-token start-of-transcript
+    prompt, max_len 448, through ``EncDecLM.prefill`` and 32 greedy
+    ``decode_step`` calls: the encoder alone, the prefill (49 + 73
+    rmsnorm launches, no decode launch) and a step (73 rmsnorm, 24
+    decode_attn and 24 merge launches), counted, timed and profiled, the
+    prefill against its compute bound and a step against its byte floor.
+    Then the kernels against mode="ref": the prefill's logits, the worst
+    self-cache row and the worst cross K/V row within 2x the one-ulp
+    control (every rmsnorm output one bf16 ulp off, in the plain path),
+    and each encoder layer's worst row within 2x the control's at that
+    layer, a planted fault (the last 64 rows of the middle encoder
+    layer's norm2 lost) above a layer's limit; 4 teacher-forced steps;
+    and the serving invariant at B=1 (a prefill of 64 tokens plus one
+    decode step against ``logits`` over 65)."""
+    import dataclasses
+    from unittest import mock
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.kernels.rmsnorm import ops as trops
+    from repro_torch.models import blocks
+    from repro_torch.models.lm import build_model, norm_calls
+    from repro_torch.roofline import analysis
+    cfg = get_config("whisper-medium")
+    model = build_model(cfg)
+    b, p = WHISPER_B, len(WHISPER_PROMPT)
+    n_dec = cfg.n_layers
+    tag = "whisper"
+    print(f"{tag}: {cfg.name} {cfg.n_enc_layers} encoder + {n_dec} decoder "
+          f"layers, d_model={cfg.d_model} heads={cfg.n_heads}/"
+          f"{cfg.n_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} {cfg.act} "
+          f"vocab={cfg.vocab_size}, n_params={cfg.n_params() / 1e9:.3f}B "
+          f"bf16 [{card}]")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    print(f"{tag}: weights {wbytes / 1e9:.3f} GB drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    per_prefill = {"rmsnorm": norm_calls(params)}
+    per_step = {"rmsnorm": blocks.norm_calls(params.blocks) + 1,
+                "decode_attn": n_dec,
+                "decode_attn_merge": n_dec}
+    rng = np.random.default_rng(10)
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, WHISPER_FRAMES, cfg.d_model), dtype=np.float32)).cuda()
+    batch = {"tokens": torch.tensor([WHISPER_PROMPT] * b, device="cuda"),
+             "frames": frames}
+
+    def run(mode=None):
+        return model.prefill(params, batch, max_len=WHISPER_MAX_LEN,
+                             mode=mode)
+
+    def encode():
+        with torch.no_grad():
+            return model.encode(params, frames, remat=False)
+
+    encode()                                            # warm
+    (_, wall, ev_ms), counts = _launches(lambda: _timed(encode))
+    print(f"{tag} encode: B={b} x {WHISPER_FRAMES} frames, launches "
+          f"{json.dumps(counts)}; wall {wall * 1e3:.2f} ms, "
+          f"{ev_ms:.2f} ms between events, {b * WHISPER_FRAMES / wall:.0f} "
+          f"frames/s [{card}]")
+    flops = analysis.count_flops(run)           # also the warm-up call
+    ((logits, cache), wall, ev_ms), counts = _launches(lambda: _timed(run))
+    if counts != per_prefill:
+        raise AssertionError(f"{tag} prefill: launches {counts}, expected "
+                             f"{per_prefill}")
+    if logits.shape != (b, cfg.vocab_size) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"{tag} prefill: logits {tuple(logits.shape)} "
+                             "not finite or of the wrong shape")
+    shape = dataclasses.replace(get_shape("prefill_32k"), global_batch=b,
+                                seq_len=p)
+    terms = analysis.roofline_terms(cfg, shape, 1, flops)
+    print(f"{tag} prefill: B={b} x ({WHISPER_FRAMES} frames + {p} tokens), "
+          f"max_len {WHISPER_MAX_LEN}: launches {json.dumps(counts)}; wall "
+          f"{wall * 1e3:.2f} ms, {ev_ms:.2f} ms between events, "
+          f"{b * WHISPER_FRAMES / wall:.0f} frames/s; count_flops "
+          f"{flops['flops']:.4e} (aten.mm "
+          f"{flops['by_op'].get('aten.mm', 0):.4e}, aten.bmm "
+          f"{flops['by_op'].get('aten.bmm', 0):.4e}); roofline_terms "
+          f"n_chips=1: compute_s {terms['compute_s']:.5f}, memory_s "
+          f"{terms['memory_s']:.5f}, dominant {terms['dominant']}: "
+          f"{100 * terms['compute_s'] / (ev_ms / 1e3):.1f}% of the compute "
+          f"bound reached; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    _profile_prefill(card, run, f"{tag} prefill")
+
+    def decode(c, tok, n, mode=None):
+        outs = []
+        with torch.inference_mode():
+            for i in range(n):
+                lg, c = model.decode_step(params, tok, c, p + i, mode=mode)
+                tok = lg.argmax(-1, keepdim=True)
+                outs.append(lg)
+        return outs, c
+
+    main = {"self": [{k: v.clone() for k, v in c.items()}
+                     for c in cache["self"]], "cross": cache["cross"]}
+    first = logits.argmax(-1, keepdim=True)
+    torch.cuda.reset_peak_memory_stats()
+    ((outs, main), wall, ev_ms), counts = _launches(
+        lambda: _timed(lambda: decode(main, first, WHISPER_DECODE)))
+    want = {k: v * WHISPER_DECODE for k, v in per_step.items()}
+    if counts != want:
+        raise AssertionError(f"{tag} decode: launches {counts}, expected "
+                             f"{want}")
+    if not all(bool(torch.isfinite(lg).all()) for lg in outs):
+        raise AssertionError(f"{tag} decode: non-finite logits")
+    mid = p + WHISPER_DECODE // 2
+    floor = _whisper_floor_bytes(params, main, b, mid)
+    cross_b = sum(t.numel() * t.element_size() for c in main["cross"]
+                  for t in c.values())
+    step_ms = ev_ms / WHISPER_DECODE
+    floor_ms = floor / HBM_BYTES_PER_S * 1e3
+    print(f"{tag} decode: {WHISPER_DECODE} greedy steps at positions {p}-"
+          f"{p + WHISPER_DECODE - 1}, B={b}: launches {json.dumps(counts)} "
+          f"({json.dumps(per_step)} a step); "
+          f"{wall / WHISPER_DECODE * 1e3:.3f} ms a step wall, {step_ms:.3f} "
+          f"ms between events, {b * WHISPER_DECODE / wall:.1f} tokens/s; "
+          f"byte floor at position {mid} {floor / 1e9:.3f} GB (cross K/V "
+          f"{cross_b / 1e9:.3f} GB), {floor_ms:.3f} ms at the memory rate, "
+          f"{step_ms / floor_ms:.1f}x it; max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    del outs
+    _profile_prefill(card, lambda: decode(main, first, 2),
+                     f"{tag} decode (2 steps)")
+    del main
+
+    # the kernels against mode="ref": prefill logits, cache rows, and each
+    # encoder layer's output (the prefill's encoder runs _layer_forward
+    # once a layer, its decoder _layer_prefill)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    plain_norm = trops.rmsnorm
+    ulp = _ulp_norm(plain_norm, gen)
+    # the planted faults: lost rows of the middle encoder layer's norm2
+    # (its FFN's input), which the layer check must see, and of its norm1
+    # (the attention's input), read and printed only: on random weights
+    # the attention adds little to a row, and losing its input moves the
+    # row less than the one-ulp control's 24 layers of rounding do
+    fault_layer = cfg.n_enc_layers // 2
+    lost = (f"fault: {FAMILY_FAULT_ROWS} rows of encoder layer "
+            f"{fault_layer}'s norm2 lost")
+    lost1 = (f"fault (read only): {FAMILY_FAULT_ROWS} rows of its norm1 "
+             "lost")
+
+    def kept(mode=None, norm=None):
+        outs, fwd = [], blocks._layer_forward
+
+        def layer(*a, **kw):
+            x, aux = fwd(*a, **kw)
+            outs.append(x)
+            return x, aux
+        with mock.patch.object(blocks, "_layer_forward", layer), (
+                mock.patch.object(trops, "rmsnorm", norm) if norm
+                else contextlib.nullcontext()):
+            return run(mode), outs
+    _, k_layers = kept()
+    (ref_logits, ref_cache), r_layers = kept("ref")
+    (ctl_logits, ctl_cache), c_layers = kept("ref", ulp)
+    (f_logits, f_cache), f_layers = kept("ref", _lost_rows_norm(
+        plain_norm, 2 * fault_layer + 1, FAMILY_FAULT_ROWS))
+    (f1_logits, f1_cache), f1_layers = kept("ref", _lost_rows_norm(
+        plain_norm, 2 * fault_layer, FAMILY_FAULT_ROWS))
+
+    def rels(lg, c):
+        return (_rel(lg, ref_logits),
+                _cache_rel(c["self"], ref_cache["self"], p),
+                _cache_rel(c["cross"], ref_cache["cross"], WHISPER_FRAMES))
+
+    def by_layer(outs):
+        """each encoder layer's worst row ||x - x_ref|| / ||x_ref|| (a row:
+        one frame of one clip)"""
+        return [float(((a.float() - r.float()).norm(dim=-1)
+                       / r.float().norm(dim=-1).clamp_min(1e-30)).max())
+                for a, r in zip(outs, r_layers)]
+    rel = {"kernels": rels(logits, cache),
+           "control: one ulp": rels(ctl_logits, ctl_cache),
+           lost: rels(f_logits, f_cache),
+           lost1: rels(f1_logits, f1_cache)}
+    layer_rel = {"kernels": by_layer(k_layers),
+                 "control: one ulp": by_layer(c_layers),
+                 lost: by_layer(f_layers), lost1: by_layer(f1_layers)}
+    del f_logits, f_cache, f1_logits, f1_cache
+    del k_layers, r_layers, c_layers, f_layers, f1_layers
+    lim = tuple(2 * c for c in rel["control: one ulp"])
+    layer_lim = [2 * c for c in layer_rel["control: one ulp"]]
+    print(f"{tag} vs ref, prefill: ||logits - logits_ref|| / ||logits_ref||"
+          f", the worst self-cache row's and the worst cross K/V row's "
+          f"||c - c_ref|| / ||c_ref||: "
+          + ", ".join(f"{k} {a:.3e}, {s_:.3e}, {x:.3e}"
+                      for k, (a, s_, x) in rel.items())
+          + f"; limits {lim[0]:.3e}, {lim[1]:.3e}, {lim[2]:.3e} (2x the "
+          f"one-ulp control) [{card}]")
+    print(f"{tag} vs ref, prefill: each encoder layer's worst row "
+          f"||x - x_ref|| / ||x_ref||, layers 0-{cfg.n_enc_layers - 1}: "
+          + "; ".join(f"{k} " + " ".join(f"{v:.2e}" for v in vals)
+                      for k, vals in layer_rel.items())
+          + "; limits (2x the one-ulp control) "
+          + " ".join(f"{v:.2e}" for v in layer_lim) + f" [{card}]")
+    _margin_check(f"{tag} vs ref, prefill", logits, ref_logits, card)
+    if any(k > x for k, x in zip(rel["kernels"], lim)) or any(
+            k > x for k, x in zip(layer_rel["kernels"], layer_lim)):
+        raise AssertionError(f"{tag}: the kernels disagree with ref "
+                             f"({rel['kernels']} > {lim}, or an encoder "
+                             "layer's worst row above its limit)")
+    if not any(f > x for f, x in zip(layer_rel[lost], layer_lim)):
+        raise AssertionError(f"{tag}: the lost encoder rows stay inside "
+                             "every layer's limit, so the check cannot see "
+                             "them")
+
+    # 4 teacher-forced steps (the kernels' greedy tokens fed to all three)
+    tok = logits.argmax(-1, keepdim=True)
+    agree, worst, limit = 0, 0.0, 0.0
+    with torch.inference_mode():
+        for i in range(FAMILY_GREEDY):
+            lk, cache = model.decode_step(params, tok, cache, p + i)
+            lr, ref_cache = model.decode_step(params, tok, ref_cache, p + i,
+                                              mode="ref")
+            with mock.patch.object(trops, "rmsnorm", ulp):
+                lc, ctl_cache = model.decode_step(params, tok, ctl_cache,
+                                                  p + i, mode="ref")
+            worst = max(worst, _rel(lk, lr))
+            limit = max(limit, 2 * _rel(lc, lr))
+            agree += _margin_check(f"{tag} vs ref, decode step {i}", lk, lr,
+                                   card)
+            tok = lk.argmax(-1, keepdim=True)
+    print(f"{tag} vs ref, {FAMILY_GREEDY} teacher-forced decode steps: "
+          f"greedy tokens agree {agree}/{FAMILY_GREEDY * b}; worst "
+          f"||logits - logits_ref|| / ||logits_ref|| {worst:.3e}, limit "
+          f"{limit:.3e} (2x the step's one-ulp control) [{card}]")
+    if worst > limit:
+        raise AssertionError(f"{tag}: decode steps disagree with ref "
+                             f"({worst:.3e} > {limit:.3e})")
+    del logits, cache, ref_logits, ref_cache, ctl_logits, ctl_cache
+    torch.cuda.empty_cache()
+
+    # the serving invariant at B=1: prefill S tokens, one decode step
+    s = WHISPER_INVARIANT_S
+    toks = torch.as_tensor(np.concatenate([WHISPER_PROMPT, rng.integers(
+        0, cfg.vocab_size, s + 1 - p)])[None], device="cuda")
+    one = {"tokens": toks[:, :s], "frames": frames[:1]}
+    lp, c1 = model.prefill(params, one, max_len=WHISPER_MAX_LEN)
+    with torch.inference_mode():
+        ld, _ = model.decode_step(params, toks[:, s:], c1, s)
+    with torch.no_grad():
+        full = model.logits(params, {"tokens": toks, "frames": frames[:1]})
+    lr = model.prefill(params, one, max_len=s, mode="ref")[0]
+    with mock.patch.object(trops, "rmsnorm", ulp):
+        lc = model.prefill(params, one, max_len=s, mode="ref")[0]
+    ctl = _rel(lc, lr)
+    rel_p, rel_d = _rel(lp, full[:, s - 1]), _rel(ld, full[:, s])
+    print(f"{tag} invariant, B=1: prefill of {s} tokens vs logits of all "
+          f"{s + 1} at position {s - 1}: {rel_p:.3e}; one decode step vs "
+          f"position {s}: {rel_d:.3e}; limit {2 * ctl:.3e} (2x the one-ulp "
+          f"control of the prefill's logits, {ctl:.3e}) [{card}]")
+    _margin_check(f"{tag} invariant, decode vs full", ld, full[:, s], card)
+    if max(rel_p, rel_d) > 2 * ctl:
+        raise AssertionError(f"{tag}: prefill + decode disagree with the "
+                             f"full forward ({rel_p:.3e}, {rel_d:.3e} > "
+                             f"{2 * ctl:.3e})")
+    del params, c1, frames, batch
+    torch.cuda.empty_cache()
+
+
+# train-families: (arch, layers kept or None for all, B, S); full width,
+# depth cut only where the f32 state (p, g, m, v: 16 B a parameter) does
+# not fit the card
+TRAIN_FAMILY_CELLS = (("whisper-medium", None, 4, WHISPER_MAX_LEN),
+                      ("mamba2-2.7b", None, 2, 4096),
+                      ("internvl2-2b", None, 2, 4096),
+                      ("qwen3-moe-30b-a3b", 4, 2, 4096))
+TRAIN_FAMILY_STEPS = 3
+
+
+def _train_family(card: str, arch: str, layers, b: int, s: int) -> None:
+    """One family trains through ``launch.steps.build_train_step`` (AdamW
+    at its defaults, the state from seed 0, the builder's seeded batch,
+    remat): three steps, each counted (rmsnorm twice per layer norm, as
+    remat recomputes the layer, plus the final norm and enc_norm once;
+    one adamw_update per parameter tensor) and timed, the third
+    profiled.  Then the state after those steps (m and v warm) is copied
+    to the host, and ``_in_model_train`` holds the next step of the
+    kernels against mode="ref" from it."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import build_model, norm_calls
+    from repro_torch.train import optimizer as opt
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    shape = dataclasses.replace(get_shape("train_4k"), global_batch=b,
+                                seq_len=s)
+    tag = f"train-families {arch}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    step_fn, (state, batch) = steps.build_train_step(cfg, shape, "cuda")
+    torch.cuda.synchronize()
+    named = dict(state["params"].named_parameters())
+    n_params = sum(t.numel() for t in named.values())
+    tokens = b * (s + cfg.n_prefix_embeds) + (
+        b * cfg.enc_seq if cfg.encdec else 0)
+    print(f"{tag}: n_layers={cfg.n_layers}"
+          + (f" + {cfg.n_enc_layers} encoder" if cfg.encdec else "")
+          + f" d_model={cfg.d_model}, {n_params / 1e9:.3f}B params in "
+          f"{len(named)} tensors, f32 state {16 * n_params / 1e9:.1f} GB "
+          f"(p, g, m, v), compute {cfg.compute_dtype}; batch "
+          + ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items())
+          + f"; built in {time.perf_counter() - t0:.1f} s [{card}]")
+    # remat runs each layer's norms twice; the final norm and enc_norm once
+    want = {"rmsnorm": 2 * norm_calls(state["params"]) - 1 - cfg.encdec,
+            "adamw_update": len(named)}
+    del named
+    walls = []
+    # device activity only: a Mamba2 step is some 150k kernels, and host
+    # op events would multiply the profile's processing time
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    for i in range(TRAIN_FAMILY_STEPS):
+        last = i == TRAIN_FAMILY_STEPS - 1
+        with prof if last else contextlib.nullcontext():
+            ((state, m), wall, _), counts = _launches(
+                lambda: _timed(lambda: step_fn(state, batch)))
+        if counts != want:
+            raise AssertionError(f"{tag} step {i}: launches {counts}, "
+                                 f"expected {want}")
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(x) for x in m.values()):
+            raise AssertionError(f"{tag} step {i}: non-finite {m}")
+        walls.append(wall)
+        print(f"{tag} step {i}: loss {m['loss']:.4f} nll {m['nll']:.4f} aux "
+              f"{m['aux']:.4f} grad_norm {m['grad_norm']:.4f} lr "
+              f"{m['lr']:.3e}; wall {wall:.3f} s, {tokens / wall:.0f} "
+              f"tokens/s{' (profiled)' if last else ''}; launches "
+              f"{json.dumps(counts)} [{card}]")
+    peak = torch.cuda.max_memory_allocated()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and dev(e) > 0]
+    dev_ms = sum(dev(e) for e in kernels) / 1e3
+    rms_ms = sum(dev(e) for e in kernels if "rmsnorm" in e.key) / 1e3
+    adamw_ms = sum(dev(e) for e in kernels if "adamw" in e.key) / 1e3
+    print(f"{tag}: {TRAIN_FAMILY_STEPS} steps, step 1 wall {walls[1]:.3f} s "
+          f"({tokens / walls[1]:.0f} tokens/s, tokens = B x (S + prefix) "
+          f"+ B x frames); step {TRAIN_FAMILY_STEPS - 1} profiled: device "
+          f"kernels {dev_ms:.1f} ms, {100 * dev_ms / (walls[1] * 1e3):.1f}% "
+          f"busy against step 1's unprofiled wall; rmsnorm kernel "
+          f"{rms_ms:.2f} ms, adamw_update kernel {adamw_ms:.2f} ms (its "
+          f"bound {28 * n_params / HBM_BYTES_PER_S * 1e3:.2f} ms); "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB [{card}]")
+    for e in sorted(kernels, key=dev, reverse=True)[:8]:
+        print(f"  {dev(e) / 1e3:9.3f} ms {100 * dev(e) / 1e3 / dev_ms:5.1f}% "
+              f"{e.count:6d} calls  {e.key[:90]}")
+    del prof, kernels
+    t0 = time.perf_counter()
+    snap = _host_tree(state)
+    print(f"{tag}: state after step {TRAIN_FAMILY_STEPS - 1} copied to the "
+          f"host in {time.perf_counter() - t0:.1f} s [{card}]")
+    _in_model_train(card, f"{tag} vs ref", build_model(cfg),
+                    opt.AdamWConfig(), step_fn, state, snap, batch)
+    del snap, state, step_fn
+    torch.cuda.empty_cache()
+
+
+def phase_train_families(card: str) -> None:
+    """Training of the non-dense families at full width (the cells of
+    ``TRAIN_FAMILY_CELLS``), each cell's seconds printed."""
+    import gc
+    import torch
+    for arch, layers, b, s in TRAIN_FAMILY_CELLS:
+        t0 = time.perf_counter()
+        _train_family(card, arch, layers, b, s)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"train-families {arch}: {time.perf_counter() - t0:.1f} s "
+              f"[{card}]")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4648,6 +5189,8 @@ def _run(t_start: float) -> int:
     del model, params, engine          # free the serve weights and cache
     torch.cuda.empty_cache()
     timed("families", phase_families, card)
+    timed("whisper", phase_whisper, card)
+    timed("train-families", phase_train_families, card)
     train_counts = timed("train", phase_train, card)
     # the K1 adamw kernel's launches are those of the training run; the
     # ring's, those of check_adamw's main path (training runs K1)

@@ -1,6 +1,8 @@
 """Serving launcher: batched generation with the continuous-batching
 engine (multi-strided rmsnorm and flash-decode kernels on the hot path;
-one batched step per engine round).
+one batched step per engine round).  The engine refuses models with
+SSM state (mamba2, jamba) and encoder-decoder models (whisper): their
+``prefill`` and ``decode_step`` serve them.
 
     python -m repro_torch.launch.serve --device cuda
 """

@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs import get_config, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.lm import build_model, check_trainable
+from repro_torch.models.lm import build_model
 from repro_torch.train import optimizer as opt
 from repro_torch.train import trainstep
 
@@ -75,9 +75,24 @@ def abstract_state(model) -> dict:
 def abstract_cache(model, cfg: ModelConfig, shape: ShapeConfig):
     """The cache on meta: ``{"k", "v"}`` of ``shape.seq_len`` positions
     for an attention layer, ``{"conv", "ssm"}`` (SSM state in f32) for a
-    Mamba-2 layer."""
-    return model.init_cache(shape.global_batch, shape.seq_len,
-                            device=_META)
+    Mamba-2 layer; for Whisper ``{"self": that, "cross": each decoder
+    layer's ``{"k", "v"}`` [B, enc_seq, Hkv, dh]}``, as the JAX package
+    gives it (the cross K/V of a zero encoder output)."""
+    cache = model.init_cache(shape.global_batch, shape.seq_len,
+                             device=_META)
+    if not cfg.encdec:
+        return cache
+    return {"self": cache, "cross": _zero_cross_kv(
+        model, abstract_params(model), cfg, shape.global_batch)}
+
+
+def _zero_cross_kv(model, params, cfg: ModelConfig, b: int):
+    """Each decoder layer's cross K/V of a zero encoder output
+    ``[b, enc_seq, D]`` in the compute dtype, on the params' device."""
+    enc = torch.zeros((b, cfg.enc_seq, cfg.d_model), dtype=cfg.cdtype(),
+                      device=params.embed.device)
+    with torch.no_grad():
+        return model.cross_kv(params, enc)
 
 
 def tree_bytes(tree) -> int:
@@ -143,21 +158,39 @@ def _prefix_embeds(cfg: ModelConfig, b: int, dev):
         (b, cfg.n_prefix_embeds, cfg.d_model), dtype=np.float32)).to(dev)
 
 
+def _frames(cfg: ModelConfig, b: int, dev):
+    """Whisper's ``[B, enc_seq, D]`` f32 frame embeddings (the audio
+    frontend stub's output), standard normal from seeded numpy."""
+    rng = np.random.default_rng(2)
+    return torch.from_numpy(rng.standard_normal(
+        (b, cfg.enc_seq, cfg.d_model), dtype=np.float32)).to(dev)
+
+
+def _batch(cfg: ModelConfig, shp: ShapeConfig, dev) -> dict:
+    """``tokens`` ``[global_batch, seq_len]``, and the keys
+    ``abstract_batch`` declares beside them: a VLM's ``prefix_embeds``,
+    Whisper's ``frames``."""
+    b = shp.global_batch
+    batch = {"tokens": _tokens(cfg, b, shp.seq_len, dev)}
+    if cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = _prefix_embeds(cfg, b, dev)
+    if cfg.encdec:
+        batch["frames"] = _frames(cfg, b, dev)
+    return batch
+
+
 def build_train_step(arch: Arch, shape: Shape, device=None,
                      remat: bool = True, grad_accum: int = 1):
     """``(train_step, (state, batch))``: AdamW at its defaults, the state
-    drawn from seed 0, the batch ``[global_batch, seq_len]`` from
-    seeded numpy.  Dense decoders only (``lm.check_trainable``)."""
+    drawn from seed 0, the batch of ``_batch`` (seeded numpy)."""
     dev = resolve_device(device)
     cfg, shp = _resolve(arch, shape)
-    check_trainable(cfg)
     model = build_model(cfg)
     _cuts(cfg, shp)
     step = trainstep.make_train_step(model, opt.AdamWConfig(), remat=remat,
                                      grad_accum=grad_accum)
     state = trainstep.init_state(model, device=dev)
-    batch = {"tokens": _tokens(cfg, shp.global_batch, shp.seq_len, dev)}
-    return step, (state, batch)
+    return step, (state, _batch(cfg, shp, dev))
 
 
 def build_prefill_step(arch: Arch, shape: Shape, device=None, params=None):
@@ -165,8 +198,9 @@ def build_prefill_step(arch: Arch, shape: Shape, device=None, params=None):
     max_len=None, mode=None)`` fills a cache of ``max_len`` positions,
     by default ``seq_len + n_prefix_embeds`` as the JAX package's (vlm
     prefix embeds extend the internal sequence).  The batch holds
-    ``tokens`` and, for a VLM, ``prefix_embeds`` ``[B, Np, D]`` f32 (as
-    ``abstract_batch`` declares them).  ``params``: weights to use
+    ``tokens`` and, for a VLM, ``prefix_embeds`` ``[B, Np, D]`` f32, for
+    Whisper ``frames`` ``[B, enc_seq, D]`` f32 (as ``abstract_batch``
+    declares them).  ``params``: weights to use
     (drawn from seed 0 when None), so a caller that serves can prefill
     on its own."""
     dev = resolve_device(device)
@@ -181,10 +215,7 @@ def build_prefill_step(arch: Arch, shape: Shape, device=None, params=None):
 
     if params is None:
         params = model.init(device=dev)
-    batch = {"tokens": _tokens(cfg, shp.global_batch, shp.seq_len, dev)}
-    if cfg.n_prefix_embeds:
-        batch["prefix_embeds"] = _prefix_embeds(cfg, shp.global_batch, dev)
-    return prefill, (params, batch)
+    return prefill, (params, _batch(cfg, shp, dev))
 
 
 def build_decode_step(arch: Arch, shape: Shape, device=None):
@@ -192,13 +223,18 @@ def build_decode_step(arch: Arch, shape: Shape, device=None):
     token ``[global_batch, 1]`` at ``pos = seq_len - 1`` against a zero
     cache of ``seq_len`` positions (attention's updated in place; a
     Mamba-2 layer's entry is its zero decode state ``{"conv", "ssm"}``,
-    replaced by the step's)."""
+    replaced by the step's).  Whisper's cache is ``{"self": that,
+    "cross": the cross K/V of a zero encoder output}``, as
+    ``abstract_cache``'s."""
     dev = resolve_device(device)
     cfg, shp = _resolve(arch, shape)
     model = build_model(cfg)
     _cuts(cfg, shp)
     params = model.init(device=dev)
     cache = model.init_cache(shp.global_batch, shp.seq_len, device=dev)
+    if cfg.encdec:
+        cache = {"self": cache, "cross": _zero_cross_kv(
+            model, params, cfg, shp.global_batch)}
     tokens = _tokens(cfg, shp.global_batch, 1, dev)
     pos = torch.tensor(shp.seq_len - 1, dtype=torch.int32, device=dev)
     return model.decode_step, (params, tokens, cache, pos)

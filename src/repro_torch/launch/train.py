@@ -22,7 +22,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models.lm import build_model, check_trainable
+from repro_torch.models.lm import build_model
 from repro_torch.runtime.fault_tolerance import StepMonitor
 from repro_torch.train import AdamWConfig, make_train_step
 from repro_torch.train.trainstep import (init_state, load_state_tree,
@@ -65,7 +65,6 @@ def setup(argv=None) -> SimpleNamespace:
         cfg = reduced(cfg)
     if args.layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    check_trainable(cfg)
     model = build_model(cfg)
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=10, total_steps=args.steps)
     step_fn = make_train_step(model, ocfg, remat=True)
@@ -85,12 +84,26 @@ def setup(argv=None) -> SimpleNamespace:
                            device=dev)
 
 
+def batch_of(run: SimpleNamespace, step: int) -> dict:
+    """The pipeline's tokens of ``step`` and, as the JAX launcher adds
+    them, zero ``prefix_embeds`` [B, Np, D] for a VLM and zero ``frames``
+    [B, enc_seq, D] for Whisper (f32: the frontends are stubs)."""
+    cfg, b, dev = run.cfg, run.args.batch, run.device
+    batch = {"tokens": torch.from_numpy(run.data.batch(step)).to(dev)}
+    if cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = torch.zeros(
+            (b, cfg.n_prefix_embeds, cfg.d_model), device=dev)
+    if cfg.encdec:
+        batch["frames"] = torch.zeros((b, cfg.enc_seq, cfg.d_model),
+                                      device=dev)
+    return batch
+
+
 def main(argv=None):
     run = setup(argv)
     args, state, monitor = run.args, run.state, run.monitor
     for step in range(run.start, args.steps):
-        batch = {"tokens": torch.from_numpy(run.data.batch(step)).to(
-            run.device)}
+        batch = batch_of(run, step)
         t0 = time.perf_counter()
         state, metrics = run.step_fn(state, batch)
         metrics = {k: float(v) for k, v in metrics.items()}

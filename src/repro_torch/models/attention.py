@@ -1,6 +1,8 @@
 """GQA attention: train (full causal attention over the sequence, plain
-PyTorch as the JAX package leaves it to XLA) and decode (one token
-against the KV cache through the multi-strided flash-decode kernel).
+PyTorch as the JAX package leaves it to XLA), decode (one token against
+the KV cache through the multi-strided flash-decode kernel), and
+Whisper's cross-attention against the encoder's K/V (plain, in every
+path, as the JAX package's).
 
 Weights layout: wq [D, Hq*dh], wk [D, Hkv*dh], wv [D, Hkv*dh],
 wo [Hq*dh, D].
@@ -193,3 +195,28 @@ def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache,
     b = x.shape[0]
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
     return out @ p.wo.to(x.dtype), cache
+
+
+def cross_attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                       kv) -> torch.Tensor:
+    """Whisper's cross-attention: the query projection of x [B, S, D],
+    non-causal ``_sdpa`` against the encoder's K/V ``{"k", "v"}``
+    [B, T, Hkv, dh] (``encoder_kv``), then ``wo``.  Plain PyTorch in
+    training, prefill and decode alike, as the JAX package's plain
+    ``_sdpa`` (no decode kernel)."""
+    b, s, _ = x.shape
+    dh, hq = cfg.head_dim, cfg.n_heads
+    q = (x @ p.wq.to(x.dtype)).reshape(b, s, hq, dh)
+    out = _sdpa(q, kv["k"].to(x.dtype), kv["v"].to(x.dtype), causal=False)
+    return out.reshape(b, s, hq * dh) @ p.wo.to(x.dtype)
+
+
+def encoder_kv(p: Attention, enc_out: torch.Tensor,
+               cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """A cross layer's K/V of the encoder output [B, T, D], in its dtype:
+    ``{"k", "v"}`` [B, T, Hkv, dh]."""
+    b, t, _ = enc_out.shape
+    dh, hkv = cfg.head_dim, cfg.n_kv_heads
+    k = (enc_out @ p.wk.to(enc_out.dtype)).reshape(b, t, hkv, dh)
+    v = (enc_out @ p.wv.to(enc_out.dtype)).reshape(b, t, hkv, dh)
+    return {"k": k, "v": v}

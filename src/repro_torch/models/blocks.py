@@ -8,8 +8,10 @@ The JAX package scans stacked per-period params; here the stack is a
 flat ``nn.ModuleList`` walked by a Python loop (PyTorch runs eagerly):
 layer ``l`` is period ``l // P``, position ``l % P``.  The JAX package's
 ``nothing_saveable`` checkpoint of each period is one
-``torch.utils.checkpoint`` per layer here.  Whisper's cross-attention
-(``LayerDesc.cross``) is not ported."""
+``torch.utils.checkpoint`` per layer here.  A Whisper decoder layer
+(``LayerDesc.cross``) adds cross-attention against the encoder's K/V
+after the mixer; the stack functions take those K/V as a per-layer
+list ``cross_kv`` (``whisper.EncDecLM.cross_kv``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +29,7 @@ from repro_torch.models import attention, common, ffn, mamba2, moe
 class LayerDesc:
     mixer: str          # "attn" | "mamba"
     ffn: str            # "dense" | "moe" | "none"
+    cross: bool = False  # whisper decoder cross-attention
 
 
 def layer_descriptors(cfg: ModelConfig) -> tuple[LayerDesc, ...]:
@@ -44,7 +47,7 @@ def layer_descriptors(cfg: ModelConfig) -> tuple[LayerDesc, ...]:
             f = "none"
         else:
             f = "dense"
-        descs.append(LayerDesc(mixer=mixer, ffn=f))
+        descs.append(LayerDesc(mixer=mixer, ffn=f, cross=cfg.encdec))
     return tuple(descs)
 
 
@@ -68,21 +71,27 @@ FFNLike = Union[ffn.FFN, moe.MoE, None]
 
 
 class Layer(nn.Module):
-    """norm1 → mixer (``attn`` or ``mamba``) → residual, then, unless the
-    layer has no FFN, norm2 → FFN (``ffn`` or ``moe``) → residual."""
+    """norm1 → mixer (``attn`` or ``mamba``) → residual; for a Whisper
+    decoder layer, norm_x → cross-attention (``cross``) → residual; then,
+    unless the layer has no FFN, norm2 → FFN (``ffn`` or ``moe``) →
+    residual.  ``norm_x`` and ``cross`` are None where unused."""
 
     def __init__(self, norm1, mixer: Mixer, norm2=None,
-                 ffn_: FFNLike = None):
+                 ffn_: FFNLike = None, norm_x=None,
+                 cross: Optional[attention.Attention] = None):
         super().__init__()
         self.norm1 = nn.Parameter(norm1, requires_grad=False)
         kind = "attn" if isinstance(mixer, attention.Attention) else "mamba"
         setattr(self, kind, mixer)
+        self.norm_x = (None if cross is None
+                       else nn.Parameter(norm_x, requires_grad=False))
+        self.cross = cross
         f = "none"
         if ffn_ is not None:
             self.norm2 = nn.Parameter(norm2, requires_grad=False)
             f = "moe" if isinstance(ffn_, moe.MoE) else "dense"
             setattr(self, "moe" if f == "moe" else "ffn", ffn_)
-        self.desc = LayerDesc(mixer=kind, ffn=f)
+        self.desc = LayerDesc(mixer=kind, ffn=f, cross=cross is not None)
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig,
@@ -92,17 +101,22 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig,
         mixer = attention.init_attn(generator, cfg, dtype, device)
     else:
         mixer = mamba2.init_mamba(generator, cfg, dtype, device)
+    cross = (attention.init_attn(generator, cfg, dtype, device)
+             if desc.cross else None)
     f = None
     if desc.ffn == "moe":
         f = moe.init_moe(generator, cfg, dtype, device)
     elif desc.ffn == "dense":
         f = ffn.init_ffn(generator, cfg.d_model, cfg.d_ff, cfg.act, dtype,
                          device)
-    return Layer(ones, mixer, ones.clone() if f is not None else None, f)
+    return Layer(ones, mixer, ones.clone() if f is not None else None, f,
+                 ones.clone() if cross is not None else None, cross)
 
 
 def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype,
                device) -> nn.ModuleList:
+    """One ``Layer`` per layer of ``stack_descriptors(cfg)``.  Whisper's
+    encoder is the stack of ``cfg`` with ``encdec=False`` (no cross)."""
     return nn.ModuleList(init_layer(generator, cfg, desc, dtype, device)
                          for desc in stack_descriptors(cfg))
 
@@ -129,8 +143,22 @@ def _ffn(p: Layer, x, cfg: ModelConfig, mode: Optional[str]):
     return x + ffn.ffn_forward(p.ffn, h, cfg.act), None
 
 
+def _cross(p: Layer, x, cfg: ModelConfig, kv, mode: Optional[str]):
+    """A Whisper decoder layer's cross-attention half: x +
+    cross_attn(rms_norm(x, norm_x), kv); x itself for any other layer.  A
+    cross layer without the encoder's K/V raises: the decoder does not run
+    without its encoder."""
+    if not p.desc.cross:
+        return x
+    if kv is None:
+        raise ValueError("a cross-attention layer needs the encoder's K/V "
+                         "(cross_kv)")
+    h = common.rms_norm(x, p.norm_x, cfg.norm_eps, mode)
+    return x + attention.cross_attn_forward(p.cross, h, cfg, kv)
+
+
 def _layer_forward(p: Layer, x, cfg: ModelConfig, rope, causal: bool = True,
-                   mode: Optional[str] = None):
+                   mode: Optional[str] = None, cross_kv=None):
     """One layer over the whole sequence: (x', aux), aux None where the
     layer has no MoE."""
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
@@ -138,29 +166,44 @@ def _layer_forward(p: Layer, x, cfg: ModelConfig, rope, causal: bool = True,
         a, _ = attention.attn_forward(p.attn, h, cfg, rope, causal)
     else:
         a = mamba2.mamba_forward(p.mamba, h, cfg, mode=mode)
-    return _ffn(p, x + a, cfg, mode)
+    return _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode)
+
+
+def norm_calls(stack) -> int:
+    """rmsnorm calls of one pass through ``stack`` (the forward, a prefill
+    or a decode step): each layer's norm1, its norm_x where it
+    cross-attends, its norm2 where it has an FFN and Mamba-2's gated
+    norm."""
+    return sum(1 + layer.desc.cross + (layer.desc.ffn != "none")
+               + (layer.desc.mixer == "mamba") for layer in stack)
+
+
+def _layer_kv(cross_kv, i: int):
+    return None if cross_kv is None else cross_kv[i]
 
 
 def stack_forward(stack: nn.ModuleList, x, cfg: ModelConfig, rope,
                   causal: bool = True, remat: bool = True,
-                  mode: Optional[str] = None):
+                  mode: Optional[str] = None, cross_kv=None):
     """Every layer in turn: (x, the MoE layers' aux summed).  ``remat``
     saves only each layer's input and recomputes the layer in the
-    backward pass."""
+    backward pass.  ``cross_kv``: a Whisper decoder's per-layer encoder
+    K/V ``{"k", "v"}``, or None."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer in stack:
+    for i, layer in enumerate(stack):
+        kv = _layer_kv(cross_kv, i)
         if remat:
             x, a = checkpoint(_layer_forward, layer, x, cfg, rope, causal,
-                              mode, use_reentrant=False)
+                              mode, kv, use_reentrant=False)
         else:
-            x, a = _layer_forward(layer, x, cfg, rope, causal, mode)
+            x, a = _layer_forward(layer, x, cfg, rope, causal, mode, kv)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
 def _layer_prefill(p: Layer, c, x, cfg: ModelConfig, rope,
-                   mode: Optional[str] = None):
+                   mode: Optional[str] = None, cross_kv=None):
     """``_layer_forward`` plus cache capture in one pass.  Attention:
     the layer's K, V written into ``c["k"][:, :S]`` and ``c["v"][:, :S]``
     IN PLACE, where the JAX package returns an updated copy
@@ -176,33 +219,34 @@ def _layer_prefill(p: Layer, c, x, cfg: ModelConfig, rope,
     else:
         a, c = mamba2.mamba_forward(p.mamba, h, cfg, return_state=True,
                                     mode=mode)
-    x, _ = _ffn(p, x + a, cfg, mode)
+    x, _ = _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode)
     return x, c
 
 
 def stack_prefill(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
-                  mode: Optional[str] = None):
+                  mode: Optional[str] = None, cross_kv=None):
     """One pass over the layers: hidden states and the filled caches."""
     for i, layer in enumerate(stack):
-        x, cache[i] = _layer_prefill(layer, cache[i], x, cfg, rope, mode)
+        x, cache[i] = _layer_prefill(layer, cache[i], x, cfg, rope, mode,
+                                     _layer_kv(cross_kv, i))
     return x, cache
 
 
 def _layer_decode(p: Layer, c, x, cfg: ModelConfig, rope, pos,
-                  mode: Optional[str] = None):
+                  mode: Optional[str] = None, cross_kv=None):
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
     if p.desc.mixer == "attn":
         a, c = attention.attn_decode(p.attn, h, cfg, c, pos, rope,
                                      mode=mode)
     else:
         a, c = mamba2.mamba_decode(p.mamba, h, cfg, c, mode=mode)
-    x, _ = _ffn(p, x + a, cfg, mode)
+    x, _ = _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode)
     return x, c
 
 
 def stack_decode(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
-                 pos, mode: Optional[str] = None):
+                 pos, mode: Optional[str] = None, cross_kv=None):
     for i, layer in enumerate(stack):
         x, cache[i] = _layer_decode(layer, cache[i], x, cfg, rope, pos,
-                                    mode)
+                                    mode, _layer_kv(cross_kv, i))
     return x, cache

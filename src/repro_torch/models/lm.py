@@ -3,23 +3,22 @@
 ``chunked_nll``) and the serving path (``init_cache``,
 ``prefill(params, batch)`` → (last logits, cache),
 ``decode_step(params, tokens, cache, pos)`` → (logits, cache)).
+``build_model`` gives the encoder-decoder ``whisper.EncDecLM`` for an
+``encdec`` config, whose params are ``EncDecParams``.
 
 batch keys: ``tokens`` [B, S]; for a VLM optionally ``prefix_embeds``
 [B, Np, D] (the vision frontend's output, a stub here as in the JAX
-package), cast to the compute dtype and put before the tokens.
+package), cast to the compute dtype and put before the tokens; for
+Whisper ``frames`` [B, T_enc, D] (the audio frontend's stub output).
 
 For serving, weights are stored in the compute dtype without gradients.
 The JAX package keeps them in ``param_dtype`` (f32) and casts each
 weight to the compute dtype at use; storing the cast once is the same
 rounding, and on the card it halves the bytes every decode step reads.
 For training (``trainable=True``) they are stored in ``param_dtype``
-with gradients and cast at use, as the JAX package does.  Mamba-2's
-``dt_bias``, ``a_log`` and ``d_skip`` are f32 in both, as the JAX
-package keeps them.
-
-Not ported: the encoder-decoder model (whisper: ``encdec`` and the
-``audio_stub`` frontend), which ``build_model`` refuses; and training
-any family but dense on the card (``check_trainable``).
+with gradients and cast at use, as the JAX package does; every family
+trains.  Mamba-2's ``dt_bias``, ``a_log`` and ``d_skip`` are f32 in
+both, as the JAX package keeps them.
 """
 from __future__ import annotations
 
@@ -35,8 +34,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention, blocks, common, ffn, mamba2, moe
 
-__all__ = ["LMParams", "CausalLM", "build_model", "check_trainable",
-           "params_from_numpy"]
+__all__ = ["LMParams", "EncDecParams", "norm_calls", "CausalLM",
+           "build_model", "params_from_numpy"]
 
 
 class LMParams(nn.Module):
@@ -52,6 +51,29 @@ class LMParams(nn.Module):
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.head = (None if head is None
                      else nn.Parameter(head, requires_grad=False))
+
+
+class EncDecParams(LMParams):
+    """``LMParams`` of the decoder (its layers with cross-attention) plus
+    the encoder: ``enc_blocks`` (one ``blocks.Layer`` per encoder layer)
+    and ``enc_norm`` [D]."""
+
+    def __init__(self, embed: torch.Tensor, layers: nn.ModuleList,
+                 final_norm: torch.Tensor, head: torch.Tensor,
+                 enc_blocks: nn.ModuleList, enc_norm: torch.Tensor):
+        super().__init__(embed, layers, final_norm, head)
+        self.enc_blocks = enc_blocks
+        self.enc_norm = nn.Parameter(enc_norm, requires_grad=False)
+
+
+def norm_calls(params: LMParams) -> int:
+    """rmsnorm calls of one forward over ``params``: the decoder stack's
+    (``blocks.norm_calls``) and the final norm, and a Whisper encoder's
+    stack and ``enc_norm``."""
+    n = blocks.norm_calls(params.blocks) + 1
+    if isinstance(params, EncDecParams):
+        n += blocks.norm_calls(params.enc_blocks) + 1
+    return n
 
 
 def _embed_tokens(params: LMParams, tokens: torch.Tensor,
@@ -113,12 +135,7 @@ class CausalLM:
         is drawn (meta has no generator): shapes and dtypes only, as
         ``launch.steps.abstract_params`` wants them."""
         cfg = self.cfg
-        dev = resolve_device(device)
-        gen = None
-        if dev.type != "meta":
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(seed)
-        dt = cfg.pdtype() if trainable else cfg.cdtype()
+        dev, gen, dt = self._draw(seed, device, trainable)
         embed = common.embed_init(gen, cfg.padded_vocab, cfg.d_model, dt,
                                   dev)
         layers = blocks.init_stack(gen, cfg, dt, dev)
@@ -127,6 +144,17 @@ class CausalLM:
         params = LMParams(embed, layers,
                           torch.ones(cfg.d_model, dtype=dt, device=dev), head)
         return params.requires_grad_(trainable)
+
+    def _draw(self, seed: int, device, trainable: bool):
+        """(device, its ``torch.Generator`` seeded with ``seed`` or None on
+        meta, the weights' dtype) for ``init``."""
+        dev = resolve_device(device)
+        gen = None
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+        return dev, gen, (self.cfg.pdtype() if trainable
+                          else self.cfg.cdtype())
 
     def _inputs(self, params: LMParams, batch):
         """(the embedded inputs [B, Np + S, D], Np): a VLM's
@@ -229,81 +257,81 @@ class CausalLM:
         return _head_logits(params, x, cfg)[:, 0, :cfg.vocab_size], cache
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    missing = [what for what, present in (
-        ("encdec", cfg.encdec),
-        (f"frontend {cfg.frontend!r}", cfg.frontend == "audio_stub"))
-        if present]
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(missing)} not ported yet (the port "
-            "serves decoder-only LMs: dense, MoE, SSM, hybrid and VLM; "
-            "whisper is ROADMAP Queue 1 item 5's last part)")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Training on the card is ported for dense decoders only."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            "yet (ROADMAP Queue 1 item 5: the port serves it; training it "
-            "on the card is a later slice)")
-
-
 def build_model(cfg: ModelConfig) -> CausalLM:
-    _check_supported(cfg)
+    if cfg.encdec:
+        from repro_torch.models.whisper import EncDecLM
+        return EncDecLM(cfg)
     return CausalLM(cfg)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None,
                       trainable: bool = False) -> LMParams:
-    """Carry a JAX ``CausalLM.init`` tree (as numpy arrays, with the JAX
-    key paths) into port params on ``device``: cast to the compute dtype
-    for serving, or kept in ``param_dtype`` with gradients where
-    ``trainable``; Mamba-2's ``dt_bias``, ``a_log`` and ``d_skip`` stay
-    f32 in both.
+    """Carry a JAX ``CausalLM.init`` or ``EncDecLM.init`` tree (as numpy
+    arrays, with the JAX key paths) into port params on ``device``: cast
+    to the compute dtype for serving, or kept in ``param_dtype`` with
+    gradients where ``trainable``; Mamba-2's ``dt_bias``, ``a_log`` and
+    ``d_skip`` stay f32 in both.
 
     ``embed [Vp, D]``, ``head [D, Vp]``, ``final_norm [D]``; every
     ``blocks/pos{i}/...`` leaf has a leading ``[n_periods]`` axis, and
-    layer ``l`` is period ``l // P`` of position ``l % P``."""
-    _check_supported(cfg)
+    layer ``l`` is period ``l // P`` of position ``l % P``.  An encdec
+    tree adds ``enc_blocks/pos0/...`` (leaves ``[n_enc_layers, ...]``)
+    and ``enc_norm [D]``, and its decoder layers ``norm_x`` and
+    ``cross/{wq, wk, wv, wo}`` (``EncDecParams``)."""
     dev = resolve_device(device)
     dt = cfg.pdtype() if trainable else cfg.cdtype()
 
     def t(a) -> torch.Tensor:
         return torch.tensor(np.asarray(a)).to(dev, dt)
 
+    def attn(a, i) -> attention.Attention:
+        return attention.Attention(*(t(a[k][i])
+                                     for k in ("wq", "wk", "wv", "wo")))
+
     def dense_ffn(f, i) -> ffn.FFN:
         return ffn.FFN(t(f["w_in"][i]), t(f["w_out"][i]),
                        t(f["w_gate"][i]) if "w_gate" in f else None)
 
-    descs = blocks.layer_descriptors(cfg)
-    layers = nn.ModuleList()
-    for layer in range(cfg.n_layers):
-        desc, i = descs[layer % len(descs)], layer // len(descs)
-        lp = tree["blocks"][f"pos{layer % len(descs)}"]
-        if desc.mixer == "attn":
-            a = lp["attn"]
-            mixer = attention.Attention(t(a["wq"][i]), t(a["wk"][i]),
-                                        t(a["wv"][i]), t(a["wo"][i]))
-        else:
-            m = lp["mamba"]
-            mixer = mamba2.Mamba(*(
-                torch.tensor(np.asarray(m[k][i])).to(dev, torch.float32)
-                if k in mamba2.F32_PARAMS else t(m[k][i])
-                for k in ("in_proj", "conv_w", "conv_b", "dt_bias", "a_log",
-                          "d_skip", "norm", "out_proj")))
-        f = None
-        if desc.ffn == "moe":
-            e = lp["moe"]
-            f = moe.MoE(t(e["router"][i]), t(e["w_in"][i]),
-                        t(e["w_gate"][i]), t(e["w_out"][i]),
-                        dense_ffn(e["dense"], i) if "dense" in e else None)
-        elif desc.ffn == "dense":
-            f = dense_ffn(lp["ffn"], i)
-        layers.append(blocks.Layer(
-            t(lp["norm1"][i]), mixer,
-            t(lp["norm2"][i]) if f is not None else None, f))
-    params = LMParams(t(tree["embed"]), layers, t(tree["final_norm"]),
-                      None if cfg.tie_embeddings else t(tree["head"]))
+    def stack(stree, scfg: ModelConfig) -> nn.ModuleList:
+        descs = blocks.layer_descriptors(scfg)
+        layers = nn.ModuleList()
+        for layer in range(scfg.n_layers):
+            desc, i = descs[layer % len(descs)], layer // len(descs)
+            lp = stree[f"pos{layer % len(descs)}"]
+            if desc.mixer == "attn":
+                mixer = attn(lp["attn"], i)
+            else:
+                m = lp["mamba"]
+                mixer = mamba2.Mamba(*(
+                    torch.tensor(np.asarray(m[k][i])).to(dev, torch.float32)
+                    if k in mamba2.F32_PARAMS else t(m[k][i])
+                    for k in ("in_proj", "conv_w", "conv_b", "dt_bias",
+                              "a_log", "d_skip", "norm", "out_proj")))
+            f = None
+            if desc.ffn == "moe":
+                e = lp["moe"]
+                f = moe.MoE(t(e["router"][i]), t(e["w_in"][i]),
+                            t(e["w_gate"][i]), t(e["w_out"][i]),
+                            dense_ffn(e["dense"], i) if "dense" in e
+                            else None)
+            elif desc.ffn == "dense":
+                f = dense_ffn(lp["ffn"], i)
+            cross = attn(lp["cross"], i) if desc.cross else None
+            layers.append(blocks.Layer(
+                t(lp["norm1"][i]), mixer,
+                t(lp["norm2"][i]) if f is not None else None, f,
+                t(lp["norm_x"][i]) if desc.cross else None, cross))
+        return layers
+
+    head = None if cfg.tie_embeddings else t(tree["head"])
+    layers = stack(tree["blocks"], cfg)
+    if cfg.encdec:
+        from repro_torch.models.whisper import encoder_config
+        params = EncDecParams(t(tree["embed"]), layers,
+                              t(tree["final_norm"]), head,
+                              stack(tree["enc_blocks"], encoder_config(cfg)),
+                              t(tree["enc_norm"]))
+    else:
+        params = LMParams(t(tree["embed"]), layers, t(tree["final_norm"]),
+                          head)
     return params.requires_grad_(trainable)

@@ -124,7 +124,11 @@ def _ssd_chunked(x, dt, a, b, c, chunk: int):
         xq, dtq, bq, cq = xc[:, ci], dtc[:, ci], bc[:, ci], cc[:, ci]
         cum = torch.cumsum(dtq * a[None, None, :], dim=1)      # [b,q,h]
         seg = cum[:, :, None, :] - cum[:, None, :, :]          # [b,i,j,h]
-        decay = torch.where(causal, torch.exp(seg), 0.0)
+        # masked before exp: above the diagonal seg > 0 overflows exp
+        # at published widths, and the JAX package's where(causal,
+        # exp(seg), 0) then has the masked gradient 0 * inf = NaN in
+        # eager PyTorch (XLA folds it); the values are the same
+        decay = torch.exp(seg.masked_fill(~causal, float("-inf")))
         cbg = torch.einsum("bign,bjgn->bijg", cq, bq)
         cbh = torch.repeat_interleave(cbg, rep, dim=-1)        # [b,i,j,h]
         scores = cbh * decay * dtq[:, None, :, :]

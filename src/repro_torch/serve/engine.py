@@ -11,7 +11,8 @@ queue.  On the card every step runs the multi-strided rmsnorm and
 flash-decode kernels, so the paper's technique is on the hot path of
 every generated token.  ``ServeConfig.shards > 1`` (the sequence-sharded
 KV cache) is not ported yet and raises, as does a model with SSM state
-(mamba2, jamba: see ``ServingEngine.__init__``); MoE and VLM models
+(mamba2, jamba) or an encoder (whisper: see ``ServingEngine.__init__``);
+MoE and VLM models
 (tokens only, no prefix embeds) are served as dense ones are.
 
 Serving telemetry (always collected engine-side; exported via
@@ -82,6 +83,16 @@ class ServingEngine:
                 "ServeConfig.shards > 1 (sequence-sharded flash-decode, "
                 "serve/sharded.py) is not ported yet")
         mcfg = getattr(model, "cfg", None)
+        if mcfg is not None and mcfg.encdec:
+            raise NotImplementedError(
+                f"{mcfg.name}: the engine does not serve encoder-decoder "
+                "models.  Its requests carry prompt tokens only, with no "
+                "audio frames to encode, and its cache is the decoder's "
+                "self-attention cache, with no cross-attention K/V (the "
+                "JAX engine cannot serve Whisper either: it builds its "
+                "cache with the inherited init_cache, which has no "
+                "\"cross\", and passes no frames).  Serve such a model "
+                "through EncDecLM.prefill and decode_step")
         if mcfg is not None and mcfg.ssm is not None:
             raise NotImplementedError(
                 f"{mcfg.name}: the engine does not serve models with SSM "

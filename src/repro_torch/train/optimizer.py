@@ -69,13 +69,18 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
         for g in tree.values()]))
 
 
+STACKS = ("blocks.", "enc_blocks.")
+
+
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether weight decay applies to the parameter ``name``, by the JAX
     package's rule on its trees: it decays leaves of ndim >= 2, and its
     per-layer leaves are stacked ``[n_layers, ...]``, so every per-layer
-    tensor (``blocks.*``, the layer norms' gains included) decays whatever
-    its own ndim; ``final_norm`` ``[d]`` does not."""
-    return name.startswith("blocks.") or p.ndim >= 2
+    tensor of a stack (``blocks.*`` and Whisper's encoder ``enc_blocks.*``,
+    the layer norms' gains and Mamba-2's ``[H]`` scalars included) decays
+    whatever its own ndim; ``final_norm`` and ``enc_norm`` ``[d]`` do
+    not."""
+    return name.startswith(STACKS) or p.ndim >= 2
 
 
 def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],

@@ -56,9 +56,10 @@ def make_train_step(model, ocfg: opt.AdamWConfig, grad_accum: int = 1,
     """Returns ``train_step(state, batch) → (state, metrics)``; the state
     is updated in place (see ``optimizer.adamw_step``).
 
-    ``grad_accum > 1`` splits the batch into microbatches run one after
-    another (activation memory ÷ accum, same math): their grads are
-    summed in f32 and divided.  ``mode="ref"`` runs every kernel's plain
+    ``grad_accum > 1`` splits every leaf of the batch (tokens, and a
+    VLM's ``prefix_embeds`` or Whisper's ``frames``) along its batch axis
+    into microbatches run one after another (activation memory ÷ accum,
+    same math): their grads are summed in f32 and divided.  ``mode="ref"`` runs every kernel's plain
     version (for comparison on the card)."""
 
     def grads_of(params, batch):
@@ -73,12 +74,12 @@ def make_train_step(model, ocfg: opt.AdamWConfig, grad_accum: int = 1,
             loss, metrics, grads = grads_of(params, batch)
             metrics = {k: v.detach() for k, v in metrics.items()}
         else:
-            tokens = torch.as_tensor(batch["tokens"])
-            mb = tokens.shape[0] // grad_accum
+            leaves = {k: torch.as_tensor(v) for k, v in batch.items()}
+            mb = leaves["tokens"].shape[0] // grad_accum
             gsum, lsum = None, 0.0
             for i in range(grad_accum):
                 l, _, g = grads_of(params, {
-                    "tokens": tokens[i * mb:(i + 1) * mb]})
+                    k: v[i * mb:(i + 1) * mb] for k, v in leaves.items()})
                 g = [x.float() for x in g]
                 gsum = g if gsum is None else [a + b for a, b in
                                                zip(gsum, g)]

@@ -2082,3 +2082,135 @@ def test_build_cell_runs_each_kind_on_the_card(cuda_device):
         torch.cuda.synchronize()
         first = out[1]["loss"] if kind == "train_4k" else out[0]
         assert bool(torch.isfinite(first).all()), kind
+
+
+# ------------------------------------- whisper and training every family
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("t", [4, 16, 6000])
+def test_rmsnorm_at_whisper_rows_matches_plain(cuda_device, t, d):
+    """Whisper-medium's rows of 1024 (bf16): a decode step's 4, the
+    decoder prompt's 4 x 4 and the encoder's 4 x 1500 frames."""
+    _rms_matches_plain(cuda_device, torch.bfloat16, t, 1024, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kind", ["5-36", "uniform"])
+def test_decode_kernel_matches_plain_at_whisper_heads(cuda_device, dtype,
+                                                     kind):
+    """Whisper-medium's self-attention decode: Hq = Hkv = 16 (g = 1),
+    dh = 64, B = 4 over its 448-position text context, kv_len in [5, 36]
+    (the prompt of 4 and 32 steps) or anywhere in [1, 448]."""
+    b, s, hkv, dh = 4, 448, 16, 64
+    q, k, v = _decode_case(cuda_device, dtype, b, s, hkv, 1, dh, seed=448)
+    gen = torch.Generator(device=cuda_device).manual_seed(449)
+    lo, hi = (5, 37) if kind == "5-36" else (1, s + 1)
+    kv_len = torch.randint(lo, hi, (b,), generator=gen, device=cuda_device)
+    n = (dkernel.SPLIT.launches, dkernel.MERGE.launches)
+    out, lse = tdops.decode_attn(q, k, v, kv_len=kv_len, with_lse=True)
+    assert (dkernel.SPLIT.launches, dkernel.MERGE.launches) == (
+        n[0] + 1, n[1] + 1)
+    ro, rl = tdops.decode_attn(q, k, v, kv_len=kv_len, mode="ref",
+                               with_lse=True)
+    rtol = BF16_RTOL if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ro.float(), rtol=rtol, atol=1e-4)
+    torch.testing.assert_close(lse, rl, rtol=1e-4, atol=1e-4)
+
+
+def _launch_counts(fn):
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: k.launches for n, k in cuda.KERNELS.items()
+                 if k.launches}
+
+
+@pytest.mark.gpu
+def test_whisper_launch_counts_and_ref(cuda_device):
+    """Whisper at reduced depth (bf16): a prefill launches rmsnorm for
+    each encoder layer's norm1 and norm2, enc_norm, each decoder layer's
+    norm1, norm_x and norm2 and the final norm, no decode kernel; a
+    decode step the decoder's rmsnorms and decode_attn and its merge once
+    a layer (cross-attention is plain SDPA).  The logits are the plain
+    path's within 5e-2 of their norm."""
+    from repro_torch.models.lm import build_model
+    cfg = reduced(get_config("whisper-medium"))
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 6),
+                                     generator=gen, device=cuda_device),
+             "frames": torch.randn(2, cfg.enc_seq, cfg.d_model,
+                                   generator=gen, device=cuda_device)}
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+    (logits, cache), counts = _launch_counts(
+        lambda: model.prefill(params, batch, max_len=12))
+    assert counts == {"rmsnorm": 2 * n_enc + 1 + 3 * n_dec + 1}
+    with torch.inference_mode():
+        (step, _), counts = _launch_counts(lambda: model.decode_step(
+            params, logits.argmax(-1, keepdim=True), cache, 6))
+    assert counts == {"rmsnorm": 3 * n_dec + 1, "decode_attn": n_dec,
+                      "decode_attn_merge": n_dec}
+    assert bool(torch.isfinite(logits).all() and torch.isfinite(step).all())
+    ref, ref_cache = model.prefill(params, batch, max_len=12, mode="ref")
+    rel = float((logits.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 5e-2, rel
+    with torch.inference_mode():
+        rstep, _ = model.decode_step(params, logits.argmax(-1, keepdim=True),
+                                     ref_cache, 6, mode="ref")
+    rel = float((step.float() - rstep.float()).norm() / rstep.float().norm())
+    assert rel <= 5e-2, rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b",
+                                  "mamba2-2.7b", "jamba-1.5-large-398b",
+                                  "internvl2-2b", "whisper-medium"])
+def test_family_train_step_matches_ref(cuda_device, arch):
+    """One train step of each non-dense family at reduced size, f32
+    compute (no MoE router near-tie turns on bf16 rounding), with the
+    kernels and with mode="ref" from the same seed: rmsnorm launched
+    twice per layer norm (remat) plus the final norm and enc_norm,
+    adamw_update once per tensor; the loss and grad norm within 1e-5
+    relative, every parameter within 0.1 lr of the plain step's and all
+    but 0.1% of each tensor's entries within 1e-3 lr (an entry whose
+    clipped gradient is near AdamW's eps swings with its last bits)."""
+    from repro_torch.models.lm import build_model, norm_calls
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train import trainstep
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 17),
+                                     generator=gen, device=cuda_device)}
+    if cfg.n_prefix_embeds:
+        batch["prefix_embeds"] = torch.randn(
+            2, cfg.n_prefix_embeds, cfg.d_model, generator=gen,
+            device=cuda_device)
+    if cfg.encdec:
+        batch["frames"] = torch.randn(2, cfg.enc_seq, cfg.d_model,
+                                      generator=gen, device=cuda_device)
+    ocfg = topt.AdamWConfig(lr=3e-3, warmup_steps=1)
+    runs = {}
+    for mode in (None, "ref"):
+        state = trainstep.init_state(model, seed=0, device=cuda_device)
+        step = trainstep.make_train_step(model, ocfg, mode=mode)
+        (state, m), counts = _launch_counts(lambda: step(state, batch))
+        runs[mode] = (m, dict(state["params"].named_parameters()), counts)
+    (mk, pk, ck), (mr, pr, cr) = runs[None], runs["ref"]
+    norms = norm_calls(model.init(seed=0, device="meta"))
+    # remat runs each layer's norms twice; the final norm and enc_norm once
+    assert ck == {"rmsnorm": 2 * norms - 1 - cfg.encdec,
+                  "adamw_update": len(pk)}
+    assert cr == {}
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(mk[k], mr[k], rtol=1e-5, atol=0)
+    lr = float(mr["lr"])
+    for name, p in pk.items():
+        d = (p.detach() - pr[name].detach()).abs()
+        assert float(d.max()) <= 0.1 * lr, (name, float(d.max()) / lr)
+        assert int((d > 1e-3 * lr).sum()) <= max(1, 1e-3 * d.numel()), name

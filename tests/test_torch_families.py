@@ -4,6 +4,7 @@ on carried weights, at ``reduced()`` size: logits, the loss with the MoE
 aux loss, single-pass prefill (logits and every cache and state leaf),
 decode steps (a ragged position vector for the attention families), the
 serving invariant, the serving engine, the builders and the refusals.
+Training these families: ``tests/test_torch_family_train.py``.
 
 Weights: the JAX ``CausalLM.init`` tree as numpy, loaded with
 ``params_from_numpy``; tokens and prefix embeds from seeded numpy.  The
@@ -27,8 +28,8 @@ from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServingEngine as JServingEngine
 from repro_torch import configs
 from repro_torch.launch import steps
-from repro_torch.models import blocks, mamba2
-from repro_torch.models.lm import build_model, params_from_numpy
+from repro_torch.models import blocks, common, mamba2
+from repro_torch.models.lm import build_model, norm_calls, params_from_numpy
 from repro_torch.serve import ServeConfig, ServingEngine
 
 ARCHS = ["qwen3-moe-30b-a3b", "arctic-480b", "mamba2-2.7b",
@@ -457,7 +458,7 @@ def test_serve_launcher_refuses_ssm_state(arch):
         serve.main(["--arch", arch, "--device", "cpu", "--requests", "1"])
 
 
-# ---------------------------------------------------- builders, refusals
+# ------------------------------------------------------------ builders
 
 def test_build_prefill_step_draws_prefix_embeds():
     """A VLM's prefill batch holds ``prefix_embeds`` [B, Np, D] f32 as
@@ -496,21 +497,6 @@ def test_build_decode_step_gives_ssm_layers_their_state(arch):
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_training_the_family_is_refused(arch, tmp_path):
-    """Training a non-dense family waits for a later slice (ROADMAP Queue
-    1 item 5); its loss already runs on the CPU (above)."""
-    from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train.main(["--arch", arch, "--device", "cpu", "--steps", "1",
-                    "--ckpt-dir", str(tmp_path)])
-    shape = dataclasses.replace(configs.get_shape("train_4k"),
-                                global_batch=2, seq_len=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        steps.build_train_step(configs.reduced(configs.get_config(arch)),
-                               shape, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ARCHS)
 def test_family_inits_and_decodes_on_cpu(arch):
     """Random weights from the port's own init (bf16): prefill and a
     decode step give finite logits."""
@@ -525,3 +511,32 @@ def test_family_inits_and_decodes_on_cpu(arch):
                                     cache,
                                     torch.tensor(cfg.n_prefix_embeds + 5))
     assert torch.isfinite(logits).all() and torch.isfinite(step).all()
+
+
+@pytest.mark.parametrize("arch", ARCHS + ["yi-9b", "whisper-medium"])
+def test_norm_calls_counts_every_rmsnorm_of_a_forward(arch):
+    """``lm.norm_calls`` (the launch count chip_smoke and the gpu tests
+    expect of the rmsnorm kernel) is the number of rmsnorm calls one
+    forward makes, and ``blocks.norm_calls`` of the decoder plus the
+    final norm those of one decode step."""
+    from unittest import mock
+    cfg = configs.reduced(configs.get_config(arch))
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    calls = []
+    norm = common.rms_norm
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return norm(*a, **kw)
+    batch = _t(_batch(cfg, 2, 5, seed=3))
+    if cfg.encdec:
+        batch["frames"] = torch.zeros(2, cfg.enc_seq, cfg.d_model)
+    with mock.patch.object(common, "rms_norm", counted), torch.no_grad():
+        logits, cache = model.prefill(params, batch,
+                                      max_len=8 + cfg.n_prefix_embeds)
+        assert len(calls) == norm_calls(params)
+        calls.clear()
+        model.decode_step(params, logits.argmax(-1, keepdim=True), cache,
+                          torch.tensor(5 + cfg.n_prefix_embeds))
+    assert len(calls) == blocks.norm_calls(params.blocks) + 1
