@@ -162,7 +162,25 @@ Phases (each raises on failure, so the script exits non-zero):
                 memory; (d) wall and device time, tokens/s, count_flops beside
                 model_flops, roofline_terms(n_chips=1) and the share of
                 the bound reached, and (a)'s time by kernel
-  6c. families — with the serve model freed, the MoE, SSM and VLM
+  6c. sharded — sequence-sharded serving on the serve phase's weights:
+                (a) the static split at Yi-9B's heads, B=4 x S=4096 at
+                2, 4 and 8 shards and B=8 x S=32768 at 4, kv_len uniform
+                and 17-64, against the unsharded kernel and mode="ref"
+                (each slice read in place), K split + K merge launches a
+                call, its time, each slice's and merge_partials' alone;
+                (b) Yi-9B at full width and depth, the serve phase's 8
+                requests at ServeConfig(shards=4) on one card: launches
+                a step (97 rmsnorm, 192 decode_attn, 192 merge), greedy
+                tokens against shards=1, a teacher-forced step's logits
+                within 2x a one-ulp control with one shard's lse dropped
+                above it, step time and busy share of both; (c) 4 ranks
+                as processes on this card over gloo, each holding its
+                [B, S/4] slice: (c1) the collective op against the
+                unsharded kernel, (c2) the engine over serving_ctx(4) at
+                full width and 8 of 48 layers: every rank's tokens equal
+                rank 0's and the one-process static split's, agreement
+                with shards=1 printed
+  6d. families — with the serve model freed, the MoE, SSM and VLM
                 families at full width and depth on random bf16 weights:
                 Qwen3-MoE-30B-A3B (prefill B=4 x 1024 at max_len 2048),
                 Mamba2-2.7B (B=4 x 4096) and InternVL2-2B (256 prefix
@@ -184,7 +202,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 (dense residual) at reduced() dims, not a full-width
                 path: prefill + 4 decode steps, launches, against
                 mode="ref"
-  6d. whisper — Whisper-medium at full width and depth on random bf16
+  6e. whisper — Whisper-medium at full width and depth on random bf16
                 weights: B=4 clips of 1500 frames, the 4-token
                 start-of-transcript prompt, max_len 448: the encoder
                 alone, a prefill (122 rmsnorm launches) and 32 greedy
@@ -195,7 +213,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 2x the one-ulp control, 64 lost rows of the encoder's
                 output norm above it), 4 teacher-forced steps, and the
                 serving invariant at B=1 (64 tokens + one step)
-  6e. train-families — Whisper-medium (B=4 x 448 on 1500 frames),
+  6f. train-families — Whisper-medium (B=4 x 448 on 1500 frames),
                 Mamba2-2.7B (B=2 x 4096), InternVL2-2B (B=2 x (256 +
                 4096)) and Qwen3-MoE-30B-A3B (4 of 48 layers, B=2 x 4096)
                 at full width through launch.steps.build_train_step:
@@ -3685,7 +3703,7 @@ def phase_serve(card: str):
     per_step = {k: v / steps for k, v in counts.items()}
     print(f"serve: kernel launches {json.dumps(counts)}, per step "
           f"{json.dumps(per_step)} [{card}]")
-    return model, params, engine, counts
+    return model, params, engine, counts, results
 
 
 def phase_in_model(card: str, model, params, engine) -> None:
@@ -5123,6 +5141,458 @@ def phase_train_families(card: str) -> None:
               f"[{card}]")
 
 
+SHARDS = (2, 4, 8)                  # the sharded phase's static splits
+SHARD_LAYERS = 8                    # (c2)'s depth: four ranks share a card
+SHARD_REQUESTS = 4                  # (c2)'s requests: the serve phase's first
+# a sharded bf16 output against another path's: |d| <= atol + rtol *
+# (|ref| + the largest |partial out| of the shards).  Each shard's out is
+# rounded to bf16 before the merge (half an ulp of |o_k|, carried through
+# the weighted mean), then the merged out and the other path's out round
+# once each (half an ulp of |out| each): 2^-8 (max|o_k| + 2 |out|) in
+# all, under 2^-7 (|ref| + max|o_k|); atol covers f32 reassociation
+SHARD_TOL = (2.0 ** -7, 1e-4)
+
+
+def _partial_scale(q, kc, vc, kv_len, k):
+    """The largest |out| of the ``k`` shards' partial outputs, each
+    element (the plain version)."""
+    import torch
+    from repro_torch.kernels.decode_attn import ops as dops
+    sp = kc.shape[1] // k
+    return torch.stack([dops.decode_attn(
+        q, kc[:, j * sp:(j + 1) * sp], vc[:, j * sp:(j + 1) * sp],
+        (kv_len - j * sp).clamp(0, sp), mode="ref").float().abs()
+        for j in range(k)]).amax(0)
+
+
+def _held(what, got, want, scale, lse=None, want_lse=None) -> float:
+    """Max |d| of a sharded bf16 decode output against another path's,
+    within :data:`SHARD_TOL` of ``|want| + scale`` (``scale`` from
+    :func:`_partial_scale`), and of its lse within 1e-4; raises
+    outside."""
+    import torch
+    rtol, atol = SHARD_TOL
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: shape or finiteness")
+    if not bool((d <= atol + rtol * (w.abs() + scale)).all()):
+        raise AssertionError(f"{what}: out disagrees (max |d|={d.max():g})")
+    if lse is not None:
+        dl = (lse - want_lse).abs()
+        if not bool((dl <= 1e-4 + 1e-4 * want_lse.abs()).all()):
+            raise AssertionError(f"{what}: lse disagrees (max "
+                                 f"|d|={dl.max():g})")
+    return float(d.max())
+
+
+def _sharded_op(card: str) -> None:
+    """(a) The static split at Yi-9B's heads, B=4 x S=4096 at 2, 4 and 8
+    shards (and B=8 x S=32768 at 4), kv_len uniform and 17-64: against
+    the unsharded kernel and mode="ref", its launches, its time and each
+    slice's beside the unsharded call's, and merge_partials alone."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn import sharded as dsh
+    hkv, dh, hq = 4, 128, 32
+    rng = np.random.default_rng(29)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    print(f"sharded (a): tolerance out |d| <= {SHARD_TOL[1]:g} + "
+          f"{SHARD_TOL[0]:g}*(|ref| + max_k |o_k|) (each shard's out o_k "
+          "rounds to bf16 before the merge), lse 1e-4; timed in CUDA "
+          f"graphs, every output held [{card}]")
+    cases = [(SERVE_SLOTS, SERVE_MAX_LEN, k) for k in SHARDS] + [(8, 32768, 4)]
+    for b, s, k in cases:
+        sp = s // k
+
+        def make():
+            q, kc, vc = (torch.randn(*shape, generator=gen, device="cuda")
+                         .bfloat16() for shape in ((b, hq, dh),
+                                                   (b, s, hkv, dh),
+                                                   (b, s, hkv, dh)))
+            return q, kc, vc
+        sets0 = _copies(make, 2 * b * s * hkv * dh * 2)
+        for kind in ("uniform", "17-64"):
+            lo, hi = (1, s + 1) if kind == "uniform" else (17, 65)
+            kv_len = torch.as_tensor(rng.integers(lo, hi, b), device="cuda")
+            sets = [(q, kc, vc, kv_len) for q, kc, vc in sets0]
+            q, kc, vc, _ = sets[0]
+            for kern in cuda.KERNELS.values():
+                kern.launches = 0
+            out, lse = dsh.decode_attn_sharded(q, kc, vc, kv_len, shards=k,
+                                               with_lse=True)  # main path
+            torch.cuda.synchronize()
+            counts = {n: cuda.KERNELS[n].launches
+                      for n in ("decode_attn", "decode_attn_merge")}
+            if counts != {"decode_attn": k, "decode_attn_merge": k}:
+                raise AssertionError(f"sharded B={b} S={s} K={k}: launches "
+                                     f"{counts}, expected {k} each")
+            one, one_lse = dops.decode_attn(q, kc, vc, kv_len, with_lse=True)
+            ref, ref_lse = dsh.decode_attn_sharded(q, kc, vc, kv_len,
+                                                   shards=k, mode="ref",
+                                                   with_lse=True)
+            what = f"sharded B={b} S={s} K={k} kv_len {kind}"
+            scale = _partial_scale(q, kc, vc, kv_len, k)
+            e1 = _held(f"{what} vs unsharded", out, one, scale, lse, one_lse)
+            e2 = _held(f"{what} vs ref", out, ref, scale, lse, ref_lse)
+            ms = device_ms(lambda *a: dsh.decode_attn_sharded(
+                *a[:3], a[3], shards=k), sets, hold=True)
+            ms1 = device_ms(lambda *a: dops.decode_attn(*a), sets, hold=True)
+            plain = device_ms(lambda *a: dsh.decode_attn_sharded(
+                *a[:3], a[3], shards=k, mode="ref"), sets[:1], reps=4,
+                hold=True)
+            slices = []
+            for j in range(k):
+                local = (kv_len - j * sp).clamp(0, sp)
+                slices.append(device_ms(lambda *a: dops.decode_attn(
+                    a[0], a[1][:, j * sp:(j + 1) * sp],
+                    a[2][:, j * sp:(j + 1) * sp], local, with_lse=True),
+                    sets, hold=True))
+            parts = [dops.decode_attn(q, kc[:, j * sp:(j + 1) * sp],
+                                      vc[:, j * sp:(j + 1) * sp],
+                                      (kv_len - j * sp).clamp(0, sp),
+                                      with_lse=True) for j in range(k)]
+            p_sets = [(torch.stack([o for o, _ in parts]),
+                       torch.stack([ls for _, ls in parts]))]
+            ms_m = device_ms(dsh.merge_partials, p_sets, hold=True)
+            rows = int(kv_len.sum())
+            nbytes = (2 * rows * hkv * dh * 2 + b * hq * dh * 2 * 2
+                      + b * hq * 4)
+            bms, by = bound_ms(nbytes, 4.0 * rows * hq * dh, "bfloat16")
+            print(f"{what} (Yi-9B heads {hq}/{hkv}x{dh} bf16, slices "
+                  f"[{b}, {sp}] read in place, batch pitch {s}): "
+                  f"max_abs_err vs unsharded {e1:g}, vs ref {e2:g}; "
+                  f"ms={ms:.5f} (K split + K merge + merge_partials) "
+                  f"unsharded_ms={ms1:.5f} plain_ms={plain:.5f} "
+                  f"bound_ms={bms:.6f} ({by}, sum(kv_len)={rows}) "
+                  f"{ms / bms:.2f}x bound; each slice's ms "
+                  f"{[round(t, 5) for t in slices]}; merge_partials alone "
+                  f"ms={ms_m:.5f}; launches {json.dumps(counts)} [{card}]")
+            del sets, parts, p_sets
+        del sets0
+        torch.cuda.empty_cache()
+
+
+def _busy(card, what, step, steps: int = 3) -> tuple[float, float]:
+    """(wall ms, device-kernel ms) of one ``step()`` over ``steps`` calls
+    after two warm ones (torch.profiler for the device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    dev_ms = sum(dev(e) for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")
+                 and dev(e) > 0) / steps / 1e3
+    print(f"sharded {what}: decode step wall {wall:.3f} ms, device kernels "
+          f"{dev_ms:.3f} ms ({100 * dev_ms / wall:.1f}% busy) over {steps} "
+          f"steps [{card}]")
+    return wall, dev_ms
+
+
+def _sharded_engine(card: str, model, params, engine, served) -> None:
+    """(b) The serve phase's Yi-9B (full width and depth) and 8 requests
+    at ServeConfig(shards=4) through the static split on one card: the
+    launches a step, the greedy tokens against the shards=1 run, a
+    teacher-forced step's logits within 2x a one-ulp control with a lost
+    shard above it, and the decode-step time and busy share of both."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.kernels.decode_attn import sharded as dsh
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg, k = model.cfg, 4
+    eng = ServingEngine(model, params, ServeConfig(
+        slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, max_new_tokens=SERVE_NEW,
+        shards=k))
+    rng = np.random.default_rng(0)            # the serve phase's prompts
+    for uid in range(SERVE_REQUESTS):
+        eng.submit(uid, rng.integers(0, cfg.vocab_size,
+                                     int(rng.integers(8, 65))))
+    for kern in cuda.KERNELS.values():
+        kern.launches = 0
+    results = eng.run()
+    torch.cuda.synchronize()
+    counts = {n: kern.launches for n, kern in cuda.KERNELS.items()
+              if kern.launches}
+    st = eng.stats()
+    steps = st["decode_steps"] + st["prefill_steps"]
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * steps,
+            "decode_attn": k * cfg.n_layers * steps,
+            "decode_attn_merge": k * cfg.n_layers * steps}
+    if counts != want:
+        raise AssertionError(f"sharded (b): launches {counts}, expected "
+                             f"{want} over {steps} steps")
+    same = sum(int(a == b) for uid in served
+               for a, b in zip(results[uid], served[uid]))
+    total = sum(len(v) for v in served.values())
+    print(f"sharded (b): {cfg.name} {cfg.n_layers} layers, shards={k} "
+          f"(static split on one card), {len(results)} requests: launches "
+          f"a step {json.dumps({n: c / steps for n, c in counts.items()})}; "
+          f"greedy tokens agree with shards=1 on {same}/{total}; "
+          f"mean_decode_step_s {st['mean_decode_step_s']:.6f} (shards=1: "
+          f"{engine.stats()['mean_decode_step_s']:.6f}) [{card}]")
+    del eng
+
+    # one teacher-forced step from a cache filled at the served rows'
+    # scale, row r's position in shard r: shards=4 against shards=1
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    b, s = SERVE_SLOTS, SERVE_MAX_LEN
+    sp = s // k
+    pos = torch.as_tensor([r * sp + int(rng.integers(16, sp - 2))
+                           for r in range(b)], device="cuda")
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, 1)),
+                           device="cuda")
+    cache0 = [{n: (torch.randn(t.shape, generator=gen, device="cuda")
+                   * float(t[:, :8].float().std())).to(t.dtype)
+               for n, t in layer.items()} for layer in engine.cache]
+    plain_op, plain_merge = dops.decode_attn, dsh.merge_partials
+
+    def one_ulp(q, kc, vc, kv_len=None, **kw):
+        return _ulp_moved(plain_op(q, kc, vc, kv_len, **kw), gen)
+
+    def lost_shard(outs, lses):              # shard 1's lse dropped
+        keep = [j for j in range(outs.shape[0]) if j != 1]
+        return plain_merge(outs[keep], lses[keep])
+
+    def run(shards, op=None, merge=None):
+        cache = [{n: t.clone() for n, t in c.items()} for c in cache0]
+        dops.decode_attn, dsh.merge_partials = op or plain_op, \
+            merge or plain_merge
+        try:
+            with torch.inference_mode():
+                return model.decode_step(params, toks, cache, pos,
+                                         shards=shards)[0].float()
+        finally:
+            dops.decode_attn, dsh.merge_partials = plain_op, plain_merge
+
+    want_l = run(1)
+    reads = {"shards=4": run(k), "control: one ulp": run(1, op=one_ulp),
+             "fault: shard 1's lse dropped": run(k, merge=lost_shard)}
+    rel = {n: float((lg - want_l).norm() / want_l.norm())
+           for n, lg in reads.items()}
+    tol = 2 * rel["control: one ulp"]
+    print(f"sharded (b): teacher-forced step at positions {pos.tolist()} "
+          f"(row r in shard r), ||logits - logits(shards=1)|| / ||.||: "
+          + ", ".join(f"{n} {v:.3e}" for n, v in rel.items())
+          + f"; limit {tol:.3e} (2x the one-ulp control) [{card}]")
+    _margin_check("sharded (b) teacher-forced", reads["shards=4"], want_l,
+                  card)
+    if not bool(torch.isfinite(reads["shards=4"]).all()):
+        raise AssertionError("sharded (b): non-finite logits")
+    if rel["shards=4"] > tol:
+        raise AssertionError(f"sharded (b): shards=4 logits outside the "
+                             f"limit ({rel['shards=4']:.3e} > {tol:.3e})")
+    if rel["fault: shard 1's lse dropped"] <= tol:
+        raise AssertionError("sharded (b): a dropped shard stays inside the "
+                             "limit, so the check cannot see it")
+    cache = [{n: t.clone() for n, t in c.items()} for c in cache0]
+    for shards in (1, k):
+        _busy(card, f"(b) shards={shards}", lambda: model.decode_step(
+            params, toks, cache, pos, shards=shards))
+    del cache, cache0
+    torch.cuda.empty_cache()
+
+
+def _collective_rank(rank: int, world: int, store: str, prompts: dict,
+                     out: str) -> None:
+    """(c) One rank of ``world`` on this card over gloo: the collective op
+    on the rank's slice at the serve shape, then the engine over
+    ``serving_ctx(world)`` with Yi-9B at full width and
+    :data:`SHARD_LAYERS` layers; results saved to ``out``."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"         # loopback only
+    torch.set_num_threads(2)                        # 4 ranks, 8 cores
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.kernels import cuda
+        from repro_torch.kernels.decode_attn import kernel as dk
+        from repro_torch.kernels.decode_attn import sharded as dsh
+        from repro_torch.models.lm import build_model
+        from repro_torch.serve import ServeConfig, ServingEngine, serving_ctx
+        ctx = serving_ctx(world)
+        b, s, hkv, dh, hq = SERVE_SLOTS, SERVE_MAX_LEN, 4, 128, 32
+        sp = s // world
+        gen = torch.Generator(device="cuda").manual_seed(7)   # every rank alike
+        q, kc, vc = (torch.randn(*shape, generator=gen, device="cuda")
+                     .bfloat16() for shape in ((b, hq, dh), (b, s, hkv, dh),
+                                               (b, s, hkv, dh)))
+        lo = ctx.tp_rank * sp
+        kl, vl = kc[:, lo:lo + sp].clone(), vc[:, lo:lo + sp].clone()
+        del kc, vc
+        res = {"op": []}
+        for kv in ([3000, 4096, 1, 2048], [17, 64, 40, 33]):
+            kv_len = torch.tensor(kv, device="cuda")
+            n0 = dk.SPLIT.launches
+            got = dsh.decode_attn_collective(q, kl, vl, kv_len, ctx=ctx)
+            torch.cuda.synchronize()
+            res["op"].append((kv, got.cpu(), dk.SPLIT.launches - n0))
+        cfg = dataclasses.replace(get_config("yi-9b"), n_layers=SHARD_LAYERS)
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cuda")
+        eng = ServingEngine(model, params, ServeConfig(
+            slots=b, max_len=s, max_new_tokens=SERVE_NEW, shards=world),
+            ctx=ctx)
+        for uid, p in prompts.items():
+            eng.submit(uid, p)
+        for kern in cuda.KERNELS.values():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        res["tokens"] = eng.run()
+        torch.cuda.synchronize()
+        res["wall"] = time.perf_counter() - t0
+        res["stats"] = eng.stats()
+        res["launches"] = {n: kern.launches
+                           for n, kern in cuda.KERNELS.items()
+                           if kern.launches}
+        res["cache"] = tuple(eng.cache[0]["k"].shape)
+        res["memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.save(res, f"{out}{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_collective(card: str) -> None:
+    """(c) The collective merge on the card: 4 ranks as processes (spawn),
+    all on cuda:0 (NCCL refuses two ranks on one device) over gloo with a
+    FileStore in a temporary directory, each holding only its
+    [B, S/4, Hkv, dh] slice.  (c1) the op against the unsharded kernel on
+    the whole cache; (c2) the engine over serving_ctx(4), Yi-9B at full
+    width and 8 of 48 layers (four copies of the weights share the card):
+    every rank's tokens against rank 0's, the one-process static split's
+    at shards=4 (the conformance oracle) and the shards=1 run's."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attn import ops as dops
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServingEngine
+    world = 4
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=SHARD_LAYERS)
+    rng = np.random.default_rng(0)            # the serve phase's prompts
+    prompts = {uid: rng.integers(0, cfg.vocab_size, int(rng.integers(8, 65)))
+               for uid in range(SHARD_REQUESTS)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        t0 = time.perf_counter()
+        mp.start_processes(
+            _collective_rank,
+            args=(world, os.path.join(tmp, "store"), prompts,
+                  os.path.join(tmp, "rank")),
+            nprocs=world, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}"),
+                            weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c1) against the unsharded kernel on the whole cache
+    b, s, hkv, dh, hq = SERVE_SLOTS, SERVE_MAX_LEN, 4, 128, 32
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, kc, vc = (torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+                 for shape in ((b, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh)))
+    for i, (kv, _, _) in enumerate(ranks[0]["op"]):
+        kv_len = torch.tensor(kv, device="cuda")
+        want = dops.decode_attn(q, kc, vc, kv_len)
+        scale = _partial_scale(q, kc, vc, kv_len, world)
+        errs = [_held(f"sharded (c1) rank {r} kv_len {kv}",
+                      res["op"][i][1].cuda(), want, scale)
+                for r, res in enumerate(ranks)]
+        print(f"sharded (c1): {world} gloo ranks on one card, each its "
+              f"[{b}, {s // world}, {hkv}, {dh}] slice, kv_len {kv}: max_abs_err "
+              f"vs the unsharded kernel per rank "
+              f"{[round(e, 6) for e in errs]}; split launches a rank "
+              f"{[res['op'][i][2] for res in ranks]} [{card}]")
+    del q, kc, vc
+
+    # (c2) the engine: one process, static split and unsharded, same weights
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+
+    def serve(shards):
+        eng = ServingEngine(model, params, ServeConfig(
+            slots=b, max_len=s, max_new_tokens=SERVE_NEW, shards=shards))
+        for uid, p in prompts.items():
+            eng.submit(uid, p)
+        return eng.run(), eng.stats()
+    static, st_static = serve(world)
+    one, st_one = serve(1)
+    del model, params
+    torch.cuda.empty_cache()
+    total = sum(len(v) for v in one.values())
+    for r, res in enumerate(ranks):
+        if res["tokens"] != ranks[0]["tokens"]:
+            raise AssertionError(f"sharded (c2): rank {r}'s tokens differ "
+                                 "from rank 0's")
+        if res["cache"] != (b, s // world, cfg.n_kv_heads, cfg.head_dim):
+            raise AssertionError(f"sharded (c2): rank {r} holds a cache of "
+                                 f"{res['cache']}")
+        n = SHARD_LAYERS * (res["stats"]["decode_steps"]
+                            + res["stats"]["prefill_steps"])
+        want = {"rmsnorm": (2 * SHARD_LAYERS + 1) * n // SHARD_LAYERS,
+                "decode_attn": n, "decode_attn_merge": n}
+        if res["launches"] != want:
+            raise AssertionError(f"sharded (c2): rank {r} launched "
+                                 f"{res['launches']}, expected {want}")
+    got = ranks[0]["tokens"]
+    if got != static:
+        raise AssertionError("sharded (c2): the collective tokens differ "
+                             "from the one-process static split's")
+    agree = sum(int(x == y) for uid in one
+                for x, y in zip(got[uid], one[uid]))
+    st = ranks[0]["stats"]
+    print(f"sharded (c2): {cfg.name} full width, {SHARD_LAYERS} layers, "
+          f"{world} gloo ranks on one card, cache {ranks[0]['cache']} a "
+          f"rank and layer: every rank's tokens equal rank 0's and the "
+          f"static split's (shards={world}); {agree}/{total} equal the "
+          f"shards=1 run's; launches on rank 0 {json.dumps(ranks[0]['launches'])}"
+          f" over {st['decode_steps'] + st['prefill_steps']} steps; "
+          f"mean_decode_step_s collective {st['mean_decode_step_s']:.6f}, "
+          f"static {st_static['mean_decode_step_s']:.6f}, shards=1 "
+          f"{st_one['mean_decode_step_s']:.6f}; engine wall a rank "
+          f"{[round(res['wall'], 2) for res in ranks]} s, peak memory a "
+          f"rank {[round(res['memory_gib'], 2) for res in ranks]} GiB; the "
+          f"{world} processes took {spawn_s:.1f} s [{card}]")
+
+
+def phase_sharded(card: str, model, params, engine, served) -> None:
+    """Sequence-sharded serving (``kernels/decode_attn/sharded.py``,
+    ``serve/sharded.py``): (a) the static split at the serve shape,
+    (b) the engine at shards=4 on the serve phase's weights, (c) the
+    collective merge over 4 gloo ranks on this card.  (b) serves the
+    serve phase's 8 requests: its steps are host-bound, about twice a
+    shards=1 step, so (c2) serves the first :data:`SHARD_REQUESTS`."""
+    _sharded_op(card)
+    _sharded_engine(card, model, params, engine, served)
+    _sharded_collective(card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5182,10 +5652,12 @@ def _run(t_start: float) -> int:
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s [{card}]")
         return out
 
-    model, params, engine, counts = timed("serve", phase_serve, card)
+    model, params, engine, counts, served = timed("serve", phase_serve,
+                                                  card)
     timed("in-model", phase_in_model, card, model, params, engine)
     timed("profile", phase_profile, card, model, params, engine)
     timed("prefill", phase_prefill, card, model, params)
+    timed("sharded", phase_sharded, card, model, params, engine, served)
     del model, params, engine          # free the serve weights and cache
     torch.cuda.empty_cache()
     timed("families", phase_families, card)

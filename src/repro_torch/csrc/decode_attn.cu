@@ -28,7 +28,9 @@
 //     units at a time, one unit a lane, and issues no load for a unit
 //     whose rows are all masked.  For the others it fills a ring of
 //     STAGES shared-memory stages with two TMA tensor copies (K and V,
-//     64 rows x dh of the KV head, a strided 2-D box) on an mbarrier,
+//     64 rows x dh of the KV head of one batch row, a box of a 3-D map
+//     whose batch stride is the cache's pitch, so a shard's slice of a
+//     longer cache is read in place) on an mbarrier,
 //     and hands the unit and its 64-bit row mask to the consumers.
 //   * Four consumer warps, each with rows w * 16 ... + 15 of every tile
 //     and an online-softmax state of its own, so no barrier of the block
@@ -124,7 +126,7 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 }
 
 struct Geo {
-  int S, hkv, g, gc, nhc, hq, d, seg, nt, units, upb, chunks;
+  int S, pitch, hkv, g, gc, nhc, hq, d, seg, nt, units, upb, chunks;
   float scale, eps;
   int masked;
 };
@@ -238,7 +240,8 @@ decode_kernel(const __grid_constant__ CUtensorMap tmK,
   const int h = y / G.nhc, head0 = h * G.g + (y % G.nhc) * G.gc;
   const int u0 = c * G.upb, u1 = min(G.units, u0 + G.upb);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t brow = static_cast<size_t>(b) * G.S;
+  const size_t brow = static_cast<size_t>(b) * G.S;       // mask row b
+  const size_t kvrow = static_cast<size_t>(b) * G.pitch;  // K / V row b
 
   if (tid == 0) {
     for (int i = 0; i < C::STAGES; ++i) {
@@ -306,12 +309,13 @@ decode_kernel(const __grid_constant__ CUtensorMap tmK,
           info[slot][1] = static_cast<int>(lo);
           info[slot][2] = static_cast<int>(hi);
           mbar_expect_tx(&full[slot], 2u * C::TILE_B);
-          const int yrow = static_cast<int>(brow) + row0;
 #pragma unroll
           for (int sb = 0; sb < C::NSUB; ++sb)
-            tma_load(kring + slot * C::TILE_B + sb * (TROWS * C::RB), &tmK,
-                     h * DH + sb * (C::RB / C::ES), yrow, &full[slot]);
-          tma_load(vring + slot * C::TILE_B, &tmV, h * DH, yrow, &full[slot]);
+            tma_load_3d(kring + slot * C::TILE_B + sb * (TROWS * C::RB),
+                        &tmK, h * DH + sb * (C::RB / C::ES), row0, b,
+                        &full[slot]);
+          tma_load_3d(vring + slot * C::TILE_B, &tmV, h * DH, row0, b,
+                      &full[slot]);
         }
         ++i;
         __syncwarp();
@@ -533,7 +537,7 @@ decode_kernel(const __grid_constant__ CUtensorMap tmK,
         unit_rows(G, u, row0, nrows);
         float part = 0.f;
         for (int r = 0; r < nrows; ++r)
-          part += Cvt<T>::to(V[(brow + row0 + r) * (G.hkv * DH) + h * DH + dd]);
+          part += Cvt<T>::to(V[(kvrow + row0 + r) * (G.hkv * DH) + h * DH + dd]);
         sum += part;
       }
       for (int j = 0; j < G.gc; ++j) pnum[(st0 + j) * DH + dd] = sum;
@@ -592,18 +596,23 @@ int group_chunk(int g) {
   return 1;
 }
 
-// The [B * S, Hkv * dh] view of a K or V cache, in boxes of 64 rows by
-// `box` elements, swizzled in `swz` bytes (0: none).
-bool kv_map(CUtensorMap* map, const void* base, bool bf16, int rows,
-            int cols, int box, int swz) {
+// The [B, S, Hkv * dh] view of a K or V cache whose batch rows lie
+// `pitch` rows apart (pitch = S for a whole cache, more for a slice of
+// the sequence read in place), in boxes of 64 rows by `box` elements of
+// one batch row, swizzled in `swz` bytes (0: none).  Rows past S are
+// out of the map: the TMA fills them with zeros, never the next slice's.
+bool kv_map(CUtensorMap* map, const void* base, bool bf16, int B, int S,
+            int pitch, int cols, int box, int swz) {
   const int es = bf16 ? 2 : 4;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * es};
-  const cuuint32_t boxd[2] = {static_cast<cuuint32_t>(box), TROWS};
+  const cuuint64_t row_b = static_cast<cuuint64_t>(cols) * es;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {row_b, row_b * static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t boxd[3] = {static_cast<cuuint32_t>(box), TROWS, 1};
   return make_map(map, base, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                  2, dims, strides, boxd, swz);
+                  3, dims, strides, boxd, swz);
 }
 
 template <typename T, int DH, int NT>
@@ -613,9 +622,9 @@ int launch_t(const void* K, const void* V, const void* q, const void* M,
   using C = Cfg<T, DH, NT>;
   constexpr bool bf16 = C::MMA;
   CUtensorMap tk, tv;
-  if (!kv_map(&tk, K, bf16, B * G.S, G.hkv * DH, C::RB / C::ES,
-                bf16 ? C::RB : 0) ||
-      !kv_map(&tv, V, bf16, B * G.S, G.hkv * DH, DH, 0))
+  if (!kv_map(&tk, K, bf16, B, G.S, G.pitch, G.hkv * DH, C::RB / C::ES,
+              bf16 ? C::RB : 0) ||
+      !kv_map(&tv, V, bf16, B, G.S, G.pitch, G.hkv * DH, DH, 0))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = decode_kernel<T, DH, NT>;
   static bool opted_in = false;
@@ -655,22 +664,24 @@ int launch_dt(int nt, int dh, const void* K, const void* V, const void* q,
 
 }  // namespace
 
-// K, V: [B, S, hkv * dh] of `dtype` (f32 or bf16), 16-byte aligned; q:
-// [B, hkv * g * dh] of `dtype`, any g >= 1; M: [B, S] f32 validity (NULL
-// = unmasked); d segments of S / d rows, in 64-row units u = t * d + k,
+// K, V: [B, S, hkv * dh] of `dtype` (f32 or bf16), rows dense, batch
+// row b at row b * pitch (pitch >= S: a slice of a longer cache read in
+// place), 16-byte aligned; q: [B, hkv * g * dh] of `dtype`, any g >= 1;
+// M: [B, S] f32 validity, contiguous (NULL = unmasked); d segments of S / d rows, in 64-row units u = t * d + k,
 // `upb` units a chunk, `chunks` chunks.  pm, pden: [B, chunks, hkv * g]
 // f32 and pnum: [B, chunks, hkv * g * dh] f32, each chunk's state.
 extern "C" int decode_split_launch(int dtype, int g, int dh, const void* K,
                                    const void* V, const void* q,
                                    const void* M, void* pm, void* pnum,
-                                   void* pden, int B, int S, int hkv, int d,
-                                   int upb, int chunks, float scale,
-                                   float eps, void* stream) {
-  if (B <= 0 || S <= 0 || hkv <= 0 || g <= 0 || d <= 0 || upb <= 0 ||
-      chunks <= 0 || S % d != 0 || B > 65535)
+                                   void* pden, int B, int S, int pitch,
+                                   int hkv, int d, int upb, int chunks,
+                                   float scale, float eps, void* stream) {
+  if (B <= 0 || S <= 0 || pitch < S || hkv <= 0 || g <= 0 || d <= 0 ||
+      upb <= 0 || chunks <= 0 || S % d != 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Geo G;
   G.S = S;
+  G.pitch = pitch;
   G.hkv = hkv;
   G.g = g;
   G.gc = group_chunk(g);
@@ -687,7 +698,7 @@ extern "C" int decode_split_launch(int dtype, int g, int dh, const void* K,
   G.masked = M != nullptr;
   if (static_cast<long long>(chunks - 1) * upb >= G.units ||
       static_cast<long long>(chunks) * upb < G.units ||
-      hkv * G.nhc > 65535 || static_cast<long long>(B) * S >= (1LL << 31))
+      hkv * G.nhc > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nt = (G.gc + 7) / 8;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

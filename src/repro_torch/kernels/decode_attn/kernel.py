@@ -20,6 +20,10 @@ the sequence is cut into chunks that blocks take in parallel:
   * :func:`merge` — a second launch folds the C states in order c = 0 …
     C-1 with ``OnlineSoftmax.merge`` and finalizes ``(out, lse)``.
 
+K and V may be a slice ``[:, j·S/K:(j+1)·S/K]`` of a longer cache's
+sequence (a shard of the sequence-sharded decode): the kernel reads it in
+place, its batch rows :func:`batch_pitch` rows apart.
+
 A chunk with no valid row has the identity state ``(-1e30, 0, 0)``,
 unless its whole batch row has none: then it has the spec's all-masked
 state ``(-1e30, Σ V, rows)``, so the fold returns the spec's mean of V.
@@ -40,16 +44,16 @@ from repro_torch.codegen.transforms import BlockPlan
 from repro_torch.kernels import cuda
 
 __all__ = ["SPLIT", "MERGE", "TILE", "WAVES", "MAX_UNITS", "emit", "split",
-           "merge", "split_plain", "merge_plain", "admits", "group_chunk",
-           "plan_chunks", "split_smem", "smem_of"]
+           "merge", "split_plain", "merge_plain", "admits", "batch_pitch",
+           "group_chunk", "plan_chunks", "split_smem", "smem_of"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# decode_split_launch(dtype, g, dh, K, V, q, M, pm, pnum, pden, B, S, hkv,
-#                     d, upb, chunks, scale, eps, stream)
+# decode_split_launch(dtype, g, dh, K, V, q, M, pm, pnum, pden, B, S,
+#                     pitch, hkv, d, upb, chunks, scale, eps, stream)
 SPLIT = cuda.CudaKernel(
     "decode_attn", "decode_attn", "decode_split_launch",
-    [_I, _I, _I, *[_P] * 7, _I, _I, _I, _I, _I, _I, _F, _F])
+    [_I, _I, _I, *[_P] * 7, _I, _I, _I, _I, _I, _I, _I, _F, _F])
 # decode_merge_launch(pm, pnum, pden, out, lse, B, hq, dh, chunks, eps,
 #                     stream)
 MERGE = cuda.CudaKernel(
@@ -132,6 +136,28 @@ def _chunk_rows(s: int, d: int, upb: int, c: int) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.long)
 
 
+def batch_pitch(K: torch.Tensor, V: torch.Tensor) -> int:
+    """The rows between two batch rows of K and V ``[B, S, E]``: S for a
+    contiguous cache, more for a slice ``[:, j·S/K:(j+1)·S/K]`` of a
+    longer one, which the kernel reads in place.  Raises unless each row
+    of E elements is dense, the rows of a batch row follow one another,
+    the batch stride is a whole number of rows of at least S, and K and
+    V share their strides."""
+    b, s, e = K.shape
+    if V.stride() != K.stride() or K.stride(2) != 1 or K.stride(1) != e:
+        raise ValueError("decode_attn kernel: K and V must share strides, "
+                         "with rows of Hkv·dh elements dense and one "
+                         "after another")
+    if b == 1:
+        return s
+    pitch, rem = divmod(K.stride(0), e)
+    if rem or pitch < s:
+        raise ValueError(f"decode_attn kernel: batch stride {K.stride(0)} "
+                         f"is not a whole number of rows of {e} at least "
+                         f"S={s} rows")
+    return pitch
+
+
 def _check_split(spec, bp, arrays):
     K, V, q = arrays[:3]
     comb = spec.combine
@@ -154,14 +180,18 @@ def _check_split(spec, bp, arrays):
         M = arrays[3]
         if M.shape != (b, s) or M.dtype != torch.float32:
             raise TypeError("decode_attn kernel: mask must be [B, S] f32")
+    pitch = batch_pitch(K, V)
     for t in arrays:
-        if t.device != K.device or not t.is_contiguous() or t.data_ptr() % 16:
+        dense = t.is_contiguous() or t is K or t is V
+        if t.device != K.device or not dense or t.data_ptr() % 16:
             raise ValueError("decode_attn kernel: operands must be "
-                             "contiguous, 16-byte aligned and on one device")
+                             "contiguous (K and V: rows dense, batch rows "
+                             "at a pitch), 16-byte aligned and on one "
+                             "device")
     if s != bp.rows or s % bp.d:
         raise ValueError(f"decode_attn kernel: S={s} does not split into "
                          f"d={bp.d} segments")
-    return b, s, hkv, hq, dh
+    return b, s, pitch, hkv, hq, dh
 
 
 def split_plain(spec: loopir.TraversalSpec, bp: BlockPlan, arrays,
@@ -209,7 +239,7 @@ def split(spec: loopir.TraversalSpec, bp: BlockPlan, arrays):
     if not arrays[0].is_cuda:
         return split_plain(spec, bp, arrays)
     K = arrays[0]
-    b, s, hkv, hq, dh = _check_split(spec, bp, arrays)
+    b, s, pitch, hkv, hq, dh = _check_split(spec, bp, arrays)
     g = hq // hkv
     sms = torch.cuda.get_device_properties(K.device).multi_processor_count
     upb, chunks = plan_chunks(b, s, bp.d, hkv, g, sms)
@@ -220,8 +250,8 @@ def split(spec: loopir.TraversalSpec, bp: BlockPlan, arrays):
     mask = arrays[3].data_ptr() if len(arrays) > 3 else None
     SPLIT(K.device, cuda.dtype_code(K.dtype), g, dh, K.data_ptr(),
           arrays[1].data_ptr(), arrays[2].data_ptr(), mask, pm.data_ptr(),
-          pnum.data_ptr(), pden.data_ptr(), b, s, hkv, bp.d, upb, chunks,
-          1.0 / dh ** 0.5, float(spec.combine.eps))
+          pnum.data_ptr(), pden.data_ptr(), b, s, pitch, hkv, bp.d, upb,
+          chunks, 1.0 / dh ** 0.5, float(spec.combine.eps))
     return pm, pnum, pden
 
 

@@ -18,6 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attn import ops as da_ops
+from repro_torch.kernels.decode_attn import sharded as da_sharded
 from repro_torch.models import common
 from repro_torch.roofline.hw import H100_HW
 
@@ -166,32 +167,68 @@ def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-               device) -> dict[str, torch.Tensor]:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+               device, ctx=None) -> dict[str, torch.Tensor]:
+    """``{"k", "v"}`` [B, max_len, Hkv, dh] zeros; with a ctx whose model
+    axis has K > 1 ranks, only this rank's [B, max_len / K, Hkv, dh]
+    slice of the sequence (``kernels.decode_attn.sharded``)."""
+    n = ctx.tp if ctx is not None else 1
+    if max_len % n:
+        raise ValueError(f"max_len {max_len} not divisible by the {n} "
+                         "ranks of the model axis")
+    shape = (batch, max_len // n, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _write_local(c: torch.Tensor, new: torch.Tensor, pos: torch.Tensor,
+                 lo: int) -> None:
+    """Write row ``new[b]`` [B, Hkv, dh] at global position ``pos[b]``
+    into a rank's slice ``c`` [B, S/K, Hkv, dh] holding positions
+    [lo, lo + S/K), for the rows whose position falls there; the other
+    rows write back what they read at a clamped position.  On the
+    device, with no host sync."""
+    sp = c.shape[1]
+    rows = torch.arange(c.shape[0], device=c.device)
+    local = pos.expand(c.shape[0]) - lo
+    idx = local.clamp(0, sp - 1)
+    mine = ((local >= 0) & (local < sp))[:, None, None]
+    c[rows, idx] = torch.where(mine, new.to(c.dtype), c[rows, idx])
+
+
 def attn_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, cache,
-                pos: torch.Tensor, rope, mode: Optional[str] = None):
+                pos: torch.Tensor, rope, mode: Optional[str] = None,
+                ctx=None, shards: int = 1):
     """One-token decode: write the cache at `pos`, then flash-decode.
 
     x: [B, 1, D]; pos: a scalar (current length) or a per-row [B] vector
     (ragged continuous batching — each row writes its own cache position
     and attends to its own ``kv_len = pos + 1``).  The cache is updated
     IN PLACE with one index per row, where the JAX package returns an
-    updated copy (a vmapped ``dynamic_update_slice``).
+    updated copy (a vmapped ``dynamic_update_slice``).  ``shards > 1``
+    runs the sequence-sharded flash-decode
+    (``kernels.decode_attn.sharded.dispatch``): with a ctx whose model
+    axis is ``shards`` wide the cache is this rank's slice, which takes
+    the rows whose position it holds; else the static split of the
+    whole cache.
     """
     q, k, v = _qkv(p, x, cfg, rope)
     kc, vc = cache["k"], cache["v"]
-    if pos.ndim:
+    if da_sharded.collective(ctx, shards):
+        lo = ctx.tp_rank * kc.shape[1]
+        _write_local(kc, k[:, 0], pos, lo)
+        _write_local(vc, v[:, 0], pos, lo)
+    elif pos.ndim:
         rows = torch.arange(x.shape[0], device=x.device)
         kc[rows, pos] = k[:, 0].to(kc.dtype)
         vc[rows, pos] = v[:, 0].to(vc.dtype)
     else:
         kc[:, pos] = k[:, 0].to(kc.dtype)
         vc[:, pos] = v[:, 0].to(vc.dtype)
-    out = da_ops.decode_attn(q[:, 0], kc, vc, kv_len=pos + 1, mode=mode)
+    if shards > 1:
+        out = da_sharded.dispatch(q[:, 0], kc, vc, kv_len=pos + 1,
+                                  shards=shards, ctx=ctx, mode=mode)
+    else:
+        out = da_ops.decode_attn(q[:, 0], kc, vc, kv_len=pos + 1, mode=mode)
     b = x.shape[0]
     out = out.reshape(b, 1, cfg.n_heads * cfg.head_dim).to(x.dtype)
     return out @ p.wo.to(x.dtype), cache

@@ -122,10 +122,12 @@ def init_stack(generator: torch.Generator, cfg: ModelConfig, dtype,
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                     device) -> list[dict[str, torch.Tensor]]:
+                     device, ctx=None) -> list[dict[str, torch.Tensor]]:
     """A layer's cache: ``{"k", "v"}`` [B, max_len, Hkv, dh] for
-    attention, the decode state ``{"conv", "ssm"}`` for Mamba-2."""
-    return [attention.init_cache(cfg, batch, max_len, dtype, device)
+    attention (with a collective ``ctx``, this rank's slice of the
+    sequence: ``attention.init_cache``), the decode state ``{"conv",
+    "ssm"}`` for Mamba-2."""
+    return [attention.init_cache(cfg, batch, max_len, dtype, device, ctx)
             if desc.mixer == "attn"
             else mamba2.init_state(cfg, batch, dtype, device)
             for desc in stack_descriptors(cfg)]
@@ -233,20 +235,25 @@ def stack_prefill(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
 
 
 def _layer_decode(p: Layer, c, x, cfg: ModelConfig, rope, pos,
-                  mode: Optional[str] = None, cross_kv=None):
+                  mode: Optional[str] = None, cross_kv=None, ctx=None,
+                  shards: int = 1):
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
     if p.desc.mixer == "attn":
         a, c = attention.attn_decode(p.attn, h, cfg, c, pos, rope,
-                                     mode=mode)
-    else:
+                                     mode=mode, ctx=ctx, shards=shards)
+    else:                       # Mamba-2 ignores shards, as in the JAX package
         a, c = mamba2.mamba_decode(p.mamba, h, cfg, c, mode=mode)
     x, _ = _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode)
     return x, c
 
 
 def stack_decode(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
-                 pos, mode: Optional[str] = None, cross_kv=None):
+                 pos, mode: Optional[str] = None, cross_kv=None, ctx=None,
+                 shards: int = 1):
+    """One decode step through every layer; ``ctx`` and ``shards`` go to
+    attention (``attention.attn_decode``)."""
     for i, layer in enumerate(stack):
         x, cache[i] = _layer_decode(layer, cache[i], x, cfg, rope, pos,
-                                    mode, _layer_kv(cross_kv, i))
+                                    mode, _layer_kv(cross_kv, i), ctx,
+                                    shards)
     return x, cache

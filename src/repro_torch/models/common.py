@@ -1,13 +1,49 @@
-"""Shared model components: initializers, the norm (with its gradient),
-RoPE, the loss."""
+"""Shared model components: the mesh context, initializers, the norm
+(with its gradient), RoPE, the loss."""
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshCtx:
+    """Names of the axes of a ``torch.distributed`` ``DeviceMesh`` (with
+    named dims) that the layers read: ``dp_axes`` for the batch,
+    ``tp_axis`` for the model axis, over which serving shards the KV
+    cache's sequence (``kernels.decode_attn.sharded``).  None in place of
+    a MeshCtx is the single-device context.  The JAX package's GSPMD
+    layout hints (``constrain_act``, ``constrain_tokens``) mean something
+    only with sharded weights and come with sharded training."""
+    mesh: Any
+    dp_axes: tuple[str, ...] = ("data",)
+    tp_axis: str = "model"
+
+    def axis_size(self, name: str) -> int:
+        return self.mesh.size(self.mesh.mesh_dim_names.index(name))
+
+    @property
+    def tp(self) -> int:
+        return self.axis_size(self.tp_axis)
+
+    @property
+    def tp_group(self):
+        """The process group of this rank's model axis."""
+        return self.mesh.get_group(self.tp_axis)
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's index along the model axis."""
+        return self.mesh.get_local_rank(self.tp_axis)
+
+    def batch_axes(self, b: int) -> tuple[str, ...]:
+        n = math.prod(self.axis_size(a) for a in self.dp_axes)
+        return self.dp_axes if b % n == 0 else ()
 
 
 def _truncated_normal(shape, generator: torch.Generator, device,

@@ -207,14 +207,17 @@ class CausalLM:
         return out[..., :self.cfg.vocab_size]
 
     # ---------------------------------------------------------- serve
-    def init_cache(self, batch: int, max_len: int,
-                   device=None) -> list[dict[str, torch.Tensor]]:
+    def init_cache(self, batch: int, max_len: int, device=None,
+                   ctx=None) -> list[dict[str, torch.Tensor]]:
+        """Every layer's cache (``blocks.init_stack_cache``); a collective
+        ``ctx`` (its model axis the decode's ``shards`` wide) gives this
+        rank's slice of each attention cache's sequence."""
         return blocks.init_stack_cache(self.cfg, batch, max_len,
                                        self.cfg.cdtype(),
-                                       resolve_device(device))
+                                       resolve_device(device), ctx)
 
     def prefill(self, params: LMParams, batch, max_len: Optional[int] = None,
-                mode: Optional[str] = None):
+                mode: Optional[str] = None, ctx=None):
         """Single-pass prefill of ``batch["tokens"]`` [B, S] (after a
         VLM's ``prefix_embeds`` [B, Np, D]): hidden states and the caches
         from one walk over the layers.  Returns (the last position's
@@ -222,7 +225,10 @@ class CausalLM:
         ``cfg.max_seq``) positions, attention's filled at [0, Np + S),
         Mamba-2's the state after the sequence).  The next decode
         position is Np + S.  ``mode="ref"`` runs every kernel's plain
-        version."""
+        version.  Prefill runs unsharded, as the JAX one does: a ctx
+        whose model axis has more than one rank raises rather than write
+        a whole cache where each rank holds a slice."""
+        _refuse_sharded_prefill(ctx)
         cfg = self.cfg
         dev = params.embed.device
         with torch.no_grad():
@@ -239,11 +245,15 @@ class CausalLM:
         return logits[:, 0, :cfg.vocab_size], cache
 
     def decode_step(self, params: LMParams, tokens: torch.Tensor, cache,
-                    pos, mode: Optional[str] = None):
+                    pos, mode: Optional[str] = None, ctx=None,
+                    shards: int = 1):
         """tokens: [B, 1]; pos: scalar current length, or a [B] vector of
         per-row lengths (ragged continuous batching).  The cache is
         updated in place and returned.  ``mode="ref"`` runs every kernel's
-        plain version (for comparison on the card)."""
+        plain version (for comparison on the card).  ``shards > 1`` runs
+        the sequence-sharded flash-decode: collectively over ``ctx``'s
+        model axis where it is ``shards`` wide (the cache from
+        ``init_cache(..., ctx=ctx)``), else the static split."""
         cfg = self.cfg
         dev = params.embed.device
         x = _embed_tokens(params, torch.as_tensor(tokens, device=dev), cfg)
@@ -252,9 +262,17 @@ class CausalLM:
                                 cfg.head_dim, cfg.rope_theta,
                                 cfg.rope_style)
         x, cache = blocks.stack_decode(params.blocks, cache, x, cfg, rope,
-                                       pos, mode)
+                                       pos, mode, ctx=ctx, shards=shards)
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps, mode)
         return _head_logits(params, x, cfg)[:, 0, :cfg.vocab_size], cache
+
+
+def _refuse_sharded_prefill(ctx) -> None:
+    if ctx is not None and ctx.tp > 1:
+        raise NotImplementedError(
+            "prefill runs unsharded and writes a whole cache; under a "
+            f"model axis of {ctx.tp} ranks each rank's cache is a slice of "
+            "the sequence: prefill through the engine's decode steps")
 
 
 def build_model(cfg: ModelConfig) -> CausalLM:

@@ -40,7 +40,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, blocks, common
 from repro_torch.models.lm import (CausalLM, EncDecParams, _embed_tokens,
-                                   _head_logits)
+                                   _head_logits, _refuse_sharded_prefill)
 
 __all__ = ["EncDecLM", "encoder_config"]
 
@@ -131,10 +131,12 @@ class EncDecLM(CausalLM):
 
     # ------------------------------------------------------------ serve
     def prefill(self, params: EncDecParams, batch,
-                max_len: Optional[int] = None, mode: Optional[str] = None):
+                max_len: Optional[int] = None, mode: Optional[str] = None,
+                ctx=None):
         """The encoder, then one walk over the decoder that fills the self
         cache at [0, S) (see the module docstring).  Returns (the last
         position's logits [B, vocab_size], ``{"self", "cross"}``)."""
+        _refuse_sharded_prefill(ctx)
         cfg = self.cfg
         with torch.no_grad():
             x, rope, kv = self._context(params, batch, False, mode)
@@ -147,9 +149,11 @@ class EncDecLM(CausalLM):
         return logits[:, 0, :cfg.vocab_size], {"self": cache, "cross": kv}
 
     def decode_step(self, params: EncDecParams, tokens: torch.Tensor,
-                    cache, pos, mode: Optional[str] = None):
+                    cache, pos, mode: Optional[str] = None, ctx=None,
+                    shards: int = 1):
         """As ``CausalLM.decode_step`` on ``cache["self"]`` (updated in
-        place), with cross-attention to ``cache["cross"]``."""
+        place; sequence-sharded as there), with cross-attention to
+        ``cache["cross"]``."""
         cfg = self.cfg
         dev = params.embed.device
         x = _embed_tokens(params, torch.as_tensor(tokens, device=dev), cfg)
@@ -159,7 +163,8 @@ class EncDecLM(CausalLM):
                                 cfg.rope_style)
         x, new_self = blocks.stack_decode(params.blocks, cache["self"], x,
                                           cfg, rope, pos, mode,
-                                          cross_kv=cache["cross"])
+                                          cross_kv=cache["cross"], ctx=ctx,
+                                          shards=shards)
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps, mode)
         return (_head_logits(params, x, cfg)[:, 0, :cfg.vocab_size],
                 {"self": new_self, "cross": cache["cross"]})

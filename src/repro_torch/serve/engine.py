@@ -9,11 +9,24 @@ own cache rows and attend to their own ``kv_len`` inside a single step.
 Finished slots (EOS/max_tokens) are retired and refilled from the
 queue.  On the card every step runs the multi-strided rmsnorm and
 flash-decode kernels, so the paper's technique is on the hot path of
-every generated token.  ``ServeConfig.shards > 1`` (the sequence-sharded
-KV cache) is not ported yet and raises, as does a model with SSM state
+every generated token.  The engine refuses a model with SSM state
 (mamba2, jamba) or an encoder (whisper: see ``ServingEngine.__init__``);
-MoE and VLM models
-(tokens only, no prefix embeds) are served as dense ones are.
+MoE and VLM models (tokens only, no prefix embeds) are served as dense
+ones are.
+
+``ServeConfig.shards = K > 1`` shards the KV cache's sequence K ways
+for the flash-decode (``kernels.decode_attn.sharded``), in one of two
+strategies:
+
+  * the static split, with no ctx (or one whose model axis is not K
+    wide): one process, the whole cache, K kernel calls a layer on its
+    K slices read in place, merged with the online-softmax identity;
+  * the collective merge, with ``ctx=serving_ctx(K)`` over a process
+    group of K ranks: each rank holds only its ``[slots, max_len / K]``
+    slice of every layer's cache and the merge is an ``all_reduce``.
+    Every rank runs this same host loop; each step's next tokens are
+    rank 0's, broadcast to the others (``slots`` integers), so the ranks
+    cannot drift apart on a near-tie, and so are the deadline checks.
 
 Serving telemetry (always collected engine-side; exported via
 ``stats()`` and, with ``repro_torch.obs`` enabled, per-step/per-request
@@ -43,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.kernels.decode_attn.sharded import collective
 from repro_torch.runtime import faults
 from repro_torch.runtime.fault_tolerance import HeartbeatRegistry, StepMonitor
 
@@ -75,13 +89,10 @@ class Request:
 
 class ServingEngine:
     """Serves ``model`` (a ``CausalLM``) with ``params`` on the device
-    the params lie on."""
+    the params lie on; ``ctx`` (``serve.sharded.serving_ctx``) is the
+    mesh of the collective KV-sharded decode, or None."""
 
-    def __init__(self, model, params, cfg: ServeConfig):
-        if cfg.shards != 1:
-            raise NotImplementedError(
-                "ServeConfig.shards > 1 (sequence-sharded flash-decode, "
-                "serve/sharded.py) is not ported yet")
+    def __init__(self, model, params, cfg: ServeConfig, ctx=None):
         mcfg = getattr(model, "cfg", None)
         if mcfg is not None and mcfg.encdec:
             raise NotImplementedError(
@@ -107,6 +118,12 @@ class ServingEngine:
         self.model = model
         self.params = params
         self.cfg = cfg
+        self.ctx = ctx
+        self._collective = collective(ctx, cfg.shards)
+        # ctx and shards go to decode_step only when sharded, so that
+        # duck-typed models without those arguments keep working
+        self._decode_kw = ({} if cfg.shards == 1
+                           else {"ctx": ctx, "shards": cfg.shards})
         self.device = next(params.parameters()).device
         self.queue: deque[Request] = deque()
         self.slots: list[Optional[Request]] = [None] * cfg.slots
@@ -168,7 +185,20 @@ class ServingEngine:
         if self.cfg.deadline_s is None:
             return False
         now = time.perf_counter() if now is None else now
-        return now - req.submitted_at > self.cfg.deadline_s
+        late = now - req.submitted_at > self.cfg.deadline_s
+        return bool(self._from_rank0(torch.tensor([int(late)]))[0])
+
+    def _from_rank0(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as rank 0 of the model axis has it, under a collective
+        ctx (every rank passes a tensor of the same shape); ``t`` itself
+        otherwise."""
+        if not self._collective:
+            return t
+        import torch.distributed as dist
+        t = t.to(self.device)
+        group = self.ctx.tp_group
+        dist.broadcast(t, src=dist.get_global_rank(group, 0), group=group)
+        return t
 
     def _expire(self, req: Request, where: str) -> None:
         """Retire a request whose deadline lapsed (queued or in-slot)."""
@@ -189,8 +219,9 @@ class ServingEngine:
         it."""
         cfg = self.cfg
         if self.cache is None:
+            kw = {"ctx": self.ctx} if self._collective else {}
             self.cache = self.model.init_cache(cfg.slots, cfg.max_len,
-                                               self.device)
+                                               self.device, **kw)
         for i in range(cfg.slots):
             while self.slots[i] is None and self.queue:
                 req = self.queue.popleft()
@@ -242,8 +273,10 @@ class ServingEngine:
         with torch.inference_mode():
             logits, self.cache = self.model.decode_step(
                 self.params, torch.from_numpy(toks).to(self.device),
-                self.cache, torch.from_numpy(self.lengths).to(self.device))
-            nxt = logits.argmax(dim=-1).cpu().numpy()  # sync = step edge
+                self.cache, torch.from_numpy(self.lengths).to(self.device),
+                **self._decode_kw)
+            nxt = self._from_rank0(logits.argmax(dim=-1))
+            nxt = nxt.cpu().numpy()                    # sync = step edge
         latency = time.perf_counter() - t0
         base = max(latency - sum(stalls), 0.0)
         for i in advance:

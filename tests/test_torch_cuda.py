@@ -288,6 +288,125 @@ def test_decode_kernel_bits_repeat(cuda_device, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shards,j", [(4, 1), (4, 3), (2, 0), (8, 5)])
+@pytest.mark.parametrize("masked", [True, False])
+def test_decode_split_reads_a_pitched_slice_in_place(cuda_device, dtype,
+                                                     shards, j, masked):
+    """Shard j of a [B, S, Hkv, dh] cache, ``kc[:, j·S/K:(j+1)·S/K]``, is
+    not contiguous (its batch rows lie S rows apart): the split reads it
+    in place, against its plain version, and bit-equal to the same
+    kernel on a contiguous copy of the slice."""
+    from repro_torch.codegen import plan_blocks
+    from repro_torch.kernels.decode_attn import specs as tdspecs
+    b, s, hkv, g, dh = 3, 2048, 2, 8, 128
+    q, k, v = _decode_case(cuda_device, dtype, b, s, hkv, g, dh,
+                           shards * 8 + j)
+    sp = s // shards
+    ks, vs = k[:, j * sp:(j + 1) * sp], v[:, j * sp:(j + 1) * sp]
+    assert not ks.is_contiguous()
+    kv_len = torch.tensor([j * sp + 17, s, 0], device=cuda_device)
+    mask = (tdops.validity_mask((kv_len - j * sp).clamp(0, sp), b, sp,
+                                cuda_device),) if masked else ()
+    pitched = tdops._flatten(q, ks, vs) + mask
+    copied = tdops._flatten(q, ks.contiguous(), vs.contiguous()) + mask
+    assert dkernel.batch_pitch(pitched[0], pitched[1]) == s
+    spec = tdspecs.decode_spec(hkv, dh, masked)(*pitched)
+    bp = plan_blocks(spec, TConfig(4, 1))
+    n = dkernel.SPLIT.launches
+    got = dkernel.split(spec, bp, pitched)
+    same = dkernel.split(spec, bp, copied)
+    assert dkernel.SPLIT.launches == n + 2
+    for a, c in zip(got, same):
+        assert torch.equal(a, c)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    mo, ml = dkernel.merge(spec.combine, *got)
+    ro, rl = dkernel.merge_plain(spec.combine,
+                                 *dkernel.split_plain(spec, bp, pitched,
+                                                      sms=sms))
+    torch.testing.assert_close(mo, ro, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ml, rl, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_decode_split_refuses_what_is_not_a_pitched_slice(cuda_device):
+    """Rows of Hkv·dh that are not dense, K and V at other strides, and
+    a batch stride under S rows are refused; a slice is not copied."""
+    b, s, hkv, dh = 2, 256, 2, 64
+    q, k, v = _decode_case(cuda_device, torch.bfloat16, b, s, hkv, 2, dh, 1)
+    with pytest.raises(ValueError):                  # heads not dense
+        tdops.decode_attn(q, k[:, :, :1], v[:, :, :1])
+    with pytest.raises(ValueError):                  # K and V strides
+        tdops.decode_attn(q, k[:, :128], v.contiguous()[:, 64:192]
+                          .contiguous())
+    e = hkv * dh                                     # batch rows 1 row apart
+    buf = torch.zeros(s + b, e, dtype=k.dtype, device=cuda_device)
+    over = buf.as_strided((b, s, hkv, dh), (e, e, dh, 1))
+    with pytest.raises(ValueError):
+        tdops.decode_attn(q, over, over)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shards", [2, 4, 8])
+@pytest.mark.parametrize("ragged", [True, False])
+def test_static_split_matches_unsharded_at_the_serve_heads(cuda_device,
+                                                           shards, ragged):
+    """Yi-9B's heads (32 / 4 × 128, bf16) at B=4, S=4096: the static
+    split (K split and K merge launches, no slice copied) against the
+    unsharded kernel and the plain version; a ragged kv_len of 17-64
+    leaves shards 2.. wholly masked."""
+    from repro_torch.kernels.decode_attn import sharded as tdsharded
+    b, s, hkv, g, dh = 4, 4096, 4, 8, 128
+    q, k, v = _decode_case(cuda_device, torch.bfloat16, b, s, hkv, g, dh,
+                           shards + ragged)
+    kv_len = (torch.tensor([17, 64, 40, 33], device=cuda_device) if ragged
+              else torch.full((b,), s, device=cuda_device))
+    n = (dkernel.SPLIT.launches, dkernel.MERGE.launches)
+    got, lse = tdsharded.decode_attn_sharded(q, k, v, kv_len=kv_len,
+                                             shards=shards, with_lse=True)
+    assert (dkernel.SPLIT.launches, dkernel.MERGE.launches) == (
+        n[0] + shards, n[1] + shards)
+    one, one_lse = tdops.decode_attn(q, k, v, kv_len=kv_len, with_lse=True)
+    ro, rl = tdsharded.decode_attn_sharded(q, k, v, kv_len=kv_len,
+                                           shards=shards, mode="ref",
+                                           with_lse=True)
+    assert torch.isfinite(got.float()).all()
+    for want, want_lse in ((one, one_lse), (ro, rl)):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=BF16_RTOL, atol=1e-3)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_engine_serves_sharded_as_unsharded_on_the_card(cuda_device):
+    """Reduced Yi-9B (f32) served at shards=2 through the static split on
+    one card: the shards=1 greedy tokens, every step through the split
+    kernel twice a layer."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServingEngine
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device=cuda_device)
+    gen = torch.Generator().manual_seed(0)
+    prompts = {uid: torch.randint(0, cfg.vocab_size, (3 + uid,),
+                                  generator=gen).numpy() for uid in range(4)}
+
+    def run(shards):
+        eng = ServingEngine(model, params, ServeConfig(
+            slots=2, max_len=64, max_new_tokens=6, shards=shards))
+        for uid, p in prompts.items():
+            eng.submit(uid, p)
+        n = dkernel.SPLIT.launches
+        out = eng.run()
+        steps = eng.stats()["decode_steps"] + eng.stats()["prefill_steps"]
+        assert dkernel.SPLIT.launches - n == shards * cfg.n_layers * steps
+        return out
+    one = run(1)
+    assert run(2) == one and all(len(t) == 6 for t in one.values())
+
+
+@pytest.mark.gpu
 def test_decode_merge_kernel_matches_plain(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     b, d, hq, dh = 3, 8, 16, 64

@@ -26,8 +26,9 @@ class _ToyModel:
     def init_cache(self, slots, max_len, device=None):
         return torch.zeros(slots, max_len, device=device)
 
-    def decode_step(self, params, toks, cache, pos):
+    def decode_step(self, params, toks, cache, pos, **sharded):
         self.steps += 1
+        self.sharded = sharded
         return nn.functional.one_hot((toks[:, 0].long() + 1) % self.vocab,
                                      self.vocab).float(), cache
 
@@ -36,9 +37,35 @@ def _engine(**kw):
     return ServingEngine(_ToyModel(), nn.Linear(1, 1), ServeConfig(**kw))
 
 
-def test_sharded_serving_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        _engine(shards=2)
+def test_sharded_serving_gives_the_unsharded_tokens():
+    """shards=2 with no ctx (the static split) serves the shards=1 tokens,
+    passing ctx and shards to decode_step only when sharded."""
+    one = _engine(slots=2, max_new_tokens=3)
+    two = _engine(slots=2, max_new_tokens=3, shards=2)
+    for eng in (one, two):
+        eng.submit(1, [1])
+        eng.submit(2, [2, 3])
+    assert two.run() == one.run() == {1: [2, 3, 4], 2: [4, 5, 6]}
+    assert one.model.sharded == {}
+    assert two.model.sharded == {"ctx": None, "shards": 2}
+
+
+def test_sharded_serving_refuses_a_group_of_the_wrong_size(tmp_path,
+                                                           monkeypatch):
+    """A process group whose world size is not ``shards`` raises: it would
+    serve another split."""
+    import torch.distributed as dist
+    from repro_torch.serve import serving_ctx
+    monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")     # loopback only
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1)
+    try:
+        with pytest.raises(ValueError, match="2 ranks, not 1"):
+            serving_ctx(2)
+        assert serving_ctx(1) is None
+    finally:
+        dist.destroy_process_group()
 
 
 def test_one_decode_step_and_event_per_round():
