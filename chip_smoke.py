@@ -177,7 +177,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 as processes on this card over gloo, each holding its
                 [B, S/4] slice: (c1) the collective op against the
                 unsharded kernel, (c2) the engine over serving_ctx(4) at
-                full width and 8 of 48 layers: every rank's tokens equal
+                full width and 4 of 48 layers: every rank's tokens equal
                 rank 0's and the one-process static split's, agreement
                 with shards=1 printed
   6d. families — with the serve model freed, the MoE, SSM and VLM
@@ -232,10 +232,29 @@ Phases (each raises on failure, so the script exits non-zero):
                 (with a lost-stream control), and where a step's time
                 goes (torch.profiler); the configs step 0's ops resolved
                 to
+  7b. train_sharded — training across ranks, every rank a gloo process
+                on this card: (a) Yi-9B at full width, 4 of 48 layers,
+                ZeRO-3 over data=2, 3 steps of 2 x 4096 (17 rmsnorm, 39
+                adamw_update launches a rank a step), each step's loss
+                and grad norm and the params after 2 steps within 2x a
+                one-ulp control (the one-process step with every norm
+                output moved one ulp) of the one-process step; (c) the
+                checkpoint (a) saved after 2 steps restored by
+                remesh_state onto one rank and run one step; (b)
+                InternVL2-2B at full width, 4 layers, the int8
+                error-feedback compressed step at pod=2 x data=2: every
+                synced gradient element within the two hops' rounding of
+                the exact pod mean, step 0's loss equal to the
+                uncompressed sharded step's, step 0's grad norm and step
+                1's loss and grad norm within twice a one-quantum
+                control's distance from it, the int8 wire bytes counted
+                against the shards' and wire_bytes; adamw_update at
+                Yi-9B's shard shapes (data=2, 4) against its plain
+                version, timed
   8. report   — a JSON line of kernels, the card's name and power limit, and
                 as the last line {"ok": true, "device": {...}}
 
-Phases 4-7 print their seconds ("phase <name>: N s").
+Phases 4-7b print their seconds ("phase <name>: N s").
 
 Nothing here imports JAX or the JAX package.
 """
@@ -243,6 +262,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -5022,10 +5042,11 @@ def phase_whisper(card: str) -> None:
 
 
 # train-families: (arch, layers kept or None for all, B, S); full width,
-# depth cut only where the f32 state (p, g, m, v: 16 B a parameter) does
-# not fit the card
+# depth cut where the f32 state (p, g, m, v: 16 B a parameter) does not
+# fit the card, and Mamba-2's to 16 of 64 layers for the script's time
+# limit (8-10 s a step at 64)
 TRAIN_FAMILY_CELLS = (("whisper-medium", None, 4, WHISPER_MAX_LEN),
-                      ("mamba2-2.7b", None, 2, 4096),
+                      ("mamba2-2.7b", 16, 2, 4096),
                       ("internvl2-2b", None, 2, 4096),
                       ("qwen3-moe-30b-a3b", 4, 2, 4096))
 TRAIN_FAMILY_STEPS = 3
@@ -5142,7 +5163,7 @@ def phase_train_families(card: str) -> None:
 
 
 SHARDS = (2, 4, 8)                  # the sharded phase's static splits
-SHARD_LAYERS = 8                    # (c2)'s depth: four ranks share a card
+SHARD_LAYERS = 4                    # (c2)'s depth: four ranks share a card
 SHARD_REQUESTS = 4                  # (c2)'s requests: the serve phase's first
 # a sharded bf16 output against another path's: |d| <= atol + rtol *
 # (|ref| + the largest |partial out| of the shards).  Each shard's out is
@@ -5412,68 +5433,114 @@ def _sharded_engine(card: str, model, params, engine, served) -> None:
     torch.cuda.empty_cache()
 
 
-def _collective_rank(rank: int, world: int, store: str, prompts: dict,
-                     out: str) -> None:
-    """(c) One rank of ``world`` on this card over gloo: the collective op
-    on the rank's slice at the serve shape, then the engine over
-    ``serving_ctx(world)`` with Yi-9B at full width and
-    :data:`SHARD_LAYERS` layers; results saved to ``out``."""
+def _collective_rank(rank: int, world: int, prompts: dict) -> dict:
+    """(c) One rank of ``world`` on this card over gloo (``_gloo_spawn``):
+    the collective op on the rank's slice at the serve shape, then the
+    engine over ``serving_ctx(world)`` with Yi-9B at full width and
+    :data:`SHARD_LAYERS` layers."""
     import dataclasses
-    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.decode_attn import kernel as dk
+    from repro_torch.kernels.decode_attn import sharded as dsh
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import ServeConfig, ServingEngine, serving_ctx
+    ctx = serving_ctx(world)
+    b, s, hkv, dh, hq = SERVE_SLOTS, SERVE_MAX_LEN, 4, 128, 32
+    sp = s // world
+    gen = torch.Generator(device="cuda").manual_seed(7)   # every rank alike
+    q, kc, vc = (torch.randn(*shape, generator=gen, device="cuda")
+                 .bfloat16() for shape in ((b, hq, dh), (b, s, hkv, dh),
+                                           (b, s, hkv, dh)))
+    lo = ctx.tp_rank * sp
+    kl, vl = kc[:, lo:lo + sp].clone(), vc[:, lo:lo + sp].clone()
+    del kc, vc
+    res = {"op": []}
+    for kv in ([3000, 4096, 1, 2048], [17, 64, 40, 33]):
+        kv_len = torch.tensor(kv, device="cuda")
+        n0 = dk.SPLIT.launches
+        got = dsh.decode_attn_collective(q, kl, vl, kv_len, ctx=ctx)
+        torch.cuda.synchronize()
+        res["op"].append((kv, got.cpu(), dk.SPLIT.launches - n0))
+    cfg = dataclasses.replace(get_config("yi-9b"), n_layers=SHARD_LAYERS)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    eng = ServingEngine(model, params, ServeConfig(
+        slots=b, max_len=s, max_new_tokens=SERVE_NEW, shards=world),
+        ctx=ctx)
+    for uid, p in prompts.items():
+        eng.submit(uid, p)
+    for kern in cuda.KERNELS.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    res["tokens"] = eng.run()
+    torch.cuda.synchronize()
+    res["wall"] = time.perf_counter() - t0
+    res["stats"] = eng.stats()
+    res["launches"] = {n: kern.launches
+                       for n, kern in cuda.KERNELS.items()
+                       if kern.launches}
+    res["cache"] = tuple(eng.cache[0]["k"].shape)
+    res["memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return res
+
+
+GLOO_CONTEXT_GIB = 1.0         # a gloo rank's CUDA context, outside its cap
+
+
+def _gloo_rank(rank: int, world: int, store: str, fn, job, out: str,
+               cap) -> None:
+    """One gloo rank of this card (spawned by ``_gloo_spawn``):
+    ``fn(rank, world, job)``, its result saved to ``out + rank``; its
+    allocator held to ``cap`` of the card's memory."""
     import torch
     import torch.distributed as dist
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"         # loopback only
     torch.set_num_threads(2)                        # 4 ranks, 8 cores
-    torch.cuda.set_device(0)
+    if torch.cuda.is_available():
+        torch.cuda.set_device(0)
+        torch.cuda.set_per_process_memory_fraction(cap, 0)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        from repro_torch.configs import get_config
-        from repro_torch.kernels import cuda
-        from repro_torch.kernels.decode_attn import kernel as dk
-        from repro_torch.kernels.decode_attn import sharded as dsh
-        from repro_torch.models.lm import build_model
-        from repro_torch.serve import ServeConfig, ServingEngine, serving_ctx
-        ctx = serving_ctx(world)
-        b, s, hkv, dh, hq = SERVE_SLOTS, SERVE_MAX_LEN, 4, 128, 32
-        sp = s // world
-        gen = torch.Generator(device="cuda").manual_seed(7)   # every rank alike
-        q, kc, vc = (torch.randn(*shape, generator=gen, device="cuda")
-                     .bfloat16() for shape in ((b, hq, dh), (b, s, hkv, dh),
-                                               (b, s, hkv, dh)))
-        lo = ctx.tp_rank * sp
-        kl, vl = kc[:, lo:lo + sp].clone(), vc[:, lo:lo + sp].clone()
-        del kc, vc
-        res = {"op": []}
-        for kv in ([3000, 4096, 1, 2048], [17, 64, 40, 33]):
-            kv_len = torch.tensor(kv, device="cuda")
-            n0 = dk.SPLIT.launches
-            got = dsh.decode_attn_collective(q, kl, vl, kv_len, ctx=ctx)
-            torch.cuda.synchronize()
-            res["op"].append((kv, got.cpu(), dk.SPLIT.launches - n0))
-        cfg = dataclasses.replace(get_config("yi-9b"), n_layers=SHARD_LAYERS)
-        model = build_model(cfg)
-        params = model.init(seed=0, device="cuda")
-        eng = ServingEngine(model, params, ServeConfig(
-            slots=b, max_len=s, max_new_tokens=SERVE_NEW, shards=world),
-            ctx=ctx)
-        for uid, p in prompts.items():
-            eng.submit(uid, p)
-        for kern in cuda.KERNELS.values():
-            kern.launches = 0
-        t0 = time.perf_counter()
-        res["tokens"] = eng.run()
-        torch.cuda.synchronize()
-        res["wall"] = time.perf_counter() - t0
-        res["stats"] = eng.stats()
-        res["launches"] = {n: kern.launches
-                           for n, kern in cuda.KERNELS.items()
-                           if kern.launches}
-        res["cache"] = tuple(eng.cache[0]["k"].shape)
-        res["memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        torch.save(res, f"{out}{rank}")
+        torch.save(fn(rank, world, job), f"{out}{rank}")
     finally:
         dist.destroy_process_group()
+
+
+def _gloo_spawn(fn, world: int, job) -> list:
+    """``world`` ranks as processes (spawn), all on cuda:0 (NCCL refuses
+    two ranks on one device) over gloo with a FileStore in a temporary
+    directory, each running ``fn(rank, world, job)``: their results, in
+    rank order.  A rank that fails fails the call.  The ranks share the
+    card: each rank's allocator is held to an equal share of what is free
+    now, less :data:`GLOO_CONTEXT_GIB` a rank (past its share it frees
+    its cached blocks before it asks for more), and grows its segments in
+    place, so that no rank's cache starves another."""
+    import torch
+    import torch.multiprocessing as mp
+    cap = None
+    if torch.cuda.is_available():
+        free, total = torch.cuda.mem_get_info()
+        cap = (free / 2 ** 30 - world * GLOO_CONTEXT_GIB) / world / (
+            total / 2 ** 30)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        mp.start_processes(_gloo_rank, args=(
+            world, os.path.join(tmp, "store"), fn, job,
+            os.path.join(tmp, "rank"), cap), nprocs=world,
+            start_method="spawn")
+        return [torch.load(os.path.join(tmp, f"rank{r}"), weights_only=False)
+                for r in range(world)]
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _sharded_collective(card: str) -> None:
@@ -5482,13 +5549,12 @@ def _sharded_collective(card: str) -> None:
     FileStore in a temporary directory, each holding only its
     [B, S/4, Hkv, dh] slice.  (c1) the op against the unsharded kernel on
     the whole cache; (c2) the engine over serving_ctx(4), Yi-9B at full
-    width and 8 of 48 layers (four copies of the weights share the card):
+    width and 4 of 48 layers (four copies of the weights share the card):
     every rank's tokens against rank 0's, the one-process static split's
     at shards=4 (the conformance oracle) and the shards=1 run's."""
     import dataclasses
     import numpy as np
     import torch
-    import torch.multiprocessing as mp
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attn import ops as dops
     from repro_torch.models.lm import build_model
@@ -5498,19 +5564,9 @@ def _sharded_collective(card: str) -> None:
     rng = np.random.default_rng(0)            # the serve phase's prompts
     prompts = {uid: rng.integers(0, cfg.vocab_size, int(rng.integers(8, 65)))
                for uid in range(SHARD_REQUESTS)}
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
-    try:
-        t0 = time.perf_counter()
-        mp.start_processes(
-            _collective_rank,
-            args=(world, os.path.join(tmp, "store"), prompts,
-                  os.path.join(tmp, "rank")),
-            nprocs=world, start_method="spawn")
-        spawn_s = time.perf_counter() - t0
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}"),
-                            weights_only=False) for r in range(world)]
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    ranks = _gloo_spawn(_collective_rank, world, prompts)
+    spawn_s = time.perf_counter() - t0
 
     # (c1) against the unsharded kernel on the whole cache
     b, s, hkv, dh, hq = SERVE_SLOTS, SERVE_MAX_LEN, 4, 128, 32
@@ -5593,6 +5649,574 @@ def phase_sharded(card: str, model, params, engine, served) -> None:
     _sharded_collective(card)
 
 
+# --------------------------------------------------------- train_sharded
+
+TS_LAYERS = 4                  # (a), (c): Yi-9B at full width, 4 of 48
+TS_STEPS = 2                   # steps compared; (a) and (c) run one more
+TS_B, TS_S = 2, 4096           # (a)'s global batch: one row a rank
+TS_OCFG = dict(lr=3e-3, warmup_steps=10, total_steps=50)
+TS_COMP = ("internvl2-2b", 4, 4, 1024)      # (b): arch, layers, B, S
+TS_DEVICE = "cuda"
+TS_DATA4 = 4                   # the four-card run's data axis (shapes)
+
+
+def _ts_cfg(arch: str, layers: int):
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=layers)
+
+
+def _ts_batches(cfg, b: int, s: int, n: int) -> list:
+    """``n`` global batches from seeded numpy: tokens, and a VLM's
+    ``prefix_embeds`` (standard normal, f32)."""
+    import numpy as np
+    rng = np.random.default_rng(11)
+    out = []
+    for _ in range(n):
+        batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s),
+                                        dtype=np.int32)}
+        if cfg.n_prefix_embeds:
+            batch["prefix_embeds"] = rng.standard_normal(
+                (b, cfg.n_prefix_embeds, cfg.d_model), dtype=np.float32)
+        out.append(batch)
+    return out
+
+
+def _on(batch: dict) -> dict:
+    import torch
+    return {k: torch.from_numpy(v).to(TS_DEVICE) for k, v in batch.items()}
+
+
+def _ts_steps(step_fn, state, batches, res, after=None) -> None:
+    """Run ``batches`` through ``step_fn``, each step with the counts set
+    to 0 just before and read just after and its collectives recorded;
+    ``after(i, state)`` after step i."""
+    import torch
+    from repro_torch.sharding import collectives
+    for i, b in enumerate(batches):
+        batch = _on(b)
+        t0 = time.perf_counter()
+        with collectives.recording() as log:
+            (state, m), counts = _launches(lambda: step_fn(state, batch))
+        res["wall"].append(time.perf_counter() - t0)
+        res["metrics"].append({k: float(v) for k, v in m.items()})
+        res["launches"].append(counts)
+        res["wire"].append(collectives.summarize(log))
+        res["int8_wire"] = sum(r.wire_bytes for r in log
+                               if r.dtype == "int8")
+        if after is not None:
+            after(i, state)
+    res["memory_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if TS_DEVICE == "cuda" else 0.0)
+    res["reserved_gib"] = (torch.cuda.max_memory_reserved() / 2 ** 30
+                           if TS_DEVICE == "cuda" else 0.0)
+
+
+def _ts_plain(rank: int, world: int, job: dict) -> dict:
+    """(a) on this rank (``_gloo_spawn``): Yi-9B ZeRO-3 over
+    data=world, TS_STEPS + 1 steps, the state saved (sharded) after
+    TS_STEPS."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, trainstep
+    cfg = _ts_cfg("yi-9b", TS_LAYERS)
+    model = build_model(cfg)
+    mesh = make_mesh((world, 1), ("data", "model"))
+    ctx = steps.mesh_ctx(mesh)
+    state = trainstep.init_state(model, seed=0, device=TS_DEVICE, ctx=ctx)
+    step = trainstep.make_train_step(model, AdamWConfig(**TS_OCFG), ctx=ctx)
+    mgr = CheckpointManager(job["ckpt"], keep=1, async_save=False)
+    shardings = steps.state_shardings(steps.abstract_state(model), cfg, mesh)
+    res = {"metrics": [], "launches": [], "wall": [], "wire": [],
+           "local": {k: tuple(p.shape) for k, p in
+                     state["params"].named_parameters()}}
+
+    def save(i, state):
+        if i + 1 == TS_STEPS:
+            t0 = time.perf_counter()
+            mgr.save(TS_STEPS, trainstep.state_tree(state), shardings)
+            mgr.wait()
+            res["save_s"] = time.perf_counter() - t0
+    _ts_steps(step, state, job["batches"], res, save)
+    return res
+
+
+def _ts_pod_mean(grads, ef, ctx, names) -> tuple:
+    """For one JAX leaf (``names``, compressed as one tensor): this rank's
+    corrected gradient ``c`` (grad + residual, flat), its exact mean over
+    ``pod`` (an f32 all-reduce, outside the recorded collectives), and
+    the first hop's scale s1 = max |c| / 127 and max |exact mean|, both
+    over every rank."""
+    import torch
+    import torch.distributed as dist
+    c = torch.empty(sum(ef[k].numel() for k in names),
+                    dtype=torch.float32, device=ef[names[0]].device)
+    o = 0
+    for k in names:                 # filled in place: no per-name copies
+        n = ef[k].numel()
+        c[o:o + n].copy_(grads[k].reshape(-1)).add_(ef[k].reshape(-1))
+        o += n
+    exact = c.clone()
+    dist.all_reduce(exact, group=ctx.pod_group)
+    exact /= ctx.pod
+    m = torch.stack([c.abs().max(), exact.abs().max()])
+    dist.all_reduce(m, op=dist.ReduceOp.MAX)
+    return c, exact, float(m[0]) / 127, float(m[1])
+
+
+def _ts_split(flat, like: dict, names) -> dict:
+    out = flat.split([like[k].numel() for k in names])
+    return {k: o.reshape(like[k].shape) for k, o in zip(names, out)}
+
+
+def _ts_checked_sync(real, checks: list):
+    """``compression.ef_compressed_pmean`` that also holds every synced
+    element against the exact pod mean of its corrected gradient: within
+    s1 / 2 + s2 / 2, the two hops' rounding (s2, the second hop's scale,
+    is at most (max |exact mean| + s1 / 2) / 127), plus 1e-6 of the
+    largest mean for the f32 products.  Appends, each step, the worst
+    element's error over that bound and over s1."""
+
+    def sync(grads, ef, ctx, groups=None):
+        synced, new_ef = real(grads, ef, ctx, groups)
+        worst, quanta = 0.0, 0.0
+        for names in groups:
+            # in place, so that the check holds at most two copies of a
+            # leaf beside the step's own (the ranks share one card)
+            c, exact, s1, mx = _ts_pod_mean(grads, ef, ctx, names)
+            del c
+            o = 0
+            for k in names:
+                n = synced[k].numel()
+                exact[o:o + n].sub_(synced[k].reshape(-1))
+                o += n
+            err = float(exact.abs_().max())
+            del exact
+            bound = s1 / 2 + (mx + s1 / 2) / 127 / 2 + 1e-6 * mx
+            worst = max(worst, err / max(bound, 1e-30))
+            quanta = max(quanta, err / max(s1, 1e-30))
+        checks.append((worst, quanta))
+        return synced, new_ef
+    return sync
+
+
+def _ts_grid_sync(grads, ef, ctx, groups=None):
+    """The one-quantum control for ``ef_compressed_pmean``: the exact pod
+    mean of each corrected gradient rounded to a grid of step 2 s1, so
+    each element moves by up to one quantum s1, as far as the two hops
+    together may move it (s1 / 2 + s2 / 2); the residual carried as the
+    compressed sync carries it."""
+    synced, new_ef = {}, {}
+    for names in groups:
+        c, s, s1, _ = _ts_pod_mean(grads, ef, ctx, names)
+        q = 2 * max(s1, 1e-30)
+        s.div_(q).round_().mul_(q)
+        synced.update(_ts_split(s, grads, names))
+        new_ef.update(_ts_split(c.sub_(s), grads, names))
+    return synced, new_ef
+
+
+def _ts_compressed(rank: int, world: int, job: dict) -> dict:
+    """(b) on this rank (``_gloo_spawn``), at pod=2, data=world/2, from
+    seed 0 on the same batches: "compressed", the int8 error-feedback
+    step, each sync held element by element (``_ts_checked_sync``);
+    "plain", the uncompressed sharded step; "grid", the compressed step
+    with its sync replaced by the one-quantum control
+    (``_ts_grid_sync``)."""
+    import contextlib
+    from unittest import mock
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, compression, trainstep
+    arch, layers, _, _ = TS_COMP
+    cfg = _ts_cfg(arch, layers)
+    model = build_model(cfg)
+    mesh = make_mesh((2, world // 2, 1), ("pod", "data", "model"))
+    ctx = steps.mesh_ctx(mesh)
+    ocfg = AdamWConfig(**TS_OCFG)
+    out = {"checks": []}
+    for run in ("compressed", "plain", "grid"):
+        if run == "plain":
+            state = trainstep.init_state(model, seed=0, device=TS_DEVICE,
+                                         ctx=ctx)
+            step = trainstep.make_train_step(model, ocfg, ctx=ctx)
+            patch = contextlib.nullcontext()
+        else:
+            state = trainstep.init_compressed_state(
+                model, seed=0, device=TS_DEVICE, ctx=ctx)
+            step = trainstep.make_compressed_train_step(model, ocfg, ctx)
+            patch = mock.patch.object(
+                compression, "ef_compressed_pmean",
+                _ts_checked_sync(compression.ef_compressed_pmean,
+                                 out["checks"])
+                if run == "compressed" else _ts_grid_sync)
+        res = {"metrics": [], "launches": [], "wall": [], "wire": []}
+        if run == "compressed":
+            res["groups"] = [sum(state["params"].get_parameter(n).numel()
+                                 for n in names)
+                             for names in trainstep.jax_leaf_groups(cfg)]
+            res["n_local"] = sum(p.numel()
+                                 for p in state["params"].parameters())
+        with patch:
+            _ts_steps(step, state, job["batches"], res)
+        out[run] = res
+        del state, step
+        if TS_DEVICE == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _ts_one_process(model, batches, ctl_gen=None, keep=None) -> dict:
+    """The one-process step (the card's main path, as the train phase
+    runs it) over ``batches`` from seed 0: metrics, and with ``keep`` the
+    params after TS_STEPS steps on the host.  ``ctl_gen``: every rmsnorm
+    output moved one ulp (the control)."""
+    from unittest import mock
+    import torch
+    from repro_torch.kernels.rmsnorm import ops as trops
+    from repro_torch.train import AdamWConfig, trainstep
+    state = trainstep.init_state(model, seed=0, device=TS_DEVICE)
+    step = trainstep.make_train_step(model, AdamWConfig(**TS_OCFG))
+    out = {"metrics": [], "p0": None, "p": None}
+    if keep:
+        out["p0"] = {k: p.detach().cpu() for k, p in
+                     state["params"].named_parameters()}
+    patch = (mock.patch.object(trops, "rmsnorm",
+                               _ulp_norm(trops.rmsnorm, ctl_gen))
+             if ctl_gen is not None else contextlib.nullcontext())
+    with patch:
+        for i, b in enumerate(batches):
+            state, m = step(state, _on(b))
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            if i + 1 == TS_STEPS:
+                out["p"] = {k: p.detach().cpu() for k, p in
+                            state["params"].named_parameters()}
+    del state
+    if TS_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _update_gap(got: dict, ref: dict, p0: dict) -> float:
+    """||p_got - p_ref|| / ||p_ref - p0|| over every parameter."""
+    num = sum(float((got[k].float() - ref[k].float()).norm() ** 2)
+              for k in ref)
+    den = sum(float((ref[k].float() - p0[k].float()).norm() ** 2)
+              for k in ref)
+    return math.sqrt(num / den)
+
+
+def _ts_adamw_shards(card: str) -> None:
+    """``adamw_update`` at the shard shapes of (a) (data=2) and of the
+    four-card run (data=4) of Yi-9B: each kernel output equal to the
+    plain version's (|d| = 0, as check_adamw); the kernel's, the plain
+    version's and ``torch._fused_adamw_``'s device time (``device_ms``,
+    inputs past L2) and the bound (28 bytes an element over the memory
+    rate)."""
+    import torch
+    from repro_torch.kernels.adamw import _HYPER
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.models.lm import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.layout import shard_of
+
+    class Stub:
+        axis_names = ("data", "model")
+
+        def __init__(self, d):
+            self.shape = {"data": d, "model": 1}
+    cfg = _ts_cfg("yi-9b", 1)
+    meta = dict(build_model(cfg).init(device="meta",
+                                      trainable=True).named_parameters())
+    gen = torch.Generator(device=TS_DEVICE).manual_seed(16)
+    for d in (2, TS_DATA4):
+        mesh = Stub(d)
+        specs = rules.param_specs(meta, cfg, mesh)
+        shapes = sorted({shard_of(tuple(p.shape), specs[k], mesh,
+                                  {"data": 0, "model": 0}).local_shape
+                         for k, p in meta.items() if "data" in specs[k]})
+        for shape in shapes:
+            p, g, m = (torch.randn(*shape, generator=gen, device=TS_DEVICE)
+                       for _ in range(3))
+            v = torch.rand(*shape, generator=gen, device=TS_DEVICE)
+            (got, counts) = _launches(lambda: aops.adamw_update(
+                p, g, m, v, **_HYPER))
+            ref = aops.adamw_update(p, g, m, v, mode="ref", **_HYPER)
+            err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            if err != 0 or counts != {"adamw_update": 1}:
+                raise AssertionError(f"train_sharded adamw {shape}: |d| "
+                                     f"{err}, launches {counts}")
+            n = p.numel()
+            s7 = torch.stack(aops.scalars(p.device, *_HYPER.values())).unbind()
+            step = torch.ones((), device=TS_DEVICE)
+            sets = _copies(lambda: tuple(t.clone() for t in (p, g, m, v)),
+                           16 * n)
+            ms = device_ms(lambda *a: aops.adamw_update(*a, *s7), sets)
+            plain = device_ms(lambda *a: aops.adamw_update(
+                *a, *s7, mode="ref"), sets)
+
+            def library(p, g, m, v):
+                torch._fused_adamw_([p], [g], [m], [v], [], [step],
+                                    lr=_HYPER["lr"], beta1=0.9, beta2=0.999,
+                                    weight_decay=_HYPER["wd"],
+                                    eps=_HYPER["eps"], amsgrad=False,
+                                    maximize=False)
+            lib = device_ms(library, [tuple(t.clone() for t in a)
+                                      for a in sets])
+            bms, by = bound_ms(28 * n, ADAMW_FLOPS * n, "float32")
+            print(f"train_sharded adamw shard data={d} {list(shape)} f32: "
+                  f"max_abs_err={err:g} ms={ms:.5f} plain_ms={plain:.5f} "
+                  f"bound_ms={bms:.6f} ({by}) library_ms={lib:.5f} "
+                  f"(torch._fused_adamw_) [{card}]")
+            del sets
+            del p, g, m, v, got, ref
+
+
+def phase_train_sharded(card: str) -> None:
+    """Training across ranks on this card (``train.zero``,
+    ``train.compression``, ``checkpoint.manager`` with shardings,
+    ``runtime.elastic``), every rank a gloo process on cuda:0 (NCCL
+    refuses two ranks on one device).  (a) Yi-9B at full width, 4 of 48
+    layers, ZeRO-3 over data=2, global batch 2 x 4096, TS_STEPS + 1
+    steps, each counted on each rank; held against the one-process step
+    on the same batches: each step's loss and grad norm, and the params
+    after TS_STEPS steps by ||p_a - p_1|| / ||p_1 - p_0||, each within
+    twice the one-ulp control's (the one-process run with every rmsnorm
+    output moved one ulp) plus 1e-6 relative.  (c) The checkpoint (a)
+    saved after TS_STEPS steps restored by remesh_state onto one rank
+    (the params compared there) and run one step: its loss and grad norm
+    against (a)'s and the one-process step's, the same limit.  (b) 4
+    ranks at pod=2, data=2 on InternVL2-2B (full width, 4 layers) run
+    the compressed step, the uncompressed sharded step and the
+    one-quantum control (``_ts_compressed``) on the same batches: every
+    rank's metrics alike and finite in each; each synced gradient element
+    within the two hops' rounding of the exact pod mean; step 0's loss
+    (the same forward pass) within 1e-6 relative of the uncompressed
+    step's; step 0's grad norm and step 1's loss and grad norm within
+    twice the control's distance from the uncompressed step's plus 1e-6
+    relative; the int8 wire bytes counted against ``wire_bytes``.  Then
+    ``adamw_update`` at Yi-9B's shard shapes against its plain
+    version."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import steps
+    from repro_torch.models.lm import build_model
+    from repro_torch.runtime import remesh_state
+    from repro_torch.train import AdamWConfig, compression, trainstep
+    cfg = _ts_cfg("yi-9b", TS_LAYERS)
+    model = build_model(cfg)
+    batches = _ts_batches(cfg, TS_B, TS_S, TS_STEPS + 1)
+    ref = _ts_one_process(model, batches, keep=True)
+    ctl = _ts_one_process(model, batches, torch.Generator(
+        device=TS_DEVICE).manual_seed(5))
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ts_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        ranks = _gloo_spawn(_ts_plain, 2, {"batches": batches, "ckpt": ckpt})
+        spawn_s = time.perf_counter() - t0
+        want = {"rmsnorm": 4 * TS_LAYERS + 1,
+                "adamw_update": 9 * TS_LAYERS + 3}
+        for r, res in enumerate(ranks):
+            if res["metrics"] != ranks[0]["metrics"]:
+                raise AssertionError(f"train_sharded (a): rank {r}'s "
+                                     "metrics differ from rank 0's")
+            for i, counts in enumerate(res["launches"]):
+                if counts != want:
+                    raise AssertionError(f"train_sharded (a) rank {r} step "
+                                         f"{i}: launches {counts}, expected "
+                                         f"{want}")
+        a = ranks[0]
+
+        def limit(key, i):
+            r = ref["metrics"][i][key]
+            return 2 * abs(ctl["metrics"][i][key] - r) + 1e-6 * abs(r)
+        for i in range(TS_STEPS + 1):
+            for key in ("loss", "grad_norm"):
+                d = abs(a["metrics"][i][key] - ref["metrics"][i][key])
+                if not math.isfinite(a["metrics"][i][key]) or d > limit(key,
+                                                                         i):
+                    raise AssertionError(
+                        f"train_sharded (a) step {i} {key}: "
+                        f"{a['metrics'][i][key]} vs one-process "
+                        f"{ref['metrics'][i][key]} (|d| {d:.3e} > "
+                        f"{limit(key, i):.3e})")
+            print(f"train_sharded (a) step {i}: loss "
+                  f"{a['metrics'][i]['loss']:.6f} (one process "
+                  f"{ref['metrics'][i]['loss']:.6f}, one-ulp control "
+                  f"{ctl['metrics'][i]['loss']:.6f}) grad_norm "
+                  f"{a['metrics'][i]['grad_norm']:.6f} (one process "
+                  f"{ref['metrics'][i]['grad_norm']:.6f}, control "
+                  f"{ctl['metrics'][i]['grad_norm']:.6f}); wall a rank "
+                  f"{[round(x['wall'][i], 3) for x in ranks]} s; launches "
+                  f"a rank {json.dumps(a['launches'][i])}; wire bytes a rank "
+                  f"{json.dumps(a['wire'][i]['collective_wire_bytes'])} "
+                  f"[{card}]")
+        print(f"train_sharded (a): {cfg.name} full width, {TS_LAYERS} "
+              f"layers, ZeRO-3 over data=2 (2 gloo ranks on one card), "
+              f"global batch {TS_B} x {TS_S}; local wq {a['local']['blocks.0.attn.wq']}, "
+              f"wo {a['local']['blocks.0.attn.wo']}, embed "
+              f"{a['local']['embed']}; checkpoint saved in "
+              f"{a['save_s']:.1f} s; peak memory a rank "
+              f"{[round(x['memory_gib'], 2) for x in ranks]} GiB; the 2 "
+              f"processes took {spawn_s:.1f} s [{card}]")
+
+        # (c) restore (a)'s checkpoint onto one rank and run on
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_ts_pg_")
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            mgr = CheckpointManager(ckpt)
+            step0, tree, mesh = remesh_state(
+                mgr, cfg, lambda: steps.abstract_state(model), 1,
+                model_parallel=1, device=TS_DEVICE)
+            t_restore = time.perf_counter() - t0
+            gap_a = _update_gap({k: t.cpu() for k, t in
+                                 tree["params"].items()}, ref["p"],
+                                ref["p0"])
+            gap_c = _update_gap(ctl["p"], ref["p"], ref["p0"])
+            if gap_a > 2 * gap_c + 1e-6:
+                raise AssertionError(f"train_sharded (a): params after "
+                                     f"{TS_STEPS} steps {gap_a:.3e} of the "
+                                     f"update from the one process's, "
+                                     f"control {gap_c:.3e}")
+            ctx = steps.mesh_ctx(mesh)
+            state = trainstep.init_state(model, seed=1, device=TS_DEVICE,
+                                         ctx=ctx)
+            trainstep.load_state_tree(state, tree)
+            del tree
+            step = trainstep.make_train_step(model, AdamWConfig(**TS_OCFG),
+                                             ctx=ctx)
+            (state, m), counts = _launches(
+                lambda: step(state, _on(batches[TS_STEPS])))
+            mc = {k: float(v) for k, v in m.items()}
+            del state, step, m
+        finally:
+            dist.destroy_process_group()
+            shutil.rmtree(tmp, ignore_errors=True)
+        i = TS_STEPS
+        for key in ("loss", "grad_norm"):
+            for what, other in (("(a)", a["metrics"][i][key]),
+                                ("one process", ref["metrics"][i][key])):
+                d = abs(mc[key] - other)
+                if d > limit(key, i):
+                    raise AssertionError(f"train_sharded (c) {key}: "
+                                         f"{mc[key]} vs {what} {other}")
+        print(f"train_sharded (c): (a)'s checkpoint at step {step0} "
+              f"restored by remesh_state onto {tuple(mesh.shape)} "
+              f"{tuple(mesh.mesh_dim_names)} in {t_restore:.1f} s; params "
+              f"after {TS_STEPS} steps {gap_a:.3e} of the update away from "
+              f"the one process's (control {gap_c:.3e}, limit twice it); "
+              f"step {i}: loss {mc['loss']:.6f} ((a) "
+              f"{a['metrics'][i]['loss']:.6f}, one process "
+              f"{ref['metrics'][i]['loss']:.6f}) grad_norm "
+              f"{mc['grad_norm']:.6f} ((a) {a['metrics'][i]['grad_norm']:.6f},"
+              f" one process {ref['metrics'][i]['grad_norm']:.6f}); launches "
+              f"{json.dumps(counts)} [{card}]")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    del ref, ctl
+    gc.collect()
+    if TS_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+
+    # (b) the compressed step on 4 ranks, against the uncompressed one
+    arch, layers, b, s = TS_COMP
+    ccfg = _ts_cfg(arch, layers)
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    t0 = time.perf_counter()
+    ranks = _gloo_spawn(_ts_compressed, 4, {"batches": _ts_batches(
+        ccfg, b, s, TS_STEPS)})
+    spawn_s = time.perf_counter() - t0
+    want = {"rmsnorm": 4 * layers + 1, "adamw_update": 9 * layers + 3}
+    for r, res in enumerate(ranks):
+        for run in ("compressed", "plain", "grid"):
+            x = res[run]
+            if x["metrics"] != ranks[0][run]["metrics"]:
+                raise AssertionError(f"train_sharded (b) {run}: rank {r}'s "
+                                     "metrics differ from rank 0's")
+            if any(c != want for c in x["launches"]):
+                raise AssertionError(f"train_sharded (b) {run} rank {r}: "
+                                     f"launches {x['launches']}, expected "
+                                     f"{want}")
+            if not all(math.isfinite(v) for m in x["metrics"]
+                       for v in m.values()):
+                raise AssertionError(f"train_sharded (b) {run}: non-finite "
+                                     f"{x['metrics']}")
+        for i, (worst, quanta) in enumerate(res["checks"]):
+            if not worst <= 1.0:
+                raise AssertionError(
+                    f"train_sharded (b) rank {r} step {i}: a synced "
+                    f"gradient element {worst:.3f} of its bound (half of "
+                    f"each hop's quantization step) from the exact pod "
+                    f"mean ({quanta:.3f} of s1)")
+    c = ranks[0]["compressed"]
+    pm, cm, gm = (ranks[0][k]["metrics"]
+                  for k in ("plain", "compressed", "grid"))
+    # step 0's loss is the same forward pass in both steps; the sync shows
+    # from step 0's grad norm on
+    d0 = abs(cm[0]["loss"] - pm[0]["loss"])
+    if d0 > 1e-6 * abs(pm[0]["loss"]):
+        raise AssertionError(f"train_sharded (b) step 0 loss: compressed "
+                             f"{cm[0]['loss']} vs uncompressed "
+                             f"{pm[0]['loss']}")
+    gaps = []
+    for i, key in ((0, "grad_norm"), (1, "loss"), (1, "grad_norm")):
+        ref = pm[i][key]
+        d, ctl = abs(cm[i][key] - ref), abs(gm[i][key] - ref)
+        lim = 2 * ctl + 1e-6 * abs(ref)
+        gaps.append(f"step {i} {key} |d| {d:.3e} (control {ctl:.3e})")
+        if d > lim:
+            raise AssertionError(
+                f"train_sharded (b) step {i} {key}: compressed {cm[i][key]}"
+                f" vs uncompressed {ref} (|d| {d:.3e} > twice the "
+                f"one-quantum control's {ctl:.3e})")
+    wire = c["wire"][-1]["collective_wire_bytes"]
+    counted = c["int8_wire"]
+    # per JAX leaf: its pieces' N int8s, padded to a multiple of the 2
+    # pods, go out once in the all-to-all and once in the all-gather,
+    # each sending half of them
+    padded = sum(2 * (-(-n // 2)) for n in c["groups"])
+    analytic = compression.wire_bytes(c["n_local"], 2)["int8_ef_a2a_ag"]
+    if counted != padded:
+        raise AssertionError(f"train_sharded (b): int8 wire bytes counted "
+                             f"{counted}, the shards give {padded}")
+    checks = [x for res in ranks for x in res["checks"]]
+    # a process's peaks over its three runs: those read after the last
+    peaks = [(round(x["grid"]["memory_gib"], 2),
+              round(x["grid"]["reserved_gib"], 2)) for x in ranks]
+    for i, m in enumerate(cm):
+        print(f"train_sharded (b) step {i}: loss {m['loss']:.6f} "
+              f"(uncompressed {pm[i]['loss']:.6f}, one-quantum control "
+              f"{gm[i]['loss']:.6f}) grad_norm {m['grad_norm']:.6f} "
+              f"(uncompressed {pm[i]['grad_norm']:.6f}, control "
+              f"{gm[i]['grad_norm']:.6f}) lr {m['lr']:.3e}; wall a rank "
+              f"{[round(x['compressed']['wall'][i], 3) for x in ranks]} s "
+              f"[{card}]")
+    print(f"train_sharded (b): {ccfg.name} full width, {layers} layers, "
+          f"pod=2 x data=2 (4 gloo ranks on one card), global batch {b} x "
+          f"({ccfg.n_prefix_embeds} + {s}); against the uncompressed "
+          f"sharded step: {'; '.join(gaps)}, each within twice the "
+          f"control's; synced gradients against the exact pod mean: worst "
+          f"element {max(w for w, _ in checks):.3f} of its bound, "
+          f"{max(q for _, q in checks):.3f} of s1; int8 wire bytes a rank "
+          f"a step (all-to-all + all-gather of the pod sync) "
+          f"{counted:.0f} = the shards' {padded:.0f}; wire_bytes(local "
+          f"params {c['n_local']}, 2 pods)['int8_ef_a2a_ag'] = "
+          f"{analytic:.0f} (the pad of each leaf to a multiple of 2 "
+          f"apart); all collectives a rank a step {json.dumps(wire)}; peak "
+          f"memory a rank, allocated / reserved {peaks} GiB, "
+          f"{free_gib:.2f} GiB free on the card before the spawn, each "
+          f"rank capped at {free_gib / 4 - GLOO_CONTEXT_GIB:.2f} GiB; the 4 "
+          f"processes took {spawn_s:.1f} s [{card}]")
+    _ts_adamw_shards(card)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5664,6 +6288,7 @@ def _run(t_start: float) -> int:
     timed("whisper", phase_whisper, card)
     timed("train-families", phase_train_families, card)
     train_counts = timed("train", phase_train, card)
+    timed("train_sharded", phase_train_sharded, card)
     # the K1 adamw kernel's launches are those of the training run; the
     # ring's, those of check_adamw's main path (training runs K1)
     results["adamw_update"]["launches"] = train_counts["adamw_update"]

@@ -20,8 +20,15 @@ Guarantees:
 A tree is a nested dict of tensors (or numpy arrays, or numbers); keys
 join with ``/`` into leaf paths.  Leaves go to the host as numpy arrays,
 so a dtype numpy has not (bf16) is refused.  ``restore`` returns tensors
-on the device it is given.  A single card has no mesh, so there is no
-sharding argument (the JAX package's elastic restore is not ported).
+on the device it is given.
+
+Sharded state (ZeRO-3, ``train.zero``) stays unsharded on disk, as the
+JAX package keeps it: ``save(..., shardings=)`` gathers each leaf to
+rank 0 from every rank's piece, one leaf at a time
+(``sharding.layout.Shard.gather``, a collective), and rank 0 alone
+writes; ``restore(..., shardings=)``
+gives each rank its piece of each leaf, on whatever mesh the shardings
+name, so a run restores onto another rank count (``runtime.elastic``).
 """
 from __future__ import annotations
 
@@ -84,15 +91,36 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[Exception] = None
+        self._collective = False    # a sharded save is in flight
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, tree: Any) -> None:
-        """Snapshot ``tree`` (nested dict of tensors/arrays) at ``step``."""
+    def save(self, step: int, tree: Any, shardings: Any = None) -> None:
+        """Snapshot ``tree`` (nested dict of tensors/arrays) at ``step``.
+
+        With ``shardings`` (a tree of ``sharding.layout.Shard``, one for
+        each leaf, as ``launch.steps.state_shardings`` gives it) the
+        leaves are this rank's pieces: every rank calls ``save``, each
+        leaf is gathered to rank 0 and copied to its host in turn, and
+        rank 0 writes the step (``wait`` on every rank returns once it is on
+        disk)."""
         flat = _flatten(tree)
-        # synchronous, consistent device→host snapshot
-        host = {k: _host(v) for k, v in flat.items()}
+        if shardings is None:
+            # synchronous, consistent device→host snapshot
+            host = {k: _host(v) for k, v in flat.items()}
+        else:
+            import torch.distributed as dist
+            shards = _flatten(shardings)
+            host = {}
+            for k in sorted(flat):
+                whole = shards[k].gather(flat[k], dst=0)
+                if whole is not None:
+                    host[k] = _host(whole)
         self.wait()
+        if shardings is not None:
+            self._collective = True
+            if dist.get_rank() != 0:
+                return
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write_recording, args=(step, host), daemon=True)
@@ -101,12 +129,17 @@ class CheckpointManager:
             self._write(step, host)
 
     def wait(self) -> None:
-        """Join the background write; raise what it raised."""
+        """Join the background write; raise what it raised.  After a
+        sharded save, every rank waits for rank 0's write."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._collective:
+            import torch.distributed as dist
+            self._collective = False
+            dist.barrier()
+        if err is not None:
             raise err
 
     def _write_recording(self, step: int, host: dict) -> None:
@@ -160,17 +193,20 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: Optional[int] = None,
-                device=None) -> tuple[int, Any]:
+    def restore(self, step: Optional[int] = None, device=None,
+                shardings: Any = None) -> tuple[int, Any]:
         """→ (step, tree): the tree of ``step`` (default: the latest) as
         tensors on ``device``, or as numpy arrays where ``device`` is
-        None."""
+        None.  With ``shardings`` (a tree of ``sharding.layout.Shard`` of
+        the new mesh, the tree's structure) each leaf is this rank's piece
+        of it: restoring onto another mesh than the one that saved."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         root = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(root, "MANIFEST.json")) as f:
             manifest = json.load(f)
+        flat_shardings = _flatten(shardings) if shardings is not None else {}
         flat = {}
         for key, meta in manifest["leaves"].items():
             # codec dispatch is per file (suffix): raw checkpoints restore
@@ -185,6 +221,10 @@ class CheckpointManager:
                         "zstandard module is not installed")
                 raw = zstandard.ZstdDecompressor().decompress(raw)
             arr = np.load(io.BytesIO(raw))
-            flat[key] = arr if device is None else torch.from_numpy(
+            sh = flat_shardings.get(key)
+            if sh is not None:
+                arr = sh.on(arr.shape).local(torch.from_numpy(arr))
+                arr = arr.numpy() if device is None else arr
+            flat[key] = arr if device is None else torch.as_tensor(
                 arr).to(device)
         return step, _unflatten(flat)

@@ -16,8 +16,12 @@ numpy, a zero KV cache.  ``arch`` is a name or a ``ModelConfig`` and
 what one card holds; every field that differs from the named config or
 shape is printed, with the bytes the uncut cell would need.
 
-Sharding (``mesh_ctx``, ``_shard``, ``state_specs``,
-``_decode_cache_specs``) needs several cards and is not ported.
+Across ranks: ``mesh_ctx`` gives a mesh's ``MeshCtx``, ``shard_tree``
+(the JAX package's ``_shard``) each rank's piece of every leaf by the
+sharding rules, on meta tensors too (per-rank bytes without
+allocating), ``state_specs`` / ``state_shardings`` the training state's
+specs and pieces, ``_decode_cache_specs`` a cache's; ``build_train_step(
+..., mesh=)`` the ZeRO-3 step on this rank's shards of the state.
 """
 from __future__ import annotations
 
@@ -30,12 +34,16 @@ import torch
 from repro_torch.configs import get_config, get_shape
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels.common import resolve_device
+from repro_torch.models.common import MeshCtx
 from repro_torch.models.lm import build_model
+from repro_torch.sharding import rules
+from repro_torch.sharding.layout import shard_of, shard_tree
 from repro_torch.train import optimizer as opt
 from repro_torch.train import trainstep
 
 __all__ = ["abstract_batch", "abstract_params", "abstract_state",
-           "abstract_cache", "tree_bytes", "build_train_step",
+           "abstract_cache", "tree_bytes", "mesh_ctx", "shard_tree",
+           "state_specs", "state_shardings", "build_train_step",
            "build_prefill_step", "build_decode_step", "build_cell"]
 
 _META = torch.device("meta")
@@ -109,6 +117,57 @@ def tree_bytes(tree) -> int:
     return 0
 
 
+# --------------------------------------------------------------- sharding
+
+def mesh_ctx(mesh) -> MeshCtx:
+    """The ``MeshCtx`` of a ``DeviceMesh``: the batch over ``(pod,
+    data)``, the model axis ``model``."""
+    ax = rules.MeshAxes.for_mesh(mesh)
+    return MeshCtx(mesh=mesh, dp_axes=ax.batch, tp_axis=ax.tp)
+
+
+def state_specs(state, cfg: ModelConfig, mesh) -> dict:
+    """Specs of a training state (``abstract_state``'s or a real one, its
+    params whole): the params' for params, m and v, ``step``
+    replicated; a compressed state's ``ef`` leaves ``[pods, ...]`` over
+    ``pod`` and then as their parameter."""
+    pspecs = rules.param_specs(state["params"], cfg, mesh)
+    out = {"params": pspecs,
+           "opt_state": {"m": pspecs, "v": pspecs, "step": ()}}
+    if "ef" in state:
+        out["ef"] = {k: ("pod",) + sp for k, sp in pspecs.items()}
+    return out
+
+
+def state_shardings(state, cfg: ModelConfig, mesh) -> dict:
+    """This rank's ``Shard`` of each leaf of ``trainstep.state_tree``'s
+    tree on ``mesh``, from a whole state's shapes (``abstract_state``'s,
+    with ``"ef"`` for a compressed one): what ``CheckpointManager.save``
+    and ``restore`` take."""
+    shapes = {k: tuple(p.shape)
+              for k, p in state["params"].named_parameters()}
+    specs = state_specs(state, cfg, mesh)
+    pshards = {k: shard_of(shapes[k], specs["params"][k], mesh)
+               for k in shapes}
+    out = {"params": pshards,
+           "opt_state": {"m": pshards, "v": pshards,
+                         "step": shard_of((), (), mesh)}}
+    if "ef" in state:
+        pods = rules.mesh_shape(mesh).get("pod", 1)
+        out["ef"] = {k: shard_of((pods,) + shapes[k], specs["ef"][k], mesh)
+                     for k in shapes}
+    return out
+
+
+def _decode_cache_specs(cache, cfg: ModelConfig, mesh, shape: ShapeConfig):
+    if isinstance(cache, dict) and "self" in cache:
+        return {
+            "self": rules.cache_specs(cache["self"], cfg, mesh, shape),
+            "cross": rules.cache_specs(cache["cross"], cfg, mesh, shape),
+        }
+    return rules.cache_specs(cache, cfg, mesh, shape)
+
+
 # ------------------------------------------------------------------ cells
 
 def _resolve(arch: Arch, shape: Shape) -> tuple[ModelConfig, ShapeConfig]:
@@ -180,16 +239,20 @@ def _batch(cfg: ModelConfig, shp: ShapeConfig, dev) -> dict:
 
 
 def build_train_step(arch: Arch, shape: Shape, device=None,
-                     remat: bool = True, grad_accum: int = 1):
+                     remat: bool = True, grad_accum: int = 1, mesh=None):
     """``(train_step, (state, batch))``: AdamW at its defaults, the state
-    drawn from seed 0, the batch of ``_batch`` (seeded numpy)."""
+    drawn from seed 0, the batch of ``_batch`` (seeded numpy, the whole
+    global batch).  With ``mesh`` (a ``DeviceMesh`` over every rank) the
+    step is the ZeRO-3 one and the state this rank's shards
+    (``trainstep.init_state(..., ctx=)``)."""
     dev = resolve_device(device)
     cfg, shp = _resolve(arch, shape)
     model = build_model(cfg)
     _cuts(cfg, shp)
+    ctx = None if mesh is None else mesh_ctx(mesh)
     step = trainstep.make_train_step(model, opt.AdamWConfig(), remat=remat,
-                                     grad_accum=grad_accum)
-    state = trainstep.init_state(model, device=dev)
+                                     grad_accum=grad_accum, ctx=ctx)
+    state = trainstep.init_state(model, device=dev, ctx=ctx)
     return step, (state, _batch(cfg, shp, dev))
 
 

@@ -186,19 +186,22 @@ def _layer_kv(cross_kv, i: int):
 
 def stack_forward(stack: nn.ModuleList, x, cfg: ModelConfig, rope,
                   causal: bool = True, remat: bool = True,
-                  mode: Optional[str] = None, cross_kv=None):
+                  mode: Optional[str] = None, cross_kv=None, run=None):
     """Every layer in turn: (x, the MoE layers' aux summed).  ``remat``
     saves only each layer's input and recomputes the layer in the
     backward pass.  ``cross_kv``: a Whisper decoder's per-layer encoder
-    K/V ``{"k", "v"}``, or None."""
+    K/V ``{"k", "v"}``, or None.  ``run(layer, x, cfg, rope, causal,
+    mode, kv)`` runs one layer (default ``_layer_forward``; under remat
+    it reruns in the backward pass with the layer)."""
+    run = run or _layer_forward
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(stack):
         kv = _layer_kv(cross_kv, i)
         if remat:
-            x, a = checkpoint(_layer_forward, layer, x, cfg, rope, causal,
-                              mode, kv, use_reentrant=False)
+            x, a = checkpoint(run, layer, x, cfg, rope, causal, mode, kv,
+                              use_reentrant=False)
         else:
-            x, a = _layer_forward(layer, x, cfg, rope, causal, mode, kv)
+            x, a = run(layer, x, cfg, rope, causal, mode, kv)
         if a is not None:
             aux = aux + a
     return x, aux

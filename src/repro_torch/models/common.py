@@ -14,18 +14,36 @@ from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
     """Names of the axes of a ``torch.distributed`` ``DeviceMesh`` (with
-    named dims) that the layers read: ``dp_axes`` for the batch,
-    ``tp_axis`` for the model axis, over which serving shards the KV
-    cache's sequence (``kernels.decode_attn.sharded``).  None in place of
-    a MeshCtx is the single-device context.  The JAX package's GSPMD
-    layout hints (``constrain_act``, ``constrain_tokens``) mean something
-    only with sharded weights and come with sharded training."""
+    named dims) that the layers and the train step read: ``dp_axes`` for
+    the batch (``("pod", "data")`` or ``("data",)``, as the JAX package's
+    ``mesh_ctx`` gives them), ``tp_axis`` for the model axis, over which
+    serving shards the KV cache's sequence
+    (``kernels.decode_attn.sharded``).  The sharded train step
+    (``train.trainstep``) shards parameters and optimizer state over
+    ``data`` (ZeRO-3) and reads each axis's process group and this rank's
+    index along it.  None in place of a MeshCtx is the single-device
+    context.  The JAX package's GSPMD layout hints (``constrain_act``,
+    ``constrain_tokens``) mean something only with tensor parallelism in
+    training, which is not ported (ROADMAP Queue 1 item 4)."""
     mesh: Any
     dp_axes: tuple[str, ...] = ("data",)
     tp_axis: str = "model"
 
     def axis_size(self, name: str) -> int:
-        return self.mesh.size(self.mesh.mesh_dim_names.index(name))
+        """The size of axis ``name``; 1 for an axis the mesh lacks."""
+        names = self.mesh.mesh_dim_names
+        return self.mesh.size(names.index(name)) if name in names else 1
+
+    def axis_group(self, name: str):
+        """The process group of this rank's line along axis ``name``."""
+        return self.mesh.get_group(name)
+
+    def axis_rank(self, name: str) -> int:
+        """This rank's index along axis ``name``; 0 for an axis the mesh
+        lacks."""
+        if name not in self.mesh.mesh_dim_names:
+            return 0
+        return self.mesh.get_local_rank(name)
 
     @property
     def tp(self) -> int:
@@ -34,16 +52,55 @@ class MeshCtx:
     @property
     def tp_group(self):
         """The process group of this rank's model axis."""
-        return self.mesh.get_group(self.tp_axis)
+        return self.axis_group(self.tp_axis)
 
     @property
     def tp_rank(self) -> int:
         """This rank's index along the model axis."""
-        return self.mesh.get_local_rank(self.tp_axis)
+        return self.axis_rank(self.tp_axis)
+
+    @property
+    def data(self) -> int:
+        """The size of the fsdp axis ``data``."""
+        return self.axis_size("data")
+
+    @property
+    def data_group(self):
+        return self.axis_group("data")
+
+    @property
+    def data_rank(self) -> int:
+        return self.axis_rank("data")
+
+    @property
+    def pod(self) -> int:
+        """The size of the cross-pod axis ``pod`` (1 without one)."""
+        return self.axis_size("pod")
+
+    @property
+    def pod_group(self):
+        return self.axis_group("pod")
+
+    @property
+    def pod_rank(self) -> int:
+        return self.axis_rank("pod")
+
+    @property
+    def n_batch(self) -> int:
+        """The ranks the batch is split over: the product of ``dp_axes``."""
+        return math.prod(self.axis_size(a) for a in self.dp_axes)
+
+    @property
+    def batch_rank(self) -> int:
+        """This rank's index over ``dp_axes``, row-major (the first axis
+        outermost, as GSPMD indexes a dim sharded over several axes)."""
+        r = 0
+        for a in self.dp_axes:
+            r = r * self.axis_size(a) + self.axis_rank(a)
+        return r
 
     def batch_axes(self, b: int) -> tuple[str, ...]:
-        n = math.prod(self.axis_size(a) for a in self.dp_axes)
-        return self.dp_axes if b % n == 0 else ()
+        return self.dp_axes if b % self.n_batch == 0 else ()
 
 
 def _truncated_normal(shape, generator: torch.Generator, device,

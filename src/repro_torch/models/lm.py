@@ -35,7 +35,7 @@ from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention, blocks, common, ffn, mamba2, moe
 
 __all__ = ["LMParams", "EncDecParams", "norm_calls", "CausalLM",
-           "build_model", "params_from_numpy"]
+           "build_model", "param_paths", "params_from_numpy"]
 
 
 class LMParams(nn.Module):
@@ -174,24 +174,27 @@ class CausalLM:
 
     # ---------------------------------------------------------- train
     def hidden(self, params: LMParams, batch, remat: bool = True,
-               mode: Optional[str] = None):
-        """(final-normed hidden states [B, Np + S, D], aux, n_prefix)."""
+               mode: Optional[str] = None, run=None):
+        """(final-normed hidden states [B, Np + S, D], aux, n_prefix);
+        ``run``: how a layer runs (``blocks.stack_forward``)."""
         cfg = self.cfg
         x, n_prefix = self._inputs(params, batch)
         s = x.shape[1]
         rope = common.make_rope(torch.arange(s, device=x.device),
                                 cfg.head_dim, cfg.rope_theta, cfg.rope_style)
         x, aux = blocks.stack_forward(params.blocks, x, cfg, rope,
-                                      causal=True, remat=remat, mode=mode)
+                                      causal=True, remat=remat, mode=mode,
+                                      run=run)
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps, mode)
         return x, aux, n_prefix
 
     def loss(self, params: LMParams, batch, remat: bool = True,
-             mode: Optional[str] = None):
+             mode: Optional[str] = None, run=None):
         """(total loss, {"nll", "aux"}): next-token NLL of
-        ``batch["tokens"]`` [B, S] with the z-loss."""
+        ``batch["tokens"]`` [B, S] with the z-loss; ``run``: how a layer
+        runs (``blocks.stack_forward``)."""
         cfg = self.cfg
-        x, aux, n_prefix = self.hidden(params, batch, remat, mode)
+        x, aux, n_prefix = self.hidden(params, batch, remat, mode, run)
         x = x[:, n_prefix:]
         tokens = torch.as_tensor(batch["tokens"], device=x.device).long()
         labels = tokens[:, 1:]
@@ -282,6 +285,63 @@ def build_model(cfg: ModelConfig) -> CausalLM:
     return CausalLM(cfg)
 
 
+_ATTN = ("wq", "wk", "wv", "wo")
+_MAMBA = ("in_proj", "conv_w", "conv_b", "dt_bias", "a_log", "d_skip",
+          "norm", "out_proj")
+_MOE = ("router", "w_in", "w_gate", "w_out")
+
+
+def param_paths(cfg: ModelConfig) -> dict[str, tuple[tuple[str, ...],
+                                                     Optional[int]]]:
+    """The JAX package's place of each port parameter: ``{port name:
+    (key path in the JAX ``init`` tree, index into its stacked lead or
+    None)}``.  Layer ``l`` of a stack of period P is index ``l // P`` of
+    the leaves under ``pos{l % P}``; the JAX spec of a stacked leaf is the
+    port's with a lead None (``sharding.rules``)."""
+    def stack(prefix: str, scfg: ModelConfig) -> dict:
+        out = {}
+        descs = blocks.layer_descriptors(scfg)
+        for layer in range(scfg.n_layers):
+            desc, i = descs[layer % len(descs)], layer // len(descs)
+            jp = (prefix, f"pos{layer % len(descs)}")
+            name = f"{prefix}.{layer}."
+
+            def put(*keys):
+                out[name + ".".join(keys)] = (jp + keys, i)
+            put("norm1")
+            for k in (_ATTN if desc.mixer == "attn" else _MAMBA):
+                put(desc.mixer, k)
+            if desc.cross:
+                put("norm_x")
+                for k in _ATTN:
+                    put("cross", k)
+            if desc.ffn != "none":
+                put("norm2")
+            ffn_keys = ("w_in", "w_out") + (
+                ("w_gate",) if scfg.act == "swiglu" else ())
+            if desc.ffn == "moe":
+                for k in _MOE:
+                    put("moe", k)
+                if scfg.moe.dense_residual:
+                    for k in ffn_keys:
+                        put("moe", "dense", k)
+            elif desc.ffn == "dense":
+                for k in ffn_keys:
+                    put("ffn", k)
+        return out
+
+    paths = {"embed": (("embed",), None),
+             "final_norm": (("final_norm",), None)}
+    if not cfg.tie_embeddings:
+        paths["head"] = (("head",), None)
+    paths.update(stack("blocks", cfg))
+    if cfg.encdec:
+        from repro_torch.models.whisper import encoder_config
+        paths["enc_norm"] = (("enc_norm",), None)
+        paths.update(stack("enc_blocks", encoder_config(cfg)))
+    return paths
+
+
 def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None,
                       trainable: bool = False) -> LMParams:
     """Carry a JAX ``CausalLM.init`` or ``EncDecLM.init`` tree (as numpy
@@ -292,64 +352,58 @@ def params_from_numpy(cfg: ModelConfig, tree: Mapping, device=None,
 
     ``embed [Vp, D]``, ``head [D, Vp]``, ``final_norm [D]``; every
     ``blocks/pos{i}/...`` leaf has a leading ``[n_periods]`` axis, and
-    layer ``l`` is period ``l // P`` of position ``l % P``.  An encdec
-    tree adds ``enc_blocks/pos0/...`` (leaves ``[n_enc_layers, ...]``)
-    and ``enc_norm [D]``, and its decoder layers ``norm_x`` and
-    ``cross/{wq, wk, wv, wo}`` (``EncDecParams``)."""
+    layer ``l`` is period ``l // P`` of position ``l % P``
+    (:func:`param_paths`).  An encdec tree adds ``enc_blocks/pos0/...``
+    (leaves ``[n_enc_layers, ...]``) and ``enc_norm [D]``, and its decoder
+    layers ``norm_x`` and ``cross/{wq, wk, wv, wo}`` (``EncDecParams``)."""
     dev = resolve_device(device)
     dt = cfg.pdtype() if trainable else cfg.cdtype()
+    leaves = {}
+    for name, (path, i) in param_paths(cfg).items():
+        a = tree
+        for k in path:
+            a = a[k]
+        a = np.asarray(a if i is None else a[i])
+        f32 = "mamba" in path and path[-1] in mamba2.F32_PARAMS
+        leaves[name] = torch.tensor(a).to(dev, torch.float32 if f32 else dt)
 
-    def t(a) -> torch.Tensor:
-        return torch.tensor(np.asarray(a)).to(dev, dt)
+    def attn(pre) -> attention.Attention:
+        return attention.Attention(*(leaves[pre + k] for k in _ATTN))
 
-    def attn(a, i) -> attention.Attention:
-        return attention.Attention(*(t(a[k][i])
-                                     for k in ("wq", "wk", "wv", "wo")))
+    def dense_ffn(pre) -> ffn.FFN:
+        return ffn.FFN(leaves[pre + "w_in"], leaves[pre + "w_out"],
+                       leaves.get(pre + "w_gate"))
 
-    def dense_ffn(f, i) -> ffn.FFN:
-        return ffn.FFN(t(f["w_in"][i]), t(f["w_out"][i]),
-                       t(f["w_gate"][i]) if "w_gate" in f else None)
-
-    def stack(stree, scfg: ModelConfig) -> nn.ModuleList:
-        descs = blocks.layer_descriptors(scfg)
+    def stack(prefix: str, scfg: ModelConfig) -> nn.ModuleList:
         layers = nn.ModuleList()
-        for layer in range(scfg.n_layers):
-            desc, i = descs[layer % len(descs)], layer // len(descs)
-            lp = stree[f"pos{layer % len(descs)}"]
+        for layer, desc in enumerate(blocks.stack_descriptors(scfg)):
+            pre = f"{prefix}.{layer}."
             if desc.mixer == "attn":
-                mixer = attn(lp["attn"], i)
+                mixer = attn(pre + "attn.")
             else:
-                m = lp["mamba"]
-                mixer = mamba2.Mamba(*(
-                    torch.tensor(np.asarray(m[k][i])).to(dev, torch.float32)
-                    if k in mamba2.F32_PARAMS else t(m[k][i])
-                    for k in ("in_proj", "conv_w", "conv_b", "dt_bias",
-                              "a_log", "d_skip", "norm", "out_proj")))
+                mixer = mamba2.Mamba(*(leaves[pre + "mamba." + k]
+                                       for k in _MAMBA))
             f = None
             if desc.ffn == "moe":
-                e = lp["moe"]
-                f = moe.MoE(t(e["router"][i]), t(e["w_in"][i]),
-                            t(e["w_gate"][i]), t(e["w_out"][i]),
-                            dense_ffn(e["dense"], i) if "dense" in e
-                            else None)
+                f = moe.MoE(*(leaves[pre + "moe." + k] for k in _MOE),
+                            dense_ffn(pre + "moe.dense.")
+                            if pre + "moe.dense.w_in" in leaves else None)
             elif desc.ffn == "dense":
-                f = dense_ffn(lp["ffn"], i)
-            cross = attn(lp["cross"], i) if desc.cross else None
+                f = dense_ffn(pre + "ffn.")
+            cross = attn(pre + "cross.") if desc.cross else None
             layers.append(blocks.Layer(
-                t(lp["norm1"][i]), mixer,
-                t(lp["norm2"][i]) if f is not None else None, f,
-                t(lp["norm_x"][i]) if desc.cross else None, cross))
+                leaves[pre + "norm1"], mixer, leaves.get(pre + "norm2"), f,
+                leaves.get(pre + "norm_x"), cross))
         return layers
 
-    head = None if cfg.tie_embeddings else t(tree["head"])
-    layers = stack(tree["blocks"], cfg)
+    head = leaves.get("head")
+    layers = stack("blocks", cfg)
     if cfg.encdec:
         from repro_torch.models.whisper import encoder_config
-        params = EncDecParams(t(tree["embed"]), layers,
-                              t(tree["final_norm"]), head,
-                              stack(tree["enc_blocks"], encoder_config(cfg)),
-                              t(tree["enc_norm"]))
+        params = EncDecParams(leaves["embed"], layers, leaves["final_norm"],
+                              head, stack("enc_blocks", encoder_config(cfg)),
+                              leaves["enc_norm"])
     else:
-        params = LMParams(t(tree["embed"]), layers, t(tree["final_norm"]),
+        params = LMParams(leaves["embed"], layers, leaves["final_norm"],
                           head)
     return params.requires_grad_(trainable)

@@ -10,9 +10,11 @@ and has no HLO, so that half has no counterpart here; its role is taken
 by :func:`count_flops`, which runs the step under
 ``torch.utils.flop_counter.FlopCounterMode`` and counts every matrix
 product the step dispatches (the same dots the HLO parser counts, each
-masked attention score included).  One card has no collectives, so the
-collective keys of its result are empty and :func:`roofline_terms`
-refuses ``n_chips > 1``.
+masked attention score included), and under
+``sharding.collectives.recording``, which counts the wire bytes of every
+collective the step issues (ring model, as the HLO parser reckons
+them).  :func:`roofline_terms` takes the collective term as those bytes
+over the card's measured link bandwidth (``HwSpec.link_bw``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.roofline.hw import H100_HW, HwSpec
+from repro_torch.sharding import collectives
 
 __all__ = ["analytic_memory_bytes", "model_flops", "count_flops",
            "roofline_terms"]
@@ -46,21 +49,19 @@ def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
 def count_flops(fn, *args, **kw) -> dict:
     """Run ``fn(*args, **kw)`` once and count its matrix products' FLOPs
     (2 per multiply-add, as the HLO parser counts a dot), on whatever
-    device the arguments live.  Returns the keys of the JAX package's
-    ``analyze_hlo`` (``flops``, empty collective maps, zero wire bytes)
+    device the arguments live, and this rank's collectives.  Returns the
+    keys of the JAX package's ``analyze_hlo`` (``flops``, the collective
+    operand and wire bytes by kind and their totals; empty on one card)
     and ``by_op``, the FLOPs of each ATen op."""
     counter = FlopCounterMode(display=False,
                               custom_mapping={torch.ops.aten.bmm: _bmm_flop})
-    with counter:
+    with counter, collectives.recording() as log:
         fn(*args, **kw)
     by_op: dict = defaultdict(int)
     for op, n in counter.get_flop_counts()["Global"].items():
         by_op[str(op)] += n
     return {"flops": float(counter.get_total_flops()),
-            "collective_operand_bytes": {},
-            "collective_wire_bytes": {},
-            "total_wire_bytes": 0.0,
-            "total_collective_operand_bytes": 0.0,
+            **collectives.summarize(log),
             "by_op": dict(by_op)}
 
 
@@ -131,24 +132,24 @@ def model_flops(cfg: ModelConfig, shape: ShapeConfig) -> float:
 
 def roofline_terms(cfg: ModelConfig, shape: ShapeConfig, n_chips: int,
                    counts: dict, hw: HwSpec = H100_HW) -> dict:
-    """The roofline terms (seconds) of one step, its bottleneck and the
-    share of the card's peak the bound allows, with the keys of the JAX
-    package's ``roofline_terms``.  ``counts`` is :func:`count_flops`'s
-    result for the step; compute time is its FLOPs over the card's peak
-    for ``cfg.compute_dtype``, memory time the analytic bytes over
-    ``hw.hbm_bw``."""
-    if n_chips != 1:
-        raise NotImplementedError(
-            f"roofline_terms: n_chips={n_chips}; the port counts no "
-            "collectives yet, so only one card has a collective term "
-            "(several cards: ROADMAP.md Queue 1 item 4)")
+    """The roofline terms (seconds) of one step on each of ``n_chips``
+    cards, its bottleneck and the share of the card's peak the bound
+    allows, with the keys of the JAX package's ``roofline_terms``.
+    ``counts`` is :func:`count_flops`'s result for one rank's step:
+    compute time is its FLOPs over the card's peak for
+    ``cfg.compute_dtype``, memory time the analytic bytes over
+    ``hw.hbm_bw``, collective time its counted wire bytes over the
+    card's measured link bandwidth ``hw.link_bw`` (NCCL's bus bandwidth,
+    where the JAX package divides by the TPU's ICI links)."""
+    if n_chips < 1:
+        raise ValueError(f"roofline_terms: n_chips={n_chips}")
     peak = hw.peak_flops[cfg.compute_dtype]
     flops_dev = counts["flops"]
     mflops = model_flops(cfg, shape)
     compute_s = flops_dev / peak
     mem_bytes = analytic_memory_bytes(cfg, shape, n_chips)
     memory_s = mem_bytes / hw.hbm_bw
-    collective_s = 0.0
+    collective_s = counts["total_wire_bytes"] / hw.link_bw
     dominant = max(("compute", compute_s), ("memory", memory_s),
                    ("collective", collective_s), key=lambda t: t[1])[0]
     bound = max(compute_s, memory_s, collective_s)

@@ -4,8 +4,8 @@ The one home of the card's numbers: ``chip_smoke.py``'s bounds (bytes
 over ``hbm_bw``, operations over ``peak_flops`` of the operands' type),
 the planner's budget (``block_smem``), the K4 ring's shared-memory
 plan (``kernels/manual.py``), attention's score budget (``hbm_bytes``)
-and the roofline terms (``roofline/analysis.py``) read them from
-here."""
+and the roofline terms (``roofline/analysis.py``: ``link_bw`` for the
+collective term) read them from here."""
 from __future__ import annotations
 
 import dataclasses
@@ -24,6 +24,7 @@ class HwSpec:
     sms: int
     sm_smem: int                    # shared memory of one SM
     block_smem: int                 # the most one block may opt into
+    link_bw: float                  # bytes/s a rank: NCCL's bus bandwidth
 
 
 H100_HW = HwSpec(
@@ -37,4 +38,9 @@ H100_HW = HwSpec(
     sms=132,
     sm_smem=233472,
     block_smem=232448,
+    # NCCL all_gather_into_tensor (bf16) and reduce_scatter_tensor (f32)
+    # of 256 MiB over four H100s of one host (NVLink), bus bandwidth
+    # 295.24 and 294.80 GB/s; their mean (tools/torch_sharded_train.py,
+    # four NVIDIA H100 80GB HBM3 at 700.00 W).
+    link_bw=295.02e9,
 )

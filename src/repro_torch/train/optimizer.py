@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import AbstractSet, Mapping, Optional
 
 import torch
 
@@ -61,12 +61,27 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> dict:
             "step": step}
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor],
+                sharded: AbstractSet[str] = frozenset(),
+                group=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32: the norm of the
-    leaves' norms, one read of each leaf and no squared copy of it."""
-    return torch.linalg.vector_norm(torch.stack([
-        torch.linalg.vector_norm(g, dtype=torch.float32)
-        for g in tree.values()]))
+    leaves' norms, one read of each leaf and no squared copy of it.
+
+    Under ZeRO-3 the leaves named in ``sharded`` are this rank's shards
+    of gradients cut over ``group``: their squares are summed over the
+    group's ranks (one all-reduce of one f32), and every other leaf,
+    whole on each rank, counts once.  The result is the norm of the
+    whole gradient, as a device tensor."""
+    norms = {k: torch.linalg.vector_norm(g, dtype=torch.float32)
+             for k, g in tree.items()}
+    if group is None or not sharded:
+        return torch.linalg.vector_norm(torch.stack(list(norms.values())))
+    from repro_torch.sharding import collectives
+    zero = torch.zeros((), device=next(iter(norms.values())).device)
+    part = sum((n.square() for k, n in norms.items() if k in sharded), zero)
+    whole = sum((n.square() for k, n in norms.items() if k not in sharded),
+                zero)
+    return torch.sqrt(collectives.all_reduce(part, group) + whole)
 
 
 STACKS = ("blocks.", "enc_blocks.")
@@ -85,8 +100,14 @@ def decays(name: str, p: torch.Tensor) -> bool:
 
 def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                grads: Mapping[str, torch.Tensor], opt_state: dict,
-               mode: Optional[str] = None):
+               mode: Optional[str] = None,
+               sharded: AbstractSet[str] = frozenset(), group=None):
     """One fused AdamW step.  Returns (params, opt_state, metrics).
+
+    Under ZeRO-3, p, g, m and v of each name in ``sharded`` are this
+    rank's shards (cut over ``group``) and the kernel runs on them as
+    they are; the clip uses the whole gradient's norm
+    (:func:`global_norm`).
 
     Updates in place, tensor by tensor, where the JAX package returns new
     trees: each parameter's storage is swapped for its update
@@ -95,7 +116,7 @@ def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     (the new ones are the kernel's outputs: nothing is copied)."""
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, sharded, group)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.float()

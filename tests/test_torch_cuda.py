@@ -1442,6 +1442,31 @@ def test_adamw_kernel_matches_plain(cuda_device, dtype, arr, d, p, shape):
                                              **kw), dtype)
 
 
+# ZeRO-3 shards of Yi-9B's matrices at data = 2 and 4 (the sharding
+# rules cut wq, wk, wv, w_in, w_gate by rows and wo, w_out by columns),
+# and d_model 66 at data = 4: pieces of 17 rows, the last with 2 pad rows
+ZERO_SHARDS = [(2048, 4096), (2048, 512), (2048, 11008), (4096, 2048),
+               (11008, 2048), (1024, 4096), (1024, 512), (1024, 11008),
+               (4096, 1024), (11008, 1024), (17, 64), (64, 17)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ZERO_SHARDS)
+def test_adamw_kernel_at_zero3_shard_shapes_matches_plain(cuda_device,
+                                                          shape):
+    """The sharded train step runs the K1 adamw kernel on each rank's
+    contiguous shard: at every shard shape it launches once and equals
+    its plain version bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(shape[0])
+    args = _adamw_inputs(gen, shape, cuda_device, torch.float32)
+    kw = dict(zip(_HYPER, taops.scalars(cuda_device, *_HYPER.values())))
+    before = akernel.ADAMW.launches
+    got = taops.adamw_update(*args, **kw)
+    assert akernel.ADAMW.launches == before + 1
+    _adamw_equal(got, taops.adamw_update(*args, mode="ref", **kw),
+                 torch.float32)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("lookahead", [1, 3, 4])
 @pytest.mark.parametrize("arr", ["grouped", "interleaved"])

@@ -131,6 +131,26 @@ def test_roofline_terms_use_the_card(shape, compute_dtype):
 
 
 def test_roofline_terms_refuse_several_cards():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        analysis.roofline_terms(get_config("yi-9b"), SHAPES["prefill_32k"],
-                                8, {"flops": 1.0, "total_wire_bytes": 0.0})
+    """Fewer than one card is refused.  Several cards are no longer
+    refused: their collective term is the counted wire bytes of one
+    rank over the card's measured link bandwidth (``H100_HW.link_bw``),
+    where the JAX package divides by its TPU's ICI links."""
+    cfg = get_config("yi-9b")
+    with pytest.raises(ValueError):
+        analysis.roofline_terms(cfg, SHAPES["train_4k"], 0,
+                                {"flops": 1.0, "total_wire_bytes": 0.0})
+    counts = {"flops": 3.2e14, "total_wire_bytes": 5.3e10}
+    got = analysis.roofline_terms(cfg, SHAPES["train_4k"], 4, counts)
+    assert H100_HW.link_bw > 0
+    assert got["collective_s"] == 5.3e10 / H100_HW.link_bw > 0
+    assert got["wire_bytes_per_device"] == 5.3e10
+    assert got["memory_bytes_per_device"] == \
+        analysis.analytic_memory_bytes(cfg, SHAPES["train_4k"], 4)
+    hw = JHwSpec(name=H100_HW.name, peak_flops_bf16=H100_HW.peak_flops[
+        cfg.compute_dtype], hbm_bw=H100_HW.hbm_bw,
+        ici_link_bw=H100_HW.link_bw, hbm_bytes=H100_HW.hbm_bytes)
+    want = janalysis.roofline_terms(jget_config("yi-9b"),
+                                    JSHAPES["train_4k"], 4, counts, hw=hw,
+                                    n_links=1)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-12), k

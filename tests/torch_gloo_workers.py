@@ -17,16 +17,21 @@ import numpy as np
 import torch
 
 
-def run(world: int, tmp, payload: dict) -> list:
+def run(world: int, tmp, payload: dict, suite: str = __name__) -> list:
+    """``world`` gloo ranks, each running ``suite(rank, world, payload)``
+    of the module named ``suite`` (this one by default; a sibling module
+    such as ``torch_train_workers`` brings its own)."""
     import torch.multiprocessing as mp
     tmp = str(tmp)
-    mp.start_processes(_rank, args=(world, tmp, payload), nprocs=world,
-                       start_method="spawn")
+    mp.start_processes(_rank, args=(world, tmp, payload, suite),
+                       nprocs=world, start_method="spawn")
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
             for r in range(world)]
 
 
-def _rank(rank: int, world: int, tmp: str, payload: dict) -> None:
+def _rank(rank: int, world: int, tmp: str, payload: dict,
+          suite: str = __name__) -> None:
+    import importlib
     os.environ["GLOO_SOCKET_IFNAME"] = "lo"
     torch.set_num_threads(1)
     import torch.distributed as dist
@@ -34,7 +39,8 @@ def _rank(rank: int, world: int, tmp: str, payload: dict) -> None:
         "gloo", store=dist.FileStore(os.path.join(tmp, "store"), world),
         rank=rank, world_size=world)
     try:
-        torch.save(suite(rank, world, payload),
+        fn = importlib.import_module(suite).suite
+        torch.save(fn(rank, world, payload),
                    os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
