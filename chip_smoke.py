@@ -76,10 +76,14 @@ Phases (each raises on failure, so the script exits non-zero):
                 the stencils' again at a row pitch of 16386 elements
   3e. adamw  — the fused AdamW update at the registry's bench size
                 (4096 x 1024 f32) and at Yi-9B's embedding (64000 x 4096
-                f32) through its public op: the K1 kernel and the K4
+                f32) through its per-tensor op: the K1 kernel and the K4
                 ring's adamw body at lookahead 1, 3, 4 (each ring's
-                geometry); equality with the plain version, a lost-stream
-                control, times against the bound and torch._fused_adamw_
+                geometry); then the K1 kernel over the one-card train
+                step's 75 leaves of Yi-9B in one launch
+                (adamw_update_many, in place, the clip scale fused);
+                equality with the plain version, lost-stream and
+                lost-half controls, times against the bound and
+                torch._fused_adamw_ (on the same lists)
   3f. k4      — the K4 ring's rank-1 side write (t_rowstat: o = 2 x next
                 to r = sum_j f32(x), x f32 and bf16 at 8192 x 4096, whole-row
                 steps) and its mixed operand dtypes (adamw_update with bf16
@@ -225,8 +229,9 @@ Phases (each raises on failure, so the script exits non-zero):
   7. train    — with the serve model freed: Yi-9B at full width, 8 of 48
                 layers, f32 params and bf16 compute, trains 6 steps of
                 seq 4096 x batch 2 through the launcher's path; every
-                step must launch rmsnorm 33 times and adamw_update 75
-                times, step 0's loss lie in [11, 12]; then a bit-equal
+                step must launch rmsnorm 33 times and adamw_update once
+                (its 75 f32 leaves in one launch), step 0's loss lie in
+                [11, 12]; then a bit-equal
                 checkpoint round trip of the state, one step with the
                 kernels against one with mode="ref" from the same state
                 (with a lost-stream control), and where a step's time
@@ -234,7 +239,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 to
   7b. train_sharded — training across ranks, every rank a gloo process
                 on this card: (a) Yi-9B at full width, 4 of 48 layers,
-                ZeRO-3 over data=2, 3 steps of 2 x 4096 (17 rmsnorm, 39
+                ZeRO-3 over data=2, 3 steps of 2 x 4096 (17 rmsnorm, 1
                 adamw_update launches a rank a step), each step's loss
                 and grad norm and the params after 2 steps within 2x a
                 one-ulp control (the one-process step with every norm
@@ -250,7 +255,9 @@ Phases (each raises on failure, so the script exits non-zero):
                 control's distance from it, the int8 wire bytes counted
                 against the shards' and wire_bytes; adamw_update at
                 Yi-9B's shard shapes (data=2, 4) against its plain
-                version, timed
+                version, timed, and adamw_update_many over (a)'s rank's
+                39 leaves in one launch, timed against the bound and
+                torch._fused_adamw_ on the same lists
   8. report   — a JSON line of kernels, the card's name and power limit, and
                 as the last line {"ok": true, "device": {...}}
 
@@ -1560,21 +1567,24 @@ def phase_stream(card: str, results: dict) -> None:
           f"lookahead {list(STREAM_LOOKAHEADS)}; gemver_sum at lookahead "
           f"{list(GEMVER_SUM_LOOKAHEADS)}, vn={vn}) {wall:.3f} s host wall, "
           f"launches {json.dumps(counts)} [{card}]")
-    # each K1 launch's geometry: blocks, blocks an SM, waves, registers
+    # each K1 launch's geometry on the flat walk: blocks, blocks an SM,
+    # waves, registers
     bp_k1 = plan_blocks(ss.copy_spec(inputs["float32"]["x"]), _DEFAULT)
-    g = sk.k1_geometry(bp_k1)
     for dt_name in STREAM_DTYPES:
         dt = getattr(torch, dt_name)
+        g = sk.k1_geometry(bp_k1, torch.empty((), dtype=dt).element_size())
         for name in ("stream_copy", "stream_triad", "stream_init"):
             per_sm = sk.k1_occupancy(name, dt, g.threads)
-            inst = (f"{name}<float>" if dt == torch.float32
-                    else f"{name}<__nv_bfloat16>")
-            print(f"{name} {dt_name} launch: D={d}, bm={bp_k1.bm}, "
-                  f"{g.blocks} blocks of {g.threads} threads, {g.streams} "
-                  f"streams of a step in registers ({g.groups} group"
-                  f"{'s' if g.groups > 1 else ''}), {per_sm} blocks an SM, "
-                  f"{g.blocks / (per_sm * sms):.2f} waves; ptxas {inst} "
-                  f"[registers, spill bytes]: {_regs(inst)} [{card}]")
+            inst = (name if name == "stream_copy"
+                    else f"{name}<{_CTYPES[dt_name]}>")
+            print(f"{name} {dt_name} launch: D={d}, P={g.units} (bm "
+                  f"{bp_k1.bm} unused), {g.blocks} blocks of {g.threads} "
+                  f"threads ({g.steps} steps of {g.units} x "
+                  f"{cuda.WALK_UNIT} 16-byte vectors of {g.vec} elements of "
+                  f"each of {d} segments of {g.segv} vectors), {per_sm} "
+                  f"blocks an SM, {g.blocks / (per_sm * sms):.2f} waves; "
+                  f"ptxas {inst} [registers, spill bytes]: {_regs(inst)} "
+                  f"[{card}]")
 
     def lost(t, first_row, n_rows, col0=0, ncols=None):
         """The plain output with rows first_row ... first_row+n_rows-1 (of
@@ -2273,8 +2283,9 @@ def phase_stencil(card: str, results: dict) -> None:
 ADAMW_SHAPES = {"bench": (4096, 1024), "embed": (64000, 4096)}  # f32
 ADAMW_LOOKAHEADS = (1, 3, 4)        # the K4 ring (2 is the K1 kernel)
 ADAMW_FLOPS = 15                    # per element: 13 arithmetic, sqrt, div
-TRAIN_ARGS = ["--arch", "yi-9b", "--no-reduced", "--layers", "8",
-              "--seq", "4096", "--batch", "2", "--steps", "50",
+TRAIN_LAYERS = 8
+TRAIN_ARGS = ["--arch", "yi-9b", "--no-reduced", "--layers",
+              str(TRAIN_LAYERS), "--seq", "4096", "--batch", "2", "--steps", "50",
               "--device", "cuda"]
 TRAIN_STEPS = 6
 
@@ -2416,21 +2427,150 @@ def check_adamw(card: str, results: dict) -> None:
                   f"plain_ms={plain:.5f} bound_ms={bms:.6f} ({by}) "
                   f"library_ms={lib:.5f} (torch._fused_adamw_) "
                   f"achieved {nbytes / ms / 1e6:.0f} GB/s [{card}]")
-            key = {"k1": "adamw_update",
-                   "ring_la3": "manual_ring_adamw"}.get(c)
+            key = {"ring_la3": "manual_ring_adamw"}.get(c)
             if key and size == "embed":
                 results[key] = dict(
                     name=key, route="cuda",
-                    source=("src/repro_torch/csrc/adamw.cu" if c == "k1"
-                            else "src/repro_torch/csrc/manual_ring.cu"),
-                    replaces=("src/repro/codegen/emit.py:410" if c == "k1"
-                              else "src/repro/codegen/emit.py:708"),
+                    source="src/repro_torch/csrc/manual_ring.cu",
+                    replaces="src/repro/codegen/emit.py:708",
                     launches=counts[key], ms=ms, plain_ms=plain,
                     bound_ms=bms, bound_by=by, library_ms=lib,
                     max_abs_err=errs[c],
                     shape=f"p, g, m, v [{shape[0]}, {shape[1]}] f32 "
                           f"(D=2, P=2, lookahead {cfg.lookahead})")
     del inputs, outs
+    torch.cuda.empty_cache()
+    _adamw_list(card, "adamw list", _yi9b_leaves(TRAIN_LAYERS), gen,
+                results)
+
+
+def _yi9b_leaves(layers: int, data: int = 1) -> dict:
+    """``{name: shape}`` of Yi-9B's trainable leaves at full width and
+    ``layers`` layers as rank 0 of ZeRO-3 over ``data`` ranks holds them
+    (its shard where the sharding rules cut a leaf over data)."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.layout import shard_of
+
+    class Stub:
+        axis_names = ("data", "model")
+
+        def __init__(self, d):
+            self.shape = {"data": d, "model": 1}
+    cfg = _ts_cfg("yi-9b", layers)
+    meta = dict(build_model(cfg).init(device="meta",
+                                      trainable=True).named_parameters())
+    specs = rules.param_specs(meta, cfg, Stub(data))
+    return {k: shard_of(tuple(p.shape), specs[k], Stub(data),
+                        {"data": 0, "model": 0}).local_shape
+            for k, p in meta.items()}
+
+
+def _adamw_list(card: str, tag: str, leaves: dict, gen,
+                results: dict | None = None) -> None:
+    """``adamw_update_many`` over the f32 leaves ``leaves`` (p, g, m, v
+    drawn on the card) as the optimizer runs it: each leaf's weight decay
+    by the JAX rule (``optimizer.decays``; the bench wd or 0), the clip
+    scale 0.5 fused, D=2, P=2.  One launch a table of leaves (counted,
+    the counts set to 0 just before).  p, m and v against the plain
+    version on copies (|d| = 0); controls: the plain p' of the largest
+    leaf with its second half left at p, and with the clip scale left
+    out, must differ.  Times: the kernel, the plain version, the
+    per-tensor op over the same leaves after a separate g * scale pass
+    (how the optimizer ran each leaf before the list launch),
+    torch._fused_adamw_ over the same lists (the library yardstick: one
+    weight decay, no clip) and the bound (28 bytes an element).  Its
+    ``results`` entry is the main path's ``adamw_update`` row."""
+    import torch
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels.adamw import _HYPER
+    from repro_torch.kernels.adamw import kernel as akernel
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.train import optimizer as topt
+    names = list(leaves)
+    ps, gs, ms = ([torch.randn(*leaves[k], generator=gen, device="cuda")
+                   for k in names] for _ in range(3))
+    vs = [torch.rand(*leaves[k], generator=gen, device="cuda")
+          for k in names]
+    n = sum(p.numel() for p in ps)
+    wds = [_HYPER["wd"] if topt.decays(k, p) else 0.0
+           for k, p in zip(names, ps)]
+    s7 = torch.stack(aops.scalars(torch.device("cuda"), *_HYPER.values()))
+    scale = torch.tensor(0.5, device="cuda")
+    big = max(range(len(ps)), key=lambda i: ps[i].numel())
+    x_big = [t[big].clone() for t in (ps, ms, vs)]
+    ref = [[t.clone() for t in x] for x in (ps, ms, vs)]
+    for k in cuda.KERNELS.values():
+        k.launches = 0
+    aops.adamw_update_many(ps, gs, ms, vs, wds, s7, gscale=scale)
+    torch.cuda.synchronize()
+    counts = {k: v.launches for k, v in cuda.KERNELS.items() if v.launches}
+    tables = -(-len(ps) // akernel.TABLE_MAX)
+    if counts != {"adamw_update": tables}:
+        raise AssertionError(f"{tag}: launches {counts}, expected "
+                             f"{tables} adamw_update")
+    aops.adamw_update_many(ref[0], gs, ref[1], ref[2], wds, s7,
+                           gscale=scale, mode="ref")
+    unscaled = x_big[0].clone()
+    aops.adamw_update_many([unscaled], [gs[big]], x_big[1:2], x_big[2:],
+                           [wds[big]], s7, mode="ref")
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(ps + ms + vs, ref[0] + ref[1] + ref[2]))
+    half = ref[0][big].clone().view(-1)
+    half[half.numel() // 2:] = x_big[0].view(-1)[half.numel() // 2:]
+    ctl = {"half of the largest leaf lost": half.view(ps[big].shape),
+           "clip scale left out": unscaled}
+    seen = {c: float((ps[big] - t).abs().max()) for c, t in ctl.items()}
+    print(f"{tag}: {len(ps)} f32 leaves, {n / 1e9:.3f}B elements, "
+          f"{tables} launch(es) {json.dumps(counts)}; p, m, v against the "
+          f"plain version max_abs_err={err:g} (tolerance 0); controls "
+          f"(|d| of p' of {names[big]} {list(ps[big].shape)}) "
+          f"{json.dumps(seen)} [{card}]")
+    if err != 0 or min(seen.values()) == 0:
+        raise AssertionError(f"{tag}: kernel against plain {err}, "
+                             f"controls {seen}")
+    del ref, half, unscaled, ctl, x_big
+    torch.cuda.empty_cache()
+    args = (ps, gs, ms, vs)
+    ms_k = eager_ms(lambda *a: aops.adamw_update_many(*a, wds, s7,
+                                                      gscale=scale), args)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        aops.adamw_update_many(*args, wds, s7, gscale=scale)
+    host = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    plain = eager_ms(lambda *a: aops.adamw_update_many(
+        *a, wds, s7, gscale=scale, mode="ref"), args, reps=1)
+    one = dict(zip(_HYPER, s7.unbind()))
+
+    def per_tensor(ps, gs, ms, vs):
+        for p, g, m, v, wd in zip(ps, gs, ms, vs, wds):
+            aops.adamw_update(p, g.float() * scale, m, v,
+                              **dict(one, wd=wd))
+    loop = eager_ms(per_tensor, args)
+    steps = [torch.ones((), device="cuda") for _ in ps]
+    lib = eager_ms(lambda *a: torch._fused_adamw_(
+        *a, [], steps, lr=_HYPER["lr"], beta1=0.9, beta2=0.999,
+        weight_decay=_HYPER["wd"], eps=_HYPER["eps"], amsgrad=False,
+        maximize=False), args)
+    bms, by = bound_ms(28 * n, ADAMW_FLOPS * n, "float32")
+    print(f"{tag}: ms={ms_k:.5f} plain_ms={plain:.5f} bound_ms={bms:.6f} "
+          f"({by}, {100 * bms / ms_k:.1f}% of it reached) library_ms="
+          f"{lib:.5f} (torch._fused_adamw_ over the same lists); the "
+          f"per-tensor op with a separate g * scale pass over the same "
+          f"leaves {loop:.5f} ms; host dispatch of the list call "
+          f"{host * 1e3:.3f} ms; {n * 28 / ms_k / 1e6:.0f} GB/s [{card}]")
+    if results is not None:
+        results["adamw_update"] = dict(
+            name="adamw_update", route="cuda",
+            source="src/repro_torch/csrc/adamw.cu",
+            replaces="src/repro/codegen/emit.py:410", ms=ms_k,
+            plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib,
+            max_abs_err=err,
+            shape=f"{len(ps)} leaves of Yi-9B ({TRAIN_LAYERS} layers) f32, "
+                  f"{n} elements in one launch, clip scale fused (D=2, "
+                  f"P=2)")
+    del ps, gs, ms, vs, args
     torch.cuda.empty_cache()
 
 
@@ -3350,8 +3490,9 @@ def phase_train(card: str) -> dict:
     launcher's path (``repro_torch.launch.train.setup``): f32 params,
     bf16 compute, seq 4096, batch 2, remat, AdamW(lr 3e-3, warmup 10,
     50 total steps), SyntheticTokens(seed 0).  Six steps, each with the
-    counts set to 0 just before and read just after (33 rmsnorm, 75
-    adamw_update every step); then a checkpoint round trip of the state,
+    counts set to 0 just before and read just after (33 rmsnorm, 1
+    adamw_update every step: the 75 f32 leaves in one launch); then a
+    checkpoint round trip of the state,
     the in-model check of the kernels against mode="ref", and where a
     step's time goes.  Returns the launches over the six steps."""
     import numpy as np
@@ -3376,7 +3517,9 @@ def phase_train(card: str) -> dict:
               f"params in {len(named)} tensors, param {cfg.param_dtype} "
               f"compute {cfg.compute_dtype}, seq {s} batch {b}, state drawn "
               f"in {time.perf_counter() - t_setup:.1f} s [{card}]")
-        want = {"rmsnorm": 4 * cfg.n_layers + 1, "adamw_update": len(named)}
+        # one AdamW launch a step for each parameter dtype (f32: one)
+        want = {"rmsnorm": 4 * cfg.n_layers + 1,
+                "adamw_update": len({p.dtype for p in named.values()})}
         losses, total = [], {n: 0 for n in want}
         torch.cuda.reset_peak_memory_stats()
         for step in range(TRAIN_STEPS):
@@ -3482,20 +3625,25 @@ def _ulps(got, want) -> float:
 
 @contextlib.contextmanager
 def _paired(fault_call: int, embed):
-    """Within the block every rmsnorm and adamw_update call runs its kernel
-    (the main path; the counts are its launches) and then its plain version
-    on the same inputs, which launches nothing, and passes the kernel's
-    outputs on.  Yields the readings: ``norm``, each rmsnorm call's output
+    """Within the block every rmsnorm and adamw_update_many call runs its
+    kernel (the main path; the counts are its launches) and then its plain
+    version on the same inputs, which launches nothing, and passes the
+    kernel's outputs on.  The AdamW update is in place: its inputs p, m,
+    v are copied first (on the card where twice their bytes are free,
+    else to the host) and the plain version runs leaf by leaf on copies
+    of them.  Yields the readings: ``norm``, each rmsnorm call's output
     distance from the plain one in ulps and its inverse rms's relative
     distance; ``adamw``, each tensor's ||x_k - x_r|| / ||x_r - x_0|| for
     x = p, m, v, the worst of the three.  Controls, read the same way on a
     corrupted copy of one kernel output: rmsnorm call ``fault_call`` with
     its last FAMILY_FAULT_ROWS rows lost, and the update of ``embed``
-    with stream 1 of its AdamW blocking lost (rows left at p_0)."""
+    with the second half of its rows (of the [rows, 512] blocking) lost
+    (left at p_0)."""
+    import torch
     from unittest import mock
     from repro_torch.kernels.adamw import ops as aops
     from repro_torch.kernels.rmsnorm import ops as trops
-    norm_fn, adamw_fn = trops.rmsnorm, aops.adamw_update
+    norm_fn, adamw_fn = trops.rmsnorm, aops.adamw_update_many
     got = {"norm": [], "inv": [], "adamw": [], "norm_fault": None,
            "adamw_fault": None}
 
@@ -3511,24 +3659,37 @@ def _paired(fault_call: int, embed):
         got["inv"].append(float(((inv - ri).abs() / ri.abs()).max()))
         return (out, inv) if with_inv_rms else out
 
-    def update(p, g, m, v, *scalars, mode=None, **kw):
-        out = adamw_fn(p, g, m, v, *scalars, mode=mode, **kw)
-        ref = adamw_fn(p, g, m, v, *scalars, mode="ref", **kw)
+    def update(ps, gs, ms, vs, wds, scalars, gscale=None, mode=None,
+               **kw):
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in ps + ms + vs)
+        keep = ("cuda" if torch.cuda.mem_get_info()[0] > 2 * nbytes
+                else "cpu")
+        x0 = [[t.to(keep, copy=True) for t in x] for x in zip(ps, ms, vs)]
+        adamw_fn(ps, gs, ms, vs, wds, scalars, gscale=gscale, mode=mode,
+                 **kw)
 
         def ratio(k, r, x0):
             return float((k.float() - r.float()).norm()
                          / (r.float() - x0.float()).norm().clamp_min(1e-30))
-        got["adamw"].append(max(ratio(k, r, x0) for k, r, x0
-                                in zip(out, ref, (p, m, v))))
-        if p.data_ptr() == embed.data_ptr():
-            rows, cols = aops._blocking(p.numel())
-            seg = rows // 2
-            lost = out[0].clone().view(rows, cols)
-            lost[seg:2 * seg] = p.view(rows, cols)[seg:2 * seg]
-            got["adamw_fault"] = ratio(lost.view(p.shape), ref[0], p)
-        return out
+        for i, out in enumerate(zip(ps, ms, vs)):
+            a = [t.to(out[0].device) for t in x0[i]]
+            ref = [t.clone() for t in a]
+            adamw_fn(ref[:1], gs[i:i + 1], ref[1:2], ref[2:],
+                     None if wds is None else wds[i:i + 1], scalars,
+                     gscale=gscale, mode="ref")
+            got["adamw"].append(max(ratio(k, r, x) for k, r, x
+                                    in zip(out, ref, a)))
+            p = out[0]
+            if p.data_ptr() == embed.data_ptr():
+                rows, cols = aops._blocking(p.numel())
+                seg = rows // 2
+                lost = p.clone().view(rows, cols)
+                lost[seg:2 * seg] = a[0].view(rows, cols)[seg:2 * seg]
+                got["adamw_fault"] = ratio(lost.view(p.shape), ref[0], a[0])
+            x0[i] = None
     with mock.patch.object(trops, "rmsnorm", norm), \
-            mock.patch.object(aops, "adamw_update", update):
+            mock.patch.object(aops, "adamw_update_many", update):
         yield got
 
 
@@ -3541,8 +3702,8 @@ def _in_model_train(card, tag, model, ocfg, step_fn, state, snap,
     squares in f32 in another order), each tensor's AdamW p, m and v
     within 1e-2 of the plain step's change, ||x_k - x_r|| <= 1e-2
     ||x_r - x_0||, at every shape the model has.  The controls, lost
-    norm rows of the middle decoder layer's norm1 and a lost AdamW stream
-    of the embedding, must land above those limits.  Then one step with
+    norm rows of the middle decoder layer's norm1 and half the
+    embedding's AdamW update lost, must land above those limits.  Then one step with
     mode="ref" (plain rmsnorm and AdamW on the card) from the same state
     ``snap`` (a later step's: m and v warm) and batch: the loss within
     1e-3 and the grad norm within 1e-2 of the kernels' step, relative.
@@ -3579,8 +3740,9 @@ def _in_model_train(card, tag, model, ocfg, step_fn, state, snap,
           f"over {len(got['adamw'])} tensors, worst ||x_k - x_r|| / ||x_r "
           f"- x_0|| of p, m, v {worst['adamw']:.2e} (limit 1e-2); controls: "
           f"{FAMILY_FAULT_ROWS} rows of layer {mid}'s norm1 lost (call "
-          f"{fault_call}) {got['norm_fault']:.0f} ulp, embed with stream 1 "
-          f"of its AdamW lost {got['adamw_fault']:.3f}.  Against the plain "
+          f"{fault_call}) {got['norm_fault']:.0f} ulp, embed with half "
+          f"its AdamW update lost {got['adamw_fault']:.3f}.  Against the "
+          f"plain "
           f"step from the same state: loss {float(mk['loss']):.6f} vs "
           f"{float(mr['loss']):.6f} (rel {dl:.2e}, limit 1e-3), grad_norm "
           f"{float(mk['grad_norm']):.6f} vs {float(mr['grad_norm']):.6f} "
@@ -5057,7 +5219,7 @@ def _train_family(card: str, arch: str, layers, b: int, s: int) -> None:
     at its defaults, the state from seed 0, the builder's seeded batch,
     remat): three steps, each counted (rmsnorm twice per layer norm, as
     remat recomputes the layer, plus the final norm and enc_norm once;
-    one adamw_update per parameter tensor) and timed, the third
+    one adamw_update launch per parameter dtype) and timed, the third
     profiled.  Then the state after those steps (m and v warm) is copied
     to the host, and ``_in_model_train`` holds the next step of the
     kernels against mode="ref" from it."""
@@ -5092,7 +5254,7 @@ def _train_family(card: str, arch: str, layers, b: int, s: int) -> None:
           + f"; built in {time.perf_counter() - t0:.1f} s [{card}]")
     # remat runs each layer's norms twice; the final norm and enc_norm once
     want = {"rmsnorm": 2 * norm_calls(state["params"]) - 1 - cfg.encdec,
-            "adamw_update": len(named)}
+            "adamw_update": len({p.dtype for p in named.values()})}
     del named
     walls = []
     # device activity only: a Mamba2 step is some 150k kernels, and host
@@ -5883,7 +6045,7 @@ def _ts_one_process(model, batches, ctl_gen=None, keep=None) -> dict:
     step = trainstep.make_train_step(model, AdamWConfig(**TS_OCFG))
     out = {"metrics": [], "p0": None, "p": None}
     if keep:
-        out["p0"] = {k: p.detach().cpu() for k, p in
+        out["p0"] = {k: p.detach().to("cpu", copy=True) for k, p in
                      state["params"].named_parameters()}
     patch = (mock.patch.object(trops, "rmsnorm",
                                _ulp_norm(trops.rmsnorm, ctl_gen))
@@ -5893,8 +6055,8 @@ def _ts_one_process(model, batches, ctl_gen=None, keep=None) -> dict:
             state, m = step(state, _on(b))
             out["metrics"].append({k: float(v) for k, v in m.items()})
             if i + 1 == TS_STEPS:
-                out["p"] = {k: p.detach().cpu() for k, p in
-                            state["params"].named_parameters()}
+                out["p"] = {k: p.detach().to("cpu", copy=True) for k, p
+                            in state["params"].named_parameters()}
     del state
     if TS_DEVICE == "cuda":
         torch.cuda.empty_cache()
@@ -5916,7 +6078,8 @@ def _ts_adamw_shards(card: str) -> None:
     plain version's (|d| = 0, as check_adamw); the kernel's, the plain
     version's and ``torch._fused_adamw_``'s device time (``device_ms``,
     inputs past L2) and the bound (28 bytes an element over the memory
-    rate)."""
+    rate).  Then ``adamw_update_many`` over the whole leaf set of one of
+    (a)'s ranks (``_adamw_list``)."""
     import torch
     from repro_torch.kernels.adamw import _HYPER
     from repro_torch.kernels.adamw import ops as aops
@@ -5974,6 +6137,10 @@ def _ts_adamw_shards(card: str) -> None:
                   f"(torch._fused_adamw_) [{card}]")
             del sets
             del p, g, m, v, got, ref
+    # (a)'s rank's leaves (its shards of the layers, the embedding, head
+    # and final norm whole) in one launch, as its optimizer runs them
+    _adamw_list(card, "train_sharded adamw list data=2",
+                _yi9b_leaves(TS_LAYERS, 2), gen)
 
 
 def phase_train_sharded(card: str) -> None:
@@ -6019,8 +6186,8 @@ def phase_train_sharded(card: str) -> None:
         t0 = time.perf_counter()
         ranks = _gloo_spawn(_ts_plain, 2, {"batches": batches, "ckpt": ckpt})
         spawn_s = time.perf_counter() - t0
-        want = {"rmsnorm": 4 * TS_LAYERS + 1,
-                "adamw_update": 9 * TS_LAYERS + 3}
+        # every leaf and gradient f32: one AdamW launch a rank a step
+        want = {"rmsnorm": 4 * TS_LAYERS + 1, "adamw_update": 1}
         for r, res in enumerate(ranks):
             if res["metrics"] != ranks[0]["metrics"]:
                 raise AssertionError(f"train_sharded (a): rank {r}'s "
@@ -6133,7 +6300,7 @@ def phase_train_sharded(card: str) -> None:
     ranks = _gloo_spawn(_ts_compressed, 4, {"batches": _ts_batches(
         ccfg, b, s, TS_STEPS)})
     spawn_s = time.perf_counter() - t0
-    want = {"rmsnorm": 4 * layers + 1, "adamw_update": 9 * layers + 3}
+    want = {"rmsnorm": 4 * layers + 1, "adamw_update": 1}
     for r, res in enumerate(ranks):
         for run in ("compressed", "plain", "grid"):
             x = res[run]

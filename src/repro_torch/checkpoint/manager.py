@@ -78,8 +78,11 @@ def _unflatten(flat: dict[str, Any]):
 
 
 def _host(x) -> np.ndarray:
+    """A host copy of ``x``, never a view: the optimizer updates the
+    state in place, so an asynchronous write must not read a CPU
+    tensor's own storage."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        return x.detach().to("cpu", copy=True).numpy()
     return np.asarray(x)
 
 

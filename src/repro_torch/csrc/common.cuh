@@ -1,8 +1,9 @@
 // Shared helpers of the hand-written Hopper kernels: element-type
 // conversion (of one value, and of packed 16-bit / 32-bit words) to f32
-// and back, vector loads and stores, the D-stream row sweep of the row
-// templates, its column step and its elementwise body, and the
-// error-string export every library carries.
+// and back, vector loads, the flat walk of the K1 elementwise kernels
+// (gemver.cu's gemver_sum, stream.cu's copy / triad / init, adamw.cu),
+// the row-geometry check of the row kernels, and the error-string export
+// every library carries.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -91,25 +92,6 @@ __device__ __forceinline__ void load_f32(const T* p, float* f) {
   for (int e = 0; e < N; ++e) f[e] = Cvt<T>::get(w, e);
 }
 
-// Narrow N f32 values to T and store them with one vector store (the
-// address aligned to N * sizeof(T) bytes, 4, 8 or 16).
-template <typename T, int N>
-__device__ __forceinline__ void store_f32(T* p, const float* f) {
-  constexpr int BYTES = N * static_cast<int>(sizeof(T));
-  static_assert(BYTES == 4 || BYTES == 8 || BYTES == 16,
-                "vector store of 4, 8 or 16 bytes");
-  uint32_t w[BYTES / 4];
-#pragma unroll
-  for (int e = 0; e < N; ++e) Cvt<T>::put(w, e, f[e]);
-  if constexpr (BYTES == 16) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-  } else if constexpr (BYTES == 8) {
-    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-  } else {
-    *reinterpret_cast<unsigned int*>(p) = w[0];
-  }
-}
-
 // f rounded to T and widened back: one rounding of an operation done in
 // T's arithmetic (the identity for float).
 template <typename T>
@@ -122,123 +104,76 @@ __device__ __forceinline__ float round_to(float f) {
 // 8 bytes for bf16 and f16).
 constexpr int SUB = 128;
 
-// One column step of the D-stream sweep of a warp (the multi-strided
-// row templates, K1 and K2).  For the nk streams k (rows r0 + k * seg of
-// a row-major [*, cols] array) and the np sub-portions p (columns
-// c0 + p * SUB ...), lane `lane` loads its 4 elements of each, and every
-// load starts before any is used: nk * np independent loads in flight.
-// The load order is the config's arrangement: grouped (each stream's
-// sub-portions back to back, §4.1) or interleaved (the streams
-// round-robin at sub-portion granularity, §4.4).  The values land in the
-// same registers either way, so the arithmetic after it does not depend
-// on the arrangement.
-template <typename T, int KMAX, int PMAX>
-__device__ __forceinline__ void load_stream_step(
-    const T* __restrict__ a, int cols, int r0, int seg, int nk, int c0,
-    int np, bool interleaved, int lane, float (&v)[KMAX][PMAX][4]) {
-  const T* p0 = a + c0 + lane * 4;
-  if (interleaved) {
-#pragma unroll
-    for (int p = 0; p < PMAX; ++p)
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k)
-        if (k < nk && p < np)
-          load_f32<T, 4>(p0 + static_cast<size_t>(r0 + k * seg) * cols + p * SUB, v[k][p]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-      for (int p = 0; p < PMAX; ++p)
-        if (k < nk && p < np)
-          load_f32<T, 4>(p0 + static_cast<size_t>(r0 + k * seg) * cols + p * SUB, v[k][p]);
-  }
-}
-
-// The D-stream row sweep of the row templates (the K1 stream.cu and
-// adamw.cu).  The rows of a row-major [rows, cols] array are split into
-// d segments of seg = rows / d; block j owns the row slots j*bm ...
-// j*bm + bm - 1 of every segment, one warp per slot (a block has
-// sweep_warps(bm) warps; a warp takes every nwarps-th slot).  For each
-// slot the warp walks the d streams in groups of at most KMAX rows
-// rk + k*seg, and each group over the columns, one column step of ns
-// 128-element sub-portions after another, at most SWEEP_PMAX of them in
-// registers at a time.  Body is what a kernel does there:
-//   body.begin(nk)           a group of nk streams starts
-//   body.step(rk, seg, nk, c0, np, interleaved, lane)
-//                            np sub-portions from column c0 of the
-//                            group's rows (loaded with load_stream_step)
-//   body.end(rk, seg, nk, lane)   the group's rows are done
-// KMAX, the most streams of a group, defaults to SWEEP_KMAX; a body
-// with more operands in registers (adamw.cu's four) takes fewer.
-constexpr int SWEEP_KMAX = 8;       // streams in registers per pass
-constexpr int SWEEP_PMAX = 2;       // sub-portions in registers per pass
-constexpr int SWEEP_MAX_WARPS = 8;
-
-template <typename Body, int KMAX = SWEEP_KMAX>
-__device__ __forceinline__ void row_sweep(int cols, int d, int seg, int bm,
-                                          int ns, bool interleaved,
-                                          Body& body) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int nsub = cols / SUB;
-  for (int slot = warp; slot < bm; slot += nwarps) {
-    const int r0 = blockIdx.x * bm + slot;
-    for (int k0 = 0; k0 < d; k0 += KMAX) {
-      const int nk = min(KMAX, d - k0);
-      const int rk = r0 + k0 * seg;
-      body.begin(nk);
-      for (int q0 = 0; q0 < nsub; q0 += ns)            // one column step
-        for (int p0 = 0; p0 < ns && q0 + p0 < nsub; p0 += SWEEP_PMAX)
-          body.step(rk, seg, nk, (q0 + p0) * SUB,
-                    min(SWEEP_PMAX, min(ns - p0, nsub - q0 - p0)),
-                    interleaved, lane);
-      body.end(rk, seg, nk, lane);
-    }
-  }
-}
-
-// The geometry a row sweep refuses: d streams must split the rows, bm
-// slots a segment, and the columns be whole sub-portions.
+// The geometry a D-stream row kernel refuses (gemver_outer, the K2
+// row-dot): d streams must split the rows, bm slots a segment, and the
+// columns be whole sub-portions.
 inline bool bad_sweep_geometry(int rows, int cols, int d, int bm, int ns) {
   return rows <= 0 || cols <= 0 || d <= 0 || bm <= 0 || ns <= 0 ||
          rows % d != 0 || (rows / d) % bm != 0 || cols % SUB != 0;
 }
 
-// Warps of a row-sweep block: one per row slot, at most SWEEP_MAX_WARPS.
-inline int sweep_warps(int bm) {
-  return bm < SWEEP_MAX_WARPS ? bm : SWEEP_MAX_WARPS;
-}
+// The flat walk of the K1 elementwise kernels, in the shape of PyTorch's
+// vectorised elementwise kernel: blocks of WALK_UNIT threads over
+// contiguous units of WALK_UNIT 16-byte vectors.  The flat range is cut
+// into d segments of segv vectors each (the paper's D concurrent
+// streams: the rows r + k * seg of a blocked [rows, cols] array, or for
+// adamw.cu the leaves of a parameter list laid end to end).  A step takes
+// np units (P) at the same offset of each of the d segments; its d * np
+// units are ordered as the config's arrangement orders a column step's
+// loads (grouped: stream by stream, each stream's np units back to back,
+// so block j runs stream j; interleaved: unit by unit, the streams
+// round-robin) and run by d consecutive blocks, np units a block, so the
+// d streams of a step are issued together and stream concurrently
+// across the card.  Grid: x the block of its step (d), the steps in y
+// and z (walk_grid).  A thread takes its vector of each of its block's
+// units, HELD at a time, and issues all their loads before it computes
+// or stores any.  The last step of a segment may be short: its vectors
+// past the segment are masked.  Body is what a kernel does there:
+//   typename Body::Held      what one vector's loads leave in registers
+//   bool load(at, held)      issue the loads of flat vector `at`; false
+//                            masks it (nothing is stored)
+//   void store(at, held)     compute and store vector `at`
+constexpr int WALK_UNIT = 128;     // threads of a block, vectors of a unit
+constexpr int WALK_HELD = 4;       // units a thread holds at once
 
-// The elementwise body of row_sweep (the K1 instances of stream.cu):
-// Op loads a column step of its operands (the first into v; a
-// writes-only Op loads nothing) and gives the output of stream k,
-// sub-portion p, element e, which is stored to o, 16 bytes a lane in
-// f32.
-template <typename T, typename Op>
-struct Elementwise {
-  Op op;
-  T* o;
-  int cols;
-
-  __device__ __forceinline__ void begin(int) {}
-  __device__ __forceinline__ void end(int, int, int, int) {}
-
-  __device__ __forceinline__ void step(int rk, int seg, int nk, int c0,
-                                       int np, bool interleaved, int lane) {
-    float v[SWEEP_KMAX][SWEEP_PMAX][4];
-    op.load(rk, seg, nk, c0, np, interleaved, lane, v);
+template <typename Body, int HELD = WALK_HELD>
+__device__ __forceinline__ void flat_walk(long long segv, int d, int np,
+                                          bool interleaved, Body& body) {
+  const int j = blockIdx.x;                // the block of its step
+  const long long c = blockIdx.y + static_cast<long long>(blockIdx.z) *
+                                       gridDim.y;
+  for (int s0 = 0; s0 < np; s0 += HELD) {
+    long long at[HELD];
+    typename Body::Held h[HELD];
 #pragma unroll
-    for (int k = 0; k < SWEEP_KMAX; ++k) {
-#pragma unroll
-      for (int p = 0; p < SWEEP_PMAX; ++p) {
-        if (k < nk && p < np) {
-          float out[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) out[e] = op(k, p, e, v[k][p][e]);
-          store_f32<T, 4>(o + static_cast<size_t>(rk + k * seg) * cols +
-                              c0 + p * SUB + lane * 4, out);
-        }
+    for (int u = 0; u < HELD; ++u) {
+      at[u] = -1;
+      const int s = s0 + u;
+      if (s < np) {
+        const int item = j * np + s;
+        const int k = interleaved ? item % d : j;
+        const int p = interleaved ? item / d : s;
+        const long long v = (c * np + p) * WALK_UNIT + threadIdx.x;
+        if (v < segv && body.load(k * segv + v, h[u])) at[u] = k * segv + v;
       }
     }
+#pragma unroll
+    for (int u = 0; u < HELD; ++u)
+      if (at[u] >= 0) body.store(at[u], h[u]);
   }
-};
+}
+
+// The grid of a flat walk over d segments of segv vectors in steps of np
+// units: (d, rows, planes), the steps in grid rows (y) of at most 65535
+// and the rest in z.  False where the walk cannot be launched.
+inline bool walk_grid(long long segv, int d, int np, dim3* grid) {
+  if (segv <= 0 || d <= 0 || np <= 0 || d > 65535) return false;
+  const long long per = static_cast<long long>(np) * WALK_UNIT;
+  const long long steps = (segv + per - 1) / per;
+  const long long rows = steps < 65535 ? steps : 65535;
+  const long long planes = (steps + rows - 1) / rows;
+  if (planes > 65535) return false;
+  *grid = dim3(static_cast<unsigned>(d), static_cast<unsigned>(rows),
+               static_cast<unsigned>(planes));
+  return true;
+}

@@ -30,22 +30,18 @@
 // (the rows are whole 128-element sub-portions, so whole vectors), as
 // are the slots past a segment.
 //
-// gemver_sum walks on its own, in the shape of PyTorch's vectorised
-// elementwise kernel: blocks of 128 threads over contiguous units,
-// 16-byte vectors of x and z (4 elements in f32, 8 in bf16 and f16).
-// The tiles' D segments of seg = rows / D rows are contiguous runs of
-// seg * 128 * P elements of the flat arrays.  A step takes P units of
-// 128 vectors at the same offset of each of the D segments; its D * P
-// units are ordered as the config's arrangement orders a column step's
-// loads (grouped: stream by stream; interleaved: the streams
-// round-robin) and run by D consecutive blocks, P units a block, so the
-// D streams of a step are issued together and stream concurrently
-// across the card.  A thread takes its vector of each of its block's
-// units, SUM_HELD at a time, and issues all their loads before it adds
+// gemver_sum runs on common.cuh's flat walk, which it first had on its
+// own (stream.cu's copy, triad and init and adamw.cu now share it): the
+// tiles' D segments of seg = rows / D rows are contiguous runs of
+// seg * 128 * P elements of the flat arrays, 16-byte vectors of x and z
+// (4 elements in f32, 8 in bf16 and f16); a step takes P units of 128
+// vectors at the same offset of each of the D segments, D consecutive
+// blocks of 128 threads, P units a block, in the config's arrangement;
+// a thread issues the loads of up to WALK_HELD = 4 units before it adds
 // and stores any.  The last step of a segment may be short (a D that
 // leaves short segments, or a ragged n, which the emitter pads to whole
 // tiles): its vectors past the segment are masked.
-//
+
 // Each operation is rounded as the body rounds it, so the result equals
 // the plain version's bit for bit in every dtype.  gemver_sum widens to
 // f32, adds with __fadd_rn and rounds each sum once to T.  gemver_outer
@@ -263,9 +259,6 @@ int outer_occupancy_t(int d, int* blocks) {
       blocks, kernel, OUTER_THREADS, 0));
 }
 
-constexpr int SUM_UNIT = 128;      // threads of a block, vectors of a unit
-constexpr int SUM_HELD = 4;        // units a thread holds at once
-
 // a + b of the elements of one 32-bit word, each sum in f32 rounded once
 // to T (two at once in a 16-bit type: a packed conversion, each half
 // rounded to nearest even as __float2bfloat16_rn / __float2half_rn do)
@@ -287,66 +280,45 @@ __device__ __forceinline__ uint32_t add_word(uint32_t a, uint32_t b) {
   }
 }
 
-// x, z, o as 16-byte vectors; segv vectors a segment, d segments, cut
-// into steps of np units of SUM_UNIT vectors.  The d blocks of step c
-// (the grid's x; c in y and z, so they are issued together) run its
-// d * np units, np a block: in the config's arrangement the step's units
-// are ordered grouped (stream by stream, each stream's np units back to
-// back: block j runs stream j) or interleaved (unit by unit, the streams
-// round-robin), and block j takes the j-th np of them.  A thread takes
-// its vector of each of its block's units, SUM_HELD at a time: it loads
-// x and z of all of them before it adds and stores any.
+// gemver_sum's body on common.cuh's flat walk: x and z of a vector
+// loaded (__ldg) when the walk issues it, added and stored after.
 template <typename T>
-__global__ void __launch_bounds__(SUM_UNIT)
+struct SumBody {
+  struct Held { uint4 a, e; };
+  const uint4* __restrict__ x;
+  const uint4* __restrict__ z;
+  uint4* __restrict__ o;
+
+  __device__ __forceinline__ bool load(long long at, Held& h) const {
+    h.a = __ldg(x + at);
+    h.e = __ldg(z + at);
+    return true;
+  }
+
+  __device__ __forceinline__ void store(long long at, const Held& h) const {
+    o[at] = make_uint4(add_word<T>(h.a.x, h.e.x), add_word<T>(h.a.y, h.e.y),
+                       add_word<T>(h.a.z, h.e.z), add_word<T>(h.a.w, h.e.w));
+  }
+};
+
+// x, z, o as 16-byte vectors; segv vectors a segment, d segments, steps
+// of np units (common.cuh flat_walk).
+template <typename T>
+__global__ void __launch_bounds__(WALK_UNIT)
 gemver_sum(const uint4* __restrict__ x, const uint4* __restrict__ z,
            uint4* __restrict__ o, long long segv, int d, int np,
            bool interleaved) {
-  const int j = blockIdx.x;                // the block of its step
-  const long long c = blockIdx.y + static_cast<long long>(blockIdx.z) *
-                                       gridDim.y;
-  for (int s0 = 0; s0 < np; s0 += SUM_HELD) {
-    long long at[SUM_HELD];
-    uint4 a[SUM_HELD], e[SUM_HELD];
-#pragma unroll
-    for (int u = 0; u < SUM_HELD; ++u) {
-      at[u] = -1;
-      const int s = s0 + u;
-      if (s < np) {
-        const int item = j * np + s;
-        const int k = interleaved ? item % d : j;
-        const int p = interleaved ? item / d : s;
-        const long long v = (c * np + p) * SUM_UNIT + threadIdx.x;
-        if (v < segv) {
-          at[u] = k * segv + v;
-          a[u] = __ldg(x + at[u]);
-          e[u] = __ldg(z + at[u]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < SUM_HELD; ++u)
-      if (at[u] >= 0)
-        o[at[u]] = make_uint4(add_word<T>(a[u].x, e[u].x),
-                              add_word<T>(a[u].y, e[u].y),
-                              add_word<T>(a[u].z, e[u].z),
-                              add_word<T>(a[u].w, e[u].w));
-  }
+  SumBody<T> body{x, z, o};
+  flat_walk(segv, d, np, interleaved, body);
 }
 
 template <typename T>
 int sum_t(const void* x, const void* z, void* o, long long segv, int d,
           int np, int interleaved, cudaStream_t stream) {
-  if (segv <= 0 || d <= 0 || np <= 0 || d > 65535)
+  dim3 grid;
+  if (!walk_grid(segv, d, np, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long steps =
-      (segv + static_cast<long long>(np) * SUM_UNIT - 1) /
-      (static_cast<long long>(np) * SUM_UNIT);
-  // steps in grid rows (y) of at most 65535, the rest in z
-  const long long rows = steps < 65535 ? steps : 65535;
-  const long long planes = (steps + rows - 1) / rows;
-  if (planes > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  gemver_sum<T><<<dim3(d, static_cast<unsigned>(rows),
-                       static_cast<unsigned>(planes)), SUM_UNIT, 0, stream>>>(
+  gemver_sum<T><<<grid, WALK_UNIT, 0, stream>>>(
       static_cast<const uint4*>(x), static_cast<const uint4*>(z),
       static_cast<uint4*>(o), segv, d, np, interleaved != 0);
   return static_cast<int>(cudaGetLastError());

@@ -19,20 +19,23 @@
 // read once (read), for at most two flops.
 //
 // What the design does about it.  K1: the paper's D concurrent streams
-// on common.cuh's row_sweep, as adamw.cu: the rows are split into D
-// segments of seg = rows / D; block j owns the row slots j*bm ...
-// j*bm + bm - 1 of every segment, one warp per slot; in each column step
-// the warp starts the loads of the D rows r + k*seg over the step's P
-// 128-element sub-portions (in the config's arrangement) before it
-// stores any, 16 bytes a lane in f32.  In bf16 and f16 a lane also
-// loads and stores 16 bytes: its 8 consecutive elements of a pair of
-// adjacent sub-portions (row_sweep hands a body at most two), kept as
-// packed words until they are used (Lanes16), so a triad holds 8 + 8
-// words a stream and two blocks share an SM; a step's odd last
-// sub-portion takes one 8-byte load.  With one pair a piece, grouped
-// and interleaved issue the same order, the D streams one after
-// another.  Init loads nothing and stores the D rows of each step.
-// copy, triad and init equal their plain versions bit for bit.
+// on common.cuh's flat walk, which gemver.cu's gemver_sum walked first
+// and adamw.cu shares.  The (padded) [rows, cols] arrays are flat runs
+// of 16-byte vectors (4 elements in f32, 8 in bf16 and f16); the rows
+// r + k * seg of stream k (seg = rows / D) are the contiguous segment k
+// of seg * cols elements.  A step takes P units of 128 vectors at the
+// same offset of each of the D segments, run by D consecutive blocks of
+// 128 threads, P units a block, in the config's arrangement (grouped:
+// block j runs stream j's P units; interleaved: the streams round-robin
+// unit by unit); a thread issues the loads of up to four units before
+// it stores any, and the short last step of a segment is masked.  copy
+// moves uint4 words; triad widens each element, rounds each operation
+// to the arrays' dtype and narrows it back; init loads nothing and
+// stores the fill word.  The walk has no row slots: the plan's bm
+// (block_rows, a divisor of each segment's rows in the BlockPlan, which
+// stays the reference's) does nothing to the launch, as for gemver_sum;
+// P units a block is the plan's bn / 128.  copy, triad and init equal
+// their plain versions bit for bit.
 //
 // K2: the TPU kernel's block plan for the read is D rows of seg * cols
 // columns (bm = 1), so a grid over row slots would put one block on the
@@ -66,215 +69,103 @@
 
 namespace {
 
-constexpr int KMAX = SWEEP_KMAX, PMAX = SWEEP_PMAX;
 constexpr int READ_THREADS = 256;
 constexpr int READ_WARPS = READ_THREADS / 32;
 constexpr int MERGE_WARPS = 8;
 
-template <typename T>
-struct CopyBody {
-  const T* x;
-  int cols;
-
-  __device__ __forceinline__ void load(int rk, int seg, int nk, int c0,
-                                       int np, bool interleaved, int lane,
-                                       float (&v)[KMAX][PMAX][4]) {
-    load_stream_step<T, KMAX, PMAX>(x, cols, rk, seg, nk, c0, np,
-                                    interleaved, lane, v);
-  }
-
-  __device__ __forceinline__ float operator()(int, int, int, float a) const {
-    return a;
-  }
-};
-
 // a = b + alpha * c on one element, each operation rounded to T as the
-// plain version rounds it (the f32 lanes and the 16-bit lanes share it)
+// plain version rounds it
 template <typename T>
 __device__ __forceinline__ float triad_elem(float alpha, float b, float c) {
   return round_to<T>(__fadd_rn(b, round_to<T>(__fmul_rn(alpha, c))));
 }
 
+// The K1 bodies on common.cuh's flat walk, over 16-byte vectors of the
+// flat arrays.  copy moves the words as they are (one instance serves
+// every type); triad widens each element of a word, runs triad_elem and
+// narrows it back; init loads nothing and stores the fill word.
+struct CopyBody {
+  struct Held { uint4 x; };
+  const uint4* __restrict__ x;
+  uint4* __restrict__ o;
+
+  __device__ __forceinline__ bool load(long long at, Held& h) const {
+    h.x = __ldg(x + at);
+    return true;
+  }
+  __device__ __forceinline__ void store(long long at, const Held& h) const {
+    o[at] = h.x;
+  }
+};
+
 template <typename T>
 struct TriadBody {
-  const T* b;
-  const T* c;
-  float alpha;
-  int cols;
-  float cv[KMAX][PMAX][4];
-
-  __device__ __forceinline__ void load(int rk, int seg, int nk, int c0,
-                                       int np, bool interleaved, int lane,
-                                       float (&v)[KMAX][PMAX][4]) {
-    load_stream_step<T, KMAX, PMAX>(b, cols, rk, seg, nk, c0, np,
-                                    interleaved, lane, v);
-    load_stream_step<T, KMAX, PMAX>(c, cols, rk, seg, nk, c0, np,
-                                    interleaved, lane, cv);
-  }
-
-  __device__ __forceinline__ float operator()(int k, int p, int e,
-                                              float bv) const {
-    return triad_elem<T>(alpha, bv, cv[k][p][e]);
-  }
-};
-
-// writes-only: nothing is loaded, every element is the fill value
-struct FillBody {
-  float value;
-
-  __device__ __forceinline__ void load(int, int, int, int, int, bool, int,
-                                       float (&v)[KMAX][PMAX][4]) {
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k)
-#pragma unroll
-      for (int p = 0; p < PMAX; ++p)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[k][p][e] = 0.f;   // unused
-  }
-
-  __device__ __forceinline__ float operator()(int, int, int, float) const {
-    return value;
-  }
-};
-
-// The 16-bit lanes (bf16, f16) of the K1 bodies on row_sweep.  A piece
-// of np <= 2 sub-portions from column c0 is, for lane `lane`, the 8
-// elements c0 + 8 lane ... of a pair (np = 2: one 16-byte load of each
-// operand row) or the 4 elements c0 + 4 lane ... of an odd last
-// sub-portion (np = 1: one 8-byte load).  Op names its NIN read
-// operands (in) and maps their packed words of stream k to the output's
-// (a pair's 8 elements; of an odd sub-portion only x, y are stored).
-template <typename T, typename Op>
-struct Lanes16 {
-  Op op;
-  T* o;
-  int cols;
-
-  __device__ __forceinline__ void begin(int) {}
-  __device__ __forceinline__ void end(int, int, int, int) {}
-
-  __device__ __forceinline__ void step(int rk, int seg, int nk, int c0,
-                                       int np, bool, int lane) {
-    constexpr int NIN = Op::NIN;
-    const bool pair = np == 2;
-    const int col = c0 + (pair ? lane * 8 : lane * 4);
-    uint4 w[NIN > 0 ? NIN : 1][KMAX];
-#pragma unroll
-    for (int i = 0; i < NIN; ++i) {
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) {
-        if (k < nk) {
-          const T* src =
-              op.in[i] + static_cast<size_t>(rk + k * seg) * cols + col;
-          if (pair) {
-            w[i][k] = __ldg(reinterpret_cast<const uint4*>(src));
-          } else {
-            const uint2 h = __ldg(reinterpret_cast<const uint2*>(src));
-            w[i][k] = make_uint4(h.x, h.y, 0u, 0u);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      if (k < nk) {
-        const uint4 r = op(w, k);
-        T* dst = o + static_cast<size_t>(rk + k * seg) * cols + col;
-        if (pair)
-          *reinterpret_cast<uint4*>(dst) = r;
-        else
-          *reinterpret_cast<uint2*>(dst) = make_uint2(r.x, r.y);
-      }
-    }
-  }
-};
-
-template <typename T>
-struct Copy16 {
-  static constexpr int NIN = 1;
-  const T* in[1];
-
-  __device__ __forceinline__ uint4 operator()(const uint4 (&w)[1][KMAX],
-                                              int k) const {
-    return w[0][k];
-  }
-};
-
-// a = b + alpha * c on 8 packed elements (triad_elem)
-template <typename T>
-struct Triad16 {
-  static constexpr int NIN = 2;
-  const T* in[2];
+  struct Held { uint4 b, c; };
+  const uint4* __restrict__ b;
+  const uint4* __restrict__ c;
+  uint4* __restrict__ o;
   float alpha;
 
-  __device__ __forceinline__ uint4 operator()(const uint4 (&w)[2][KMAX],
-                                              int k) const {
-    const uint32_t b[4] = {w[0][k].x, w[0][k].y, w[0][k].z, w[0][k].w};
-    const uint32_t c[4] = {w[1][k].x, w[1][k].y, w[1][k].z, w[1][k].w};
+  __device__ __forceinline__ bool load(long long at, Held& h) const {
+    h.b = __ldg(b + at);
+    h.c = __ldg(c + at);
+    return true;
+  }
+  __device__ __forceinline__ void store(long long at, const Held& h) const {
+    constexpr int EPV = 16 / static_cast<int>(sizeof(T));  // elements a vector
+    const uint32_t wb[4] = {h.b.x, h.b.y, h.b.z, h.b.w};
+    const uint32_t wc[4] = {h.c.x, h.c.y, h.c.z, h.c.w};
     uint32_t r[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      Cvt<T>::put(r, e, triad_elem<T>(alpha, Cvt<T>::get(b, e),
-                                      Cvt<T>::get(c, e)));
-    return make_uint4(r[0], r[1], r[2], r[3]);
+    for (int e = 0; e < EPV; ++e)
+      Cvt<T>::put(r, e, triad_elem<T>(alpha, Cvt<T>::get(wb, e),
+                                      Cvt<T>::get(wc, e)));
+    o[at] = make_uint4(r[0], r[1], r[2], r[3]);
   }
 };
 
-// writes-only: the fill value's bits twice in each word
-template <typename T>
-struct Fill16 {
-  static constexpr int NIN = 0;
-  const T* in[1];
+// writes-only: the fill value's bits in every element of the word
+struct FillBody {
+  struct Held {};
+  uint4* __restrict__ o;
   uint32_t word;
 
-  __device__ __forceinline__ uint4 operator()(const uint4 (&)[1][KMAX],
-                                              int) const {
-    return make_uint4(word, word, word, word);
+  __device__ __forceinline__ bool load(long long, Held&) const {
+    return true;
+  }
+  __device__ __forceinline__ void store(long long at, const Held&) const {
+    o[at] = make_uint4(word, word, word, word);
   }
 };
 
-// In bf16 and f16 two blocks share an SM (at most 128 registers a thread).
-template <typename T>
-__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32, sizeof(T) == 2 ? 2 : 1)
-stream_copy(const T* __restrict__ x, T* __restrict__ o, int cols, int d,
-            int seg, int bm, int ns, bool interleaved) {
-  if constexpr (sizeof(T) == 2) {
-    Lanes16<T, Copy16<T>> body{{{x}}, o, cols};
-    row_sweep(cols, d, seg, bm, ns, interleaved, body);
-  } else {
-    Elementwise<T, CopyBody<T>> body{{x, cols}, o, cols};
-    row_sweep(cols, d, seg, bm, ns, interleaved, body);
-  }
+// x, o as 16-byte vectors: segv vectors a segment, d segments, steps of
+// np units (common.cuh flat_walk); the same kernel in every type
+__global__ void __launch_bounds__(WALK_UNIT)
+stream_copy(const uint4* __restrict__ x, uint4* __restrict__ o,
+            long long segv, int d, int np, bool interleaved) {
+  CopyBody body{x, o};
+  flat_walk(segv, d, np, interleaved, body);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32, sizeof(T) == 2 ? 2 : 1)
-stream_triad(const T* __restrict__ b, const T* __restrict__ c,
-             T* __restrict__ o, float alpha, int cols, int d, int seg,
-             int bm, int ns, bool interleaved) {
-  if constexpr (sizeof(T) == 2) {
-    Lanes16<T, Triad16<T>> body{{{b, c}, alpha}, o, cols};
-    row_sweep(cols, d, seg, bm, ns, interleaved, body);
-  } else {
-    Elementwise<T, TriadBody<T>> body{{b, c, alpha, cols}, o, cols};
-    row_sweep(cols, d, seg, bm, ns, interleaved, body);
-  }
+__global__ void __launch_bounds__(WALK_UNIT)
+stream_triad(const uint4* __restrict__ b, const uint4* __restrict__ c,
+             uint4* __restrict__ o, float alpha, long long segv, int d,
+             int np, bool interleaved) {
+  TriadBody<T> body{b, c, o, alpha};
+  flat_walk(segv, d, np, interleaved, body);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(SWEEP_MAX_WARPS * 32, sizeof(T) == 2 ? 2 : 1)
-stream_init(T* __restrict__ o, float value, int cols, int d, int seg,
-            int bm, int ns, bool interleaved) {
-  if constexpr (sizeof(T) == 2) {
-    uint32_t word = 0u;
-    Cvt<T>::put(&word, 0, value);
-    Cvt<T>::put(&word, 1, value);
-    Lanes16<T, Fill16<T>> body{{{nullptr}, word}, o, cols};
-    row_sweep(cols, d, seg, bm, ns, interleaved, body);
-  } else {
-    Elementwise<T, FillBody> body{{value}, o, cols};
-    row_sweep(cols, d, seg, bm, ns, interleaved, body);
-  }
+__global__ void __launch_bounds__(WALK_UNIT)
+stream_init(uint4* __restrict__ o, float value, long long segv, int d,
+            int np, bool interleaved) {
+  uint32_t w[1] = {0u};
+#pragma unroll
+  for (int e = 0; e < 4 / static_cast<int>(sizeof(T)); ++e)
+    Cvt<T>::put(w, e, value);
+  FillBody body{o, w[0]};
+  flat_walk(segv, d, np, interleaved, body);
 }
 
 // One warp's steps of read_split over streams k0 ... k0 + nk - 1 of a
@@ -411,38 +302,26 @@ read_merge(const float* __restrict__ part, float* __restrict__ y, int d,
 }
 
 template <typename T>
-int copy_t(const void* x, void* o, int rows, int cols, int d, int bm, int ns,
-           int interleaved, cudaStream_t stream) {
-  if (bad_sweep_geometry(rows, cols, d, bm, ns))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int seg = rows / d;
-  stream_copy<T><<<seg / bm, sweep_warps(bm) * 32, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(o), cols, d, seg, bm, ns,
-      interleaved != 0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int triad_t(const void* b, const void* c, void* o, float alpha, int rows,
-            int cols, int d, int bm, int ns, int interleaved,
+int triad_t(const void* b, const void* c, void* o, float alpha,
+            long long segv, int d, int np, int interleaved,
             cudaStream_t stream) {
-  if (bad_sweep_geometry(rows, cols, d, bm, ns))
+  dim3 grid;
+  if (!walk_grid(segv, d, np, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int seg = rows / d;
-  stream_triad<T><<<seg / bm, sweep_warps(bm) * 32, 0, stream>>>(
-      static_cast<const T*>(b), static_cast<const T*>(c), static_cast<T*>(o),
-      alpha, cols, d, seg, bm, ns, interleaved != 0);
+  stream_triad<T><<<grid, WALK_UNIT, 0, stream>>>(
+      static_cast<const uint4*>(b), static_cast<const uint4*>(c),
+      static_cast<uint4*>(o), alpha, segv, d, np, interleaved != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int init_t(void* o, float value, int rows, int cols, int d, int bm, int ns,
+int init_t(void* o, float value, long long segv, int d, int np,
            int interleaved, cudaStream_t stream) {
-  if (bad_sweep_geometry(rows, cols, d, bm, ns))
+  dim3 grid;
+  if (!walk_grid(segv, d, np, &grid))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int seg = rows / d;
-  stream_init<T><<<seg / bm, sweep_warps(bm) * 32, 0, stream>>>(
-      static_cast<T*>(o), value, cols, d, seg, bm, ns, interleaved != 0);
+  stream_init<T><<<grid, WALK_UNIT, 0, stream>>>(
+      static_cast<uint4*>(o), value, segv, d, np, interleaved != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -471,46 +350,48 @@ int split_t(const void* x, void* part, int w, int d, int spc, int chunks,
 
 }  // namespace
 
-// x, o: [rows, cols] of `dtype`, row-major.  d streams of seg = rows / d
-// rows, bm row slots per block; column steps of ns 128-element
-// sub-portions, loaded grouped (interleaved = 0) or interleaved (1).
-// cols a multiple of 128.
-extern "C" int stream_copy_launch(int dtype, const void* x, void* o, int rows,
-                                  int cols, int d, int bm, int ns,
+// x, o: the (padded) [rows, cols] arrays of `dtype`, row-major, 16-byte
+// aligned, as d segments of segv 16-byte vectors (the rows r + k * seg
+// of stream k); steps of np units of 128 vectors of every segment, d
+// blocks of 128 threads a step, its units ordered grouped
+// (interleaved = 0) or interleaved (1).
+extern "C" int stream_copy_launch(int dtype, const void* x, void* o,
+                                  long long segv, int d, int np,
                                   int interleaved, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return copy_t<float>(x, o, rows, cols, d, bm, ns, interleaved, st);
-    case kBF16: return copy_t<__nv_bfloat16>(x, o, rows, cols, d, bm, ns, interleaved, st);
-    case kF16: return copy_t<__half>(x, o, rows, cols, d, bm, ns, interleaved, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (dtype != kF32 && dtype != kBF16 && dtype != kF16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid;
+  if (!walk_grid(segv, d, np, &grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  stream_copy<<<grid, WALK_UNIT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(x), static_cast<uint4*>(o), segv, d, np,
+      interleaved != 0);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// a = b + alpha * c over [rows, cols] arrays; the geometry of
-// stream_copy_launch.
+// a = b + alpha * c; the geometry of stream_copy_launch.
 extern "C" int stream_triad_launch(int dtype, const void* b, const void* c,
-                                   void* o, float alpha, int rows, int cols,
-                                   int d, int bm, int ns, int interleaved,
+                                   void* o, float alpha, long long segv,
+                                   int d, int np, int interleaved,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return triad_t<float>(b, c, o, alpha, rows, cols, d, bm, ns, interleaved, st);
-    case kBF16: return triad_t<__nv_bfloat16>(b, c, o, alpha, rows, cols, d, bm, ns, interleaved, st);
-    case kF16: return triad_t<__half>(b, c, o, alpha, rows, cols, d, bm, ns, interleaved, st);
+    case kF32: return triad_t<float>(b, c, o, alpha, segv, d, np, interleaved, st);
+    case kBF16: return triad_t<__nv_bfloat16>(b, c, o, alpha, segv, d, np, interleaved, st);
+    case kF16: return triad_t<__half>(b, c, o, alpha, segv, d, np, interleaved, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// o[:, :] = value (rounded to `dtype`); the geometry of stream_copy_launch.
-extern "C" int stream_init_launch(int dtype, void* o, float value, int rows,
-                                  int cols, int d, int bm, int ns,
+// o = value (rounded to `dtype`); the geometry of stream_copy_launch.
+extern "C" int stream_init_launch(int dtype, void* o, float value,
+                                  long long segv, int d, int np,
                                   int interleaved, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case kF32: return init_t<float>(o, value, rows, cols, d, bm, ns, interleaved, st);
-    case kBF16: return init_t<__nv_bfloat16>(o, value, rows, cols, d, bm, ns, interleaved, st);
-    case kF16: return init_t<__half>(o, value, rows, cols, d, bm, ns, interleaved, st);
+    case kF32: return init_t<float>(o, value, segv, d, np, interleaved, st);
+    case kBF16: return init_t<__nv_bfloat16>(o, value, segv, d, np, interleaved, st);
+    case kF16: return init_t<__half>(o, value, segv, d, np, interleaved, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -520,7 +401,7 @@ extern "C" int stream_init_launch(int dtype, void* o, float value, int rows,
 // occupancy API), into *blocks.
 template <typename T>
 int k1_occupancy_t(int kind, int threads, int* blocks) {
-  const void* fn = kind == 0 ? reinterpret_cast<const void*>(stream_copy<T>)
+  const void* fn = kind == 0 ? reinterpret_cast<const void*>(stream_copy)
                    : kind == 1 ? reinterpret_cast<const void*>(stream_triad<T>)
                                : reinterpret_cast<const void*>(stream_init<T>);
   return static_cast<int>(

@@ -1,13 +1,15 @@
-"""Fused AdamW optimizer update (spec, op, oracle and its K1-instance
-CUDA kernel; the K4 ring's adamw body is in ``kernels/manual.py``).
+"""Fused AdamW optimizer update (spec, the per-tensor op and the
+in-place op over a list of tensors, oracle and their K1-instance CUDA
+kernel; the K4 ring's adamw body is in ``kernels/manual.py``).
 The op registers its row with the JAX package's sizes."""
 from repro_torch.core import Traffic
 from repro_torch.kernels.adamw import ref as _ref
-from repro_torch.kernels.adamw.ops import _blocking, adamw_update
+from repro_torch.kernels.adamw.ops import (_blocking, adamw_update,
+                                           adamw_update_many)
 from repro_torch.kernels.common import example_input as _rand
 from repro_torch.registry.base import KernelSpec, register
 
-__all__ = ["adamw_update"]
+__all__ = ["adamw_update", "adamw_update_many"]
 
 # (60, 100) exercises the flatten+pad path (n=6000 → 12x512 blocking);
 # n=16384 → 32x512 blocking is the aliased point; the bench size

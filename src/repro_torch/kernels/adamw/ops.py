@@ -1,4 +1,6 @@
-"""Wrapper for the fused AdamW update (any parameter shape).
+"""Wrappers for the fused AdamW update: :func:`adamw_update` for one
+parameter tensor of any shape, :func:`adamw_update_many` for a list of
+them in one launch, in place.
 
 As the JAX package's ``ops.py``: the flattened tensor is §5.1.1
 loop-blocked into ``[ceil(n / cols), cols]`` tiles, ``cols = min(512,
@@ -14,6 +16,15 @@ op resolves explicit > tuned > planned > default on the blocked Traffic
 
 On a CPU tensor, or with ``mode="ref"``, the body is evaluated at the
 tensor's native shape, as the JAX ``ref`` branch does.
+
+:func:`adamw_update_many` is what the optimizer runs: on the card every
+leaf of one parameter dtype in a single launch of the same kernel
+(``kernel.update_leaves``), in place, with the clip scale multiplying g
+as the body's first operation, each leaf's weight decay from its own
+entry of the kernel's leaf table, and the config resolved once a call
+on the Traffic of the whole list.  Its plain version (CPU tensors, or
+``mode="ref"``) runs the body leaf by leaf at each native shape, with
+``g * gscale`` taken first, and copies the results into place.
 
 The seven scalars are 0-d f32 tensors on the parameter's device
 (:func:`scalars`): a tensor is moved and cast there, a Python number is
@@ -31,10 +42,10 @@ import torch.nn.functional as F
 from repro_torch.codegen import loopir, run_spec
 from repro_torch.core.planner import Traffic
 from repro_torch.core.striding import StridingConfig
-from repro_torch.kernels import common
-from repro_torch.kernels.adamw import specs
+from repro_torch.kernels import common, cuda
+from repro_torch.kernels.adamw import kernel, specs
 
-__all__ = ["adamw_update", "scalars"]
+__all__ = ["adamw_update", "adamw_update_many", "scalars"]
 
 _DEFAULT = StridingConfig(stride_unroll=2, portion_unroll=2)
 _COLS = 512
@@ -70,6 +81,15 @@ def scalars(device: torch.device, *values) -> list[torch.Tensor]:
     return out
 
 
+def _plain(p, g, m, v, s):
+    """The elementwise body at the tensor's NATIVE shape (the spec's axes
+    only describe the traversal, evaluate() never tiles): (p', m', v')."""
+    spec = specs.adamw_spec(p.reshape(-1, p.shape[-1]) if p.ndim > 1
+                            else p.reshape(1, -1), None, None, None)
+    po, mo, vo = loopir.evaluate(spec, (p, g, m.float(), v.float(), *s))
+    return po.to(p.dtype), mo, vo
+
+
 def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                  v: torch.Tensor, lr, b1=0.9, b2=0.999, eps=1e-8, wd=0.0,
                  bc1=1.0, bc2=1.0, config: Optional[StridingConfig] = None,
@@ -86,12 +106,7 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     cfg = common.resolve_for("adamw_update", p, config, rows, _DEFAULT,
                              traffic, mode)
     if common.kernel_mode(p, mode) == "ref":
-        # the elementwise body at the tensor's NATIVE shape; the spec's
-        # axes only describe the traversal, evaluate() never tiles
-        spec = specs.adamw_spec(p.reshape(-1, shape[-1]) if p.ndim > 1
-                                else p.reshape(1, -1), None, None, None)
-        po, mo, vo = loopir.evaluate(spec, (p, g, m.float(), v.float(), *s))
-        return po.to(p.dtype), mo, vo
+        return _plain(p, g, m, v, s)
     po, mo, vo = run_spec(specs.adamw_spec,
                           (_flat(p, rows, cols, p.dtype),
                            _flat(g, rows, cols, g.dtype),
@@ -104,3 +119,61 @@ def adamw_update(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
 
     return (unflat(po, p.dtype), unflat(mo, torch.float32),
             unflat(vo, torch.float32))
+
+
+def adamw_update_many(ps, gs, ms, vs, wds, scalars, gscale=None,
+                      config: Optional[StridingConfig] = None,
+                      mode: Optional[str] = None) -> None:
+    """Fused AdamW over the leaves ``ps`` (one parameter dtype, any
+    shapes) with their gradients ``gs`` (p's dtype or f32) and f32
+    moments ``ms``, ``vs``, **in place**: p, m and v are written where
+    they were read.  ``scalars`` are the seven (lr, b1, b2, eps, wd,
+    bc1, bc2), an f32 [7] tensor or a sequence of numbers or 0-d
+    tensors; ``wds`` gives each leaf's weight decay (None: the scalars'
+    wd for all); ``gscale``, a 0-d tensor on the leaves' device,
+    multiplies g first (the clip scale; ``g.float() * gscale`` exactly).
+
+    On the card one launch a :data:`kernel.TABLE_MAX` leaves, at the
+    config resolved once on the Traffic of the whole list (explicit >
+    tuned > planned > default); a ``lookahead`` other than 2 runs each
+    leaf through :func:`adamw_update` (the K4 ring's adamw body) and
+    copies it into place.  A leaf that is not contiguous or not 16-byte
+    aligned makes it raise (``kernel.check_leaves``)."""
+    if not ps:
+        return
+    lead = ps[0]
+    if isinstance(scalars, torch.Tensor):
+        s7 = scalars.to(device=lead.device, dtype=torch.float32).reshape(7)
+    else:
+        s7 = cuda.f32_scalars(scalars, lead.device)
+    rows, cols = _blocking(max(sum(p.numel() for p in ps), 1))
+    run = common.kernel_mode(lead, mode)
+    cfg = common.resolve_config(
+        "adamw_update", (rows, cols), lead.dtype, config, None, _DEFAULT,
+        traffic=None if config is not None else Traffic(
+            rows=rows, cols=cols, dtype=lead.dtype, read_arrays=4,
+            write_arrays=3),
+        mode=run, device=lead.device)
+    live = [i for i, p in enumerate(ps) if p.numel()]
+    if run == "cuda" and cfg.lookahead == 2:
+        kernel.update_leaves([ps[i] for i in live], [gs[i] for i in live],
+                             [ms[i] for i in live], [vs[i] for i in live],
+                             None if wds is None else [wds[i] for i in live],
+                             s7, gscale, cfg)
+        return
+    sc = list(s7.unbind())
+    with torch.no_grad():
+        for i in live:
+            p, g, m, v = ps[i], gs[i], ms[i], vs[i]
+            if gscale is not None:
+                g = g.float() * gscale
+            s = sc if wds is None else sc[:4] + [torch.full(
+                (), float(wds[i]), dtype=torch.float32,
+                device=lead.device)] + sc[5:]
+            if run == "ref":
+                po, mo, vo = _plain(p, g, m, v, s)
+            else:
+                po, mo, vo = adamw_update(p, g, m, v, *s, config=cfg)
+            p.copy_(po)
+            m.copy_(mo)
+            v.copy_(vo)

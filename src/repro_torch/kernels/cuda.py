@@ -8,6 +8,11 @@ of the source, so an edited source rebuilds), and loaded with
 ``nvcc`` process each, all started together.  Nothing is built when a
 module is imported.
 
+:class:`WalkGeometry` is the host side of ``csrc/common.cuh``'s flat
+walk, which the K1 elementwise kernels share (``gemver_sum``, stream
+copy / triad / init, adamw), and :func:`walk_units` mirrors its index
+arithmetic.
+
 A :class:`CudaKernel` is one ``extern "C"`` launcher: it launches on
 PyTorch's current stream, raises :class:`LaunchError` (with the CUDA
 error code) if the launcher returns a non-zero ``cudaGetLastError()``,
@@ -18,13 +23,14 @@ build raises :class:`BuildError`; both are ``RuntimeError`` subclasses.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Iterable, Optional, Sequence
+from typing import Iterable, Iterator, Optional, Sequence
 
 import torch
 
@@ -32,7 +38,8 @@ __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "CudaKernel",
            "BuildError", "LaunchError", "STICKY_ERRORS",
            "build", "library", "source_hash", "DTYPES", "dtype_code",
            "check_arrays",
-           "check_operands", "sweep_geometry", "f32_scalars"]
+           "check_operands", "f32_scalars", "WALK_UNIT", "WALK_HELD",
+           "WalkGeometry", "walk_geometry", "plan_walk", "walk_units"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -47,6 +54,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 DTYPES = tuple(_DTYPE_CODES)
 # elements of a sub-portion, a warp's row unit (csrc/common.cuh SUB)
 _SUB = 128
+WALK_UNIT = 128     # threads of a walk block, 16-byte vectors of a unit
+WALK_HELD = 4       # units a thread holds at once (csrc/common.cuh)
 
 
 class BuildError(RuntimeError):
@@ -106,8 +115,8 @@ def check_arrays(name: str, arrays: Sequence[torch.Tensor],
 
 def check_operands(name: str, arrays: Sequence[torch.Tensor],
                    shapes: Sequence[tuple]) -> None:
-    """:func:`check_arrays`, and what the row-sweep kernels (K1, K2, K3
-    over ``[rows, cols]`` operands, 16-byte vector loads) refuse besides:
+    """:func:`check_arrays`, and what the row kernels (K1, K2, K3 over
+    ``[rows, cols]`` operands, 16-byte vector loads) refuse besides:
     a row of other than whole 128-element sub-portions, or an operand
     that is not 16-byte aligned (``ValueError``)."""
     check_arrays(name, arrays, shapes)
@@ -132,13 +141,75 @@ def f32_scalars(scalars, device) -> torch.Tensor:
                         device=device)
 
 
-def sweep_geometry(bp, config) -> tuple[int, int, int, int, int, int]:
-    """The launch geometry of a D-stream row sweep (``csrc/common.cuh``
-    ``row_sweep``) from a BlockPlan and its config: ``(rows, cols, d, bm,
-    sub-portions per column step, interleaved)``."""
-    interleaved = config is not None and config.arrangement == "interleaved"
-    return (bp.rows, bp.cols, bp.d, bp.bm, max(1, bp.bn // _SUB),
-            int(interleaved))
+@dataclasses.dataclass(frozen=True)
+class WalkGeometry:
+    """One launch of ``csrc/common.cuh``'s flat walk: ``d`` segments of
+    ``segv`` 16-byte vectors of ``vec`` elements, cut into ``steps``
+    steps of ``units`` (P) units of :data:`WALK_UNIT` vectors (the last
+    step may be short); ``d`` blocks of :data:`WALK_UNIT` threads a step,
+    P units a block, a thread its vector of each unit, taken in
+    ``passes`` of up to ``held`` units whose loads are all issued before
+    any is used."""
+
+    vec: int
+    segv: int
+    d: int
+    units: int
+    steps: int
+    held: int = WALK_HELD
+
+    @property
+    def threads(self) -> int:
+        return WALK_UNIT
+
+    @property
+    def passes(self) -> int:
+        return -(-self.units // self.held)
+
+    @property
+    def blocks(self) -> int:
+        return self.d * self.steps
+
+
+def walk_geometry(segv: int, d: int, units: int, itemsize: int,
+                  held: int = WALK_HELD) -> WalkGeometry:
+    """The walk over ``d`` segments of ``segv`` 16-byte vectors of a type
+    of ``itemsize`` bytes, ``units`` units a block a step."""
+    units = max(1, units)
+    return WalkGeometry(vec=16 // itemsize, segv=segv, d=d, units=units,
+                        steps=-(-segv // (units * WALK_UNIT)), held=held)
+
+
+def plan_walk(bp, itemsize: int) -> WalkGeometry:
+    """The walk of a K1 elementwise kernel over the (padded) ``[rows,
+    cols]`` arrays of a BlockPlan (``gemver_sum``'s tiles, the stream
+    arrays): each of the D segments holds ``rows / D · cols`` elements,
+    whole 16-byte vectors (``cols`` is whole 128-element sub-portions),
+    P = ``bn / 128`` units a block a step.  ``bm`` does not enter: the
+    walk has no row slots."""
+    return walk_geometry(bp.rows // bp.d * bp.cols * itemsize // 16, bp.d,
+                         bp.bn // _SUB, itemsize)
+
+
+def walk_units(g: WalkGeometry, interleaved: bool,
+               ) -> Iterator[tuple[int, int, int, int, int]]:
+    """The flat walk's index arithmetic, as ``flat_walk`` computes it:
+    for each step ``c``, each of its blocks ``j`` and each of the block's
+    units ``s`` in order, ``(c, j, k, first, live)``: the unit lies in
+    segment ``k`` (grouped: ``k = j``; interleaved: unit ``j·P + s`` of
+    the step goes to stream ``(j·P + s) mod D``), thread ``t`` takes the
+    flat vector ``first + t`` for ``t < live`` (the rest lie past the
+    segment and are masked)."""
+    np_ = g.units
+    for c in range(g.steps):
+        for j in range(g.d):
+            for s in range(np_):
+                item = j * np_ + s
+                k = item % g.d if interleaved else j
+                p = item // g.d if interleaved else s
+                v0 = (c * np_ + p) * WALK_UNIT
+                yield (c, j, k, k * g.segv + v0,
+                       max(0, min(WALK_UNIT, g.segv - v0)))
 
 
 def _nvcc() -> str:

@@ -9,9 +9,11 @@ step U slots of K streams with the next step's loads in flight
 (:func:`outer_geometry`).  ``gemver_sum`` runs on the §5.1.1 blocking of its 1-D loop
 (``codegen.emit.block_1d``, applied by the emitter before the kernel
 sees the operands), whose D segments of tile rows are contiguous runs
-of the flat arrays: a step of P units of 128 16-byte vectors at one
-offset of every segment, D blocks of 128 threads a step, P units a
-block, a thread a vector of each unit (:func:`sum_geometry`).
+of the flat arrays, on the flat walk of ``csrc/common.cuh`` that the
+stream copy / triad / init and adamw kernels share: a step of P units of
+128 16-byte vectors at one offset of every segment, D blocks of 128
+threads a step, P units a block, a thread a vector of each unit
+(:func:`sum_geometry`, ``cuda.walk_geometry``).
 
 :func:`emit` launches the kernel on CUDA tensors (or raises); on CPU
 tensors it runs the kernel's plain version, the spec through
@@ -50,9 +52,8 @@ OUTER_THREADS = 128     # threads of a block: a column tile's vectors
 OUTER_LOADS = 4         # 16-byte loads of A a thread a step (K·U)
 OUTER_RUN = 2           # row slots a block walks (at least a step's U)
 OUTER_AIM = 8           # blocks an SM the runs are halved to reach
-SUM_UNIT = 128          # threads of a block, 16-byte vectors of a unit
-SUM_HELD = 4            # units a thread holds at once (csrc/gemver.cu)
-_LANE = 128             # elements of a sub-portion
+SUM_UNIT = cuda.WALK_UNIT   # threads of a block, 16-byte vectors of a unit
+SUM_HELD = cuda.WALK_HELD   # units a thread holds at once
 
 
 @dataclass(frozen=True)
@@ -142,43 +143,9 @@ def outer_occupancy(dtype: torch.dtype, d: int) -> int:
     return out.value
 
 
-@dataclass(frozen=True)
-class SumGeometry:
-    """gemver_sum's launch: ``d`` segments of ``segv`` 16-byte vectors of
-    ``vec`` elements, cut into ``steps`` steps of ``units`` (P) units of
-    :data:`SUM_UNIT` vectors (the last step may be short); ``d`` blocks
-    of :data:`SUM_UNIT` threads a step, P units a block, a thread its
-    vector of each unit, taken in ``passes`` of up to :data:`SUM_HELD`
-    units whose loads are all issued before any add."""
-
-    vec: int
-    segv: int
-    d: int
-    units: int
-    steps: int
-
-    @property
-    def threads(self) -> int:
-        return SUM_UNIT
-
-    @property
-    def passes(self) -> int:
-        return -(-self.units // SUM_HELD)
-
-    @property
-    def blocks(self) -> int:
-        return self.d * self.steps
-
-
-def sum_geometry(bp: BlockPlan, itemsize: int) -> SumGeometry:
-    """The launch of gemver_sum on the blocked ``[rows, cols]`` tiles of
-    ``bp``: each of the D segments holds ``rows / D · cols`` elements,
-    whole 16-byte vectors (``cols`` is 128·P), taken P units a step."""
-    vec = 16 // itemsize
-    segv = bp.rows // bp.d * bp.cols // vec
-    units = max(1, bp.bn // _LANE)
-    return SumGeometry(vec=vec, segv=segv, d=bp.d, units=units,
-                       steps=-(-segv // (units * SUM_UNIT)))
+SumGeometry = cuda.WalkGeometry
+# the launch of gemver_sum on the blocked [rows, cols] tiles of a plan
+sum_geometry = cuda.plan_walk
 
 
 def sum_occupancy(dtype: torch.dtype, threads: int) -> int:

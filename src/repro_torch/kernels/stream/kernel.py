@@ -2,13 +2,13 @@
 (``csrc/stream.cu``).
 
   * K1 ``_emit_streaming`` (``src/repro/codegen/emit.py:410``) with the
-    copy, triad and init bodies: D row streams (rows ``r + k·seg``), one
-    warp per row slot, ``seg / bm`` blocks, as ``gemver.cu``; init is
-    writes-only (no read stream, D store positions).  A lane moves 16
-    bytes a load and a store in every type: 4 elements of a 128-element
-    sub-portion in f32, 8 elements of a pair of adjacent ones in bf16
-    and f16 (an odd last sub-portion of a step 8 bytes).  Up to 8
-    streams of a step sit in registers (:func:`k1_geometry`).
+    copy, triad and init bodies, on ``csrc/common.cuh``'s flat walk (the
+    one ``gemver_sum`` runs on): the D row streams (rows ``r + k·seg``)
+    are D contiguous segments of the flat arrays, a step takes P units of
+    128 16-byte vectors at one offset of every segment, D blocks of 128
+    threads a step, P units a block (:func:`k1_geometry`); init is
+    writes-only (no read stream, D store positions).  A thread moves 16
+    bytes a vector in every type: 4 elements in f32, 8 in bf16 and f16.
   * K2 ``_emit_reduction`` (``src/repro/codegen/emit.py:491``) with the
     read body, on ``x2 = x.reshape(D, seg·cols)``.  Its block plan is D
     rows of ``seg·cols`` columns, so :func:`read_split` (pass 1) runs a
@@ -28,8 +28,6 @@ chunk and an in-order sum.
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
-
 import torch
 
 from repro_torch.codegen import loopir
@@ -38,24 +36,23 @@ from repro_torch.core.striding import StridingConfig
 from repro_torch.kernels import cuda
 
 __all__ = ["COPY", "TRIAD", "INIT", "READ", "READ_MERGE", "emit",
-           "K1Geometry", "k1_geometry", "k1_occupancy",
+           "k1_geometry", "k1_occupancy",
            "READ_BLOCKS_PER_SM", "read_chunks", "read_units", "read_split",
            "read_merge", "read_split_plain", "read_merge_plain"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 
-# stream_copy_launch(dtype, x, o, rows, cols, d, bm, ns, interleaved,
-#                    stream)
+# stream_copy_launch(dtype, x, o, segv, d, np, interleaved, stream)
 COPY = cuda.CudaKernel("stream_copy", "stream", "stream_copy_launch",
-                       [_I, _P, _P, _I, _I, _I, _I, _I, _I])
-# stream_triad_launch(dtype, b, c, o, alpha, rows, cols, d, bm, ns,
-#                     interleaved, stream)
+                       [_I, _P, _P, _L, _I, _I, _I])
+# stream_triad_launch(dtype, b, c, o, alpha, segv, d, np, interleaved,
+#                     stream)
 TRIAD = cuda.CudaKernel("stream_triad", "stream", "stream_triad_launch",
-                        [_I, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I])
-# stream_init_launch(dtype, o, value, rows, cols, d, bm, ns, interleaved,
-#                    stream)
+                        [_I, _P, _P, _P, _F, _L, _I, _I, _I])
+# stream_init_launch(dtype, o, value, segv, d, np, interleaved, stream)
 INIT = cuda.CudaKernel("stream_init", "stream", "stream_init_launch",
-                       [_I, _P, _F, _I, _I, _I, _I, _I, _I])
+                       [_I, _P, _F, _L, _I, _I, _I])
 # read_split_launch(dtype, x, part, w, d, spc, chunks, interleaved, stream)
 READ = cuda.CudaKernel("stream_read", "stream", "read_split_launch",
                        [_I, _P, _P, _I, _I, _I, _I, _I])
@@ -64,28 +61,10 @@ READ_MERGE = cuda.CudaKernel("stream_read_merge", "stream",
                              "read_merge_launch", [_P, _P, _I, _I])
 
 _KINDS = {"stream_copy": 0, "stream_triad": 1, "stream_init": 2}
-_SWEEP_KMAX = 8                    # common.cuh SWEEP_KMAX
-_SWEEP_MAX_WARPS = 8               # common.cuh SWEEP_MAX_WARPS
 
 
-@dataclass(frozen=True)
-class K1Geometry:
-    """One launch of a K1 stream kernel (``row_sweep``): ``blocks`` blocks
-    of ``threads`` threads, ``streams`` streams of a step in registers
-    (``groups`` groups of them walk the D streams of a slot)."""
-    blocks: int
-    threads: int
-    streams: int
-    groups: int
-
-
-def k1_geometry(bp: BlockPlan) -> K1Geometry:
-    """The K1 copy / triad / init launch for a block plan: ``rows / (D ·
-    bm)`` blocks, a warp a row slot (at most 8), up to 8 streams of a
-    step in registers, in every type."""
-    k = min(bp.d, _SWEEP_KMAX)
-    return K1Geometry(bp.rows // bp.d // bp.bm,
-                      min(bp.bm, _SWEEP_MAX_WARPS) * 32, k, -(-bp.d // k))
+# the K1 copy / triad / init launch for a block plan
+k1_geometry = cuda.plan_walk
 
 
 def k1_occupancy(name: str, dtype: torch.dtype, threads: int) -> int:
@@ -170,10 +149,9 @@ def read_split(spec: loopir.TraversalSpec, bp: BlockPlan, x2,
     sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
     spc, chunks = read_chunks(bp, sms, per_sm)
     d = bp.d
-    interleaved = config is not None and config.arrangement == "interleaved"
     part = torch.empty(chunks, d, dtype=torch.float32, device=x2.device)
     READ(x2.device, cuda.dtype_code(x2.dtype), x2.data_ptr(), part.data_ptr(),
-         bp.cols, d, spc, chunks, int(interleaved))
+         bp.cols, d, spc, chunks, int(_interleaved(config)))
     return part
 
 
@@ -191,6 +169,10 @@ def read_merge(part: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _interleaved(config: StridingConfig | None) -> bool:
+    return config is not None and config.arrangement == "interleaved"
+
+
 def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
          config: StridingConfig | None = None, device=None):
     """Run a (padded) stream spec through its K1 or K2 kernel."""
@@ -203,8 +185,9 @@ def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
             return loopir.evaluate(spec, [value], device=device)
         o = torch.empty(bp.rows, bp.cols, dtype=dtype, device=device)
         cuda.check_operands(spec.name, [o], [(bp.rows, bp.cols)])
+        g = k1_geometry(bp, o.element_size())
         INIT(device, cuda.dtype_code(dtype), o.data_ptr(), float(value),
-             *cuda.sweep_geometry(bp, config))
+             g.segv, g.d, g.units, int(_interleaved(config)))
         return o
     a = arrays[0]
     if not a.is_cuda:
@@ -212,14 +195,15 @@ def emit(spec: loopir.TraversalSpec, bp: BlockPlan, arrays, scalars,
     shapes = [(bp.rows, bp.cols)] * len(arrays)
     cuda.check_operands(spec.name, arrays, shapes)
     o = torch.empty(bp.rows, bp.cols, dtype=a.dtype, device=a.device)
-    geometry = cuda.sweep_geometry(bp, config)
+    g = k1_geometry(bp, a.element_size())
+    walk = (g.segv, g.d, g.units, int(_interleaved(config)))
     if spec.name == "stream_copy":
         COPY(a.device, cuda.dtype_code(a.dtype), a.data_ptr(), o.data_ptr(),
-             *geometry)
+             *walk)
     elif spec.name == "stream_triad":
         (alpha,) = scalars
         TRIAD(a.device, cuda.dtype_code(a.dtype), a.data_ptr(),
-              arrays[1].data_ptr(), o.data_ptr(), float(alpha), *geometry)
+              arrays[1].data_ptr(), o.data_ptr(), float(alpha), *walk)
     else:
         raise NotImplementedError(f"{spec.name}: not a stream instance")
     return o

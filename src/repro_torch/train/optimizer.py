@@ -1,15 +1,17 @@
 """AdamW with decoupled weight decay, global-norm clipping and a cosine
-schedule.  The per-parameter update runs through the fused multi-strided
-kernel (``repro_torch.kernels.adamw``): the K1 CUDA kernel on the card,
-its plain version on the CPU or with ``mode="ref"``.
+schedule.  The update runs through the fused multi-strided kernel
+(``repro_torch.kernels.adamw.adamw_update_many``): on the card one K1
+CUDA launch a step for all parameters of one dtype, in place, the clip
+scale fused; its plain version on the CPU or with ``mode="ref"``.
 
 A parameter tree is a mapping of names to tensors (for a model,
 ``dict(module.named_parameters())``), and the optimizer state is
 ``{"m": {name: f32}, "v": {name: f32}, "step": int32 0-d}``, as the JAX
 package's pytrees.  The step's scalars (lr, the bias corrections, the
 clip scale) are computed once a step on the parameters' device and reach
-the kernel as one f32 [7] tensor per weight-decay value: no host sync a
-parameter, as JAX keeps them on the device.
+the kernel as one f32 [7] tensor and a 0-d clip scale, each leaf's weight
+decay in the kernel's leaf table: no host sync, as JAX keeps them on the
+device.
 """
 from __future__ import annotations
 
@@ -109,11 +111,11 @@ def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     they are; the clip uses the whole gradient's norm
     (:func:`global_norm`).
 
-    Updates in place, tensor by tensor, where the JAX package returns new
-    trees: each parameter's storage is swapped for its update
-    (``p.data``), and ``opt_state``'s m and v entries and step are
-    replaced, so at most one tensor's old and new state exist together
-    (the new ones are the kernel's outputs: nothing is copied)."""
+    Updates in place, where the JAX package returns new trees: each
+    parameter's storage and ``opt_state``'s m and v tensors are written
+    where they lie (one ``adamw_update_many`` a group of leaves of one
+    parameter and gradient dtype), and ``opt_state``'s step is replaced.
+    A caller that needs the old values clones them first."""
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)
     gnorm = global_norm(grads, sharded, group)
@@ -122,18 +124,20 @@ def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     stepf = step.float()
     bc1 = 1.0 - cfg.b1 ** stepf
     bc2 = 1.0 - cfg.b2 ** stepf
-    # the kernel's seven scalars, once a step for each weight decay used
-    packed = {wd: torch.stack(adamw_ops.scalars(
-        lr.device, lr, cfg.b1, cfg.b2, cfg.eps, wd, bc1, bc2)).unbind()
-        for wd in (cfg.weight_decay, 0.0)}
+    # the kernel's seven scalars, once a step (wd per leaf in its table)
+    packed = torch.stack(adamw_ops.scalars(
+        lr.device, lr, cfg.b1, cfg.b2, cfg.eps, cfg.weight_decay, bc1, bc2))
+    groups: dict = {}
     for name, p in params.items():
-        g = grads[name].float() * scale
-        wd = cfg.weight_decay if decays(name, p) else 0.0
-        p2, m2, v2 = adamw_ops.adamw_update(
-            p.detach(), g, opt_state["m"][name], opt_state["v"][name],
-            *packed[wd], mode=mode)
-        p.data = p2
-        opt_state["m"][name] = m2
-        opt_state["v"][name] = v2
+        g = grads[name]
+        groups.setdefault((p.dtype, g.dtype, p.device), []).append(name)
+    for names in groups.values():
+        adamw_ops.adamw_update_many(
+            [params[k].detach() for k in names], [grads[k] for k in names],
+            [opt_state["m"][k] for k in names],
+            [opt_state["v"][k] for k in names],
+            [cfg.weight_decay if decays(k, params[k]) else 0.0
+             for k in names],
+            packed, gscale=scale, mode=mode)
     opt_state["step"] = step
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

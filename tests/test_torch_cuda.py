@@ -448,15 +448,16 @@ def test_launcher_serves_on_the_card(cuda_device, capsys):
 def test_launcher_trains_on_the_card(cuda_device, tmp_path, capsys):
     """The train launcher on the card (reduced yi-9b): each step runs
     rmsnorm 4L + 1 times (remat recomputes the layers' norms) and the K1
-    adamw kernel once per parameter tensor."""
+    adamw kernel once per parameter dtype (every tensor in one launch)."""
     from repro_torch.launch import train
     before = (rkernel.RMSNORM.launches, akernel.ADAMW.launches)
     state = train.main(["--device", str(cuda_device), "--steps", "2",
                         "--batch", "2", "--seq", "16", "--log-every", "1",
                         "--ckpt-dir", str(tmp_path)])
-    n_layers, n_tensors = 2, len(list(state["params"].parameters()))
+    n_layers = 2
+    groups = len({p.dtype for p in state["params"].parameters()})
     assert rkernel.RMSNORM.launches - before[0] == 2 * (4 * n_layers + 1)
-    assert akernel.ADAMW.launches - before[1] == 2 * n_tensors
+    assert akernel.ADAMW.launches - before[1] == 2 * groups
     assert all(p.is_cuda and torch.isfinite(p).all()
                for p in state["params"].parameters())
     assert "done; checkpoints: [2]" in capsys.readouterr().out
@@ -819,8 +820,8 @@ def test_stream_kernels_match_plain(cuda_device, dtype, arr, d, p, m, n):
 @pytest.mark.parametrize("d,p", [(1, 2), (2, 2), (3, 1), (4, 2), (8, 2),
                                  (16, 1)])
 def test_stream_f32_lanes_equal_plain(cuda_device, arr, d, p):
-    """The f32 K1 lanes (up to 8 streams of a step in registers, D = 16
-    in two groups): copy, triad and init through their ops equal their
+    """The f32 K1 kernels on the flat walk (D = 16: sixteen segments, D
+    blocks a step): copy, triad and init through their ops equal their
     plain versions bit for bit, and a lost-stream control (stream 1's
     rows of the plain output set to -1) does not."""
     m, n = 480, 640
@@ -853,11 +854,10 @@ def test_stream_f32_lanes_equal_plain(cuda_device, arr, d, p):
 @pytest.mark.parametrize("m,n", [(512, 384), (256, 640)])
 def test_stream_16bit_lanes_equal_plain(cuda_device, dtype, arr, d, p, m,
                                         n):
-    """The 16-bit K1 lanes (16 bytes a lane, a pair of sub-portions a
-    load): copy, triad and init equal their plain versions bit for bit.
-    384 and 640 columns are 3 and 5 sub-portions, so a step ends on an
-    odd one (8-byte loads); P=3 starts a pair on an odd sub-portion; P=1
-    takes 8-byte loads only; D=16 is two register groups of 8 streams."""
+    """The 16-bit K1 kernels (16 bytes, 8 elements, a thread a vector):
+    copy, triad and init equal their plain versions bit for bit.  384
+    and 640 columns are 3 and 5 sub-portions, so a segment is not whole
+    steps at P = 2 and 3; D=16 is sixteen segments."""
     gen = torch.Generator(device=cuda_device).manual_seed(m + n + d * p)
     x, c = (_rand(gen, (m, n), cuda_device, dtype) for _ in range(2))
     cfg = TConfig(d, p, arrangement=arr)
@@ -1398,6 +1398,35 @@ def test_stencil_and_doitgen_wrappers_raise_on_what_they_do_not_take(
         tstencil.JACOBI, tstencil.CONV, dgkernel.DOITGEN)}
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ALL_DTYPES)
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d", [1, 2, 4, 8])
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("m,n", [(200, 1000), (37, 4100)])
+def test_stream_walk_kernels_equal_plain_bits(cuda_device, dtype, arr, d, p,
+                                              m, n):
+    """copy, triad and init on the flat walk equal their plain versions
+    bit for bit in f32, bf16 and f16 at ragged sizes (rows padded to D
+    segments, columns to whole sub-portions), at every D and P, in both
+    arrangements, one launch each."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + d * 8 + p)
+    x, c = (_rand(gen, (m, n), cuda_device, dtype) for _ in range(2))
+    cfg = TConfig(d, p, arrangement=arr)
+    kernels = (skernel.COPY, skernel.TRIAD, skernel.INIT)
+    before = [k.launches for k in kernels]
+    y = tsops.stream_copy(x, config=cfg)
+    a = run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg)
+    f = tsops.stream_init((m, n), -0.7, dtype, config=cfg,
+                          device=cuda_device)
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    assert torch.equal(y, x)
+    assert torch.equal(a, run_spec(tsspecs.triad_spec, (x, c, ALPHA), cfg,
+                                   mode="ref"))
+    assert torch.equal(f, torch.full((m, n), -0.7, device=cuda_device,
+                                     dtype=dtype))
+
+
 # ------------------------------------------------------------- adamw
 
 # (60, 100) pads to a [12, 512] blocking, (128, 128) is [32, 512], the
@@ -1448,6 +1477,113 @@ def test_adamw_kernel_matches_plain(cuda_device, dtype, arr, d, p, shape):
 ZERO_SHARDS = [(2048, 4096), (2048, 512), (2048, 11008), (4096, 2048),
                (11008, 2048), (1024, 4096), (1024, 512), (1024, 11008),
                (4096, 1024), (11008, 1024), (17, 64), (64, 17)]
+
+
+def _many_inputs(gen, shapes, dev, pdt, gdt):
+    ps, gs, ms, vs = [], [], [], []
+    for s in shapes:
+        ps.append(_rand(gen, s, dev, pdt))
+        gs.append(_rand(gen, s, dev, gdt))
+        ms.append(_rand(gen, s, dev, torch.float32))
+        vs.append(torch.rand(*s, generator=gen, device=dev))
+    return ps, gs, ms, vs
+
+
+def _many_equal_plain(ps, gs, ms, vs, wds, gscale, cfg=None):
+    """Run adamw_update_many on the card and its plain version on clones:
+    one launch, in place, p, m and v equal bit for bit."""
+    ref = [[t.clone() for t in x] for x in (ps, gs, ms, vs)]
+    ptrs = [t.data_ptr() for t in ps + ms + vs]
+    s7 = torch.stack(taops.scalars(ps[0].device, *_HYPER.values()))
+    before = akernel.ADAMW.launches
+    taops.adamw_update_many(ps, gs, ms, vs, wds, s7, gscale=gscale,
+                            config=cfg)
+    launches = akernel.ADAMW.launches - before
+    taops.adamw_update_many(*ref, wds, s7, gscale=gscale, mode="ref")
+    assert [t.data_ptr() for t in ps + ms + vs] == ptrs
+    for got, want in zip(ps + ms + vs, ref[0] + ref[2] + ref[3]):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    return launches
+
+
+# tiny, ragged and [H] leaves: 1, 3, 4, 5 elements, 513, 1000 (neither a
+# whole vector in bf16 nor a whole unit), Mamba-2's [80], a 64 x 64
+MANY_LEAVES = [(1,), (3,), (2, 2), (5,), (513,), (10, 100), (80,),
+               (64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pdt,gdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float16, torch.float16),
+                                     (torch.float16, torch.float32)])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", [(1, 1), (2, 2), (4, 1), (8, 4)])
+@pytest.mark.parametrize("scaled", [False, True])
+def test_adamw_many_ragged_leaves_equal_plain(cuda_device, pdt, gdt, arr, d,
+                                              p, scaled):
+    """adamw_update_many over tiny, ragged and [H] leaves with a weight
+    decay per leaf, with and without the clip scale: one launch, in
+    place, p, m and v equal to the plain version bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d * 10 + p)
+    leaves = _many_inputs(gen, MANY_LEAVES, cuda_device, pdt, gdt)
+    wds = [0.1 * (i % 3) for i in range(len(MANY_LEAVES))]
+    gscale = torch.tensor(0.4321, device=cuda_device) if scaled else None
+    assert _many_equal_plain(*leaves, wds, gscale,
+                             TConfig(d, p, arrangement=arr)) == 1
+
+
+@pytest.mark.gpu
+def test_adamw_many_on_yi9b_one_card_leaves_equal_plain(cuda_device):
+    """The one-card train step's 75 leaves of Yi-9B (8 layers), at
+    reduced width, as the optimizer passes them: one launch, the clip
+    scale fused, each leaf's weight decay by the JAX rule."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import optimizer as topt
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")), n_layers=8)
+    params = dict(build_model(cfg).init(seed=0, device=cuda_device,
+                                        trainable=True).named_parameters())
+    assert len(params) == 75
+    gen = torch.Generator(device=cuda_device).manual_seed(75)
+    ps = [p.detach() for p in params.values()]
+    gs = [_rand(gen, p.shape, cuda_device, p.dtype) for p in ps]
+    ms = [_rand(gen, p.shape, cuda_device, torch.float32) for p in ps]
+    vs = [torch.rand(*p.shape, generator=gen, device=cuda_device)
+          for p in ps]
+    wds = [0.1 if topt.decays(k, p) else 0.0 for k, p in params.items()]
+    for gscale in (None, torch.tensor(0.25, device=cuda_device)):
+        assert _many_equal_plain(ps, gs, ms, vs, wds, gscale) == 1
+
+
+@pytest.mark.gpu
+def test_adamw_many_splits_a_list_longer_than_one_table(cuda_device):
+    """1100 leaves: three launches (512, 512, 76 leaves a table), every
+    leaf equal to the plain version."""
+    assert cuda.library("adamw").adamw_table_max() == akernel.TABLE_MAX
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    shapes = [((i * 37) % 300 + 1,) for i in range(1100)]
+    leaves = _many_inputs(gen, shapes, cuda_device, torch.float32,
+                          torch.float32)
+    assert _many_equal_plain(*leaves, None, None) == 3
+
+
+@pytest.mark.gpu
+def test_adamw_many_refuses_unaligned_or_strided_leaves(cuda_device):
+    """A leaf that is not contiguous or not 16-byte aligned makes the op
+    raise before any launch: there is no copying fallback."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    ps, gs, ms, vs = _many_inputs(gen, [(64, 64), (80,)], cuda_device,
+                                  torch.float32, torch.float32)
+    s7 = torch.stack(taops.scalars(cuda_device, *_HYPER.values()))
+    before = akernel.ADAMW.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        taops.adamw_update_many([ps[0].t()], gs[:1], ms[:1], vs[:1], None,
+                                s7)
+    off = torch.zeros(84, device=cuda_device)[1:81]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        taops.adamw_update_many([ps[1]], [gs[1]], [off], [vs[1]], None, s7)
+    assert akernel.ADAMW.launches == before
 
 
 @pytest.mark.gpu
@@ -2318,7 +2454,8 @@ def test_family_train_step_matches_ref(cuda_device, arch):
     compute (no MoE router near-tie turns on bf16 rounding), with the
     kernels and with mode="ref" from the same seed: rmsnorm launched
     twice per layer norm (remat) plus the final norm and enc_norm,
-    adamw_update once per tensor; the loss and grad norm within 1e-5
+    adamw_update once per parameter dtype (every tensor in one launch);
+    the loss and grad norm within 1e-5
     relative, every parameter within 0.1 lr of the plain step's and all
     but 0.1% of each tensor's entries within 1e-3 lr (an entry whose
     clipped gradient is near AdamW's eps swings with its last bits)."""
@@ -2349,7 +2486,7 @@ def test_family_train_step_matches_ref(cuda_device, arch):
     norms = norm_calls(model.init(seed=0, device="meta"))
     # remat runs each layer's norms twice; the final norm and enc_norm once
     assert ck == {"rmsnorm": 2 * norms - 1 - cfg.encdec,
-                  "adamw_update": len(pk)}
+                  "adamw_update": len({p.dtype for p in pk.values()})}
     assert cr == {}
     for k in ("loss", "grad_norm"):
         torch.testing.assert_close(mk[k], mr[k], rtol=1e-5, atol=0)

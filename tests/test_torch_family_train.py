@@ -330,20 +330,24 @@ def test_each_step_runs_the_kernel_calls_the_chip_counts(arch,
     for each layer's norms (norm1, norm_x where it cross-attends, norm2
     where it has an FFN, Mamba-2's gated norm) twice, once forward and
     once as remat recomputes the layer, plus the final norm and
-    Whisper's enc_norm once; adamw_update once per parameter tensor."""
+    Whisper's enc_norm once; adamw_update_many once per parameter dtype
+    (the chip's one launch a group), over every parameter tensor."""
     _, _, tmodel, tparams = _carried(arch, seed=3)
     cfg = tmodel.cfg
-    calls = {"rmsnorm": 0, "adamw_update": 0}
+    calls = {"rmsnorm": 0, "adamw_update_many": 0}
+    leaves = []
 
     def count(mod, name):
         real = getattr(mod, name)
 
         def spy(*a, **kw):
             calls[name] += 1
+            if name == "adamw_update_many":
+                leaves.append(len(a[0]))
             return real(*a, **kw)
         monkeypatch.setattr(mod, name, spy)
     count(trops, "rmsnorm")
-    count(taops, "adamw_update")
+    count(taops, "adamw_update_many")
     step = ttrainstep.make_train_step(tmodel, topt.AdamWConfig())
     step(_port_state(tparams), _t(_batch(cfg, 2, 9, seed=4)))
     layers = list(tparams.blocks) + list(getattr(tparams, "enc_blocks", []))
@@ -351,7 +355,8 @@ def test_each_step_runs_the_kernel_calls_the_chip_counts(arch,
                     + (layer.desc.mixer == "mamba") for layer in layers)
     assert calls == {
         "rmsnorm": 2 * per_layer + 1 + cfg.encdec,
-        "adamw_update": len(list(tparams.parameters()))}
+        "adamw_update_many": len({p.dtype for p in tparams.parameters()})}
+    assert sum(leaves) == len(list(tparams.parameters()))
 
 
 # ------------------------------------------------------------- launcher

@@ -627,6 +627,34 @@ def test_stream_read_two_passes_equal_one_sweep(d, sms):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "16bit"])
+@pytest.mark.parametrize("arr", ["grouped", "interleaved"])
+@pytest.mark.parametrize("d,p", [(1, 1), (2, 2), (3, 1), (4, 2), (8, 4),
+                                 (4, 3)])
+@pytest.mark.parametrize("m,n", [(64, 256), (200, 1000), (42, 200)])
+def test_k1_walk_covers_each_vector_once_in_its_stream(m, n, d, p, arr,
+                                                       itemsize):
+    """The K1 copy / triad / init launch (``k1_geometry`` on the flat
+    walk) over the reference's BlockPlan of a [m, n] array: every 16-byte
+    vector of the padded [rows, cols] array once, in the segment of the
+    stream whose rows hold it (rows k·seg ... (k+1)·seg - 1), P = bn /
+    128 units a block; bm does not enter."""
+    cfg = TConfig(d, p, arrangement=arr)
+    bp = ttransforms.plan_blocks(tsspecs.copy_spec(torch.empty(m, n)), cfg)
+    g = skernel.k1_geometry(bp, itemsize)
+    vec = 16 // itemsize
+    seg_rows = bp.rows // d
+    assert g.segv * vec == seg_rows * bp.cols and g.units == bp.bn // 128
+    seen = torch.zeros(bp.rows * bp.cols // vec, dtype=torch.int64)
+    for c, j, k, at0, live in cuda.walk_units(g, arr == "interleaved"):
+        if live:
+            assert (at0 * vec // bp.cols) // seg_rows == k
+            seen[at0:at0 + live] += 1
+    assert bool((seen == 1).all())
+    bm_other = dataclasses.replace(bp, bm=1)
+    assert skernel.k1_geometry(bm_other, itemsize) == g
+
+
 @pytest.mark.parametrize("nsub", [1, 3, 7, 255, 2 * 132 * 7 + 3])
 @pytest.mark.parametrize("sms,per_sm", [(1, 2), (7, 1), (132, 2), (132, 4)])
 def test_read_chunks_and_16bit_lane_split(nsub, sms, per_sm):

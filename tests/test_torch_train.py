@@ -413,6 +413,92 @@ def test_adamw_step_matches_jax_over_three_steps():
             _close(tstate["v"][k], jstate["v"][k])
 
 
+# a list of mixed leaves: 1, 3 and 4 elements, 513, 64 x 64, a Mamba-2
+# [H] of 80, and a bf16 leaf with an f32 gradient
+MANY = [(1,), (3,), (2, 2), (513,), (64, 64), (80,)]
+
+
+def _many(seed, pdt=torch.float32, gdt=None):
+    gen = torch.Generator().manual_seed(seed)
+    ps, gs, ms, vs = [], [], [], []
+    for s in MANY:
+        ps.append(torch.randn(*s, generator=gen).to(pdt))
+        gs.append(torch.randn(*s, generator=gen).to(gdt or pdt))
+        ms.append(torch.randn(*s, generator=gen))
+        vs.append(torch.rand(*s, generator=gen))
+    return ps, gs, ms, vs
+
+
+@pytest.mark.parametrize("pdt,gdt", [(torch.float32, None),
+                                     (torch.bfloat16, None),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float16, None)])
+def test_adamw_update_many_plain_equals_the_op_leaf_by_leaf(pdt, gdt):
+    """adamw_update_many's plain version equals adamw_update on each leaf
+    bit for bit (each leaf's own weight decay), in place: every p, m and
+    v keeps its storage."""
+    ps, gs, ms, vs = _many(5, pdt, gdt)
+    wds = [0.1 if len(s) > 1 else 0.0 for s in MANY]
+    hyper = {k: v for k, v in _HYPER.items() if k != "wd"}
+    want = [taops.adamw_update(p, g, m, v, wd=wd, **hyper)
+            for p, g, m, v, wd in zip(ps, gs, ms, vs, wds)]
+    ptrs = [t.data_ptr() for t in ps + ms + vs]
+    s7 = torch.tensor(list(_HYPER.values()), dtype=torch.float32)
+    taops.adamw_update_many(ps, gs, ms, vs, wds, s7)
+    assert [t.data_ptr() for t in ps + ms + vs] == ptrs
+    for (p, m, v), (wp, wm, wv) in zip(zip(ps, ms, vs), want):
+        assert p.dtype == pdt
+        assert torch.equal(p, wp) and torch.equal(m, wm) and torch.equal(v, wv)
+
+
+@pytest.mark.parametrize("pdt", [torch.float32, torch.bfloat16])
+def test_adamw_update_many_gscale_equals_the_two_pass_clip(pdt):
+    """gscale fused equals the two-pass g.float() * scale, then the
+    update, bit for bit; scalars as numbers or one f32 [7] alike."""
+    ps, gs, ms, vs = _many(6, pdt)
+    ref = [[t.clone() for t in x] for x in (ps, gs, ms, vs)]
+    scale = torch.tensor(0.3713)
+    taops.adamw_update_many(ps, gs, ms, vs, None, list(_HYPER.values()),
+                            gscale=scale)
+    for i, (p, g, m, v) in enumerate(zip(*ref)):
+        wp, wm, wv = taops.adamw_update(p, g.float() * scale, m, v,
+                                        **_HYPER)
+        assert torch.equal(ps[i], wp) and torch.equal(ms[i], wm)
+        assert torch.equal(vs[i], wv)
+
+
+def test_adamw_step_updates_in_place_one_call_a_dtype(monkeypatch):
+    """adamw_step groups the leaves by dtype (f32 and a bf16 leaf: two
+    calls), passes the clip scale as gscale, and writes p, m and v where
+    they lie."""
+    gen = torch.Generator().manual_seed(4)
+    params = {"w": torch.randn(16, 32, generator=gen),
+              "h": torch.randn(80, generator=gen).bfloat16(),
+              "b": torch.randn(32, generator=gen)}
+    grads = {k: 5 * torch.randn(p.shape, generator=gen).to(p.dtype)
+             for k, p in params.items()}
+    state = topt.adamw_init(params)
+    ptrs = {k: (p.data_ptr(), state["m"][k].data_ptr(),
+                state["v"][k].data_ptr()) for k, p in params.items()}
+    before = {k: p.clone() for k, p in params.items()}
+    calls = []
+    real = taops.adamw_update_many
+
+    def spy(ps, *a, **kw):
+        calls.append((len(ps), ps[0].dtype, kw["gscale"]))
+        return real(ps, *a, **kw)
+    monkeypatch.setattr(taops, "adamw_update_many", spy)
+    _, state, metrics = topt.adamw_step(topt.AdamWConfig(lr=1e-2), params,
+                                        grads, state)
+    assert [(n, dt) for n, dt, _ in calls] == [(2, torch.float32),
+                                               (1, torch.bfloat16)]
+    assert all(float(sc) < 1.0 for *_, sc in calls)     # clipped
+    for k, p in params.items():
+        assert (p.data_ptr(), state["m"][k].data_ptr(),
+                state["v"][k].data_ptr()) == ptrs[k]
+        assert not torch.equal(p, before[k])
+
+
 def test_cosine_lr_matches_jax():
     cfg = dict(lr=3e-3, warmup_steps=10, total_steps=50)
     for step in (0, 1, 9, 10, 11, 30, 50, 70):
@@ -809,25 +895,30 @@ def test_weight_decay_of_norm_gains_matches_jax():
 def test_each_step_runs_the_kernels_the_chip_counts(monkeypatch):
     """The calls a step makes to the two kernel ops, on the CPU: rmsnorm
     2 per layer + the final norm forward, and the layers' 2 again when
-    remat recomputes them (4L + 1: 33 at 8 layers); adamw_update once
-    per parameter tensor (9L + 3: 75 at 8 layers)."""
+    remat recomputes them (4L + 1: 33 at 8 layers); adamw_update_many
+    once per parameter dtype (one here: the chip's one launch a step),
+    over every parameter tensor (9L + 3: 75 at 8 layers)."""
     _, _, tmodel, tparams = _carried("float32", seed=7)
-    calls = {"rmsnorm": 0, "adamw_update": 0}
+    calls = {"rmsnorm": 0, "adamw_update_many": 0}
+    leaves = []
 
     def count(mod, name):
         real = getattr(mod, name)
 
         def spy(*a, **kw):
             calls[name] += 1
+            if name == "adamw_update_many":
+                leaves.append(len(a[0]))
             return real(*a, **kw)
         monkeypatch.setattr(mod, name, spy)
     count(trops, "rmsnorm")
-    count(taops, "adamw_update")
+    count(taops, "adamw_update_many")
     step = ttrainstep.make_train_step(tmodel, topt.AdamWConfig())
     toks = _tokens(tmodel.cfg, 2, 9, seed=1)
     step(_port_state(tparams), {"tokens": torch.from_numpy(toks)})
     n = tmodel.cfg.n_layers
-    assert calls == {"rmsnorm": 4 * n + 1, "adamw_update": 9 * n + 3}
+    assert calls == {"rmsnorm": 4 * n + 1, "adamw_update_many": 1}
+    assert leaves == [9 * n + 3]
 
 
 # ------------------------------------------------ data, checkpoints

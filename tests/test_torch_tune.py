@@ -338,11 +338,28 @@ def test_tune_all_sweeps_named_kernels(tmp_path):
     assert tregistry.TuneResult is autotune.TuneResult
 
 
-def test_fault_sites_of_the_sweep(tmp_path):
+class _TrialClock:
+    """``autotune``'s clock, stubbed: it reads ``perf_counter`` in pairs
+    around each call, and the n-th pair spans ``samples[n]`` seconds
+    (cyclically), whatever the host's load."""
+
+    def __init__(self, samples):
+        self.samples, self.reads, self.now = samples, 0, 0.0
+
+    def perf_counter(self) -> float:
+        if self.reads % 2:
+            self.now += self.samples[(self.reads // 2) % len(self.samples)]
+        self.reads += 1
+        return self.now
+
+
+def test_fault_sites_of_the_sweep(tmp_path, monkeypatch):
     """tune_trial: the candidate raises and is quarantined; tune_outlier:
-    one inflated sample is rejected by the MAD filter; tune_slow past the
-    trial time limit: every candidate is abandoned and the sweep returns
-    the floor without writing."""
+    one inflated sample is rejected by the MAD filter (the trial clock
+    stubbed to five samples within 2% of each other, so the injected one
+    is the only outlier); tune_slow past the trial time limit: every
+    candidate is abandoned and the sweep returns the floor without
+    writing."""
     cache = _cache(tmp_path)
     with faults.inject("tune_trial:stream_copy:1"), obs.collect() as col:
         res = autotune.tune("stream_copy", device="cpu", cache=cache,
@@ -352,9 +369,13 @@ def test_fault_sites_of_the_sweep(tmp_path):
         (tmp_path / "tune.json").read_text())["quarantine"].items()
     assert qkey == res.key and list(rec.values())[0]["reason"] == \
         "InjectedFault"
-    with faults.inject("tune_outlier:stream_read:1"), obs.collect() as col:
+    clock = _TrialClock([1.0, 1.02, 0.98, 1.01, 0.99])
+    with monkeypatch.context() as m, faults.inject(
+            "tune_outlier:stream_read:1"), obs.collect() as col:
+        m.setattr(autotune, "time", clock)
         autotune.tune("stream_read", device="cpu", cache=cache, iters=5,
                       warmup=0, max_candidates=1)
+    assert clock.reads == 10
     assert col.counters()["tune.outlier_rejected"] == 1
     with faults.inject("tune_slow:mxv"), obs.collect() as col:
         res = autotune.tune("mxv", device="cpu", cache=cache, iters=1,

@@ -24,7 +24,18 @@ CUDA events):
     its merge alone on the pass-1 partials;
   * ``adamw_update`` on the ring at lookahead 1, 3, 4 on Yi-9B's
     embedding [64000, 4096] f32 (timed eagerly: a graph would hold every
-    call's 3 GB of outputs);
+    call's 3 GB of outputs), and its K1 kernel at the ZeRO-3 shard shapes
+    of ``ADAMW_K1`` (f32, default config);
+  * the optimizer over Yi-9B's f32 leaf lists of ``ADAMW_LISTS`` (the
+    one-card train step's 75 leaves, 8 layers; a four-card ZeRO-3
+    rank's 435 shard leaves, 48 layers at data=4): the checkout's
+    ``optimizer.adamw_step`` (device time between CUDA events, and its
+    host wall time to return and to finish), and its update alone, as
+    the checkout runs it (``adamw_update_many`` with the clip scale
+    fused where the checkout has it, else a ``g.float() * scale`` pass
+    and the per-tensor op for each leaf); ``AB_ONLY=adamw_dp``: the list
+    update over D x P of ``ADAMW_DP`` where the checkout has
+    ``adamw_update_many``;
   * rmsnorm at x [4, 4096] (a decode step's rows) and [8192, 4096] (a
     train step's) in bf16, at the op's resolved config;
   * rowstat (``rowstat_gen``, D=4, P=2) at 4096^2 and 16384^2 in f32
@@ -58,7 +69,8 @@ and beside each, in the first ROOT's process only, one PyTorch call
 that computes the same function: ``torch.matmul(A.view(-1, s), C4)``,
 ``x.clone()``, ``torch.add(b, c, alpha=1.5)``, ``torch.full``, ``x +
 z``, ``x.view(D, -1).sum(1, dtype=float32)``, ``part.sum(0)``,
-``torch._fused_adamw_``, ``F.rms_norm``, ``(x.amax(1), x.sum(1))``,
+``torch._fused_adamw_`` (over the same lists for the optimizer rows),
+``F.rms_norm``, ``(x.amax(1), x.sum(1))``,
 ``torch.mv`` (and ``1.5 * torch.mv``), ``torch.mv(A.t(), y)`` (with
 gemver's scaling and adds),
 SDPA with ``enable_gqa``, ``torch.addr`` twice, ``F.conv2d`` (the
@@ -128,7 +140,13 @@ ROWDOT_PARTS = {(16384, "float32"): (1, 2, 4, 8),
                 (4096, "bfloat16"): (1, 2, 4, 8)}
 SECTIONS = ("doitgen", "stream", "rmsnorm", "rowstat", "rowdot", "coldot",
             "rmsnorm_odd", "decode", "gemver_sum", "gemver_outer",
-            "stencil", "plain", "adamw")
+            "stencil", "plain", "adamw", "adamw_list", "adamw_dp")
+# the per-tensor K1 adamw kernel at ZeRO-3 shard shapes of Yi-9B (f32)
+ADAMW_K1 = [(2048, 4096), (1024, 512), (2048, 512)]
+# (tag, layers, data ranks) of Yi-9B's leaf lists for the optimizer rows
+ADAMW_LISTS = [("one-card 75 leaves", 8, 1), ("rank 435 leaves", 48, 4)]
+# (D, P) of the list update's sweep
+ADAMW_DP = [(d, p) for d in (1, 2, 4, 8) for p in (1, 2, 4)]
 # the plain versions (``mode="ref"`` on the card) that PERF.md's kernel
 # table had no time for: (op name, n of A [n, n] or of x [n, n], dtype)
 PLAIN = [("jacobi2d", 16386, "float32"), ("conv3x3", 16386, "float32"),
@@ -184,8 +202,6 @@ def one(root: str, replays: int, with_library: bool) -> dict:
     from chip_smoke import device_ms, eager_ms
     from repro_torch.codegen import plan_blocks, run_spec
     from repro_torch.kernels import cuda
-    from repro_torch.kernels.adamw import _HYPER
-    from repro_torch.kernels.adamw import ops as aops
     from repro_torch.kernels.doitgen import doitgen
     from repro_torch.kernels.gemver import gemver_sum
     from repro_torch.kernels.stream import (stream_copy, stream_copy_manual,
@@ -571,10 +587,26 @@ def one(root: str, replays: int, with_library: bool) -> dict:
             fn, psets, 4 if n > 8192 else 10, replays, hold=True)
         del psets
         torch.cuda.empty_cache()
-    if "adamw" not in on:
-        return out
-    # adamw on the ring, Yi-9B's embedding, f32
-    p, g, m = (rand(EMBED, torch.float32) for _ in range(3))
+    if "adamw" in on:
+        adamw_rows(out, gen, replays, with_library)
+    if "adamw_list" in on or "adamw_dp" in on:
+        adamw_lists(out, gen, with_library, "adamw_list" in on,
+                    "adamw_dp" in on)
+    return out
+
+
+def adamw_rows(out: dict, gen, replays: int, with_library: bool) -> None:
+    """The ring's adamw body on Yi-9B's embedding, and the per-tensor K1
+    op at the shard shapes of ``ADAMW_K1``."""
+    import torch
+    from chip_smoke import _copies as copies
+    from chip_smoke import device_ms, eager_ms
+    from repro_torch.kernels.adamw import _HYPER
+    from repro_torch.kernels.adamw import ops as aops
+
+    def rand(shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+    p, g, m = (rand(EMBED) for _ in range(3))
     v = torch.rand(*EMBED, generator=gen, device="cuda")
     s7 = torch.stack(aops.scalars(torch.device("cuda"),
                                   *_HYPER.values())).unbind()
@@ -582,15 +614,108 @@ def one(root: str, replays: int, with_library: bool) -> dict:
         cfg = aops._DEFAULT.replace(lookahead=la)
         out[f"ring adamw f32 {list(EMBED)} la{la}"] = eager_ms(
             lambda *a: aops.adamw_update(*a, *s7, config=cfg), (p, g, m, v))
+    step = torch.ones((), device="cuda")
+
+    def library(p_, g_, m_, v_):
+        torch._fused_adamw_([p_], [g_], [m_], [v_], [], [step],
+                            lr=_HYPER["lr"], beta1=0.9, beta2=0.999,
+                            weight_decay=_HYPER["wd"], eps=_HYPER["eps"],
+                            amsgrad=False, maximize=False)
     if with_library:
-        step = torch.ones((), device="cuda")
         out[f"adamw f32 {list(EMBED)} torch._fused_adamw_"] = eager_ms(
-            lambda p_, g_, m_, v_: torch._fused_adamw_(
-                [p_], [g_], [m_], [v_], [], [step], lr=_HYPER["lr"],
-                beta1=0.9, beta2=0.999, weight_decay=_HYPER["wd"],
-                eps=_HYPER["eps"], amsgrad=False, maximize=False),
-            (p, g, m, v))
-    return out
+            library, (p, g, m, v))
+    del p, g, m, v
+    for shape in ADAMW_K1:
+        n = shape[0] * shape[1]
+        sets = copies(lambda: (rand(shape), rand(shape), rand(shape),
+                               torch.rand(*shape, generator=gen,
+                                          device="cuda")), 16 * n)
+        key = f"adamw k1 f32 {list(shape)}"
+        out[key] = device_ms(lambda *a: aops.adamw_update(*a, *s7), sets,
+                             replays=replays)
+        if with_library:
+            out[f"{key} torch._fused_adamw_"] = device_ms(
+                library, [tuple(t.clone() for t in a) for a in sets],
+                replays=replays)
+        del sets
+    torch.cuda.empty_cache()
+
+
+def adamw_lists(out: dict, gen, with_library: bool, steps: bool = True,
+                sweep: bool = False) -> None:
+    """The optimizer over each leaf list of ``ADAMW_LISTS`` as this
+    checkout runs it (see the module doc): the step and the update
+    (``steps``), the update's D x P sweep (``sweep``)."""
+    import time
+    import torch
+    from chip_smoke import _yi9b_leaves, eager_ms
+    from repro_torch.core.striding import StridingConfig
+    from repro_torch.kernels.adamw import _HYPER
+    from repro_torch.kernels.adamw import ops as aops
+    from repro_torch.train import optimizer as topt
+    ocfg = topt.AdamWConfig()
+    for tag, layers, data in ADAMW_LISTS:
+        leaves = _yi9b_leaves(layers, data)
+        params, grads = ({k: torch.randn(*sh, generator=gen, device="cuda")
+                          for k, sh in leaves.items()} for _ in range(2))
+        state = topt.adamw_init(params)
+        n = sum(t.numel() for t in params.values())
+        out[f"adamw list {tag} elements"] = n
+        if steps:
+            # the optimizer phase: norm, clip, scalars and the update
+            out[f"adamw_step {tag}"] = eager_ms(
+                lambda: topt.adamw_step(ocfg, params, grads, state), ())
+            host, done = [], []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                topt.adamw_step(ocfg, params, grads, state)
+                host.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                done.append(time.perf_counter() - t0)
+            out[f"adamw_step {tag} host return ms"] = min(host) * 1e3
+            out[f"adamw_step {tag} host wall ms"] = min(done) * 1e3
+        # the update alone, clip scale 0.5, weight decay by the JAX rule
+        names = list(params)
+        ps = [params[k] for k in names]
+        gs = [grads[k] for k in names]
+        ms = [state["m"][k] for k in names]
+        vs = [state["v"][k] for k in names]
+        wds = [ocfg.weight_decay if topt.decays(k, params[k]) else 0.0
+               for k in names]
+        scale = torch.tensor(0.5, device="cuda")
+        s7 = torch.stack(aops.scalars(torch.device("cuda"),
+                                      *_HYPER.values()))
+        many = getattr(aops, "adamw_update_many", None)
+        for d, p in (ADAMW_DP if sweep and many is not None else ()):
+            cfg = StridingConfig(d, p)
+            out[f"adamw update {tag} D={d} P={p}"] = eager_ms(
+                lambda: many(ps, gs, ms, vs, wds, s7, gscale=scale,
+                             config=cfg), ())
+        if not steps:
+            del params, grads, state, ps, gs, ms, vs
+            torch.cuda.empty_cache()
+            continue
+        if many is not None:
+            def update():
+                many(ps, gs, ms, vs, wds, s7, gscale=scale)
+        else:
+            one = dict(zip(_HYPER, s7.unbind()))
+
+            def update():
+                for p, g, m, v, wd in zip(ps, gs, ms, vs, wds):
+                    aops.adamw_update(p, g.float() * scale, m, v,
+                                      **dict(one, wd=wd))
+        out[f"adamw update {tag}"] = eager_ms(update, ())
+        if with_library:
+            steps = [torch.ones((), device="cuda") for _ in ps]
+            out[f"adamw update {tag} torch._fused_adamw_"] = eager_ms(
+                lambda: torch._fused_adamw_(
+                    ps, gs, ms, vs, [], steps, lr=_HYPER["lr"], beta1=0.9,
+                    beta2=0.999, weight_decay=ocfg.weight_decay,
+                    eps=_HYPER["eps"], amsgrad=False, maximize=False), ())
+        del params, grads, state, ps, gs, ms, vs
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
