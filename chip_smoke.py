@@ -153,7 +153,7 @@ Phases (each raises on failure, so the script exits non-zero):
   6b. prefill — single-pass prefill on the serve phase's weights
                 (``launch.steps.build_prefill_step``): (a) prefill_32k
                 cut to B=4, S=4032 at max_len 4096 (97 rmsnorm launches,
-                no decode launch), 16 decode steps from its cache (97
+                no decode launch), 8 decode steps from its cache (97
                 rmsnorm, 48 decode_attn, 48 merge a step), and a
                 64-token prompt's prefill against one teacher-forced
                 decode step a token (the engine's path): last logits
@@ -172,8 +172,8 @@ Phases (each raises on failure, so the script exits non-zero):
                 and 17-64, against the unsharded kernel and mode="ref"
                 (each slice read in place), K split + K merge launches a
                 call, its time, each slice's and merge_partials' alone;
-                (b) Yi-9B at full width and depth, the serve phase's 8
-                requests at ServeConfig(shards=4) on one card: launches
+                (b) Yi-9B at full width and depth, the serve phase's first
+                4 requests at ServeConfig(shards=4) on one card: launches
                 a step (97 rmsnorm, 192 decode_attn, 192 merge), greedy
                 tokens against shards=1, a teacher-forced step's logits
                 within 2x a one-ulp control with one shard's lse dropped
@@ -185,11 +185,12 @@ Phases (each raises on failure, so the script exits non-zero):
                 rank 0's and the one-process static split's, agreement
                 with shards=1 printed
   6d. families — with the serve model freed, the MoE, SSM and VLM
-                families at full width and depth on random bf16 weights:
-                Qwen3-MoE-30B-A3B (prefill B=4 x 1024 at max_len 2048),
-                Mamba2-2.7B (B=4 x 4096) and InternVL2-2B (256 prefix
+                families at full width on random bf16 weights:
+                Qwen3-MoE-30B-A3B (24 of 48 layers, prefill B=2 x 1024 at
+                max_len 2048), Mamba2-2.7B (32 of 64 layers, B=2 x 4096)
+                and InternVL2-2B (all 24 layers, 256 prefix
                 embeds + 768 tokens, B=4, max_len 1040), each through
-                launch.steps.build_prefill_step and 16 greedy decode steps
+                launch.steps.build_prefill_step and 8 greedy decode steps
                 from its cache: launches a prefill and a decode step,
                 wall time, time between events, tokens/s, count_flops and
                 its bound, the decode step's byte floor (a MoE layer's
@@ -199,7 +200,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 state row within 2x a one-ulp control, a lost-rows fault
                 above it, 4 teacher-forced decode steps (greedy tokens,
                 logits within 2x the step's control); Mamba2's serving
-                invariant at B=1 on 8 of its 64 layers (prefill 1024 +
+                invariant at B=1 on 4 of its 64 layers (prefill 1024 +
                 one decode step against the full forward over 1025
                 tokens, which runs the SSD in chunks of 1); (d) Jamba
                 (one 8-layer period) and Arctic
@@ -217,9 +218,10 @@ Phases (each raises on failure, so the script exits non-zero):
                 2x the one-ulp control, 64 lost rows of the encoder's
                 output norm above it), 4 teacher-forced steps, and the
                 serving invariant at B=1 (64 tokens + one step)
-  6f. train-families — Whisper-medium (B=4 x 448 on 1500 frames),
-                Mamba2-2.7B (B=2 x 4096), InternVL2-2B (B=2 x (256 +
-                4096)) and Qwen3-MoE-30B-A3B (4 of 48 layers, B=2 x 4096)
+  6f. train-families — Whisper-medium (B=2 x 448 on 1500 frames),
+                Mamba2-2.7B (16 of 64 layers, B=2 x 4096), InternVL2-2B
+                (12 of 24 layers, B=2 x (256 + 4096)) and Qwen3-MoE-30B-A3B
+                (2 of 48 layers, B=2 x 4096)
                 at full width through launch.steps.build_train_step:
                 three steps each (launches, wall, tokens/s, loss, grad
                 norm, the third profiled: busy share, peak memory), then
@@ -238,15 +240,21 @@ Phases (each raises on failure, so the script exits non-zero):
                 goes (torch.profiler); the configs step 0's ops resolved
                 to
   7b. train_sharded — training across ranks, every rank a gloo process
-                on this card: (a) Yi-9B at full width, 4 of 48 layers,
-                ZeRO-3 over data=2, 3 steps of 2 x 4096 (17 rmsnorm, 1
+                on this card: (a) Yi-9B at full width, 2 of 48 layers,
+                ZeRO-3 over data=2, 3 steps of 2 x 4096 (9 rmsnorm, 1
                 adamw_update launches a rank a step), each step's loss
                 and grad norm and the params after 2 steps within 2x a
                 one-ulp control (the one-process step with every norm
                 output moved one ulp) of the one-process step; (c) the
                 checkpoint (a) saved after 2 steps restored by
-                remesh_state onto one rank and run one step; (b)
-                InternVL2-2B at full width, 4 layers, the int8
+                remesh_state onto one rank and run one step; (d) in
+                (a)'s two processes, Yi-9B tensor-parallel over model=2
+                (Megatron heads and FFN, vocab-parallel embedding, head
+                and loss, the layer boundaries on 2048 rows a rank): 3
+                steps held against the same one-process step and
+                control, 9 rmsnorm and 1 adamw_update launches a rank a
+                step, the wire bytes equal to the ring model of the
+                layout; (b) InternVL2-2B at full width, 2 layers, the int8
                 error-feedback compressed step at pod=2 x data=2: every
                 synced gradient element within the two hops' rounding of
                 the exact pod mean, step 0's loss equal to the
@@ -256,7 +264,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 against the shards' and wire_bytes; adamw_update at
                 Yi-9B's shard shapes (data=2, 4) against its plain
                 version, timed, and adamw_update_many over (a)'s rank's
-                39 leaves in one launch, timed against the bound and
+                21 leaves in one launch, timed against the bound and
                 torch._fused_adamw_ on the same lists
   8. report   — a JSON line of kernels, the card's name and power limit, and
                 as the last line {"ok": true, "device": {...}}
@@ -4077,7 +4085,7 @@ def phase_profile(card: str, model, params, engine, steps: int = 3) -> None:
               f"{e.count // steps:5d} calls/step  {e.key[:90]}")
 
 
-PREFILL_DECODE = 16                 # decode steps from the prefilled cache
+PREFILL_DECODE = 8                  # decode steps from the prefilled cache
 PREFILL_SHORT = 64                  # tokens of the prompt held against decode
 PREFILL_FAULT_LAYER = 24            # the planted fault's layer (its norm1)
 PREFILL_FAULT_ROWS = 64             # rows of the norm output left unwritten
@@ -4449,17 +4457,19 @@ def _profile_prefill(card, run, what: str = "prefill") -> None:
 
 # the families phase: (arch, B, prompt tokens S, max_len); a VLM's prefix
 # embeds come before the S tokens, so its cache holds Np + S rows
-FAMILY_CELLS = (("qwen3-moe-30b-a3b", 4, 1024, 2048),
-                ("mamba2-2.7b", 4, 4096, 4096),
-                ("internvl2-2b", 4, 768, 1040))
-FAMILY_DECODE = 16                  # greedy decode steps from the prefill
+# (arch, layers kept or None for all, B, S, max_len): full width; depth
+# cut for the script's time limit (the fault layer is n_layers // 2)
+FAMILY_CELLS = (("qwen3-moe-30b-a3b", 24, 2, 1024, 2048),
+                ("mamba2-2.7b", 32, 2, 4096, 4096),
+                ("internvl2-2b", None, 4, 768, 1040))
+FAMILY_DECODE = 8                   # greedy decode steps from the prefill
 FAMILY_GREEDY = 4                   # teacher-forced steps kernels vs ref
 FAMILY_FAULT_ROWS = 64              # rows of one norm output left unwritten
 # (d): compositions at reduced() dims, not a full-width path
 FAMILY_REDUCED = ("jamba-1.5-large-398b", "arctic-480b")
 FAMILY_REDUCED_SHAPE = (2, 64, 80)  # B, S, max_len
 MAMBA_INVARIANT_S = 1024            # B=1: prefill S, then decode token S+1
-MAMBA_INVARIANT_LAYERS = 8          # of Mamba2-2.7B's 64 (time, not memory)
+MAMBA_INVARIANT_LAYERS = 4          # of Mamba2-2.7B's 64 (time, not memory)
 WHISPER_INVARIANT_S = 64            # B=1: prefill S, then decode token S+1
 
 
@@ -4558,11 +4568,13 @@ def _decode_floor_bytes(model, params, cache, b, pos, experts) -> float:
     return total
 
 
-def _family_cell(card: str, arch: str, b: int, s: int, max_len: int) -> None:
-    """One model family at full width and depth on random bf16 weights
-    (seeded ``torch.Generator``): a prefill of B x (Np + S) through
-    ``launch.steps.build_prefill_step`` and 16 greedy decode steps from
-    its cache, counted, timed and profiled; then the kernels against
+def _family_cell(card: str, arch: str, layers, b: int, s: int,
+                 max_len: int) -> None:
+    """One model family at full width on random bf16 weights (seeded
+    ``torch.Generator``), on its first ``layers`` layers (all with None):
+    a prefill of B x (Np + S) through ``launch.steps.build_prefill_step``
+    and :data:`FAMILY_DECODE` greedy decode steps from its cache,
+    counted, timed and profiled; then the kernels against
     mode="ref": last logits and the worst cache or state row within 2x
     the one-ulp control (every rmsnorm output one bf16 ulp off, in the
     plain path), a planted fault (the last 64 rows of the middle layer's
@@ -4580,6 +4592,8 @@ def _family_cell(card: str, arch: str, b: int, s: int, max_len: int) -> None:
     from repro_torch.models.lm import build_model
     from repro_torch.roofline import analysis
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = build_model(cfg)
     per_prefill, per_step = _family_launches(cfg)
     npre = cfg.n_prefix_embeds
@@ -4635,7 +4649,7 @@ def _family_cell(card: str, arch: str, b: int, s: int, max_len: int) -> None:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     _profile_prefill(card, run, f"{tag} prefill")
 
-    # 16 greedy decode steps from (a clone of) the prefilled cache
+    # FAMILY_DECODE greedy decode steps from (a clone of) the prefill's cache
     experts = []
     route = tmoe._route
 
@@ -4898,9 +4912,9 @@ def phase_families(card: str) -> None:
     dims (d); each phase's seconds printed."""
     import gc
     import torch
-    for arch, b, s, max_len in FAMILY_CELLS:
+    for arch, layers, b, s, max_len in FAMILY_CELLS:
         t0 = time.perf_counter()
-        _family_cell(card, arch, b, s, max_len)
+        _family_cell(card, arch, layers, b, s, max_len)
         gc.collect()
         torch.cuda.empty_cache()
         print(f"families {arch}: {time.perf_counter() - t0:.1f} s [{card}]")
@@ -5205,12 +5219,13 @@ def phase_whisper(card: str) -> None:
 
 # train-families: (arch, layers kept or None for all, B, S); full width,
 # depth cut where the f32 state (p, g, m, v: 16 B a parameter) does not
-# fit the card, and Mamba-2's to 16 of 64 layers for the script's time
-# limit (8-10 s a step at 64)
-TRAIN_FAMILY_CELLS = (("whisper-medium", None, 4, WHISPER_MAX_LEN),
+# fit the card, and for the script's time limit: Mamba-2's to 16 of 64
+# layers (8-10 s a step at 64), InternVL2-2B's to 12 of 24 and
+# Qwen3-MoE's to 2 of 48 (its 4 of 48 took 69 s)
+TRAIN_FAMILY_CELLS = (("whisper-medium", None, 2, WHISPER_MAX_LEN),
                       ("mamba2-2.7b", 16, 2, 4096),
-                      ("internvl2-2b", None, 2, 4096),
-                      ("qwen3-moe-30b-a3b", 4, 2, 4096))
+                      ("internvl2-2b", 12, 2, 4096),
+                      ("qwen3-moe-30b-a3b", 2, 2, 4096))
 TRAIN_FAMILY_STEPS = 3
 
 
@@ -5326,6 +5341,7 @@ def phase_train_families(card: str) -> None:
 
 SHARDS = (2, 4, 8)                  # the sharded phase's static splits
 SHARD_LAYERS = 4                    # (c2)'s depth: four ranks share a card
+SHARD_ENGINE_REQUESTS = 4           # (b)'s requests: the serve phase's first
 SHARD_REQUESTS = 4                  # (c2)'s requests: the serve phase's first
 # a sharded bf16 output against another path's: |d| <= atol + rtol *
 # (|ref| + the largest |partial out| of the shards).  Each shard's out is
@@ -5491,8 +5507,9 @@ def _busy(card, what, step, steps: int = 3) -> tuple[float, float]:
 
 
 def _sharded_engine(card: str, model, params, engine, served) -> None:
-    """(b) The serve phase's Yi-9B (full width and depth) and 8 requests
-    at ServeConfig(shards=4) through the static split on one card: the
+    """(b) The serve phase's Yi-9B (full width and depth) and its first
+    :data:`SHARD_ENGINE_REQUESTS` requests at ServeConfig(shards=4)
+    through the static split on one card: the
     launches a step, the greedy tokens against the shards=1 run, a
     teacher-forced step's logits within 2x a one-ulp control with a lost
     shard above it, and the decode-step time and busy share of both."""
@@ -5507,7 +5524,7 @@ def _sharded_engine(card: str, model, params, engine, served) -> None:
         slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, max_new_tokens=SERVE_NEW,
         shards=k))
     rng = np.random.default_rng(0)            # the serve phase's prompts
-    for uid in range(SERVE_REQUESTS):
+    for uid in range(SHARD_ENGINE_REQUESTS):
         eng.submit(uid, rng.integers(0, cfg.vocab_size,
                                      int(rng.integers(8, 65))))
     for kern in cuda.KERNELS.values():
@@ -5524,9 +5541,9 @@ def _sharded_engine(card: str, model, params, engine, served) -> None:
     if counts != want:
         raise AssertionError(f"sharded (b): launches {counts}, expected "
                              f"{want} over {steps} steps")
-    same = sum(int(a == b) for uid in served
+    same = sum(int(a == b) for uid in results
                for a, b in zip(results[uid], served[uid]))
-    total = sum(len(v) for v in served.values())
+    total = sum(len(served[uid]) for uid in results)
     print(f"sharded (b): {cfg.name} {cfg.n_layers} layers, shards={k} "
           f"(static split on one card), {len(results)} requests: launches "
           f"a step {json.dumps({n: c / steps for n, c in counts.items()})}; "
@@ -5813,11 +5830,11 @@ def phase_sharded(card: str, model, params, engine, served) -> None:
 
 # --------------------------------------------------------- train_sharded
 
-TS_LAYERS = 4                  # (a), (c): Yi-9B at full width, 4 of 48
+TS_LAYERS = 2                  # (a), (c), (d): Yi-9B at full width, 2 of 48
 TS_STEPS = 2                   # steps compared; (a) and (c) run one more
 TS_B, TS_S = 2, 4096           # (a)'s global batch: one row a rank
 TS_OCFG = dict(lr=3e-3, warmup_steps=10, total_steps=50)
-TS_COMP = ("internvl2-2b", 4, 4, 1024)      # (b): arch, layers, B, S
+TS_COMP = ("internvl2-2b", 2, 4, 512)       # (b): arch, layers, B, S
 TS_DEVICE = "cuda"
 TS_DATA4 = 4                   # the four-card run's data axis (shapes)
 
@@ -5875,9 +5892,10 @@ def _ts_steps(step_fn, state, batches, res, after=None) -> None:
 
 
 def _ts_plain(rank: int, world: int, job: dict) -> dict:
-    """(a) on this rank (``_gloo_spawn``): Yi-9B ZeRO-3 over
+    """(a), then (d), on this rank (``_gloo_spawn``): Yi-9B ZeRO-3 over
     data=world, TS_STEPS + 1 steps, the state saved (sharded) after
-    TS_STEPS."""
+    TS_STEPS; then the same model tensor-parallel over model=world
+    (``_ts_tp``)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh
@@ -5902,6 +5920,43 @@ def _ts_plain(rank: int, world: int, job: dict) -> dict:
             mgr.wait()
             res["save_s"] = time.perf_counter() - t0
     _ts_steps(step, state, job["batches"], res, save)
+    del state, step, mgr
+    if TS_DEVICE == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return {"a": res, "d": _ts_tp(world, job["batches"])}
+
+
+def _ts_tp(world: int, batches) -> dict:
+    """(d) on this rank: Yi-9B tensor-parallel over model=world (Megatron
+    heads and FFN, the vocab-parallel embedding, head and loss, the layer
+    boundaries sequence-sharded at S / world >= 128), from seed 0,
+    TS_STEPS + 1 steps counted and recorded; after TS_STEPS steps the
+    whole params gathered to rank 0's host (``Shard.gather(dst=0)``)."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, trainstep
+    cfg = _ts_cfg("yi-9b", TS_LAYERS)
+    model = build_model(cfg)
+    mesh = make_mesh((1, world), ("data", "model"))
+    ctx = steps.mesh_ctx(mesh)
+    state = trainstep.init_state(model, seed=0, device=TS_DEVICE, ctx=ctx)
+    step = trainstep.make_train_step(model, AdamWConfig(**TS_OCFG), ctx=ctx)
+    shards = steps.state_shardings(steps.abstract_state(model), cfg,
+                                   mesh)["params"]
+    res = {"metrics": [], "launches": [], "wall": [], "wire": [],
+           "local": {k: tuple(p.shape) for k, p in
+                     state["params"].named_parameters()}}
+
+    def keep(i, state):
+        if i + 1 == TS_STEPS:
+            whole = {k: shards[k].gather(p.detach(), dst=0)
+                     for k, p in state["params"].named_parameters()}
+            res["p"] = None if whole["embed"] is None else {
+                k: t.to("cpu") for k, t in whole.items()}
+    _ts_steps(step, state, batches, res, keep)
     return res
 
 
@@ -6143,11 +6198,75 @@ def _ts_adamw_shards(card: str) -> None:
                 _yi9b_leaves(TS_LAYERS, 2), gen)
 
 
+def _ts_tp_check(card, cfg, ranks, ref, ctl, limit) -> None:
+    """(d)'s checks against (a)'s one-process step ``ref`` and its one-ulp
+    control ``ctl``: every rank's metrics alike; each step's loss and grad
+    norm within ``limit``; the params after TS_STEPS steps by
+    ||p_d - p_1|| / ||p_1 - p_0|| within twice the control's plus 1e-6;
+    launches a rank a step rmsnorm 4 * TS_LAYERS + 1 (each on its
+    TS_S / 2 rows), adamw_update 1; a rank's counted wire bytes a step,
+    by kind, equal to ``sharded_step_wire``'s ring model of the layout."""
+    from repro_torch.roofline.analysis import sharded_step_wire
+    world = len(ranks)
+    want = {"rmsnorm": 4 * TS_LAYERS + 1, "adamw_update": 1}
+    ring = sharded_step_wire(cfg, {"data": 1, "model": world}, TS_B, TS_S)
+    for r, res in enumerate(ranks):
+        if res["metrics"] != ranks[0]["metrics"]:
+            raise AssertionError(f"train_sharded (d): rank {r}'s metrics "
+                                 "differ from rank 0's")
+        for i, (counts, wire) in enumerate(zip(res["launches"],
+                                               res["wire"])):
+            if counts != want:
+                raise AssertionError(f"train_sharded (d) rank {r} step {i}: "
+                                     f"launches {counts}, expected {want}")
+            got = wire["collective_wire_bytes"]
+            if set(got) != set(ring) or any(
+                    abs(got[k] - ring[k]) > 1e-9 * ring[k] for k in ring):
+                raise AssertionError(f"train_sharded (d) rank {r} step {i}: "
+                                     f"wire bytes {got}, the ring model of "
+                                     f"the layout {ring}")
+    d = ranks[0]
+    for i in range(TS_STEPS + 1):
+        for key in ("loss", "grad_norm"):
+            got, one = d["metrics"][i][key], ref["metrics"][i][key]
+            if not math.isfinite(got) or abs(got - one) > limit(key, i):
+                raise AssertionError(
+                    f"train_sharded (d) step {i} {key}: {got} vs one-process "
+                    f"{one} (|d| {abs(got - one):.3e} > {limit(key, i):.3e})")
+        print(f"train_sharded (d) step {i}: loss {d['metrics'][i]['loss']:.6f}"
+              f" (one process {ref['metrics'][i]['loss']:.6f}, one-ulp control "
+              f"{ctl['metrics'][i]['loss']:.6f}) grad_norm "
+              f"{d['metrics'][i]['grad_norm']:.6f} (one process "
+              f"{ref['metrics'][i]['grad_norm']:.6f}); wall a rank "
+              f"{[round(x['wall'][i], 3) for x in ranks]} s; launches a rank "
+              f"{json.dumps(d['launches'][i])}; wire bytes a rank "
+              f"{json.dumps(d['wire'][i]['collective_wire_bytes'])} (by axis "
+              f"{json.dumps(d['wire'][i]['collective_wire_bytes_by_axis'])}) = "
+              f"the ring model [{card}]")
+    gap_d = _update_gap(d["p"], ref["p"], ref["p0"])
+    gap_c = _update_gap(ctl["p"], ref["p"], ref["p0"])
+    if gap_d > 2 * gap_c + 1e-6:
+        raise AssertionError(f"train_sharded (d): params after {TS_STEPS} "
+                             f"steps {gap_d:.3e} of the update from the one "
+                             f"process's, control {gap_c:.3e}")
+    print(f"train_sharded (d): {cfg.name} full width, {TS_LAYERS} layers, "
+          f"tensor-parallel over model={world} ({world} gloo ranks on one "
+          f"card, after (a) in the same processes), global batch {TS_B} x "
+          f"{TS_S}, the layer boundaries sequence-sharded ({TS_S // world} "
+          f"rows a rank); local wq {d['local']['blocks.0.attn.wq']}, wk "
+          f"{d['local']['blocks.0.attn.wk']}, wo {d['local']['blocks.0.attn.wo']}"
+          f", w_in {d['local']['blocks.0.ffn.w_in']}, embed "
+          f"{d['local']['embed']}, head {d['local']['head']}; params after "
+          f"{TS_STEPS} steps {gap_d:.3e} of the update away from the one "
+          f"process's (control {gap_c:.3e}, limit twice it); peak memory a "
+          f"rank {[round(x['memory_gib'], 2) for x in ranks]} GiB [{card}]")
+
+
 def phase_train_sharded(card: str) -> None:
     """Training across ranks on this card (``train.zero``,
     ``train.compression``, ``checkpoint.manager`` with shardings,
     ``runtime.elastic``), every rank a gloo process on cuda:0 (NCCL
-    refuses two ranks on one device).  (a) Yi-9B at full width, 4 of 48
+    refuses two ranks on one device).  (a) Yi-9B at full width, 2 of 48
     layers, ZeRO-3 over data=2, global batch 2 x 4096, TS_STEPS + 1
     steps, each counted on each rank; held against the one-process step
     on the same batches: each step's loss and grad norm, and the params
@@ -6157,7 +6276,7 @@ def phase_train_sharded(card: str) -> None:
     saved after TS_STEPS steps restored by remesh_state onto one rank
     (the params compared there) and run one step: its loss and grad norm
     against (a)'s and the one-process step's, the same limit.  (b) 4
-    ranks at pod=2, data=2 on InternVL2-2B (full width, 4 layers) run
+    ranks at pod=2, data=2 on InternVL2-2B (full width, 2 layers) run
     the compressed step, the uncompressed sharded step and the
     one-quantum control (``_ts_compressed``) on the same batches: every
     rank's metrics alike and finite in each; each synced gradient element
@@ -6165,9 +6284,13 @@ def phase_train_sharded(card: str) -> None:
     (the same forward pass) within 1e-6 relative of the uncompressed
     step's; step 0's grad norm and step 1's loss and grad norm within
     twice the control's distance from the uncompressed step's plus 1e-6
-    relative; the int8 wire bytes counted against ``wire_bytes``.  Then
-    ``adamw_update`` at Yi-9B's shard shapes against its plain
-    version."""
+    relative; the int8 wire bytes counted against ``wire_bytes``.  (d)
+    After (a), in its two processes, Yi-9B tensor-parallel over model=2
+    (``_ts_tp``, ``_ts_tp_check``): the same batches and steps held
+    against the same one-process step and control, the same limits, the
+    launches a rank a step, and the wire bytes against the ring model of
+    the layout.  Then ``adamw_update`` at Yi-9B's shard shapes against
+    its plain version."""
     import torch
     import torch.distributed as dist
     from repro_torch.checkpoint import CheckpointManager
@@ -6184,8 +6307,11 @@ def phase_train_sharded(card: str) -> None:
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ts_ckpt_")
     try:
         t0 = time.perf_counter()
-        ranks = _gloo_spawn(_ts_plain, 2, {"batches": batches, "ckpt": ckpt})
+        both = _gloo_spawn(_ts_plain, 2, {"batches": batches, "ckpt": ckpt})
         spawn_s = time.perf_counter() - t0
+        ranks = [r["a"] for r in both]
+        tp_ranks = [r["d"] for r in both]
+        del both
         # every leaf and gradient f32: one AdamW launch a rank a step
         want = {"rmsnorm": 4 * TS_LAYERS + 1, "adamw_update": 1}
         for r, res in enumerate(ranks):
@@ -6274,6 +6400,8 @@ def phase_train_sharded(card: str) -> None:
                 if d > limit(key, i):
                     raise AssertionError(f"train_sharded (c) {key}: "
                                          f"{mc[key]} vs {what} {other}")
+        _ts_tp_check(card, cfg, tp_ranks, ref, ctl, limit)
+        del tp_ranks
         print(f"train_sharded (c): (a)'s checkpoint at step {step0} "
               f"restored by remesh_state onto {tuple(mesh.shape)} "
               f"{tuple(mesh.mesh_dim_names)} in {t_restore:.1f} s; params "

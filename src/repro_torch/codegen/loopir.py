@@ -40,8 +40,8 @@ from repro_torch.core.planner import Traffic
 from repro_torch.core.transform import ArrayAccess, LoopNest, plan_transform
 
 __all__ = [
-    "Axis", "Access", "TraversalSpec", "tap", "classify", "traffic_of",
-    "evaluate",
+    "Axis", "Access", "TraversalSpec", "tap", "to_loop_nest", "classify",
+    "traffic_of", "evaluate",
 ]
 
 PARALLEL = "parallel"
@@ -308,6 +308,17 @@ class NestInfo:
     free_axes: tuple[str, ...] = ()    # whole-extent (resident) axes
     stride_reduction: bool = False     # stride axis is reduced over
     blocked: bool = False   # 1-D nest: loop-block into 2-D first (§5.1.1)
+
+
+def to_loop_nest(spec: TraversalSpec) -> LoopNest:
+    """Bridge to the symbolic §5.1 planner (``core.transform``): every
+    loop of the nest and every access, reads then writes."""
+    return LoopNest(
+        loops=tuple(ax.name for ax in spec.axes),
+        accesses=tuple(ArrayAccess(a.array, a.index)
+                       for a in (*spec.reads, *spec.writes)),
+        writes=tuple(a.array for a in spec.writes),
+    )
 
 
 def classify(spec: TraversalSpec) -> NestInfo:

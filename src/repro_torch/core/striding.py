@@ -13,6 +13,7 @@ analogue of the paper's MSR prefetcher-off ablation).
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 __all__ = [
     "StridingConfig",
@@ -97,6 +98,16 @@ def valid_stride_unrolls(extent: int, max_d: int = 32) -> list[int]:
     return [d for d in divisors(extent) if d <= max_d]
 
 
+def factorizations(unrolls: int) -> Iterator[tuple[int, int]]:
+    """All (stride_unroll, portion_unroll) pairs with D*P == unrolls.
+
+    Paper §3: "We can find an even distribution of n loop unrolls over d
+    strides, as long as d is a divisor of n."
+    """
+    for d in divisors(unrolls):
+        yield d, unrolls // d
+
+
 def stream_offsets(extent: int, d: int) -> list[int]:
     """Start offsets (in rows/elements) of ``d`` maximally-spaced streams.
 
@@ -109,6 +120,18 @@ def stream_offsets(extent: int, d: int) -> list[int]:
         raise ValueError(f"extent {extent} not divisible by stride_unroll {d}")
     seg = extent // d
     return [k * seg for k in range(d)]
+
+
+def stream_spacing_bytes(extent: int, d: int, row_bytes: int) -> int:
+    """Byte distance between adjacent concurrent streams (paper §4.5)."""
+    return (extent // d) * row_bytes
+
+
+def partition_rows(extent: int, d: int) -> int:
+    """Rows per stream; validates divisibility."""
+    if extent % d != 0:
+        raise ValueError(f"extent {extent} not divisible by stride_unroll {d}")
+    return extent // d
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:

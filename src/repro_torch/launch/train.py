@@ -8,9 +8,11 @@ through the kernels' plain versions.  The config is reduced to smoke-test
 size unless ``--no-reduced``; ``--layers`` overrides its depth.
 
 Across ranks: ``torchrun --nproc-per-node K -m repro_torch.launch.train
---mesh data=K`` (or ``--mesh pod=2,data=2``): one rank a card under
-NCCL, or gloo ranks with ``--device cpu``; the state is sharded ZeRO-3
-over ``data`` and the batch over ``(pod, data)``
+--mesh data=K`` (or ``--mesh pod=2,data=2``, ``--mesh model=2``,
+``--mesh data=2,model=2``): one rank a card under NCCL, or gloo ranks
+with ``--device cpu``; the state is sharded ZeRO-3 over ``data`` and cut
+over ``model`` for tensor parallelism (Megatron heads, FFN and
+vocabulary), the batch over ``(pod, data)``
 (``trainstep.make_train_step(..., ctx=)``), ``--compressed-pod-sync``
 averages gradients across pods as int8 with error feedback.
 Checkpoints are whole leaves on disk, written by rank 0.  A process
@@ -65,7 +67,8 @@ def parse(argv=None) -> argparse.Namespace:
                          "plain kernel versions")
     ap.add_argument("--mesh", default=None,
                     help="train across the ranks of torchrun: axis=size "
-                         "pairs, e.g. data=4 or pod=2,data=2")
+                         "pairs, e.g. data=4, pod=2,data=2, model=2 or "
+                         "data=2,model=2")
     ap.add_argument("--compressed-pod-sync", action="store_true",
                     help="int8 error-feedback gradient mean across pods "
                          "(needs a pod axis in --mesh)")

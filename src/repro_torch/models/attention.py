@@ -44,12 +44,37 @@ def init_attn(generator: torch.Generator, cfg: ModelConfig, dtype,
                                      (d, hkv * dh), (hq * dh, d))))
 
 
-def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope):
+def _kv_weights(p: Attention, cfg: ModelConfig, ctx):
+    """(wk, wv, heads): the K and V weights this rank projects with, and
+    for each of its query heads the index of its KV head among theirs
+    (None: the stock ``repeat_interleave``).  In a tensor-parallel
+    forward wq holds this rank's Hq / tp query heads; where the rules cut
+    wk and wv too (``n_kv_heads % tp == 0``) they hold exactly those
+    heads' KV heads, and where the rules leave them whole, this rank
+    projects only the KV heads its query heads read (query head j reads
+    KV head j // (Hq / Hkv), as ``repeat_interleave`` pairs them)."""
+    if not common.tensor_parallel(ctx) or cfg.n_kv_heads % ctx.tp == 0:
+        return p.wk, p.wv, None
+    dh, g = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    hl = cfg.n_heads // ctx.tp
+    mine = [(ctx.tp_rank * hl + i) // g for i in range(hl)]
+    lo, hi = mine[0], mine[-1] + 1
+    cols = slice(lo * dh, hi * dh)
+    return p.wk[:, cols], p.wv[:, cols], [h - lo for h in mine]
+
+
+def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope, ctx=None):
+    """q [B, S, Hq, dh], k and v [B, S, Hkv, dh] of x; in a
+    tensor-parallel forward this rank's heads (:func:`_kv_weights`)."""
     b, s, _ = x.shape
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p.wq.to(x.dtype)).reshape(b, s, hq, dh)
-    k = (x @ p.wk.to(x.dtype)).reshape(b, s, hkv, dh)
-    v = (x @ p.wv.to(x.dtype)).reshape(b, s, hkv, dh)
+    dh = cfg.head_dim
+    wk, wv, heads = _kv_weights(p, cfg, ctx)
+    q = (x @ p.wq.to(x.dtype)).reshape(b, s, -1, dh)
+    k = (x @ wk.to(x.dtype)).reshape(b, s, -1, dh)
+    v = (x @ wv.to(x.dtype)).reshape(b, s, -1, dh)
+    if heads is not None:
+        idx = torch.tensor(heads, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
     q = common.apply_rope(q, rope, cfg.rope_style).to(x.dtype)
     k = common.apply_rope(k, rope, cfg.rope_style).to(x.dtype)
     return q, k, v
@@ -157,13 +182,21 @@ def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
 
 
 def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
-                 causal: bool = True):
-    """Train/prefill full attention. Returns (out, (k, v))."""
-    q, k, v = _qkv(p, x, cfg, rope)
+                 causal: bool = True, ctx=None):
+    """Train/prefill full attention. Returns (out, (k, v)).
+
+    In a tensor-parallel forward (``ctx``, x the whole sequence from
+    ``common.tp_enter``) wq, wk and wv are column-parallel (this rank's
+    heads) and wo row-parallel: out is this rank's partial sum
+    (``common.row_parallel``: f32 for 16-bit operands), which
+    ``common.tp_exit`` reduces.  (A head count the model axis does not
+    divide is the JAX package's sequence-sharded attention, which
+    ``train.zero.layout`` refuses.)"""
+    q, k, v = _qkv(p, x, cfg, rope, ctx)
     out = _sdpa(q, k, v, causal)
     b, s, _ = x.shape
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return out @ p.wo.to(x.dtype), (k, v)
+    out = out.reshape(b, s, -1)
+    return common.row_parallel(out, p.wo.to(x.dtype), ctx), (k, v)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -133,16 +133,26 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for desc in stack_descriptors(cfg)]
 
 
-def _ffn(p: Layer, x, cfg: ModelConfig, mode: Optional[str]):
+def _ffn(p: Layer, x, cfg: ModelConfig, mode: Optional[str], ctx=None):
     """The layer's FFN half: (x', aux), aux the MoE router's loss (None
-    for a dense FFN or none)."""
+    for a dense FFN or none).  ``ctx``: the MoE's dispatch
+    (``moe.moe_forward``); in a tensor-parallel forward a dense FFN is
+    column- then row-parallel where the model axis divides ``d_ff`` (as
+    the rules cut it), else whole on every rank over the whole
+    sequence."""
     if p.desc.ffn == "none":
         return x, None
     h = common.rms_norm(x, p.norm2, cfg.norm_eps, mode)
     if p.desc.ffn == "moe":
-        f, aux = moe.moe_forward(p.moe, h, cfg)
+        f, aux = moe.moe_forward(p.moe, h, cfg, ctx)
         return x + f, aux
-    return x + ffn.ffn_forward(p.ffn, h, cfg.act), None
+    if common.tensor_parallel(ctx) and cfg.d_ff % ctx.tp == 0:
+        f = common.tp_exit(ffn.ffn_forward(
+            p.ffn, common.tp_enter(h, ctx), cfg.act, ctx), ctx, h.dtype)
+    else:
+        f = common.rep_exit(ffn.ffn_forward(
+            p.ffn, common.rep_enter(h, ctx), cfg.act), ctx)
+    return x + f, None
 
 
 def _cross(p: Layer, x, cfg: ModelConfig, kv, mode: Optional[str]):
@@ -160,15 +170,24 @@ def _cross(p: Layer, x, cfg: ModelConfig, kv, mode: Optional[str]):
 
 
 def _layer_forward(p: Layer, x, cfg: ModelConfig, rope, causal: bool = True,
-                   mode: Optional[str] = None, cross_kv=None):
+                   mode: Optional[str] = None, cross_kv=None, ctx=None):
     """One layer over the whole sequence: (x', aux), aux None where the
-    layer has no MoE."""
+    layer has no MoE.  ``ctx``: the MoE's dispatch; in a tensor-parallel
+    forward (``common.tp_layout``) the layer holds its weights' ``model``
+    blocks and x its boundary's rows (S / tp of them where the sequence
+    is sharded), where the norms and residuals run: attention and a
+    divisible FFN between ``common.tp_enter`` and ``tp_exit``, a Mamba-2
+    mixer (whole over ``model`` by the rules) on the whole sequence
+    between ``rep_enter`` and ``rep_exit``."""
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
     if p.desc.mixer == "attn":
-        a, _ = attention.attn_forward(p.attn, h, cfg, rope, causal)
+        a, _ = attention.attn_forward(p.attn, common.tp_enter(h, ctx), cfg,
+                                      rope, causal, ctx)
+        a = common.tp_exit(a, ctx, h.dtype)
     else:
-        a = mamba2.mamba_forward(p.mamba, h, cfg, mode=mode)
-    return _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode)
+        a = common.rep_exit(mamba2.mamba_forward(
+            p.mamba, common.rep_enter(h, ctx), cfg, mode=mode), ctx)
+    return _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode, ctx)
 
 
 def norm_calls(stack) -> int:
@@ -186,29 +205,30 @@ def _layer_kv(cross_kv, i: int):
 
 def stack_forward(stack: nn.ModuleList, x, cfg: ModelConfig, rope,
                   causal: bool = True, remat: bool = True,
-                  mode: Optional[str] = None, cross_kv=None, run=None):
+                  mode: Optional[str] = None, cross_kv=None, run=None,
+                  ctx=None):
     """Every layer in turn: (x, the MoE layers' aux summed).  ``remat``
     saves only each layer's input and recomputes the layer in the
     backward pass.  ``cross_kv``: a Whisper decoder's per-layer encoder
     K/V ``{"k", "v"}``, or None.  ``run(layer, x, cfg, rope, causal,
-    mode, kv)`` runs one layer (default ``_layer_forward``; under remat
-    it reruns in the backward pass with the layer)."""
+    mode, kv, ctx)`` runs one layer (default ``_layer_forward``; under
+    remat it reruns in the backward pass with the layer)."""
     run = run or _layer_forward
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(stack):
         kv = _layer_kv(cross_kv, i)
         if remat:
             x, a = checkpoint(run, layer, x, cfg, rope, causal, mode, kv,
-                              use_reentrant=False)
+                              ctx, use_reentrant=False)
         else:
-            x, a = run(layer, x, cfg, rope, causal, mode, kv)
+            x, a = run(layer, x, cfg, rope, causal, mode, kv, ctx)
         if a is not None:
             aux = aux + a
     return x, aux
 
 
 def _layer_prefill(p: Layer, c, x, cfg: ModelConfig, rope,
-                   mode: Optional[str] = None, cross_kv=None):
+                   mode: Optional[str] = None, cross_kv=None, ctx=None):
     """``_layer_forward`` plus cache capture in one pass.  Attention:
     the layer's K, V written into ``c["k"][:, :S]`` and ``c["v"][:, :S]``
     IN PLACE, where the JAX package returns an updated copy
@@ -224,16 +244,17 @@ def _layer_prefill(p: Layer, c, x, cfg: ModelConfig, rope,
     else:
         a, c = mamba2.mamba_forward(p.mamba, h, cfg, return_state=True,
                                     mode=mode)
-    x, _ = _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode)
+    x, _ = _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode, ctx)
     return x, c
 
 
 def stack_prefill(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
-                  mode: Optional[str] = None, cross_kv=None):
-    """One pass over the layers: hidden states and the filled caches."""
+                  mode: Optional[str] = None, cross_kv=None, ctx=None):
+    """One pass over the layers: hidden states and the filled caches;
+    ``ctx``: the MoE's dispatch."""
     for i, layer in enumerate(stack):
         x, cache[i] = _layer_prefill(layer, cache[i], x, cfg, rope, mode,
-                                     _layer_kv(cross_kv, i))
+                                     _layer_kv(cross_kv, i), ctx)
     return x, cache
 
 
@@ -246,7 +267,7 @@ def _layer_decode(p: Layer, c, x, cfg: ModelConfig, rope, pos,
                                      mode=mode, ctx=ctx, shards=shards)
     else:                       # Mamba-2 ignores shards, as in the JAX package
         a, c = mamba2.mamba_decode(p.mamba, h, cfg, c, mode=mode)
-    x, _ = _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode)
+    x, _ = _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode, ctx)
     return x, c
 
 
@@ -254,7 +275,8 @@ def stack_decode(stack: nn.ModuleList, cache, x, cfg: ModelConfig, rope,
                  pos, mode: Optional[str] = None, cross_kv=None, ctx=None,
                  shards: int = 1):
     """One decode step through every layer; ``ctx`` and ``shards`` go to
-    attention (``attention.attn_decode``)."""
+    attention (``attention.attn_decode``), ``ctx`` to the MoE's
+    dispatch."""
     for i, layer in enumerate(stack):
         x, cache[i] = _layer_decode(layer, cache[i], x, cfg, rope, pos,
                                     mode, _layer_kv(cross_kv, i), ctx,

@@ -18,16 +18,25 @@ class MeshCtx:
     the batch (``("pod", "data")`` or ``("data",)``, as the JAX package's
     ``mesh_ctx`` gives them), ``tp_axis`` for the model axis, over which
     serving shards the KV cache's sequence
-    (``kernels.decode_attn.sharded``).  The sharded train step
+    (``kernels.decode_attn.sharded``) and training cuts the Megatron
+    heads, FFN and vocabulary.  The sharded train step
     (``train.trainstep``) shards parameters and optimizer state over
     ``data`` (ZeRO-3) and reads each axis's process group and this rank's
     index along it.  None in place of a MeshCtx is the single-device
-    context.  The JAX package's GSPMD layout hints (``constrain_act``,
-    ``constrain_tokens``) mean something only with tensor parallelism in
-    training, which is not ported (ROADMAP Queue 1 item 4)."""
+    context.
+
+    ``seq_sharded`` is the layout of one tensor-parallel forward
+    (:func:`tp_layout`): None outside one (serving keeps its weights
+    whole on every rank); in one, whether its layer boundaries hold this
+    rank's S / tp positions (Megatron sequence parallelism, the JAX
+    ``constrain_tokens`` rule) or the whole sequence.  The JAX package's
+    GSPMD layout hints ``constrain_act`` and ``constrain_tokens`` are
+    the explicit steps :func:`tp_enter`, :func:`tp_exit`,
+    :func:`rep_enter` and :func:`rep_exit` here."""
     mesh: Any
     dp_axes: tuple[str, ...] = ("data",)
     tp_axis: str = "model"
+    seq_sharded: Optional[bool] = None
 
     def axis_size(self, name: str) -> int:
         """The size of axis ``name``; 1 for an axis the mesh lacks."""
@@ -101,6 +110,243 @@ class MeshCtx:
 
     def batch_axes(self, b: int) -> tuple[str, ...]:
         return self.dp_axes if b % self.n_batch == 0 else ()
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether this is a tensor-parallel forward: the layers hold
+        their weights' ``model`` blocks and run the layout steps."""
+        return self.seq_sharded is not None and self.tp > 1
+
+
+def tensor_parallel(ctx: Optional[MeshCtx]) -> bool:
+    return ctx is not None and ctx.tensor_parallel
+
+
+def seq_shardable(tp: int, s: int) -> bool:
+    """The JAX ``constrain_tokens`` rule: a sequence of ``s`` positions is
+    sharded over a model axis of ``tp`` ranks where ``tp`` divides it
+    into pieces of at least 128."""
+    return tp > 1 and s % tp == 0 and s // tp >= 128
+
+
+def tp_layout(ctx: Optional[MeshCtx], s: int) -> Optional[MeshCtx]:
+    """``ctx`` for a tensor-parallel forward over ``s`` positions (its
+    ``seq_sharded`` set by :func:`seq_shardable`); ``ctx`` itself where
+    the model axis has one rank or there is no ctx."""
+    if ctx is None or ctx.tp == 1:
+        return ctx
+    return dataclasses.replace(ctx, seq_sharded=seq_shardable(ctx.tp, s))
+
+
+# ------------------------------------------------ tensor-parallel layout
+#
+# Each step is a ``torch.autograd.Function`` over the model group, on
+# activations [B, S, D] whose sequence dim is 1.  A sequence-sharded
+# tensor holds this rank's S / tp positions, rank r the r-th piece.
+
+def _seq_gather(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """[B, S/tp, D] of every rank → [B, S, D] (contiguous), in rank
+    order."""
+    from repro_torch.sharding import collectives
+    x = x.contiguous()
+    buf = x.new_empty((ctx.tp,) + tuple(x.shape))
+    collectives.all_gather(buf.view(-1), x.view(-1), ctx.tp_group,
+                           axis=ctx.tp_axis)
+    b, s, d = x.shape
+    return buf.permute(1, 0, 2, 3).reshape(b, ctx.tp * s, d)
+
+
+def _seq_reduce_scatter(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """[B, S, D] summed over the ranks → this rank's [B, S/tp, D]."""
+    from repro_torch.sharding import collectives
+    b, s, d = x.shape
+    pieces = x.reshape(b, ctx.tp, s // ctx.tp, d).transpose(0, 1)
+    out = x.new_empty((b, s // ctx.tp, d))
+    collectives.reduce_scatter(out.view(-1), pieces.contiguous().view(-1),
+                               ctx.tp_group, axis=ctx.tp_axis)
+    return out
+
+
+def _seq_piece(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """This rank's [B, S/tp, D] of a whole [B, S, D]."""
+    n = x.shape[1] // ctx.tp
+    return x.narrow(1, ctx.tp_rank * n, n).contiguous()
+
+
+def _all_reduce(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    from repro_torch.sharding import collectives
+    return collectives.all_reduce(x.contiguous().clone(), ctx.tp_group,
+                                  axis=ctx.tp_axis)
+
+
+class _CopyIn(torch.autograd.Function):
+    """Into a tensor-parallel region: identity; backward all-reduces the
+    ranks' partial gradients."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g, fctx.ctx), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Out of a tensor-parallel region: the ranks' partial sums
+    all-reduced, then cast to ``dtype``; backward is the identity (cast
+    back to the partials' dtype, exactly)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, dtype):
+        fctx.dtype = x.dtype
+        return _all_reduce(x, ctx).to(dtype)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g.to(fctx.dtype), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    """Sequence-sharded → whole, into a tensor-parallel region: all-gather
+    of S; backward reduce-scatters the ranks' partial gradients."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _seq_gather(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _seq_reduce_scatter(g, fctx.ctx), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Out of a tensor-parallel region, sequence-sharded: reduce-scatter
+    of the partial sums over S, then cast to ``dtype``; backward
+    all-gathers (in ``dtype``, then cast back exactly)."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, dtype):
+        fctx.ctx, fctx.dtype = ctx, x.dtype
+        return _seq_reduce_scatter(x, ctx).to(dtype)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _seq_gather(g, fctx.ctx).to(fctx.dtype), None, None
+
+
+class _RowParallel(torch.autograd.Function):
+    """``x @ w`` for x [..., K] and w [K, N] in a 16-bit dtype, its sum
+    over K kept in f32: a row-parallel product's partial sum, which
+    :func:`tp_exit` adds over the model group before it rounds once to
+    x's dtype, as the one-card product rounds its whole sum once (a
+    16-bit partial would round each rank's part, then their sum).  On
+    the card ``torch.bmm(..., out_dtype=torch.float32)``, which has no
+    gradient in torch; elsewhere the operands widened first (exact).
+    Backward: the one-card product's, the gradient narrowed to x's dtype
+    first (exact: it comes from a 16-bit tensor)."""
+
+    @staticmethod
+    def forward(fctx, x, w):
+        fctx.save_for_backward(x, w)
+        k = x.shape[-1]
+        if x.is_cuda:
+            out = torch.bmm(x.reshape(1, -1, k), w[None],
+                            out_dtype=torch.float32)
+        else:
+            out = x.reshape(-1, k).float() @ w.float()
+        return out.reshape(tuple(x.shape[:-1]) + (w.shape[1],))
+
+    @staticmethod
+    def backward(fctx, g):
+        x, w = fctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = dw = None
+        if fctx.needs_input_grad[0]:
+            dx = g @ w.T
+        if fctx.needs_input_grad[1]:
+            dw = x.reshape(-1, x.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+        return dx, dw
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 ctx: Optional[MeshCtx]) -> torch.Tensor:
+    """``x @ w``; in a tensor-parallel forward with 16-bit operands, this
+    rank's partial sum in f32 (:class:`_RowParallel`) for
+    :func:`tp_exit`."""
+    if not tensor_parallel(ctx) or x.dtype == torch.float32:
+        return x @ w
+    return _RowParallel.apply(x, w)
+
+
+class _GatherRep(torch.autograd.Function):
+    """Sequence-sharded → whole, into a replicated region (every rank
+    computes the same function of the whole sequence): all-gather of S;
+    backward keeps this rank's piece of the (whole, equal) gradient."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _seq_gather(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _seq_piece(g, fctx.ctx), None
+
+
+class _SplitSeq(torch.autograd.Function):
+    """Whole and equal on every rank → this rank's piece of S; backward
+    all-gathers the pieces' gradients."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _seq_piece(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _seq_gather(g.contiguous(), fctx.ctx), None
+
+
+def tp_enter(x: torch.Tensor, ctx: Optional[MeshCtx]) -> torch.Tensor:
+    """A layer boundary's tokens into a column-parallel product: the
+    whole sequence (all-gathered where sharded, backward
+    reduce-scatter), else the identity with an all-reduce backward.  The
+    identity outside a tensor-parallel forward."""
+    if not tensor_parallel(ctx):
+        return x
+    return (_GatherSeq if ctx.seq_sharded else _CopyIn).apply(x, ctx)
+
+
+def tp_exit(x: torch.Tensor, ctx: Optional[MeshCtx],
+            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A row-parallel product's partial sums back to the layer boundary
+    in ``dtype`` (default x's; a :func:`row_parallel` partial is f32 and
+    rounds once, after the sum): reduce-scattered over S where the
+    sequence is sharded (backward all-gather, in ``dtype``), else
+    all-reduced (backward identity)."""
+    if not tensor_parallel(ctx):
+        return x if dtype is None else x.to(dtype)
+    return (_ScatterSeq if ctx.seq_sharded else _ReduceOut).apply(
+        x, ctx, dtype or x.dtype)
+
+
+def rep_enter(x: torch.Tensor, ctx: Optional[MeshCtx]) -> torch.Tensor:
+    """Into a part the rules keep whole over ``model`` (Mamba-2, an FFN
+    whose width the ranks do not divide), which every rank computes on
+    the whole sequence: all-gathered where sharded."""
+    if not tensor_parallel(ctx) or not ctx.seq_sharded:
+        return x
+    return _GatherRep.apply(x, ctx)
+
+
+def rep_exit(x: torch.Tensor, ctx: Optional[MeshCtx]) -> torch.Tensor:
+    """Out of a whole part: this rank's piece of S where sharded."""
+    if not tensor_parallel(ctx) or not ctx.seq_sharded:
+        return x
+    return _SplitSeq.apply(x, ctx)
 
 
 def _truncated_normal(shape, generator: torch.Generator, device,

@@ -33,7 +33,11 @@ def init_ffn(generator: torch.Generator, d_model: int, d_ff: int, act: str,
     return FFN(w_in, w_out, w_gate)
 
 
-def ffn_forward(p: FFN, x: torch.Tensor, act: str) -> torch.Tensor:
+def ffn_forward(p: FFN, x: torch.Tensor, act: str,
+                ctx=None) -> torch.Tensor:
+    """The FFN of x; in a tensor-parallel forward (``ctx``) w_in and
+    w_gate hold this rank's columns and w_out its rows, and the result is
+    this rank's partial sum (``common.row_parallel``)."""
     h = x @ p.w_in.to(x.dtype)
     if act == "swiglu":
         h = F.silu(x @ p.w_gate.to(x.dtype)) * h
@@ -41,4 +45,4 @@ def ffn_forward(p: FFN, x: torch.Tensor, act: str) -> torch.Tensor:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     else:
         raise ValueError(act)
-    return h @ p.w_out.to(x.dtype)
+    return common.row_parallel(h, p.w_out.to(x.dtype), ctx)

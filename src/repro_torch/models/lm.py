@@ -77,10 +77,20 @@ def norm_calls(params: LMParams) -> int:
 
 
 def _embed_tokens(params: LMParams, tokens: torch.Tensor,
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, ctx=None) -> torch.Tensor:
+    """The tokens' rows of the embedding.  In a tensor-parallel forward
+    ``embed`` holds this rank's rows of the vocabulary (the rules' ``P(model,
+    None)``): a token outside them gives zeros, and the ranks' sum is the
+    lookup (``CausalLM._inputs``)."""
     # cast, then gather, as the JAX package: the gradient of the gather
     # accumulates in the compute dtype there too
-    return params.embed.to(cfg.cdtype())[tokens]
+    w = params.embed.to(cfg.cdtype())
+    if not common.tensor_parallel(ctx):
+        return w[tokens]
+    vl = w.shape[0]
+    local = tokens - ctx.tp_rank * vl
+    mine = (local >= 0) & (local < vl)
+    return w[local.clamp(0, vl - 1)] * mine[..., None].to(w.dtype)
 
 
 def _head_logits(params: LMParams, x: torch.Tensor,
@@ -90,8 +100,10 @@ def _head_logits(params: LMParams, x: torch.Tensor,
     return x @ params.head.to(x.dtype)
 
 
-def _chunk_nll(params: LMParams, xs, ls, ms, cfg: ModelConfig):
+def _chunk_nll(params: LMParams, xs, ls, ms, cfg: ModelConfig, ctx=None):
     logits = _head_logits(params, xs, cfg).float()
+    if common.tensor_parallel(ctx):
+        return _VocabNLL.apply(logits, ls, ms, cfg.vocab_size, ctx), ms.sum()
     if cfg.padded_vocab != cfg.vocab_size:      # mask pad columns
         pad = torch.arange(cfg.padded_vocab, device=logits.device)
         logits = logits.masked_fill(pad >= cfg.vocab_size, -1e30)
@@ -101,11 +113,56 @@ def _chunk_nll(params: LMParams, xs, ls, ms, cfg: ModelConfig):
     return nll.sum(), ms.sum()
 
 
+class _VocabNLL(torch.autograd.Function):
+    """Σ (lse − ll + 1e-4·lse²) · mask over a chunk whose f32 logits
+    [B, cs, Vp / tp] are this rank's columns of the vocabulary (rank r
+    holds columns [r·Vp/tp, (r+1)·Vp/tp)): the pad columns past
+    ``vocab_size`` masked at -1e30, the rows' maximum all-reduced (max)
+    over the model group, then their sums of exp and the label's logit
+    (from the rank that holds it, 0 elsewhere) all-reduced in one; lse =
+    max + log(sum).  The result is equal on every rank.  Backward: this
+    rank's columns of (softmax · (1 + 2e-4·lse) − onehot(label)) · mask
+    · g, with no collective."""
+
+    @staticmethod
+    def forward(fctx, logits, labels, mask, vocab: int, ctx):
+        from repro_torch.sharding import collectives
+        vl = logits.shape[-1]
+        lo = ctx.tp_rank * vl
+        cols = torch.arange(lo, lo + vl, device=logits.device)
+        logits = logits.masked_fill(cols >= vocab, -1e30)
+        m = logits.amax(dim=-1)
+        collectives.all_reduce(m, ctx.tp_group, op="max", axis=ctx.tp_axis)
+        local = labels.long() - lo
+        mine = (local >= 0) & (local < vl)
+        idx = local.clamp(0, vl - 1)
+        ll = torch.gather(logits, -1, idx[..., None])[..., 0]
+        both = torch.stack([torch.exp(logits - m[..., None]).sum(-1),
+                            torch.where(mine, ll, torch.zeros_like(ll))])
+        collectives.all_reduce(both, ctx.tp_group, axis=ctx.tp_axis)
+        lse = m + torch.log(both[0])
+        nll = (lse - both[1] + 1e-4 * lse ** 2) * mask
+        fctx.save_for_backward(logits, lse, idx, mine, mask)
+        return nll.sum()
+
+    @staticmethod
+    def backward(fctx, g):
+        logits, lse, idx, mine, mask = fctx.saved_tensors
+        w = (g * mask)[..., None]
+        d = torch.exp(logits - lse[..., None]) * (1 + 2e-4 * lse)[..., None]
+        d.scatter_add_(-1, idx[..., None], -mine[..., None].to(d.dtype))
+        return d * w, None, None, None, None
+
+
 def chunked_nll(params: LMParams, x, labels, mask, cfg: ModelConfig,
-                n_chunks: int = 8):
+                n_chunks: int = 8, ctx=None):
     """Cross-entropy without materializing [B,S,V] at once: the sequence
     in chunks, each under activation checkpointing (memory: B*S/n*V per
-    chunk), with the z-loss 1e-4·lse² and pad columns masked at -1e30."""
+    chunk), with the z-loss 1e-4·lse² and pad columns masked at -1e30.
+    In a tensor-parallel forward x [B, S, D] is whole on every rank and
+    the head this rank's columns of the vocabulary (``head``'s
+    ``P(None, model)`` or, tied, ``embed``'s rows): each chunk's logits
+    stay vocab-sharded (:class:`_VocabNLL`)."""
     b, s, d = x.shape
     while s % n_chunks:
         n_chunks -= 1
@@ -115,7 +172,7 @@ def chunked_nll(params: LMParams, x, labels, mask, cfg: ModelConfig,
     for i in range(n_chunks):
         sl = slice(i * cs, (i + 1) * cs)
         s_nll, s_cnt = checkpoint(_chunk_nll, params, x[:, sl],
-                                  labels[:, sl], mask[:, sl], cfg,
+                                  labels[:, sl], mask[:, sl], cfg, ctx,
                                   use_reentrant=False)
         tot, cnt = tot + s_nll, cnt + s_cnt
     return tot / cnt.clamp(min=1.0)
@@ -156,51 +213,67 @@ class CausalLM:
         return dev, gen, (self.cfg.pdtype() if trainable
                           else self.cfg.cdtype())
 
-    def _inputs(self, params: LMParams, batch):
+    def _inputs(self, params: LMParams, batch, ctx=None):
         """(the embedded inputs [B, Np + S, D], Np): a VLM's
         ``prefix_embeds`` cast to the compute dtype before the tokens'
-        embeddings; Np = 0 without them."""
+        embeddings; Np = 0 without them.  In a tensor-parallel forward
+        each rank's partial lookup (the prefix on model rank 0, zeros on
+        the others) is summed over the model group by ``common.tp_exit``:
+        reduce-scattered to this rank's S / tp rows where the sequence
+        is sharded, else all-reduced.  Every partial sum has one nonzero
+        term, so the sum is the lookup exactly."""
         cfg = self.cfg
         dev = params.embed.device
         tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-        x = _embed_tokens(params, tokens, cfg)
+        x = _embed_tokens(params, tokens, cfg, ctx)
         n_prefix = 0
         if cfg.n_prefix_embeds and "prefix_embeds" in batch:
             pre = torch.as_tensor(batch["prefix_embeds"],
                                   device=dev).to(x.dtype)
+            if common.tensor_parallel(ctx) and ctx.tp_rank:
+                pre = torch.zeros_like(pre)
             x = torch.cat([pre, x], dim=1)
             n_prefix = pre.shape[1]
-        return x, n_prefix
+        return common.tp_exit(x, ctx), n_prefix
 
     # ---------------------------------------------------------- train
     def hidden(self, params: LMParams, batch, remat: bool = True,
-               mode: Optional[str] = None, run=None):
+               mode: Optional[str] = None, run=None, ctx=None):
         """(final-normed hidden states [B, Np + S, D], aux, n_prefix);
-        ``run``: how a layer runs (``blocks.stack_forward``)."""
+        ``run``: how a layer runs (``blocks.stack_forward``); ``ctx``: the
+        mesh context of a sharded step.  With a model axis of more than
+        one rank the forward is tensor-parallel (``common.tp_layout``) and
+        the states are this rank's S / tp rows where the sequence is
+        sharded."""
         cfg = self.cfg
-        x, n_prefix = self._inputs(params, batch)
-        s = x.shape[1]
+        s = seq_len(cfg, batch)
+        ctx = common.tp_layout(ctx, s)
+        x, n_prefix = self._inputs(params, batch, ctx)
         rope = common.make_rope(torch.arange(s, device=x.device),
                                 cfg.head_dim, cfg.rope_theta, cfg.rope_style)
         x, aux = blocks.stack_forward(params.blocks, x, cfg, rope,
                                       causal=True, remat=remat, mode=mode,
-                                      run=run)
+                                      run=run, ctx=ctx)
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps, mode)
         return x, aux, n_prefix
 
     def loss(self, params: LMParams, batch, remat: bool = True,
-             mode: Optional[str] = None, run=None):
+             mode: Optional[str] = None, run=None, ctx=None):
         """(total loss, {"nll", "aux"}): next-token NLL of
         ``batch["tokens"]`` [B, S] with the z-loss; ``run``: how a layer
-        runs (``blocks.stack_forward``)."""
+        runs (``blocks.stack_forward``); ``ctx``: the mesh context of a
+        sharded step (:meth:`hidden`).  In a tensor-parallel forward the
+        final norm's rows are made whole (``common.tp_enter``) for the
+        vocab-parallel head and loss (``chunked_nll``)."""
         cfg = self.cfg
-        x, aux, n_prefix = self.hidden(params, batch, remat, mode, run)
-        x = x[:, n_prefix:]
+        x, aux, n_prefix = self.hidden(params, batch, remat, mode, run, ctx)
+        ctx = common.tp_layout(ctx, seq_len(cfg, batch))
+        x = common.tp_enter(x, ctx)[:, n_prefix:]
         tokens = torch.as_tensor(batch["tokens"], device=x.device).long()
         labels = tokens[:, 1:]
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=x.device)
-        nll = chunked_nll(params, x[:, :-1], labels, mask, cfg)
+        nll = chunked_nll(params, x[:, :-1], labels, mask, cfg, ctx=ctx)
         aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
         return nll + aux_w * aux, {"nll": nll, "aux": aux}
 
@@ -242,7 +315,7 @@ class CausalLM:
                                     cfg.rope_style)
             cache = self.init_cache(b, max_len or cfg.max_seq, device=dev)
             x, cache = blocks.stack_prefill(params.blocks, cache, x, cfg,
-                                            rope, mode)
+                                            rope, mode, ctx=ctx)
             x = common.rms_norm(x, params.final_norm, cfg.norm_eps, mode)
             logits = _head_logits(params, x[:, -1:], cfg)
         return logits[:, 0, :cfg.vocab_size], cache
@@ -268,6 +341,15 @@ class CausalLM:
                                        pos, mode, ctx=ctx, shards=shards)
         x = common.rms_norm(x, params.final_norm, cfg.norm_eps, mode)
         return _head_logits(params, x, cfg)[:, 0, :cfg.vocab_size], cache
+
+
+def seq_len(cfg: ModelConfig, batch) -> int:
+    """The positions the layers run over: a VLM's prefix and the
+    tokens."""
+    s = batch["tokens"].shape[1]
+    if cfg.n_prefix_embeds and "prefix_embeds" in batch:
+        s += batch["prefix_embeds"].shape[1]
+    return s
 
 
 def _refuse_sharded_prefill(ctx) -> None:

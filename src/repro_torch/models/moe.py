@@ -1,20 +1,35 @@
 """Mixture-of-Experts layer: a softmax top-k router with the Switch
 load-balance auxiliary loss, and SwiGLU experts.
 
-Two paths compute the same function (exact: no capacity, no drops):
+The JAX package has two paths, and its ``moe_forward`` picks one by the
+mesh: ``moe_dense`` (exact, no capacity, no drops) with no mesh context
+or where the model axis does not divide the experts, else ``moe_ep``.
+``moe_ep`` splits each data rank's ``t`` tokens into ``tp`` slices of
+``ceil(t / tp)`` (the last padded), keeps each expert's first
+``cap = max(int(t_slice · top_k · capacity_factor / E), 1)`` picks of a
+slice in (token, slot) order and drops the rest, and averages the
+slices' router losses (each over its valid tokens).  It does so under
+any mesh context, a model axis of one rank included.  This module
+computes both functions:
 
 * ``moe_dense`` — every expert applied to every token (``[E, t, d]``),
   combined with the routing weights: the JAX package's collective-free
   path, kept literally as the plain version the tests hold the other
   against.  At full width it is E / top_k times the active FLOPs.
-* ``moe_forward`` — each expert applied to the tokens that chose it, and
-  gate × output added into the token's row: the path the model runs.
-  Only the order of the sum over a token's experts differs (it is f32
-  here, rounded once).
+* ``moe_ep_plain`` — ``_ep_body`` literally at a given ``tp``, its
+  capacity buffers and all, the experts whole (the ``all_to_all`` over
+  the model axis only moves each slice's buffer to the experts' rank).
+* ``moe_forward`` — the path the model runs, by the JAX rule: each
+  expert applied to the tokens that chose it (and, under a mesh
+  context, that its capacity kept), gate × output added into the
+  token's row.  Only the order of the sum over a token's experts
+  differs (it is f32 here, rounded once).
 
-The JAX package's expert-parallel ``moe_ep`` needs several cards and is
-not ported; with no mesh the JAX ``moe_forward`` computes ``moe_dense``'s
-function, as this one does.
+The experts are whole on every rank wherever the port runs a MoE under
+a mesh context (the ZeRO-3 step at ``model`` = 1 gathers them; sharded
+serving keeps every weight whole), so the drops need no collective.
+Experts cut over a model axis of more than one rank (``moe_ep``'s
+``all_to_all``) are expert parallelism, which is not ported.
 """
 from __future__ import annotations
 
@@ -27,7 +42,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import common, ffn
 
-__all__ = ["MoE", "init_moe", "moe_dense", "moe_forward"]
+__all__ = ["MoE", "init_moe", "moe_dense", "moe_ep_plain",
+           "moe_forward", "capacity"]
 
 
 class MoE(nn.Module):
@@ -73,15 +89,54 @@ def _route(xt: torch.Tensor, router_w: torch.Tensor, e: MoEConfig):
     return probs, gates.to(xt.dtype), idx
 
 
-def _aux_loss(probs: torch.Tensor, idx: torch.Tensor,
-              e: MoEConfig) -> torch.Tensor:
-    """Switch load-balance loss: E · Σ_e f_e p̄_e.  (The JAX package's
-    ``valid`` mask serves its expert-parallel path only.)"""
+def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, e: MoEConfig,
+              valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Switch load-balance loss: E · Σ_e f_e p̄_e, over the tokens that
+    ``valid`` (f32 [t]) marks where given (a slice's padding is not
+    counted)."""
     onehot = F.one_hot(idx, e.n_experts).float()          # [t, k, E]
-    t = probs.shape[0]
-    f = onehot.sum((0, 1)) / max(t * e.top_k, 1.0)
-    p_bar = probs.sum(0) / t
+    if valid is not None:
+        onehot = onehot * valid[:, None, None]
+        probs = probs * valid[:, None]
+        denom = valid.sum().clamp_min(1.0)
+        f = onehot.sum((0, 1)) / (denom * e.top_k).clamp_min(1.0)
+    else:
+        denom = probs.shape[0]
+        f = onehot.sum((0, 1)) / max(denom * e.top_k, 1.0)
+    p_bar = probs.sum(0) / denom
     return e.n_experts * torch.sum(f * p_bar)
+
+
+def capacity(t: int, tp: int, e: MoEConfig) -> tuple[int, int]:
+    """(tokens a slice, an expert's capacity in a slice) of ``moe_ep``
+    over ``t`` tokens in ``tp`` slices."""
+    t_slice = -(-t // tp)
+    return t_slice, max(int(t_slice * e.top_k * e.capacity_factor
+                            / e.n_experts), 1)
+
+
+def _slice_picks(probs, idx, e: MoEConfig, tp: int):
+    """``moe_ep``'s drops and router loss over ``tp`` slices of the
+    ``t`` routed tokens: (keep [t, k] bool, aux).  Each (token, slot)
+    pick's position in its expert's buffer is its count among the
+    slice's earlier picks of that expert in (token, slot) order; the
+    first ``cap`` are kept.  The loss is the mean of the slices'."""
+    t, k = idx.shape
+    ts, cap = capacity(t, tp, e)
+    pad = ts * tp - t
+    onehot = F.one_hot(idx, e.n_experts).to(torch.int32)  # [t, k, E]
+    if pad:
+        onehot = torch.cat([onehot, onehot.new_zeros(pad, k, e.n_experts)])
+    flat = onehot.reshape(tp, ts * k, e.n_experts)
+    pos = ((torch.cumsum(flat, dim=1) - 1) * flat).sum(-1)
+    keep = (pos.reshape(tp * ts, k) < cap)[:t]
+    valid = (torch.arange(ts * tp, device=idx.device) < t).float()
+    probs_p = torch.cat([probs, probs.new_zeros(pad, probs.shape[1])])
+    idx_p = torch.cat([idx, idx.new_zeros(pad, k)])
+    aux = torch.stack([
+        _aux_loss(probs_p[j * ts:(j + 1) * ts], idx_p[j * ts:(j + 1) * ts],
+                  e, valid[j * ts:(j + 1) * ts]) for j in range(tp)]).mean()
+    return keep, aux
 
 
 def _expert_ffn(w_in, w_gate, w_out, xb: torch.Tensor,
@@ -111,23 +166,77 @@ def moe_dense(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     return y.reshape(b, s, d), aux
 
 
-def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """The layer's MoE, ``moe_dense``'s function: each expert on the
-    tokens that chose it.  x: [B, S, D] → (y, aux).
+def moe_ep_plain(p: MoE, x: torch.Tensor, cfg: ModelConfig, tp: int):
+    """The JAX package's ``_ep_body`` over a model axis of ``tp`` ranks,
+    literally, with the experts whole: each slice of ``ceil(t / tp)``
+    tokens routed into capacity buffers ``[E, cap, d]`` (scatter-add, the
+    dropped picks zero), every expert on its buffer, each kept slot's
+    output gathered back and weighted by its gate, summed over the slots
+    in x's dtype; the slices' router losses averaged.  The plain version
+    :func:`moe_forward` is held against.  x: [B, S, D] → (y, aux)."""
+    e = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    ts, cap = capacity(t, tp, e)
+    xt = x.reshape(t, d)
+    xt = torch.cat([xt, xt.new_zeros(ts * tp - t, d)])
+    ys, auxes = [], []
+    for j in range(tp):
+        xs = xt[j * ts:(j + 1) * ts]
+        valid = (j * ts + torch.arange(ts, device=x.device)) < t
+        probs, gates, idx = _route(xs, p.router, e)
+        auxes.append(_aux_loss(probs, idx, e, valid.float()))
+        onehot = F.one_hot(idx, e.n_experts).to(torch.int64)
+        flat = onehot.reshape(ts * e.top_k, e.n_experts)
+        pos = ((torch.cumsum(flat, 0) - 1) * flat).sum(-1).reshape(
+            ts, e.top_k)
+        keep = (pos < cap) & valid[:, None]
+        esafe = torch.where(keep, idx, 0).reshape(-1)
+        psafe = torch.where(keep, pos, 0).reshape(-1)
+        src = (xs[:, None, :] * keep[..., None].to(x.dtype)).reshape(-1, d)
+        buf = x.new_zeros(e.n_experts, cap, d).index_put(
+            (esafe, psafe), src, accumulate=True)
+        yb = _expert_ffn(p.w_in, p.w_gate, p.w_out, buf, x.dtype)
+        yslot = yb[esafe, psafe].reshape(ts, e.top_k, d)
+        yslot = yslot * (gates * keep.to(gates.dtype))[..., None]
+        ys.append(yslot.sum(1))
+    y = torch.cat(ys)[:t]
+    if e.dense_residual:
+        y = y + ffn.ffn_forward(p.dense, x.reshape(t, d), cfg.act)
+    return y.reshape(b, s, d), torch.stack(auxes).mean()
+
+
+def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """The layer's MoE by the JAX package's rule: ``moe_dense``'s
+    function with no ``ctx`` or where its model axis does not divide the
+    experts, else ``moe_ep``'s at ``tp = ctx.tp`` (:func:`moe_ep_plain`:
+    each slice's overflow dropped).  Each expert runs on the tokens that
+    chose it and were kept.  x: [B, S, D] → (y, aux).
 
     The (token, slot) picks are sorted by expert (stably, so each
-    expert's tokens stay in token order); one host read of the per-expert
-    counts, then for each expert with picks: gather its tokens, SwiGLU,
-    and add gate × output into an f32 [t, D] sum, rounded once to x's
-    dtype."""
+    expert's tokens stay in token order; a dropped pick sorts last, past
+    every expert); one host read of the per-expert counts, then for each
+    expert with picks: gather its tokens, SwiGLU, and add gate × output
+    into an f32 [t, D] sum, rounded once to x's dtype."""
     e = cfg.moe
+    tp = 1 if ctx is None else ctx.tp
+    if common.tensor_parallel(ctx):
+        raise NotImplementedError(
+            "MoE experts cut over a model axis of more than one rank are "
+            "expert parallelism (moe_ep's all_to_all), which is not "
+            "ported: ROADMAP.md Queue 1 item 4, MoE expert parallelism")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gates, idx = _route(xt, p.router, e)
-    aux = _aux_loss(probs, idx, e)
     flat = idx.reshape(-1)
+    if ctx is None or e.n_experts % tp:
+        aux = _aux_loss(probs, idx, e)
+    else:
+        keep, aux = _slice_picks(probs, idx, e, tp)
+        flat = torch.where(keep.reshape(-1), flat, e.n_experts)
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=e.n_experts).tolist()
+    counts = torch.bincount(flat, minlength=e.n_experts)[
+        :e.n_experts].tolist()
     tok = order // e.top_k
     gate = gates.reshape(-1)[order].float()
     y = torch.zeros((b * s, d), dtype=torch.float32, device=x.device)

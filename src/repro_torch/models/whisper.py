@@ -117,7 +117,7 @@ class EncDecLM(CausalLM):
 
     # ------------------------------------------------------------ train
     def hidden(self, params: EncDecParams, batch, remat: bool = True,
-               mode: Optional[str] = None, run=None):
+               mode: Optional[str] = None, run=None, ctx=None):
         """(final-normed decoder states [B, S, D], aux, 0): the encoder on
         ``batch["frames"]``, then the decoder on ``batch["tokens"]`` with
         cross-attention to it; ``run``: how a decoder layer runs
@@ -126,7 +126,7 @@ class EncDecLM(CausalLM):
         x, rope, kv = self._context(params, batch, remat, mode)
         x, aux = blocks.stack_forward(params.blocks, x, cfg, rope,
                                       causal=True, remat=remat, mode=mode,
-                                      cross_kv=kv, run=run)
+                                      cross_kv=kv, run=run, ctx=ctx)
         return common.rms_norm(x, params.final_norm, cfg.norm_eps,
                                mode), aux, 0
 

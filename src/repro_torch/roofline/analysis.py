@@ -18,6 +18,7 @@ over the card's measured link bandwidth (``HwSpec.link_bw``).
 """
 from __future__ import annotations
 
+import math
 from collections import defaultdict
 
 import torch
@@ -28,7 +29,7 @@ from repro_torch.roofline.hw import H100_HW, HwSpec
 from repro_torch.sharding import collectives
 
 __all__ = ["analytic_memory_bytes", "model_flops", "count_flops",
-           "roofline_terms"]
+           "roofline_terms", "collective_s_by_axis", "sharded_step_wire"]
 
 
 # ------------------------------------------------------------- op counts
@@ -140,7 +141,9 @@ def roofline_terms(cfg: ModelConfig, shape: ShapeConfig, n_chips: int,
     ``cfg.compute_dtype``, memory time the analytic bytes over
     ``hw.hbm_bw``, collective time its counted wire bytes over the
     card's measured link bandwidth ``hw.link_bw`` (NCCL's bus bandwidth,
-    where the JAX package divides by the TPU's ICI links)."""
+    where the JAX package divides by the TPU's ICI links): every
+    recorded collective, ZeRO-3's over ``data`` and tensor parallelism's
+    over ``model`` alike (:func:`collective_s_by_axis` splits it)."""
     if n_chips < 1:
         raise ValueError(f"roofline_terms: n_chips={n_chips}")
     peak = hw.peak_flops[cfg.compute_dtype]
@@ -166,3 +169,145 @@ def roofline_terms(cfg: ModelConfig, shape: ShapeConfig, n_chips: int,
         "wire_bytes_per_device": counts["total_wire_bytes"],
         "roofline_fraction": min(mfu_at_roofline, 1.0),
     }
+
+
+def collective_s_by_axis(counts: dict, hw: HwSpec = H100_HW) -> dict:
+    """:func:`roofline_terms`' collective term apart by the mesh axis
+    its bytes went over (``count_flops``' ``collective_wire_bytes_by_
+    axis``): the ``data`` axis's ZeRO-3 gathers and gradient syncs, the
+    ``model`` axis's tensor-parallel activation steps and loss, the
+    ``pod`` axis's gradient means."""
+    return {a: b / hw.link_bw for a, b in
+            counts.get("collective_wire_bytes_by_axis", {}).items()}
+
+
+# --------------------------------------------------- sharded step's wire
+
+def sharded_step_wire(cfg: ModelConfig, sizes: dict, batch: int, seq: int,
+                      n_prefix: int = 0, remat: bool = True,
+                      n_metrics: int = 3) -> dict:
+    """The ring model of the collectives one rank issues in one step of
+    the sharded train step (``trainstep.make_train_step(ctx=)``) of
+    ``cfg`` on a mesh of ``sizes`` (``{"pod", "data", "model"}``, a
+    missing axis 1), for a global batch of ``batch`` rows of ``seq``
+    tokens after ``n_prefix`` prefix embeddings: ``{kind: wire bytes}``
+    of this rank, from the layout alone (what ``sharding.collectives``
+    records when the step runs).  With ``remat`` every layer runs its
+    forward twice, and so do the loss's checkpointed chunks always.
+
+    * ZeRO-3 (``train.zero``): each parameter cut over ``data`` is
+      all-gathered in the compute dtype each time its layer runs, and
+      its f32 gradient reduce-scattered once.
+    * Tensor parallelism (``models.common``), activations [rows, S, D]
+      in the compute dtype (a row-parallel product's partial sums in
+      f32): a column/row pair (attention, a divisible FFN) all-gathers
+      and reduce-scatters S each way where the sequence is sharded, else
+      all-reduces forward and backward once each (a FFN's reduction, the
+      layer's last step, is not recomputed); a
+      part whole over ``model`` (Mamba-2, an FFN the ranks do not
+      divide) all-gathers S forward and backward where it is sharded;
+      the embedding's partial lookup is reduce-scattered (all-reduced)
+      and the final states gathered for the head (an all-reduce in the
+      backward); each loss chunk all-reduces its rows' maxima and, in
+      one, their sums and label logits (f32).
+    * The gradients: parts held by each ``model`` rank
+      (``zero.model_partial``) all-reduced over ``model``; every
+      parameter whole over ``data`` all-reduced over ``data``, and every
+      one over ``pod``; the metrics over each batch axis; the norm's
+      f32 squares over each axis a leaf is cut over."""
+    import types
+    from repro_torch.models import blocks, common
+    from repro_torch.models.lm import build_model
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.layout import shard_of
+    from repro_torch.train import zero
+    mesh = types.SimpleNamespace(axis_names=tuple(sizes), shape=dict(sizes))
+    pods, data, tp = (sizes.get(a, 1) for a in ("pod", "data", "model"))
+    meta = dict(build_model(cfg).init(device="meta",
+                                      trainable=True).named_parameters())
+    specs = rules.param_specs(meta, cfg, mesh)
+    shards = {k: shard_of(tuple(p.shape), specs[k], mesh,
+                          {a: 0 for a in sizes}) for k, p in meta.items()}
+    n_b = pods * data
+    rows = (batch // n_b if batch % n_b == 0
+            else batch // data if batch % data == 0 else batch)
+    s_all = seq + n_prefix
+    sp = common.seq_shardable(tp, s_all)
+    cd = torch.empty((), dtype=cfg.cdtype()).element_size()
+    act = rows * s_all * cfg.d_model * cd
+    # a row-parallel product's partial sums go out in f32 (common.row_parallel)
+    part = rows * s_all * cfg.d_model * 4
+    out: dict = {}
+
+    def add(kind: str, nbytes: float, g: int, times: int = 1) -> None:
+        if g > 1:
+            f = 2 * (g - 1) / g if kind == "all-reduce" else (g - 1) / g
+            out[kind] = out.get(kind, 0.0) + times * nbytes * f
+
+    runs = 2 if remat else 1
+
+    def column_row(exit_runs: int):
+        """enter: forward ``runs``, backward once; exit: forward
+        ``exit_runs`` (the partial sums), backward once."""
+        if sp:
+            add("all-gather", act, tp, runs + 1)
+            add("reduce-scatter", act, tp)
+            add("reduce-scatter", part, tp, exit_runs)
+        else:
+            add("all-reduce", act, tp)
+            add("all-reduce", part, tp, exit_runs)
+
+    def whole_part():
+        if sp:
+            add("all-gather", act, tp, runs + 1)
+
+    def n_local(k):
+        return math.prod(shards[k].local_shape)
+
+    for i, desc in enumerate(blocks.stack_descriptors(cfg)):
+        pre = f"blocks.{i}."
+        for k in meta:
+            if k.startswith(pre) and "data" in zero.cut_axes(shards[k]):
+                add("all-gather", data * n_local(k) * cd, data, runs)
+                add("reduce-scatter", data * n_local(k) * 4, data)
+        if tp == 1:
+            continue
+        if desc.mixer == "attn":
+            column_row(runs)
+        else:
+            whole_part()
+        if desc.ffn == "dense" and cfg.d_ff % tp == 0:
+            # the layer's last step: torch.utils.checkpoint ends its
+            # recompute once every saved tensor is back, before it
+            column_row(1)
+        elif desc.ffn == "dense":
+            whole_part()
+    if tp > 1:
+        # the embedding's sum and the head's gather, each once a way
+        add("reduce-scatter" if sp else "all-reduce", act, tp)
+        if sp:
+            add("all-gather", act, tp, 2)
+            add("reduce-scatter", act, tp)
+        else:
+            add("all-reduce", act, tp)
+        n_chunks, s_tok = 8, seq - 1
+        while s_tok % n_chunks:
+            n_chunks -= 1
+        cs = s_tok // n_chunks
+        add("all-reduce", rows * cs * 4, tp, 2 * n_chunks)      # maxima
+        add("all-reduce", 2 * rows * cs * 4, tp, 2 * n_chunks)  # sums, ll
+    partial = zero.model_partial(cfg, types.SimpleNamespace(tp=tp), sp)
+    parts = set()
+    for k in meta:
+        axes = zero.cut_axes(shards[k])
+        parts.add(tuple(sorted(set(axes))))
+        if partial(k):
+            add("all-reduce", n_local(k) * 4, tp)
+        if "data" not in axes:
+            add("all-reduce", n_local(k) * 4, data)
+        add("all-reduce", n_local(k) * 4, pods)
+    for a, g in (("pod", pods), ("data", data)):
+        add("all-reduce", n_metrics * 4, g)
+    for a, g in (("data", data), ("model", tp)):
+        add("all-reduce", 4 * sum(a in p for p in parts), g)
+    return out

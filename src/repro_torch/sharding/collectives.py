@@ -2,9 +2,11 @@
 
 Each function here issues one ``torch.distributed`` collective and, while
 a :func:`recording` block is open, records its kind, the bytes of its
-operand, its group's size and its ring-model wire bytes: the bytes one
+operand, its group's size, its ring-model wire bytes (the bytes one
 rank sends, as the JAX package's ``roofline.analysis.analyze_hlo``
-reckons them from the HLO.  For a group of g ranks:
+reckons them from the HLO), its dtype and the mesh axis its group lies
+along (``data`` for ZeRO-3's gathers, ``model`` for the tensor-parallel
+layout steps, ...).  For a group of g ranks:
 
   * all-gather of an N-byte result: N (g - 1) / g;
   * reduce-scatter of an N-byte input: N (g - 1) / g (the JAX parser
@@ -39,6 +41,7 @@ class Record:
     group_size: int
     wire_bytes: float        # ring model, bytes this rank sends
     dtype: str = ""          # the operand's, e.g. "int8"
+    axis: str = ""           # the mesh axis of the group, "" for another
 
 
 _OPEN: list[list[Record]] = []
@@ -57,8 +60,9 @@ def recording() -> Iterator[list[Record]]:
 
 
 def _note(kind: str, t: torch.Tensor, operand: int, g: int,
-          wire: float) -> None:
-    rec = Record(kind, operand, g, wire, str(t.dtype).removeprefix("torch."))
+          wire: float, axis: str) -> None:
+    rec = Record(kind, operand, g, wire, str(t.dtype).removeprefix("torch."),
+                 axis)
     for log in _OPEN:
         log.append(rec)
 
@@ -72,57 +76,67 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def all_gather(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
+def all_gather(out: torch.Tensor, inp: torch.Tensor, group,
+               axis: str = "") -> torch.Tensor:
     """``out`` [g · n] ← every rank's ``inp`` [n], in rank order."""
     import torch.distributed as dist
     g = _size(group)
     dist.all_gather_into_tensor(out, inp, group=group)
-    _note("all-gather", inp, _nbytes(inp), g, _nbytes(out) * (g - 1) / g)
+    _note("all-gather", inp, _nbytes(inp), g, _nbytes(out) * (g - 1) / g,
+          axis)
     return out
 
 
-def reduce_scatter(out: torch.Tensor, inp: torch.Tensor,
-                   group) -> torch.Tensor:
+def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group,
+                   axis: str = "") -> torch.Tensor:
     """``out`` [n] ← the sum over ranks of this rank's slice of ``inp``
     [g · n]."""
     import torch.distributed as dist
     g = _size(group)
     dist.reduce_scatter_tensor(out, inp, group=group)
     _note("reduce-scatter", inp, _nbytes(inp), g,
-          _nbytes(inp) * (g - 1) / g)
+          _nbytes(inp) * (g - 1) / g, axis)
     return out
 
 
-def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+def all_reduce(t: torch.Tensor, group, op: str = "sum",
+               axis: str = "") -> torch.Tensor:
     """``t`` ← its sum (or ``op="max"``: maximum) over the group, in
     place."""
     import torch.distributed as dist
     g = _size(group)
     dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                            "max": dist.ReduceOp.MAX}[op], group=group)
-    _note("all-reduce", t, _nbytes(t), g, 2 * _nbytes(t) * (g - 1) / g)
+    _note("all-reduce", t, _nbytes(t), g, 2 * _nbytes(t) * (g - 1) / g,
+          axis)
     return t
 
 
-def all_to_all(out: torch.Tensor, inp: torch.Tensor, group) -> torch.Tensor:
+def all_to_all(out: torch.Tensor, inp: torch.Tensor, group,
+               axis: str = "") -> torch.Tensor:
     """``out`` [g · n]: chunk r of ``inp`` goes to rank r, and chunk r of
     ``out`` comes from rank r."""
     import torch.distributed as dist
     g = _size(group)
     dist.all_to_all_single(out, inp, group=group)
-    _note("all-to-all", inp, _nbytes(inp), g, _nbytes(inp) * (g - 1) / g)
+    _note("all-to-all", inp, _nbytes(inp), g, _nbytes(inp) * (g - 1) / g,
+          axis)
     return out
 
 
 def summarize(log: list[Record]) -> dict:
     """The collective keys of the JAX package's ``analyze_hlo``:
-    operand and wire bytes by kind and their totals."""
+    operand and wire bytes by kind and their totals; and the wire bytes
+    by mesh axis (``collective_wire_bytes_by_axis``)."""
     operand: dict[str, float] = {}
     wire: dict[str, float] = {}
+    by_axis: dict[str, float] = {}
     for r in log:
         operand[r.kind] = operand.get(r.kind, 0.0) + r.operand_bytes
         wire[r.kind] = wire.get(r.kind, 0.0) + r.wire_bytes
+        by_axis[r.axis] = by_axis.get(r.axis, 0.0) + r.wire_bytes
     return {"collective_operand_bytes": operand,
             "collective_wire_bytes": wire,
+            "collective_wire_bytes_by_axis": by_axis,
             "total_wire_bytes": sum(wire.values()),
             "total_collective_operand_bytes": sum(operand.values())}

@@ -4,7 +4,11 @@ A dim sharded over axes of total size n is cut into n pieces of
 ``ceil(D / n)`` entries; piece r starts at ``r · ceil(D / n)``, and the
 last pieces are padded with zeros where n does not divide D (GSPMD pads
 the same way).  Several axes on one dim index it row-major, the first
-axis outermost.  A piece is a contiguous tensor of its own, whatever the
+axis outermost.  A leaf may be cut over two axes on two dims (training's
+``wq`` is ``(data, model)``, ``wo`` ``(model, data)``): a rank's piece is
+its ``data`` piece of its ``model`` block, :meth:`Shard.block` gathers it
+over one axis (the block, as ZeRO-3 runs a layer on it) and
+:meth:`Shard.gather` over every axis (the whole leaf).  A piece is a contiguous tensor of its own, whatever the
 dim (an fsdp dim that is not dim 0, as ``wo``'s, would otherwise be a
 strided slice), so the kernels take it as it is.
 """
@@ -118,6 +122,29 @@ class Shard:
             src = src.narrow(dim, 0, k)
             dst = dst.narrow(dim, lo, k)
         dst.copy_(src)
+
+    def block(self, local: torch.Tensor, axis: str, group) -> torch.Tensor:
+        """This rank's piece made whole over the one mesh axis ``axis``
+        (``group``: this rank's line along it): an all-gather of the
+        pieces over the group, each placed at its rank's offset along
+        the dim ``axis`` cuts, the pad dropped.  Its other cuts stay:
+        ``wq`` (data, model) gathered over data is this rank's model
+        block [D, H / tp].  A leaf not cut over ``axis`` is returned as
+        it is."""
+        from repro_torch.sharding import collectives
+        cut = [(dim, n) for (dim, n, _), axes in zip(self.cuts, self.axes)
+               if axes == (axis,)]
+        if not cut:
+            return local
+        ((dim, n),) = cut
+        local = local.contiguous()
+        buf = local.new_empty((n,) + tuple(local.shape))
+        collectives.all_gather(buf.view(-1), local.view(-1), group,
+                               axis=axis)
+        full = buf.movedim(0, dim)
+        shape = list(local.shape)
+        shape[dim] *= n
+        return full.reshape(shape).narrow(dim, 0, self.shape[dim])
 
     def gather(self, local: torch.Tensor,
                dst: Optional[int] = None) -> Optional[torch.Tensor]:

@@ -42,7 +42,8 @@ def _max_over_tensor(x: torch.Tensor, ctx) -> torch.Tensor:
     m = x.abs().max()
     for axis in ("data", "pod"):
         if ctx.axis_size(axis) > 1:
-            collectives.all_reduce(m, ctx.axis_group(axis), op="max")
+            collectives.all_reduce(m, ctx.axis_group(axis), op="max",
+                                   axis=axis)
     return m
 
 
@@ -63,14 +64,14 @@ def compressed_pmean(x: torch.Tensor, ctx) -> torch.Tensor:
     scale = torch.clamp(_max_over_tensor(xf, ctx) / 127.0, min=1e-30)
     q = quantize(chunks, scale)                              # [n, m] int8
     recv = torch.empty_like(q)
-    collectives.all_to_all(recv.view(-1), q.view(-1), group)
+    collectives.all_to_all(recv.view(-1), q.view(-1), group, axis="pod")
     local = recv.to(torch.int32).sum(dim=0)                  # exact
     mean = local.float() * (scale / n)                       # [m]
     # second hop: requantized int8 all-gather of the reduced chunk
     scale2 = torch.clamp(_max_over_tensor(mean, ctx) / 127.0, min=1e-30)
     q2 = quantize(mean, scale2)
     full = torch.empty(n * q2.numel(), dtype=torch.int8, device=q2.device)
-    collectives.all_gather(full, q2, group)
+    collectives.all_gather(full, q2, group, axis="pod")
     out = full.float() * scale2
     return out[:size].reshape(shape).to(x.dtype)
 

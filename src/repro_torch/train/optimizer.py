@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import AbstractSet, Mapping, Optional
+from typing import Mapping, Optional
 
 import torch
 
@@ -64,26 +64,36 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> dict:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor],
-                sharded: AbstractSet[str] = frozenset(),
-                group=None) -> torch.Tensor:
+                cuts: Optional[Mapping[str, tuple[str, ...]]] = None,
+                ctx=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32: the norm of the
     leaves' norms, one read of each leaf and no squared copy of it.
 
-    Under ZeRO-3 the leaves named in ``sharded`` are this rank's shards
-    of gradients cut over ``group``: their squares are summed over the
-    group's ranks (one all-reduce of one f32), and every other leaf,
-    whole on each rank, counts once.  The result is the norm of the
-    whole gradient, as a device tensor."""
+    Across ranks (``ctx``), ``cuts`` names the mesh axes each leaf of
+    this rank's pieces is cut over (``data`` for a ZeRO-3 shard,
+    ``model`` for a tensor-parallel block, or both): a leaf's squares are
+    summed over the axes it is cut over (one f32 all-reduce an axis), and
+    a leaf whole on every rank counts once.  The result is the norm of
+    the whole gradient, as a device tensor."""
     norms = {k: torch.linalg.vector_norm(g, dtype=torch.float32)
              for k, g in tree.items()}
-    if group is None or not sharded:
+    if ctx is None or not cuts or not any(cuts.values()):
         return torch.linalg.vector_norm(torch.stack(list(norms.values())))
     from repro_torch.sharding import collectives
     zero = torch.zeros((), device=next(iter(norms.values())).device)
-    part = sum((n.square() for k, n in norms.items() if k in sharded), zero)
-    whole = sum((n.square() for k, n in norms.items() if k not in sharded),
-                zero)
-    return torch.sqrt(collectives.all_reduce(part, group) + whole)
+    parts: dict = {}
+    for k, n in norms.items():
+        axes = tuple(sorted(set(cuts.get(k, ()))))
+        parts[axes] = parts.get(axes, zero) + n.square()
+    total = parts.pop((), zero)
+    for axis in ("data", "model"):
+        # sum each part over the axes it is cut over, this one first
+        mine = [a for a in parts if axis in a]
+        if mine:
+            t = torch.stack([parts[a] for a in mine])
+            collectives.all_reduce(t, ctx.axis_group(axis), axis=axis)
+            parts.update(zip(mine, t.unbind()))
+    return torch.sqrt(sum(parts.values(), total))
 
 
 STACKS = ("blocks.", "enc_blocks.")
@@ -103,12 +113,13 @@ def decays(name: str, p: torch.Tensor) -> bool:
 def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                grads: Mapping[str, torch.Tensor], opt_state: dict,
                mode: Optional[str] = None,
-               sharded: AbstractSet[str] = frozenset(), group=None):
+               cuts: Optional[Mapping[str, tuple[str, ...]]] = None,
+               ctx=None):
     """One fused AdamW step.  Returns (params, opt_state, metrics).
 
-    Under ZeRO-3, p, g, m and v of each name in ``sharded`` are this
-    rank's shards (cut over ``group``) and the kernel runs on them as
-    they are; the clip uses the whole gradient's norm
+    Across ranks, p, g, m and v are this rank's pieces (each cut over
+    the axes ``cuts`` names on ``ctx``'s mesh) and the kernel runs on
+    them as they are; the clip uses the whole gradient's norm
     (:func:`global_norm`).
 
     Updates in place, where the JAX package returns new trees: each
@@ -118,7 +129,7 @@ def adamw_step(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     A caller that needs the old values clones them first."""
     step = opt_state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads, sharded, group)
+    gnorm = global_norm(grads, cuts, ctx)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.float()

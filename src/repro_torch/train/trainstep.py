@@ -4,10 +4,13 @@ microbatching) → fused AdamW, on one card or across ranks.
 The state is ``{"params": LMParams (trainable), "opt_state": {"m", "v",
 "step"}}``; m and v are keyed by the parameters' names.  Across ranks
 (``ctx``, a ``MeshCtx`` over a ``DeviceMesh`` with a ``data`` and
-optionally a ``pod`` axis), the step is the JAX package's on the same
-global batch: parameters, m and v sharded ZeRO-3 over ``data``
-(``train.zero``), the batch split over ``(pod, data)``, gradients and
-metrics averaged over the batch's ranks.  ``make_compressed_train_step``
+optionally a ``pod`` and a ``model`` axis), the step is the JAX
+package's on the same global batch: parameters, m and v sharded ZeRO-3
+over ``data`` (``train.zero``) and, on a ``model`` axis of more than one
+rank, cut over it as the rules say and run tensor-parallel
+(``models.common.tp_layout``); the batch split over ``(pod, data)``,
+every ``model`` rank of a line on the same rows; gradients and metrics
+averaged over the batch's ranks.  ``make_compressed_train_step``
 averages gradients across pods as int8 with error feedback
 (``train.compression``), its residual carried in ``state["ef"]``.
 """
@@ -18,7 +21,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.lm import param_paths
+from repro_torch.models import common
+from repro_torch.models.lm import param_paths, seq_len
 from repro_torch.sharding import collectives, rules
 from repro_torch.sharding.layout import shard_tree
 from repro_torch.train import compression, zero
@@ -32,7 +36,7 @@ __all__ = ["init_state", "shard_state", "state_tree", "load_state_tree",
 def init_state(model, seed: int = 0, device=None, ctx=None) -> dict:
     """Trainable params drawn from ``seed`` on ``device`` (the card unless
     ``device="cpu"``) and a zero AdamW state; with ``ctx``, this rank's
-    ZeRO-3 shards of them (drawn whole, then cut one tensor at a time)."""
+    pieces of them (drawn whole, then cut one tensor at a time)."""
     params = model.init(seed, device=device, trainable=True)
     if ctx is not None:
         return shard_state(model, params, ctx)
@@ -42,8 +46,9 @@ def init_state(model, seed: int = 0, device=None, ctx=None) -> dict:
 
 def shard_state(model, params, ctx) -> dict:
     """The state of whole trainable ``params`` on ``ctx``'s mesh: each
-    parameter the rules cut over ``data`` swapped for this rank's shard
-    (``zero.shard_params_``), and zero m and v of the shards' shapes."""
+    parameter the rules cut (over ``data``, ``model`` or both) swapped
+    for this rank's piece (``zero.shard_params_``), and zero m and v of
+    the pieces' shapes."""
     zero.shard_params_(params, zero.layout(model, ctx))
     return {"params": params,
             "opt_state": opt.adamw_init(dict(params.named_parameters()))}
@@ -85,29 +90,31 @@ def load_state_tree(state: dict, tree: dict) -> dict:
 
 
 def _grads_fn(model, grad_accum: int, remat: bool, mode: Optional[str]):
-    """``grads(params, batch, run=None) → (loss, metrics, [grad of each
-    parameter])`` (``run``: how a layer runs, ``blocks.stack_forward``)
+    """``grads(params, batch, run=None, ctx=None) → (loss, metrics, [grad
+    of each parameter])`` (``run``: how a layer runs,
+    ``blocks.stack_forward``; ``ctx``: the sharded step's mesh context)
     with ``grad_accum`` microbatches: every leaf of the batch (tokens,
     and a VLM's ``prefix_embeds`` or Whisper's ``frames``) split along
     its batch axis and run one after another (activation memory ÷
     accum, same math), their grads summed in f32 and divided."""
 
-    def grads_of(params, batch, run):
+    def grads_of(params, batch, run, ctx):
         loss, metrics = model.loss(params, batch, remat=remat, mode=mode,
-                                   run=run)
+                                   run=run, ctx=ctx)
         grads = torch.autograd.grad(loss, list(params.parameters()))
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
-    def grads(params, batch, run=None):
+    def grads(params, batch, run=None, ctx=None):
         if grad_accum == 1:
-            return grads_of(params, batch, run)
+            return grads_of(params, batch, run, ctx)
         leaves = {k: torch.as_tensor(v) for k, v in batch.items()}
         mb = leaves["tokens"].shape[0] // grad_accum
         gsum, lsum = None, 0.0
         for i in range(grad_accum):
             l, _, g = grads_of(params, {
-                k: v[i * mb:(i + 1) * mb] for k, v in leaves.items()}, run)
+                k: v[i * mb:(i + 1) * mb] for k, v in leaves.items()}, run,
+                ctx)
             g = [x.float() for x in g]
             gsum = g if gsum is None else [a + b for a, b in zip(gsum, g)]
             lsum = lsum + l
@@ -148,7 +155,7 @@ def _mean(t: torch.Tensor, ctx, axes) -> torch.Tensor:
     n = 1
     for a in axes:
         if ctx.axis_size(a) > 1:
-            collectives.all_reduce(t, ctx.axis_group(a))
+            collectives.all_reduce(t, ctx.axis_group(a), axis=a)
             n *= ctx.axis_size(a)
     return t.div_(n) if n > 1 else t
 
@@ -165,47 +172,54 @@ def _local_batch(model, batch, ctx) -> dict:
 
 def _sharded_grads(model, grads, ctx, pods: bool):
     """``(grads_and_metrics(state, batch) → (named params, grads,
-    metrics), the names of the ZeRO-3 shards, their group)`` across
-    ``ctx``'s ranks.  Each rank runs the loss and its gradient on its
-    rows of the batch; a ZeRO-3 shard's gradient comes out of the layer's
-    gather already reduce-scattered and divided by the ``data`` size,
-    every whole parameter's is averaged over ``data``; ``pods``: both are
-    then averaged over ``pod`` too (the compressed step averages across
-    pods itself).  The metrics are means over the batch's ranks."""
+    metrics), {name: the axes it is cut over})`` across ``ctx``'s ranks.
+    Each rank runs the loss and its gradient on its rows of the batch
+    (tensor-parallel on a ``model`` axis of more than one rank); a ZeRO-3
+    shard's gradient comes out of the layer's gather already
+    reduce-scattered and divided by the ``data`` size; a gradient that
+    each ``model`` rank holds a part of (``zero.model_partial``) is
+    summed over ``model``; every parameter whole over ``data`` is
+    averaged over ``data``; ``pods``: all are then averaged over ``pod``
+    too (the compressed step averages across pods itself).  The metrics
+    are means over the batch's ranks."""
     shards = zero.layout(model, ctx)
     sharded = zero.sharded_names(shards)
-    group = ctx.data_group if ctx.data > 1 else None
+    cuts = {k: zero.cut_axes(sh) for k, sh in shards.items()}
 
     def grads_and_metrics(state, batch):
         params = state["params"]
         named = dict(params.named_parameters())
         run = zero.Runner(params, shards, ctx, model.cfg.cdtype())
-        loss, metrics, g = grads(params, _local_batch(model, batch, ctx),
-                                 run)
+        local = _local_batch(model, batch, ctx)
+        loss, metrics, g = grads(params, local, run, ctx)
         g = dict(zip(named, g))
+        seq = common.tp_layout(ctx, seq_len(model.cfg, local)).seq_sharded
+        partial = zero.model_partial(model.cfg, ctx, bool(seq))
         for k in g:
+            t = g[k].float()
+            if partial(k):
+                collectives.all_reduce(t, ctx.tp_group, axis=ctx.tp_axis)
             axes = ("data",) if k not in sharded else ()
             if pods:
                 axes += ("pod",)
-            g[k] = _mean(g[k].float(), ctx, axes)
+            g[k] = _mean(t, ctx, axes)
         keys = ["loss"] + sorted(metrics)
         vals = _mean(torch.stack([loss.float()] + [
             metrics[k].float() for k in keys[1:]]), ctx, ctx.dp_axes)
         return named, g, dict(zip(keys, vals.unbind()))
 
-    return grads_and_metrics, sharded, group
+    return grads_and_metrics, cuts
 
 
 def _sharded_step(model, ocfg, grads, ctx, mode):
     """The step across ``ctx``'s ranks: ``_sharded_grads``, then AdamW on
-    each rank's shards, its clip on the whole gradient's norm."""
-    grads_and_metrics, sharded, group = _sharded_grads(model, grads, ctx,
-                                                       pods=True)
+    each rank's pieces, its clip on the whole gradient's norm."""
+    grads_and_metrics, cuts = _sharded_grads(model, grads, ctx, pods=True)
 
     def train_step(state, batch):
         named, g, metrics = grads_and_metrics(state, batch)
         _, _, om = opt.adamw_step(ocfg, named, g, state["opt_state"],
-                                  mode=mode, sharded=sharded, group=group)
+                                  mode=mode, cuts=cuts, ctx=ctx)
         return state, dict(metrics, **om)
 
     return train_step
@@ -235,7 +249,12 @@ def make_compressed_train_step(model, ocfg: opt.AdamWConfig, ctx,
     :func:`init_compressed_state`; needs a mesh with a ``pod`` axis."""
     if "pod" not in ctx.mesh.mesh_dim_names:
         raise ValueError("compressed pod sync needs a 'pod' mesh axis")
-    grads_and_metrics, sharded, group = _sharded_grads(
+    if ctx.tp > 1:
+        raise NotImplementedError(
+            "the compressed pod sync on a model axis of more than one rank "
+            "(its scales over the model blocks) is not ported: ROADMAP.md "
+            "Queue 1 item 4, tensor parallelism")
+    grads_and_metrics, cuts = _sharded_grads(
         model, _grads_fn(model, 1, remat, mode), ctx, pods=False)
     groups = jax_leaf_groups(model.cfg)
 
@@ -244,7 +263,7 @@ def make_compressed_train_step(model, ocfg: opt.AdamWConfig, ctx,
         g, state["ef"] = compression.ef_compressed_pmean(g, state["ef"],
                                                          ctx, groups)
         _, _, om = opt.adamw_step(ocfg, named, g, state["opt_state"],
-                                  mode=mode, sharded=sharded, group=group)
+                                  mode=mode, cuts=cuts, ctx=ctx)
         return state, dict(loss=metrics["loss"], **om)
 
     return train_step

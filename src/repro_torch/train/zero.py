@@ -17,46 +17,67 @@ checkpointing the gather reruns in the backward pass, as in ZeRO-3, so
 one layer's whole weights and their gradients live at a time.
 
 The rules shard only per-layer weights over ``data``; the embedding, the
-head and every norm gain stay whole on each rank (their gradients are
-averaged by the train step).  A parameter cut over ``model`` of more
-than one rank is tensor parallelism, which is not ported (ROADMAP Queue
-1 item 4): ``layout`` raises rather than replicate it.
+head and every norm gain stay whole over ``data`` on each rank (their
+gradients are averaged by the train step).  On a ``model`` axis of more
+than one rank the rules also cut the Megatron blocks over ``model``
+(``wq``, ``wk``, ``wv``, ``w_in``, ``w_gate`` by columns, ``wo`` and
+``w_out`` by rows, ``embed`` and ``head`` by the vocabulary): each rank
+keeps its ``data`` piece of its ``model`` block, and the gather and the
+reduce-scatter run over ``data`` alone, within the block, so the layer
+runs on its whole ``model`` block (the tensor-parallel forward,
+``models.common.tp_layout``).  Refused, each naming its ROADMAP bullet:
+a MoE's experts over ``model``, a head count the ``model`` ranks do not
+divide, and the encoder-decoder.
 """
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import _layer_forward
+from repro_torch.models.blocks import _layer_forward, layer_descriptors
 from repro_torch.sharding import collectives, rules
 from repro_torch.sharding.layout import Shard, shard_of
 
 __all__ = ["layout", "shard_params_", "LayerGather", "Runner",
-           "sharded_names"]
+           "sharded_names", "cut_axes", "model_partial"]
 
 _META = torch.device("meta")
 
 
 def _refuse(cfg: ModelConfig, ctx) -> None:
-    if ctx.tp > 1:
+    item = "ROADMAP.md Queue 1 item 4"
+    if ctx.tp > 1 and cfg.moe is not None:
         raise NotImplementedError(
-            f"sharded training on a model axis of {ctx.tp} ranks is tensor "
-            "parallelism (Megatron heads and FFN, constrain_act, the "
-            "sequence-sharded attention, MoE expert parallelism), which is "
-            "not ported: ROADMAP.md Queue 1 item 4")
+            f"sharded training of a MoE on a model axis of {ctx.tp} ranks "
+            "cuts its experts over it: expert parallelism (moe_ep's "
+            f"all_to_all), which is not ported ({item}, MoE expert "
+            "parallelism)")
+    attn = any(d.mixer == "attn" for d in layer_descriptors(cfg))
+    if ctx.tp > 1 and attn and cfg.n_heads % ctx.tp:
+        raise NotImplementedError(
+            f"{cfg.n_heads} heads over a model axis of {ctx.tp} ranks is the "
+            "sequence-sharded attention (_sdpa_seqshard), which is not "
+            f"ported ({item}, attention's sequence sharding)")
+    if ctx.tp > 1 and cfg.padded_vocab % ctx.tp:
+        raise NotImplementedError(
+            f"a vocabulary of {cfg.padded_vocab} rows over a model axis of "
+            f"{ctx.tp} ranks: the rules cut the embedding by d_model then, "
+            f"which is not ported ({item}, tensor parallelism)")
     if cfg.encdec:
         raise NotImplementedError(
             "sharded training of an encoder-decoder: the decoder's cross "
             "K/V are computed outside the layers' runs, where ZeRO-3 "
-            "gathers their weights (ROADMAP.md Queue 1 item 4)")
+            f"gathers their weights ({item}, Whisper's sharded training)")
 
 
 def layout(model, ctx) -> dict[str, Shard]:
     """``{parameter name: Shard}`` of ``model``'s trainable parameters on
     ``ctx``'s mesh, for this rank, from the sharding rules (training:
-    ZeRO-3 over ``data``)."""
+    ZeRO-3 over ``data``, tensor parallelism over ``model``)."""
     cfg = model.cfg
     _refuse(cfg, ctx)
     meta = model.init(device=_META, trainable=True)
@@ -64,16 +85,56 @@ def layout(model, ctx) -> dict[str, Shard]:
     out = {}
     for name, p in meta.named_parameters():
         sh = shard_of(tuple(p.shape), specs[name], ctx.mesh)
-        if sh.sharded and (len(sh.cuts) != 1 or sh.axes != (("data",),)):
+        if any(a not in (("data",), ("model",)) for a in sh.axes):
             raise NotImplementedError(
                 f"{name}: spec {sh.spec} cuts it over {sh.axes}; the "
-                "sharded step gathers over 'data' alone")
+                "sharded step cuts a dim over 'data' or 'model' alone")
         out[name] = sh
     return out
 
 
+def cut_axes(sh: Shard) -> tuple[str, ...]:
+    """The mesh axes a leaf is cut over."""
+    return tuple(a for axes in sh.axes for a in axes)
+
+
+def _data_cut(sh: Shard):
+    """(dim, pieces) of the leaf's cut over ``data``, or None."""
+    for (dim, n, _), axes in zip(sh.cuts, sh.axes):
+        if axes == ("data",):
+            return dim, n
+    return None
+
+
 def sharded_names(shards: dict[str, Shard]) -> frozenset:
-    return frozenset(n for n, s in shards.items() if s.sharded)
+    """The parameters cut over ``data``: ZeRO-3's shards, whose gradients
+    come out of their layer's gather reduce-scattered."""
+    return frozenset(n for n, s in shards.items()
+                     if _data_cut(s) is not None)
+
+
+def model_partial(cfg: ModelConfig, ctx,
+                  seq_sharded: bool) -> Callable[[str], bool]:
+    """``partial(name) → bool``: whether each model rank's gradient of the
+    parameter ``name`` (whole over ``model``) is a part of it, to be
+    summed over ``model``: the norm gains where the layer boundaries are
+    sequence-sharded (each rank's S / tp rows), and ``wk`` / ``wv`` where
+    the rules leave them whole (each rank projects its query heads' KV
+    heads).  Every other leaf's gradient is whole on each rank: a
+    ``model`` block's is its block's, and a part the rules keep whole
+    (Mamba-2, an FFN the ranks do not divide) runs whole on every
+    rank."""
+    if ctx.tp == 1:
+        return lambda name: False
+    kv_whole = cfg.n_kv_heads % ctx.tp != 0
+    norms = ("norm1", "norm2", "norm_x", "final_norm")
+
+    def partial(name: str) -> bool:
+        leaf = name.rsplit(".", 1)[-1]
+        if seq_sharded and leaf in norms:
+            return True
+        return kv_whole and name.endswith(("attn.wk", "attn.wv"))
+    return partial
 
 
 class _Gather(torch.autograd.Function):
@@ -94,12 +155,14 @@ class _Gather(torch.autograd.Function):
 
 class LayerGather:
     """The ZeRO-3 gather of one layer: ``names`` (relative to the layer)
-    of its sharded parameters, each one's :class:`Shard`, the ``data``
-    group and the dtype the weights are gathered in."""
+    of its parameters cut over ``data``, each one's :class:`Shard`, the
+    ``data`` group and the dtype the weights are gathered in.  A leaf cut
+    over ``model`` too is gathered to its ``model`` block."""
 
     def __init__(self, names: list[str], shards: list[Shard], group,
                  dtype: torch.dtype):
         self.names, self.shards = names, shards
+        self.cuts = [_data_cut(sh) for sh in shards]
         self.group, self.dtype = group, dtype
 
     def __call__(self, layer, *args):
@@ -110,20 +173,12 @@ class LayerGather:
             "layer." + n: w for n, w in zip(self.names, whole)}, args)
 
     def gather(self, i: int, shard: torch.Tensor) -> torch.Tensor:
-        sh = self.shards[i]
-        ((dim, n, _),) = sh.cuts
-        local = shard.detach().to(self.dtype).contiguous()
-        buf = torch.empty((n,) + tuple(local.shape), dtype=self.dtype,
-                          device=local.device)
-        collectives.all_gather(buf.view(-1), local.view(-1), self.group)
-        full = buf.movedim(0, dim)
-        shape = list(local.shape)
-        shape[dim] *= n
-        return full.reshape(shape).narrow(dim, 0, sh.shape[dim])
+        return self.shards[i].block(shard.detach().to(self.dtype), "data",
+                                    self.group)
 
     def scatter(self, i: int, grad: torch.Tensor) -> torch.Tensor:
         sh = self.shards[i]
-        ((dim, n, _),) = sh.cuts
+        dim, n = self.cuts[i]
         c = -(-sh.shape[dim] // n)
         g = grad.float()
         if c * n != sh.shape[dim]:
@@ -136,7 +191,7 @@ class LayerGather:
         out = torch.empty(pieces.shape[1:], dtype=torch.float32,
                           device=g.device)
         collectives.reduce_scatter(out.view(-1), pieces.view(-1),
-                                   self.group)
+                                   self.group, axis="data")
         return out.div_(n)
 
 
@@ -173,7 +228,7 @@ def shard_params_(params, shards: dict[str, Shard]):
 
 class Runner:
     """``run(layer, *args)`` for ``blocks.stack_forward`` over the
-    sharded ``params``: a layer that holds shards runs through its
+    sharded ``params``: a layer that holds ZeRO-3 shards runs through its
     :class:`LayerGather` (gathering in ``dtype``, the model's compute
     dtype, over ``ctx``'s ``data`` group), any other as it is."""
 
@@ -185,7 +240,7 @@ class Runner:
             for i, layer in enumerate(stack):
                 pre = f"{stack_name}.{i}."
                 mine = [n[len(pre):] for n in names
-                        if n.startswith(pre) and shards[n].sharded]
+                        if n.startswith(pre) and _data_cut(shards[n])]
                 if mine:
                     self.gathers[id(layer)] = LayerGather(
                         mine, [shards[pre + n] for n in mine],

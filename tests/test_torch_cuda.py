@@ -2495,3 +2495,42 @@ def test_family_train_step_matches_ref(cuda_device, arch):
         d = (p.detach() - pr[name].detach()).abs()
         assert float(d.max()) <= 0.1 * lr, (name, float(d.max()) / lr)
         assert int((d > 1e-3 * lr).sum()) <= max(1, 1e-3 * d.numel()), name
+
+
+@pytest.mark.gpu
+def test_tp_step_matches_ref_on_the_card(cuda_device, tmp_path):
+    """One tensor-parallel train step of the reduced Yi-9B (f32) at
+    model=2, two gloo ranks on cuda:0 (NCCL refuses two ranks on one
+    card), S = 256 so the layer boundaries hold S / 2 rows: with the
+    kernels each rank launches rmsnorm twice per layer norm (remat) plus
+    the final norm, on its 128 rows, and adamw_update once; with
+    mode="ref" none.  Loss and grad norm within 1e-5 relative and equal
+    on both ranks, every parameter within 0.1 lr of the plain step's and
+    all but 0.1% of each tensor's entries within 1e-3 lr (as
+    ``test_family_train_step_matches_ref``)."""
+    import numpy as np
+    import torch_gloo_workers as workers
+    cfg = dataclasses.replace(reduced(get_config("yi-9b")),
+                              compute_dtype="float32")
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 256))
+             .astype(np.int32)}
+    ranks = workers.run(2, tmp_path, {"steps": {}, "tp_card": {
+        "arch": "yi-9b", "mesh": ((1, 2), ("data", "model")),
+        "batch": batch}}, suite="torch_train_workers")
+    want = {"rmsnorm": 4 * cfg.n_layers + 1, "adamw_update": 1}
+    for r in ranks:
+        res = r["tp_card"]
+        assert res["None"]["launches"] == want
+        assert res["ref"]["launches"] == {}
+        assert res["None"]["metrics"] == ranks[0]["tp_card"]["None"][
+            "metrics"]
+    res = ranks[0]["tp_card"]
+    mk, mr = res["None"]["metrics"], res["ref"]["metrics"]
+    for k in ("loss", "grad_norm"):
+        assert abs(mk[k] - mr[k]) <= 1e-5 * abs(mr[k]), (k, mk[k], mr[k])
+    lr = mr["lr"]
+    for name, p in res["None"]["params"].items():
+        d = np.abs(p - res["ref"]["params"][name])
+        assert float(d.max()) <= 0.1 * lr, (name, float(d.max()) / lr)
+        assert int((d > 1e-3 * lr).sum()) <= max(1, 1e-3 * d.size), name

@@ -154,3 +154,22 @@ def test_roofline_terms_refuse_several_cards():
                                     n_links=1)
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-12), k
+
+
+def test_collective_term_by_axis():
+    """``collective_s_by_axis`` splits ``roofline_terms``' collective term
+    by the mesh axis each recorded byte went over: ZeRO-3's over data,
+    tensor parallelism's over model; the parts sum to the term."""
+    from repro_torch.sharding import collectives
+    log = [collectives.Record("all-gather", 8, 2, 4.0e9, "bfloat16", "data"),
+           collectives.Record("reduce-scatter", 8, 2, 3.0e9, "float32",
+                              "model"),
+           collectives.Record("all-reduce", 8, 2, 1.0e9, "float32", "model")]
+    counts = dict(collectives.summarize(log), flops=3.2e14)
+    cfg = get_config("yi-9b")
+    terms = analysis.roofline_terms(cfg, SHAPES["train_4k"], 4, counts)
+    by_axis = analysis.collective_s_by_axis(counts)
+    assert by_axis == {"data": 4.0e9 / H100_HW.link_bw,
+                       "model": 4.0e9 / H100_HW.link_bw}
+    assert sum(by_axis.values()) == pytest.approx(terms["collective_s"],
+                                                  rel=1e-12)

@@ -11,6 +11,14 @@ own (``tests/torch_gloo_workers.py``, a ``FileStore`` under the test's
 temporary directory), each rank holding only its slice of every cache;
 one run of each size serves every check of that size.
 
+The collective decode of the MoE is held against the JAX
+``decode_step(ctx=, shards=2)`` under a (data=1, model=2) mesh, run in a
+subprocess on 2 host devices: under a mesh context the JAX MoE runs
+``moe_ep``, which drops each expert's overflow within each of the
+``model`` ranks' slices of the tokens, and the port's follows it.  The
+other models' reference is the JAX ``decode_step(shards=2)`` with no
+mesh, the same function.
+
 The JAX side runs in ``ref`` mode with an explicit ``StridingConfig`` on
 both sides of the op, so no tune cache or plan memo left by another test
 reaches the comparison.  Limits: the op in f32 at 1e-5 (the JAX package's
@@ -252,6 +260,66 @@ def _jax_steps(arch, shards):
     return logits, kv
 
 
+_JAX_MESH_SCRIPT = r"""
+import os, pickle, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+os.environ["REPRO_KERNEL_MODE"] = "ref"
+import dataclasses, functools
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import AxisType
+from repro.configs import get_config, reduced
+from repro.models.common import MeshCtx
+from repro.models.lm import build_model
+
+inp = pickle.load(open(sys.argv[1], "rb"))
+cfg = dataclasses.replace(reduced(get_config(inp["arch"])),
+                          compute_dtype="float32")
+model = build_model(cfg)
+mesh = jax.make_mesh((1, 2), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2)
+step = jax.jit(functools.partial(model.decode_step, ctx=MeshCtx(mesh),
+                                 shards=2))
+params = jax.tree.map(jnp.asarray, inp["tree"])
+cache = model.init_cache(inp["b"], inp["max_len"])
+logits = []
+for toks, p in zip(inp["tokens"], inp["pos"]):
+    out, cache = step(params, jnp.asarray(toks), cache, jnp.asarray(p))
+    logits.append(np.asarray(out))
+pickle.dump({"logits": logits, "cache": jax.tree.map(np.asarray, cache)},
+            open(sys.argv[2], "wb"))
+print("JAX_OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_mesh2(tmp_path_factory):
+    """The JAX ``decode_step(ctx=, shards=2)`` of the MoE under a
+    (data=1, model=2) mesh of 2 host devices, in a subprocess: each
+    step's logits and every layer's K and V after the last, as
+    :func:`_jax_steps` gives them."""
+    import pickle
+    arch = "qwen3-moe-30b-a3b"
+    tmp = tmp_path_factory.mktemp("jax_mesh2")
+    with open(tmp / "in.pkl", "wb") as f:
+        pickle.dump({"arch": arch, "tree": _carried(arch)[2],
+                     "tokens": _tokens(arch), "pos": POS, "b": B,
+                     "max_len": MAX_LEN}, f)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    res = subprocess.run(
+        [sys.executable, "-c", _JAX_MESH_SCRIPT, str(tmp / "in.pkl"),
+         str(tmp / "out.pkl")], capture_output=True, text=True, timeout=600,
+        env=env, cwd=ROOT)
+    assert "JAX_OK" in res.stdout, res.stdout[-2000:] + res.stderr[-4000:]
+    with open(tmp / "out.pkl", "rb") as f:
+        out = pickle.load(f)
+    descs = blocks.layer_descriptors(_tcfg(arch))
+    tree = out["cache"]
+    kv = {n: [tree[f"pos{i % len(descs)}"]["attn"][n][i // len(descs)]
+              for i in range(_tcfg(arch).n_layers)] for n in ("k", "v")}
+    return {arch: (out["logits"], kv)}
+
+
 def _model_case(arch):
     case = {"tree": _carried(arch)[2], "tokens": _tokens(arch), "pos": POS,
             "max_len": MAX_LEN}
@@ -367,11 +435,15 @@ def test_rank_local_cache_writes_gather_to_the_jax_cache(gloo):
 
 
 @pytest.mark.parametrize("arch", list(MODEL_TOL))
-def test_collective_decode_steps_match_jax(gloo2, arch):
+def test_collective_decode_steps_match_jax(request, gloo2, arch):
     """``decode_step(shards=2)`` over 2 ranks' local caches: every rank's
-    logits each step against the JAX ``decode_step(shards=2)``, and the
+    logits each step against the JAX ``decode_step(shards=2)`` (for the
+    MoE, under its (data=1, model=2) mesh: ``jax_mesh2``), and the
     gathered cache against the JAX cache."""
-    want_logits, want_kv = _jax_steps(arch, 2)
+    if _tcfg(arch).moe is not None:
+        want_logits, want_kv = request.getfixturevalue("jax_mesh2")[arch]
+    else:
+        want_logits, want_kv = _jax_steps(arch, 2)
     tol = MODEL_TOL[arch]
     for rank in gloo2:
         for i, got in enumerate(rank["models"][arch]["logits"]):

@@ -14,11 +14,13 @@ device on the whole global batch; its compressed step, and
 in a subprocess on 4 host devices (``--xla_force_host_platform_device_
 count``) on a (pod=2, data=2, model=1) mesh.
 
-A MoE's router loss is the mean over the batch's ranks of each rank's
-own (``jax.lax.pmean(aux, all_axes)`` in the JAX ``_ep_body`` at
-model = 1), not the router loss of the whole batch; its reference is
-the JAX step with ``grad_accum`` equal to the ranks, whose loss is that
-same mean of the microbatches' losses.
+A MoE under a mesh runs the JAX ``moe_ep`` at model = 1: each rank's
+tokens are one slice, each expert keeps its first ``cap`` picks of it
+and drops the rest, and the router loss is the mean over the batch's
+ranks of each rank's own (``jax.lax.pmean(aux, all_axes)``).  Its
+reference is the JAX ``make_train_step(ctx=)`` on the same (pod, data,
+model=1) mesh of host devices, in the subprocess; the port's one-card
+step, which drops nothing, is not one.
 
 Limits: loss, grad_norm and lr of every step within 1e-5 relative of
 the JAX step's.  After three steps the whole params, m and v are held
@@ -70,6 +72,9 @@ DATA4 = ((4, 1), ("data", "model"))
 # rows or columns, the last padded with 2
 UNEVEN = {"d_model": 66}
 COMPRESSED = ["yi-9b", "internvl2-2b"]
+# the archs whose reference is the JAX step under the mesh (its moe_ep)
+MESH_REF = ["qwen3-moe-30b-a3b"]
+MESHES = {"data2": DATA2, "pod2": POD2}
 LAUNCH = ["--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "17",
           "--log-every", "1"]
 METRIC_RTOL = 1e-5
@@ -162,7 +167,27 @@ from repro.train.trainstep import make_compressed_train_step
 inp = pickle.load(open(sys.argv[1], "rb"))
 auto = (AxisType.Auto,) * 3
 mesh = jax.make_mesh((2, 2, 1), ("pod", "data", "model"), axis_types=auto)
-out = {"steps": {}}
+out = {"steps": {}, "mesh_steps": {}}
+from repro.models.common import MeshCtx
+from repro.train.trainstep import make_train_step
+for key, case in inp["mesh_steps"].items():
+    cfg = dataclasses.replace(reduced(get_config(case["arch"])),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    shape, axes = case["mesh"]
+    m = jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(axes),
+                      devices=jax.devices()[:int(np.prod(shape))])
+    params = jax.tree.map(jnp.asarray, case["tree"])
+    state = {"params": params, "opt_state": opt.adamw_init(params)}
+    step = jax.jit(make_train_step(
+        model, opt.AdamWConfig(**inp["ocfg"]),
+        ctx=MeshCtx(m, dp_axes=tuple(a for a in axes if a != "model"))))
+    metrics = []
+    for b in case["batches"]:
+        state, met = step(state, {k: jnp.asarray(v) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in met.items()})
+    out["mesh_steps"][key] = {"metrics": metrics,
+                              "state": jax.tree.map(np.asarray, state)}
 for arch, case in inp["steps"].items():
     cfg = dataclasses.replace(reduced(get_config(arch)),
                               compute_dtype="float32")
@@ -220,11 +245,16 @@ def _compression_inputs():
 @pytest.fixture(scope="module")
 def jax4(tmp_path_factory):
     """The JAX package on 4 host devices, in a subprocess: its compressed
-    step for each of ``COMPRESSED`` and the compressed means."""
+    step for each of ``COMPRESSED``, the compressed means, and the plain
+    step under each mesh of :data:`MESH_REF` (a MoE's)."""
     tmp = tmp_path_factory.mktemp("jax4")
     inp = {"ocfg": OCFG, "compression": _compression_inputs(),
            "steps": {a: {"tree": _tree(a), "batches": _batches(a)}
-                     for a in COMPRESSED}}
+                     for a in COMPRESSED},
+           "mesh_steps": {f"{a}/{m}": {"arch": a, "mesh": MESHES[m],
+                                       "tree": _tree(a),
+                                       "batches": _batches(a)}
+                          for a in MESH_REF for m in MESHES}}
     with open(tmp / "in.pkl", "wb") as f:
         pickle.dump(inp, f)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -345,18 +375,29 @@ def _one_card(arch, accum=1, kw=()):
             "v": {k: t.numpy() for k, t in state["opt_state"]["v"].items()}}
 
 
-def _held(got, arch, accum=1, kw=()):
+def _held(got, arch, accum=1, kw=(), jax_mesh=None):
     """A sharded run's metrics and whole state against the JAX step and
-    the one-card port's."""
-    want_m, want = _jax_steps(arch, accum, kw)
+    the one-card port's; ``jax_mesh``: the JAX step under the mesh
+    instead (``jax4``'s), and no one-card step."""
+    if jax_mesh is not None:
+        _, cfg = _cfgs(arch, **dict(kw))
+        st = jax_mesh["state"]
+        want_m, want = jax_mesh["metrics"], {
+            "params": _by_port_name(st["params"], cfg),
+            "m": _by_port_name(st["opt_state"]["m"], cfg),
+            "v": _by_port_name(st["opt_state"]["v"], cfg)}
+    else:
+        want_m, want = _jax_steps(arch, accum, kw)
     for step, (g, w) in enumerate(zip(got["metrics"], want_m)):
         for k in ("loss", "grad_norm", "lr"):
             _close_rel(g[k], w[k], METRIC_RTOL, (step, k))
     assert got["step"] == STEPS
-    whole, one = got["whole"], _one_card(arch, accum, kw)
-    _params_close(whole["params"], one["params"], OCFG["lr"])
-    for key in ("m", "v"):
-        _moments_close(whole[key], one[key], key, GRAD_TOL)
+    whole = got["whole"]
+    if jax_mesh is None:
+        one = _one_card(arch, accum, kw)
+        _params_close(whole["params"], one["params"], OCFG["lr"])
+        for key in ("m", "v"):
+            _moments_close(whole[key], one[key], key, GRAD_TOL)
     _near_jax(whole, want)
 
 
@@ -367,12 +408,15 @@ PLAIN = [(a, 2) for a in ARCHS] + [(a, 4) for a in ARCHS]
                          ids=[f"{a}-{w}ranks" for a, w in PLAIN])
 def test_sharded_steps_match_jax(request, arch, world):
     """Three ZeRO-3 steps (data=2, or pod=2,data=2) against the JAX
-    package's step on the whole batch: every step's loss, grad norm and
-    lr, then the whole params, m and v."""
+    package's step on the whole batch (a MoE's: under the same mesh,
+    ``jax4``): every step's loss, grad norm and lr, then the whole
+    params, m and v."""
     run = request.getfixturevalue(f"gloo{world}")["ranks"]
-    key = f"{arch}/{'data2' if world == 2 else 'pod2'}"
-    accum = world if arch == "qwen3-moe-30b-a3b" else 1
-    _held(run[0]["steps"][key], arch, accum)
+    mesh = "data2" if world == 2 else "pod2"
+    key = f"{arch}/{mesh}"
+    jax_mesh = (request.getfixturevalue("jax4")["mesh_steps"][key]
+                if arch in MESH_REF else None)
+    _held(run[0]["steps"][key], arch, jax_mesh=jax_mesh)
 
 
 @pytest.mark.parametrize("gloo", [2, 4], indirect=True)
@@ -632,14 +676,19 @@ def test_wire_bytes_match_jax(n_params, n_pods):
 
 @pytest.mark.parametrize("gloo", [2, 4], indirect=True)
 def test_refusals(gloo):
-    """A model axis of more than one rank raises NotImplementedError
-    naming the ROADMAP item (no quiet replication), at the step and at
-    the state; the compressed step refuses a mesh without ``pod``, and
-    the sharded step an encoder-decoder."""
+    """A dense model on a model axis of 2 or 4 ranks trains (tensor
+    parallelism: no refusal at the step or at the state); a MoE there
+    (expert parallelism), a head count the axis does not divide (the
+    sequence-sharded attention) and an encoder-decoder at data=K raise
+    NotImplementedError naming their ROADMAP bullet; the compressed step
+    refuses a mesh without ``pod``."""
     ref = gloo["ranks"][0]["refusals"]
-    assert ref["model_axis"].startswith("NotImplementedError")
-    assert "ROADMAP.md Queue 1 item 4" in ref["model_axis"]
-    assert ref["model_axis_state"].startswith("NotImplementedError")
+    assert ref["model_axis"] == ""
+    assert ref["model_axis_state"] == ""
+    for key, bullet in (("moe", "MoE expert parallelism"),
+                        ("heads", "attention's sequence sharding"),
+                        ("whisper", "Whisper's sharded training")):
+        assert ref[key].startswith("NotImplementedError"), (key, ref[key])
+        assert f"ROADMAP.md Queue 1 item 4, {bullet}" in ref[key], ref[key]
     assert ref["no_pod"] == ("ValueError: compressed pod sync needs a "
                              "'pod' mesh axis")
-    assert ref["whisper"].startswith("NotImplementedError")

@@ -3,9 +3,10 @@
 ``torch_gloo_workers.run(world, tmp, payload, suite=__name__)`` spawns
 ``world`` gloo ranks on the CPU, each running :func:`suite` on the
 inputs the test made with numpy: the sharded train steps (plain and
-compressed), the compressed means alone, a checkpoint saved on one mesh
+compressed, over ``data`` and ``pod`` or tensor-parallel over
+``model``), the compressed means alone, a checkpoint saved on one mesh
 and restored on another, the counted collectives of a step and the
-refusals.  A rank returns numpy results; whole tensors (gathered from
+refusals.  ``tests/test_torch_tensor_parallel.py`` spawns it too.  A rank returns numpy results; whole tensors (gathered from
 every rank's shards) come back from rank 0 only.  This module imports no
 JAX.
 """
@@ -33,6 +34,10 @@ def suite(rank: int, world: int, payload: dict) -> dict:
         out["count"] = _count(**payload["count"])
     if "launcher" in payload:
         out["launcher"] = _launcher(**payload["launcher"])
+    if "moe" in payload:
+        out["moe"] = _moe(**payload["moe"])
+    if "tp_card" in payload:
+        out["tp_card"] = _tp_card(**payload["tp_card"])
     out["refusals"] = _refusals(world)
     return out
 
@@ -83,7 +88,7 @@ def _whole(state, model, ctx) -> dict:
             leaves = tree[part][sub] if sub else tree[part]
             shards = shardings[part][sub] if sub else shardings[part]
             key = sub or part
-            out[key] = {k: shards[k].gather(leaves[k]).numpy()
+            out[key] = {k: shards[k].gather(leaves[k]).cpu().numpy()
                         for k in sorted(leaves)}
     return out if ctx.mesh.get_rank() == 0 else None
 
@@ -174,8 +179,9 @@ def _save(arch, mesh, tree, batches, directory, save_after):
 
 
 def _restore(arch, directory, batches, world):
-    """``remesh_state`` onto a ``world``-rank (data, model=1) mesh, the
-    state loaded into a fresh sharded state, then the remaining steps."""
+    """``remesh_state`` onto a ``world``-rank (data, model=1) mesh (one
+    rank: a (1, 1) mesh), the state loaded into a fresh sharded state,
+    then the remaining steps."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.launch import steps as tsteps
     from repro_torch.models.lm import build_model
@@ -202,13 +208,14 @@ def _restore(arch, directory, batches, world):
             "metrics": metrics, "step": int(state["opt_state"]["step"])}
 
 
-def _count(arch, mesh, tree, batch, compressed=False):
+def _count(arch, mesh, tree, batch, compressed=False, cfg_kw=None):
     """The collectives one step issues, as ``sharding.collectives``
-    records them: (kind, operand bytes, group size, wire bytes)."""
+    records them: (kind, operand bytes, group size, wire bytes, dtype,
+    axis)."""
     from repro_torch.sharding import collectives
     from repro_torch.train import optimizer as opt
     from repro_torch.train import trainstep
-    cfg = _cfg(arch)
+    cfg = _cfg(arch, **(cfg_kw or {}))
     ctx = _ctx(*mesh)
     model, state = _state(cfg, tree, ctx, compressed)
     ocfg = opt.AdamWConfig(**OCFG)
@@ -241,8 +248,10 @@ def _refusal(fn) -> str:
 
 
 def _refusals(world: int) -> dict:
-    """The sharded step on a model axis of ``world`` ranks, and the
-    compressed step on a mesh without ``pod``."""
+    """The sharded step on a model axis of ``world`` ranks: a dense model
+    (no refusal), a MoE, and a head count the axis does not divide; the
+    compressed step on a mesh without ``pod``; the sharded step of an
+    encoder-decoder."""
     from repro_torch.models.lm import build_model
     from repro_torch.train import optimizer as opt
     from repro_torch.train import trainstep
@@ -250,13 +259,66 @@ def _refusals(world: int) -> dict:
     ocfg = opt.AdamWConfig(**OCFG)
     tp = _ctx((1, world), ("data", "model"))
     dp = _ctx((world, 1), ("data", "model"))
+    odd = build_model(_cfg("yi-9b", n_heads=3, n_kv_heads=1))
     return {
         "model_axis": _refusal(lambda: trainstep.make_train_step(
             model, ocfg, ctx=tp)),
         "model_axis_state": _refusal(lambda: trainstep.init_state(
             model, device="cpu", ctx=tp)),
+        "moe": _refusal(lambda: trainstep.make_train_step(
+            build_model(_cfg("qwen3-moe-30b-a3b")), ocfg, ctx=tp)),
+        "heads": _refusal(lambda: trainstep.make_train_step(
+            odd, ocfg, ctx=tp)),
         "no_pod": _refusal(lambda: trainstep.make_compressed_train_step(
             model, ocfg, dp)),
         "whisper": _refusal(lambda: trainstep.make_train_step(
             build_model(_cfg("whisper-medium")), ocfg, ctx=dp)),
     }
+
+
+def _moe(tree, x):
+    """The MoE layer of the reduced Qwen3-MoE (f32) on ``x`` under the
+    context of a (data=1, model=world) mesh of this process group (the
+    weights whole on each rank, as sharded serving keeps them):
+    ``moe_forward(ctx)``'s output and router loss."""
+    import torch.distributed as dist
+    from repro_torch.models import moe
+    cfg = _cfg("qwen3-moe-30b-a3b")
+    ctx = _ctx((1, dist.get_world_size()), ("data", "model"))
+    p = moe.MoE(*(torch.from_numpy(tree[k])
+                  for k in ("router", "w_in", "w_gate", "w_out")))
+    y, aux = moe.moe_forward(p, torch.from_numpy(x), cfg, ctx)
+    return {"y": y.numpy(), "aux": float(aux), "tp": ctx.tp}
+
+
+def _tp_card(arch, mesh, batch):
+    """One tensor-parallel step of the reduced ``arch`` (f32) on the card
+    (every rank on cuda:0), from seed 0, with the kernels and with
+    ``mode="ref"``: each run's metrics, the kernels' launches on this
+    rank, and the whole params (rank 0)."""
+    from repro_torch.kernels import cuda
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainstep
+    torch.cuda.set_device(0)
+    cfg = _cfg(arch)
+    model = build_model(cfg)
+    ctx = _ctx(*mesh)
+    out = {}
+    for mode in (None, "ref"):
+        state = trainstep.init_state(model, seed=0, device="cuda", ctx=ctx)
+        step = trainstep.make_train_step(model, opt.AdamWConfig(**OCFG),
+                                         mode=mode, ctx=ctx)
+        for k in cuda.KERNELS.values():
+            k.launches = 0
+        state, m = step(state, {k: torch.from_numpy(v).cuda()
+                                for k, v in batch.items()})
+        torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in cuda.KERNELS.items()
+                  if k.launches}
+        whole = _whole(state, model, ctx)
+        out[str(mode)] = {
+            "metrics": {k: float(v) for k, v in m.items()},
+            "launches": counts,
+            "params": None if whole is None else whole["params"]}
+    return out

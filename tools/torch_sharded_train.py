@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Training across cards: the ZeRO-3 train step
-(``repro_torch.train.trainstep.make_train_step(..., ctx=)``) and the
-int8 error-feedback compressed step (``make_compressed_train_step``), K
-ranks, one a card, over NCCL.
+"""Training across cards: the sharded train step
+(``repro_torch.train.trainstep.make_train_step(..., ctx=)``: ZeRO-3 over
+``data``, tensor parallelism over ``model``) and the int8 error-feedback
+compressed step (``make_compressed_train_step``), K ranks, one a card,
+over NCCL.
 
 Run on one host with 4 cards:
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
-        tools/torch_sharded_train.py
+        tools/torch_sharded_train.py [--mesh model=4 --mesh data=2,model=2]
 
 (``--device cpu --reduced`` rehearses it under gloo on the CPU: reduced
 configs, a 4 x 32 batch.)
@@ -19,18 +20,24 @@ configs, a 4 x 32 batch.)
    scattered bytes) over the time.
 2. Yi-9B at full width and depth (48 layers: 141 GB of f32 params,
    grads, m and v, which no one card holds), random weights (seed 0),
-   ZeRO-3 over data=K, global batch 8 x 4096 (seeded numpy tokens),
+   on each ``--mesh`` (default ``data=K``, ZeRO-3; ``model=K`` and
+   ``data=2,model=2`` are tensor-parallel, with Megatron sequence
+   parallelism at S / model >= 128), global batch 8 x 4096 (seeded numpy
+   tokens),
    remat, 4 steps: the wall of each (host clock, ending in a
    synchronize), tokens/s, the kernels' launches a step, peak memory a
    card; one more step counted
    (``roofline.analysis.count_flops``: its dots and the wire bytes of
-   its collectives) for ``roofline_terms(n_chips=K)`` with the measured
-   link bandwidth; one more under ``torch.profiler`` for the device's
-   kernel time a step, NCCL's apart (its kernels also run while they
-   wait for the other ranks), and the adamw_update kernel's.
-3. InternVL2-2B at full width and depth (the JAX package's own
-   compressed-step arch) at pod=2, data=K/2, the compressed step, 4
-   steps: wall, and the int8 wire bytes of the pod sync counted against
+   its collectives, by kind and by mesh axis) for
+   ``roofline_terms(n_chips=K)`` with the measured link bandwidth, and
+   against ``roofline.analysis.sharded_step_wire``'s ring model of the
+   layout; one more under ``torch.profiler`` for the device's kernel
+   time a step, NCCL's apart (its kernels also run while they wait for
+   the other ranks), and the adamw_update kernel's.
+3. Without ``--mesh``: InternVL2-2B at full
+   width and depth (the JAX package's own compressed-step arch) at
+   pod=2, data=K/2, the compressed step, 4 steps: wall, and the int8
+   wire bytes of the pod sync counted against
    ``train.compression.wire_bytes``.
 
 Rank 0 prints the card's name and power limit and one JSON line, and
@@ -220,10 +227,18 @@ def _run(cfg, ctx, device, shape: tuple, link_bw, compressed: bool) -> dict:
         shape = dataclasses.replace(get_shape("train_4k"), global_batch=b,
                                     seq_len=s)
         hw = dataclasses.replace(H100_HW, link_bw=link_bw)
-        terms = analysis.roofline_terms(cfg, shape, ctx.n_batch, counts, hw)
+        import torch.distributed as dist
+        terms = analysis.roofline_terms(cfg, shape, dist.get_world_size(),
+                                        counts, hw)
         out["counted"] = {k: counts[k] for k in (
-            "flops", "collective_wire_bytes", "total_wire_bytes")}
+            "flops", "collective_wire_bytes", "collective_wire_bytes_by_axis",
+            "total_wire_bytes")}
+        sizes = {a: ctx.axis_size(a) for a in ("pod", "data", "model")}
+        out["ring_model"] = analysis.sharded_step_wire(
+            cfg, sizes, b, s, cfg.n_prefix_embeds)
         out["roofline"] = terms
+        out["collective_s_by_axis"] = analysis.collective_s_by_axis(counts,
+                                                                    hw)
         t0 = time.perf_counter()
         prof = _profile(lambda: step_fn(state, batches[-1]), device)
         prof["wall_ms"] = (time.perf_counter() - t0) * 1e3
@@ -239,6 +254,10 @@ def main(argv=None) -> int:
     ap.add_argument("--reduced", action="store_true",
                     help="reduced configs and batch (a CPU rehearsal under "
                     "gloo)")
+    ap.add_argument("--mesh", action="append", default=None,
+                    help="a mesh of the Yi-9B step (repeatable): axis=size "
+                    "pairs over data and model, e.g. model=4 or "
+                    "data=2,model=2; default data=K")
     args = ap.parse_args(argv)
 
     import torch
@@ -268,22 +287,31 @@ def main(argv=None) -> int:
         big = [v["bus_bytes_per_s"] for k, v in link.items()
                if k.endswith("256MiB")]
         link_bw = out["link_bw"] = sum(big) / len(big)
-        mesh = make_mesh((world, 1), ("data", "model"))
-        run = _run(yi, steps.mesh_ctx(mesh), device, shape, link_bw, False)
-        run["per_rank"] = _gather({
-            "peak_gib": run.get("peak_gib", 0.0),
-            "wall_s": run["step_wall_s"][-1],
-            "nccl_ms": run["profile"]["nccl_ms"],
-            "all_ms": run["profile"]["all_ms"]}, device)
-        out["zero"] = run
-        if str(device).startswith("cuda"):
-            torch.cuda.empty_cache()
-        mesh = make_mesh((2, world // 2, 1), ("pod", "data", "model"))
-        run = _run(cfg_of("internvl2-2b"), steps.mesh_ctx(mesh), device,
-                   shape, link_bw, True)
-        run["per_rank"] = _gather({"peak_gib": run.get("peak_gib", 0.0),
-                                   "wall_s": run["step_wall_s"][-1]}, device)
-        out["compressed"] = run
+        from repro_torch.launch.train import parse_mesh
+        meshes = args.mesh or [f"data={world}"]
+        out["meshes"] = meshes
+        for text in meshes:
+            mesh = make_mesh(*parse_mesh(text))
+            run = _run(yi, steps.mesh_ctx(mesh), device, shape, link_bw,
+                       False)
+            run["mesh"] = text
+            run["per_rank"] = _gather({
+                "peak_gib": run.get("peak_gib", 0.0),
+                "wall_s": run["step_wall_s"][-1],
+                "nccl_ms": run["profile"]["nccl_ms"],
+                "all_ms": run["profile"]["all_ms"]}, device)
+            out["zero" if text == f"data={world}" else text] = run
+            del mesh
+            if str(device).startswith("cuda"):
+                torch.cuda.empty_cache()
+        if not args.mesh:
+            mesh = make_mesh((2, world // 2, 1), ("pod", "data", "model"))
+            run = _run(cfg_of("internvl2-2b"), steps.mesh_ctx(mesh), device,
+                       shape, link_bw, True)
+            run["per_rank"] = _gather({"peak_gib": run.get("peak_gib", 0.0),
+                                       "wall_s": run["step_wall_s"][-1]},
+                                      device)
+            out["compressed"] = run
         if rank == 0:
             card = subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit",
