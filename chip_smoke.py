@@ -79,7 +79,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 f32) through its per-tensor op: the K1 kernel and the K4
                 ring's adamw body at lookahead 1, 3, 4 (each ring's
                 geometry); then the K1 kernel over the one-card train
-                step's 75 leaves of Yi-9B in one launch
+                step's 39 leaves of Yi-9B in one launch
                 (adamw_update_many, in place, the clip scale fused);
                 equality with the plain version, lost-stream and
                 lost-half controls, times against the bound and
@@ -181,13 +181,13 @@ Phases (each raises on failure, so the script exits non-zero):
                 as processes on this card over gloo, each holding its
                 [B, S/4] slice: (c1) the collective op against the
                 unsharded kernel, (c2) the engine over serving_ctx(4) at
-                full width and 4 of 48 layers: every rank's tokens equal
+                full width and 2 of 48 layers: every rank's tokens equal
                 rank 0's and the one-process static split's, agreement
                 with shards=1 printed
   6d. families — with the serve model freed, the MoE, SSM and VLM
                 families at full width on random bf16 weights:
-                Qwen3-MoE-30B-A3B (24 of 48 layers, prefill B=2 x 1024 at
-                max_len 2048), Mamba2-2.7B (32 of 64 layers, B=2 x 4096)
+                Qwen3-MoE-30B-A3B (12 of 48 layers, prefill B=2 x 1024 at
+                max_len 2048), Mamba2-2.7B (16 of 64 layers, B=2 x 4096)
                 and InternVL2-2B (all 24 layers, 256 prefix
                 embeds + 768 tokens, B=4, max_len 1040), each through
                 launch.steps.build_prefill_step and 8 greedy decode steps
@@ -219,7 +219,7 @@ Phases (each raises on failure, so the script exits non-zero):
                 output norm above it), 4 teacher-forced steps, and the
                 serving invariant at B=1 (64 tokens + one step)
   6f. train-families — Whisper-medium (B=2 x 448 on 1500 frames),
-                Mamba2-2.7B (16 of 64 layers, B=2 x 4096), InternVL2-2B
+                Mamba2-2.7B (8 of 64 layers, B=2 x 4096), InternVL2-2B
                 (12 of 24 layers, B=2 x (256 + 4096)) and Qwen3-MoE-30B-A3B
                 (2 of 48 layers, B=2 x 4096)
                 at full width through launch.steps.build_train_step:
@@ -228,11 +228,11 @@ Phases (each raises on failure, so the script exits non-zero):
                 step 0 again from the same seed with mode="ref" and with
                 a one-ulp control (every norm output of a call moved one
                 way): loss, grad norm and sampled updates within 2x it
-  7. train    — with the serve model freed: Yi-9B at full width, 8 of 48
+  7. train    — with the serve model freed: Yi-9B at full width, 4 of 48
                 layers, f32 params and bf16 compute, trains 6 steps of
                 seq 4096 x batch 2 through the launcher's path; every
-                step must launch rmsnorm 33 times and adamw_update once
-                (its 75 f32 leaves in one launch), step 0's loss lie in
+                step must launch rmsnorm 17 times and adamw_update once
+                (its 39 f32 leaves in one launch), step 0's loss lie in
                 [11, 12]; then a bit-equal
                 checkpoint round trip of the state, one step with the
                 kernels against one with mode="ref" from the same state
@@ -254,7 +254,17 @@ Phases (each raises on failure, so the script exits non-zero):
                 steps held against the same one-process step and
                 control, 9 rmsnorm and 1 adamw_update launches a rank a
                 step, the wire bytes equal to the ring model of the
-                layout; (b) InternVL2-2B at full width, 2 layers, the int8
+                layout; (e) in the same processes, Qwen3-MoE-30B-A3B
+                expert-parallel over model=2 (full width, 2 of 48
+                layers, 2 x 4096: 64 experts a rank, capacity buffers
+                [128, 320, 2048] exchanged by all_to_all), 2 steps held
+                against the one-process step under the same capacity
+                rule and its one-ulp control, launches and wire the
+                same way; (f) StarCoder2-7B over model=8 (full width, 2
+                of 32 layers, 1 x 1024, 8 gloo ranks, f32 compute), its
+                36 heads on the sequence-sharded attention (128 query
+                rows a rank), 3 steps held the same way; (b) InternVL2-2B at full
+                width, 2 layers, the int8
                 error-feedback compressed step at pod=2 x data=2: every
                 synced gradient element within the two hops' rounding of
                 the exact pod mean, step 0's loss equal to the
@@ -2291,7 +2301,7 @@ def phase_stencil(card: str, results: dict) -> None:
 ADAMW_SHAPES = {"bench": (4096, 1024), "embed": (64000, 4096)}  # f32
 ADAMW_LOOKAHEADS = (1, 3, 4)        # the K4 ring (2 is the K1 kernel)
 ADAMW_FLOPS = 15                    # per element: 13 arithmetic, sqrt, div
-TRAIN_LAYERS = 8
+TRAIN_LAYERS = 4
 TRAIN_ARGS = ["--arch", "yi-9b", "--no-reduced", "--layers",
               str(TRAIN_LAYERS), "--seq", "4096", "--batch", "2", "--steps", "50",
               "--device", "cuda"]
@@ -3494,12 +3504,12 @@ def phase_guard(card: str, registry_events) -> None:
 
 
 def phase_train(card: str) -> dict:
-    """Yi-9B at full width, depth cut to 8 layers, trains through the
+    """Yi-9B at full width, depth cut to 4 layers, trains through the
     launcher's path (``repro_torch.launch.train.setup``): f32 params,
     bf16 compute, seq 4096, batch 2, remat, AdamW(lr 3e-3, warmup 10,
     50 total steps), SyntheticTokens(seed 0).  Six steps, each with the
-    counts set to 0 just before and read just after (33 rmsnorm, 1
-    adamw_update every step: the 75 f32 leaves in one launch); then a
+    counts set to 0 just before and read just after (17 rmsnorm, 1
+    adamw_update every step: the 39 f32 leaves in one launch); then a
     checkpoint round trip of the state,
     the in-model check of the kernels against mode="ref", and where a
     step's time goes.  Returns the launches over the six steps."""
@@ -4092,27 +4102,53 @@ PREFILL_FAULT_ROWS = 64             # rows of the norm output left unwritten
 _MANTISSA = {"bfloat16": 8, "float16": 11, "float32": 24}
 
 
+def _one_ulp(f, dtype):
+    """One ulp of ``dtype`` at each element of the f32 tensor ``f``."""
+    import torch
+    return torch.ldexp(torch.ones_like(f), torch.frexp(f).exponent
+                       - _MANTISSA[str(dtype).removeprefix("torch.")])
+
+
 def _ulp_moved(t, gen):
     """``t`` with every nonzero element moved one ulp of its dtype, the
-    sign drawn at random: one more rounding than the kernels add."""
+    sign drawn at random from ``gen``: one more rounding than the kernels
+    add."""
     import torch
     f = t.float()
-    ulp = torch.ldexp(torch.ones_like(f), torch.frexp(f).exponent
-                      - _MANTISSA[str(t.dtype).removeprefix("torch.")])
     sign = torch.randint(0, 2, f.shape, generator=gen,
                          device=f.device) * 2 - 1
-    return (f + sign * torch.where(f == 0, 0, ulp)).to(t.dtype)
+    return (f + sign * torch.where(f == 0, 0, _one_ulp(f, t.dtype))
+            ).to(t.dtype)
 
 
-def _ulp_norm(plain, gen):
-    """rmsnorm (``plain``, called in its plain version) with every output
-    moved one ulp of its dtype: the one-ulp control."""
+def _ulp_moved_by_low_bit(t):
+    """``t`` with every nonzero element moved one ulp of its dtype, up or
+    down by the low bit of its own bit pattern: the same move each time
+    the same value is moved, as activation checkpointing's recompute of
+    a MoE needs (its routing, and so its shapes, follow the values)."""
+    import torch
+    f = t.float()
+    bits = t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    sign = (bits & 1) * 2 - 1
+    return (f + sign * torch.where(f == 0, 0, _one_ulp(f, t.dtype))
+            ).to(t.dtype)
+
+
+def _moved_norm(plain, move):
+    """rmsnorm (``plain``, called in its plain version) with its output
+    passed through ``move``."""
     def norm(x, w, eps=1e-6, config=None, mode=None, with_inv_rms=False):
         out, inv = plain(x, w, eps=eps, config=config, mode=mode,
                          with_inv_rms=True)
-        out = _ulp_moved(out, gen)
+        out = move(out)
         return (out, inv) if with_inv_rms else out
     return norm
+
+
+def _ulp_norm(plain, gen):
+    """rmsnorm (``plain``) with every output moved one ulp of its dtype,
+    each sign drawn from ``gen``: the one-ulp control."""
+    return _moved_norm(plain, lambda t: _ulp_moved(t, gen))
 
 
 def _lost_rows_norm(plain, call: int, rows: int):
@@ -4459,8 +4495,8 @@ def _profile_prefill(card, run, what: str = "prefill") -> None:
 # embeds come before the S tokens, so its cache holds Np + S rows
 # (arch, layers kept or None for all, B, S, max_len): full width; depth
 # cut for the script's time limit (the fault layer is n_layers // 2)
-FAMILY_CELLS = (("qwen3-moe-30b-a3b", 24, 2, 1024, 2048),
-                ("mamba2-2.7b", 32, 2, 4096, 4096),
+FAMILY_CELLS = (("qwen3-moe-30b-a3b", 12, 2, 1024, 2048),
+                ("mamba2-2.7b", 16, 2, 4096, 4096),
                 ("internvl2-2b", None, 4, 768, 1040))
 FAMILY_DECODE = 8                   # greedy decode steps from the prefill
 FAMILY_GREEDY = 4                   # teacher-forced steps kernels vs ref
@@ -5219,11 +5255,11 @@ def phase_whisper(card: str) -> None:
 
 # train-families: (arch, layers kept or None for all, B, S); full width,
 # depth cut where the f32 state (p, g, m, v: 16 B a parameter) does not
-# fit the card, and for the script's time limit: Mamba-2's to 16 of 64
+# fit the card, and for the script's time limit: Mamba-2's to 8 of 64
 # layers (8-10 s a step at 64), InternVL2-2B's to 12 of 24 and
 # Qwen3-MoE's to 2 of 48 (its 4 of 48 took 69 s)
 TRAIN_FAMILY_CELLS = (("whisper-medium", None, 2, WHISPER_MAX_LEN),
-                      ("mamba2-2.7b", 16, 2, 4096),
+                      ("mamba2-2.7b", 8, 2, 4096),
                       ("internvl2-2b", 12, 2, 4096),
                       ("qwen3-moe-30b-a3b", 2, 2, 4096))
 TRAIN_FAMILY_STEPS = 3
@@ -5340,7 +5376,7 @@ def phase_train_families(card: str) -> None:
 
 
 SHARDS = (2, 4, 8)                  # the sharded phase's static splits
-SHARD_LAYERS = 4                    # (c2)'s depth: four ranks share a card
+SHARD_LAYERS = 2                    # (c2)'s depth: four ranks share a card
 SHARD_ENGINE_REQUESTS = 4           # (b)'s requests: the serve phase's first
 SHARD_REQUESTS = 4                  # (c2)'s requests: the serve phase's first
 # a sharded bf16 output against another path's: |d| <= atol + rtol *
@@ -5835,6 +5871,14 @@ TS_STEPS = 2                   # steps compared; (a) and (c) run one more
 TS_B, TS_S = 2, 4096           # (a)'s global batch: one row a rank
 TS_OCFG = dict(lr=3e-3, warmup_steps=10, total_steps=50)
 TS_COMP = ("internvl2-2b", 2, 4, 512)       # (b): arch, layers, B, S
+TS_EP = ("qwen3-moe-30b-a3b", 2)              # (e): arch, layers (TS_B x TS_S)
+TS_EP32_SHAPE = (2, 1024)      # (e) in f32: its global batch B x S
+# one step: at the second a router near-tie (top-k margin 1.9e-7) routes
+# one token differently on the EP ranks (PERF.md, Findings), and no
+# one-ulp control bounds what one rerouted token does to AdamW's update
+TS_EP32_STEPS = 1
+TS_SEQ = ("starcoder2-7b", 2, 1, 1024, 8)      # (f): arch, layers, B, S, ranks
+TS_SEQ_STEPS = 3
 TS_DEVICE = "cuda"
 TS_DATA4 = 4                   # the four-card run's data axis (shapes)
 
@@ -5925,20 +5969,101 @@ def _ts_plain(rank: int, world: int, job: dict) -> dict:
         import torch
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    return {"a": res, "d": _ts_tp(world, job["batches"])}
+    out = {"a": res, "d": _ts_tp(_ts_cfg("yi-9b", TS_LAYERS), world,
+                                 job["batches"], TS_STEPS)}
+    if TS_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out["e"] = _ts_tp(_ts_cfg(*TS_EP), world, job["ep_batches"], TS_STEPS)
+    if TS_DEVICE == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    routes = []
+    with _ts_routes(routes):
+        out["e32"] = _ts_tp(_ts_f32(_ts_cfg(*TS_EP)), world,
+                            job["ep32_batches"], TS_EP32_STEPS)
+    out["e32"]["routes"] = routes
+    return out
 
 
-def _ts_tp(world: int, batches) -> dict:
-    """(d) on this rank: Yi-9B tensor-parallel over model=world (Megatron
-    heads and FFN, the vocab-parallel embedding, head and loss, the layer
-    boundaries sequence-sharded at S / world >= 128), from seed 0,
-    TS_STEPS + 1 steps counted and recorded; after TS_STEPS steps the
-    whole params gathered to rank 0's host (``Shard.gather(dst=0)``)."""
+def _ts_routes(log: list):
+    """A patch of ``moe._route`` that appends each call's picks (the
+    top-k expert ids, sorted, [t, k]) and top-k margins (the k-th less
+    the (k+1)-th probability, [t]) to ``log``, on the host."""
+    from unittest import mock
+    import torch
+    from repro_torch.models import moe
+    route = moe._route
+
+    def recorded(xt, router_w, e, ctx=None):
+        probs, gates, idx = route(xt, router_w, e, ctx)
+        top = torch.topk(probs.detach(), e.top_k + 1, dim=-1).values
+        log.append((idx.detach().sort(-1).values.cpu(),
+                    (top[:, -2] - top[:, -1]).cpu()))
+        return probs, gates, idx
+    return mock.patch.object(moe, "_route", recorded)
+
+
+def _ts_route_check(part: str, ranks: list, one: list, t: int) -> str:
+    """Each route call of the expert-parallel ranks (``ranks``, a log of
+    :func:`_ts_routes` each, rank r routing tokens [r · ts, (r + 1) ·
+    ts) of the ``t``) picks, token by token, the experts the one-process
+    step's same call (``one``) picks.  A token that differs is reported
+    with its margin in the one-process step.  Returns the line's text."""
+    if any(len(log) != len(one) for log in ranks):
+        raise AssertionError(f"train_sharded {part}: route calls "
+                             f"{[len(log) for log in ranks]}, one process "
+                             f"{len(one)}")
+    ts = -(-t // len(ranks))
+    bad = []
+    for c, (ids, margin) in enumerate(one):
+        for r, log in enumerate(ranks):
+            n = min(ts, t - r * ts)
+            diff = (log[c][0][:n] != ids[r * ts:r * ts + n]).any(-1)
+            bad += [(c, r * ts + int(i), float(margin[r * ts + int(i)]))
+                    for i in diff.nonzero().flatten()]
+    if bad:
+        raise AssertionError(f"train_sharded {part}: tokens routed unlike "
+                             f"the one-process step (call, token, its top-k "
+                             f"margin there): {bad[:8]} of {len(bad)}")
+    least = min(float(m.min()) for _, m in one)
+    return (f"every pick of {len(one)} route calls x {t} tokens the "
+            f"one-process step's (least top-k margin {least:.3e})")
+
+
+def _ts_f32(cfg):
+    """``cfg`` computing in f32 (its params are f32 in training)."""
+    import dataclasses
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def _ts_seq(rank: int, world: int, job: dict) -> dict:
+    """(f) on this rank (``_gloo_spawn``): StarCoder2-7B over
+    model=world, its 36 heads undivided (``_ts_tp``), in its bf16
+    compute and then in f32."""
+    cfg = _ts_cfg(*TS_SEQ[:2])
+    out = {"bf16": _ts_tp(cfg, world, job["batches"], TS_SEQ_STEPS)}
+    if TS_DEVICE == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out["f32"] = _ts_tp(_ts_f32(cfg), world, job["batches"], TS_SEQ_STEPS)
+    return out
+
+
+def _ts_tp(cfg, world: int, batches, keep_after: int) -> dict:
+    """(d), (e) or (f) on this rank: ``cfg`` tensor-parallel over
+    model=world (Megatron heads and FFN, the vocab-parallel embedding,
+    head and loss, the layer boundaries sequence-sharded at S / world >=
+    128; a MoE's experts E / world a rank, exchanged by all_to_all; heads
+    the ranks do not divide on the sequence-sharded attention), from
+    seed 0, every batch's step counted and recorded; after
+    ``keep_after`` steps the whole params gathered to rank 0's host
+    (``Shard.gather(dst=0)``)."""
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models.lm import build_model
     from repro_torch.train import AdamWConfig, trainstep
-    cfg = _ts_cfg("yi-9b", TS_LAYERS)
     model = build_model(cfg)
     mesh = make_mesh((1, world), ("data", "model"))
     ctx = steps.mesh_ctx(mesh)
@@ -5951,11 +6076,11 @@ def _ts_tp(world: int, batches) -> dict:
                      state["params"].named_parameters()}}
 
     def keep(i, state):
-        if i + 1 == TS_STEPS:
+        if i + 1 == keep_after:
             whole = {k: shards[k].gather(p.detach(), dst=0)
                      for k, p in state["params"].named_parameters()}
             res["p"] = None if whole["embed"] is None else {
-                k: t.to("cpu") for k, t in whole.items()}
+                k: t.to("cpu", copy=True) for k, t in whole.items()}
     _ts_steps(step, state, batches, res, keep)
     return res
 
@@ -6087,14 +6212,21 @@ def _ts_compressed(rank: int, world: int, job: dict) -> dict:
     return out
 
 
-def _ts_one_process(model, batches, ctl_gen=None, keep=None) -> dict:
+def _ts_one_process(model, batches, move=None, keep=None,
+                    keep_after=TS_STEPS, slices=None) -> dict:
     """The one-process step (the card's main path, as the train phase
     runs it) over ``batches`` from seed 0: metrics, and with ``keep`` the
-    params after TS_STEPS steps on the host.  ``ctl_gen``: every rmsnorm
-    output moved one ulp (the control)."""
+    p0 and the params after ``keep_after`` steps on the host (without
+    ``keep`` those params only).  ``move``: every rmsnorm output passed
+    through it (a control: ``_ulp_moved`` or ``_ulp_moved_by_low_bit``).
+    ``slices``: the MoE under the capacity rule of that many slices
+    (``moe_forward`` with a ctx of ``tp = slices`` that is not
+    tensor-parallel)."""
+    import types
     from unittest import mock
     import torch
     from repro_torch.kernels.rmsnorm import ops as trops
+    from repro_torch.models import blocks
     from repro_torch.train import AdamWConfig, trainstep
     state = trainstep.init_state(model, seed=0, device=TS_DEVICE)
     step = trainstep.make_train_step(model, AdamWConfig(**TS_OCFG))
@@ -6102,14 +6234,24 @@ def _ts_one_process(model, batches, ctl_gen=None, keep=None) -> dict:
     if keep:
         out["p0"] = {k: p.detach().to("cpu", copy=True) for k, p in
                      state["params"].named_parameters()}
-    patch = (mock.patch.object(trops, "rmsnorm",
-                               _ulp_norm(trops.rmsnorm, ctl_gen))
-             if ctl_gen is not None else contextlib.nullcontext())
-    with patch:
+    patches = contextlib.ExitStack()
+    if move is not None:
+        patches.enter_context(mock.patch.object(
+            trops, "rmsnorm", _moved_norm(trops.rmsnorm, move)))
+    if slices is not None:
+        ctx = types.SimpleNamespace(tp=slices, tensor_parallel=False)
+        layer = blocks._layer_forward
+
+        def capped(p, x, cfg, rope, causal=True, mode=None, kv=None,
+                   _ctx=None):
+            return layer(p, x, cfg, rope, causal, mode, kv, ctx)
+        patches.enter_context(mock.patch.object(blocks, "_layer_forward",
+                                                capped))
+    with patches:
         for i, b in enumerate(batches):
             state, m = step(state, _on(b))
             out["metrics"].append({k: float(v) for k, v in m.items()})
-            if i + 1 == TS_STEPS:
+            if i + 1 == keep_after:
                 out["p"] = {k: p.detach().to("cpu", copy=True) for k, p
                             in state["params"].named_parameters()}
     del state
@@ -6198,68 +6340,146 @@ def _ts_adamw_shards(card: str) -> None:
                 _yi9b_leaves(TS_LAYERS, 2), gen)
 
 
-def _ts_tp_check(card, cfg, ranks, ref, ctl, limit) -> None:
-    """(d)'s checks against (a)'s one-process step ``ref`` and its one-ulp
-    control ``ctl``: every rank's metrics alike; each step's loss and grad
-    norm within ``limit``; the params after TS_STEPS steps by
-    ||p_d - p_1|| / ||p_1 - p_0|| within twice the control's plus 1e-6;
-    launches a rank a step rmsnorm 4 * TS_LAYERS + 1 (each on its
-    TS_S / 2 rows), adamw_update 1; a rank's counted wire bytes a step,
-    by kind, equal to ``sharded_step_wire``'s ring model of the layout."""
+def _ts_limit(ref, *ctls):
+    """``limit(key, i)``: twice the farthest of the controls ``ctls``
+    from the one-process step's metric ``key`` at step i, plus 1e-6
+    relative."""
+    def limit(key, i):
+        r = ref["metrics"][i][key]
+        return (2 * max(abs(c["metrics"][i][key] - r) for c in ctls)
+                + 1e-6 * abs(r))
+    return limit
+
+
+def _ts_ctl(gen_seed: int):
+    """The one-ulp control's move, its signs drawn from a generator on
+    the card seeded ``gen_seed``."""
+    import torch
+    return functools.partial(_ulp_moved, gen=torch.Generator(
+        device=TS_DEVICE).manual_seed(gen_seed))
+
+
+def _ts_tp_check(card, part, cfg, ranks, ref, ctls, shape, kept, what,
+                 ref_name="one process") -> None:
+    """(d), (e) or (f)'s checks (``part``) against the one-process step
+    ``ref`` (``ref_name``) and the controls ``ctls`` ({name: run}) on
+    global batches of
+    ``shape`` (B, S): every rank's metrics alike; each step's loss and
+    grad norm within twice the farthest control's distance plus 1e-6
+    relative; the params after ``kept`` steps by ||p - p_1|| / ||p_1 -
+    p_0|| within twice the farthest control's plus 1e-6; launches a rank
+    a step rmsnorm 4 · layers + 1 (each on its S / world rows),
+    adamw_update 1; a rank's counted wire bytes a step, by kind, equal to
+    ``sharded_step_wire``'s ring model of the layout.  ``what(rank 0's
+    result)``: the line's description of the layout.  Every step's line
+    is printed before a failure is raised."""
     from repro_torch.roofline.analysis import sharded_step_wire
     world = len(ranks)
-    want = {"rmsnorm": 4 * TS_LAYERS + 1, "adamw_update": 1}
-    ring = sharded_step_wire(cfg, {"data": 1, "model": world}, TS_B, TS_S)
+    b, s = shape
+    limit = _ts_limit(ref, *ctls.values())
+    want = {"rmsnorm": 4 * cfg.n_layers + 1, "adamw_update": 1}
+    ring = sharded_step_wire(cfg, {"data": 1, "model": world}, b, s)
     for r, res in enumerate(ranks):
         if res["metrics"] != ranks[0]["metrics"]:
-            raise AssertionError(f"train_sharded (d): rank {r}'s metrics "
-                                 "differ from rank 0's")
+            raise AssertionError(f"train_sharded {part}: rank {r}'s "
+                                 "metrics differ from rank 0's")
         for i, (counts, wire) in enumerate(zip(res["launches"],
                                                res["wire"])):
             if counts != want:
-                raise AssertionError(f"train_sharded (d) rank {r} step {i}: "
-                                     f"launches {counts}, expected {want}")
+                raise AssertionError(f"train_sharded {part} rank {r} step "
+                                     f"{i}: launches {counts}, expected "
+                                     f"{want}")
             got = wire["collective_wire_bytes"]
             if set(got) != set(ring) or any(
                     abs(got[k] - ring[k]) > 1e-9 * ring[k] for k in ring):
-                raise AssertionError(f"train_sharded (d) rank {r} step {i}: "
-                                     f"wire bytes {got}, the ring model of "
-                                     f"the layout {ring}")
+                raise AssertionError(f"train_sharded {part} rank {r} step "
+                                     f"{i}: wire bytes {got}, the ring "
+                                     f"model of the layout {ring}")
     d = ranks[0]
-    for i in range(TS_STEPS + 1):
+    bad = []
+    for i in range(len(d["metrics"])):
         for key in ("loss", "grad_norm"):
             got, one = d["metrics"][i][key], ref["metrics"][i][key]
             if not math.isfinite(got) or abs(got - one) > limit(key, i):
-                raise AssertionError(
-                    f"train_sharded (d) step {i} {key}: {got} vs one-process "
-                    f"{one} (|d| {abs(got - one):.3e} > {limit(key, i):.3e})")
-        print(f"train_sharded (d) step {i}: loss {d['metrics'][i]['loss']:.6f}"
-              f" (one process {ref['metrics'][i]['loss']:.6f}, one-ulp control "
-              f"{ctl['metrics'][i]['loss']:.6f}) grad_norm "
-              f"{d['metrics'][i]['grad_norm']:.6f} (one process "
-              f"{ref['metrics'][i]['grad_norm']:.6f}); wall a rank "
-              f"{[round(x['wall'][i], 3) for x in ranks]} s; launches a rank "
-              f"{json.dumps(d['launches'][i])}; wire bytes a rank "
+                bad.append(f"train_sharded {part} step {i} {key}: {got} vs "
+                           f"{ref_name} {one} (|d| {abs(got - one):.3e} > "
+                           f"{limit(key, i):.3e})")
+        m = d["metrics"][i]
+        print(f"train_sharded {part} step {i}: " + "; ".join(
+            f"{key} {m[key]:.6f} ({ref_name} "
+            f"{ref['metrics'][i][key]:.6f}, " + ", ".join(
+                f"{name} {c['metrics'][i][key]:.6f}"
+                for name, c in ctls.items()) + ")"
+            for key in ("loss", "grad_norm"))
+              + f"; wall a rank {[round(x['wall'][i], 3) for x in ranks]} "
+              f"s; launches a rank {json.dumps(d['launches'][i])}; wire "
+              f"bytes a rank "
               f"{json.dumps(d['wire'][i]['collective_wire_bytes'])} (by axis "
-              f"{json.dumps(d['wire'][i]['collective_wire_bytes_by_axis'])}) = "
-              f"the ring model [{card}]")
+              f"{json.dumps(d['wire'][i]['collective_wire_bytes_by_axis'])}) "
+              f"= the ring model [{card}]")
     gap_d = _update_gap(d["p"], ref["p"], ref["p0"])
-    gap_c = _update_gap(ctl["p"], ref["p"], ref["p0"])
+    gaps = {name: _update_gap(c["p"], ref["p"], ref["p0"])
+            for name, c in ctls.items()}
+    gap_c = max(gaps.values())
+    ctl_text = ", ".join(f"{name} {g:.3e}" for name, g in gaps.items())
     if gap_d > 2 * gap_c + 1e-6:
-        raise AssertionError(f"train_sharded (d): params after {TS_STEPS} "
-                             f"steps {gap_d:.3e} of the update from the one "
-                             f"process's, control {gap_c:.3e}")
-    print(f"train_sharded (d): {cfg.name} full width, {TS_LAYERS} layers, "
-          f"tensor-parallel over model={world} ({world} gloo ranks on one "
-          f"card, after (a) in the same processes), global batch {TS_B} x "
-          f"{TS_S}, the layer boundaries sequence-sharded ({TS_S // world} "
-          f"rows a rank); local wq {d['local']['blocks.0.attn.wq']}, wk "
-          f"{d['local']['blocks.0.attn.wk']}, wo {d['local']['blocks.0.attn.wo']}"
-          f", w_in {d['local']['blocks.0.ffn.w_in']}, embed "
-          f"{d['local']['embed']}, head {d['local']['head']}; params after "
-          f"{TS_STEPS} steps {gap_d:.3e} of the update away from the one "
-          f"process's (control {gap_c:.3e}, limit twice it); peak memory a "
-          f"rank {[round(x['memory_gib'], 2) for x in ranks]} GiB [{card}]")
+        bad.append(f"train_sharded {part}: params {gap_d:.3e} of the "
+                   f"update from the {ref_name}'s ({ctl_text})")
+    if bad:
+        raise AssertionError("; ".join(bad))
+    print(f"train_sharded {part}: {cfg.name} full width, {cfg.n_layers} "
+          f"layers, {cfg.compute_dtype} compute, tensor-parallel over "
+          f"model={world} ({world} gloo ranks "
+          f"on one card), global batch {b} x {s}, the layer boundaries "
+          f"sequence-sharded ({s // world} rows a rank); {what(d)}; params "
+          f"after {kept} steps {gap_d:.3e} of the update away from the "
+          f"{ref_name}'s ({ctl_text}; limit twice the farthest); steps a "
+          f"rank "
+          f"{len(d['metrics'])}; peak memory a rank "
+          f"{[round(x['memory_gib'], 2) for x in ranks]} GiB [{card}]")
+
+
+def _ts_seqshard(card: str) -> None:
+    """(f): StarCoder2-7B over model=8, in its bf16 compute and in f32,
+    each against the f32 one-process step (``phase_train_sharded``)."""
+    import torch
+    from repro_torch.models.lm import build_model
+    _, _, b, s, world = TS_SEQ
+    cfg = _ts_cfg(*TS_SEQ[:2])
+    cfg32 = _ts_f32(cfg)
+    model, model32 = build_model(cfg), build_model(cfg32)
+    batches = _ts_batches(cfg, b, s, TS_SEQ_STEPS)
+    kw = dict(keep_after=TS_SEQ_STEPS)
+    ref = _ts_one_process(model32, batches, keep=True, **kw)
+    ctl = _ts_one_process(model32, batches, _ts_ctl(5), **kw)
+    one16 = _ts_one_process(model, batches, **kw)
+    ctl16 = _ts_one_process(model, batches, _ts_ctl(5), **kw)
+    free_gib = torch.cuda.mem_get_info()[0] / 2 ** 30
+    t0 = time.perf_counter()
+    ranks = _gloo_spawn(_ts_seq, world, {"batches": batches})
+    spawn_s = time.perf_counter() - t0
+
+    def what(d):
+        return (f"{cfg.n_heads} heads undivided, the sequence-sharded "
+                f"attention: local wq {d['local']['blocks.0.attn.wq']}, wk "
+                f"{d['local']['blocks.0.attn.wk']}, wo "
+                f"{d['local']['blocks.0.attn.wo']} (whole), w_in "
+                f"{d['local']['blocks.0.ffn.w_in']}, embed "
+                f"{d['local']['embed']}; {free_gib:.2f} GiB free on the "
+                f"card before the spawn, each rank capped at "
+                f"{free_gib / world - GLOO_CONTEXT_GIB:.2f} GiB; the "
+                f"{world} processes took {spawn_s:.1f} s")
+    # bf16 against the f32 one-process step, as far from it as the bf16
+    # one-process step and its one-ulp control are (both ~1% of each
+    # gradient apart from f32); then f32 against its one-ulp control
+    _ts_tp_check(card, "(f)", cfg, [r["bf16"] for r in ranks], ref,
+                 {"bf16 one process": one16, "its one-ulp control": ctl16},
+                 (b, s), TS_SEQ_STEPS, what, "f32 one process")
+    _ts_tp_check(card, "(f) f32", cfg32, [r["f32"] for r in ranks], ref,
+                 {"one-ulp control": ctl}, (b, s), TS_SEQ_STEPS, what)
+    del ranks, ref, ctl, one16, ctl16
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def phase_train_sharded(card: str) -> None:
@@ -6289,8 +6509,24 @@ def phase_train_sharded(card: str) -> None:
     (``_ts_tp``, ``_ts_tp_check``): the same batches and steps held
     against the same one-process step and control, the same limits, the
     launches a rank a step, and the wire bytes against the ring model of
-    the layout.  Then ``adamw_update`` at Yi-9B's shard shapes against
-    its plain version."""
+    the layout.  (e) After (d), in the same processes, Qwen3-MoE-30B-A3B
+    (full width, 2 of 48 layers) expert-parallel over model=2 on 2 x
+    4096 tokens (64 of its 128 experts a rank, capacity buffers [128,
+    320, 2048] exchanged by all_to_all), TS_STEPS steps, held the same
+    way against the one-process step with its MoE under the same
+    capacity rule (2 slices) and that step's one-ulp control (each move
+    by the output's low bit, as the MoE's recompute needs); then the same
+    in f32 compute on 2 x 1024 tokens (TS_EP32_SHAPE), one step, a
+    tight check of the same path, its every token routed as the
+    one-process step routes it (``_ts_route_check``).  (f)
+    StarCoder2-7B (full width, 2 of 32 layers) over model=8, its 36
+    heads undivided (the sequence-sharded attention, 128 query rows a
+    rank), 8 gloo ranks, 1 x 1024 tokens, TS_SEQ_STEPS steps: in its
+    bf16 compute held against the f32 one-process step, the limits twice
+    the farther of the bf16 one-process step and its one-ulp control
+    from it; in f32 against the same step and its one-ulp control.  Then
+    ``adamw_update`` at Yi-9B's shard shapes against its plain
+    version."""
     import torch
     import torch.distributed as dist
     from repro_torch.checkpoint import CheckpointManager
@@ -6302,15 +6538,25 @@ def phase_train_sharded(card: str) -> None:
     model = build_model(cfg)
     batches = _ts_batches(cfg, TS_B, TS_S, TS_STEPS + 1)
     ref = _ts_one_process(model, batches, keep=True)
-    ctl = _ts_one_process(model, batches, torch.Generator(
-        device=TS_DEVICE).manual_seed(5))
+    ctl = _ts_one_process(model, batches, _ts_ctl(5))
+    ep_cfg = _ts_cfg(*TS_EP)
+    ep_model = build_model(ep_cfg)
+    ep_batches = _ts_batches(ep_cfg, TS_B, TS_S, TS_STEPS)
+    ep_ref = _ts_one_process(ep_model, ep_batches, keep=True, slices=2)
+    ep_ctl = _ts_one_process(ep_model, ep_batches, _ulp_moved_by_low_bit,
+                             slices=2)
+    ep32_batches = _ts_batches(ep_cfg, *TS_EP32_SHAPE, TS_EP32_STEPS)
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ts_ckpt_")
     try:
         t0 = time.perf_counter()
-        both = _gloo_spawn(_ts_plain, 2, {"batches": batches, "ckpt": ckpt})
+        both = _gloo_spawn(_ts_plain, 2, {"batches": batches, "ckpt": ckpt,
+                                          "ep_batches": ep_batches,
+                                          "ep32_batches": ep32_batches})
         spawn_s = time.perf_counter() - t0
         ranks = [r["a"] for r in both]
         tp_ranks = [r["d"] for r in both]
+        ep_ranks = [r["e"] for r in both]
+        ep32_ranks = [r["e32"] for r in both]
         del both
         # every leaf and gradient f32: one AdamW launch a rank a step
         want = {"rmsnorm": 4 * TS_LAYERS + 1, "adamw_update": 1}
@@ -6324,10 +6570,7 @@ def phase_train_sharded(card: str) -> None:
                                          f"{i}: launches {counts}, expected "
                                          f"{want}")
         a = ranks[0]
-
-        def limit(key, i):
-            r = ref["metrics"][i][key]
-            return 2 * abs(ctl["metrics"][i][key] - r) + 1e-6 * abs(r)
+        limit = _ts_limit(ref, ctl)
         for i in range(TS_STEPS + 1):
             for key in ("loss", "grad_norm"):
                 d = abs(a["metrics"][i][key] - ref["metrics"][i][key])
@@ -6400,8 +6643,57 @@ def phase_train_sharded(card: str) -> None:
                 if d > limit(key, i):
                     raise AssertionError(f"train_sharded (c) {key}: "
                                          f"{mc[key]} vs {what} {other}")
-        _ts_tp_check(card, cfg, tp_ranks, ref, ctl, limit)
+        _ts_tp_check(card, "(d)", cfg, tp_ranks, ref,
+                     {"one-ulp control": ctl}, (TS_B, TS_S),
+                     TS_STEPS, lambda d: (
+                         f"local wq {d['local']['blocks.0.attn.wq']}, wk "
+                         f"{d['local']['blocks.0.attn.wk']}, wo "
+                         f"{d['local']['blocks.0.attn.wo']}, w_in "
+                         f"{d['local']['blocks.0.ffn.w_in']}, embed "
+                         f"{d['local']['embed']}, head {d['local']['head']}"))
         del tp_ranks
+        from repro_torch.models import moe
+
+        def ep_what(b, s, size):
+            t_ep, cap = moe.capacity(b * s, 2, ep_cfg.moe)
+            buf = ep_cfg.moe.n_experts * cap * ep_cfg.d_model * size
+
+            def what(d):
+                a2a = d["wire"][0]["collective_wire_bytes"]["all-to-all"]
+                return (f"expert-parallel: local w_in "
+                        f"{d['local']['blocks.0.moe.w_in']}, w_out "
+                        f"{d['local']['blocks.0.moe.w_out']}, router "
+                        f"{d['local']['blocks.0.moe.router']}; {t_ep} "
+                        f"tokens a rank's slice, cap {cap}, a capacity "
+                        f"buffer [{ep_cfg.moe.n_experts}, {cap}, "
+                        f"{ep_cfg.d_model}] of {buf / 1e6:.1f} MB, "
+                        f"all-to-all wire a rank a step {a2a / 1e9:.3f} "
+                        f"GB; against the one-process step with 2 "
+                        f"capacity slices")
+            return what
+        _ts_tp_check(card, "(e)", ep_cfg, ep_ranks, ep_ref,
+                     {"one-ulp control": ep_ctl}, (TS_B, TS_S), TS_STEPS,
+                     ep_what(TS_B, TS_S, 2))
+        del ep_ranks, ep_ref, ep_ctl, ep_model
+        gc.collect()
+        # (e) in f32, where a sum's order moves the result by ulps, not
+        # bf16 roundings: a tight check of the same path
+        ep32_cfg = _ts_f32(ep_cfg)
+        ep32_model = build_model(ep32_cfg)
+        routes = []
+        with _ts_routes(routes):
+            ep32_ref = _ts_one_process(ep32_model, ep32_batches, keep=True,
+                                       keep_after=TS_EP32_STEPS, slices=2)
+        ep32_ctl = _ts_one_process(ep32_model, ep32_batches,
+                                   _ulp_moved_by_low_bit,
+                                   keep_after=TS_EP32_STEPS, slices=2)
+        agreed = _ts_route_check("(e) f32", [r["routes"] for r in ep32_ranks],
+                                 routes, math.prod(TS_EP32_SHAPE))
+        what32 = ep_what(*TS_EP32_SHAPE, 4)
+        _ts_tp_check(card, "(e) f32", ep32_cfg, ep32_ranks, ep32_ref,
+                     {"one-ulp control": ep32_ctl}, TS_EP32_SHAPE,
+                     TS_EP32_STEPS, lambda d: f"{what32(d)}; {agreed}")
+        del ep32_ranks, ep32_ref, ep32_ctl
         print(f"train_sharded (c): (a)'s checkpoint at step {step0} "
               f"restored by remesh_state onto {tuple(mesh.shape)} "
               f"{tuple(mesh.mesh_dim_names)} in {t_restore:.1f} s; params "
@@ -6419,6 +6711,7 @@ def phase_train_sharded(card: str) -> None:
     gc.collect()
     if TS_DEVICE == "cuda":
         torch.cuda.empty_cache()
+    _ts_seqshard(card)
 
     # (b) the compressed step on 4 ranks, against the uncompressed one
     arch, layers, b, s = TS_COMP

@@ -12,7 +12,9 @@ Across ranks: ``torchrun --nproc-per-node K -m repro_torch.launch.train
 ``--mesh data=2,model=2``): one rank a card under NCCL, or gloo ranks
 with ``--device cpu``; the state is sharded ZeRO-3 over ``data`` and cut
 over ``model`` for tensor parallelism (Megatron heads, FFN and
-vocabulary), the batch over ``(pod, data)``
+vocabulary; a MoE's experts, exchanged by all_to_all; heads the ranks
+do not divide stay whole, on the sequence-sharded attention), the batch
+over ``(pod, data)``
 (``trainstep.make_train_step(..., ctx=)``), ``--compressed-pod-sync``
 averages gradients across pods as int8 with error feedback.
 Checkpoints are whole leaves on disk, written by rank 0.  A process

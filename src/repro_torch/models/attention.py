@@ -63,20 +63,24 @@ def _kv_weights(p: Attention, cfg: ModelConfig, ctx):
     return p.wk[:, cols], p.wv[:, cols], [h - lo for h in mine]
 
 
-def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope, ctx=None):
-    """q [B, S, Hq, dh], k and v [B, S, Hkv, dh] of x; in a
-    tensor-parallel forward this rank's heads (:func:`_kv_weights`)."""
+def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope, ctx=None,
+         dtype=None):
+    """q [B, S, Hq, dh], k and v [B, S, Hkv, dh] of x, in ``dtype``
+    (default x's: the f32 rows of ``common.tp_enter`` narrowed by
+    ``common.entry_mm``); in a tensor-parallel forward this rank's heads
+    (:func:`_kv_weights`)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
+    dt = dtype or x.dtype
     wk, wv, heads = _kv_weights(p, cfg, ctx)
-    q = (x @ p.wq.to(x.dtype)).reshape(b, s, -1, dh)
-    k = (x @ wk.to(x.dtype)).reshape(b, s, -1, dh)
-    v = (x @ wv.to(x.dtype)).reshape(b, s, -1, dh)
+    q = common.entry_mm(x, p.wq, dt).reshape(b, s, -1, dh)
+    k = common.entry_mm(x, wk, dt).reshape(b, s, -1, dh)
+    v = common.entry_mm(x, wv, dt).reshape(b, s, -1, dh)
     if heads is not None:
         idx = torch.tensor(heads, device=x.device)
         k, v = k.index_select(2, idx), v.index_select(2, idx)
-    q = common.apply_rope(q, rope, cfg.rope_style).to(x.dtype)
-    k = common.apply_rope(k, rope, cfg.rope_style).to(x.dtype)
+    q = common.apply_rope(q, rope, cfg.rope_style).to(dt)
+    k = common.apply_rope(k, rope, cfg.rope_style).to(dt)
     return q, k, v
 
 
@@ -182,7 +186,7 @@ def _sdpa(q, k, v, causal: bool, q_offset: int = 0):
 
 
 def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
-                 causal: bool = True, ctx=None):
+                 causal: bool = True, ctx=None, dtype=None):
     """Train/prefill full attention. Returns (out, (k, v)).
 
     In a tensor-parallel forward (``ctx``, x the whole sequence from
@@ -191,12 +195,41 @@ def attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, rope,
     (``common.row_parallel``: f32 for 16-bit operands), which
     ``common.tp_exit`` reduces.  (A head count the model axis does not
     divide is the JAX package's sequence-sharded attention, which
-    ``train.zero.layout`` refuses.)"""
-    q, k, v = _qkv(p, x, cfg, rope, ctx)
+    ``train.zero.layout`` refuses.)  ``dtype``: the products' (default
+    x's)."""
+    q, k, v = _qkv(p, x, cfg, rope, ctx, dtype)
     out = _sdpa(q, k, v, causal)
     b, s, _ = x.shape
     out = out.reshape(b, s, -1)
-    return common.row_parallel(out, p.wo.to(x.dtype), ctx), (k, v)
+    return common.row_parallel(out, p.wo.to(q.dtype), ctx), (k, v)
+
+
+def attn_seqshard(p: Attention, h: torch.Tensor, cfg: ModelConfig, rope,
+                  causal: bool, ctx) -> torch.Tensor:
+    """The JAX package's sequence-sharded attention (``_sdpa_seqshard``),
+    for a head count the model axis does not divide on a sequence the
+    layer boundaries shard: h is this rank's S / tp rows [B, S / tp, D]
+    and wq, wk, wv, wo are whole.  The rank projects q for its own rows
+    and K/V for the whole sequence (h all-gathered by ``common.tp_enter``,
+    whose backward sums the ranks' parts of its gradient), attends with
+    the causal offset ``rank · S / tp`` in q chunks of
+    :func:`_pick_q_chunk` and runs wo on its rows: the output is the
+    boundary's rows, with no reduction.  Each rank's gradients of the
+    four weights are its rows' parts, summed over ``model`` in the
+    backward (``common.model_summed``)."""
+    b, sl, _ = h.shape
+    dh = cfg.head_dim
+    lo = ctx.tp_rank * sl
+    whole = common.tp_enter(h, ctx)
+    s = whole.shape[1]
+    q = common.model_summed(h, p.wq, ctx).reshape(b, sl, -1, dh)
+    k = common.model_summed(whole, p.wk, ctx, h.dtype).reshape(b, s, -1, dh)
+    v = common.model_summed(whole, p.wv, ctx, h.dtype).reshape(b, s, -1, dh)
+    rope_q = None if rope is None else tuple(t[lo:lo + sl] for t in rope)
+    q = common.apply_rope(q, rope_q, cfg.rope_style).to(h.dtype)
+    k = common.apply_rope(k, rope, cfg.rope_style).to(h.dtype)
+    out = _sdpa(q, k, v, causal, q_offset=lo)
+    return common.model_summed(out.reshape(b, sl, -1), p.wo, ctx)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

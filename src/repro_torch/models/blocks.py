@@ -136,23 +136,18 @@ def init_stack_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
 def _ffn(p: Layer, x, cfg: ModelConfig, mode: Optional[str], ctx=None):
     """The layer's FFN half: (x', aux), aux the MoE router's loss (None
     for a dense FFN or none).  ``ctx``: the MoE's dispatch
-    (``moe.moe_forward``); in a tensor-parallel forward a dense FFN is
-    column- then row-parallel where the model axis divides ``d_ff`` (as
-    the rules cut it), else whole on every rank over the whole
-    sequence."""
+    (``moe.moe_forward``: expert parallelism in a tensor-parallel
+    forward whose model axis divides the experts); in a tensor-parallel
+    forward a dense FFN is column- then row-parallel where the model axis
+    divides ``d_ff`` (as the rules cut it), else whole on every rank over
+    the whole sequence (``ffn.ffn_layer``)."""
     if p.desc.ffn == "none":
         return x, None
     h = common.rms_norm(x, p.norm2, cfg.norm_eps, mode)
     if p.desc.ffn == "moe":
         f, aux = moe.moe_forward(p.moe, h, cfg, ctx)
         return x + f, aux
-    if common.tensor_parallel(ctx) and cfg.d_ff % ctx.tp == 0:
-        f = common.tp_exit(ffn.ffn_forward(
-            p.ffn, common.tp_enter(h, ctx), cfg.act, ctx), ctx, h.dtype)
-    else:
-        f = common.rep_exit(ffn.ffn_forward(
-            p.ffn, common.rep_enter(h, ctx), cfg.act), ctx)
-    return x + f, None
+    return x + ffn.ffn_layer(p.ffn, h, cfg, ctx), None
 
 
 def _cross(p: Layer, x, cfg: ModelConfig, kv, mode: Optional[str]):
@@ -175,19 +170,35 @@ def _layer_forward(p: Layer, x, cfg: ModelConfig, rope, causal: bool = True,
     layer has no MoE.  ``ctx``: the MoE's dispatch; in a tensor-parallel
     forward (``common.tp_layout``) the layer holds its weights' ``model``
     blocks and x its boundary's rows (S / tp of them where the sequence
-    is sharded), where the norms and residuals run: attention and a
-    divisible FFN between ``common.tp_enter`` and ``tp_exit``, a Mamba-2
-    mixer (whole over ``model`` by the rules) on the whole sequence
-    between ``rep_enter`` and ``rep_exit``."""
+    is sharded), where the norms and residuals run: a Mamba-2 mixer
+    (whole over ``model`` by the rules) on the whole sequence between
+    ``rep_enter`` and ``rep_exit``, attention by :func:`_attn`, the FFN
+    by :func:`_ffn`."""
     h = common.rms_norm(x, p.norm1, cfg.norm_eps, mode)
     if p.desc.mixer == "attn":
-        a, _ = attention.attn_forward(p.attn, common.tp_enter(h, ctx), cfg,
-                                      rope, causal, ctx)
-        a = common.tp_exit(a, ctx, h.dtype)
+        a = _attn(p.attn, h, cfg, rope, causal, ctx)
     else:
         a = common.rep_exit(mamba2.mamba_forward(
             p.mamba, common.rep_enter(h, ctx), cfg, mode=mode), ctx)
     return _ffn(p, _cross(p, x + a, cfg, cross_kv, mode), cfg, mode, ctx)
+
+
+def _attn(p: attention.Attention, h, cfg: ModelConfig, rope, causal: bool,
+          ctx=None):
+    """Attention of a layer boundary's rows ``h``, back at the boundary.
+    In a tensor-parallel forward whose model axis divides the heads:
+    Megatron heads between ``common.tp_enter`` and ``tp_exit``; where it
+    does not, the JAX package's sequence-sharded attention on a sharded
+    sequence (``attention.attn_seqshard``: this rank's query rows, no
+    reduction), else attention whole on every rank, as GSPMD replicates
+    it (the rules keep the weights whole then)."""
+    if not common.tensor_parallel(ctx) or cfg.n_heads % ctx.tp == 0:
+        a, _ = attention.attn_forward(p, common.tp_enter(h, ctx), cfg, rope,
+                                      causal, ctx, h.dtype)
+        return common.tp_exit(a, ctx, h.dtype)
+    if ctx.seq_sharded:
+        return attention.attn_seqshard(p, h, cfg, rope, causal, ctx)
+    return attention.attn_forward(p, h, cfg, rope, causal)[0]
 
 
 def norm_calls(stack) -> int:

@@ -180,17 +180,18 @@ def _all_reduce(x: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
 
 
 class _CopyIn(torch.autograd.Function):
-    """Into a tensor-parallel region: identity; backward all-reduces the
-    ranks' partial gradients."""
+    """Into a tensor-parallel region: x in f32 (exact); backward
+    all-reduces the ranks' partial gradients in f32 and rounds the sum
+    once to x's dtype (see :func:`tp_enter`)."""
 
     @staticmethod
     def forward(fctx, x, ctx):
-        fctx.ctx = ctx
-        return x.view_as(x)
+        fctx.ctx, fctx.dtype = ctx, x.dtype
+        return x.float() if x.dtype != torch.float32 else x.view_as(x)
 
     @staticmethod
     def backward(fctx, g):
-        return _all_reduce(g, fctx.ctx), None
+        return _all_reduce(g.float(), fctx.ctx).to(fctx.dtype), None
 
 
 class _ReduceOut(torch.autograd.Function):
@@ -210,16 +211,19 @@ class _ReduceOut(torch.autograd.Function):
 
 class _GatherSeq(torch.autograd.Function):
     """Sequence-sharded → whole, into a tensor-parallel region: all-gather
-    of S; backward reduce-scatters the ranks' partial gradients."""
+    of S (in x's dtype), handed on in f32; backward reduce-scatters the
+    ranks' partial gradients in f32 and rounds once to x's dtype (see
+    :func:`tp_enter`)."""
 
     @staticmethod
     def forward(fctx, x, ctx):
-        fctx.ctx = ctx
-        return _seq_gather(x, ctx)
+        fctx.ctx, fctx.dtype = ctx, x.dtype
+        return _seq_gather(x, ctx).float()
 
     @staticmethod
     def backward(fctx, g):
-        return _seq_reduce_scatter(g, fctx.ctx), None
+        return (_seq_reduce_scatter(g.float(), fctx.ctx).to(fctx.dtype),
+                None)
 
 
 class _ScatterSeq(torch.autograd.Function):
@@ -281,6 +285,93 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor,
     return _RowParallel.apply(x, w)
 
 
+def _f32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 2-D operands of one dtype, summed in f32 and never
+    rounded to 16 bits (on the card ``torch.bmm(..., out_dtype=f32)``)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.bmm(a[None], b[None], out_dtype=torch.float32)[0]
+    return a.float() @ b.float()
+
+
+class _NarrowMM(torch.autograd.Function):
+    """``x @ w`` in ``dtype`` for the f32 rows ``x`` that :func:`tp_enter`
+    hands on: both narrowed to ``dtype`` first, so the forward is the
+    plain product's.  Backward: x's gradient, this rank's part of it, in
+    f32 (:func:`_f32_mm`), not rounded to ``dtype`` before the entry's
+    sum; w's as the plain product's (in ``dtype``)."""
+
+    @staticmethod
+    def forward(fctx, x, w, dtype):
+        xd, wd = x.to(dtype), w.to(dtype)
+        fctx.save_for_backward(xd, wd)
+        fctx.wdtype = w.dtype
+        return xd @ wd
+
+    @staticmethod
+    def backward(fctx, g):
+        xd, wd = fctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = _f32_mm(g2, wd.T).view(*g.shape[:-1], wd.shape[0])
+        dw = (xd.reshape(-1, xd.shape[-1]).T @ g2).to(fctx.wdtype)
+        return dx, dw, None
+
+
+def entry_mm(x: torch.Tensor, w: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """``x @ w`` in ``dtype``: a column-parallel product of the f32 rows
+    :func:`tp_enter` hands on (:class:`_NarrowMM`), else the plain
+    product."""
+    if x.dtype == dtype:
+        return x @ w.to(dtype)
+    return _NarrowMM.apply(x, w, dtype)
+
+
+class _ModelSummed(torch.autograd.Function):
+    """``x @ w`` (w cast to x's dtype) for a weight whole over the model
+    group whose gradient each rank holds a part of (its own rows of x):
+    backward sums the parts over the model group in f32 and rounds the
+    sum once to w's dtype, as the one-card product rounds its whole sum
+    once (a part rounded to 16 bits on each rank, then summed, rounds tp
+    times).  The gradient is then whole on every rank.  x's gradient is
+    the plain product's, or in f32 where x is the f32 rows of
+    :func:`tp_enter` (as :class:`_NarrowMM`'s)."""
+
+    @staticmethod
+    def forward(fctx, x, w, ctx, dtype):
+        xd = x.to(dtype)
+        fctx.save_for_backward(xd, w)
+        fctx.ctx, fctx.x_dtype = ctx, x.dtype
+        return xd @ w.to(dtype)
+
+    @staticmethod
+    def backward(fctx, g):
+        xd, w = fctx.saved_tensors
+        dx = dw = None
+        g2 = g.reshape(-1, g.shape[-1])
+        if fctx.needs_input_grad[0]:
+            wd = w.to(g.dtype)
+            if fctx.x_dtype == xd.dtype:
+                dx = g @ wd.T
+            else:
+                dx = _f32_mm(g2, wd.T).view(*g.shape[:-1], wd.shape[0])
+        if fctx.needs_input_grad[1]:
+            part = _f32_mm(xd.reshape(-1, xd.shape[-1]).T, g2)
+            dw = _all_reduce(part, fctx.ctx).to(w.dtype)
+        return dx, dw, None, None
+
+
+def model_summed(x: torch.Tensor, w: torch.Tensor, ctx: Optional[MeshCtx],
+                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x @ w`` in ``dtype`` (default x's); in a tensor-parallel forward,
+    where w is whole over the model group and this rank's x holds only
+    its part of the rows, :class:`_ModelSummed` (w's gradient summed over
+    the group in f32)."""
+    dtype = dtype or x.dtype
+    if not tensor_parallel(ctx):
+        return entry_mm(x, w, dtype)
+    return _ModelSummed.apply(x, w, ctx, dtype)
+
+
 class _GatherRep(torch.autograd.Function):
     """Sequence-sharded → whole, into a replicated region (every rank
     computes the same function of the whole sequence): all-gather of S;
@@ -314,7 +405,15 @@ def tp_enter(x: torch.Tensor, ctx: Optional[MeshCtx]) -> torch.Tensor:
     """A layer boundary's tokens into a column-parallel product: the
     whole sequence (all-gathered where sharded, backward
     reduce-scatter), else the identity with an all-reduce backward.  The
-    identity outside a tensor-parallel forward."""
+    identity outside a tensor-parallel forward.
+
+    In one the rows are handed on in f32, for products that narrow them
+    to the compute dtype (:func:`entry_mm`, :func:`model_summed` with a
+    ``dtype``): each rank's part of their gradient stays f32 and the
+    parts are summed in f32 and rounded once, as the one-card product
+    rounds its whole sum once.  Rounded to 16 bits on each rank and then
+    summed in 16 bits over 8 ranks, a bf16 step lies measurably farther
+    from the f32 step than the one-card bf16 step does."""
     if not tensor_parallel(ctx):
         return x
     return (_GatherSeq if ctx.seq_sharded else _CopyIn).apply(x, ctx)

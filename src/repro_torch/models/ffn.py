@@ -33,16 +33,34 @@ def init_ffn(generator: torch.Generator, d_model: int, d_ff: int, act: str,
     return FFN(w_in, w_out, w_gate)
 
 
-def ffn_forward(p: FFN, x: torch.Tensor, act: str,
-                ctx=None) -> torch.Tensor:
-    """The FFN of x; in a tensor-parallel forward (``ctx``) w_in and
-    w_gate hold this rank's columns and w_out its rows, and the result is
-    this rank's partial sum (``common.row_parallel``)."""
-    h = x @ p.w_in.to(x.dtype)
+def ffn_forward(p: FFN, x: torch.Tensor, act: str, ctx=None,
+                dtype=None) -> torch.Tensor:
+    """The FFN of x in ``dtype`` (default x's: the f32 rows of
+    ``common.tp_enter`` narrowed by ``common.entry_mm``); in a
+    tensor-parallel forward (``ctx``) w_in and w_gate hold this rank's
+    columns and w_out its rows, and the result is this rank's partial sum
+    (``common.row_parallel``)."""
+    dt = dtype or x.dtype
+    h = common.entry_mm(x, p.w_in, dt)
     if act == "swiglu":
-        h = F.silu(x @ p.w_gate.to(x.dtype)) * h
+        h = F.silu(common.entry_mm(x, p.w_gate, dt)) * h
     elif act == "gelu":
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     else:
         raise ValueError(act)
-    return common.row_parallel(h, p.w_out.to(x.dtype), ctx)
+    return common.row_parallel(h, p.w_out.to(dt), ctx)
+
+
+def ffn_layer(p: FFN, h: torch.Tensor, cfg, ctx) -> torch.Tensor:
+    """The FFN (``cfg.d_ff`` wide) of a layer boundary's rows ``h``, back
+    at the boundary: in a tensor-parallel forward column- then
+    row-parallel where the model axis divides ``d_ff``, as the rules cut
+    it (``common.tp_enter``, ``common.tp_exit``), else whole on every
+    rank over the whole sequence (``common.rep_enter``,
+    ``common.rep_exit``); the FFN itself outside one."""
+    if common.tensor_parallel(ctx) and cfg.d_ff % ctx.tp == 0:
+        return common.tp_exit(ffn_forward(p, common.tp_enter(h, ctx),
+                                          cfg.act, ctx, h.dtype), ctx,
+                              h.dtype)
+    return common.rep_exit(ffn_forward(p, common.rep_enter(h, ctx),
+                                       cfg.act), ctx)

@@ -93,15 +93,19 @@ def _embed_tokens(params: LMParams, tokens: torch.Tensor,
     return w[local.clamp(0, vl - 1)] * mine[..., None].to(w.dtype)
 
 
-def _head_logits(params: LMParams, x: torch.Tensor,
-                 cfg: ModelConfig) -> torch.Tensor:
+def _head_logits(params: LMParams, x: torch.Tensor, cfg: ModelConfig,
+                 dtype=None) -> torch.Tensor:
+    """x's logits, the product in ``dtype`` (default x's: the f32 rows of
+    ``common.tp_enter`` narrowed by ``common.entry_mm``)."""
+    dt = dtype or x.dtype
     if cfg.tie_embeddings:
-        return x @ params.embed.to(x.dtype).T
-    return x @ params.head.to(x.dtype)
+        return common.entry_mm(x, params.embed.T, dt)
+    return common.entry_mm(x, params.head, dt)
 
 
-def _chunk_nll(params: LMParams, xs, ls, ms, cfg: ModelConfig, ctx=None):
-    logits = _head_logits(params, xs, cfg).float()
+def _chunk_nll(params: LMParams, xs, ls, ms, cfg: ModelConfig, ctx=None,
+               dtype=None):
+    logits = _head_logits(params, xs, cfg, dtype).float()
     if common.tensor_parallel(ctx):
         return _VocabNLL.apply(logits, ls, ms, cfg.vocab_size, ctx), ms.sum()
     if cfg.padded_vocab != cfg.vocab_size:      # mask pad columns
@@ -155,14 +159,15 @@ class _VocabNLL(torch.autograd.Function):
 
 
 def chunked_nll(params: LMParams, x, labels, mask, cfg: ModelConfig,
-                n_chunks: int = 8, ctx=None):
+                n_chunks: int = 8, ctx=None, dtype=None):
     """Cross-entropy without materializing [B,S,V] at once: the sequence
     in chunks, each under activation checkpointing (memory: B*S/n*V per
     chunk), with the z-loss 1e-4·lse² and pad columns masked at -1e30.
     In a tensor-parallel forward x [B, S, D] is whole on every rank and
     the head this rank's columns of the vocabulary (``head``'s
     ``P(None, model)`` or, tied, ``embed``'s rows): each chunk's logits
-    stay vocab-sharded (:class:`_VocabNLL`)."""
+    stay vocab-sharded (:class:`_VocabNLL`).  ``dtype``: the head
+    product's (default x's)."""
     b, s, d = x.shape
     while s % n_chunks:
         n_chunks -= 1
@@ -173,7 +178,7 @@ def chunked_nll(params: LMParams, x, labels, mask, cfg: ModelConfig,
         sl = slice(i * cs, (i + 1) * cs)
         s_nll, s_cnt = checkpoint(_chunk_nll, params, x[:, sl],
                                   labels[:, sl], mask[:, sl], cfg, ctx,
-                                  use_reentrant=False)
+                                  dtype, use_reentrant=False)
         tot, cnt = tot + s_nll, cnt + s_cnt
     return tot / cnt.clamp(min=1.0)
 
@@ -268,12 +273,14 @@ class CausalLM:
         cfg = self.cfg
         x, aux, n_prefix = self.hidden(params, batch, remat, mode, run, ctx)
         ctx = common.tp_layout(ctx, seq_len(cfg, batch))
+        dtype = x.dtype
         x = common.tp_enter(x, ctx)[:, n_prefix:]
         tokens = torch.as_tensor(batch["tokens"], device=x.device).long()
         labels = tokens[:, 1:]
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=x.device)
-        nll = chunked_nll(params, x[:, :-1], labels, mask, cfg, ctx=ctx)
+        nll = chunked_nll(params, x[:, :-1], labels, mask, cfg, ctx=ctx,
+                          dtype=dtype)
         aux_w = cfg.moe.aux_loss_weight if cfg.moe else 0.0
         return nll + aux_w * aux, {"nll": nll, "aux": aux}
 

@@ -24,12 +24,18 @@ computes both functions:
   context, that its capacity kept), gate × output added into the
   token's row.  Only the order of the sum over a token's experts
   differs (it is f32 here, rounded once).
+* ``moe_ep`` — expert parallelism, the path of a tensor-parallel
+  forward (``common.tensor_parallel``) whose model axis divides the
+  experts: each rank holds its ``E / tp`` experts (the rules' ``model``
+  block), routes its slice of the tokens into capacity buffers ``[E,
+  cap, d]``, sends each expert's rows to the expert's rank and back
+  (``all_to_all`` over ``model``, :class:`_Exchange`) and all-gathers
+  the slices' outputs: ``_ep_body`` with its collectives.
 
-The experts are whole on every rank wherever the port runs a MoE under
-a mesh context (the ZeRO-3 step at ``model`` = 1 gathers them; sharded
-serving keeps every weight whole), so the drops need no collective.
-Experts cut over a model axis of more than one rank (``moe_ep``'s
-``all_to_all``) are expert parallelism, which is not ported.
+Elsewhere the experts are whole on every rank (the ZeRO-3 step at
+``model`` = 1 gathers them; sharded serving keeps every weight whole; a
+model axis that does not divide the experts leaves them whole, as the
+rules do), and the drops need no collective.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.models import common, ffn
 
-__all__ = ["MoE", "init_moe", "moe_dense", "moe_ep_plain",
+__all__ = ["MoE", "init_moe", "moe_dense", "moe_ep_plain", "moe_ep",
            "moe_forward", "capacity"]
 
 
@@ -73,15 +79,18 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype,
                w((e.n_experts, d, f), 1), w((e.n_experts, f, d), 1), dense)
 
 
-def _route(xt: torch.Tensor, router_w: torch.Tensor, e: MoEConfig):
+def _route(xt: torch.Tensor, router_w: torch.Tensor, e: MoEConfig,
+           ctx=None):
     """xt: [t, d] → (probs [t, E] f32, top-k gates [t, k] in xt's dtype,
-    top-k expert ids [t, k]).
+    top-k expert ids [t, k]); ``ctx``: a tensor-parallel forward's, where
+    xt is this rank's slice of the tokens (the router's gradient summed
+    over ``model``, ``common.model_summed``).
 
     Ties go to the lower expert id first, as ``jax.lax.top_k`` breaks
     them (``torch.topk`` promises no order): a stable descending sort and
     its first k.  The logits are a product in the compute dtype, so equal
     probabilities among many experts do occur."""
-    logits = (xt @ router_w.to(xt.dtype)).float()
+    logits = common.model_summed(xt, router_w, ctx).float()
     probs = torch.softmax(logits, dim=-1)
     top, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     gates, idx = top[:, :e.top_k], ids[:, :e.top_k]
@@ -115,24 +124,31 @@ def capacity(t: int, tp: int, e: MoEConfig) -> tuple[int, int]:
                             / e.n_experts), 1)
 
 
+def _positions(idx: torch.Tensor, e: MoEConfig,
+               n: int = 1) -> torch.Tensor:
+    """[t, k]: each (token, slot) pick's position in its expert's buffer
+    within each of ``n`` equal slices of the ``t`` tokens — its count
+    among the slice's earlier picks of that expert in (token, slot)
+    order."""
+    t, k = idx.shape
+    onehot = F.one_hot(idx, e.n_experts).to(torch.int32).reshape(
+        n, t // n * k, e.n_experts)
+    pos = ((torch.cumsum(onehot, dim=1) - 1) * onehot).sum(-1)
+    return pos.reshape(t, k).long()
+
+
 def _slice_picks(probs, idx, e: MoEConfig, tp: int):
     """``moe_ep``'s drops and router loss over ``tp`` slices of the
-    ``t`` routed tokens: (keep [t, k] bool, aux).  Each (token, slot)
-    pick's position in its expert's buffer is its count among the
-    slice's earlier picks of that expert in (token, slot) order; the
-    first ``cap`` are kept.  The loss is the mean of the slices'."""
+    ``t`` routed tokens: (keep [t, k] bool, aux).  The first ``cap``
+    picks of each expert in a slice (:func:`_positions`) are kept.  The
+    loss is the mean of the slices'."""
     t, k = idx.shape
     ts, cap = capacity(t, tp, e)
     pad = ts * tp - t
-    onehot = F.one_hot(idx, e.n_experts).to(torch.int32)  # [t, k, E]
-    if pad:
-        onehot = torch.cat([onehot, onehot.new_zeros(pad, k, e.n_experts)])
-    flat = onehot.reshape(tp, ts * k, e.n_experts)
-    pos = ((torch.cumsum(flat, dim=1) - 1) * flat).sum(-1)
-    keep = (pos.reshape(tp * ts, k) < cap)[:t]
+    idx_p = torch.cat([idx, idx.new_zeros(pad, k)])
+    keep = (_positions(idx_p, e, tp) < cap)[:t]
     valid = (torch.arange(ts * tp, device=idx.device) < t).float()
     probs_p = torch.cat([probs, probs.new_zeros(pad, probs.shape[1])])
-    idx_p = torch.cat([idx, idx.new_zeros(pad, k)])
     aux = torch.stack([
         _aux_loss(probs_p[j * ts:(j + 1) * ts], idx_p[j * ts:(j + 1) * ts],
                   e, valid[j * ts:(j + 1) * ts]) for j in range(tp)]).mean()
@@ -186,10 +202,7 @@ def moe_ep_plain(p: MoE, x: torch.Tensor, cfg: ModelConfig, tp: int):
         valid = (j * ts + torch.arange(ts, device=x.device)) < t
         probs, gates, idx = _route(xs, p.router, e)
         auxes.append(_aux_loss(probs, idx, e, valid.float()))
-        onehot = F.one_hot(idx, e.n_experts).to(torch.int64)
-        flat = onehot.reshape(ts * e.top_k, e.n_experts)
-        pos = ((torch.cumsum(flat, 0) - 1) * flat).sum(-1).reshape(
-            ts, e.top_k)
+        pos = _positions(idx, e)
         keep = (pos < cap) & valid[:, None]
         esafe = torch.where(keep, idx, 0).reshape(-1)
         psafe = torch.where(keep, pos, 0).reshape(-1)
@@ -206,12 +219,148 @@ def moe_ep_plain(p: MoE, x: torch.Tensor, cfg: ModelConfig, tp: int):
     return y.reshape(b, s, d), torch.stack(auxes).mean()
 
 
-def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx=None):
-    """The layer's MoE by the JAX package's rule: ``moe_dense``'s
-    function with no ``ctx`` or where its model axis does not divide the
-    experts, else ``moe_ep``'s at ``tp = ctx.tp`` (:func:`moe_ep_plain`:
-    each slice's overflow dropped).  Each expert runs on the tokens that
-    chose it and were kept.  x: [B, S, D] → (y, aux).
+# ------------------------------------------------ expert parallelism
+#
+# Autograd Functions over the model group of a tensor-parallel forward.
+# The tokens enter whole and equal on every rank (``common.rep_enter``)
+# and leave so; in between each rank holds its slice of them.
+
+def _model_all_gather(x: torch.Tensor, ctx) -> torch.Tensor:
+    """[n, d] of every rank → [tp · n, d], in rank order."""
+    return common._seq_gather(x[None], ctx)[0]
+
+
+class _TokenSlice(torch.autograd.Function):
+    """Whole tokens [t, d], equal on every rank → this rank's slice of
+    ``ts`` rows (zero rows past ``t``); backward all-gathers the slices'
+    gradients, the whole (equal) gradient."""
+
+    @staticmethod
+    def forward(fctx, x, ctx, ts: int):
+        fctx.ctx, fctx.t = ctx, x.shape[0]
+        lo = ctx.tp_rank * ts
+        out = x.new_zeros((ts, x.shape[1]))
+        n = max(min(ts, x.shape[0] - lo), 0)
+        out[:n] = x[lo:lo + n]
+        return out
+
+    @staticmethod
+    def backward(fctx, g):
+        return _model_all_gather(g, fctx.ctx)[:fctx.t], None, None
+
+
+class _GatherTokens(torch.autograd.Function):
+    """Each rank's slice [ts, d] → the whole [tp · ts, d] on every rank
+    (the JAX ``all_gather(..., tiled=True)``); backward keeps this rank's
+    slice of the whole (equal) gradient."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx, fctx.ts = ctx, x.shape[0]
+        return _model_all_gather(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        lo = fctx.ctx.tp_rank * fctx.ts
+        return g[lo:lo + fctx.ts], None
+
+
+class _Exchange(torch.autograd.Function):
+    """``all_to_all`` over the model group of [tp, ...]: row r goes to
+    rank r, and row r of the result comes from rank r (the JAX
+    ``all_to_all(split_axis=0, concat_axis=0, tiled=False)``); backward
+    is the reverse exchange of the gradient."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _all_to_all(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_to_all(g, fctx.ctx), None
+
+
+def _all_to_all(x: torch.Tensor, ctx) -> torch.Tensor:
+    from repro_torch.sharding import collectives
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    collectives.all_to_all(out.view(-1), x.view(-1), ctx.tp_group,
+                           axis=ctx.tp_axis)
+    return out
+
+
+class _ModelMean(torch.autograd.Function):
+    """A per-rank scalar's mean over the model group (the JAX
+    ``pmean``); backward hands each rank its 1 / tp share."""
+
+    @staticmethod
+    def forward(fctx, x, ctx):
+        from repro_torch.sharding import collectives
+        fctx.tp = ctx.tp
+        return collectives.all_reduce(x.detach().clone(), ctx.tp_group,
+                                      axis=ctx.tp_axis) / ctx.tp
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.tp, None
+
+
+def moe_ep(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx):
+    """Expert parallelism, the JAX ``_ep_body`` over ``ctx``'s model
+    group: x, the layer boundary's rows [B, S / tp or S, D] →
+    (y of the same rows, aux).  ``p``'s experts are this rank's ``E /
+    tp`` (rank r holds experts [r · E / tp, (r + 1) · E / tp)); its
+    router is whole.
+
+    The tokens enter whole (``common.rep_enter``); the rank takes its
+    slice of ``ts = ceil(t / tp)`` of the ``t = B · S`` flattened
+    (batch-major) tokens, routes it, scatters each kept pick into the
+    capacity buffers ``[E, cap, D]``, sends expert block j to rank j
+    (:class:`_Exchange`), runs its experts on their ``[E / tp, tp ·
+    cap, D]`` rows, sends the results back, gathers each kept slot
+    weighted by its gate (summed over a token's slots in f32 and
+    rounded once, as :func:`_grouped` sums; the JAX body sums in x's
+    dtype) and all-gathers the slices (:class:`_GatherTokens`), then
+    leaves to the boundary's rows
+    (``common.rep_exit``).  The buffers' shapes are fixed: no count is
+    read on the host.  The router loss is the slices' mean over the
+    model group (:class:`_ModelMean`); each rank's router gradient is
+    its slice's part, summed over ``model`` in the backward
+    (``common.model_summed``)."""
+    e = cfg.moe
+    tp = ctx.tp
+    xw = common.rep_enter(x, ctx)
+    b, s, d = xw.shape
+    t = b * s
+    ts, cap = capacity(t, tp, e)
+    xs = _TokenSlice.apply(xw.reshape(t, d), ctx, ts)
+    valid = (ctx.tp_rank * ts + torch.arange(ts, device=x.device)) < t
+    probs, gates, idx = _route(xs, p.router, e, ctx)
+    aux = _ModelMean.apply(_aux_loss(probs, idx, e, valid.float()), ctx)
+    pos = _positions(idx, e)
+    keep = (pos < cap) & valid[:, None]
+    esafe = torch.where(keep, idx, 0).reshape(-1)
+    psafe = torch.where(keep, pos, 0).reshape(-1)
+    src = (xs[:, None, :] * keep[..., None].to(x.dtype)).reshape(-1, d)
+    buf = x.new_zeros(e.n_experts, cap, d).index_put(
+        (esafe, psafe), src, accumulate=True)
+    e_loc = e.n_experts // tp
+    recv = _Exchange.apply(buf.view(tp, e_loc, cap, d), ctx)
+    xb = recv.transpose(0, 1).reshape(e_loc, tp * cap, d)
+    yb = _expert_ffn(p.w_in, p.w_gate, p.w_out, xb, x.dtype)
+    back = yb.view(e_loc, tp, cap, d).transpose(0, 1)
+    outbuf = _Exchange.apply(back, ctx).view(e.n_experts, cap, d)
+    yslot = outbuf[esafe, psafe].view(ts, e.top_k, d).float()
+    w = (gates * keep.to(gates.dtype)).float()
+    ys = (yslot * w[..., None]).sum(1).to(x.dtype)
+    y = _GatherTokens.apply(ys, ctx)[:t].view(b, s, d)
+    return common.rep_exit(y, ctx), aux
+
+
+def _grouped(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx):
+    """The experts whole: each expert applied to the tokens that chose it
+    (and were kept), x [B, S, D] → (y without the dense residual, aux).
 
     The (token, slot) picks are sorted by expert (stably, so each
     expert's tokens stay in token order; a dropped pick sorts last, past
@@ -220,11 +369,6 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx=None):
     into an f32 [t, D] sum, rounded once to x's dtype."""
     e = cfg.moe
     tp = 1 if ctx is None else ctx.tp
-    if common.tensor_parallel(ctx):
-        raise NotImplementedError(
-            "MoE experts cut over a model axis of more than one rank are "
-            "expert parallelism (moe_ep's all_to_all), which is not "
-            "ported: ROADMAP.md Queue 1 item 4, MoE expert parallelism")
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     probs, gates, idx = _route(xt, p.router, e)
@@ -249,7 +393,30 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx=None):
         out = _expert_ffn(p.w_in[ex], p.w_gate[ex], p.w_out[ex], xt[rows],
                           x.dtype)
         y.index_add_(0, rows, out.float() * g)
-    y = y.to(x.dtype)
+    return y.to(x.dtype).reshape(b, s, d), aux
+
+
+def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx=None):
+    """The layer's MoE by the JAX package's rule: ``moe_dense``'s
+    function with no ``ctx`` or where its model axis does not divide the
+    experts, else ``moe_ep``'s at ``tp = ctx.tp`` (:func:`moe_ep_plain`:
+    each slice's overflow dropped).  x: [B, S, D] → (y, aux).
+
+    In a tensor-parallel forward x is the layer boundary's rows and so is
+    y: expert parallelism (:func:`moe_ep`) where the model axis divides
+    the experts, else the whole experts on every rank over the whole
+    sequence (``common.rep_enter``, ``rep_exit``), as the rules keep
+    them.  Elsewhere each expert runs on the tokens that chose it
+    (:func:`_grouped`).  Arctic's dense residual FFN is added as a dense
+    layer's (``ffn.ffn_layer``)."""
+    e = cfg.moe
+    dense = None
     if e.dense_residual:
-        y = y + ffn.ffn_forward(p.dense, xt, cfg.act)
-    return y.reshape(b, s, d), aux
+        # first: the experts' last collective then ends the layer
+        dense = ffn.ffn_layer(p.dense, x, cfg, ctx)
+    if common.tensor_parallel(ctx) and e.n_experts % ctx.tp == 0:
+        y, aux = moe_ep(p, x, cfg, ctx)
+    else:
+        y, aux = _grouped(p, common.rep_enter(x, ctx), cfg, ctx)
+        y = common.rep_exit(y, ctx)
+    return (y if dense is None else y + dense), aux

@@ -199,13 +199,25 @@ def sharded_step_wire(cfg: ModelConfig, sizes: dict, batch: int, seq: int,
       all-gathered in the compute dtype each time its layer runs, and
       its f32 gradient reduce-scattered once.
     * Tensor parallelism (``models.common``), activations [rows, S, D]
-      in the compute dtype (a row-parallel product's partial sums in
-      f32): a column/row pair (attention, a divisible FFN) all-gathers
+      in the compute dtype (a row-parallel product's partial sums, and a
+      column-parallel entry's partial gradients, in f32): a column/row
+      pair (attention, a divisible FFN) all-gathers
       and reduce-scatters S each way where the sequence is sharded, else
       all-reduces forward and backward once each (a FFN's reduction, the
       layer's last step, is not recomputed); a
       part whole over ``model`` (Mamba-2, an FFN the ranks do not
       divide) all-gathers S forward and backward where it is sharded;
+      a head count the ranks do not divide runs the sequence-sharded
+      attention where S is sharded (an all-gather of S forward, its
+      reduce-scatter backward, and the four weights' gradients
+      all-reduced in f32 backward) and attention whole elsewhere (none);
+      a MoE whose experts the ranks divide (expert parallelism,
+      ``models.moe.moe_ep``) enters and leaves as a whole part, its
+      token slice's gradient all-gathered, its router loss all-reduced
+      (f32) each forward and the router's gradient backward, its
+      capacity buffers ``[E, cap, D]`` exchanged (all-to-all) twice each
+      forward and twice backward, and its slices' outputs all-gathered
+      once (the layer's last step);
       the embedding's partial lookup is reduce-scattered (all-reduced)
       and the final states gathered for the head (an all-reduce in the
       backward); each loss chunk all-reduces its rows' maxima and, in
@@ -216,7 +228,7 @@ def sharded_step_wire(cfg: ModelConfig, sizes: dict, batch: int, seq: int,
       one over ``pod``; the metrics over each batch axis; the norm's
       f32 squares over each axis a leaf is cut over."""
     import types
-    from repro_torch.models import blocks, common
+    from repro_torch.models import blocks, common, moe
     from repro_torch.models.lm import build_model
     from repro_torch.sharding import rules
     from repro_torch.sharding.layout import shard_of
@@ -247,14 +259,15 @@ def sharded_step_wire(cfg: ModelConfig, sizes: dict, batch: int, seq: int,
     runs = 2 if remat else 1
 
     def column_row(exit_runs: int):
-        """enter: forward ``runs``, backward once; exit: forward
-        ``exit_runs`` (the partial sums), backward once."""
+        """enter: forward ``runs``, backward once (the partial gradients,
+        in f32); exit: forward ``exit_runs`` (the partial sums), backward
+        once."""
         if sp:
             add("all-gather", act, tp, runs + 1)
-            add("reduce-scatter", act, tp)
+            add("reduce-scatter", part, tp)
             add("reduce-scatter", part, tp, exit_runs)
         else:
-            add("all-reduce", act, tp)
+            add("all-reduce", part, tp)
             add("all-reduce", part, tp, exit_runs)
 
     def whole_part():
@@ -264,6 +277,20 @@ def sharded_step_wire(cfg: ModelConfig, sizes: dict, batch: int, seq: int,
     def n_local(k):
         return math.prod(shards[k].local_shape)
 
+    def experts():
+        e = cfg.moe
+        if e.n_experts % tp:
+            whole_part()
+            return
+        ts, cap = moe.capacity(rows * s_all, tp, e)
+        whole_part()
+        add("all-gather", tp * ts * cfg.d_model * cd, tp)
+        add("all-reduce", 4, tp, runs)
+        add("all-reduce", cfg.d_model * e.n_experts * 4, tp)
+        add("all-to-all", e.n_experts * cap * cfg.d_model * cd, tp,
+            2 * runs + 2)
+        add("all-gather", tp * ts * cfg.d_model * cd, tp)
+
     for i, desc in enumerate(blocks.stack_descriptors(cfg)):
         pre = f"blocks.{i}."
         for k in meta:
@@ -272,9 +299,15 @@ def sharded_step_wire(cfg: ModelConfig, sizes: dict, batch: int, seq: int,
                 add("reduce-scatter", data * n_local(k) * 4, data)
         if tp == 1:
             continue
-        if desc.mixer == "attn":
+        if desc.mixer == "attn" and cfg.n_heads % tp == 0:
             column_row(runs)
-        else:
+        elif desc.mixer == "attn" and sp:
+            add("all-gather", act, tp, runs)
+            add("reduce-scatter", part, tp)
+            q = cfg.n_heads * cfg.head_dim
+            kv = cfg.n_kv_heads * cfg.head_dim
+            add("all-reduce", 4 * cfg.d_model * (2 * q + 2 * kv), tp)
+        elif desc.mixer != "attn":
             whole_part()
         if desc.ffn == "dense" and cfg.d_ff % tp == 0:
             # the layer's last step: torch.utils.checkpoint ends its
@@ -282,14 +315,18 @@ def sharded_step_wire(cfg: ModelConfig, sizes: dict, batch: int, seq: int,
             column_row(1)
         elif desc.ffn == "dense":
             whole_part()
+        elif desc.ffn == "moe":
+            if cfg.moe.dense_residual:
+                column_row(runs) if cfg.d_ff % tp == 0 else whole_part()
+            experts()
     if tp > 1:
         # the embedding's sum and the head's gather, each once a way
         add("reduce-scatter" if sp else "all-reduce", act, tp)
         if sp:
             add("all-gather", act, tp, 2)
-            add("reduce-scatter", act, tp)
+            add("reduce-scatter", part, tp)
         else:
-            add("all-reduce", act, tp)
+            add("all-reduce", part, tp)
         n_chunks, s_tok = 8, seq - 1
         while s_tok % n_chunks:
             n_chunks -= 1

@@ -252,8 +252,8 @@ def make_compressed_train_step(model, ocfg: opt.AdamWConfig, ctx,
     if ctx.tp > 1:
         raise NotImplementedError(
             "the compressed pod sync on a model axis of more than one rank "
-            "(its scales over the model blocks) is not ported: ROADMAP.md "
-            "Queue 1 item 4, tensor parallelism")
+            "(its scales over the model blocks) is not ported (ROADMAP.md "
+            "Queue 1 item 4, the compressed pod sync at model > 1)")
     grads_and_metrics, cuts = _sharded_grads(
         model, _grads_fn(model, 1, remat, mode), ctx, pods=False)
     groups = jax_leaf_groups(model.cfg)

@@ -21,13 +21,16 @@ head and every norm gain stay whole over ``data`` on each rank (their
 gradients are averaged by the train step).  On a ``model`` axis of more
 than one rank the rules also cut the Megatron blocks over ``model``
 (``wq``, ``wk``, ``wv``, ``w_in``, ``w_gate`` by columns, ``wo`` and
-``w_out`` by rows, ``embed`` and ``head`` by the vocabulary): each rank
-keeps its ``data`` piece of its ``model`` block, and the gather and the
+``w_out`` by rows, ``embed`` and ``head`` by the vocabulary) and a MoE's
+experts (``E / tp`` a rank, expert parallelism): each rank keeps its
+``data`` piece of its ``model`` block, and the gather and the
 reduce-scatter run over ``data`` alone, within the block, so the layer
 runs on its whole ``model`` block (the tensor-parallel forward,
-``models.common.tp_layout``).  Refused, each naming its ROADMAP bullet:
-a MoE's experts over ``model``, a head count the ``model`` ranks do not
-divide, and the encoder-decoder.
+``models.common.tp_layout``).  A head count the ``model`` ranks do not
+divide keeps the attention weights whole (the sequence-sharded
+attention, ``models.attention.attn_seqshard``).  Refused, each naming its
+ROADMAP entry: a vocabulary the ``model`` ranks do not divide, and the
+encoder-decoder.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import _layer_forward, layer_descriptors
+from repro_torch.models.blocks import _layer_forward
 from repro_torch.sharding import collectives, rules
 from repro_torch.sharding.layout import Shard, shard_of
 
@@ -50,23 +53,11 @@ _META = torch.device("meta")
 
 def _refuse(cfg: ModelConfig, ctx) -> None:
     item = "ROADMAP.md Queue 1 item 4"
-    if ctx.tp > 1 and cfg.moe is not None:
-        raise NotImplementedError(
-            f"sharded training of a MoE on a model axis of {ctx.tp} ranks "
-            "cuts its experts over it: expert parallelism (moe_ep's "
-            f"all_to_all), which is not ported ({item}, MoE expert "
-            "parallelism)")
-    attn = any(d.mixer == "attn" for d in layer_descriptors(cfg))
-    if ctx.tp > 1 and attn and cfg.n_heads % ctx.tp:
-        raise NotImplementedError(
-            f"{cfg.n_heads} heads over a model axis of {ctx.tp} ranks is the "
-            "sequence-sharded attention (_sdpa_seqshard), which is not "
-            f"ported ({item}, attention's sequence sharding)")
     if ctx.tp > 1 and cfg.padded_vocab % ctx.tp:
         raise NotImplementedError(
             f"a vocabulary of {cfg.padded_vocab} rows over a model axis of "
             f"{ctx.tp} ranks: the rules cut the embedding by d_model then, "
-            f"which is not ported ({item}, tensor parallelism)")
+            f"which is not ported ({item}, the odd-model vocabulary cut)")
     if cfg.encdec:
         raise NotImplementedError(
             "sharded training of an encoder-decoder: the decoder's cross "
@@ -118,15 +109,20 @@ def model_partial(cfg: ModelConfig, ctx,
     """``partial(name) → bool``: whether each model rank's gradient of the
     parameter ``name`` (whole over ``model``) is a part of it, to be
     summed over ``model``: the norm gains where the layer boundaries are
-    sequence-sharded (each rank's S / tp rows), and ``wk`` / ``wv`` where
-    the rules leave them whole (each rank projects its query heads' KV
-    heads).  Every other leaf's gradient is whole on each rank: a
-    ``model`` block's is its block's, and a part the rules keep whole
-    (Mamba-2, an FFN the ranks do not divide) runs whole on every
-    rank."""
+    sequence-sharded (each rank's S / tp rows), and, where the ranks
+    divide the heads, ``wk`` / ``wv`` where the rules leave them whole
+    (each rank projects its query heads' KV heads).  Every other leaf's
+    gradient is whole on each rank: a ``model`` block's is its block's; a
+    part the rules keep whole (Mamba-2, an FFN the ranks do not divide,
+    attention over an unsharded sequence of undivided heads, experts
+    the ranks do not divide) runs whole on every rank; and the parts of
+    the sequence-sharded attention's weights and of an expert-parallel
+    MoE's router are summed over ``model`` in the layer's backward
+    (``models.common.model_summed``)."""
     if ctx.tp == 1:
         return lambda name: False
-    kv_whole = cfg.n_kv_heads % ctx.tp != 0
+    kv_whole = (cfg.n_heads % ctx.tp == 0
+                and cfg.n_kv_heads % ctx.tp != 0)
     norms = ("norm1", "norm2", "norm_x", "final_norm")
 
     def partial(name: str) -> bool:

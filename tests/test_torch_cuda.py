@@ -2497,27 +2497,26 @@ def test_family_train_step_matches_ref(cuda_device, arch):
         assert int((d > 1e-3 * lr).sum()) <= max(1, 1e-3 * d.numel()), name
 
 
-@pytest.mark.gpu
-def test_tp_step_matches_ref_on_the_card(cuda_device, tmp_path):
-    """One tensor-parallel train step of the reduced Yi-9B (f32) at
-    model=2, two gloo ranks on cuda:0 (NCCL refuses two ranks on one
-    card), S = 256 so the layer boundaries hold S / 2 rows: with the
-    kernels each rank launches rmsnorm twice per layer norm (remat) plus
-    the final norm, on its 128 rows, and adamw_update once; with
-    mode="ref" none.  Loss and grad norm within 1e-5 relative and equal
-    on both ranks, every parameter within 0.1 lr of the plain step's and
-    all but 0.1% of each tensor's entries within 1e-3 lr (as
+def _tp_card_check(tmp_path, arch, cfg_kw=None):
+    """One tensor-parallel train step of the reduced ``arch`` (f32, with
+    ``cfg_kw``) at model=2, two gloo ranks on cuda:0 (NCCL refuses two
+    ranks on one card), S = 256 so the layer boundaries hold S / 2 rows:
+    with the kernels each rank launches rmsnorm twice per layer norm
+    (remat) plus the final norm, on its 128 rows, and adamw_update once;
+    with mode="ref" none.  Loss and grad norm within 1e-5 relative and
+    equal on both ranks, every parameter within 0.1 lr of the plain
+    step's and all but 0.1% of each tensor's entries within 1e-3 lr (as
     ``test_family_train_step_matches_ref``)."""
     import numpy as np
     import torch_gloo_workers as workers
-    cfg = dataclasses.replace(reduced(get_config("yi-9b")),
-                              compute_dtype="float32")
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              compute_dtype="float32", **(cfg_kw or {}))
     rng = np.random.default_rng(5)
     batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 256))
              .astype(np.int32)}
     ranks = workers.run(2, tmp_path, {"steps": {}, "tp_card": {
-        "arch": "yi-9b", "mesh": ((1, 2), ("data", "model")),
-        "batch": batch}}, suite="torch_train_workers")
+        "arch": arch, "mesh": ((1, 2), ("data", "model")),
+        "batch": batch, "cfg_kw": cfg_kw}}, suite="torch_train_workers")
     want = {"rmsnorm": 4 * cfg.n_layers + 1, "adamw_update": 1}
     for r in ranks:
         res = r["tp_card"]
@@ -2534,3 +2533,26 @@ def test_tp_step_matches_ref_on_the_card(cuda_device, tmp_path):
         d = np.abs(p - res["ref"]["params"][name])
         assert float(d.max()) <= 0.1 * lr, (name, float(d.max()) / lr)
         assert int((d > 1e-3 * lr).sum()) <= max(1, 1e-3 * d.size), name
+
+
+@pytest.mark.gpu
+def test_tp_step_matches_ref_on_the_card(cuda_device, tmp_path):
+    """``_tp_card_check`` of the reduced Yi-9B: Megatron heads and FFN."""
+    _tp_card_check(tmp_path, "yi-9b")
+
+
+@pytest.mark.gpu
+def test_ep_step_matches_ref_on_the_card(cuda_device, tmp_path):
+    """``_tp_card_check`` of the reduced Qwen3-MoE: its 4 experts cut 2
+    a rank, the capacity buffers exchanged by all_to_all (expert
+    parallelism)."""
+    _tp_card_check(tmp_path, "qwen3-moe-30b-a3b")
+
+
+@pytest.mark.gpu
+def test_seqshard_step_matches_ref_on_the_card(cuda_device, tmp_path):
+    """``_tp_card_check`` of the reduced StarCoder2-7B with 3 query and 1
+    KV head, which model=2 does not divide: the sequence-sharded
+    attention on each rank's 128 query rows."""
+    _tp_card_check(tmp_path, "starcoder2-7b",
+                   {"n_heads": 3, "n_kv_heads": 1, "d_head": 16})

@@ -676,19 +676,23 @@ def test_wire_bytes_match_jax(n_params, n_pods):
 
 @pytest.mark.parametrize("gloo", [2, 4], indirect=True)
 def test_refusals(gloo):
-    """A dense model on a model axis of 2 or 4 ranks trains (tensor
-    parallelism: no refusal at the step or at the state); a MoE there
-    (expert parallelism), a head count the axis does not divide (the
-    sequence-sharded attention) and an encoder-decoder at data=K raise
-    NotImplementedError naming their ROADMAP bullet; the compressed step
-    refuses a mesh without ``pod``."""
+    """A dense model, a MoE (expert parallelism) and a head count the axis
+    does not divide (the sequence-sharded attention) on a model axis of 2
+    or 4 ranks build and run a step (no refusal at the step or at the
+    state); an encoder-decoder at data=K, a vocabulary an odd model axis
+    does not divide and the compressed step on a model axis of more than
+    one rank raise NotImplementedError naming their ROADMAP entry; the
+    compressed step refuses a mesh without ``pod``."""
     ref = gloo["ranks"][0]["refusals"]
     assert ref["model_axis"] == ""
     assert ref["model_axis_state"] == ""
-    for key, bullet in (("moe", "MoE expert parallelism"),
-                        ("heads", "attention's sequence sharding"),
-                        ("whisper", "Whisper's sharded training")):
+    assert ref["moe"] == "", ref["moe"]
+    assert ref["heads"] == "", ref["heads"]
+    for key, entry in (("whisper", "Whisper's sharded training"),
+                       ("vocab", "the odd-model vocabulary cut"),
+                       ("compressed_tp",
+                        "the compressed pod sync at model > 1")):
         assert ref[key].startswith("NotImplementedError"), (key, ref[key])
-        assert f"ROADMAP.md Queue 1 item 4, {bullet}" in ref[key], ref[key]
+        assert f"ROADMAP.md Queue 1 item 4, {entry}" in ref[key], ref[key]
     assert ref["no_pod"] == ("ValueError: compressed pod sync needs a "
                              "'pod' mesh axis")

@@ -38,6 +38,8 @@ def suite(rank: int, world: int, payload: dict) -> dict:
         out["moe"] = _moe(**payload["moe"])
     if "tp_card" in payload:
         out["tp_card"] = _tp_card(**payload["tp_card"])
+    if "ep_forward" in payload:
+        out["ep_forward"] = _ep_forward(**payload["ep_forward"])
     out["refusals"] = _refusals(world)
     return out
 
@@ -94,12 +96,18 @@ def _whole(state, model, ctx) -> dict:
 
 
 def _steps(arch, mesh, tree, batches, compressed=False, cfg_kw=None,
-           remat=True):
+           remat=True, score_budget=None):
     """Three steps of the sharded (or compressed) step from the carried
     weights: each step's metrics on this rank, then the whole params, m,
-    v (and ef) from rank 0."""
+    v (and ef) from rank 0.  ``score_budget``: attention's
+    ``SCORE_BUDGET_BYTES`` for these steps (a small one cuts the query
+    rows into chunks)."""
+    from repro_torch.models import attention
     from repro_torch.train import optimizer as opt
     from repro_torch.train import trainstep
+    budget = attention.SCORE_BUDGET_BYTES
+    if score_budget is not None:
+        attention.SCORE_BUDGET_BYTES = score_budget
     cfg = _cfg(arch, **(cfg_kw or {}))
     ctx = _ctx(*mesh)
     model, state = _state(cfg, tree, ctx, compressed)
@@ -113,6 +121,7 @@ def _steps(arch, mesh, tree, batches, compressed=False, cfg_kw=None,
         metrics.append({k: float(v) for k, v in m.items()})
     local = {k: tuple(p.shape)
              for k, p in state["params"].named_parameters()}
+    attention.SCORE_BUDGET_BYTES = budget
     return {"metrics": metrics, "whole": _whole(state, model, ctx),
             "local_shapes": local, "step": int(state["opt_state"]["step"])}
 
@@ -247,30 +256,54 @@ def _refusal(fn) -> str:
     return ""
 
 
+def _runs(model, ocfg, ctx) -> str:
+    """One step of ``model`` on ``ctx`` from seed 0 (2 rows of 17
+    tokens): "" where it builds and runs to a finite loss, else the
+    refusal or the failure."""
+    from repro_torch.train import trainstep
+
+    def run():
+        state = trainstep.init_state(model, seed=0, device="cpu", ctx=ctx)
+        step = trainstep.make_train_step(model, ocfg, ctx=ctx)
+        tokens = np.random.default_rng(0).integers(
+            0, model.cfg.vocab_size, (2, 17)).astype(np.int32)
+        _, m = step(state, {"tokens": torch.from_numpy(tokens)})
+        if not np.isfinite(float(m["loss"])):
+            raise ValueError(f"loss {float(m['loss'])}")
+    return _refusal(run)
+
+
 def _refusals(world: int) -> dict:
-    """The sharded step on a model axis of ``world`` ranks: a dense model
-    (no refusal), a MoE, and a head count the axis does not divide; the
-    compressed step on a mesh without ``pod``; the sharded step of an
-    encoder-decoder."""
+    """The sharded step on a model axis of ``world`` ranks: a dense model,
+    a MoE (expert parallelism) and a head count the axis does not divide
+    (the sequence-sharded attention) build and run; refused: the
+    compressed step on a mesh without ``pod`` and on a model axis of
+    more than one rank, a vocabulary an odd model axis does not divide,
+    and the sharded step of an encoder-decoder."""
+    import types
     from repro_torch.models.lm import build_model
     from repro_torch.train import optimizer as opt
-    from repro_torch.train import trainstep
+    from repro_torch.train import trainstep, zero
     model = build_model(_cfg("yi-9b"))
     ocfg = opt.AdamWConfig(**OCFG)
     tp = _ctx((1, world), ("data", "model"))
     dp = _ctx((world, 1), ("data", "model"))
     odd = build_model(_cfg("yi-9b", n_heads=3, n_kv_heads=1))
+    pods = types.SimpleNamespace(tp=2, mesh=types.SimpleNamespace(
+        mesh_dim_names=("pod", "data", "model")))
     return {
         "model_axis": _refusal(lambda: trainstep.make_train_step(
             model, ocfg, ctx=tp)),
         "model_axis_state": _refusal(lambda: trainstep.init_state(
             model, device="cpu", ctx=tp)),
-        "moe": _refusal(lambda: trainstep.make_train_step(
-            build_model(_cfg("qwen3-moe-30b-a3b")), ocfg, ctx=tp)),
-        "heads": _refusal(lambda: trainstep.make_train_step(
-            odd, ocfg, ctx=tp)),
+        "moe": _runs(build_model(_cfg("qwen3-moe-30b-a3b")), ocfg, tp),
+        "heads": _runs(odd, ocfg, tp),
         "no_pod": _refusal(lambda: trainstep.make_compressed_train_step(
             model, ocfg, dp)),
+        "compressed_tp": _refusal(
+            lambda: trainstep.make_compressed_train_step(model, ocfg, pods)),
+        "vocab": _refusal(lambda: zero.layout(
+            model, types.SimpleNamespace(tp=3))),
         "whisper": _refusal(lambda: trainstep.make_train_step(
             build_model(_cfg("whisper-medium")), ocfg, ctx=dp)),
     }
@@ -291,17 +324,48 @@ def _moe(tree, x):
     return {"y": y.numpy(), "aux": float(aux), "tp": ctx.tp}
 
 
-def _tp_card(arch, mesh, batch):
-    """One tensor-parallel step of the reduced ``arch`` (f32) on the card
-    (every rank on cuda:0), from seed 0, with the kernels and with
-    ``mode="ref"``: each run's metrics, the kernels' launches on this
-    rank, and the whole params (rank 0)."""
+def _ep_forward(tree, x, gy, mesh):
+    """The reduced Qwen3-MoE's MoE layer (f32) on ``x`` in a
+    tensor-parallel forward over ``mesh`` (whole sequence at the
+    boundary), this rank holding only its model block of the experts:
+    ``moe_forward``'s output and router loss, its collectives, and the
+    gradients of (y · gy).sum() + aux in x, the router (its ranks' parts
+    summed) and this rank's experts."""
+    import dataclasses as dc
+    from repro_torch.models import moe
+    from repro_torch.sharding import collectives
+    cfg = _cfg("qwen3-moe-30b-a3b")
+    ctx = dc.replace(_ctx(*mesh), seq_sharded=False)
+    e_loc = cfg.moe.n_experts // ctx.tp
+    mine = slice(ctx.tp_rank * e_loc, (ctx.tp_rank + 1) * e_loc)
+    ws = {k: torch.from_numpy(tree[k]) for k in ("router", "w_in",
+                                                  "w_gate", "w_out")}
+    p = moe.MoE(ws["router"], *(ws[k][mine].clone()
+                                for k in ("w_in", "w_gate", "w_out")))
+    p.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    with collectives.recording() as log:
+        y, aux = moe.moe_forward(p, xt, cfg, ctx)
+        loss = (y * torch.from_numpy(gy)).sum() + aux
+        grads = torch.autograd.grad(loss, [xt] + list(p.parameters()))
+    names = ["x"] + [n for n, _ in p.named_parameters()]
+    return {"y": y.detach().numpy(), "aux": float(aux), "tp": ctx.tp,
+            "rank": ctx.tp_rank, "local": tuple(p.w_in.shape),
+            "grads": {n: g.numpy() for n, g in zip(names, grads)},
+            "log": [dataclasses.astuple(r) for r in log]}
+
+
+def _tp_card(arch, mesh, batch, cfg_kw=None):
+    """One tensor-parallel step of the reduced ``arch`` (f32, with
+    ``cfg_kw``) on the card (every rank on cuda:0), from seed 0, with the
+    kernels and with ``mode="ref"``: each run's metrics, the kernels'
+    launches on this rank, and the whole params (rank 0)."""
     from repro_torch.kernels import cuda
     from repro_torch.models.lm import build_model
     from repro_torch.train import optimizer as opt
     from repro_torch.train import trainstep
     torch.cuda.set_device(0)
-    cfg = _cfg(arch)
+    cfg = _cfg(arch, **(cfg_kw or {}))
     model = build_model(cfg)
     ctx = _ctx(*mesh)
     out = {}

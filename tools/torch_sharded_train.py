@@ -9,6 +9,7 @@ Run on one host with 4 cards:
 
     python -m torch.distributed.run --standalone --nproc-per-node 4 \\
         tools/torch_sharded_train.py [--mesh model=4 --mesh data=2,model=2]
+        [--arch qwen3-moe-30b-a3b --layers 12]
 
 (``--device cpu --reduced`` rehearses it under gloo on the CPU: reduced
 configs, a 4 x 32 batch.)
@@ -18,12 +19,14 @@ configs, a 4 x 32 batch.)
    step's largest layer weight, timed with CUDA events; bus bandwidth =
    the wire bytes of one rank (N (K - 1) / K, N the gathered or
    scattered bytes) over the time.
-2. Yi-9B at full width and depth (48 layers: 141 GB of f32 params,
-   grads, m and v, which no one card holds), random weights (seed 0),
-   on each ``--mesh`` (default ``data=K``, ZeRO-3; ``model=K`` and
-   ``data=2,model=2`` are tensor-parallel, with Megatron sequence
-   parallelism at S / model >= 128), global batch 8 x 4096 (seeded numpy
-   tokens),
+2. Yi-9B (or ``--arch``, at ``--layers`` of its depth) at full width
+   and depth (48 layers: 141 GB of f32 params, grads, m and v, which no
+   one card holds), random weights (seed 0), on each ``--mesh`` (default
+   ``data=K``, ZeRO-3; ``model=K`` and ``data=2,model=2`` are
+   tensor-parallel, with Megatron sequence parallelism at S / model >=
+   128, a MoE's experts E / model a rank (expert parallelism), heads the
+   ranks do not divide on the sequence-sharded attention), global batch
+   8 x 4096 (seeded numpy tokens),
    remat, 4 steps: the wall of each (host clock, ending in a
    synchronize), tokens/s, the kernels' launches a step, peak memory a
    card; one more step counted
@@ -255,9 +258,13 @@ def main(argv=None) -> int:
                     help="reduced configs and batch (a CPU rehearsal under "
                     "gloo)")
     ap.add_argument("--mesh", action="append", default=None,
-                    help="a mesh of the Yi-9B step (repeatable): axis=size "
+                    help="a mesh of the step (repeatable): axis=size "
                     "pairs over data and model, e.g. model=4 or "
                     "data=2,model=2; default data=K")
+    ap.add_argument("--arch", default="yi-9b",
+                    help="the config the --mesh steps train")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="its depth (default the config's)")
     args = ap.parse_args(argv)
 
     import torch
@@ -279,8 +286,12 @@ def main(argv=None) -> int:
             cfg = get_config(arch)
             return reduced(cfg) if args.reduced else cfg
         out = {"ranks": world, "backend": dist.get_backend()}
-        yi = cfg_of("yi-9b")
-        layer = yi.d_model * yi.d_ff * 2          # w_in in bf16
+        cfg = cfg_of(args.arch)
+        if args.layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        # a layer's w_in (a MoE's every expert's) in bf16
+        layer = cfg.d_model * (cfg.moe.n_experts * cfg.moe.d_ff_expert
+                               if cfg.moe else cfg.d_ff) * 2
         link = _link(device, world, {"256MiB": 256 * 2 ** 20,
                                      "w_in": layer})
         out["link"] = link
@@ -292,7 +303,7 @@ def main(argv=None) -> int:
         out["meshes"] = meshes
         for text in meshes:
             mesh = make_mesh(*parse_mesh(text))
-            run = _run(yi, steps.mesh_ctx(mesh), device, shape, link_bw,
+            run = _run(cfg, steps.mesh_ctx(mesh), device, shape, link_bw,
                        False)
             run["mesh"] = text
             run["per_rank"] = _gather({
